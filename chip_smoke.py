@@ -1,0 +1,454 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port of the fraud scorer on one CUDA card.
+
+Run from the repository root on a machine with one H100:
+
+    python3 chip_smoke.py
+
+Phases, each of which raises (and exits non-zero) on failure:
+
+1. the card's name and power limit, torch and CUDA versions; TF32 is turned
+   off and checked off (the GEMM-form trees need exact f32 products);
+2. build the CUDA kernels of ``realtime_fraud_detection_tpu_torch/csrc``;
+3. run each kernel at the shapes the bucket-256 DistilBERT-base slice gives
+   it, hold it against its plain PyTorch version on the card, and time the
+   kernel, the plain version and a library yardstick with CUDA events;
+4. score a seeded 256-row batch through ``TorchFraudScorer`` with int8 BERT
+   and every kernel on (launch counters reset just before, read just
+   after), compare the packed result with the same models on the
+   kernels-off plain path on the card and, at 8 rows, with the CPU, then
+   time batches after warm-up.
+
+The last three lines of standard output are the kernel JSON line, the
+``nvidia-smi`` name and power limit, and the result line
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+# the card's published peaks (H100 SXM data sheet, dense): the roofline
+# denominators of every bound_ms below
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
+SEED = 0
+BATCH = 256
+# served bf16 path vs the kernels-off plain path: probabilities may move by
+# bf16 re-rounding between two summation orders of the same products
+SLICE_PROB_TOL = 2e-3
+# per-kernel tolerances (the reference's own, docs/kernels.md)
+EPILOGUE_TOL = 1e-6
+ATTENTION_TOL = 5e-5
+DEQUANT_F32_TOL = 1e-5
+DEQUANT_BF16_TOL = 2.0 ** -7     # one bf16 ulp of the output scale
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(msg)
+
+
+def bound(bytes_moved: float, flops: float, dtype: str) -> tuple[float, str]:
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def near_rung(values, rungs, tol):
+    """bool mask of values within ``tol`` of any rung."""
+    near = torch.zeros_like(values, dtype=torch.bool)
+    for r in rungs:
+        near |= (values - r).abs() <= tol
+    return near
+
+
+def check_epilogue(params, gen):
+    from realtime_fraud_detection_tpu_torch.ops.epilogue import (
+        epilogue_matrix,
+        epilogue_matrix_reference,
+    )
+
+    dev = "cuda"
+    b, m = BATCH, 5
+    preds = torch.rand((b, m), generator=gen, device=dev)
+    vf = (torch.rand((b, m), generator=gen, device=dev) < 0.9).float()
+    rule = torch.rand((b,), generator=gen, device=dev)
+    worst = 0.0
+    for strategy in (0, 1, 2):
+        params.strategy = strategy
+        got = epilogue_matrix(preds, vf, rule, params)
+        ref = epilogue_matrix_reference(preds, vf, rule, params)
+        torch.cuda.synchronize()
+        err = float((got[:, [0, 1]] - ref[:, [0, 1]]).abs().max())
+        err = max(err, float((got[:, 4:4 + m] - ref[:, 4:4 + m]).abs().max()))
+        if err > EPILOGUE_TOL:
+            fail(f"epilogue strategy {strategy}: prob err {err}")
+        # ladders exact on every row not within the tolerance of a rung
+        rungs = (0.3, 0.6, 0.8, 0.95, params.confidence_threshold)
+        far = ~(near_rung(ref[:, 0], rungs, EPILOGUE_TOL)
+                | near_rung(ref[:, 1], rungs, EPILOGUE_TOL))
+        cols = [2, 3, 4 + m, 5 + m]
+        if not torch.equal(got[far][:, cols], ref[far][:, cols]):
+            fail(f"epilogue strategy {strategy}: ladder mismatch")
+        worst = max(worst, err)
+    params.strategy = 0
+    ms = time_ms(lambda: epilogue_matrix(preds, vf, rule, params))
+    plain = time_ms(lambda: epilogue_matrix_reference(preds, vf, rule, params))
+    n_bytes = (2 * b * m + b + 2 * m + b * (m + 6)) * 4
+    bound_ms, by = bound(n_bytes, b * (12 * m + 20), "f32")
+    return dict(name="epilogue", route="cuda",
+                source="realtime_fraud_detection_tpu_torch/csrc/epilogue.cu",
+                replaces="realtime_fraud_detection_tpu/ops/epilogue.py:194",
+                max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                bound_by=by, library_ms=None,
+                note="library_ms: no single PyTorch call blends and ladders")
+
+
+def check_attention(cfg, gen):
+    import torch.nn.functional as F
+
+    from realtime_fraud_detection_tpu_torch.ops.attention import (
+        attention_reference,
+        flash_attention,
+    )
+
+    b, s, h, d = BATCH, 64, cfg.num_heads, cfg.head_dim
+    # [B, S, H*D] projections viewed as [B, H, S, D], as the encoder does
+    q, k, v = (torch.randn((b, s, h * d), generator=gen, device="cuda")
+               .reshape(b, s, h, d).permute(0, 2, 1, 3) for _ in range(3))
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+    mask = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
+    mask[0] = False                       # one fully masked row
+    mask_u8 = mask.to(torch.uint8)
+    got = flash_attention(q, k, v, mask_u8)
+    ref = attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not err <= ATTENTION_TOL:
+        fail(f"flash_attention err {err}")
+    ms = time_ms(lambda: flash_attention(q, k, v, mask_u8))
+    plain = time_ms(lambda: attention_reference(q, k, v, mask))
+    attn_mask = mask[:, None, None, :]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=attn_mask))
+    n_bytes = 4 * b * h * s * d * 4 + b * s
+    bound_ms, by = bound(n_bytes, 4 * b * h * s * s * d, "f32")
+    return dict(name="flash_attention", route="cuda",
+                source="realtime_fraud_detection_tpu_torch/csrc/attention.cu",
+                replaces="realtime_fraud_detection_tpu/ops/attention.py:75",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                bound_by=by, library_ms=lib,
+                note="library_ms: scaled_dot_product_attention, boolean mask")
+
+
+def check_dequant_matmul(cfg, gen):
+    from realtime_fraud_detection_tpu_torch.models.quant import quantize_dense
+    from realtime_fraud_detection_tpu_torch.ops.dequant_matmul import (
+        dequant_matmul,
+        dequant_matmul_reference,
+        dequantize_weight,
+    )
+
+    m = BATCH * 64
+    hsz, ffn = cfg.hidden_size, cfg.intermediate_size
+    # one encoder layer's six sites: q, k, v, o, ffn1, ffn2
+    shapes = [(hsz, hsz)] * 4 + [(hsz, ffn), (ffn, hsz)]
+    per_shape = {}
+    for kk, n in sorted(set(shapes)):
+        w = torch.randn((kk, n), generator=gen) * 0.02
+        qd = quantize_dense({"w": w, "b": torch.zeros(n)})
+        qw = torch.from_numpy(qd["qw"]).cuda()
+        scale = torch.from_numpy(qd["scale"]).cuda()
+        b = (torch.randn((n,), generator=gen) * 0.02).cuda()
+        x = torch.randn((m, kk), generator=gen).cuda()
+        errs = {}
+        for cd, tol in ((torch.bfloat16, DEQUANT_BF16_TOL),
+                        (torch.float32, DEQUANT_F32_TOL)):
+            got = dequant_matmul(x, qw, scale, b, compute_dtype=cd)
+            ref = dequant_matmul_reference(x, qw, scale, b, cd)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            rel = err / max(1.0, float(ref.abs().max()))
+            if not rel <= tol:
+                fail(f"dequant_matmul {kk}x{n} {cd}: rel err {rel}")
+            errs[str(cd)] = err
+        w_bf16 = dequantize_weight(qw, scale).to(torch.bfloat16)
+        x_bf16 = x.to(torch.bfloat16)
+        n_bytes = m * kk * 4 + kk * n + 2 * n * 4 + m * n * 4
+        bound_ms, by = bound(n_bytes, 2 * m * kk * n, "bf16")
+        per_shape[(kk, n)] = dict(
+            max_abs_err=errs["torch.bfloat16"], f32_err=errs["torch.float32"],
+            ms=time_ms(lambda: dequant_matmul(x, qw, scale, b)),
+            plain_ms=time_ms(lambda: dequant_matmul_reference(x, qw, scale, b)),
+            library_ms=time_ms(lambda: torch.matmul(x_bf16, w_bf16)),
+            bound_ms=bound_ms, bound_by=by)
+        print(f"  dequant_matmul [{m},{kk}]x[{kk},{n}]: "
+              + json.dumps(per_shape[(kk, n)]), flush=True)
+    # per-launch means over one layer's six sites (the main path's mix)
+    mean = {key: sum(per_shape[s][key] for s in shapes) / len(shapes)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by = "operations" if sum(per_shape[s]["bound_by"] == "operations"
+                             for s in shapes) * 2 > len(shapes) else "bytes"
+    return dict(name="dequant_matmul", route="cuda",
+                source="realtime_fraud_detection_tpu_torch/csrc/dequant_matmul.cu",
+                replaces="realtime_fraud_detection_tpu/ops/dequant_matmul.py:86",
+                max_abs_err=max(p["max_abs_err"] for p in per_shape.values()),
+                bound_by=by, **mean,
+                note="times: means over one layer's six sites (4 x 768x768, "
+                     "768x3072, 3072x768) at M=16384; library_ms: bf16 "
+                     "torch.matmul on a pre-dequantized weight")
+
+
+def check_dequant_rows(cfg, gen):
+    from realtime_fraud_detection_tpu_torch.models.quant import quantize_embedding
+    from realtime_fraud_detection_tpu_torch.ops.dequant_matmul import (
+        dequant_rows,
+        dequant_rows_reference,
+    )
+
+    import torch.nn.functional as F
+
+    hsz = cfg.hidden_size
+    word = quantize_embedding(torch.randn((cfg.vocab_size, hsz), generator=gen) * 0.02)
+    pos = quantize_embedding(torch.randn((cfg.max_position_embeddings, hsz),
+                                         generator=gen) * 0.02)
+    sites = []
+    idx = torch.randint(0, cfg.vocab_size, (BATCH * 64,), generator=gen,
+                        dtype=torch.int32).cuda()
+    for table, ids, length in ((word, idx, None), (pos, None, 64)):
+        qe = torch.from_numpy(table["qe"]).cuda()
+        sc = torch.from_numpy(table["scale"]).cuda()
+        got = dequant_rows(qe, sc, idx=ids, length=length)
+        ref = dequant_rows_reference(qe, sc, idx=ids, length=length)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail("dequant_rows is not bit-exact")
+        rows = ids.numel() if ids is not None else length
+        needed = int(torch.unique(ids).numel()) if ids is not None else length
+        n_bytes = (needed * hsz + needed * 4 + (rows * 4 if ids is not None else 0)
+                   + rows * hsz * 4)
+        bound_ms, by = bound(n_bytes, rows * hsz, "f32")
+        table_f32 = qe.float() * sc[:, None]
+        lookup = ids if ids is not None else torch.arange(length, device="cuda")
+        sites.append(dict(
+            ms=time_ms(lambda: dequant_rows(qe, sc, idx=ids, length=length)),
+            plain_ms=time_ms(lambda: dequant_rows_reference(
+                qe, sc, idx=ids, length=length)),
+            library_ms=time_ms(lambda: F.embedding(lookup, table_f32)),
+            bound_ms=bound_ms, bound_by=by))
+    mean = {key: sum(s[key] for s in sites) / len(sites)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return dict(name="dequant_rows", route="cuda",
+                source="realtime_fraud_detection_tpu_torch/csrc/dequant_matmul.cu",
+                replaces="realtime_fraud_detection_tpu/ops/dequant_matmul.py:141",
+                max_abs_err=0.0, bound_by="bytes", **mean,
+                note="times: means over the word (16384 gathered rows) and "
+                     "position (64 rows) sites; library_ms: F.embedding on "
+                     "a pre-dequantized f32 table")
+
+
+def run_slice(ops):
+    import numpy as np
+
+    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
+        init_scoring_models,
+        make_example_batch,
+        packed_width,
+    )
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    models = init_scoring_models(SEED, DISTILBERT_BASE)
+    kernels_on = TorchFraudScorer(
+        Config(quant=QuantSettings.full(), kernels=KernelSettings.full()),
+        models=models, bert_config=DISTILBERT_BASE, device="cuda")
+    plain = TorchFraudScorer(
+        Config(quant=QuantSettings.full()), models=models,
+        bert_config=DISTILBERT_BASE, device="cuda")
+    batch = make_example_batch(BATCH, rng=np.random.default_rng(SEED),
+                               vocab_size=DISTILBERT_BASE.vocab_size)
+    records = [{"transaction_id": f"txn-{i}"} for i in range(BATCH)]
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    pending = kernels_on.dispatch_assembled(batch, records)
+    results = kernels_on.finalize(pending)
+    launches = ops.launch_counts()
+    expected = {"epilogue": 1, "flash_attention": DISTILBERT_BASE.num_layers,
+                "dequant_matmul": 6 * DISTILBERT_BASE.num_layers,
+                "dequant_rows": 2}
+    print(f"slice launches: {launches} (expected {expected})", flush=True)
+    if launches != expected:
+        fail(f"launch counts {launches} != {expected}")
+
+    mat = pending.out.clone()
+    if mat.shape != (BATCH, packed_width(5, epilogue=True)):
+        fail(f"packed result shape {tuple(mat.shape)}")
+    if not torch.isfinite(mat).all():
+        fail("non-finite values in the packed result")
+    if len(results) != BATCH or any(r["decision"] not in (
+            "APPROVE", "APPROVE_WITH_MONITORING", "REVIEW", "DECLINE")
+            for r in results):
+        fail("malformed responses")
+
+    ref_pending = plain.dispatch_assembled(batch, records)
+    plain.finalize(ref_pending)
+    ref = ref_pending.out
+    prob_err = float((mat[:, 0] - ref[:, 0]).abs().max())
+    if not prob_err <= SLICE_PROB_TOL:
+        fail(f"slice probability err {prob_err} vs the plain path")
+    rungs = (0.3, 0.6, 0.8, 0.95, 0.7)
+    far = ~(near_rung(ref[:, 0], rungs, SLICE_PROB_TOL)
+            | near_rung(ref[:, 1], rungs, SLICE_PROB_TOL))
+    if not torch.equal(mat[far][:, 2:4], ref[far][:, 2:4]):
+        fail("slice decisions differ from the plain path")
+    pred_err = float((mat[:, 8:13] - ref[:, 8:13]).abs().max())
+    flips = int((mat[:, 2:4] != ref[:, 2:4]).any(dim=1).sum())
+    print(f"slice vs plain path on the card: prob max err {prob_err:.3e}, "
+          f"branch max err {pred_err:.3e}, decision/risk equal on all "
+          f"{int(far.sum())} rows farther than {SLICE_PROB_TOL} from a rung; "
+          f"rows differing anywhere: {flips}/{BATCH}", flush=True)
+
+    # small input: the card's kernels against the port's CPU path
+    small = make_example_batch(8, rng=np.random.default_rng(SEED + 1),
+                               vocab_size=DISTILBERT_BASE.vocab_size)
+    cpu = TorchFraudScorer(
+        Config(quant=QuantSettings.full(), kernels=KernelSettings.full()),
+        models=models, bert_config=DISTILBERT_BASE, device="cpu")
+    got = kernels_on.dispatch_assembled(small, records[:8])
+    kernels_on.finalize(got)
+    want = cpu.dispatch_assembled(small, records[:8])
+    cpu.finalize(want)
+    cpu_err = float((got.out[:, 0] - want.out[:, 0]).abs().max())
+    if not cpu_err <= SLICE_PROB_TOL:
+        fail(f"8-row batch: card vs CPU probability err {cpu_err}")
+    print(f"8-row batch, card kernels vs CPU plain path: prob max err "
+          f"{cpu_err:.3e}", flush=True)
+
+    for _ in range(3):
+        kernels_on.finalize(kernels_on.dispatch_assembled(batch, records))
+    n_timed = 200
+    lat = []
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        kernels_on.finalize(kernels_on.dispatch_assembled(batch, records))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat.sort()
+
+    def pct(q):
+        return lat[min(len(lat) - 1, int(round(q * (len(lat) - 1))))]
+
+    print(f"slice timing (bucket {BATCH}, DistilBERT-base, int8, kernels on, "
+          f"{n_timed} batches after 3 warm-up): p50 {pct(0.5):.3f} ms, p95 "
+          f"{pct(0.95):.3f} ms, p99 {pct(0.99):.3f} ms, "
+          f"{BATCH * len(lat) / (sum(lat) / 1e3):.1f} txn/s", flush=True)
+    profile_slice(kernels_on, batch, records)
+    return launches
+
+
+def profile_slice(scorer, batch, records, n_batches: int = 5):
+    """Device time by kernel over a few batches (torch.profiler, CUPTI)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            scorer.finalize(scorer.dispatch_assembled(batch, records))
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    print(f"profile over {n_batches} batches: device busy {busy_us / n_batches / 1e3:.3f}"
+          f" ms/batch of {wall_us / n_batches / 1e3:.3f} ms wall "
+          f"(idle share {1 - busy_us / wall_us:.3f})", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / n_batches / 1e3:8.3f} ms/batch "
+              f"{e.count / n_batches:6.1f} launches/batch  {e.key[:90]}", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("TF32 is still on")
+
+    from realtime_fraud_detection_tpu_torch import ops
+    from realtime_fraud_detection_tpu_torch.ensemble.combine import EnsembleParams
+    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE
+    from realtime_fraud_detection_tpu_torch.ops.build import build_library, kernel_library
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import MODEL_NAMES
+    from realtime_fraud_detection_tpu_torch.utils.config import Config
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}", flush=True)
+
+    t0 = time.perf_counter()
+    lib = build_library(verbose=True)
+    kernel_library()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib}", flush=True)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(SEED)
+    params = EnsembleParams.from_config(Config(), MODEL_NAMES).to("cuda")
+    entries = [
+        check_epilogue(params, gen),
+        check_attention(DISTILBERT_BASE, gen),
+        check_dequant_matmul(DISTILBERT_BASE, cpu_gen),
+        check_dequant_rows(DISTILBERT_BASE, cpu_gen),
+    ]
+    for e in entries:
+        print(f"kernel {e['name']}: max_abs_err {e['max_abs_err']:.3e}, "
+              f"{e['ms']:.4f} ms (plain {e['plain_ms']:.4f} ms, bound "
+              f"{e['bound_ms']:.4f} ms by {e['bound_by']}, library "
+              f"{e['library_ms']}) -- {e.pop('note')}", flush=True)
+
+    launches = run_slice(ops)
+    kernels = [{"name": e["name"], "route": e["route"], "source": e["source"],
+                "replaces": e["replaces"], "launches": launches[e["name"]],
+                "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                "bound_by": e["bound_by"], "library_ms": e["library_ms"]}
+               for e in entries]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

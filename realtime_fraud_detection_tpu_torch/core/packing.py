@@ -1,0 +1,156 @@
+"""Transfer packing: collapse a [B, ...] dataclass tree into dense blobs.
+
+Port of the JAX package's ``core/packing.py``. ``pack_tree`` runs on the host
+in numpy: every float leaf goes into one f32[B, Wf] matrix, every int leaf
+into i32[B, Wi], every bool leaf into u8[B, Wb], so a microbatch crosses to
+the device as three buffers. ``unpack_tree`` slices the device tensors back
+into the tree. Leaves are visited in dataclass field order, nested
+dataclasses depth first, and None fields contribute no leaves: the blobs
+are byte-identical to the JAX package's for the same batch.
+
+The half-width bf16 wire blob of the JAX package is not carried: numpy has
+no bfloat16 without ``ml_dtypes``, and the served default ships f32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+_KIND_TO_BLOB = {
+    "f": ("f32", np.float32),
+    "i": ("i32", np.int32),
+    "u": ("i32", np.int32),
+    "b": ("u8", np.uint8),
+}
+BLOB_NAMES = ("f32", "i32", "u8")
+_BLOB_DTYPE = {"f32": np.float32, "i32": np.int32, "u8": np.uint8}
+_LEAF = "leaf"
+
+_TORCH_DTYPE = {
+    "float32": torch.float32, "float64": torch.float64,
+    "int32": torch.int32, "int64": torch.int64, "uint8": torch.uint8,
+    "bool": torch.bool, "int8": torch.int8, "int16": torch.int16,
+}
+
+
+def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
+    """Leaves of a dataclass tree in field order (None fields skipped) and
+    a hashable description of its structure."""
+    if tree is None:
+        return [], None
+    if not dataclasses.is_dataclass(tree):
+        return [tree], _LEAF
+    leaves: List[Any] = []
+    children = []
+    for f in dataclasses.fields(tree):
+        sub_leaves, sub_def = tree_flatten(getattr(tree, f.name))
+        leaves.extend(sub_leaves)
+        children.append((f.name, sub_def))
+    return leaves, (type(tree), tuple(children))
+
+
+def tree_unflatten(treedef: Any, leaves: List[Any]) -> Any:
+    """Inverse of ``tree_flatten``."""
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return None
+        if d == _LEAF:
+            return next(it)
+        cls, children = d
+        return cls(**{name: build(sub) for name, sub in children})
+
+    return build(treedef)
+
+
+def tree_map(fn, tree: Any) -> Any:
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [fn(x) for x in leaves])
+
+
+class PackSpec:
+    """Static, hashable description of a packed tree.
+
+    ``entries[k] = (blob, offset, tail_shape, dtype_str)`` for leaf k in
+    flatten order; ``widths[blob]`` is each blob's total column count.
+    """
+
+    __slots__ = ("treedef", "entries", "widths", "_hash")
+
+    def __init__(self, treedef, entries: Tuple, widths: Tuple):
+        self.treedef = treedef
+        self.entries = entries
+        self.widths = widths
+        self._hash = hash((treedef, entries, widths))
+
+    def __hash__(self) -> int:
+        return self._hash
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, PackSpec)
+                and self.treedef == other.treedef
+                and self.entries == other.entries
+                and self.widths == other.widths)
+
+
+def pack_tree(tree: Any) -> Tuple[Dict[str, np.ndarray], PackSpec]:
+    """Host side: flatten a tree of [B, ...] numpy arrays into 3 blobs.
+
+    Every leaf must share the leading batch dim B; ints must fit in int32.
+    Returns ``({"f32": [B,Wf], "i32": [B,Wi], "u8": [B,Wb]}, spec)``; an
+    empty blob is [B, 0].
+    """
+    leaves, treedef = tree_flatten(tree)
+    if not leaves:
+        raise ValueError("pack_tree: empty tree")
+    b = int(np.shape(leaves[0])[0])
+    parts: Dict[str, list] = {name: [] for name in BLOB_NAMES}
+    offsets = {name: 0 for name in BLOB_NAMES}
+    entries = []
+    for leaf in leaves:
+        arr = np.asarray(leaf)
+        if arr.ndim == 0 or arr.shape[0] != b:
+            raise ValueError(
+                f"pack_tree: every leaf needs leading dim {b}, "
+                f"got shape {arr.shape}")
+        if arr.dtype.kind not in _KIND_TO_BLOB:
+            raise ValueError(f"pack_tree: unsupported leaf dtype {arr.dtype}")
+        blob, cast = _KIND_TO_BLOB[arr.dtype.kind]
+        if (blob == "i32" and arr.dtype.itemsize > 4 and arr.size
+                and (arr.max() > np.iinfo(np.int32).max
+                     or arr.min() < np.iinfo(np.int32).min)):
+            raise ValueError(
+                f"pack_tree: {arr.dtype} leaf exceeds int32 range "
+                f"(min={arr.min()}, max={arr.max()})")
+        tail = arr.shape[1:]
+        width = int(math.prod(tail))
+        parts[blob].append(
+            np.ascontiguousarray(arr.reshape(b, width), dtype=cast))
+        entries.append((blob, offsets[blob], tail, arr.dtype.name))
+        offsets[blob] += width
+    blobs = {
+        name: (np.concatenate(p, axis=1) if p
+               else np.zeros((b, 0), _BLOB_DTYPE[name]))
+        for name, p in parts.items()
+    }
+    spec = PackSpec(treedef, tuple(entries),
+                    tuple(offsets[n] for n in BLOB_NAMES))
+    return blobs, spec
+
+
+def unpack_tree(blobs: Dict[str, torch.Tensor], spec: PackSpec) -> Any:
+    """Device side: slice the blob tensors back into the tree (views plus
+    one dtype cast per leaf)."""
+    leaves = []
+    for blob, offset, tail, dtype_name in spec.entries:
+        width = int(math.prod(tail))
+        col = blobs[blob][:, offset:offset + width]
+        col = col.reshape((col.shape[0],) + tuple(tail))
+        leaves.append(col.to(_TORCH_DTYPE[dtype_name]))
+    return tree_unflatten(spec.treedef, leaves)

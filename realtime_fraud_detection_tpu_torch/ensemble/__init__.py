@@ -1,0 +1,1 @@
+"""ensemble of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""features of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""scoring of the PyTorch port (see the package docstring)."""

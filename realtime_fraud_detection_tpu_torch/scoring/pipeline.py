@@ -1,0 +1,332 @@
+"""Fused end-to-end scorer over one packed microbatch.
+
+Port of the JAX package's ``scoring/pipeline.py``: the microbatch arrives as
+the packed blobs of ``core/packing.py`` and leaves as ONE f32 matrix, laid
+out as ``OUT_COLUMNS`` + the M model predictions and, with the fused
+epilogue on, the ``EXT_COLUMNS`` extension: ``[B, 8+M]`` or ``[B, 8+2M+2]``.
+Between them run the five branches (GBDT, LSTM, BERT text, bipartite GNN,
+isolation forest), the rule score and the ensemble combine. Model order in
+the (B, M) prediction matrix is the reference registry order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from realtime_fraud_detection_tpu_torch.core.packing import PackSpec, unpack_tree
+from realtime_fraud_detection_tpu_torch.ensemble.combine import (
+    EnsembleParams,
+    combine_predictions,
+)
+from realtime_fraud_detection_tpu_torch.features.extract import extract_features
+from realtime_fraud_detection_tpu_torch.features.rules import rule_score
+from realtime_fraud_detection_tpu_torch.features.schema import (
+    CARD_TYPES,
+    FIELD_NAMES,
+    KYC_STATUSES,
+    MERCHANT_CATEGORIES,
+    PAYMENT_METHODS,
+    RISK_LEVELS,
+    TRANSACTION_TYPES,
+    TransactionBatch,
+    column_dtype,
+)
+from realtime_fraud_detection_tpu_torch.models.bert import (
+    TINY_CONFIG,
+    BertConfig,
+    bert_predict,
+    init_bert_params,
+)
+from realtime_fraud_detection_tpu_torch.models.gnn import gnn_logits, init_gnn_params
+from realtime_fraud_detection_tpu_torch.models.isolation_forest import (
+    IsolationForest,
+    iforest_predict,
+    random_isolation_forest,
+)
+from realtime_fraud_detection_tpu_torch.models.lstm import init_lstm_params, lstm_logits
+from realtime_fraud_detection_tpu_torch.models.trees import (
+    TreeEnsemble,
+    random_tree_ensemble,
+    tree_ensemble_predict,
+)
+from realtime_fraud_detection_tpu_torch.ops.epilogue import epilogue_matrix
+
+MODEL_NAMES: tuple[str, ...] = (
+    "xgboost_primary",
+    "lstm_sequential",
+    "bert_text",
+    "graph_neural",
+    "isolation_forest",
+)
+NUM_MODELS = len(MODEL_NAMES)
+
+# packed result columns: ints and bools ride as exact small floats
+OUT_COLUMNS: tuple[str, ...] = (
+    "fraud_probability", "confidence", "decision", "risk_level",
+    "rule_score", "high_amount", "unusual_hour", "high_risk_payment",
+)
+# fused-epilogue extension: per-model contributions (w x p) and the
+# rules-only decision / risk ladder over the rule score
+EXT_COLUMNS: tuple[str, ...] = ("model_contributions", "rule_decision",
+                                "rule_risk")
+
+
+def packed_width(num_models: int, epilogue: bool) -> int:
+    """Width of the packed result matrix for a given layout."""
+    base = len(OUT_COLUMNS) + num_models
+    return base + num_models + 2 if epilogue else base
+
+
+@dataclasses.dataclass
+class ScoringModels:
+    """All five model branches."""
+
+    trees: TreeEnsemble
+    iforest: IsolationForest
+    lstm: Dict[str, torch.Tensor]
+    gnn: Dict[str, torch.Tensor]
+    bert: Dict[str, Any]
+
+    def to(self, device) -> "ScoringModels":
+        return ScoringModels(trees=self.trees.to(device),
+                             iforest=self.iforest.to(device),
+                             lstm=_nested_to(self.lstm, device),
+                             gnn=_nested_to(self.gnn, device),
+                             bert=_nested_to(self.bert, device))
+
+
+def _nested_to(obj, device):
+    """Move a nested dict/list of tensors or numpy arrays to ``device``."""
+    if isinstance(obj, dict):
+        return {k: _nested_to(v, device) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_nested_to(v, device) for v in obj]
+    if isinstance(obj, np.ndarray):
+        obj = torch.from_numpy(np.ascontiguousarray(obj))
+    return obj.to(device).contiguous()
+
+
+@dataclasses.dataclass
+class ScoreBatch:
+    """Dense inputs for one scoring microbatch (numpy on the host, tensors
+    on the device). ``valid`` masks bucket padding rows. The typed-graph
+    two-hop fields of the JAX package stay None here: they contribute no
+    leaves, so the packed layout is the bipartite one."""
+
+    txn: TransactionBatch
+    features: Any            # f32[B, 64]
+    history: Any             # f32[B, T, F] front-padded
+    history_len: Any         # i32[B]
+    user_feat: Any           # f32[B, D]
+    merchant_feat: Any       # f32[B, D]
+    user_neigh_feat: Any     # f32[B, K, D]
+    user_neigh_mask: Any     # bool[B, K]
+    merch_neigh_feat: Any    # f32[B, K, D]
+    merch_neigh_mask: Any    # bool[B, K]
+    token_ids: Any           # i32[B, S]
+    token_mask: Any          # bool[B, S]
+    valid: Any               # bool[B]
+    user_neigh2_feat: Any = None
+    user_neigh2_mask: Any = None
+    merch_neigh2_feat: Any = None
+    merch_neigh2_mask: Any = None
+
+    @property
+    def batch_size(self) -> int:
+        return int(self.history.shape[0])
+
+
+@dataclasses.dataclass
+class ScorerConfig:
+    """Static shapes for the fused scorer."""
+
+    seq_len: int = 10          # LSTM history length
+    feature_dim: int = 64      # the feature contract width
+    node_dim: int = 16         # GNN node feature width
+    fanout: int = 16           # GNN neighbour fan-out
+    text_len: int = 64         # token length for the text branch
+
+
+def init_scoring_models(seed: int, bert_config: BertConfig = TINY_CONFIG,
+                        feature_dim: int = 64, node_dim: int = 16,
+                        n_trees: int = 100, tree_depth: int = 6,
+                        iforest_depth: int = 8) -> ScoringModels:
+    """Randomly initialised model set from a numpy seed. Unlike the JAX
+    package's all-zero trees, the GBDT and isolation forest get random
+    splits, so every branch does real work."""
+    rng = np.random.default_rng(seed)
+    return ScoringModels(
+        trees=random_tree_ensemble(rng, n_trees, tree_depth, feature_dim),
+        iforest=random_isolation_forest(rng, n_trees, iforest_depth,
+                                        feature_dim),
+        lstm=init_lstm_params(rng, feature_dim=feature_dim),
+        gnn=init_gnn_params(rng, node_dim=node_dim, txn_dim=feature_dim),
+        bert=init_bert_params(rng, bert_config),
+    )
+
+
+def _key_factors(txn: TransactionBatch) -> Dict[str, torch.Tensor]:
+    """Key-factor flags (ensemble_predictor.py:389-412)."""
+    return {
+        "high_amount": txn.amount > 10_000.0,
+        "unusual_hour": (txn.hour_of_day < 6) | (txn.hour_of_day >= 23),
+        "high_risk_payment": txn.high_risk_payment,
+    }
+
+
+def score_fused(models: ScoringModels, batch: ScoreBatch,
+                params: EnsembleParams, model_valid: torch.Tensor,
+                bert_config: BertConfig = TINY_CONFIG,
+                use_flash: bool = False,
+                tree_kernel: str = "gather", iforest_kernel: str = "gather",
+                dequant_kernel: str = "off", epilogue_kernel: str = "off",
+                compute_dtype: torch.dtype = torch.bfloat16
+                ) -> Dict[str, torch.Tensor]:
+    """Score one device-resident microbatch through the 5-model ensemble.
+
+    ``compute_dtype`` is the dense-product precision of the LSTM and BERT
+    branches (bf16 served; f32 for tests).
+
+    Returns the combine outputs plus ``model_predictions`` (B, M), the
+    rule score and the key-factor flags; with ``epilogue_kernel="cuda"``
+    the combine outputs are the [B, M+6] epilogue ``matrix`` instead.
+    """
+    if batch.user_neigh2_feat is not None or batch.merch_neigh2_feat is not None:
+        raise NotImplementedError(
+            "two-hop (typed graph) batches are not ported yet")
+    features = batch.features
+    preds = torch.stack([
+        tree_ensemble_predict(models.trees, features, kernel=tree_kernel),
+        torch.sigmoid(lstm_logits(models.lstm, batch.history,
+                                  batch.history_len,
+                                  compute_dtype=compute_dtype)),
+        bert_predict(models.bert, batch.token_ids, batch.token_mask,
+                     bert_config, use_flash=use_flash,
+                     compute_dtype=compute_dtype,
+                     dequant_kernel=dequant_kernel),
+        torch.sigmoid(gnn_logits(
+            models.gnn, features, batch.user_feat, batch.merchant_feat,
+            batch.user_neigh_feat, batch.user_neigh_mask,
+            batch.merch_neigh_feat, batch.merch_neigh_mask)),
+        iforest_predict(models.iforest, features, kernel=iforest_kernel),
+    ], dim=1)                                                   # f32[B, M]
+
+    valid = model_valid.to(preds.device)[None, :] & batch.valid[:, None]
+    rule = rule_score(batch.txn)
+    if epilogue_kernel == "cuda":
+        out = {"matrix": epilogue_matrix(preds, valid, rule, params)}
+    else:
+        out = dict(combine_predictions(preds, valid, params))
+    out["rule_score"] = rule
+    out.update(_key_factors(batch.txn))
+    out["model_predictions"] = preds
+    return out
+
+
+def score_fused_packed(models: ScoringModels, blobs: Dict[str, torch.Tensor],
+                       spec: PackSpec, params: EnsembleParams,
+                       model_valid: torch.Tensor,
+                       bert_config: BertConfig = TINY_CONFIG,
+                       use_flash: bool = False,
+                       tree_kernel: str = "gather",
+                       iforest_kernel: str = "gather",
+                       dequant_kernel: str = "off",
+                       epilogue_kernel: str = "off",
+                       compute_dtype: torch.dtype = torch.bfloat16
+                       ) -> torch.Tensor:
+    """Packed blobs in, one f32 result matrix out (see ``OUT_COLUMNS``)."""
+    batch = unpack_tree(blobs, spec)
+    out = score_fused(models, batch, params, model_valid,
+                      bert_config=bert_config, use_flash=use_flash,
+                      tree_kernel=tree_kernel, iforest_kernel=iforest_kernel,
+                      dequant_kernel=dequant_kernel,
+                      epilogue_kernel=epilogue_kernel,
+                      compute_dtype=compute_dtype)
+    if "matrix" in out:
+        # the epilogue matrix already holds prob, confidence, decision,
+        # risk, contributions and the rules-only ladder
+        mat = out["matrix"]
+        m = out["model_predictions"].shape[1]
+        head = torch.cat([mat[:, :4], torch.stack(
+            [out[name].to(torch.float32) for name in OUT_COLUMNS[4:]],
+            dim=1)], dim=1)
+        return torch.cat([head, out["model_predictions"], mat[:, 4:4 + m],
+                          mat[:, 4 + m:6 + m]], dim=1)
+    cols = [out[name].to(torch.float32) for name in OUT_COLUMNS]
+    return torch.cat([torch.stack(cols, dim=1), out["model_predictions"]],
+                     dim=1)
+
+
+def make_example_batch(batch_size: int, config: ScorerConfig = ScorerConfig(),
+                       rng: Optional[np.random.Generator] = None,
+                       vocab_size: int = 30522) -> ScoreBatch:
+    """Synthetic host-side ScoreBatch drawn from a numpy generator: the
+    transaction columns over the simulator's value ranges, features from
+    ``extract_features`` on the CPU, and standard-normal history and graph
+    tensors."""
+    rng = rng or np.random.default_rng(0)
+    b, c = batch_size, config
+    cols: Dict[str, np.ndarray] = {}
+    for name in FIELD_NAMES:
+        dt = column_dtype(name)
+        if dt == np.bool_:
+            cols[name] = rng.random(b) < 0.5
+        elif dt == np.int32:
+            cols[name] = np.zeros(b, np.int32)
+        else:
+            cols[name] = rng.random(b).astype(np.float32)
+    ints = {   # codes include -1, the unknown value
+        "hour_of_day": (0, 24), "day_of_week": (1, 8), "day_of_month": (1, 29),
+        "payment_method_code": (-1, len(PAYMENT_METHODS)),
+        "transaction_type_code": (-1, len(TRANSACTION_TYPES)),
+        "card_type_code": (-1, len(CARD_TYPES)),
+        "kyc_code": (-1, len(KYC_STATUSES)), "preferred_start": (0, 12),
+        "preferred_end": (12, 24), "merchant_risk_code": (-1, len(RISK_LEVELS)),
+        "merchant_category_code": (-1, len(MERCHANT_CATEGORIES)),
+        "merchant_op_start": (0, 10), "merchant_op_end": (16, 25),
+    }
+    for name, (lo, hi) in ints.items():
+        cols[name] = rng.integers(lo, hi, b).astype(np.int32)
+    floats = {
+        "amount": rng.lognormal(4.0, 1.5, b),
+        "lat": rng.uniform(-80, 80, b), "lon": rng.uniform(-180, 180, b),
+        "merchant_lat": rng.uniform(-80, 80, b),
+        "merchant_lon": rng.uniform(-180, 180, b),
+        "ip_risk": np.where(cols["private_ip"], 0.1, 0.3),
+        "account_age_days": rng.uniform(0, 3000, b),
+        "user_avg_amount": rng.lognormal(4.0, 1.0, b),
+        "user_txn_frequency": rng.uniform(0, 30, b),
+        "merchant_fraud_rate": rng.uniform(0, 0.2, b),
+        "merchant_avg_amount": rng.lognormal(4.0, 1.0, b),
+        "velocity_5min_count": rng.integers(0, 8, b),
+        "velocity_5min_amount": rng.uniform(0, 2000, b),
+        "velocity_1hour_count": rng.integers(0, 30, b),
+        "velocity_1hour_amount": rng.uniform(0, 10000, b),
+        "velocity_24hour_count": rng.integers(0, 100, b),
+        "velocity_24hour_amount": rng.uniform(0, 50000, b),
+    }
+    for name, values in floats.items():
+        cols[name] = np.asarray(values, np.float32)
+    txn = TransactionBatch(**cols)
+    features = extract_features(TransactionBatch(
+        **{k: torch.from_numpy(v) for k, v in cols.items()})).numpy()
+    return ScoreBatch(
+        txn=txn,
+        features=features,
+        history=rng.standard_normal((b, c.seq_len, c.feature_dim)).astype(np.float32),
+        history_len=rng.integers(1, c.seq_len + 1, b).astype(np.int32),
+        user_feat=rng.standard_normal((b, c.node_dim)).astype(np.float32),
+        merchant_feat=rng.standard_normal((b, c.node_dim)).astype(np.float32),
+        user_neigh_feat=rng.standard_normal((b, c.fanout, c.node_dim)).astype(np.float32),
+        user_neigh_mask=rng.random((b, c.fanout)) < 0.8,
+        merch_neigh_feat=rng.standard_normal((b, c.fanout, c.node_dim)).astype(np.float32),
+        merch_neigh_mask=rng.random((b, c.fanout)) < 0.8,
+        token_ids=rng.integers(0, vocab_size, (b, c.text_len)).astype(np.int32),
+        token_mask=np.arange(c.text_len)[None, :]
+        < rng.integers(4, c.text_len + 1, b)[:, None],
+        valid=np.ones((b,), bool),
+    )

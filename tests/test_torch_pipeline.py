@@ -1,0 +1,321 @@
+"""The PyTorch port's slice as a whole against the JAX package, on the CPU:
+packing, bucketing, the fused packed scorer with the kernel plane's
+statics (int8 BERT, GEMM-form trees, fused dequant-matmul, fused epilogue,
+flash attention; the JAX kernels through the Pallas interpreter), the
+scorer's dispatch / finalize responses, and the port's isolation from JAX.
+
+Tolerances: decision, risk and rules-only ladders exact (the seed is
+checked to keep every probability and confidence farther than the bound
+from a rung), probability <= 2e-3 on the bf16 served path (the frameworks
+round bf16 at different places), <= 1e-5 at f32 compute.
+"""
+
+import dataclasses
+import re
+import subprocess
+import sys
+import textwrap
+from functools import partial
+from pathlib import Path
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from realtime_fraud_detection_tpu.core.batching import (
+    bucket_for as jax_bucket_for,
+    pad_to_bucket as jax_pad_to_bucket,
+)
+from realtime_fraud_detection_tpu.core.packing import pack_tree as jax_pack_tree
+from realtime_fraud_detection_tpu.ensemble.combine import (
+    EnsembleParams as JaxEnsembleParams,
+)
+from realtime_fraud_detection_tpu.features.schema import (
+    TransactionBatch as JaxTransactionBatch,
+)
+from realtime_fraud_detection_tpu.models import bert as jbert
+from realtime_fraud_detection_tpu.models import lstm as jlstm
+from realtime_fraud_detection_tpu.models.isolation_forest import (
+    IsolationForest as JaxIsolationForest,
+)
+from realtime_fraud_detection_tpu.models.quant import (
+    quantize_bert_params as jax_quantize_bert_params,
+)
+from realtime_fraud_detection_tpu.models.trees import (
+    TreeEnsemble as JaxTreeEnsemble,
+)
+from realtime_fraud_detection_tpu.scoring import pipeline as jax_pipeline
+from realtime_fraud_detection_tpu.scoring.scorer import FraudScorer
+from realtime_fraud_detection_tpu.utils.config import Config as JaxConfig
+from realtime_fraud_detection_tpu_torch.bridge import models_from_numpy
+from realtime_fraud_detection_tpu_torch.core.batching import (
+    BATCH_BUCKETS,
+    bucket_for,
+    pad_to_bucket,
+)
+from realtime_fraud_detection_tpu_torch.core.packing import (
+    pack_tree,
+    tree_flatten,
+    unpack_tree,
+)
+from realtime_fraud_detection_tpu_torch.ensemble.combine import EnsembleParams
+from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
+    MODEL_NAMES,
+    ScoreBatch,
+    make_example_batch,
+    packed_width,
+    score_fused_packed,
+)
+from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+from realtime_fraud_detection_tpu_torch.utils.config import (
+    Config,
+    KernelSettings,
+    QuantSettings,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "realtime_fraud_detection_tpu_torch"
+SERVED_BF16_TOL = 2e-3
+RUNGS = (0.3, 0.6, 0.8, 0.95, 0.7)      # risk + decision rungs, confidence
+N_ROWS = 8
+JAX_STATICS = dict(bert_config=jbert.TINY_CONFIG, use_pallas=True,
+                   tree_kernel="gemm", iforest_kernel="gemm",
+                   dequant_kernel="pallas", epilogue_kernel="pallas",
+                   kernel_interpret=True)
+PORT_STATICS = dict(bert_config=TINY_CONFIG, **QuantSettings.full().static(),
+                    **KernelSettings.full().static())
+
+
+def _to_jax_batch(batch: ScoreBatch):
+    """The port's host batch as the JAX package's ScoreBatch (same arrays)."""
+    fields = {f.name: getattr(batch, f.name)
+              for f in dataclasses.fields(batch) if f.name != "txn"}
+    return jax_pipeline.ScoreBatch(
+        txn=JaxTransactionBatch(**vars(batch.txn)), **fields)
+
+
+@pytest.fixture(scope="module")
+def batch():
+    return make_example_batch(N_ROWS, rng=np.random.default_rng(2))
+
+
+@pytest.fixture(scope="module")
+def jax_models():
+    """The JAX model set with random trees and forest, int8 BERT."""
+    rng = np.random.default_rng(17)
+    models = jax_pipeline.init_scoring_models(jax.random.PRNGKey(17),
+                                              jbert.TINY_CONFIG)
+    depth, n_trees = 4, 16
+    trees = JaxTreeEnsemble(
+        feature=rng.integers(0, 64, (n_trees, 2 ** depth - 1)).astype(np.int32),
+        threshold=rng.normal(0.5, 1.0, (n_trees, 2 ** depth - 1)).astype(np.float32),
+        leaf=rng.normal(0.0, 0.4, (n_trees, 2 ** depth)).astype(np.float32),
+        base_score=np.float32(0.1))
+    forest = JaxIsolationForest(
+        feature=rng.integers(0, 64, (n_trees, 2 ** depth - 1)).astype(np.int32),
+        threshold=rng.normal(0.5, 1.0, (n_trees, 2 ** depth - 1)).astype(np.float32),
+        path_length=(4 + 4 * rng.random((n_trees, 2 ** depth))).astype(np.float32),
+        c_psi=np.float32(6.0))
+    models = models.replace(trees=trees, iforest=forest,
+                            bert=jax_quantize_bert_params(models.bert))
+    return jax.tree_util.tree_map(np.asarray, models)
+
+
+@pytest.fixture(scope="module")
+def port_models(jax_models):
+    return models_from_numpy(jax_models)
+
+
+def _jax_params():
+    return JaxEnsembleParams.from_config(JaxConfig(), jax_pipeline.MODEL_NAMES)
+
+
+def _port_matrix(port_models, batch, compute_dtype=torch.bfloat16):
+    blobs, spec = pack_tree(batch)
+    return score_fused_packed(
+        port_models, {k: torch.from_numpy(v) for k, v in blobs.items()}, spec,
+        EnsembleParams.from_config(Config(), MODEL_NAMES),
+        torch.ones(len(MODEL_NAMES), dtype=torch.bool),
+        compute_dtype=compute_dtype, **PORT_STATICS).numpy()
+
+
+def _jax_matrix(jax_models, batch, fn=jax_pipeline.score_fused_packed):
+    blobs, spec = jax_pack_tree(_to_jax_batch(batch))
+    return np.asarray(fn(
+        jax_models, blobs["f32"], blobs["i32"], blobs["u8"], spec=spec,
+        params=_jax_params(), model_valid=np.ones(len(MODEL_NAMES), bool),
+        **JAX_STATICS))
+
+
+# ------------------------------------------------------- packing / buckets
+def test_pack_tree_is_byte_identical_to_jax(batch):
+    blobs, spec = pack_tree(batch)
+    jblobs, jspec = jax_pack_tree(_to_jax_batch(batch))
+    assert jblobs["bf16"].shape == (N_ROWS, 0)
+    for name in ("f32", "i32", "u8"):
+        assert blobs[name].dtype == jblobs[name].dtype
+        assert blobs[name].tobytes() == jblobs[name].tobytes()
+    assert [e[1:] for e in spec.entries] == [e[1:] for e in jspec.entries]
+
+
+def test_unpack_round_trip(batch):
+    blobs, spec = pack_tree(batch)
+    restored = unpack_tree({k: torch.from_numpy(v) for k, v in blobs.items()},
+                           spec)
+    before, after = tree_flatten(batch)[0], tree_flatten(restored)[0]
+    assert len(before) == len(after) == len(spec.entries)
+    for a, b in zip(before, after):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    assert restored.user_neigh2_feat is None
+
+
+@pytest.mark.parametrize("n", [1, 5, 8, 31, 33, 200, 256, 300])
+def test_bucketing_matches_jax(n):
+    assert bucket_for(n) == jax_bucket_for(n) and BATCH_BUCKETS[-1] == 256
+    small = make_example_batch(min(n, 40), rng=np.random.default_rng(n))
+    rows = small.batch_size
+    padded, mask, size = pad_to_bucket(small, rows)
+    jpadded, jmask, jsize = jax_pad_to_bucket(_to_jax_batch(small), rows)
+    assert size == jsize
+    np.testing.assert_array_equal(mask, jmask)
+    np.testing.assert_array_equal(padded.history, jpadded.history)
+    np.testing.assert_array_equal(padded.txn.amount, jpadded.txn.amount)
+
+
+# ------------------------------------------------------------- the slice
+def test_slice_bf16_matches_jax(jax_models, port_models, batch):
+    want = _jax_matrix(jax_models, batch)
+    got = _port_matrix(port_models, batch)
+    assert got.shape == want.shape == (N_ROWS, packed_width(5, epilogue=True))
+    # the seed keeps every served probability and confidence away from a
+    # rung, so the ladders must agree exactly; the rule score is computed
+    # identically on both sides, so the rules-only ladder needs no margin
+    for col in (0, 1):                    # probability, confidence
+        gap = np.min(np.abs(want[:, col][:, None] - np.asarray(RUNGS)[None, :]))
+        assert gap > SERVED_BF16_TOL
+    ladders = [2, 3, 4, 5, 6, 7, 18, 19]  # decision, risk, rule, key factors,
+    np.testing.assert_array_equal(got[:, ladders], want[:, ladders])
+    np.testing.assert_allclose(got, want, rtol=0, atol=SERVED_BF16_TOL)
+
+
+def test_slice_f32_compute_matches_jax(jax_models, port_models, batch,
+                                       monkeypatch):
+    # the JAX pipeline computes its LSTM and BERT products in bf16; widen
+    # them to f32 for this comparison
+    monkeypatch.setattr(jax_pipeline, "bert_predict",
+                        partial(jbert.bert_predict, compute_dtype=jnp.float32))
+    monkeypatch.setattr(jax_pipeline, "lstm_logits",
+                        partial(jlstm.lstm_logits, compute_dtype=jnp.float32))
+    want = _jax_matrix(jax_models, batch,
+                       fn=jax_pipeline._score_fused_packed_impl)
+    got = _port_matrix(port_models, batch, compute_dtype=torch.float32)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_slice_kernels_off_layout(port_models, batch):
+    blobs, spec = pack_tree(batch)
+    out = score_fused_packed(
+        port_models, {k: torch.from_numpy(v) for k, v in blobs.items()}, spec,
+        EnsembleParams.from_config(Config(), MODEL_NAMES),
+        torch.ones(len(MODEL_NAMES), dtype=torch.bool),
+        bert_config=TINY_CONFIG)
+    assert out.shape == (N_ROWS, packed_width(5, epilogue=False))
+    ext = _port_matrix(port_models, batch)
+    # same decisions; probabilities differ only by the tree traversal's
+    # summation order (gather vs GEMM form)
+    np.testing.assert_array_equal(out.numpy()[:, 2:8], ext[:, 2:8])
+    np.testing.assert_allclose(out.numpy()[:, :13], ext[:, :13], atol=1e-5)
+
+
+# ----------------------------------------------------------------- scorer
+def _jax_scorer_stub(model_valid):
+    return SimpleNamespace(model_valid=model_valid, ensemble_params=_jax_params(),
+                           config=JaxConfig(), _top_importances=None)
+
+
+def _strip_time(responses):
+    return [{k: v for k, v in r.items() if k != "processing_time_ms"}
+            for r in responses]
+
+
+@pytest.mark.parametrize("rules_only", [False, True])
+def test_scorer_responses_match_jax(port_models, batch, rules_only):
+    cfg = Config(quant=QuantSettings.full(), kernels=KernelSettings.full())
+    scorer = TorchFraudScorer(cfg, models=port_models, bert_config=TINY_CONFIG,
+                              device="cpu")
+    n = 6                                   # pads to the 8-row bucket
+    small = dataclasses.replace(
+        batch, txn=type(batch.txn)(**{k: v[:n] for k, v in vars(batch.txn).items()}),
+        **{f.name: getattr(batch, f.name)[:n] for f in dataclasses.fields(batch)
+           if f.name != "txn" and getattr(batch, f.name) is not None})
+    records = [{"transaction_id": f"t{i}"} for i in range(n)]
+    mask = np.array([True, True, False, True, True])
+    scorer.set_degradation(mask, rules_only=rules_only)
+    pending = scorer.dispatch_assembled(small, records)
+    assert pending.out.shape == (8, packed_width(5, epilogue=True))
+    got = scorer.finalize(pending)
+    want = FraudScorer._build_responses(
+        _jax_scorer_stub(mask), records, pending.out.numpy(), n, 1.0,
+        model_valid=mask, rules_only=rules_only)
+    assert _strip_time(got) == _strip_time(want)
+    # the unextended layout goes through the host ladder in both
+    narrow = pending.out.numpy()[:, :13]
+    assert _strip_time(scorer._build_responses(
+        records, narrow, n, 1.0, model_valid=mask, rules_only=rules_only)) == \
+        _strip_time(FraudScorer._build_responses(
+            _jax_scorer_stub(mask), records, narrow, n, 1.0, model_valid=mask,
+            rules_only=rules_only))
+
+
+def test_scorer_defaults_to_cuda_and_never_falls_back():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchFraudScorer()
+
+
+# -------------------------------------------------------------- isolation
+_FORBIDDEN_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|ml_dtypes|"
+    r"realtime_fraud_detection_tpu)(?:\.|\s|$)", re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_nothing_of_jax(path):
+    found = _FORBIDDEN_IMPORT.findall(path.read_text())
+    assert not found, f"{path.name} imports {found}"
+
+
+def test_port_runs_with_jax_blocked():
+    script = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "flax", "ml_dtypes",
+                     "realtime_fraud_detection_tpu"):
+            sys.modules[name] = None          # any import of them now fails
+        import numpy as np, torch, pkgutil, importlib
+        import realtime_fraud_detection_tpu_torch as port
+        for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+            importlib.import_module(mod.name)
+        import chip_smoke
+        from realtime_fraud_detection_tpu_torch.scoring.pipeline import make_example_batch
+        from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+        from realtime_fraud_detection_tpu_torch.utils.config import (
+            Config, KernelSettings, QuantSettings)
+        s = TorchFraudScorer(Config(quant=QuantSettings.full(),
+                                    kernels=KernelSettings.full()),
+                             device="cpu", seed=1)
+        b = make_example_batch(3, rng=np.random.default_rng(0))
+        out = s.finalize(s.dispatch_assembled(b, [{}] * 3))
+        assert len(out) == 3 and all(0 <= r["fraud_probability"] <= 1 for r in out)
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
