@@ -10,22 +10,36 @@ Phases, each of which raises (and exits non-zero) on failure:
 1. the card's name and power limit, torch and CUDA versions; TF32 is turned
    off and checked off (the GEMM-form trees need exact f32 products);
 2. build the CUDA kernels of ``realtime_fraud_detection_tpu_torch/csrc``;
-3. run each kernel at the shapes the bucket-256 DistilBERT-base slice gives
-   it, hold it against its plain PyTorch version on the card, and time the
-   kernel, the plain version and a library yardstick with CUDA events;
-4. score a seeded 256-row batch through ``TorchFraudScorer`` with int8 BERT
-   and every kernel on (launch counters reset just before, read just
-   after), compare the packed result with the same models on the
-   kernels-off plain path on the card and, at 8 rows, with the CPU, then
-   time batches after warm-up.
+3. run each kernel at the shapes its main path gives it, hold it against
+   its plain PyTorch version on the card, and time the kernel, the plain
+   version and a library yardstick with CUDA events: the four per-site
+   kernels at the bucket-256 DistilBERT-base slice's shapes, the
+   megakernel at TINY width (int8 BERT at buckets 256 and 8, f32 BERT
+   once; its yardstick is the per-site chain's device time on the same
+   batch, as no single PyTorch call computes the ensemble);
+4. score a seeded 256-row batch through ``TorchFraudScorer`` at
+   DistilBERT-base with int8 BERT and the per-site kernels on (launch
+   counters reset just before, read just after), compare the packed result
+   with the same models on the kernels-off plain path on the card and, at 8
+   rows, with the CPU, then time batches after warm-up;
+5. the megakernel slice: ``TorchFraudScorer`` at TINY with int8 BERT and
+   ``KernelSettings.mega()``; one bucket-256 batch launches the megakernel
+   once and no per-site kernel, and matches the kernels-off plain path;
+6. honest fallbacks: on that scorer a bucket-1 batch runs the per-site
+   chain (launches 1/2/12/2) and counts a megakernel fallback, and a
+   DistilBERT-base batch under ``mega()`` is declined by the plan and runs
+   the chain (1/6/36/2);
+7. megakernel against the per-site chain at TINY int8, buckets 8, 32, 128
+   and 256: p50 / p99 per batch and txn/s, host clock, interleaved.
 
-The last three lines of standard output are the kernel JSON line, the
-``nvidia-smi`` name and power limit, and the result line
+The last three lines of standard output are the kernel JSON line (all five
+kernels), the ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -40,6 +54,8 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 SEED = 0
 BATCH = 256
+MEGA_BUCKETS = (8, 32, 128, 256)
+MEGA_TIMED_BATCHES = 50
 # served bf16 path vs the kernels-off plain path: probabilities may move by
 # bf16 re-rounding between two summation orders of the same products
 SLICE_PROB_TOL = 2e-3
@@ -301,7 +317,7 @@ def run_slice(ops):
     launches = ops.launch_counts()
     expected = {"epilogue": 1, "flash_attention": DISTILBERT_BASE.num_layers,
                 "dequant_matmul": 6 * DISTILBERT_BASE.num_layers,
-                "dequant_rows": 2}
+                "dequant_rows": 2, "megakernel": 0}
     print(f"slice launches: {launches} (expected {expected})", flush=True)
     if launches != expected:
         fail(f"launch counts {launches} != {expected}")
@@ -371,6 +387,312 @@ def run_slice(ops):
     return launches
 
 
+def _packed(batch, rows: int):
+    """A host batch padded to its bucket and packed, on the card; the
+    kernel's u8-view batch and the plain version's bool batch."""
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.core.batching import pad_to_bucket
+    from realtime_fraud_detection_tpu_torch.core.packing import pack_tree, unpack_tree
+
+    padded, mask, _ = pad_to_bucket(batch, rows)
+    blobs, spec = pack_tree(dataclasses.replace(padded, valid=mask))
+    dev = {k: torch.from_numpy(v).cuda() for k, v in blobs.items()}
+    return dev, spec, unpack_tree(dev, spec, keep_u8=True), unpack_tree(dev, spec)
+
+
+def mega_flops(models, cfg, batch) -> float:
+    """Products the megakernel needs for ``batch`` (multiply-adds x 2): BERT
+    with the last layer at [CLS] only, the LSTM's valid steps, the GNN and
+    the heads; tree descents are compares."""
+    s, h, f = int(batch.token_ids.shape[1]), cfg.hidden_size, cfg.intermediate_size
+    heads, hd = cfg.num_heads, cfg.head_dim
+    full_layer = 4 * s * h * h + 2 * s * h * f + heads * 2 * s * s * hd
+    last_layer = 2 * s * h * h + 2 * h * h + heads * 2 * s * hd + 2 * h * f
+    bert = (cfg.num_layers - 1) * full_layer + last_layer + h * h + 2 * h
+    w = models.lstm["w_gates"]
+    steps = int(batch.history_len.clamp(0, batch.history.shape[1]).sum())
+    lstm_head = models.lstm["w_head1"].numel() + models.lstm["w_head2"].numel()
+    g = models.gnn["w_sage1"].shape[1]
+    k, d = batch.user_neigh_feat.shape[1:]
+    gnn = (2 * k * d * g + 2 * models.gnn["w_sage2"].numel()
+           + models.gnn["w_head1"].numel() + models.gnn["w_head2"].numel())
+    b = int(batch.features.shape[0])
+    return 2.0 * (b * (bert + lstm_head + gnn) + steps * w.numel())
+
+
+def check_megakernel(params):
+    """The megakernel against its plain version at TINY width (int8 BERT at
+    buckets 256 and 8, f32 BERT at 256), its smem count against the plan,
+    and its time against the per-site chain's on the same batch."""
+    import dataclasses
+
+    import numpy as np
+
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.models.quant import quantize_bert_params
+    from realtime_fraud_detection_tpu_torch.ops import megakernel as mk
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
+        init_scoring_models,
+        make_example_batch,
+        score_fused_packed,
+    )
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        KernelSettings,
+        QuantSettings,
+    )
+
+    base = init_scoring_models(SEED, TINY_CONFIG)
+    int8 = dataclasses.replace(base, bert=quantize_bert_params(base.bert)).to("cuda")
+    f32 = base.to("cuda")
+    worst = 0.0
+    timed = None
+    for name, models, rows in (("int8", int8, BATCH), ("int8", int8, 8),
+                               ("f32", f32, BATCH)):
+        batch = make_example_batch(rows, rng=np.random.default_rng(SEED + rows))
+        dev, spec, raw, plain_batch = _packed(batch, rows)
+        plan = mk.mega_plan(models, TINY_CONFIG, b=rows, text_len=64, seq_len=10,
+                            feature_dim=64, has_two_hop=False)
+        if not plan["supported"]:
+            fail(f"megakernel plan declines TINY {name} at {rows}: {plan}")
+        for mv in ((True,) * 5, (True, True, False, True, True)):
+            got = mk.fused_megakernel(models, raw, params, mega_valid=mv,
+                                      bert_config=TINY_CONFIG)
+            ref = mk.megakernel_reference(models, plain_batch, params,
+                                          mega_valid=mv, bert_config=TINY_CONFIG)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            if not err <= SLICE_PROB_TOL:
+                fail(f"megakernel TINY {name} b={rows} mv={mv}: err {err}")
+            far = ~(near_rung(ref[:, 0], (0.3, 0.6, 0.8, 0.95), SLICE_PROB_TOL)
+                    | near_rung(ref[:, 1], (0.7,), SLICE_PROB_TOL))
+            if not torch.equal(got[far][:, [2, 3, 18, 19]], ref[far][:, [2, 3, 18, 19]]):
+                fail(f"megakernel TINY {name} b={rows} mv={mv}: ladder mismatch")
+            pruned = [8 + j for j, on in enumerate(mv) if not on]
+            if pruned and bool(got[:, pruned].any()):
+                fail("megakernel: a pruned lane is not zero")
+            worst = max(worst, err)
+            print(f"  megakernel TINY {name} b={rows} rung {''.join('1' if v else '0' for v in mv)}:"
+                  f" max err {err:.3e}, ladders equal on {int(far.sum())}/{rows} rows"
+                  f" away from a rung", flush=True)
+        case_ms = time_ms(lambda: mk.fused_megakernel(
+            models, raw, params, mega_valid=(True,) * 5, bert_config=TINY_CONFIG))
+        print(f"  megakernel TINY {name} b={rows}: {case_ms:.4f} ms", flush=True)
+        if name == "int8" and rows == BATCH:
+            args_smem = _kernel_smem(mk, models, raw, TINY_CONFIG)
+            if args_smem != plan["smem_bytes"]:
+                fail(f"megakernel smem: kernel {args_smem} != plan {plan['smem_bytes']}")
+            timed = (models, batch, dev, spec, raw, plain_batch, plan)
+    models, batch, dev, spec, raw, plain_batch, plan = timed
+    mv = (True,) * 5
+    ms = time_ms(lambda: mk.fused_megakernel(models, raw, params, mega_valid=mv,
+                                             bert_config=TINY_CONFIG))
+    plain = time_ms(lambda: mk.megakernel_reference(
+        models, plain_batch, params, mega_valid=mv, bert_config=TINY_CONFIG))
+    # where the kernel's time goes: one branch on, the others pruned
+    by_branch = {}
+    for j, branch in enumerate(("trees", "lstm", "bert", "gnn", "iforest", None)):
+        rung = tuple(i == j for i in range(5))
+        by_branch[branch or "rules+combine"] = time_ms(
+            lambda: mk.fused_megakernel(models, raw, params, mega_valid=rung,
+                                        bert_config=TINY_CONFIG))
+    print("  megakernel TINY int8 b=256 ms with one branch on: "
+          + json.dumps(by_branch), flush=True)
+    chain_kw = dict(bert_config=TINY_CONFIG, **QuantSettings.full().static(),
+                    **KernelSettings.full().static())
+    valid = torch.ones(5, dtype=torch.bool, device="cuda")
+
+    def chain():
+        score_fused_packed(models, dev, spec, params, valid, **chain_kw)
+
+    chain_ms = time_ms(chain)
+    chain_device_ms, chain_launches = device_ms(chain)
+    in_bytes = sum(t.numel() * t.element_size() for t in dev.values())
+    n_bytes = plan["param_bytes"] + in_bytes + BATCH * 20 * 4
+    flops = mega_flops(models, TINY_CONFIG, plain_batch)
+    bound_ms, by = bound(n_bytes, flops, "bf16")
+    print(f"  megakernel TINY int8 b={BATCH}: {ms:.4f} ms; per-site chain {chain_ms:.4f} ms"
+          f" by events, {chain_device_ms:.4f} ms device busy in {chain_launches:.0f}"
+          f" device launches; {flops / 1e9:.3f} GFLOP,"
+          f" {n_bytes / 1e6:.3f} MB; plan {plan}", flush=True)
+    return dict(name="megakernel", route="cuda",
+                source="realtime_fraud_detection_tpu_torch/csrc/megakernel.cu",
+                replaces="realtime_fraud_detection_tpu/ops/megakernel.py:363",
+                max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                bound_by=by, library_ms=chain_device_ms,
+                note="TINY int8 bucket 256; library_ms: the per-site chain's "
+                     "device-busy ms on the same batch (no single PyTorch call)")
+
+
+def _kernel_smem(mk, models, raw, cfg) -> int:
+    """The kernel's own shared-memory count for these operands."""
+    args = mk.MegaArgs()
+    args.text_len, args.feat_dim = raw.token_ids.shape[1], raw.features.shape[1]
+    args.hidden, args.ffn = cfg.hidden_size, cfg.intermediate_size
+    args.lstm_hidden, args.lstm_head = models.lstm["w_head1"].shape
+    args.fanout = raw.user_neigh_feat.shape[1]
+    args.gnn_hidden = models.gnn["w_sage1"].shape[1]
+    args.gnn_head = models.gnn["w_head1"].shape[1]
+    args.n_trees = models.trees.leaf.shape[0]
+    args.n_iforest = models.iforest.path_length.shape[0]
+    return int(mk.kernel_library().rtfd_megakernel_smem_bytes(ctypes.addressof(args)))
+
+
+def device_ms(fn, reps: int = 5) -> tuple[float, float]:
+    """Device-busy ms and device launches per call, summed over the
+    kernels (and copies) the profiler records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device)
+    if busy <= 0:
+        fail("the profiler saw no device time")
+    return busy / reps / 1e3, sum(e.count for e in device) / reps
+
+
+def run_mega_slice(ops, params):
+    """The megakernel slice and its honest fallbacks; returns the slice's
+    launch counts."""
+    import numpy as np
+
+    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE, TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
+        init_scoring_models,
+        make_example_batch,
+        packed_width,
+    )
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    models = init_scoring_models(SEED, TINY_CONFIG)
+    mega = TorchFraudScorer(
+        Config(quant=QuantSettings.full(), kernels=KernelSettings.mega()),
+        models=models, bert_config=TINY_CONFIG, device="cuda")
+    chain = TorchFraudScorer(
+        Config(quant=QuantSettings.full(), kernels=KernelSettings.full()),
+        models=models, bert_config=TINY_CONFIG, device="cuda")
+    plain = TorchFraudScorer(Config(quant=QuantSettings.full()), models=models,
+                             bert_config=TINY_CONFIG, device="cuda")
+    batch = make_example_batch(BATCH, rng=np.random.default_rng(SEED + 7))
+    records = [{"transaction_id": f"txn-{i}"} for i in range(BATCH)]
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    pending = mega.dispatch_assembled(batch, records)
+    results = mega.finalize(pending)
+    launches = ops.launch_counts()
+    expected = {"epilogue": 0, "flash_attention": 0, "dequant_matmul": 0,
+                "dequant_rows": 0, "megakernel": 1}
+    print(f"mega slice launches: {launches} (expected {expected})", flush=True)
+    if launches != expected:
+        fail(f"mega slice launch counts {launches} != {expected}")
+    snap = mega.kernel_snapshot()
+    if (snap["dispatch"]["megakernel"], snap["fallback"]["megakernel"],
+            snap["launches_per_batch"]) != (1, 0, 1):
+        fail(f"mega slice kernel snapshot {snap}")
+    mat = pending.out.clone()
+    if mat.shape != (BATCH, packed_width(5, epilogue=True)) or not torch.isfinite(mat).all():
+        fail(f"mega slice result: shape {tuple(mat.shape)} or non-finite values")
+    if len(results) != BATCH:
+        fail("mega slice: malformed responses")
+    ref_pending = plain.dispatch_assembled(batch, records)
+    plain.finalize(ref_pending)
+    ref = ref_pending.out
+    prob_err = float((mat[:, 0] - ref[:, 0]).abs().max())
+    if not prob_err <= SLICE_PROB_TOL:
+        fail(f"mega slice probability err {prob_err} vs the plain path")
+    rungs = (0.3, 0.6, 0.8, 0.95, 0.7)
+    far = ~(near_rung(ref[:, 0], rungs, SLICE_PROB_TOL)
+            | near_rung(ref[:, 1], rungs, SLICE_PROB_TOL))
+    if not torch.equal(mat[far][:, 2:4], ref[far][:, 2:4]):
+        fail("mega slice decisions differ from the plain path")
+    print(f"mega slice vs kernels-off plain path on the card: prob max err "
+          f"{prob_err:.3e}, decision/risk equal on all {int(far.sum())} rows "
+          f"farther than {SLICE_PROB_TOL} from a rung; snapshot {snap}", flush=True)
+
+    # bucket 1: the plan declines, the per-site chain runs and is counted
+    ops.reset_launch_counts()
+    mega.finalize(mega.dispatch_assembled(
+        make_example_batch(1, rng=np.random.default_rng(SEED + 1)), records[:1]))
+    got = ops.launch_counts()
+    want = {"epilogue": 1, "flash_attention": TINY_CONFIG.num_layers,
+            "dequant_matmul": 6 * TINY_CONFIG.num_layers, "dequant_rows": 2,
+            "megakernel": 0}
+    snap = mega.kernel_snapshot()
+    print(f"bucket-1 fallback launches: {got} (expected {want}); snapshot {snap}",
+          flush=True)
+    if got != want or snap["fallback"]["megakernel"] != 1:
+        fail("bucket-1 batch did not fall back honestly")
+
+    # DistilBERT-base under mega(): 70 MB of int8 parameters, declined
+    big = TorchFraudScorer(
+        Config(quant=QuantSettings.full(), kernels=KernelSettings.mega()),
+        models=init_scoring_models(SEED, DISTILBERT_BASE),
+        bert_config=DISTILBERT_BASE, device="cuda")
+    big_batch = make_example_batch(BATCH, rng=np.random.default_rng(SEED),
+                                   vocab_size=DISTILBERT_BASE.vocab_size)
+    ops.reset_launch_counts()
+    big.finalize(big.dispatch_assembled(big_batch, records))
+    got = ops.launch_counts()
+    want = {"epilogue": 1, "flash_attention": DISTILBERT_BASE.num_layers,
+            "dequant_matmul": 6 * DISTILBERT_BASE.num_layers, "dequant_rows": 2,
+            "megakernel": 0}
+    snap = big.kernel_snapshot()
+    print(f"DistilBERT-base under mega(): launches {got} (expected {want}); "
+          f"plan {big._mega_plan(BATCH)}; snapshot {snap}", flush=True)
+    if got != want or snap["fallback"]["megakernel"] != 1:
+        fail("DistilBERT-base batch did not fall back honestly")
+    del big
+
+    time_mega_vs_chain(mega, chain, params)
+    return launches
+
+
+def time_mega_vs_chain(mega, chain, params):
+    """p50 / p99 per batch and txn/s, host clock around dispatch + finalize,
+    megakernel and chain interleaved batch by batch."""
+    import numpy as np
+
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import make_example_batch
+
+    def pct(lat, q):
+        return lat[min(len(lat) - 1, int(round(q * (len(lat) - 1))))]
+
+    for rows in MEGA_BUCKETS:
+        batch = make_example_batch(rows, rng=np.random.default_rng(SEED + rows))
+        records = [{"transaction_id": f"txn-{i}"} for i in range(rows)]
+        lat = {"mega": [], "chain": []}
+        scorers = {"mega": mega, "chain": chain}
+        for _ in range(3):
+            for s in scorers.values():
+                s.finalize(s.dispatch_assembled(batch, records))
+        for _ in range(MEGA_TIMED_BATCHES):
+            for name, s in scorers.items():
+                t0 = time.perf_counter()
+                s.finalize(s.dispatch_assembled(batch, records))
+                lat[name].append((time.perf_counter() - t0) * 1e3)
+        line = {}
+        for name, xs in lat.items():
+            xs.sort()
+            line[name] = dict(p50_ms=pct(xs, 0.5), p99_ms=pct(xs, 0.99),
+                              txn_per_s=rows * len(xs) / (sum(xs) / 1e3))
+        if mega.kernel_snapshot()["launches_per_batch"] != 1:
+            fail(f"bucket {rows}: the megakernel did not serve")
+        print(f"mega vs chain, TINY int8, bucket {rows}, {MEGA_TIMED_BATCHES} batches "
+              f"each after 3 warm-up: " + json.dumps(line), flush=True)
+
+
 def profile_slice(scorer, batch, records, n_batches: int = 5):
     """Device time by kernel over a few batches (torch.profiler, CUPTI)."""
     from torch.autograd import DeviceType
@@ -428,6 +750,7 @@ def main() -> int:
         check_attention(DISTILBERT_BASE, gen),
         check_dequant_matmul(DISTILBERT_BASE, cpu_gen),
         check_dequant_rows(DISTILBERT_BASE, cpu_gen),
+        check_megakernel(params),
     ]
     for e in entries:
         print(f"kernel {e['name']}: max_abs_err {e['max_abs_err']:.3e}, "
@@ -436,6 +759,7 @@ def main() -> int:
               f"{e['library_ms']}) -- {e.pop('note')}", flush=True)
 
     launches = run_slice(ops)
+    launches["megakernel"] = run_mega_slice(ops, params)["megakernel"]
     kernels = [{"name": e["name"], "route": e["route"], "source": e["source"],
                 "replaces": e["replaces"], "launches": launches[e["name"]],
                 "max_abs_err": e["max_abs_err"], "ms": e["ms"],

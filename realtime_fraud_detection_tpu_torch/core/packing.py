@@ -144,13 +144,19 @@ def pack_tree(tree: Any) -> Tuple[Dict[str, np.ndarray], PackSpec]:
     return blobs, spec
 
 
-def unpack_tree(blobs: Dict[str, torch.Tensor], spec: PackSpec) -> Any:
+def unpack_tree(blobs: Dict[str, torch.Tensor], spec: PackSpec,
+                keep_u8: bool = False) -> Any:
     """Device side: slice the blob tensors back into the tree (views plus
-    one dtype cast per leaf)."""
+    one dtype cast per leaf). With ``keep_u8`` bool leaves stay views of
+    the u8 blob, so unpacking launches nothing (for a kernel that reads
+    bytes)."""
     leaves = []
     for blob, offset, tail, dtype_name in spec.entries:
         width = int(math.prod(tail))
         col = blobs[blob][:, offset:offset + width]
         col = col.reshape((col.shape[0],) + tuple(tail))
-        leaves.append(col.to(_TORCH_DTYPE[dtype_name]))
+        if keep_u8 and blob == "u8":
+            leaves.append(col)
+        else:
+            leaves.append(col.to(_TORCH_DTYPE[dtype_name]))
     return tree_unflatten(spec.treedef, leaves)

@@ -21,12 +21,19 @@ from realtime_fraud_detection_tpu_torch.ops.epilogue import (
     epilogue_reference,
     fused_epilogue,
 )
+from realtime_fraud_detection_tpu_torch.ops.megakernel import (
+    fused_megakernel,
+    mega_launch_accounting,
+    mega_plan,
+    megakernel_reference,
+)
 
 KERNEL_WRAPPERS = {
     "epilogue": epilogue_matrix,
     "flash_attention": flash_attention,
     "dequant_matmul": dequant_matmul,
     "dequant_rows": dequant_rows,
+    "megakernel": fused_megakernel,
 }
 
 
@@ -43,6 +50,7 @@ __all__ = [
     "KERNEL_WRAPPERS", "attention_reference", "dequant_matmul",
     "dequant_matmul_reference", "dequant_rows", "dequant_rows_reference",
     "epilogue_matrix", "epilogue_matrix_reference", "epilogue_reference",
-    "flash_attention", "fused_epilogue",
-    "launch_counts", "reset_launch_counts",
+    "flash_attention", "fused_epilogue", "fused_megakernel",
+    "launch_counts", "mega_launch_accounting", "mega_plan",
+    "megakernel_reference", "reset_launch_counts",
 ]

@@ -23,6 +23,12 @@ HEAD_DIM = 64           # the kernel's head width
 MAX_SEQ = 440           # K and V of one (b, h) must fit in shared memory
 
 
+def attention_supported(s: int, d: int) -> bool:
+    """Shapes the flash kernel takes; the encoder falls back to the plain
+    version on any other (and the scorer counts a fallback)."""
+    return d == HEAD_DIM and 0 < s <= MAX_SEQ
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Plain attention over [B, H, S, D]; key_mask bool[B, S]."""
@@ -42,7 +48,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, s, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
-    if d != HEAD_DIM or not 0 < s <= MAX_SEQ:
+    if not attention_supported(s, d):
         raise ValueError(
             f"flash_attention takes D={HEAD_DIM} and 0 < S <= {MAX_SEQ}, "
             f"got D={d} S={s}")

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into an
-object file (all sources at once, one process each), the objects are linked
+object file (all sources at once, one process each; ``csrc/*.cuh`` headers
+are included from there and hashed with them), the objects are linked
 into one shared library with a plain C interface, and the library is loaded
 with ``ctypes``. The build happens on first use, into
 ``<repo>/build/kernels/<hash>/`` keyed on a hash of the sources and flags, so
@@ -35,6 +36,9 @@ SIGNATURES = {
                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
     "rtfd_dequant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rtfd_dequant_rows": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # one MegaArgs struct by address, the grid size, the stream
+    "rtfd_megakernel": [_P, _I, _P],
+    "rtfd_megakernel_smem_bytes": [_P],
 }
 
 _lib = None
@@ -45,9 +49,13 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
+    for path in sources() + headers():
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]

@@ -5,9 +5,11 @@ FraudScorer``: ``dispatch_assembled`` pads an assembled microbatch to its
 bucket, packs it into the three transfer blobs, copies them to the card
 from pinned host memory, launches the fused scorer and starts the copy of
 the result matrix back into pinned host memory behind a CUDA event;
-``finalize`` waits on that event and builds the response dicts. Host
-assembly (stores, tokenizer, ``assemble``), state write-back, pools, the
-mesh and tracing are not part of this port yet.
+``finalize`` waits on that event and builds the response dicts. The kernel
+plane's host-side accounting (``kernel_snapshot``) records per batch which
+kernels the fused scorer dispatched and which shape guards sent a site back
+to its plain version. Host assembly (stores, tokenizer, ``assemble``), state
+write-back, pools, the mesh and tracing are not part of this port yet.
 """
 
 from __future__ import annotations
@@ -32,7 +34,20 @@ from realtime_fraud_detection_tpu_torch.features.rules import (
     risk_level_codes_np,
 )
 from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG, BertConfig
-from realtime_fraud_detection_tpu_torch.models.quant import quantize_bert_params
+from realtime_fraud_detection_tpu_torch.models.quant import (
+    is_quantized_bert,
+    quantize_bert_params,
+)
+from realtime_fraud_detection_tpu_torch.ops.attention import attention_supported
+from realtime_fraud_detection_tpu_torch.ops.dequant_matmul import (
+    matmul_supported,
+    rows_supported,
+)
+from realtime_fraud_detection_tpu_torch.ops.epilogue import epilogue_supported
+from realtime_fraud_detection_tpu_torch.ops.megakernel import (
+    mega_launch_accounting,
+    mega_plan,
+)
 from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
     MODEL_NAMES,
     NUM_MODELS,
@@ -43,7 +58,7 @@ from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
     init_scoring_models,
     score_fused_packed,
 )
-from realtime_fraud_detection_tpu_torch.utils.config import Config
+from realtime_fraud_detection_tpu_torch.utils.config import VALID_KERNEL_SITES, Config
 
 
 @dataclasses.dataclass
@@ -84,6 +99,13 @@ class TorchFraudScorer:
             [n in self.config.model_weights for n in MODEL_NAMES], bool)
         self._qos_mask: Optional[np.ndarray] = None
         self._qos_rules_only = False
+        self._kernel_counts: Dict[str, Dict[str, int]] = {
+            "dispatch": {site: 0 for site in VALID_KERNEL_SITES},
+            "fallback": {site: 0 for site in VALID_KERNEL_SITES},
+        }
+        # launches of the most recent batch: 1 when the megakernel served
+        # it, the chain's program count otherwise
+        self._last_launches_per_batch = 0
         self.set_models(models if models is not None else init_scoring_models(
             seed, bert_config, feature_dim=self.sc.feature_dim,
             node_dim=self.sc.node_dim))
@@ -96,6 +118,7 @@ class TorchFraudScorer:
             models = dataclasses.replace(
                 models, bert=quantize_bert_params(models.bert))
         self.models = models.to(self.device)
+        self._mega_plans: Dict[int, Dict[str, Any]] = {}
 
     def set_degradation(self, mask: Optional[np.ndarray],
                         rules_only: bool = False) -> None:
@@ -109,6 +132,88 @@ class TorchFraudScorer:
         if self._qos_mask is None:
             return self.model_valid.copy()
         return self.model_valid & self._qos_mask
+
+    # ----------------------------------------------------------- kernel plane
+    def kernel_static(self, model_valid=None) -> Dict[str, Any]:
+        """The kernel selection the fused scorer takes. With the megakernel
+        on, ``mega_valid`` is the QoS rung as a tuple of branch-validity
+        booleans (``model_valid`` when given, the dispatch-time snapshot;
+        else the current effective mask); with it off, None."""
+        static = dict(self.kernels.static())
+        mega_valid = None
+        if static["megakernel"] == "cuda":
+            mv = (self.effective_model_valid() if model_valid is None
+                  else np.asarray(model_valid))
+            mega_valid = tuple(bool(v) for v in mv)
+        static["mega_valid"] = mega_valid
+        return static
+
+    def _mega_plan(self, size: int) -> Dict[str, Any]:
+        """The megakernel's shape plan for a ``size``-row batch: the one
+        ``score_fused_packed`` consults (the typed graph, the only source
+        of two-hop batches, is not ported). Kept per size until the models
+        change."""
+        plan = self._mega_plans.get(size)
+        if plan is None:
+            plan = self._mega_plans[size] = mega_plan(
+                self.models, self.bert_config, b=size,
+                text_len=self.sc.text_len, seq_len=self.sc.seq_len,
+                feature_dim=self.sc.feature_dim, has_two_hop=False,
+                fanout=self.sc.fanout)
+        return plan
+
+    def _record_kernel_dispatch(self, size: int, model_valid) -> None:
+        """Host-side account of the kernels one ``size``-row batch under the
+        rung ``model_valid`` dispatches. A site counts as dispatched when
+        its mode asks for the kernel, and as a fallback when the shape guard
+        the fused scorer consults sends it to the plain version. A batch the
+        megakernel's plan admits runs one launch and touches no per-site
+        counter; a declined one counts a megakernel fallback and the
+        per-site chain."""
+        if not self.kernels.enabled:
+            return
+        modes = self.kernels.site_modes()
+        disp = self._kernel_counts["dispatch"]
+        fall = self._kernel_counts["fallback"]
+        if modes["megakernel"] == "cuda":
+            disp["megakernel"] += 1
+            if self._mega_plan(size)["supported"]:
+                self._last_launches_per_batch = 1
+                return
+            fall["megakernel"] += 1
+        self._last_launches_per_batch = mega_launch_accounting(
+            size, NUM_MODELS, mega_valid=tuple(bool(v) for v in model_valid),
+        )["launches_per_batch_chain"]
+        h = self.bert_config.hidden_size
+        ffn = self.bert_config.intermediate_size
+        s = self.sc.text_len
+        m = size * s
+        if modes["dequant_matmul"] == "cuda":
+            disp["dequant_matmul"] += 1
+            # f32 parameters have no int8 site: the plain matmul runs
+            ok = (is_quantized_bert(self.models.bert)
+                  and matmul_supported(m, h, h) and matmul_supported(m, h, ffn)
+                  and matmul_supported(m, ffn, h) and rows_supported(h))
+            if not ok:
+                fall["dequant_matmul"] += 1
+        if modes["epilogue"] == "cuda":
+            disp["epilogue"] += 1
+            if not epilogue_supported(size, NUM_MODELS):
+                fall["epilogue"] += 1
+        if modes["attention"] == "flash":
+            disp["attention"] += 1
+            if not attention_supported(s, self.bert_config.head_dim):
+                fall["attention"] += 1
+
+    def kernel_snapshot(self) -> Dict[str, Any]:
+        """Effective per-site modes, cumulative dispatch / fallback counts
+        per site, and the launch count of the most recent batch."""
+        return {
+            "modes": self.kernels.site_modes(),
+            "dispatch": dict(self._kernel_counts["dispatch"]),
+            "fallback": dict(self._kernel_counts["fallback"]),
+            "launches_per_batch": self._last_launches_per_batch,
+        }
 
     # ---------------------------------------------------------------- scoring
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
@@ -126,16 +231,17 @@ class TorchFraudScorer:
         the device."""
         t0 = time.perf_counter() if t0 is None else t0
         n = len(records)
-        padded, mask, _ = pad_to_bucket(batch, n)
+        padded, mask, size = pad_to_bucket(batch, n)
         padded = dataclasses.replace(padded, valid=mask)
         blobs, spec = pack_tree(padded)
         dev_blobs = {name: self._to_device(arr) for name, arr in blobs.items()}
         mv = self.effective_model_valid()
+        self._record_kernel_dispatch(size, mv)
         out = score_fused_packed(
             self.models, dev_blobs, spec, self.ensemble_params,
             self._to_device(mv), bert_config=self.bert_config,
             compute_dtype=self.compute_dtype,
-            **self.quant.static(), **self.kernels.static())
+            **self.quant.static(), **self.kernel_static(mv))
         event = None
         if self.device.type == "cuda":
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)

@@ -96,6 +96,8 @@ class QuantSettings:
                 "iforest_kernel": self.iforest_kernel}
 
 
+VALID_KERNEL_SITES = ("dequant_matmul", "epilogue", "attention",
+                      "megakernel")
 VALID_KERNEL_MODES = ("off", "cuda")
 VALID_ATTENTION_KERNELS = ("reference", "flash")
 
@@ -104,19 +106,24 @@ VALID_ATTENTION_KERNELS = ("reference", "flash")
 class KernelSettings:
     """Hand-written kernel plane (ops/): per-site kernel selection.
 
-    ``dequant_matmul`` and ``epilogue`` are "off" or "cuda"; ``attention``
-    is "reference" or "flash". The megakernel site of the JAX package is
-    not ported yet. Off by default.
+    ``dequant_matmul``, ``epilogue`` and ``megakernel`` are "off" or
+    "cuda"; ``attention`` is "reference" or "flash". When the megakernel
+    engages it subsumes the three per-site kernels: one launch scores the
+    batch, and the per-site selections only matter on shapes its plan
+    declines (``ops/megakernel.py mega_plan``), which fall back to the
+    per-site chain. Off by default.
     """
 
     enabled: bool = False
     dequant_matmul: str = "off"
     epilogue: str = "off"
     attention: str = "reference"
+    megakernel: str = "off"
 
     def validate(self) -> None:
         for name, mode in (("dequant_matmul", self.dequant_matmul),
-                           ("epilogue", self.epilogue)):
+                           ("epilogue", self.epilogue),
+                           ("megakernel", self.megakernel)):
             if mode not in VALID_KERNEL_MODES:
                 raise ValueError(
                     f"kernels.{name} must be one of {VALID_KERNEL_MODES}, "
@@ -132,19 +139,28 @@ class KernelSettings:
         return cls(enabled=True, dequant_matmul="cuda", epilogue="cuda",
                    attention="flash")
 
+    @classmethod
+    def mega(cls) -> "KernelSettings":
+        """``full()`` plus the persistent megakernel; the per-site plane
+        stays the fallback for shapes the megakernel's plan declines."""
+        return cls(enabled=True, dequant_matmul="cuda", epilogue="cuda",
+                   attention="flash", megakernel="cuda")
+
     def site_modes(self) -> Dict[str, str]:
         if not self.enabled:
             return {"dequant_matmul": "off", "epilogue": "off",
-                    "attention": "reference"}
+                    "attention": "reference", "megakernel": "off"}
         return {"dequant_matmul": self.dequant_matmul,
-                "epilogue": self.epilogue, "attention": self.attention}
+                "epilogue": self.epilogue, "attention": self.attention,
+                "megakernel": self.megakernel}
 
     def static(self) -> Dict[str, object]:
         """The kernel selection the fused scorer takes."""
         modes = self.site_modes()
         return {"dequant_kernel": modes["dequant_matmul"],
                 "epilogue_kernel": modes["epilogue"],
-                "use_flash": modes["attention"] == "flash"}
+                "use_flash": modes["attention"] == "flash",
+                "megakernel": modes["megakernel"]}
 
 
 @dataclass
