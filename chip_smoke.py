@@ -24,11 +24,13 @@ Phases, each of which raises (and exits non-zero) on failure:
    rows, with the CPU, then time batches after warm-up;
 5. the megakernel slice: ``TorchFraudScorer`` at TINY with int8 BERT and
    ``KernelSettings.mega()``; one bucket-256 batch launches the megakernel
-   once and no per-site kernel, and matches the kernels-off plain path;
+   once and no per-site kernel (the counters and ``kernel_snapshot()``
+   agree), and matches the kernels-off plain path;
 6. honest fallbacks: on that scorer a bucket-1 batch runs the per-site
    chain (launches 1/2/12/2) and counts a megakernel fallback, and a
    DistilBERT-base batch under ``mega()`` is declined by the plan and runs
-   the chain (1/6/36/2);
+   the chain (1/6/36/2); the snapshot's ``kernel_launches`` equals the
+   counters' sum each time;
 7. megakernel against the per-site chain at TINY int8, buckets 8, 32, 128
    and 256: p50 / p99 per batch and txn/s, host clock, interleaved.
 
@@ -599,7 +601,7 @@ def run_mega_slice(ops, params):
         fail(f"mega slice launch counts {launches} != {expected}")
     snap = mega.kernel_snapshot()
     if (snap["dispatch"]["megakernel"], snap["fallback"]["megakernel"],
-            snap["launches_per_batch"]) != (1, 0, 1):
+            snap["launches_per_batch"], snap["kernel_launches"]) != (1, 0, 1, 1):
         fail(f"mega slice kernel snapshot {snap}")
     mat = pending.out.clone()
     if mat.shape != (BATCH, packed_width(5, epilogue=True)) or not torch.isfinite(mat).all():
@@ -632,7 +634,8 @@ def run_mega_slice(ops, params):
     snap = mega.kernel_snapshot()
     print(f"bucket-1 fallback launches: {got} (expected {want}); snapshot {snap}",
           flush=True)
-    if got != want or snap["fallback"]["megakernel"] != 1:
+    if (got != want or snap["fallback"]["megakernel"] != 1
+            or snap["kernel_launches"] != sum(want.values())):
         fail("bucket-1 batch did not fall back honestly")
 
     # DistilBERT-base under mega(): 70 MB of int8 parameters, declined
@@ -651,7 +654,8 @@ def run_mega_slice(ops, params):
     snap = big.kernel_snapshot()
     print(f"DistilBERT-base under mega(): launches {got} (expected {want}); "
           f"plan {big._mega_plan(BATCH)}; snapshot {snap}", flush=True)
-    if got != want or snap["fallback"]["megakernel"] != 1:
+    if (got != want or snap["fallback"]["megakernel"] != 1
+            or snap["kernel_launches"] != sum(want.values())):
         fail("DistilBERT-base batch did not fall back honestly")
     del big
 

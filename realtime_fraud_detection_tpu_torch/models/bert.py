@@ -11,9 +11,7 @@ the weight-only int8 ``{"qw", "scale", "b"}`` / ``{"qe", "scale"}`` of
 product rounded to bf16, f32 accumulation, bias added in f32), f32 for
 tests. Kernel selection: ``dequant_kernel="cuda"`` routes the int8 dense
 layers and embedding rows through ``ops/dequant_matmul.py``, and
-``use_flash`` the attention through ``ops/attention.py``; a shape a kernel's
-``*_supported`` guard declines takes the plain version, as in the JAX
-package (the scorer's fallback counters read the same guards).
+``use_flash`` the attention through ``ops/attention.py``.
 """
 
 from __future__ import annotations
@@ -28,7 +26,6 @@ import torch.nn.functional as F
 from realtime_fraud_detection_tpu_torch.core.precision import matmul_cd
 from realtime_fraud_detection_tpu_torch.ops.attention import (
     attention_reference,
-    attention_supported,
     flash_attention,
 )
 from realtime_fraud_detection_tpu_torch.ops.dequant_matmul import (
@@ -36,8 +33,6 @@ from realtime_fraud_detection_tpu_torch.ops.dequant_matmul import (
     dequant_matmul_reference,
     dequant_rows,
     dequant_rows_reference,
-    matmul_supported,
-    rows_supported,
 )
 
 
@@ -113,7 +108,7 @@ def _dense(x, p, compute_dtype, dequant_kernel="off"):
         lead = x.shape[:-1]
         k, n = p["qw"].shape
         x2 = x.reshape(-1, k)
-        if dequant_kernel == "cuda" and matmul_supported(x2.shape[0], k, n):
+        if dequant_kernel == "cuda":
             y = dequant_matmul(x2.contiguous(), p["qw"], p["scale"], p["b"],
                                compute_dtype=compute_dtype)
         else:
@@ -127,9 +122,7 @@ def _embedding_rows(table, idx=None, length=None, dequant_kernel="off"):
     """Embedding lookup for both layouts: gather rows ``idx`` or take the
     first ``length``; f32 rows either way."""
     if isinstance(table, dict) and "qe" in table:
-        use_kernel = (dequant_kernel == "cuda"
-                      and rows_supported(table["qe"].shape[1]))
-        fn = dequant_rows if use_kernel else dequant_rows_reference
+        fn = dequant_rows if dequant_kernel == "cuda" else dequant_rows_reference
         if idx is not None:
             rows = fn(table["qe"], table["scale"], idx=idx.contiguous())
             return rows.reshape(*idx.shape, -1)
@@ -161,7 +154,6 @@ def bert_layer(layer: Dict, x: torch.Tensor, attention_mask: torch.Tensor,
     def split(t):
         return t.reshape(b, s, config.num_heads, config.head_dim).permute(0, 2, 1, 3)
 
-    use_flash = use_flash and attention_supported(s, config.head_dim)
     attend = flash_attention if use_flash else attention_reference
     ctx = attend(split(q), split(k), split(v), attention_mask)
     ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, config.hidden_size)

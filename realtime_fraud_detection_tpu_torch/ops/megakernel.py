@@ -16,11 +16,11 @@ pruned branch does no work, its prediction lane is exactly 0.0 and its
 weight is masked in the blend (``vf = valid x mega_valid``).
 
 The shape plan (``mega_plan``) decides which dispatches the megakernel
-takes; the fused scorer's guard and the scorer's fallback counters read the
-same plan, so a declined batch runs the per-site chain and is counted as a
-megakernel fallback. It is the JAX package's plan with the budget moved
-from the TPU core's VMEM to the H100 (``_MEGA_L2_BUDGET``), plus the limits
-of the CUDA kernel's own shared-memory layout (``mega_kernel_shapes_ok``).
+takes: the scorer reads it once per bucket, sends an admitted batch here
+and counts a declined one as a megakernel fallback that runs the per-site
+chain. It is the JAX package's plan with the budget moved from the TPU
+core's VMEM to the H100's L2 (``_MEGA_L2_BUDGET``) and with the limits of
+the CUDA kernel's own shared-memory layout (``mega_kernel_shapes_ok``).
 """
 
 from __future__ import annotations
@@ -39,21 +39,16 @@ from realtime_fraud_detection_tpu_torch.ops.epilogue import _statics, combine_ma
 # functions: models.bert imports ops.attention, so a module-level import
 # here would cycle through ops/__init__ while models.bert initialises.
 
-# The budget of the JAX plan was 14 MiB of a TPU core's VMEM. On the H100
-# the counterpart is the 50 MB L2: every CTA re-reads the parameters for
-# each row it scores, so they must stay resident there, and the rows in
-# flight (a block, at the reference's per-row activation count) spill
-# their working set from shared memory into the same cache. 40 MiB of the
-# 50 MB leaves room for the inputs and outputs streaming through.
-# With it, TINY int8 (5.3 MB of parameters, 0.29 MB per row) takes blocks of
-# up to 64 rows; TINY f32 (17.9 MB) is admitted too, which the TPU plan
-# declines; DistilBERT-base (70 MB int8, 269 MB f32) is declined as there.
+# The budget of the JAX plan was 14 MiB of a TPU core's VMEM for the
+# parameters plus a block of rows' activations. On the H100 the counterpart
+# is the 50 MB L2: every CTA re-reads the parameters for each row it
+# scores, so they must stay resident there, while a row's activations live
+# in its CTA's shared memory (``mega_smem_bytes``) and are not charged.
+# 40 MiB of the 50 MB leaves room for the inputs and outputs streaming
+# through. TINY int8 (5.3 MB of parameters) and TINY f32 (17.9 MB, which
+# the TPU plan declines) are admitted; DistilBERT-base (70 MB int8, 269 MB
+# f32) is declined as there.
 _MEGA_L2_BUDGET = 40 * (1 << 20)
-
-# Largest-first candidates; a block must divide the bucket size exactly
-# (buckets are powers of two, core/batching.py). The CUDA grid does not
-# follow the block: its CTAs stride over the batch one row at a time.
-MEGA_BLOCK_CANDIDATES: Tuple[int, ...] = (128, 64, 32, 16, 8)
 
 # Below this the launch chain is already cheap and padding waste dominates
 # -- bucket 1 stays on the per-site kernel path (an honest fallback).
@@ -62,7 +57,7 @@ MEGA_MIN_BATCH = 8
 # What csrc/megakernel.cu's layout takes (its MEGA_* constants): one row
 # per CTA iteration with the text in 8 warps of up to 8 tokens each, dense
 # outputs in up to 8 column groups of 32 per lane, attention heads of up
-# to 64 lanes' worth, and the shared memory a block may use on the card.
+# to 64 lanes' worth, and the shared memory a CTA may use on the card.
 MEGA_NUM_MODELS = 5
 MEGA_MAX_LAYERS = 8
 MEGA_MAX_TEXT = 64
@@ -135,7 +130,9 @@ def mega_act_row_bytes(bert_config, *, text_len: int, seq_len: int,
     package's count: BERT hidden + residual + FFN activations
     ``S*(2H+F)`` plus the attention probabilities ``heads*S^2``; the
     GEMM-form one-hot leaf tensors of both tree ensembles; the LSTM's
-    ``T*F`` history slab; one feature row."""
+    ``T*F`` history slab; one feature row. The H100 plan does not charge
+    it (the CUDA kernel keeps a row's activations in shared memory); it
+    pins the two packages' numbers against each other."""
     h = bert_config.hidden_size
     f = bert_config.intermediate_size
     bert = text_len * (2 * h + f) * 4 + bert_config.num_heads * text_len * text_len * 4
@@ -144,23 +141,12 @@ def mega_act_row_bytes(bert_config, *, text_len: int, seq_len: int,
     return int(bert + trees + lstm + feature_dim * 4)
 
 
-def mega_block(b: int, param_bytes: int, act_row_bytes: int) -> int:
-    """Largest block that divides ``b`` and fits the L2 budget with the
-    parameters; 0 when none does (the caller falls back)."""
-    for cand in MEGA_BLOCK_CANDIDATES:
-        if b % cand:
-            continue
-        if cand * act_row_bytes + param_bytes <= _MEGA_L2_BUDGET:
-            return cand
-    return 0
-
-
-def mega_supported(b: int, param_bytes: int, act_row_bytes: int,
-                   has_two_hop: bool = False) -> bool:
-    """True when the budget admits a ``b``-row microbatch. Two-hop
-    typed-graph frontiers stay on the per-site path."""
+def mega_supported(b: int, param_bytes: int, has_two_hop: bool = False) -> bool:
+    """True when the H100 plan admits a ``b``-row microbatch: a bucket of
+    at least ``MEGA_MIN_BATCH`` rows and parameters that fit the L2
+    budget. Two-hop typed-graph frontiers stay on the per-site path."""
     return (b >= MEGA_MIN_BATCH and not has_two_hop
-            and mega_block(b, param_bytes, act_row_bytes) > 0)
+            and param_bytes <= _MEGA_L2_BUDGET)
 
 
 def _dims(models, bert_config, text_len: int, feat_dim: int) -> Dict[str, int]:
@@ -215,25 +201,18 @@ def mega_kernel_shapes_ok(dims: Dict[str, int], smem_bytes: int) -> bool:
 def mega_plan(models, bert_config, *, b: int, text_len: int, seq_len: int,
               feature_dim: int, has_two_hop: bool,
               fanout: int = 16) -> Dict[str, Any]:
-    """One shared shape plan for a dispatch: the same numbers feed the
-    fused scorer's guard and the scorer's fallback counters."""
+    """The shape plan for a ``b``-row dispatch: ``supported`` when the L2
+    budget admits it and the kernel's layout takes its widths."""
     pb = mega_param_bytes(models)
-    t1, l1 = models.trees.leaf.shape
-    t2, l2 = models.iforest.path_length.shape
-    arb = mega_act_row_bytes(bert_config, text_len=text_len,
-                             seq_len=seq_len, feature_dim=feature_dim,
-                             tree_onehot=t1 * l1 + t2 * l2)
     dims = _dims(models, bert_config, text_len, feature_dim)
     smem = mega_smem_bytes(dims, fanout)
     shapes_ok = mega_kernel_shapes_ok(dims, smem)
     return {
         "param_bytes": pb,
-        "act_row_bytes": arb,
-        "block": mega_block(b, pb, arb),
         "has_two_hop": bool(has_two_hop),
         "smem_bytes": smem,
         "kernel_shapes": shapes_ok,
-        "supported": shapes_ok and mega_supported(b, pb, arb, has_two_hop),
+        "supported": shapes_ok and mega_supported(b, pb, has_two_hop),
     }
 
 
@@ -528,45 +507,32 @@ def _launch(models, batch, params, mega_valid, bert_config, compute_dtype):
 
 def fused_megakernel(models, batch, params, *,
                      mega_valid: Tuple[bool, ...], bert_config=None,
-                     block: Optional[int] = None,
                      compute_dtype: torch.dtype = torch.bfloat16
                      ) -> torch.Tensor:
     """Score a whole microbatch in one launch -> the extended packed
     f32[B, 2M+10] matrix (OUT_COLUMNS, model predictions, contributions,
     rule_decision / rule_risk). ``mega_valid`` is the QoS rung. Raises on
-    a dispatch the plan declines (callers pre-check ``mega_plan``)."""
+    widths the kernel's layout does not take and on two-hop batches;
+    whether a batch should take the megakernel at all (bucket size, L2
+    budget) is the caller's decision from ``mega_plan``."""
     from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
 
     bert_config = bert_config or TINY_CONFIG
     mega_valid = tuple(bool(v) for v in mega_valid)
     if len(mega_valid) != MEGA_NUM_MODELS:
         raise ValueError(f"mega_valid needs {MEGA_NUM_MODELS} entries")
-    b = int(batch.features.shape[0])
-    text_len, feat_dim = int(batch.token_ids.shape[1]), int(batch.features.shape[1])
-    fanout = int(batch.user_neigh_feat.shape[1])
-    if block is None:
-        plan = mega_plan(
-            models, bert_config, b=b, text_len=text_len,
-            seq_len=int(batch.history.shape[1]), feature_dim=feat_dim,
-            has_two_hop=batch.user_neigh2_feat is not None, fanout=fanout)
-        if not plan["supported"]:
-            raise ValueError(
-                f"unsupported megakernel dispatch b={b} plan={plan} "
-                "(callers must pre-check mega_plan)")
-        block = plan["block"]
-    if b % block:
-        raise ValueError(f"block {block} does not tile batch {b}")
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"compute_dtype must be bf16 or f32, got {compute_dtype}")
+    dims = _dims(models, bert_config, int(batch.token_ids.shape[1]),
+                 int(batch.features.shape[1]))
+    if (batch.user_neigh2_feat is not None or not mega_kernel_shapes_ok(
+            dims, mega_smem_bytes(dims, int(batch.user_neigh_feat.shape[1])))):
+        raise ValueError(f"the megakernel does not take these shapes: {dims}")
     if batch.features.device.type == "cpu":
         return megakernel_reference(models, batch, params,
                                     mega_valid=mega_valid,
                                     bert_config=bert_config,
                                     compute_dtype=compute_dtype)
-    dims = _dims(models, bert_config, text_len, feat_dim)
-    if (batch.user_neigh2_feat is not None or not mega_kernel_shapes_ok(
-            dims, mega_smem_bytes(dims, fanout))):
-        raise ValueError(f"the megakernel does not take these shapes: {dims}")
     return _launch(models, batch, params, mega_valid, bert_config,
                    compute_dtype)
 

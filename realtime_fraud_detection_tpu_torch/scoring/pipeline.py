@@ -54,7 +54,7 @@ from realtime_fraud_detection_tpu_torch.models.trees import (
     tree_ensemble_predict,
 )
 from realtime_fraud_detection_tpu_torch.ops.epilogue import epilogue_matrix
-from realtime_fraud_detection_tpu_torch.ops.megakernel import fused_megakernel, mega_plan
+from realtime_fraud_detection_tpu_torch.ops.megakernel import fused_megakernel
 
 MODEL_NAMES: tuple[str, ...] = (
     "xgboost_primary",
@@ -243,27 +243,18 @@ def score_fused_packed(models: ScoringModels, blobs: Dict[str, torch.Tensor],
                        ) -> torch.Tensor:
     """Packed blobs in, one f32 result matrix out (see ``OUT_COLUMNS``).
 
-    With ``megakernel="cuda"`` and a ``mega_valid`` rung, a batch the
-    megakernel's plan admits is scored in one launch that returns the
-    extended matrix itself; any other batch falls through to the per-site
-    chain below, unchanged.
+    With ``megakernel="cuda"`` and a ``mega_valid`` rung the batch is
+    scored in one megakernel launch that returns the extended matrix
+    itself; the caller passes the rung only for a batch the megakernel's
+    plan admits (``TorchFraudScorer.kernel_static``). Without a rung the
+    per-site chain below runs, unchanged.
     """
     if megakernel == "cuda" and mega_valid is not None:
-        on_card = blobs["f32"].device.type == "cuda"
-        batch = unpack_tree(blobs, spec, keep_u8=on_card)
-        plan = mega_plan(
-            models, bert_config, b=batch.batch_size,
-            text_len=int(batch.token_ids.shape[1]),
-            seq_len=int(batch.history.shape[1]),
-            feature_dim=int(batch.features.shape[1]),
-            has_two_hop=batch.user_neigh2_feat is not None,
-            fanout=int(batch.user_neigh_feat.shape[1]))
-        if plan["supported"]:
-            return fused_megakernel(models, batch, params,
-                                    mega_valid=mega_valid,
-                                    bert_config=bert_config,
-                                    block=plan["block"],
-                                    compute_dtype=compute_dtype)
+        batch = unpack_tree(blobs, spec,
+                            keep_u8=blobs["f32"].device.type == "cuda")
+        return fused_megakernel(models, batch, params, mega_valid=mega_valid,
+                                bert_config=bert_config,
+                                compute_dtype=compute_dtype)
     batch = unpack_tree(blobs, spec)
     out = score_fused(models, batch, params, model_valid,
                       bert_config=bert_config, use_flash=use_flash,

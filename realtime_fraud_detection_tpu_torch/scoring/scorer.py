@@ -7,9 +7,11 @@ from pinned host memory, launches the fused scorer and starts the copy of
 the result matrix back into pinned host memory behind a CUDA event;
 ``finalize`` waits on that event and builds the response dicts. The kernel
 plane's host-side accounting (``kernel_snapshot``) records per batch which
-kernels the fused scorer dispatched and which shape guards sent a site back
-to its plain version. Host assembly (stores, tokenizer, ``assemble``), state
-write-back, pools, the mesh and tracing are not part of this port yet.
+kernel sites the fused scorer dispatched, which fell back (the megakernel's
+plan declining a batch, or f32 BERT weights leaving the int8 site no work),
+and how many hand-written kernels the batch launched. Host assembly
+(stores, tokenizer, ``assemble``), state write-back, pools, the mesh and
+tracing are not part of this port yet.
 """
 
 from __future__ import annotations
@@ -38,15 +40,15 @@ from realtime_fraud_detection_tpu_torch.models.quant import (
     is_quantized_bert,
     quantize_bert_params,
 )
+from realtime_fraud_detection_tpu_torch.ops import (
+    launch_counts,
+    mega_launch_accounting,
+    mega_plan,
+)
 from realtime_fraud_detection_tpu_torch.ops.attention import attention_supported
 from realtime_fraud_detection_tpu_torch.ops.dequant_matmul import (
     matmul_supported,
     rows_supported,
-)
-from realtime_fraud_detection_tpu_torch.ops.epilogue import epilogue_supported
-from realtime_fraud_detection_tpu_torch.ops.megakernel import (
-    mega_launch_accounting,
-    mega_plan,
 )
 from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
     MODEL_NAMES,
@@ -103,9 +105,10 @@ class TorchFraudScorer:
             "dispatch": {site: 0 for site in VALID_KERNEL_SITES},
             "fallback": {site: 0 for site in VALID_KERNEL_SITES},
         }
-        # launches of the most recent batch: 1 when the megakernel served
-        # it, the chain's program count otherwise
+        # the most recent batch: the JAX package's program count (1 when
+        # the megakernel served it) and the port's hand-written launches
         self._last_launches_per_batch = 0
+        self._last_kernel_launches = 0
         self.set_models(models if models is not None else init_scoring_models(
             seed, bert_config, feature_dim=self.sc.feature_dim,
             node_dim=self.sc.node_dim))
@@ -113,12 +116,31 @@ class TorchFraudScorer:
     # ----------------------------------------------------------------- models
     def set_models(self, models: ScoringModels) -> None:
         """Swap the model set; with int8 BERT configured the weights are
-        quantized on the host first (idempotent), then moved to the device."""
+        quantized on the host first (idempotent), then moved to the device.
+        Raises when a per-site kernel the settings ask for does not take the
+        configured widths (its wrapper would raise on every batch)."""
         if self.quant.bert_mode() == "int8":
             models = dataclasses.replace(
                 models, bert=quantize_bert_params(models.bert))
+        self._check_kernel_widths(models)
         self.models = models.to(self.device)
         self._mega_plans: Dict[int, Dict[str, Any]] = {}
+
+    def _check_kernel_widths(self, models: ScoringModels) -> None:
+        modes = self.kernels.site_modes()
+        h = self.bert_config.hidden_size
+        ffn = self.bert_config.intermediate_size
+        if (modes["dequant_matmul"] == "cuda" and is_quantized_bert(models.bert)
+                and not (matmul_supported(1, h, h) and matmul_supported(1, h, ffn)
+                         and matmul_supported(1, ffn, h) and rows_supported(h))):
+            raise ValueError(f"the dequant_matmul kernel does not take hidden {h}"
+                             f" / FFN {ffn}")
+        if (modes["attention"] == "flash"
+                and not attention_supported(self.sc.text_len,
+                                            self.bert_config.head_dim)):
+            raise ValueError(
+                f"the flash attention kernel does not take text length "
+                f"{self.sc.text_len} / head width {self.bert_config.head_dim}")
 
     def set_degradation(self, mask: Optional[np.ndarray],
                         rules_only: bool = False) -> None:
@@ -134,14 +156,16 @@ class TorchFraudScorer:
         return self.model_valid & self._qos_mask
 
     # ----------------------------------------------------------- kernel plane
-    def kernel_static(self, model_valid=None) -> Dict[str, Any]:
-        """The kernel selection the fused scorer takes. With the megakernel
-        on, ``mega_valid`` is the QoS rung as a tuple of branch-validity
+    def kernel_static(self, size: int, model_valid=None) -> Dict[str, Any]:
+        """The kernel selection the fused scorer takes for a ``size``-row
+        batch. ``mega_valid`` is the QoS rung as a tuple of branch-validity
         booleans (``model_valid`` when given, the dispatch-time snapshot;
-        else the current effective mask); with it off, None."""
+        else the current effective mask) when the megakernel is on and its
+        plan admits the batch; None otherwise, which runs the per-site
+        chain."""
         static = dict(self.kernels.static())
         mega_valid = None
-        if static["megakernel"] == "cuda":
+        if static["megakernel"] == "cuda" and self._mega_plan(size)["supported"]:
             mv = (self.effective_model_valid() if model_valid is None
                   else np.asarray(model_valid))
             mega_valid = tuple(bool(v) for v in mv)
@@ -149,10 +173,9 @@ class TorchFraudScorer:
         return static
 
     def _mega_plan(self, size: int) -> Dict[str, Any]:
-        """The megakernel's shape plan for a ``size``-row batch: the one
-        ``score_fused_packed`` consults (the typed graph, the only source
-        of two-hop batches, is not ported). Kept per size until the models
-        change."""
+        """The megakernel's shape plan for a ``size``-row batch (the typed
+        graph, the only source of two-hop batches, is not ported). Kept per
+        size until the models change."""
         plan = self._mega_plans.get(size)
         if plan is None:
             plan = self._mega_plans[size] = mega_plan(
@@ -162,14 +185,15 @@ class TorchFraudScorer:
                 fanout=self.sc.fanout)
         return plan
 
-    def _record_kernel_dispatch(self, size: int, model_valid) -> None:
-        """Host-side account of the kernels one ``size``-row batch under the
-        rung ``model_valid`` dispatches. A site counts as dispatched when
-        its mode asks for the kernel, and as a fallback when the shape guard
-        the fused scorer consults sends it to the plain version. A batch the
-        megakernel's plan admits runs one launch and touches no per-site
-        counter; a declined one counts a megakernel fallback and the
-        per-site chain."""
+    def _record_kernel_dispatch(self, size: int, model_valid,
+                                mega_served: bool) -> None:
+        """Host-side account of the kernel sites one ``size``-row batch
+        under the rung ``model_valid`` dispatches. A batch the megakernel
+        served runs one launch and touches no per-site counter; a declined
+        one counts a megakernel fallback and the per-site chain. A per-site
+        site counts as dispatched when its mode asks for the kernel (the
+        widths were checked by ``set_models``); the int8 site also counts
+        a fallback with f32 BERT weights, where the plain matmul runs."""
         if not self.kernels.enabled:
             return
         modes = self.kernels.site_modes()
@@ -177,42 +201,36 @@ class TorchFraudScorer:
         fall = self._kernel_counts["fallback"]
         if modes["megakernel"] == "cuda":
             disp["megakernel"] += 1
-            if self._mega_plan(size)["supported"]:
+            if mega_served:
                 self._last_launches_per_batch = 1
                 return
             fall["megakernel"] += 1
         self._last_launches_per_batch = mega_launch_accounting(
             size, NUM_MODELS, mega_valid=tuple(bool(v) for v in model_valid),
         )["launches_per_batch_chain"]
-        h = self.bert_config.hidden_size
-        ffn = self.bert_config.intermediate_size
-        s = self.sc.text_len
-        m = size * s
         if modes["dequant_matmul"] == "cuda":
             disp["dequant_matmul"] += 1
-            # f32 parameters have no int8 site: the plain matmul runs
-            ok = (is_quantized_bert(self.models.bert)
-                  and matmul_supported(m, h, h) and matmul_supported(m, h, ffn)
-                  and matmul_supported(m, ffn, h) and rows_supported(h))
-            if not ok:
+            if not is_quantized_bert(self.models.bert):
                 fall["dequant_matmul"] += 1
         if modes["epilogue"] == "cuda":
             disp["epilogue"] += 1
-            if not epilogue_supported(size, NUM_MODELS):
-                fall["epilogue"] += 1
         if modes["attention"] == "flash":
             disp["attention"] += 1
-            if not attention_supported(s, self.bert_config.head_dim):
-                fall["attention"] += 1
 
     def kernel_snapshot(self) -> Dict[str, Any]:
         """Effective per-site modes, cumulative dispatch / fallback counts
-        per site, and the launch count of the most recent batch."""
+        per site, and two launch counts of the most recent batch:
+        ``launches_per_batch`` is the JAX package's program count (1 when
+        the megakernel served, else the enabled branches + 2), kept equal
+        to its gauge; ``kernel_launches`` is the port's own count of
+        hand-written kernel launches (0 on the CPU, where the plain
+        versions run)."""
         return {
             "modes": self.kernels.site_modes(),
             "dispatch": dict(self._kernel_counts["dispatch"]),
             "fallback": dict(self._kernel_counts["fallback"]),
             "launches_per_batch": self._last_launches_per_batch,
+            "kernel_launches": self._last_kernel_launches,
         }
 
     # ---------------------------------------------------------------- scoring
@@ -236,12 +254,15 @@ class TorchFraudScorer:
         blobs, spec = pack_tree(padded)
         dev_blobs = {name: self._to_device(arr) for name, arr in blobs.items()}
         mv = self.effective_model_valid()
-        self._record_kernel_dispatch(size, mv)
+        static = self.kernel_static(size, mv)
+        self._record_kernel_dispatch(size, mv,
+                                     mega_served=static["mega_valid"] is not None)
+        before = sum(launch_counts().values())
         out = score_fused_packed(
             self.models, dev_blobs, spec, self.ensemble_params,
             self._to_device(mv), bert_config=self.bert_config,
-            compute_dtype=self.compute_dtype,
-            **self.quant.static(), **self.kernel_static(mv))
+            compute_dtype=self.compute_dtype, **self.quant.static(), **static)
+        self._last_kernel_launches = sum(launch_counts().values()) - before
         event = None
         if self.device.type == "cuda":
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)

@@ -56,7 +56,6 @@ from realtime_fraud_detection_tpu_torch.models.bert import (
     DISTILBERT_BASE,
     TINY_CONFIG,
     BertConfig,
-    bert_predict,
 )
 from realtime_fraud_detection_tpu_torch.models.isolation_forest import _c
 from realtime_fraud_detection_tpu_torch.ops import megakernel as mk
@@ -151,6 +150,12 @@ def _port_params():
 
 
 # ------------------------------------------------------------- shape plan
+def _act_row_bytes(bert_config, trees=100 * 64 + 100 * 256):
+    return mk.mega_act_row_bytes(bert_config, text_len=SC.text_len,
+                                 seq_len=SC.seq_len, feature_dim=SC.feature_dim,
+                                 tree_onehot=trees)
+
+
 def _plans(jax_models, port_models, b, two_hop=False):
     kw = dict(b=b, text_len=SC.text_len, seq_len=SC.seq_len,
               feature_dim=SC.feature_dim, has_two_hop=two_hop)
@@ -162,10 +167,10 @@ def _plans(jax_models, port_models, b, two_hop=False):
 def test_plan_admits_tiny_int8_like_jax(jax_models_q, b):
     want, got = _plans(jax_models_q, models_from_numpy(jax_models_q), b)
     assert want["supported"] and got["supported"]
-    for key in ("param_bytes", "act_row_bytes", "has_two_hop"):
+    for key in ("param_bytes", "has_two_hop"):
         assert got[key] == want[key]
-    assert got["param_bytes"] == 5_334_976 and got["act_row_bytes"] == 294_656
-    assert b % got["block"] == 0 and got["block"] >= 8
+    assert got["param_bytes"] == 5_334_976
+    assert _act_row_bytes(jbert.TINY_CONFIG) == want["act_row_bytes"] == 294_656
 
 
 @pytest.mark.parametrize("b, two_hop", [(1, False), (32, True)])
@@ -227,7 +232,9 @@ def test_plan_declines_distilbert_like_jax(int8, param_bytes):
     want = jmk.mega_plan(jax_models, jbert.BertConfig(), **kw)
     got = mk.mega_plan(port_models, DISTILBERT_BASE, **kw)
     assert got["param_bytes"] == want["param_bytes"] == param_bytes
-    assert got["act_row_bytes"] == want["act_row_bytes"] == 1_507_072
+    trees = (port_models.trees.leaf.numel()
+             + port_models.iforest.path_length.numel())
+    assert _act_row_bytes(DISTILBERT_BASE, trees) == want["act_row_bytes"] == 1_507_072
     assert not want["supported"] and not got["supported"]
     assert not got["kernel_shapes"]       # hidden 768 > the kernel's 256 too
 
@@ -253,10 +260,9 @@ def _jax_mega(jax_models, batch, mv, block=None):
         bert_config=jbert.TINY_CONFIG, interpret=True, block=block))
 
 
-def _port_mega(port_models, batch, mv, block=None, **kw):
+def _port_mega(port_models, batch, mv, **kw):
     return mk.fused_megakernel(port_models, _to_port_batch(batch), _port_params(),
-                               mega_valid=mv, bert_config=TINY_CONFIG,
-                               block=block, **kw).numpy()
+                               mega_valid=mv, bert_config=TINY_CONFIG, **kw).numpy()
 
 
 def _assert_matches_jax(want, got, mv):
@@ -281,8 +287,9 @@ def test_fused_megakernel_int8_matches_jax(jax_models_q, batch, mv):
 
 def test_fused_megakernel_f32_params_explicit_block_matches_jax(
         jax_models_f32, batch):
+    # the block is the TPU grid's tile; the CUDA kernel has none to set
     want = _jax_mega(jax_models_f32, batch, FULL, block=8)
-    got = _port_mega(models_from_numpy(jax_models_f32), batch, FULL, block=8)
+    got = _port_mega(models_from_numpy(jax_models_f32), batch, FULL)
     _assert_matches_jax(want, got, FULL)
 
 
@@ -311,47 +318,50 @@ def test_reference_matches_the_chain_at_f32_compute(jax_models_q, batch):
 
 
 def test_packed_dispatch_takes_the_megakernel_only_where_planned(
-        jax_models_q, batch, monkeypatch):
-    port_models = models_from_numpy(jax_models_q)
+        mega_scorer, batch, monkeypatch):
+    scorer = TorchFraudScorer(    # a scorer of its own: counters start at 0
+        Config(quant=QuantSettings.full(), kernels=KernelSettings.mega()),
+        models=mega_scorer.models, bert_config=TINY_CONFIG, device="cpu")
     calls = []
     real = mk.fused_megakernel
 
     def spy(*args, **kw):
-        calls.append(kw["block"])
+        calls.append(kw["mega_valid"])
         return real(*args, **kw)
 
     from realtime_fraud_detection_tpu_torch.scoring import pipeline
     monkeypatch.setattr(pipeline, "fused_megakernel", spy)
+    # the scorer reads its plan once per batch: bucket 8 carries the rung
+    # down, bucket 1 carries None and runs the per-site chain
+    assert scorer.kernel_static(8, np.asarray(FULL))["mega_valid"] == FULL
+    assert scorer.kernel_static(1, np.asarray(FULL))["mega_valid"] is None
+    for n, expect in ((8, [FULL]), (1, [FULL])):
+        pending = scorer.dispatch_assembled(_sub_batch(batch, n), [{}] * n)
+        assert pending.out.shape == (n, packed_width(5, epilogue=True))
+        assert calls == expect
     kw = dict(bert_config=TINY_CONFIG, **QuantSettings.full().static(),
               **KernelSettings.mega().static())
-    for rows, mega_valid, expect in ((batch, FULL, 1), (batch, None, 1)):
-        blobs, spec = pack_tree(rows)
-        out = score_fused_packed(
-            port_models, {k: torch.from_numpy(v) for k, v in blobs.items()},
-            spec, _port_params(), torch.ones(5, dtype=torch.bool),
-            mega_valid=mega_valid, **kw)
-        assert out.shape == (B, packed_width(5, epilogue=True))
-        assert len(calls) == expect
-    one = make_example_batch(1, rng=np.random.default_rng(9))
-    blobs, spec = pack_tree(one)              # bucket 1: the chain runs
-    score_fused_packed(port_models, {k: torch.from_numpy(v) for k, v in blobs.items()},
+    blobs, spec = pack_tree(batch)
+    score_fused_packed(scorer.models,
+                       {k: torch.from_numpy(v) for k, v in blobs.items()},
                        spec, _port_params(), torch.ones(5, dtype=torch.bool),
-                       mega_valid=FULL, **kw)
-    assert len(calls) == 1
+                       mega_valid=None, **kw)
+    assert len(calls) == 1                    # no rung: the chain runs
 
 
-def test_wrapper_refuses_what_the_plan_declines(jax_models_q):
+def test_wrapper_refuses_what_the_kernel_cannot_take(jax_models_q):
     port_models = models_from_numpy(jax_models_q)
-    one = _to_port_batch(make_example_batch(1, rng=np.random.default_rng(0)))
-    with pytest.raises(ValueError, match="unsupported megakernel"):
-        mk.fused_megakernel(port_models, one, _port_params(), mega_valid=FULL)
-    twelve = _to_port_batch(make_example_batch(12, rng=np.random.default_rng(0)))
-    with pytest.raises(ValueError, match="does not tile"):
-        mk.fused_megakernel(port_models, twelve, _port_params(), mega_valid=FULL,
-                            block=8)
+    eight = _to_port_batch(make_example_batch(8, rng=np.random.default_rng(0)))
     with pytest.raises(ValueError, match="mega_valid"):
-        mk.fused_megakernel(port_models, twelve, _port_params(),
-                            mega_valid=(True,) * 4, block=4)
+        mk.fused_megakernel(port_models, eight, _port_params(),
+                            mega_valid=(True,) * 4)
+    one_head = dataclasses.replace(TINY_CONFIG, num_heads=1)   # head width 128
+    with pytest.raises(ValueError, match="does not take"):
+        mk.fused_megakernel(port_models, eight, _port_params(), mega_valid=FULL,
+                            bert_config=one_head)
+    two_hop = dataclasses.replace(eight, user_neigh2_feat=eight.user_neigh_feat)
+    with pytest.raises(ValueError, match="does not take"):
+        mk.fused_megakernel(port_models, two_hop, _port_params(), mega_valid=FULL)
 
 
 def test_cpu_tensors_never_launch(jax_models_q, batch):
@@ -428,6 +438,7 @@ def test_scorer_kernel_accounting_matches_jax(jax_models_q, mega_scorer, batch):
         assert snap["dispatch"] == stub._kernel_counts["dispatch"]
         assert snap["fallback"] == stub._kernel_counts["fallback"]
         assert snap["launches_per_batch"] == stub._last_launches_per_batch
+        assert snap["kernel_launches"] == 0     # plain versions on the CPU
     snap = mega_scorer.kernel_snapshot()
     assert snap["dispatch"] == {"dequant_matmul": 1, "epilogue": 1,
                                 "attention": 1, "megakernel": 3}
@@ -438,31 +449,38 @@ def test_scorer_kernel_accounting_matches_jax(jax_models_q, mega_scorer, batch):
 
 
 def test_kernel_static_carries_the_dispatch_rung(mega_scorer):
-    assert mega_scorer.kernel_static()["mega_valid"] == FULL
-    assert mega_scorer.kernel_static(np.asarray(NO_BERT))["mega_valid"] == NO_BERT
+    assert mega_scorer.kernel_static(8)["mega_valid"] == FULL
+    assert mega_scorer.kernel_static(8, np.asarray(NO_BERT))["mega_valid"] == NO_BERT
     off = TorchFraudScorer(Config(kernels=KernelSettings.full()), device="cpu",
                            seed=1)
-    assert off.kernel_static()["mega_valid"] is None
+    assert off.kernel_static(8)["mega_valid"] is None
 
 
-def test_scorer_counts_an_attention_guard_miss():
-    # head width 32: the flash kernel declines, the encoder runs the plain
-    # attention and the scorer counts the fallback
-    cfg = BertConfig(hidden_size=64, num_layers=1, num_heads=2,
-                     intermediate_size=128, vocab_size=30522)
-    scorer = TorchFraudScorer(
-        Config(quant=QuantSettings.full(), kernels=KernelSettings.full()),
-        bert_config=cfg, device="cpu", seed=2)
-    small = make_example_batch(3, rng=np.random.default_rng(3))
-    scorer.finalize(scorer.dispatch_assembled(small, [{}] * 3))
+@pytest.mark.parametrize("cfg, site", [
+    (BertConfig(hidden_size=64, num_layers=1, num_heads=2, intermediate_size=128),
+     "flash attention"),                      # head width 32
+    (BertConfig(hidden_size=128, num_layers=1, num_heads=2, intermediate_size=160),
+     "dequant_matmul"),                       # FFN 160: no whole 64-wide N tiles
+], ids=["attention", "dequant_matmul"])
+def test_scorer_refuses_widths_its_kernels_do_not_take(cfg, site):
+    # the wrappers raise on such widths, so the scorer refuses them up front
+    # instead of counting a fallback that never runs
+    with pytest.raises(ValueError, match=site):
+        TorchFraudScorer(
+            Config(quant=QuantSettings.full(), kernels=KernelSettings.full()),
+            bert_config=cfg, device="cpu", seed=2)
+
+
+def test_scorer_counts_f32_weights_as_a_dequant_fallback(batch):
+    scorer = TorchFraudScorer(Config(kernels=KernelSettings.full()),
+                              device="cpu", seed=2)
+    scorer.finalize(scorer.dispatch_assembled(_sub_batch(batch, 3), [{}] * 3))
     snap = scorer.kernel_snapshot()
-    assert snap["dispatch"]["attention"] == 1 and snap["fallback"]["attention"] == 1
-    assert snap["fallback"]["dequant_matmul"] == 0
-    ids = torch.from_numpy(small.token_ids)
-    mask = torch.from_numpy(small.token_mask)
-    np.testing.assert_array_equal(
-        bert_predict(scorer.models.bert, ids, mask, cfg, use_flash=True).numpy(),
-        bert_predict(scorer.models.bert, ids, mask, cfg, use_flash=False).numpy())
+    assert snap["dispatch"] == {"dequant_matmul": 1, "epilogue": 1,
+                                "attention": 1, "megakernel": 0}
+    assert snap["fallback"] == {"dequant_matmul": 1, "epilogue": 0,
+                                "attention": 0, "megakernel": 0}
+    assert snap["kernel_launches"] == 0       # the CPU runs the plain versions
 
 
 # ---------------------------------------------------------------- responses
