@@ -16,7 +16,10 @@ Phases, each of which raises (and exits non-zero) on failure:
    kernels at the bucket-256 DistilBERT-base slice's shapes, the
    megakernel at TINY width (int8 BERT at buckets 256 and 8, f32 BERT
    once; its yardstick is the per-site chain's device time on the same
-   batch, as no single PyTorch call computes the ensemble);
+   batch, as no single PyTorch call computes the ensemble). The
+   dequant-matmul is also checked at the TINY widths and at M = 64 (a
+   bucket-1 batch), flash attention also at S = 100; both print the
+   profiler's device time per launch beside the CUDA-event time;
 4. score a seeded 256-row batch through ``TorchFraudScorer`` at
    DistilBERT-base with int8 BERT and the per-site kernels on (launch
    counters reset just before, read just after), compare the packed result
@@ -142,6 +145,28 @@ def check_epilogue(params, gen):
                 note="library_ms: no single PyTorch call blends and ladders")
 
 
+def event_vs_device(name, event_ms, fn):
+    """The profiler's device ms per call beside the CUDA-event ms; a gap of
+    more than 20% means back-to-back calls are bound by host time."""
+    dev_ms, _ = device_ms(fn)
+    gap = abs(event_ms - dev_ms) / dev_ms
+    flag = " -- events and device time disagree by more than 20%" if gap > 0.2 else ""
+    print(f"  {name}: {event_ms:.4f} ms by events, {dev_ms:.4f} ms device time "
+          f"per launch{flag}", flush=True)
+    return dev_ms
+
+
+def _attention_inputs(b, s, h, d, gen):
+    """[B, S, H*D] projections viewed as [B, H, S, D], as the encoder does,
+    random key lengths and one fully masked row."""
+    q, k, v = (torch.randn((b, s, h * d), generator=gen, device="cuda")
+               .reshape(b, s, h, d).permute(0, 2, 1, 3) for _ in range(3))
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+    mask = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
+    mask[0] = False
+    return q, k, v, mask
+
+
 def check_attention(cfg, gen):
     import torch.nn.functional as F
 
@@ -150,36 +175,43 @@ def check_attention(cfg, gen):
         flash_attention,
     )
 
-    b, s, h, d = BATCH, 64, cfg.num_heads, cfg.head_dim
-    # [B, S, H*D] projections viewed as [B, H, S, D], as the encoder does
-    q, k, v = (torch.randn((b, s, h * d), generator=gen, device="cuda")
-               .reshape(b, s, h, d).permute(0, 2, 1, 3) for _ in range(3))
-    lengths = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
-    mask = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
-    mask[0] = False                       # one fully masked row
-    mask_u8 = mask.to(torch.uint8)
-    got = flash_attention(q, k, v, mask_u8)
-    ref = attention_reference(q, k, v, mask)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    if not err <= ATTENTION_TOL:
-        fail(f"flash_attention err {err}")
-    ms = time_ms(lambda: flash_attention(q, k, v, mask_u8))
+    h, d = cfg.num_heads, cfg.head_dim
+    worst = 0.0
+    # the main path's S = 64, and an S that is not a multiple of the tile
+    for b, s in ((BATCH, 64), (64, 100)):
+        q, k, v, mask = _attention_inputs(b, s, h, d, gen)
+        got = flash_attention(q, k, v, mask)
+        ref = attention_reference(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not err <= ATTENTION_TOL:
+            fail(f"flash_attention B={b} S={s}: err {err}")
+        if got.shape != (b, h, s, d) or got.permute(0, 2, 1, 3).stride() != (
+                s * h * d, h * d, d, 1):
+            fail(f"flash_attention output layout {got.shape} {got.stride()}")
+        print(f"  flash_attention B={b} S={s} (row 0 fully masked): max err {err:.3e}",
+              flush=True)
+        worst = max(worst, err)
+    q, k, v, mask = _attention_inputs(BATCH, 64, h, d, gen)
+    s = 64
+    ms = time_ms(lambda: flash_attention(q, k, v, mask))
+    dev = event_vs_device("flash_attention", ms, lambda: flash_attention(q, k, v, mask))
     plain = time_ms(lambda: attention_reference(q, k, v, mask))
     attn_mask = mask[:, None, None, :]
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=attn_mask))
-    n_bytes = 4 * b * h * s * d * 4 + b * s
-    bound_ms, by = bound(n_bytes, 4 * b * h * s * s * d, "f32")
+    n_bytes = 4 * BATCH * h * s * d * 4 + BATCH * s
+    bound_ms, by = bound(n_bytes, 4 * BATCH * h * s * s * d, "f32")
     return dict(name="flash_attention", route="cuda",
                 source="realtime_fraud_detection_tpu_torch/csrc/attention.cu",
                 replaces="realtime_fraud_detection_tpu/ops/attention.py:75",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms,
-                bound_by=by, library_ms=lib,
+                max_abs_err=worst, ms=ms, device_ms=dev, plain_ms=plain,
+                bound_ms=bound_ms, bound_by=by, library_ms=lib,
                 note="library_ms: scaled_dot_product_attention, boolean mask")
 
 
 def check_dequant_matmul(cfg, gen):
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
     from realtime_fraud_detection_tpu_torch.models.quant import quantize_dense
     from realtime_fraud_detection_tpu_torch.ops.dequant_matmul import (
         dequant_matmul,
@@ -191,8 +223,11 @@ def check_dequant_matmul(cfg, gen):
     hsz, ffn = cfg.hidden_size, cfg.intermediate_size
     # one encoder layer's six sites: q, k, v, o, ffn1, ffn2
     shapes = [(hsz, hsz)] * 4 + [(hsz, ffn), (ffn, hsz)]
+    th, tf = TINY_CONFIG.hidden_size, TINY_CONFIG.intermediate_size
+    # the TINY chain's widths; M = 64 is a bucket-1 batch (the fallback)
+    checked_only = [(th, th), (th, tf), (tf, th)]
     per_shape = {}
-    for kk, n in sorted(set(shapes)):
+    for kk, n in sorted(set(shapes)) + checked_only:
         w = torch.randn((kk, n), generator=gen) * 0.02
         qd = quantize_dense({"w": w, "b": torch.zeros(n)})
         qw = torch.from_numpy(qd["qw"]).cuda()
@@ -200,23 +235,32 @@ def check_dequant_matmul(cfg, gen):
         b = (torch.randn((n,), generator=gen) * 0.02).cuda()
         x = torch.randn((m, kk), generator=gen).cuda()
         errs = {}
-        for cd, tol in ((torch.bfloat16, DEQUANT_BF16_TOL),
-                        (torch.float32, DEQUANT_F32_TOL)):
-            got = dequant_matmul(x, qw, scale, b, compute_dtype=cd)
-            ref = dequant_matmul_reference(x, qw, scale, b, cd)
+        for cd, tol, rows in ((torch.bfloat16, DEQUANT_BF16_TOL, m),
+                              (torch.bfloat16, DEQUANT_BF16_TOL, 64),
+                              (torch.float32, DEQUANT_F32_TOL, m)):
+            got = dequant_matmul(x[:rows], qw, scale, b, compute_dtype=cd)
+            ref = dequant_matmul_reference(x[:rows], qw, scale, b, cd)
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
             rel = err / max(1.0, float(ref.abs().max()))
             if not rel <= tol:
-                fail(f"dequant_matmul {kk}x{n} {cd}: rel err {rel}")
-            errs[str(cd)] = err
+                fail(f"dequant_matmul [{rows},{kk}]x[{kk},{n}] {cd}: rel err {rel}")
+            errs[(str(cd), rows)] = err
+        print(f"  dequant_matmul {kk}x{n}: bf16 max err {errs[('torch.bfloat16', m)]:.3e}"
+              f" at M={m}, {errs[('torch.bfloat16', 64)]:.3e} at M=64; f32 "
+              f"{errs[('torch.float32', m)]:.3e}", flush=True)
+        if (kk, n) in checked_only:
+            continue
         w_bf16 = dequantize_weight(qw, scale).to(torch.bfloat16)
         x_bf16 = x.to(torch.bfloat16)
         n_bytes = m * kk * 4 + kk * n + 2 * n * 4 + m * n * 4
         bound_ms, by = bound(n_bytes, 2 * m * kk * n, "bf16")
+        ms = time_ms(lambda: dequant_matmul(x, qw, scale, b))
         per_shape[(kk, n)] = dict(
-            max_abs_err=errs["torch.bfloat16"], f32_err=errs["torch.float32"],
-            ms=time_ms(lambda: dequant_matmul(x, qw, scale, b)),
+            max_abs_err=max(errs[("torch.bfloat16", r)] for r in (m, 64)),
+            f32_err=errs[("torch.float32", m)], ms=ms,
+            device_ms=event_vs_device(f"dequant_matmul [{m},{kk}]x[{kk},{n}]", ms,
+                                      lambda: dequant_matmul(x, qw, scale, b)),
             plain_ms=time_ms(lambda: dequant_matmul_reference(x, qw, scale, b)),
             library_ms=time_ms(lambda: torch.matmul(x_bf16, w_bf16)),
             bound_ms=bound_ms, bound_by=by)
@@ -224,7 +268,7 @@ def check_dequant_matmul(cfg, gen):
               + json.dumps(per_shape[(kk, n)]), flush=True)
     # per-launch means over one layer's six sites (the main path's mix)
     mean = {key: sum(per_shape[s][key] for s in shapes) / len(shapes)
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
     by = "operations" if sum(per_shape[s]["bound_by"] == "operations"
                              for s in shapes) * 2 > len(shapes) else "bytes"
     return dict(name="dequant_matmul", route="cuda",
@@ -757,8 +801,9 @@ def main() -> int:
         check_megakernel(params),
     ]
     for e in entries:
+        dev = f", device {e['device_ms']:.4f} ms" if "device_ms" in e else ""
         print(f"kernel {e['name']}: max_abs_err {e['max_abs_err']:.3e}, "
-              f"{e['ms']:.4f} ms (plain {e['plain_ms']:.4f} ms, bound "
+              f"{e['ms']:.4f} ms{dev} (plain {e['plain_ms']:.4f} ms, bound "
               f"{e['bound_ms']:.4f} ms by {e['bound_by']}, library "
               f"{e['library_ms']}) -- {e.pop('note')}", flush=True)
 

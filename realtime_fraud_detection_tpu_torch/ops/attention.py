@@ -20,12 +20,15 @@ from realtime_fraud_detection_tpu_torch.ops.build import check_launch, kernel_li
 
 NEG_INF = -1e30
 HEAD_DIM = 64           # the kernel's head width
-MAX_SEQ = 440           # K and V of one (b, h) must fit in shared memory
+MAX_SEQ = 440           # the guard's longest text (the encoder serves 64);
+                        # K and V stream in 64-key blocks, so shared
+                        # memory does not bound it
 
 
 def attention_supported(s: int, d: int) -> bool:
-    """Shapes the flash kernel takes; the encoder falls back to the plain
-    version on any other (and the scorer counts a fallback)."""
+    """Shapes the flash kernel takes. The wrapper raises on any other, and
+    ``TorchFraudScorer.set_models`` refuses kernel settings for a BERT whose
+    widths the kernel does not take, so the encoder never meets one."""
     return d == HEAD_DIM and 0 < s <= MAX_SEQ
 
 
@@ -44,7 +47,9 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Blockwise attention. q/k/v f32[B, H, S, D] (any strides with the last
-    dim contiguous) -> contiguous f32[B, H, S, D]."""
+    dim contiguous) -> f32[B, H, S, D], returned as the permuted view of a
+    contiguous [B, S, H, D] buffer, so that merging the heads back into
+    [B, S, H*D] is a view. ``key_mask`` bool or u8 [B, S]."""
     b, h, s, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
@@ -52,18 +57,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"flash_attention takes D={HEAD_DIM} and 0 < S <= {MAX_SEQ}, "
             f"got D={d} S={s}")
+    out = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, key_mask)
+        out.permute(0, 2, 1, 3).copy_(attention_reference(q, k, v, key_mask))
+        return out.permute(0, 2, 1, 3)
     for t in (q, k, v):
         if t.dtype != torch.float32 or t.stride(-1) != 1 or t.device != q.device:
             raise ValueError("flash_attention takes f32 q/k/v on one device "
                              "with a contiguous last dim")
+        if t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:3]):
+            raise ValueError("flash_attention stages 16-byte rows: q/k/v need "
+                             "16-byte aligned rows")
     if key_mask is None:
         key_mask = torch.ones((b, s), dtype=torch.bool, device=q.device)
-    mask = key_mask.to(torch.uint8).contiguous()
-    if mask.shape != (b, s) or mask.device != q.device:
-        raise ValueError(f"key_mask must be [B, S] = [{b}, {s}] on {q.device}")
-    out = torch.empty((b, h, s, d), dtype=torch.float32, device=q.device)
+    if (key_mask.shape != (b, s) or key_mask.device != q.device
+            or key_mask.dtype not in (torch.bool, torch.uint8)):
+        raise ValueError(f"key_mask must be bool or u8 [B, S] = [{b}, {s}] on {q.device}")
+    mask = key_mask.contiguous()
     code = kernel_library().rtfd_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), b, h, s, d,
@@ -71,7 +81,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention", code)
     flash_attention.launches += 1
-    return out
+    return out.permute(0, 2, 1, 3)
 
 
 flash_attention.launches = 0

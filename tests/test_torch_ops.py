@@ -9,6 +9,9 @@ f32 dequant-matmul <= 1e-5 relative, bf16 within one bf16 ulp of the output
 scale, dequant_rows bit-exact.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,8 +34,17 @@ from realtime_fraud_detection_tpu.scoring.pipeline import MODEL_NAMES
 from realtime_fraud_detection_tpu.utils.config import Config as JaxConfig
 from realtime_fraud_detection_tpu_torch import ops
 from realtime_fraud_detection_tpu_torch.ensemble.combine import EnsembleParams
+from realtime_fraud_detection_tpu_torch.models.bert import (
+    DISTILBERT_BASE,
+    TINY_CONFIG,
+    bert_layer,
+    init_bert_params,
+)
 from realtime_fraud_detection_tpu_torch.ops.attention import (
+    HEAD_DIM,
+    MAX_SEQ,
     attention_reference,
+    attention_supported,
     flash_attention,
 )
 from realtime_fraud_detection_tpu_torch.ops.dequant_matmul import (
@@ -49,6 +61,7 @@ from realtime_fraud_detection_tpu_torch.ops.epilogue import (
 from realtime_fraud_detection_tpu_torch.utils.config import Config
 
 BF16_ULP = 2.0 ** -7
+CSRC = Path(__file__).resolve().parents[1] / "realtime_fraud_detection_tpu_torch" / "csrc"
 
 
 def _t(x):
@@ -145,6 +158,121 @@ def test_attention_guard():
     x = torch.zeros((1, 2, 64, 32))
     with pytest.raises(ValueError, match="D=64"):
         flash_attention(x, x, x)
+
+
+def _tf32(x):
+    """Round f32 to TF32 as ``cvt.rna.tf32.f32`` does: 10 mantissa bits,
+    ties away from zero, low 13 bits cleared."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_tf32(a, b, split):
+    """a @ b on TF32 tensor cores: products of TF32 operands are exact in
+    f32; ``split`` adds the 3xTF32 correction terms (small = tf32(x - big))."""
+    ab, bb = _tf32(a), _tf32(b)
+    out = np.matmul(ab, bb, dtype=np.float32)
+    if split:
+        a_small, b_small = _tf32(a - ab), _tf32(b - bb)
+        out = (np.matmul(a_small, bb, dtype=np.float32)
+               + np.matmul(ab, b_small, dtype=np.float32) + out)
+    return out
+
+
+def _emulated_attention(q, k, v, mask, split):
+    """The CUDA kernel's arithmetic for one 64-key block: scaled q, both
+    products in (3x)TF32, masked scores at -1e30, f32 softmax state."""
+    d = q.shape[-1]
+    scores = _mm_tf32(q * np.float32(1.0 / np.sqrt(d)), np.swapaxes(k, -1, -2), split)
+    scores = np.where(mask[:, None, None, :], scores, np.float32(-1e30))
+    m = np.maximum(scores.max(axis=-1, keepdims=True), np.float32(-1e30))
+    p = np.exp(scores - m).astype(np.float32)
+    denom = np.maximum(p.sum(axis=-1, keepdims=True), np.float32(1e-30))
+    return _mm_tf32(p, v, split) / denom
+
+
+def test_attention_3xtf32_split_meets_the_tolerance_and_1xtf32_does_not():
+    rng = np.random.default_rng(21)
+    b, h, s, d = 4, 4, 64, 64
+    q, k, v = (rng.standard_normal((b, h, s, d)).astype(np.float32) for _ in range(3))
+    mask = np.arange(s)[None, :] < rng.integers(1, s + 1, b)[:, None]
+    mask[0] = False                               # a fully masked row
+    want = np.asarray(jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          jnp.asarray(mask), interpret=True))
+    err3 = float(np.abs(_emulated_attention(q, k, v, mask, split=True) - want).max())
+    err1 = float(np.abs(_emulated_attention(q, k, v, mask, split=False) - want).max())
+    assert err3 <= 5e-5
+    assert err1 > 5e-5
+
+
+def test_flash_attention_returns_a_heads_major_view_of_a_seq_major_buffer():
+    rng = np.random.default_rng(8)
+    b, s, h, d = 2, 100, 3, HEAD_DIM
+    x = _t(rng.standard_normal((b, s, 3 * h * d)).astype(np.float32))
+    q, k, v = (x[..., i * h * d:(i + 1) * h * d].reshape(b, s, h, d).permute(0, 2, 1, 3)
+               for i in range(3))
+    mask = torch.from_numpy(np.arange(s)[None, :] < np.array([[37], [100]]))
+    out = flash_attention(q, k, v, mask)
+    assert out.shape == (b, h, s, d)
+    assert out.permute(0, 2, 1, 3).is_contiguous()    # [B, S, H, D] underneath
+    ref = attention_reference(q.contiguous(), k.contiguous(), v.contiguous(), mask)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    # the encoder's head merge is a view of that buffer, no copy
+    merged = out.permute(0, 2, 1, 3).reshape(b, s, h * d)
+    assert merged.data_ptr() == out.data_ptr()
+
+
+def test_bert_layer_is_the_same_through_the_flash_wrapper():
+    cfg = TINY_CONFIG
+    params = init_bert_params(np.random.default_rng(4), cfg)
+    rng = np.random.default_rng(5)
+    x = _t(rng.standard_normal((3, 64, cfg.hidden_size)).astype(np.float32))
+    mask = torch.from_numpy(np.arange(64)[None, :] < np.array([[64], [10], [0]]))
+    layer = params["layers"][0]
+    plain = bert_layer(layer, x, mask, cfg, use_flash=False)
+    flash = bert_layer(layer, x, mask, cfg, use_flash=True)
+    torch.testing.assert_close(flash, plain, rtol=0, atol=0)
+
+
+def _constants(name):
+    """``constexpr int NAME = <expr>`` values of a CUDA source, evaluated in
+    order (later ones may use earlier ones)."""
+    text = (CSRC / name).read_text()
+    values = {}
+    for decl in re.findall(r"^constexpr int ([^;]+);", text, re.M):
+        for part in re.split(r",\s*(?=[A-Za-z_]\w* =)", decl):
+            key, expr = (t.strip() for t in part.split("=", 1))
+            values[key] = eval(re.sub(r"//.*", "", expr), {}, dict(values))
+    return values
+
+
+SMEM_PER_BLOCK = 232448            # the 227 KB a block may use on an H100
+
+
+def test_kernel_tile_constants_agree_with_the_shape_guards():
+    dm = _constants("dequant_matmul.cu")
+    assert (dm["BM"], dm["BN"], dm["BK"]) == (128, 128, 64)
+    assert dm["SMEM_BYTES"] <= SMEM_PER_BLOCK
+    assert dm["STAGE_BYTES"] % 1024 == 0 and dm["STAGES"] >= 3
+    assert dm["THREADS"] == (dm["CONSUMERS"] + 1) * 128 + 32
+    # K steps of 64 over whole 32-deep steps and N tiles of 128 over 64-wide
+    # tiles: the kernel masks the tail (TMA zero fill), so the guard holds
+    # every width the tiles do not divide; TMA strides need K % 4, N % 16
+    assert dm["BK"] % 32 == 0 and dm["BN"] % 64 == 0
+    for k, n in ((32, 64), (96, 192), (dm["BK"] + 32, dm["BN"] + 64)):
+        assert matmul_supported(1, k, n) and k % 4 == 0 and n % 16 == 0
+    for cfg in (DISTILBERT_BASE, TINY_CONFIG):
+        h, f = cfg.hidden_size, cfg.intermediate_size
+        for m in (1, 64, 256 * 64):
+            assert all(matmul_supported(m, k, n) for k, n in ((h, h), (h, f), (f, h)))
+    at = _constants("attention.cu")
+    assert at["kD"] == HEAD_DIM and at["kTile"] == 64 and at["kThreads"] == 4 * 32
+    assert at["kSmemBytes"] == 3 * at["kTile"] * at["kLd"] * 4 + at["kTile"] * 4
+    assert at["kSmemBytes"] <= SMEM_PER_BLOCK
+    # K and V stream through in 64-key blocks: S is not held by shared memory
+    assert attention_supported(MAX_SEQ, HEAD_DIM) and attention_supported(100, HEAD_DIM)
+    assert not attention_supported(MAX_SEQ + 1, HEAD_DIM)
+    assert not attention_supported(64, HEAD_DIM // 2)
 
 
 # --------------------------------------------------------- dequant-matmul
