@@ -19,7 +19,11 @@ Phases, each of which raises (and exits non-zero) on failure:
    batch, as no single PyTorch call computes the ensemble). The
    dequant-matmul is also checked at the TINY widths and at M = 64 (a
    bucket-1 batch), flash attention also at S = 100; both print the
-   profiler's device time per launch beside the CUDA-event time;
+   profiler's device time per launch beside the CUDA-event time, and so
+   does ``dequant_rows`` for each of its two sites (word, position). The
+   megakernel's timings: device ms per launch at buckets 8 and 256, device
+   ms with one branch on at a time, and the host ms per call of its
+   wrapper and of the scorer's packed entry;
 4. score a seeded 256-row batch through ``TorchFraudScorer`` at
    DistilBERT-base with int8 BERT and the per-site kernels on (launch
    counters reset just before, read just after), compare the packed result
@@ -40,6 +44,11 @@ Phases, each of which raises (and exits non-zero) on failure:
 The last three lines of standard output are the kernel JSON line (all five
 kernels), the ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --mega-timing`` builds the kernels and prints only
+the megakernel's timings (a JSON line, then the card's name and power
+limit). It goes through the public entry points alone, so the same script
+copied into another checkout times that checkout's megakernel.
 """
 
 from __future__ import annotations
@@ -294,17 +303,18 @@ def check_dequant_rows(cfg, gen):
     word = quantize_embedding(torch.randn((cfg.vocab_size, hsz), generator=gen) * 0.02)
     pos = quantize_embedding(torch.randn((cfg.max_position_embeddings, hsz),
                                          generator=gen) * 0.02)
-    sites = []
+    sites = {}
     idx = torch.randint(0, cfg.vocab_size, (BATCH * 64,), generator=gen,
                         dtype=torch.int32).cuda()
-    for table, ids, length in ((word, idx, None), (pos, None, 64)):
+    for site, table, ids, length in (("word", word, idx, None),
+                                     ("position", pos, None, 64)):
         qe = torch.from_numpy(table["qe"]).cuda()
         sc = torch.from_numpy(table["scale"]).cuda()
         got = dequant_rows(qe, sc, idx=ids, length=length)
         ref = dequant_rows_reference(qe, sc, idx=ids, length=length)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
-            fail("dequant_rows is not bit-exact")
+            fail(f"dequant_rows {site} site is not bit-exact")
         rows = ids.numel() if ids is not None else length
         needed = int(torch.unique(ids).numel()) if ids is not None else length
         n_bytes = (needed * hsz + needed * 4 + (rows * 4 if ids is not None else 0)
@@ -312,21 +322,29 @@ def check_dequant_rows(cfg, gen):
         bound_ms, by = bound(n_bytes, rows * hsz, "f32")
         table_f32 = qe.float() * sc[:, None]
         lookup = ids if ids is not None else torch.arange(length, device="cuda")
-        sites.append(dict(
-            ms=time_ms(lambda: dequant_rows(qe, sc, idx=ids, length=length)),
+
+        def call():
+            dequant_rows(qe, sc, idx=ids, length=length)
+
+        ms = time_ms(call)
+        sites[site] = dict(
+            rows=rows, ms=ms, device_ms=event_vs_device(
+                f"dequant_rows {site} site ({rows} rows)", ms, call),
             plain_ms=time_ms(lambda: dequant_rows_reference(
                 qe, sc, idx=ids, length=length)),
             library_ms=time_ms(lambda: F.embedding(lookup, table_f32)),
-            bound_ms=bound_ms, bound_by=by))
-    mean = {key: sum(s[key] for s in sites) / len(sites)
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            bound_ms=bound_ms, bound_by=by)
+        print(f"  dequant_rows {site} site: " + json.dumps(sites[site]), flush=True)
+    mean = {key: sum(s[key] for s in sites.values()) / len(sites)
+            for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
     return dict(name="dequant_rows", route="cuda",
                 source="realtime_fraud_detection_tpu_torch/csrc/dequant_matmul.cu",
                 replaces="realtime_fraud_detection_tpu/ops/dequant_matmul.py:141",
-                max_abs_err=0.0, bound_by="bytes", **mean,
-                note="times: means over the word (16384 gathered rows) and "
-                     "position (64 rows) sites; library_ms: F.embedding on "
-                     "a pre-dequantized f32 table")
+                max_abs_err=0.0, bound_by="bytes", **mean, sites=sites,
+                note="times: means per launch over the word (16384 gathered "
+                     "rows) and position (64 rows) sites, each site under "
+                     "'sites'; library_ms: F.embedding on a pre-dequantized "
+                     "f32 table")
 
 
 def run_slice(ops):
@@ -467,36 +485,104 @@ def mega_flops(models, cfg, batch) -> float:
     return 2.0 * (b * (bert + lstm_head + gnn) + steps * w.numel())
 
 
+def mega_models():
+    """TINY models on the card from the seed: int8 BERT and f32 BERT."""
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.models.quant import quantize_bert_params
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import init_scoring_models
+
+    base = init_scoring_models(SEED, TINY_CONFIG)
+    int8 = dataclasses.replace(base, bert=quantize_bert_params(base.bert)).to("cuda")
+    return int8, base.to("cuda")
+
+
+def mega_batch(rows: int):
+    """The seeded ``rows``-row batch, packed on the card (see ``_packed``)."""
+    import numpy as np
+
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import make_example_batch
+
+    batch = make_example_batch(rows, rng=np.random.default_rng(SEED + rows))
+    return (batch, *_packed(batch, rows))
+
+
+def host_ms_per_call(fn, reps: int = 50) -> float:
+    """Host ms a call takes to return (the wrapper's checks, its argument
+    fill and the launch), without waiting for the device."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+MEGA_BRANCHES = ("trees", "lstm", "bert", "gnn", "iforest")
+
+
+def time_megakernel(params, models, cases) -> dict:
+    """The megakernel at TINY int8 for each ``cases[rows] = (blobs, spec,
+    raw)`` batch: CUDA-event ms, the profiler's device ms per launch, and
+    the host ms per call (without waiting for the device) of the wrapper on
+    an unpacked batch and of the scorer's entry on the packed blobs
+    (``score_fused_packed`` with the megakernel); at the largest bucket also
+    the device ms with one branch on at a time (the others pruned), and
+    with none (rules + combine)."""
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.ops import megakernel as mk
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import score_fused_packed
+
+    valid = torch.ones(5, dtype=torch.bool, device="cuda")
+
+    def call(raw, rung=(True,) * 5):
+        mk.fused_megakernel(models, raw, params, mega_valid=rung,
+                            bert_config=TINY_CONFIG)
+
+    def packed(blobs, spec):
+        score_fused_packed(models, blobs, spec, params, valid, bert_config=TINY_CONFIG,
+                           megakernel="cuda", mega_valid=(True,) * 5)
+
+    out = {}
+    for rows, (blobs, spec, raw) in sorted(cases.items()):
+        ms = time_ms(lambda: call(raw))
+        out[f"b{rows}"] = dict(
+            ms=ms, device_ms=event_vs_device(f"megakernel TINY int8 b={rows}", ms,
+                                             lambda: call(raw)),
+            host_ms=host_ms_per_call(lambda: call(raw)),
+            packed_host_ms=host_ms_per_call(lambda: packed(blobs, spec)))
+    raw = cases[max(cases)][2]
+    by_branch = {}
+    for j, branch in enumerate(MEGA_BRANCHES + ("rules+combine",)):
+        rung = tuple(i == j for i in range(5))
+        by_branch[branch] = device_ms(lambda: call(raw, rung))[0]
+    out[f"b{max(cases)}_device_ms_one_branch_on"] = by_branch
+    print("  megakernel timing: " + json.dumps(out), flush=True)
+    return out
+
+
 def check_megakernel(params):
     """The megakernel against its plain version at TINY width (int8 BERT at
     buckets 256 and 8, f32 BERT at 256), its smem count against the plan,
     and its time against the per-site chain's on the same batch."""
-    import dataclasses
-
-    import numpy as np
-
     from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
-    from realtime_fraud_detection_tpu_torch.models.quant import quantize_bert_params
     from realtime_fraud_detection_tpu_torch.ops import megakernel as mk
-    from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
-        init_scoring_models,
-        make_example_batch,
-        score_fused_packed,
-    )
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import score_fused_packed
     from realtime_fraud_detection_tpu_torch.utils.config import (
         KernelSettings,
         QuantSettings,
     )
 
-    base = init_scoring_models(SEED, TINY_CONFIG)
-    int8 = dataclasses.replace(base, bert=quantize_bert_params(base.bert)).to("cuda")
-    f32 = base.to("cuda")
+    int8, f32 = mega_models()
     worst = 0.0
     timed = None
+    cases = {}
     for name, models, rows in (("int8", int8, BATCH), ("int8", int8, 8),
                                ("f32", f32, BATCH)):
-        batch = make_example_batch(rows, rng=np.random.default_rng(SEED + rows))
-        dev, spec, raw, plain_batch = _packed(batch, rows)
+        batch, dev, spec, raw, plain_batch = mega_batch(rows)
         plan = mk.mega_plan(models, TINY_CONFIG, b=rows, text_len=64, seq_len=10,
                             feature_dim=64, has_two_hop=False)
         if not plan["supported"]:
@@ -521,9 +607,12 @@ def check_megakernel(params):
             print(f"  megakernel TINY {name} b={rows} rung {''.join('1' if v else '0' for v in mv)}:"
                   f" max err {err:.3e}, ladders equal on {int(far.sum())}/{rows} rows"
                   f" away from a rung", flush=True)
-        case_ms = time_ms(lambda: mk.fused_megakernel(
-            models, raw, params, mega_valid=(True,) * 5, bert_config=TINY_CONFIG))
-        print(f"  megakernel TINY {name} b={rows}: {case_ms:.4f} ms", flush=True)
+        if name == "int8":
+            cases[rows] = (dev, spec, raw)
+        if name == "f32":
+            case_ms = time_ms(lambda: mk.fused_megakernel(
+                models, raw, params, mega_valid=(True,) * 5, bert_config=TINY_CONFIG))
+            print(f"  megakernel TINY f32 b={rows}: {case_ms:.4f} ms", flush=True)
         if name == "int8" and rows == BATCH:
             args_smem = _kernel_smem(mk, models, raw, TINY_CONFIG)
             if args_smem != plan["smem_bytes"]:
@@ -531,19 +620,10 @@ def check_megakernel(params):
             timed = (models, batch, dev, spec, raw, plain_batch, plan)
     models, batch, dev, spec, raw, plain_batch, plan = timed
     mv = (True,) * 5
-    ms = time_ms(lambda: mk.fused_megakernel(models, raw, params, mega_valid=mv,
-                                             bert_config=TINY_CONFIG))
+    timing = time_megakernel(params, models, cases)
+    ms = timing[f"b{BATCH}"]["ms"]
     plain = time_ms(lambda: mk.megakernel_reference(
         models, plain_batch, params, mega_valid=mv, bert_config=TINY_CONFIG))
-    # where the kernel's time goes: one branch on, the others pruned
-    by_branch = {}
-    for j, branch in enumerate(("trees", "lstm", "bert", "gnn", "iforest", None)):
-        rung = tuple(i == j for i in range(5))
-        by_branch[branch or "rules+combine"] = time_ms(
-            lambda: mk.fused_megakernel(models, raw, params, mega_valid=rung,
-                                        bert_config=TINY_CONFIG))
-    print("  megakernel TINY int8 b=256 ms with one branch on: "
-          + json.dumps(by_branch), flush=True)
     chain_kw = dict(bert_config=TINY_CONFIG, **QuantSettings.full().static(),
                     **KernelSettings.full().static())
     valid = torch.ones(5, dtype=torch.bool, device="cuda")
@@ -564,8 +644,9 @@ def check_megakernel(params):
     return dict(name="megakernel", route="cuda",
                 source="realtime_fraud_detection_tpu_torch/csrc/megakernel.cu",
                 replaces="realtime_fraud_detection_tpu/ops/megakernel.py:363",
-                max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bound_ms,
-                bound_by=by, library_ms=chain_device_ms,
+                max_abs_err=worst, ms=ms, device_ms=timing[f"b{BATCH}"]["device_ms"],
+                plain_ms=plain, bound_ms=bound_ms, bound_by=by,
+                library_ms=chain_device_ms, timing=timing,
                 note="TINY int8 bucket 256; library_ms: the per-site chain's "
                      "device-busy ms on the same batch (no single PyTorch call)")
 
@@ -574,7 +655,10 @@ def _kernel_smem(mk, models, raw, cfg) -> int:
     """The kernel's own shared-memory count for these operands."""
     args = mk.MegaArgs()
     args.text_len, args.feat_dim = raw.token_ids.shape[1], raw.features.shape[1]
+    args.seq_len = raw.history.shape[1]
     args.hidden, args.ffn = cfg.hidden_size, cfg.intermediate_size
+    args.heads = cfg.num_heads
+    args.node_dim = models.gnn["w_sage2"].shape[0] - models.gnn["w_sage1"].shape[1]
     args.lstm_hidden, args.lstm_head = models.lstm["w_head1"].shape
     args.fanout = raw.user_neigh_feat.shape[1]
     args.gnn_hidden = models.gnn["w_sage1"].shape[1]
@@ -793,6 +877,15 @@ def main() -> int:
     cpu_gen = torch.Generator()
     cpu_gen.manual_seed(SEED)
     params = EnsembleParams.from_config(Config(), MODEL_NAMES).to("cuda")
+    if "--mega-timing" in sys.argv[1:]:
+        # only the megakernel's timings, through its public wrapper (so the
+        # same lines can time another checkout's kernel)
+        int8, _ = mega_models()
+        cases = {rows: mega_batch(rows)[1:4] for rows in (8, BATCH)}
+        print(json.dumps({"mega_timing": time_megakernel(params, int8, cases)}),
+              flush=True)
+        print(smi, flush=True)
+        return 0
     entries = [
         check_epilogue(params, gen),
         check_attention(DISTILBERT_BASE, gen),
@@ -809,11 +902,13 @@ def main() -> int:
 
     launches = run_slice(ops)
     launches["megakernel"] = run_mega_slice(ops, params)["megakernel"]
+    extra = ("device_ms", "sites", "timing")
     kernels = [{"name": e["name"], "route": e["route"], "source": e["source"],
                 "replaces": e["replaces"], "launches": launches[e["name"]],
                 "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                 "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-                "bound_by": e["bound_by"], "library_ms": e["library_ms"]}
+                "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+                **{k: e[k] for k in extra if k in e}}
                for e in entries]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -49,8 +49,12 @@
 // rtfd_dequant_rows replaces the Pallas kernel dequant_rows (body
 // _dequant_rows_kernel) and fuses the embedding gather the TPU left to XLA:
 // out[r] = f32(table[idx[r]]) * scale[idx[r]], bit-exact (one exact widen and
-// one rounded multiply). One block per output row, 16-byte i8 loads and
-// 16-byte f32 stores. Bound: bytes (the gathered i8 rows in, f32 rows out).
+// one rounded multiply). A flat grid of 256-thread blocks, a thread per 4
+// columns of a row (4-byte i8 load, 16-byte f32 store), so all lanes work
+// at any width and every warp's loads and stores are contiguous; the first
+// design (one 64-thread block per row, 16-byte loads, 16 of 64 lanes idle
+// at H = 768) ran the 16384-row word site at 46% of its bound on the card.
+// Bound: bytes (the gathered i8 rows and the indices in, f32 rows out).
 
 #include <cuda.h>  // CUtensorMap and its enums only; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -390,26 +394,27 @@ dequant_matmul_f32_kernel(const float* __restrict__ x, const int8_t* __restrict_
   }
 }
 
-__global__ void dequant_rows_kernel(const int8_t* __restrict__ table,
-                                    const float* __restrict__ scale,
-                                    const int32_t* __restrict__ idx,
-                                    float* __restrict__ out, int table_rows, int H) {
-  const int r = blockIdx.x;
+// dequant_rows: a flat grid of ROWS_THREADS-thread blocks over (row, 4
+// columns) units, so every lane works whatever H is and a warp reads 128
+// contiguous bytes of a row and writes 512 contiguous bytes.
+constexpr int ROWS_THREADS = 256;
+constexpr int ROWS_VEC = 4;
+
+__global__ void __launch_bounds__(ROWS_THREADS)
+dequant_rows_kernel(const int8_t* __restrict__ table, const float* __restrict__ scale,
+                    const int32_t* __restrict__ idx, float* __restrict__ out, int rows,
+                    int table_rows, int H) {
+  const int per_row = H / ROWS_VEC;
+  const long long unit = (long long)blockIdx.x * ROWS_THREADS + threadIdx.x;
+  if (unit >= (long long)rows * per_row) return;
+  const int r = static_cast<int>(unit / per_row), c = static_cast<int>(unit % per_row);
   int src = idx != nullptr ? idx[r] : r;
   src = min(max(src, 0), table_rows - 1);  // clamp like an XLA gather
   const float s = scale[src];
-  const int4* in = reinterpret_cast<const int4*>(table + (size_t)src * H);
-  float4* o = reinterpret_cast<float4*>(out + (size_t)r * H);
-  for (int c = threadIdx.x; c < H / 16; c += blockDim.x) {
-    const int4 raw = in[c];
-    const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      o[4 * c + i] = make_float4(static_cast<float>(q[4 * i + 0]) * s,
-                                 static_cast<float>(q[4 * i + 1]) * s,
-                                 static_cast<float>(q[4 * i + 2]) * s,
-                                 static_cast<float>(q[4 * i + 3]) * s);
-  }
+  const char4 q = reinterpret_cast<const char4*>(table + (size_t)src * H)[c];
+  reinterpret_cast<float4*>(out + (size_t)r * H)[c] =
+      make_float4(static_cast<float>(q.x) * s, static_cast<float>(q.y) * s,
+                  static_cast<float>(q.z) * s, static_cast<float>(q.w) * s);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -495,12 +500,14 @@ extern "C" int rtfd_dequant_matmul(const void* x, const void* qw, const void* sc
 }
 
 // idx may be null: row r of the output is then table row r (a prefix).
-// Needs H % 16 == 0 (the wrapper checks).
+// Needs H % 16 == 0 (the wrapper checks; the kernel itself needs H % 4).
 extern "C" int rtfd_dequant_rows(const void* table, const void* scale, const void* idx,
                                  void* out, int rows, int table_rows, int H,
                                  void* stream) {
-  dequant_rows_kernel<<<rows, 64, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long units = (long long)rows * (H / ROWS_VEC);
+  const int blocks = static_cast<int>((units + ROWS_THREADS - 1) / ROWS_THREADS);
+  dequant_rows_kernel<<<blocks, ROWS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(table), static_cast<const float*>(scale),
-      static_cast<const int32_t*>(idx), static_cast<float*>(out), table_rows, H);
+      static_cast<const int32_t*>(idx), static_cast<float*>(out), rows, table_rows, H);
   return static_cast<int>(cudaGetLastError());
 }

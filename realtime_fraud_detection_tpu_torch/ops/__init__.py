@@ -23,6 +23,7 @@ from realtime_fraud_detection_tpu_torch.ops.epilogue import (
 )
 from realtime_fraud_detection_tpu_torch.ops.megakernel import (
     fused_megakernel,
+    fused_megakernel_packed,
     mega_launch_accounting,
     mega_plan,
     megakernel_reference,
@@ -51,6 +52,7 @@ __all__ = [
     "dequant_matmul_reference", "dequant_rows", "dequant_rows_reference",
     "epilogue_matrix", "epilogue_matrix_reference", "epilogue_reference",
     "flash_attention", "fused_epilogue", "fused_megakernel",
+    "fused_megakernel_packed",
     "launch_counts", "mega_launch_accounting", "mega_plan",
     "megakernel_reference", "reset_launch_counts",
 ]

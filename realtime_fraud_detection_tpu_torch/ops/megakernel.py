@@ -9,7 +9,10 @@ reads; no branch intermediate reaches device memory. On the card it runs
 the CUDA kernel of ``csrc/megakernel.cu`` (design and bound noted there);
 for tensors on the CPU it runs ``megakernel_reference``, the same branch
 functions composed as a plain chain. ``fused_megakernel.launches`` counts
-kernel launches.
+kernel launches. The scorer's packed path enters through
+``fused_megakernel_packed``, which points the kernel straight into the
+packed blobs. The parameter half of the kernel's arguments is built once per
+models object (``MegaParamArgs``) and only the batch half is filled per call.
 
 ``mega_valid`` is the QoS rung as a tuple of branch-validity booleans: a
 pruned branch does no work, its prediction lane is exactly 0.0 and its
@@ -25,13 +28,17 @@ the CUDA kernel's own shared-memory layout (``mega_kernel_shapes_ok``).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
+import functools
 import math
+import weakref
 from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
+from realtime_fraud_detection_tpu_torch.core.packing import PackSpec, tree_unflatten, unpack_tree
 from realtime_fraud_detection_tpu_torch.ops.build import check_launch, kernel_library
 from realtime_fraud_detection_tpu_torch.ops.epilogue import _statics, combine_matrix
 
@@ -41,8 +48,8 @@ from realtime_fraud_detection_tpu_torch.ops.epilogue import _statics, combine_ma
 
 # The budget of the JAX plan was 14 MiB of a TPU core's VMEM for the
 # parameters plus a block of rows' activations. On the H100 the counterpart
-# is the 50 MB L2: every CTA re-reads the parameters for each row it
-# scores, so they must stay resident there, while a row's activations live
+# is the 50 MB L2: every CTA re-reads the parameters for each group of rows
+# it scores, so they must stay resident there, while a row's activations live
 # in its CTA's shared memory (``mega_smem_bytes``) and are not charged.
 # 40 MiB of the 50 MB leaves room for the inputs and outputs streaming
 # through. TINY int8 (5.3 MB of parameters) and TINY f32 (17.9 MB, which
@@ -54,16 +61,27 @@ _MEGA_L2_BUDGET = 40 * (1 << 20)
 # -- bucket 1 stays on the per-site kernel path (an honest fallback).
 MEGA_MIN_BATCH = 8
 
-# What csrc/megakernel.cu's layout takes (its MEGA_* constants): one row
-# per CTA iteration with the text in 8 warps of up to 8 tokens each, dense
-# outputs in up to 8 column groups of 32 per lane, attention heads of up
-# to 64 lanes' worth, and the shared memory a CTA may use on the card.
+# What csrc/megakernel.cu's layouts take (its MEGA_* constants): up to
+# MEGA_MAX_ROWS rows per CTA iteration with bf16 compute (one with f32),
+# dense weights streamed in MEGA_KC x MEGA_NP chunks (MEGA_KC_F32-deep
+# tiles with f32 compute), text in at most two 32-key lanes, dense outputs
+# in up to 8 column groups of 32 per lane (LN), attention heads of up to 64
+# lanes' worth, the LSTM's gates in one 16-row tensor-core tile per step,
+# attention in groups of MEGA_ATT_Q queries a warp, and the shared memory a
+# CTA may use on the card.
 MEGA_NUM_MODELS = 5
+MEGA_MAX_ROWS = 2
 MEGA_MAX_LAYERS = 8
 MEGA_MAX_TEXT = 64
 MEGA_MAX_WIDTH = 256
 MEGA_MAX_HEAD_DIM = 64
-MEGA_KC = 32
+MEGA_MAX_LSTM = 128
+MEGA_ATT_Q = 8
+# one warp's attention scratch in floats: queries, probabilities, k/v biases
+MEGA_ATT_SCRATCH = (MEGA_MAX_HEAD_DIM + MEGA_MAX_TEXT) * MEGA_ATT_Q + 2 * MEGA_MAX_HEAD_DIM
+MEGA_KC = 64
+MEGA_NP = 128
+MEGA_KC_F32 = 32
 MEGA_WARPS = 8
 MEGA_SMEM_LIMIT = 232448
 
@@ -149,14 +167,15 @@ def mega_supported(b: int, param_bytes: int, has_two_hop: bool = False) -> bool:
             and param_bytes <= _MEGA_L2_BUDGET)
 
 
-def _dims(models, bert_config, text_len: int, feat_dim: int) -> Dict[str, int]:
+def _dims(models, bert_config, text_len: int, feat_dim: int,
+          seq_len: int) -> Dict[str, int]:
     """The widths csrc/megakernel.cu sizes its layout from."""
     lstm, gnn = models.lstm, models.gnn
     return dict(
         text_len=text_len, hidden=bert_config.hidden_size,
         ffn=bert_config.intermediate_size, heads=bert_config.num_heads,
         layers=bert_config.num_layers, num_labels=bert_config.num_labels,
-        feat_dim=feat_dim,
+        feat_dim=feat_dim, seq_len=seq_len,
         lstm_hidden=int(lstm["w_head1"].shape[0]),
         lstm_head=int(lstm["w_head1"].shape[1]),
         gnn_hidden=int(gnn["w_sage1"].shape[1]),
@@ -167,16 +186,52 @@ def _dims(models, bert_config, text_len: int, feat_dim: int) -> Dict[str, int]:
     )
 
 
-def mega_smem_bytes(dims: Dict[str, int], fanout: int) -> int:
-    """Dynamic shared memory of one CTA of csrc/megakernel.cu, in bytes
-    (``mega_layout`` there): x and q ``[S, H]``, the k|v region
-    ``[S, max(2H+1, FFN)]`` (k padded to H+1 columns against bank
-    conflicts; the FFN activations reuse it), a scratch region sized for
-    the largest of the weight tile, the LSTM, GNN and tree stages and the
-    attention rows, the feature row, 16 small slots and the token mask."""
+def _al16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def mega_smem_bytes_tc(dims: Dict[str, int], fanout: int, rows: int) -> int:
+    """Dynamic shared memory of one CTA of csrc/megakernel.cu's bf16-compute
+    kernel scoring ``rows`` rows per iteration, in bytes (``mega_layout_tc``
+    there, every region 16-byte aligned): x f32 ``[R*S, H+8]``; the bf16
+    activations, q|k|v ``[3, R*S, H+2]`` or the FFN hidden ``[R*S, F+8]``
+    beside the FFN output; the widened ``[2, KC, NP+8]`` bf16 and raw
+    ``[2, KC, NP]`` i8 weight rings (attention's per-warp scratch,
+    MEGA_ATT_SCRATCH floats, lives in the widened ring between dense
+    layers); the staged LSTM (w_gates in bf16, the history and the
+    per-row state), GNN (weights in f32 and per-row scratch) and tree
+    leaves reuse that region when larger; then per row the features, token
+    mask and 16 slots, and the [CLS] head."""
+    s, h, ffn, rs = dims["text_len"], dims["hidden"], dims["ffn"], rows * dims["text_len"]
+    fd, lh = dims["feat_dim"], dims["lstm_hidden"]
+    d, g, gh = dims["node_dim"], dims["gnn_hidden"], dims["gnn_head"]
+    x = _al16(rs * (h + 8) * 4)
+    act = max(3 * _al16(rs * (h + 2) * 2),
+              _al16(rs * (ffn + 8) * 2) + _al16(rs * (h + 2) * 2))
+    wide = max(2 * _al16(MEGA_KC * (MEGA_NP + 8) * 2), MEGA_WARPS * MEGA_ATT_SCRATCH * 4)
+    bert = x + act + wide + 2 * MEGA_KC * MEGA_NP
+    lstm = (_al16((fd + lh) * (4 * lh + 8) * 2) + _al16(rows * (fd + lh) * 4)
+            + _al16(rows * dims["seq_len"] * fd * 4) + _al16(rows * 4 * lh * 4) + _al16(rows * 2 * lh * 4)
+            + _al16(rows * dims["lstm_head"] * 4))
+    gnn = (_al16(d * g * 4) + _al16((d + g) * g * 4) + _al16((2 * g + fd) * gh * 4)
+           + _al16(rows * 2 * fanout * g * 4) + 2 * _al16(rows * 2 * g * 4)
+           + _al16(rows * gh * 4))
+    trees = _al16(rows * max(dims["n_trees"], dims["n_iforest"]) * 4)
+    tail = (_al16(rows * fd * 4) + _al16(rows * s * 4) + _al16(rows * 16 * 4)
+            + _al16(rows * h * 4))
+    return max(bert, lstm, gnn, trees) + tail
+
+
+def mega_smem_bytes_f32(dims: Dict[str, int], fanout: int) -> int:
+    """Dynamic shared memory of one CTA of the f32-compute kernel, in bytes
+    (``mega_layout_f32``): x and q ``[S, H]``, the k|v region ``[S,
+    max(2H+1, FFN)]`` (k padded to H+1 columns against bank conflicts; the
+    FFN activations reuse it), a scratch region sized for the largest of the
+    weight tile, the LSTM, GNN and tree stages and the attention rows, the
+    feature row, 16 small slots and the token mask."""
     s, h, ffn = dims["text_len"], dims["hidden"], dims["ffn"]
     lh, g = dims["lstm_hidden"], dims["gnn_hidden"]
-    scratch = max(MEGA_KC * max(h, ffn), 6 * lh + dims["lstm_head"],
+    scratch = max(MEGA_KC_F32 * max(h, ffn), 6 * lh + dims["lstm_head"],
                   2 * fanout * g + 4 * g + dims["gnn_head"],
                   dims["n_trees"], dims["n_iforest"], h,
                   MEGA_WARPS * s)
@@ -185,15 +240,24 @@ def mega_smem_bytes(dims: Dict[str, int], fanout: int) -> int:
     return 4 * floats
 
 
+def mega_smem_bytes(dims: Dict[str, int], fanout: int) -> int:
+    """The shared memory the plan charges (``mega_plan_smem_bytes``): the
+    larger of the one-row bf16-compute layout and the f32-compute layout,
+    so that both kernels fit whenever the plan admits."""
+    return max(mega_smem_bytes_tc(dims, fanout, 1), mega_smem_bytes_f32(dims, fanout))
+
+
 def mega_kernel_shapes_ok(dims: Dict[str, int], smem_bytes: int) -> bool:
-    """The widths the CUDA kernel's layout takes (its MEGA_* limits)."""
+    """The widths the CUDA kernel's layouts take (its MEGA_* limits)."""
     s, h, ffn = dims["text_len"], dims["hidden"], dims["ffn"]
-    heads = dims["heads"]
+    heads, lh = dims["heads"], dims["lstm_hidden"]
     return (0 < s <= MEGA_MAX_TEXT and 0 < dims["layers"] <= MEGA_MAX_LAYERS
             and h % 32 == 0 and 0 < h <= MEGA_MAX_WIDTH
             and ffn % 32 == 0 and 0 < ffn <= MEGA_MAX_WIDTH
             and heads > 0 and h % heads == 0
             and h // heads <= MEGA_MAX_HEAD_DIM
+            and 0 < lh <= MEGA_MAX_LSTM and lh % 4 == 0
+            and (dims["feat_dim"] + lh) % 16 == 0
             and dims["num_labels"] == 2
             and smem_bytes <= MEGA_SMEM_LIMIT)
 
@@ -204,7 +268,7 @@ def mega_plan(models, bert_config, *, b: int, text_len: int, seq_len: int,
     """The shape plan for a ``b``-row dispatch: ``supported`` when the L2
     budget admits it and the kernel's layout takes its widths."""
     pb = mega_param_bytes(models)
-    dims = _dims(models, bert_config, text_len, feature_dim)
+    dims = _dims(models, bert_config, text_len, feature_dim, seq_len)
     smem = mega_smem_bytes(dims, fanout)
     shapes_ok = mega_kernel_shapes_ok(dims, smem)
     return {
@@ -366,143 +430,254 @@ class MegaArgs(ctypes.Structure):
     )
 
 
-class _Operands:
-    """Checks tensors for the kernel and keeps them alive for the call."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.keep = []
-
-    def ptr(self, t, dtypes=(torch.float32,), name="") -> int:
-        if not isinstance(t, torch.Tensor):
-            raise ValueError(f"fused_megakernel: {name} is not a tensor")
-        if t.device != self.device or t.dtype not in dtypes:
-            raise ValueError(
-                f"fused_megakernel: {name} must be {dtypes} on {self.device}, "
-                f"got {t.dtype} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_megakernel: {name} must be contiguous")
-        self.keep.append(t)
-        return t.data_ptr()
-
-    def row(self, t, kind: str, name: str, b: int) -> Tuple[int, int]:
-        """Pointer and row stride of a [B, ...] leaf whose rows are
-        contiguous (a column view of a packed blob qualifies)."""
-        if not isinstance(t, torch.Tensor) or t.dtype not in _KIND_DTYPES[kind]:
-            raise ValueError(f"fused_megakernel: batch.{name} must be one of "
-                             f"{_KIND_DTYPES[kind]}")
-        if t.device != self.device or t.shape[0] != b:
-            raise ValueError(f"fused_megakernel: batch.{name} must be "
-                             f"[{b}, ...] on {self.device}")
-        expect = 1
-        for size, stride in reversed(list(zip(t.shape[1:], t.stride()[1:]))):
-            if size > 1 and stride != expect:
-                raise ValueError(
-                    f"fused_megakernel: batch.{name} rows must be contiguous")
-            expect *= size
-        self.keep.append(t)
-        return t.data_ptr(), t.stride(0)
+def _check_ptr(t, dtypes, name: str, device: torch.device) -> int:
+    """A parameter tensor's address, after checking it for the kernel."""
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"fused_megakernel: {name} is not a tensor")
+    if t.device != device or t.dtype not in dtypes:
+        raise ValueError(
+            f"fused_megakernel: {name} must be {dtypes} on {device}, "
+            f"got {t.dtype} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"fused_megakernel: {name} must be contiguous")
+    return t.data_ptr()
 
 
 def _batch_field(batch, name):
     return getattr(batch.txn, name) if hasattr(batch.txn, name) else getattr(batch, name)
 
 
-def _launch(models, batch, params, mega_valid, bert_config, compute_dtype):
-    from realtime_fraud_detection_tpu_torch.models.gnn import is_typed_gnn
-    from realtime_fraud_detection_tpu_torch.models.quant import is_quantized_bert
+def _row_ptr(t, kind: str, name: str, b: int, device: torch.device) -> Tuple[int, int]:
+    """Pointer and row stride of a [B, ...] batch leaf whose rows are
+    contiguous (a column view of a packed blob qualifies)."""
+    if not isinstance(t, torch.Tensor) or t.dtype not in _KIND_DTYPES[kind]:
+        raise ValueError(f"fused_megakernel: batch.{name} must be one of "
+                         f"{_KIND_DTYPES[kind]}")
+    if t.device != device or t.shape[0] != b:
+        raise ValueError(f"fused_megakernel: batch.{name} must be "
+                         f"[{b}, ...] on {device}")
+    expect = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size > 1 and stride != expect:
+            raise ValueError(f"fused_megakernel: batch.{name} rows must be contiguous")
+        expect *= size
+    return t.data_ptr(), t.stride(0)
 
-    dev = batch.features.device
-    b = int(batch.features.shape[0])
-    if is_typed_gnn(models.gnn):
-        raise ValueError("fused_megakernel: the typed GNN is not ported")
-    ops = _Operands(dev)
-    a = MegaArgs()
-    for j, (name, kind) in enumerate(MEGA_INPUTS):
-        a.inp[j], a.inp_stride[j] = ops.row(_batch_field(batch, name), kind,
-                                            name, b)
-    f32, i32, i8 = (torch.float32,), (torch.int32,), (torch.int8,)
-    tr, fo, lstm, gnn, bert = (models.trees, models.iforest, models.lstm,
-                               models.gnn, models.bert)
-    a.tree_feature = ops.ptr(tr.feature, i32, "trees.feature")
-    a.tree_threshold = ops.ptr(tr.threshold, f32, "trees.threshold")
-    a.tree_leaf = ops.ptr(tr.leaf, f32, "trees.leaf")
-    a.tree_base = ops.ptr(tr.base_score, f32, "trees.base_score")
-    a.if_feature = ops.ptr(fo.feature, i32, "iforest.feature")
-    a.if_threshold = ops.ptr(fo.threshold, f32, "iforest.threshold")
-    a.if_path = ops.ptr(fo.path_length, f32, "iforest.path_length")
-    a.if_cpsi = ops.ptr(fo.c_psi, f32, "iforest.c_psi")
-    for key in ("w_gates", "b_gates", "w_head1", "b_head1", "w_head2", "b_head2"):
-        setattr(a, "lstm_" + key, ops.ptr(lstm[key], f32, "lstm." + key))
-    for key in ("w_sage1", "b_sage1", "w_sage2", "b_sage2", "w_head1",
-                "b_head1", "w_head2", "b_head2"):
-        setattr(a, "gnn_" + key, ops.ptr(gnn[key], f32, "gnn." + key))
 
-    int8 = is_quantized_bert(bert)
-    wdt = i8 if int8 else f32
-    for name in ("word_emb", "pos_emb"):
-        table = bert[name]
-        if int8:
-            setattr(a, name, ops.ptr(table["qe"], i8, name + ".qe"))
-            setattr(a, name.split("_")[0] + "_scale",
-                    ops.ptr(table["scale"], f32, name + ".scale"))
-        else:
-            setattr(a, name, ops.ptr(table, f32, name))
-    a.emb_ln_scale = ops.ptr(bert["emb_ln"]["scale"], f32, "emb_ln.scale")
-    a.emb_ln_bias = ops.ptr(bert["emb_ln"]["bias"], f32, "emb_ln.bias")
-    for li, layer in enumerate(bert["layers"]):
-        for si, site in enumerate(DENSE_SITES):
-            p = layer[site]
-            a.dense_w[li][si] = ops.ptr(p["qw" if int8 else "w"], wdt, site)
+class MegaParamArgs:
+    """The parameter half of the kernel's arguments for one models object:
+    every weight pointer and width, checked and written into a ``MegaArgs``
+    once. ``fused_megakernel`` keeps the latest few, keyed by the models
+    object's identity (held by weak reference, so a freed models object can
+    never match a new one) and the batch widths, and on each call copies
+    the struct and fills only the batch half. The models are treated as
+    immutable: ``TorchFraudScorer.set_models`` replaces the object, which
+    rebuilds the arguments."""
+
+    def __init__(self, models, bert_config, compute_dtype: torch.dtype,
+                 widths: Tuple[int, int, int, int], device: torch.device):
+        from realtime_fraud_detection_tpu_torch.models.gnn import is_typed_gnn
+        from realtime_fraud_detection_tpu_torch.models.quant import is_quantized_bert
+
+        text_len, feat_dim, seq_len, fanout = widths
+        self.models = weakref.ref(models)
+        self.key = (bert_config, compute_dtype, widths, device)
+        self.dims = _dims(models, bert_config, text_len, feat_dim, seq_len)
+        if not mega_kernel_shapes_ok(self.dims, mega_smem_bytes(self.dims, fanout)):
+            raise ValueError(f"the megakernel does not take these shapes: {self.dims}")
+        if is_typed_gnn(models.gnn):
+            raise ValueError("fused_megakernel: the typed GNN is not ported")
+        self.keep = []                    # the tensors the pointers point into
+        a = self.args = MegaArgs()
+
+        def ptr(t, dtypes, name):
+            self.keep.append(t)
+            return _check_ptr(t, dtypes, name, device)
+
+        f32, i32, i8 = (torch.float32,), (torch.int32,), (torch.int8,)
+        tr, fo, lstm, gnn, bert = (models.trees, models.iforest, models.lstm,
+                                   models.gnn, models.bert)
+        a.tree_feature = ptr(tr.feature, i32, "trees.feature")
+        a.tree_threshold = ptr(tr.threshold, f32, "trees.threshold")
+        a.tree_leaf = ptr(tr.leaf, f32, "trees.leaf")
+        a.tree_base = ptr(tr.base_score, f32, "trees.base_score")
+        a.if_feature = ptr(fo.feature, i32, "iforest.feature")
+        a.if_threshold = ptr(fo.threshold, f32, "iforest.threshold")
+        a.if_path = ptr(fo.path_length, f32, "iforest.path_length")
+        a.if_cpsi = ptr(fo.c_psi, f32, "iforest.c_psi")
+        for key in ("w_gates", "b_gates", "w_head1", "b_head1", "w_head2", "b_head2"):
+            setattr(a, "lstm_" + key, ptr(lstm[key], f32, "lstm." + key))
+        for key in ("w_sage1", "b_sage1", "w_sage2", "b_sage2", "w_head1",
+                    "b_head1", "w_head2", "b_head2"):
+            setattr(a, "gnn_" + key, ptr(gnn[key], f32, "gnn." + key))
+        int8 = is_quantized_bert(bert)
+        wdt = i8 if int8 else f32
+        for name in ("word_emb", "pos_emb"):
+            table = bert[name]
             if int8:
-                a.dense_scale[li][si] = ops.ptr(p["scale"], f32, site + ".scale")
-            a.dense_b[li][si] = ops.ptr(p["b"], f32, site + ".b")
-        for si, site in enumerate(LN_SITES):
-            a.ln_scale[li][si] = ops.ptr(layer[site]["scale"], f32, site)
-            a.ln_bias[li][si] = ops.ptr(layer[site]["bias"], f32, site)
-    a.pre_w = ops.ptr(bert["pre_classifier"]["w"], f32, "pre_classifier.w")
-    a.pre_b = ops.ptr(bert["pre_classifier"]["b"], f32, "pre_classifier.b")
-    a.cls_w = ops.ptr(bert["classifier"]["w"], f32, "classifier.w")
-    a.cls_b = ops.ptr(bert["classifier"]["b"], f32, "classifier.b")
-    a.weights = ops.ptr(params.weights.to(device=dev, dtype=torch.float32)
-                        .contiguous(), f32, "weights")
-    a.conf_mult = ops.ptr(params.confidence_multipliers.to(
-        device=dev, dtype=torch.float32).contiguous(), f32, "conf_mult")
-    m = len(mega_valid)
-    out = torch.empty((b, 2 * m + 10), dtype=torch.float32, device=dev)
-    a.out = ops.ptr(out, f32, "out")
+                setattr(a, name, ptr(table["qe"], i8, name + ".qe"))
+                setattr(a, name.split("_")[0] + "_scale",
+                        ptr(table["scale"], f32, name + ".scale"))
+            else:
+                setattr(a, name, ptr(table, f32, name))
+        a.emb_ln_scale = ptr(bert["emb_ln"]["scale"], f32, "emb_ln.scale")
+        a.emb_ln_bias = ptr(bert["emb_ln"]["bias"], f32, "emb_ln.bias")
+        for li, layer in enumerate(bert["layers"]):
+            for si, site in enumerate(DENSE_SITES):
+                p = layer[site]
+                a.dense_w[li][si] = ptr(p["qw" if int8 else "w"], wdt, site)
+                if int8:
+                    a.dense_scale[li][si] = ptr(p["scale"], f32, site + ".scale")
+                a.dense_b[li][si] = ptr(p["b"], f32, site + ".b")
+            for si, site in enumerate(LN_SITES):
+                a.ln_scale[li][si] = ptr(layer[site]["scale"], f32, site)
+                a.ln_bias[li][si] = ptr(layer[site]["bias"], f32, site)
+        a.pre_w = ptr(bert["pre_classifier"]["w"], f32, "pre_classifier.w")
+        a.pre_b = ptr(bert["pre_classifier"]["b"], f32, "pre_classifier.b")
+        a.cls_w = ptr(bert["classifier"]["w"], f32, "classifier.w")
+        a.cls_b = ptr(bert["classifier"]["b"], f32, "classifier.b")
+        word = bert["word_emb"]["qe"] if int8 else bert["word_emb"]
+        pos = bert["pos_emb"]["qe"] if int8 else bert["pos_emb"]
+        d = self.dims
+        ints = dict(
+            n_trees=d["n_trees"], tree_depth=int(math.log2(tr.leaf.shape[1])),
+            n_iforest=d["n_iforest"],
+            iforest_depth=int(math.log2(fo.path_length.shape[1])),
+            feat_dim=feat_dim, seq_len=seq_len,
+            lstm_hidden=d["lstm_hidden"], lstm_head=d["lstm_head"],
+            node_dim=d["node_dim"], fanout=fanout,
+            gnn_hidden=d["gnn_hidden"], gnn_head=d["gnn_head"],
+            text_len=text_len, hidden=d["hidden"], ffn=d["ffn"],
+            heads=d["heads"], layers=len(bert["layers"]),
+            vocab=int(word.shape[0]), max_pos=int(pos.shape[0]),
+            int8=int(int8), bf16=int(compute_dtype == torch.bfloat16))
+        for name, value in ints.items():
+            setattr(a, name, value)
+        a.ln_eps = bert_config.layer_norm_eps
+        a.sqrt_head_dim = math.sqrt(bert_config.head_dim)
 
-    word = bert["word_emb"]["qe"] if int8 else bert["word_emb"]
-    pos = bert["pos_emb"]["qe"] if int8 else bert["pos_emb"]
-    dims = _dims(models, bert_config, int(batch.token_ids.shape[1]),
-                 int(batch.features.shape[1]))
-    ints = dict(
-        batch=b, n_trees=dims["n_trees"],
-        tree_depth=int(math.log2(tr.leaf.shape[1])),
-        n_iforest=dims["n_iforest"],
-        iforest_depth=int(math.log2(fo.path_length.shape[1])),
-        feat_dim=int(batch.features.shape[1]),
-        seq_len=int(batch.history.shape[1]),
-        lstm_hidden=dims["lstm_hidden"], lstm_head=dims["lstm_head"],
-        node_dim=dims["node_dim"], fanout=int(batch.user_neigh_feat.shape[1]),
-        gnn_hidden=dims["gnn_hidden"], gnn_head=dims["gnn_head"],
-        text_len=dims["text_len"], hidden=dims["hidden"], ffn=dims["ffn"],
-        heads=dims["heads"], layers=len(bert["layers"]),
-        vocab=int(word.shape[0]), max_pos=int(pos.shape[0]),
-        mega_valid=sum(1 << j for j, v in enumerate(mega_valid) if v),
-        int8=int(int8), bf16=int(compute_dtype == torch.bfloat16))
-    for name, value in list(ints.items()) + list(_statics(params).items()):
+
+_PARAM_ARGS_KEPT = 4
+_param_args_cache: "collections.OrderedDict[int, MegaParamArgs]" = collections.OrderedDict()
+
+
+def _batch_widths(batch) -> Tuple[int, int, int, int]:
+    """(text_len, feat_dim, seq_len, fanout) of a [B, ...] batch."""
+    return (int(batch.token_ids.shape[1]), int(batch.features.shape[1]),
+            int(batch.history.shape[1]), int(batch.user_neigh_feat.shape[1]))
+
+
+def mega_param_args(models, widths: Tuple[int, int, int, int],
+                    device: torch.device, bert_config,
+                    compute_dtype: torch.dtype) -> MegaParamArgs:
+    """The cached parameter half for ``models`` at the batch ``widths``
+    (text_len, feat_dim, seq_len, fanout); it is built, and the widths
+    checked, only when no kept entry matches."""
+    key = (bert_config, compute_dtype, widths, device)
+    entry = _param_args_cache.get(id(models))
+    if entry is None or entry.models() is not models or entry.key != key:
+        entry = MegaParamArgs(models, bert_config, compute_dtype, widths, device)
+        _param_args_cache[id(models)] = entry
+        _param_args_cache.move_to_end(id(models))
+        while len(_param_args_cache) > _PARAM_ARGS_KEPT:
+            _param_args_cache.popitem(last=False)
+    return entry
+
+
+def _launch(entry: MegaParamArgs, inputs, b: int, dev: torch.device, params,
+            mega_valid: Tuple[bool, ...]) -> torch.Tensor:
+    """Copy the cached parameter half, fill the batch half (``inputs``: a
+    (pointer, row stride) per MEGA_INPUTS leaf) and launch."""
+    a = MegaArgs.from_buffer_copy(entry.args)
+    for j, (ptr, stride) in enumerate(inputs):
+        a.inp[j], a.inp_stride[j] = ptr, stride
+    f32 = (torch.float32,)
+    weights = params.weights.to(device=dev, dtype=torch.float32).contiguous()
+    conf = params.confidence_multipliers.to(device=dev, dtype=torch.float32).contiguous()
+    a.weights = _check_ptr(weights, f32, "weights", dev)
+    a.conf_mult = _check_ptr(conf, f32, "conf_mult", dev)
+    out = torch.empty((b, 2 * len(mega_valid) + 10), dtype=torch.float32, device=dev)
+    a.out = out.data_ptr()
+    a.batch = b
+    a.mega_valid = sum(1 << j for j, v in enumerate(mega_valid) if v)
+    for name, value in _statics(params).items():
         setattr(a, name, value)
-    a.ln_eps = bert_config.layer_norm_eps
-    a.sqrt_head_dim = math.sqrt(bert_config.head_dim)
-
-    lib = kernel_library()
-    grid = min(b, torch.cuda.get_device_properties(dev).multi_processor_count)
-    code = lib.rtfd_megakernel(ctypes.addressof(a), grid,
-                               torch.cuda.current_stream(dev).cuda_stream)
+    code = kernel_library().rtfd_megakernel(
+        ctypes.addressof(a), _sm_count(dev), torch.cuda.current_stream(dev).cuda_stream)
     check_launch("fused_megakernel", code)
     fused_megakernel.launches += 1
     return out
+
+
+_BLOB_OF_KIND = {"f": "f32", "i": "i32", "b": "u8"}
+_BLOB_DTYPES = {"f32": torch.float32, "i32": torch.int32, "u8": torch.uint8}
+
+
+@functools.lru_cache(maxsize=64)
+def _packed_layout(spec: PackSpec):
+    """Where each MEGA_INPUTS leaf sits in the packed blobs: (blob, first
+    column) per leaf, and the batch widths. Raises on a two-hop batch."""
+    index = tree_unflatten(spec.treedef, list(range(len(spec.entries))))
+    if index.user_neigh2_feat is not None:
+        raise ValueError("the megakernel does not take two-hop batches")
+    cols = []
+    for name, kind in MEGA_INPUTS:
+        blob, offset, _, _ = spec.entries[_batch_field(index, name)]
+        if blob != _BLOB_OF_KIND[kind]:
+            raise ValueError(f"fused_megakernel: batch.{name} is packed in {blob}")
+        cols.append((blob, offset))
+    tails = {name: spec.entries[_batch_field(index, name)][2]
+             for name in ("token_ids", "features", "history", "user_neigh_feat")}
+    widths = (int(tails["token_ids"][0]), int(tails["features"][0]),
+              int(tails["history"][0]), int(tails["user_neigh_feat"][0]))
+    return tuple(cols), widths
+
+
+def _check_call(mega_valid, compute_dtype) -> Tuple[bool, ...]:
+    mega_valid = tuple(bool(v) for v in mega_valid)
+    if len(mega_valid) != MEGA_NUM_MODELS:
+        raise ValueError(f"mega_valid needs {MEGA_NUM_MODELS} entries")
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"compute_dtype must be bf16 or f32, got {compute_dtype}")
+    return mega_valid
+
+
+def fused_megakernel_packed(models, blobs: Dict[str, torch.Tensor], spec: PackSpec,
+                            params, *, mega_valid: Tuple[bool, ...], bert_config=None,
+                            compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``fused_megakernel`` for a packed batch (``core/packing.py``): on the
+    card the batch half of the arguments points straight into the blobs,
+    with no unpacking and no per-leaf checks (the leaf layout is cached per
+    ``spec``; the three blobs are checked); for blobs on the CPU they are
+    unpacked and the plain version runs."""
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+
+    if blobs["f32"].device.type == "cpu":
+        return fused_megakernel(models, unpack_tree(blobs, spec), params,
+                                mega_valid=mega_valid, bert_config=bert_config,
+                                compute_dtype=compute_dtype)
+    bert_config = bert_config or TINY_CONFIG
+    mega_valid = _check_call(mega_valid, compute_dtype)
+    cols, widths = _packed_layout(spec)
+    dev = blobs["f32"].device
+    b = int(blobs["f32"].shape[0])
+    entry = mega_param_args(models, widths, dev, bert_config, compute_dtype)
+    base = {}
+    for name, dtype in _BLOB_DTYPES.items():
+        t = blobs[name]
+        if (t.dtype != dtype or t.device != dev or t.dim() != 2 or t.shape[0] != b
+                or not t.is_contiguous()):
+            raise ValueError(f"fused_megakernel: blob {name} must be a contiguous "
+                             f"{dtype} [{b}, W] on {dev}")
+        base[name] = (t.data_ptr(), t.element_size(), t.stride(0))
+    inputs = [(base[blob][0] + offset * base[blob][1], base[blob][2])
+              for blob, offset in cols]
+    return _launch(entry, inputs, b, dev, params, mega_valid)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fused_megakernel(models, batch, params, *,
@@ -518,23 +693,20 @@ def fused_megakernel(models, batch, params, *,
     from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
 
     bert_config = bert_config or TINY_CONFIG
-    mega_valid = tuple(bool(v) for v in mega_valid)
-    if len(mega_valid) != MEGA_NUM_MODELS:
-        raise ValueError(f"mega_valid needs {MEGA_NUM_MODELS} entries")
-    if compute_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"compute_dtype must be bf16 or f32, got {compute_dtype}")
-    dims = _dims(models, bert_config, int(batch.token_ids.shape[1]),
-                 int(batch.features.shape[1]))
-    if (batch.user_neigh2_feat is not None or not mega_kernel_shapes_ok(
-            dims, mega_smem_bytes(dims, int(batch.user_neigh_feat.shape[1])))):
-        raise ValueError(f"the megakernel does not take these shapes: {dims}")
-    if batch.features.device.type == "cpu":
+    mega_valid = _check_call(mega_valid, compute_dtype)
+    if batch.user_neigh2_feat is not None:
+        raise ValueError("the megakernel does not take two-hop batches")
+    dev = batch.features.device
+    entry = mega_param_args(models, _batch_widths(batch), dev, bert_config, compute_dtype)
+    if dev.type == "cpu":
         return megakernel_reference(models, batch, params,
                                     mega_valid=mega_valid,
                                     bert_config=bert_config,
                                     compute_dtype=compute_dtype)
-    return _launch(models, batch, params, mega_valid, bert_config,
-                   compute_dtype)
+    b = int(batch.features.shape[0])
+    inputs = [_row_ptr(_batch_field(batch, name), kind, name, b, dev)
+              for name, kind in MEGA_INPUTS]
+    return _launch(entry, inputs, b, dev, params, mega_valid)
 
 
 fused_megakernel.launches = 0

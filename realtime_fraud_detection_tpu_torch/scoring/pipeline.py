@@ -54,7 +54,7 @@ from realtime_fraud_detection_tpu_torch.models.trees import (
     tree_ensemble_predict,
 )
 from realtime_fraud_detection_tpu_torch.ops.epilogue import epilogue_matrix
-from realtime_fraud_detection_tpu_torch.ops.megakernel import fused_megakernel
+from realtime_fraud_detection_tpu_torch.ops.megakernel import fused_megakernel_packed
 
 MODEL_NAMES: tuple[str, ...] = (
     "xgboost_primary",
@@ -250,11 +250,10 @@ def score_fused_packed(models: ScoringModels, blobs: Dict[str, torch.Tensor],
     per-site chain below runs, unchanged.
     """
     if megakernel == "cuda" and mega_valid is not None:
-        batch = unpack_tree(blobs, spec,
-                            keep_u8=blobs["f32"].device.type == "cuda")
-        return fused_megakernel(models, batch, params, mega_valid=mega_valid,
-                                bert_config=bert_config,
-                                compute_dtype=compute_dtype)
+        return fused_megakernel_packed(models, blobs, spec, params,
+                                       mega_valid=mega_valid,
+                                       bert_config=bert_config,
+                                       compute_dtype=compute_dtype)
     batch = unpack_tree(blobs, spec)
     out = score_fused(models, batch, params, model_valid,
                       bert_config=bert_config, use_flash=use_flash,

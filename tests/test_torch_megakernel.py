@@ -247,10 +247,35 @@ def test_launch_accounting_matches_jax(mv):
 
 
 def test_smem_layout_fits_one_cta_at_tiny(jax_models_q):
-    _, got = _plans(jax_models_q, models_from_numpy(jax_models_q), 256)
-    # x, q [64, 128]; k|v [64, 257]; scratch 32 x 256; features, slots, mask
-    assert got["smem_bytes"] == 4 * (2 * 64 * 128 + 64 * 257 + 32 * 256 + 64 + 16 + 64)
-    assert got["smem_bytes"] <= mk.MEGA_SMEM_LIMIT and got["kernel_shapes"]
+    port_models = models_from_numpy(jax_models_q)
+    _, got = _plans(jax_models_q, port_models, 256)
+    dims = mk._dims(port_models, TINY_CONFIG, SC.text_len, SC.feature_dim,
+                    SC.seq_len)
+    # f32 compute: x, q [64, 128]; k|v [64, 257]; scratch 32 x 256;
+    # features, slots, mask
+    f32 = 4 * (2 * 64 * 128 + 64 * 257 + 32 * 256 + 64 + 16 + 64)
+    assert mk.mega_smem_bytes_f32(dims, SC.fanout) == f32 == 164_672
+
+    def tc(rows):
+        rs = rows * 64
+        bert = (rs * 136 * 4                          # x f32 [R*S, H+8]
+                + max(3 * rs * 130 * 2,               # q|k|v bf16 [R*S, H+2]
+                      rs * 264 * 2 + rs * 130 * 2)    # FFN hidden + output
+                + max(2 * 64 * 136 * 2,               # widened ring, or the
+                      8 * ((64 + 64) * 8 + 128) * 4)  # attention scratch
+                + 2 * 64 * 128)                       # raw ring
+        lstm = (192 * 520 * 2 + rows * 192 * 4        # w_gates bf16, [x ; h]
+                + rows * 10 * 64 * 4                  # the history
+                + rows * (512 + 256 + 64) * 4)        # z, h|c, head
+        tail = rows * (64 + 64 + 16 + 128) * 4        # features, mask, slots, [CLS]
+        return max(bert, lstm) + tail
+
+    # bf16 compute: one row is bounded by the staged LSTM weight, two rows
+    # by BERT's region; the plan charges the one-row layout
+    assert mk.mega_smem_bytes_tc(dims, SC.fanout, 1) == tc(1) == 207_424
+    assert mk.mega_smem_bytes_tc(dims, SC.fanout, 2) == tc(2) == 225_920
+    assert got["smem_bytes"] == tc(1) <= mk.MEGA_SMEM_LIMIT and got["kernel_shapes"]
+    assert tc(2) <= mk.MEGA_SMEM_LIMIT < tc(3)       # so MEGA_MAX_ROWS is 2
 
 
 # ------------------------------------------------------- parity with JAX
@@ -323,14 +348,14 @@ def test_packed_dispatch_takes_the_megakernel_only_where_planned(
         Config(quant=QuantSettings.full(), kernels=KernelSettings.mega()),
         models=mega_scorer.models, bert_config=TINY_CONFIG, device="cpu")
     calls = []
-    real = mk.fused_megakernel
+    real = mk.fused_megakernel_packed
 
     def spy(*args, **kw):
         calls.append(kw["mega_valid"])
         return real(*args, **kw)
 
     from realtime_fraud_detection_tpu_torch.scoring import pipeline
-    monkeypatch.setattr(pipeline, "fused_megakernel", spy)
+    monkeypatch.setattr(pipeline, "fused_megakernel_packed", spy)
     # the scorer reads its plan once per batch: bucket 8 carries the rung
     # down, bucket 1 carries None and runs the per-site chain
     assert scorer.kernel_static(8, np.asarray(FULL))["mega_valid"] == FULL
@@ -529,8 +554,9 @@ def test_args_struct_matches_ctypes():
 
 def test_kernel_limits_match_the_python_plan():
     text = (CSRC / "megakernel.cu").read_text()
-    for name in ("MEGA_KC", "MEGA_NUM_MODELS", "MEGA_MAX_LAYERS",
-                 "MEGA_MAX_TEXT", "MEGA_MAX_WIDTH", "MEGA_MAX_HEAD_DIM",
+    for name in ("MEGA_KC", "MEGA_NP", "MEGA_KC_F32", "MEGA_MAX_ROWS", "MEGA_ATT_Q",
+                 "MEGA_NUM_MODELS", "MEGA_MAX_LAYERS", "MEGA_MAX_TEXT",
+                 "MEGA_MAX_WIDTH", "MEGA_MAX_HEAD_DIM", "MEGA_MAX_LSTM",
                  "MEGA_SMEM_LIMIT"):
         value = re.search(rf"#define {name} (\d+)", text).group(1)
         assert int(value) == getattr(mk, name), name
@@ -543,3 +569,209 @@ def test_megakernel_module_is_in_the_isolation_checks():
     port = ROOT / "realtime_fraud_detection_tpu_torch"
     assert port / "ops" / "megakernel.py" in set(port.rglob("*.py"))
     assert 'PORT.rglob("*.py")' in (ROOT / "tests" / "test_torch_pipeline.py").read_text()
+
+
+# ------------------------------------- tensor-core dense, emulated on the CPU
+# csrc/megakernel.cu dense_tc and lstm_tc issue mma.sync.m16n8k16 (bf16 in,
+# f32 accumulate) with A fragments built from shared memory by load_a and B
+# fragments loaded by ldmatrix.x4.trans (ldsm_b_pair). The emulation below
+# follows those fragment maps lane by lane, with the kernel's warp split,
+# passes and weight chunks, and must reproduce matmul_cd: the same
+# bf16-rounded operands, f32 sums in another order, one bf16 rounding.
+_LANES = np.arange(32)
+_G, _T = _LANES >> 2, _LANES & 3
+# register r of lane l holds the pair (row, col) and (row, col + 1)
+_A_MAP = [(_G, 2 * _T), (_G + 8, 2 * _T), (_G, 2 * _T + 8), (_G + 8, 2 * _T + 8)]
+_C_MAP = [(_G, 2 * _T), (_G + 8, 2 * _T)]                  # c0,c1 and c2,c3
+# B (k x n): register r of lane l holds (k, n) and (k + 1, n)
+_B_MAP = [(2 * _T, _G), (2 * _T + 8, _G)]
+
+
+def _bf16(x):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _load_a(x, m, step, r0, k0):
+    """load_a: per lane four registers, each an (even, odd) column pair."""
+    regs = np.zeros((32, 4, 2), np.float32)
+    for r, (rows, cols) in enumerate(_A_MAP):
+        rows = rows + r0
+        ok = rows < m
+        for e in range(2):
+            regs[ok, r, e] = x[rows[ok] * step, k0 + cols[ok] + e]
+    return _bf16(regs)
+
+
+def _ldsm_b_pair(tile, k0, n0):
+    """ldmatrix.x4.trans over a [k][n] tile: lane l addresses row l & 7 of
+    matrix l >> 3 (k half (l >> 3) & 1, n half l >> 4); after the transpose
+    lane l receives, from each matrix, column l >> 2 at rows 2(l & 3) and
+    2(l & 3) + 1."""
+    mats = [tile[k0 + (mi & 1) * 8:k0 + (mi & 1) * 8 + 8,
+                 n0 + (mi >> 1) * 8:n0 + (mi >> 1) * 8 + 8] for mi in range(4)]
+    return np.stack([np.stack([mat[2 * _T, _G], mat[2 * _T + 1, _G]], axis=-1)
+                     for mat in mats], axis=1)             # [32, 4 regs, 2]
+
+
+def _mma(acc, a, b0, b1):
+    """mma.sync.m16n8k16: assemble A [16, 16] and B [16, 8] from the lanes'
+    registers (every element exactly once), D += A @ B in f32, scatter."""
+    A = np.full((16, 16), np.nan, np.float32)
+    B = np.full((16, 8), np.nan, np.float32)
+    for r, (rows, cols) in enumerate(_A_MAP):
+        A[rows, cols], A[rows, cols + 1] = a[:, r, 0], a[:, r, 1]
+    for r, (ks, ns) in enumerate(_B_MAP):
+        bb = (b0, b1)[r]
+        B[ks, ns], B[ks + 1, ns] = bb[:, 0], bb[:, 1]
+    assert not np.isnan(A).any() and not np.isnan(B).any()
+    D = (A.astype(np.float32) @ B.astype(np.float32)).astype(np.float32)
+    for h, (rows, cols) in enumerate(_C_MAP):
+        acc[:, 2 * h] += D[rows, cols]
+        acc[:, 2 * h + 1] += D[rows, cols + 1]
+
+
+def _store_c(y, acc, m, step, r0, n):
+    for h, (rows, cols) in enumerate(_C_MAP):
+        rows = rows + r0
+        ok = rows < m
+        for e in range(2):
+            y[rows[ok] * step, n + cols[ok] + e] = _bf16(acc[ok, 2 * h + e])
+
+
+def _emulate_dense_tc(x, w, m, step):
+    """dense_tc: passes of MEGA_NP columns, chunks of MEGA_KC rows widened
+    into a [k][n] tile, 2 x 4 or 1 x 8 warps, up to 4 row tiles a warp."""
+    k, n = w.shape
+    y = np.full((x.shape[0], n), np.nan, np.float32)
+    m_tiles = -(-m // 16)
+    wm_n = 2 if m_tiles >= 2 else 1
+    n_per_warp = mk.MEGA_NP // (mk.MEGA_WARPS // wm_n)
+    for n0 in range(0, n, mk.MEGA_NP):
+        np_ = min(mk.MEGA_NP, n - n0)
+        acc = np.zeros((mk.MEGA_WARPS, 4, 4, 32, 4), np.float32)
+        for k0 in range(0, k, mk.MEGA_KC):
+            wide = _bf16(w[k0:k0 + mk.MEGA_KC, n0:n0 + np_])
+            for warp in range(mk.MEGA_WARPS):
+                wm, wn = warp % wm_n, warp // wm_n
+                nb = wn * n_per_warp
+                if nb >= np_:
+                    continue
+                for ks in range(0, wide.shape[0], 16):
+                    for jp in range(n_per_warp // 16):
+                        b = _ldsm_b_pair(wide, ks, nb + 16 * jp)
+                        for i in range(4):
+                            mt = wm + wm_n * i
+                            if mt >= m_tiles:
+                                continue
+                            a = _load_a(x, m, step, mt * 16, k0 + ks)
+                            _mma(acc[warp, i, 2 * jp], a, b[:, 0], b[:, 1])
+                            _mma(acc[warp, i, 2 * jp + 1], a, b[:, 2], b[:, 3])
+        for warp in range(mk.MEGA_WARPS):
+            wm, wn = warp % wm_n, warp // wm_n
+            nb = wn * n_per_warp
+            if nb >= np_:
+                continue
+            for i in range(4):
+                mt = wm + wm_n * i
+                if mt < m_tiles:
+                    for j in range(n_per_warp // 8):
+                        _store_c(y, acc[warp, i, j], m, step, mt * 16, n0 + nb + 8 * j)
+    return y
+
+
+def _emulate_lstm_gates(x, w, m):
+    """lstm_tc: the rows in one 16-row tile, warp w taking 16-column pairs
+    w, w + 8, ... over the whole K."""
+    k, n = w.shape
+    wide = _bf16(w)
+    y = np.full((m, n), np.nan, np.float32)
+    for warp in range(mk.MEGA_WARPS):
+        for pair in range(warp, n // 16, mk.MEGA_WARPS):
+            acc = np.zeros((2, 32, 4), np.float32)
+            for k0 in range(0, k, 16):
+                a = _load_a(x, m, 1, 0, k0)
+                b = _ldsm_b_pair(wide, k0, pair * 16)
+                _mma(acc[0], a, b[:, 0], b[:, 1])
+                _mma(acc[1], a, b[:, 2], b[:, 3])
+            for j in range(2):
+                _store_c(y, acc[j], m, 1, 0, pair * 16 + 8 * j)
+    return y
+
+
+@pytest.mark.parametrize("k, n, rows, site", [
+    (128, 128, 1, "dense"), (128, 128, 64, "dense"), (128, 128, 128, "dense"),
+    (128, 256, 1, "dense"), (128, 256, 64, "dense"), (128, 256, 128, "dense"),
+    (256, 128, 1, "dense"), (256, 128, 64, "dense"), (256, 128, 128, "dense"),
+    (256, 256, 128, "dense"), (128, 128, 2, "cls"), (192, 512, 2, "lstm"),
+])
+def test_tensor_core_fragment_mapping_reproduces_matmul_cd(k, n, rows, site):
+    from realtime_fraud_detection_tpu_torch.core.precision import matmul_cd
+
+    rng = np.random.default_rng(k + n + rows)
+    step = 64 if site == "cls" else 1      # [CLS] rows sit S rows apart
+    x = rng.standard_normal((rows * step, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    got = (_emulate_lstm_gates(x, w, rows) if site == "lstm"
+           else _emulate_dense_tc(x, w, rows, step))[::step][:rows]
+    want = matmul_cd(torch.from_numpy(x[::step][:rows]), torch.from_numpy(w),
+                     torch.bfloat16).numpy()
+    assert not np.isnan(got).any()         # every output written once
+    # the sums run in another order: at most one bf16 ulp apart
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    assert (np.abs(got - want) <= ulp).all()
+    assert np.mean(got == want) > 0.97
+
+
+# ------------------------------------------------ the wrapper's host side
+def test_parameter_args_are_cached_per_models_and_rebuilt_on_set_models(
+        jax_models_q, batch):
+    scorer = TorchFraudScorer(
+        Config(quant=QuantSettings.full(), kernels=KernelSettings.mega()),
+        models=models_from_numpy(jax_models_q), bert_config=TINY_CONFIG,
+        device="cpu")
+    widths = (SC.text_len, SC.feature_dim, SC.seq_len, SC.fanout)
+    cpu = torch.device("cpu")
+
+    def entry():
+        return mk.mega_param_args(scorer.models, widths, cpu, TINY_CONFIG,
+                                  torch.bfloat16)
+
+    first = entry()
+    for n in (8, 6):                       # two megakernel batches
+        scorer.finalize(scorer.dispatch_assembled(_sub_batch(batch, n), [{}] * n))
+        assert entry() is first            # built once, reused
+    assert first.args.lstm_w_gates == scorer.models.lstm["w_gates"].data_ptr()
+    old_ptr = first.args.dense_w[0][0]
+    scorer.set_models(models_from_numpy(_jax_models(bert_int8=False)))
+    second = entry()
+    assert second is not first             # new models: rebuilt
+    # (the scorer quantizes the new f32 weights, so the layout stays int8)
+    assert second.args.dense_w[0][0] == scorer.models.bert["layers"][0]["q"]["qw"].data_ptr()
+    assert second.args.dense_w[0][0] != old_ptr and second.args.int8 == 1
+    # another compute dtype or width is another entry, never a stale one
+    other = mk.mega_param_args(scorer.models, widths, cpu, TINY_CONFIG, torch.float32)
+    assert other is not second and other.args.bf16 == 0
+
+
+@pytest.mark.parametrize("rows", [8, 32])
+def test_packed_entry_points_into_the_blobs_like_unpack(jax_models_q, rows):
+    port_models = models_from_numpy(jax_models_q)
+    host = make_example_batch(rows, rng=np.random.default_rng(rows))
+    blobs, spec = pack_tree(host)
+    tb = {k: torch.from_numpy(v) for k, v in blobs.items()}
+    cols, widths = mk._packed_layout(spec)
+    assert widths == (SC.text_len, SC.feature_dim, SC.seq_len, SC.fanout)
+    raw = unpack_tree(tb, spec, keep_u8=True)
+    for (name, _), (blob, offset) in zip(mk.MEGA_INPUTS, cols):
+        leaf = mk._batch_field(raw, name)
+        t = tb[blob]
+        assert leaf.data_ptr() == t.data_ptr() + offset * t.element_size(), name
+        assert leaf.stride(0) == t.stride(0), name
+    got = mk.fused_megakernel_packed(port_models, tb, spec, _port_params(),
+                                     mega_valid=FULL, bert_config=TINY_CONFIG)
+    want = mk.fused_megakernel(port_models, unpack_tree(tb, spec), _port_params(),
+                               mega_valid=FULL, bert_config=TINY_CONFIG)
+    assert torch.equal(got, want)
+    two_hop = dataclasses.replace(host, user_neigh2_feat=host.user_neigh_feat)
+    with pytest.raises(ValueError, match="two-hop"):
+        mk._packed_layout(pack_tree(two_hop)[1])

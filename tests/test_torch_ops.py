@@ -353,3 +353,17 @@ def test_dequant_rows_guard():
         dequant_rows(torch.zeros((10, 128), dtype=torch.int8), torch.ones(10),
                      length=11)
 
+
+
+def test_dequant_rows_block_constants_agree_with_rows_supported():
+    dm = _constants("dequant_matmul.cu")
+    # a flat grid of whole-warp blocks, a thread per ROWS_VEC columns (a
+    # 4-byte i8 load, a 16-byte f32 store): every width the guard admits
+    # splits into whole units, so no lane of a row straddles two rows
+    assert dm["ROWS_THREADS"] % 32 == 0 and dm["ROWS_THREADS"] <= 1024
+    assert dm["ROWS_VEC"] == 4
+    for h in range(1, 1025):
+        if rows_supported(h):
+            assert h % dm["ROWS_VEC"] == 0 and h % 16 == 0
+    for cfg in (DISTILBERT_BASE, TINY_CONFIG):
+        assert rows_supported(cfg.hidden_size)
