@@ -15,8 +15,9 @@ Phases, each of which raises (and exits non-zero) on failure:
    version and a library yardstick with CUDA events: the four per-site
    kernels at the bucket-256 DistilBERT-base slice's shapes, the
    megakernel at TINY width (int8 BERT at buckets 256 and 8, f32 BERT
-   once; its yardstick is the per-site chain's device time on the same
-   batch, as no single PyTorch call computes the ensemble). The
+   once, int8 BERT once more with f32 compute; its yardstick is the
+   per-site chain's device time on the same batch, as no single PyTorch
+   call computes the ensemble). The
    dequant-matmul is also checked at the TINY widths and at M = 64 (a
    bucket-1 batch), flash attention also at S = 100; both print the
    profiler's device time per launch beside the CUDA-event time, and so
@@ -580,8 +581,12 @@ def check_megakernel(params):
     worst = 0.0
     timed = None
     cases = {}
-    for name, models, rows in (("int8", int8, BATCH), ("int8", int8, 8),
-                               ("f32", f32, BATCH)):
+    # (f32 weights compute in bf16 as served; "int8 f32-compute" runs the
+    # kernel's f32-compute path, which a scorer built with f32 compute takes)
+    for name, models, rows, cd in (("int8", int8, BATCH, torch.bfloat16),
+                                   ("int8", int8, 8, torch.bfloat16),
+                                   ("f32", f32, BATCH, torch.bfloat16),
+                                   ("int8 f32-compute", int8, BATCH, torch.float32)):
         batch, dev, spec, raw, plain_batch = mega_batch(rows)
         plan = mk.mega_plan(models, TINY_CONFIG, b=rows, text_len=64, seq_len=10,
                             feature_dim=64, has_two_hop=False)
@@ -589,9 +594,9 @@ def check_megakernel(params):
             fail(f"megakernel plan declines TINY {name} at {rows}: {plan}")
         for mv in ((True,) * 5, (True, True, False, True, True)):
             got = mk.fused_megakernel(models, raw, params, mega_valid=mv,
-                                      bert_config=TINY_CONFIG)
-            ref = mk.megakernel_reference(models, plain_batch, params,
-                                          mega_valid=mv, bert_config=TINY_CONFIG)
+                                      bert_config=TINY_CONFIG, compute_dtype=cd)
+            ref = mk.megakernel_reference(models, plain_batch, params, mega_valid=mv,
+                                          bert_config=TINY_CONFIG, compute_dtype=cd)
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
             if not err <= SLICE_PROB_TOL:
@@ -609,10 +614,11 @@ def check_megakernel(params):
                   f" away from a rung", flush=True)
         if name == "int8":
             cases[rows] = (dev, spec, raw)
-        if name == "f32":
+        if name != "int8":
             case_ms = time_ms(lambda: mk.fused_megakernel(
-                models, raw, params, mega_valid=(True,) * 5, bert_config=TINY_CONFIG))
-            print(f"  megakernel TINY f32 b={rows}: {case_ms:.4f} ms", flush=True)
+                models, raw, params, mega_valid=(True,) * 5, bert_config=TINY_CONFIG,
+                compute_dtype=cd))
+            print(f"  megakernel TINY {name} b={rows}: {case_ms:.4f} ms", flush=True)
         if name == "int8" and rows == BATCH:
             args_smem = _kernel_smem(mk, models, raw, TINY_CONFIG)
             if args_smem != plan["smem_bytes"]:
