@@ -148,8 +148,9 @@ def main() -> int:
         torch.cuda.synchronize()
         lib.rtfd_megakernel_phases(buf, ctypes.byref(n))
         stamps = list(buf)[:n.value]
-        if len(stamps) != len(labels) + 1:
-            raise RuntimeError(f"{len(stamps)} stamps for {len(labels)} phases")
+        if not stamps or len(stamps) % (len(labels) + 1):
+            raise RuntimeError(f"{len(stamps)} stamps for {len(labels)} phases a group")
+        stamps = stamps[:len(labels) + 1]          # block 0's first row group
         print(f"b={rows}: max err {err:.3e}; instrumented kernel {device_ms:.4f} ms device "
               f"per launch; block 0, first group: {(stamps[-1] - stamps[0]) / 1e3:.1f} us",
               flush=True)
