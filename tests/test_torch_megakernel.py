@@ -775,3 +775,17 @@ def test_packed_entry_points_into_the_blobs_like_unpack(jax_models_q, rows):
     two_hop = dataclasses.replace(host, user_neigh2_feat=host.user_neigh_feat)
     with pytest.raises(ValueError, match="two-hop"):
         mk._packed_layout(pack_tree(two_hop)[1])
+
+
+def test_phase_profiler_stamps_every_phase_of_the_kernel(monkeypatch):
+    # megakernel_phases.py anchors its stamps on the kernel's phase calls; a
+    # renamed call must fail here, not as a short profile on the card
+    monkeypatch.syspath_prepend(str(ROOT))
+    import megakernel_phases as mp
+
+    src = mp.instrument((CSRC / "megakernel.cu").read_text(), threads=512, queries=4)
+    # group start, before/after the LSTM, after the GNN, after BERT, the
+    # embeddings' LN, and per layer 6 dense + attention + 2 LN (in the loop)
+    assert src.count("PH;") == 6 + len(mp.LAYER_PHASES)
+    assert "#define MEGA_THREADS 512" in src and re.search(r"#define MEGA_ATT_Q 4\b", src)
+    assert "rtfd_megakernel_phases" in src

@@ -285,7 +285,8 @@ _FORBIDDEN_IMPORT = re.compile(
 
 
 @pytest.mark.parametrize("path", sorted(
-    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
+    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py",
+                                       ROOT / "megakernel_phases.py"]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_sources_import_nothing_of_jax(path):
     found = _FORBIDDEN_IMPORT.findall(path.read_text())
@@ -302,7 +303,7 @@ def test_port_runs_with_jax_blocked():
         import realtime_fraud_detection_tpu_torch as port
         for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
             importlib.import_module(mod.name)
-        import chip_smoke
+        import chip_smoke, megakernel_phases
         from realtime_fraud_detection_tpu_torch.scoring.pipeline import make_example_batch
         from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
         from realtime_fraud_detection_tpu_torch.utils.config import (
