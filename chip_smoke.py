@@ -23,8 +23,9 @@ Phases, each of which raises (and exits non-zero) on failure:
    profiler's device time per launch beside the CUDA-event time, and so
    does ``dequant_rows`` for each of its two sites (word, position). The
    megakernel's timings: device ms per launch at buckets 8 and 256, device
-   ms with one branch on at a time, and the host ms per call of its
-   wrapper and of the scorer's packed entry;
+   ms with one branch on at a time, and the host ms per call of its public
+   wrapper (which builds the parameter arguments each call) and of the
+   scorer's packed entry (with the arguments the scorer builds once);
 4. score a seeded 256-row batch through ``TorchFraudScorer`` at
    DistilBERT-base with int8 BERT and the per-site kernels on (launch
    counters reset just before, read just after), compare the packed result
@@ -45,11 +46,6 @@ Phases, each of which raises (and exits non-zero) on failure:
 The last three lines of standard output are the kernel JSON line (all five
 kernels), the ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
-
-``python3 chip_smoke.py --mega-timing`` builds the kernels and prints only
-the megakernel's timings (a JSON line, then the card's name and power
-limit). It goes through the public entry points alone, so the same script
-copied into another checkout times that checkout's megakernel.
 """
 
 from __future__ import annotations
@@ -528,9 +524,11 @@ MEGA_BRANCHES = ("trees", "lstm", "bert", "gnn", "iforest")
 def time_megakernel(params, models, cases) -> dict:
     """The megakernel at TINY int8 for each ``cases[rows] = (blobs, spec,
     raw)`` batch: CUDA-event ms, the profiler's device ms per launch, and
-    the host ms per call (without waiting for the device) of the wrapper on
-    an unpacked batch and of the scorer's entry on the packed blobs
-    (``score_fused_packed`` with the megakernel); at the largest bucket also
+    the host ms per call (without waiting for the device) of the public
+    wrapper on an unpacked batch, which builds the parameter arguments each
+    call, and of the scorer's entry on the packed blobs
+    (``score_fused_packed`` with the megakernel and the arguments built
+    once, as ``TorchFraudScorer`` passes them); at the largest bucket also
     the device ms with one branch on at a time (the others pruned), and
     with none (rules + combine)."""
     from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
@@ -543,18 +541,21 @@ def time_megakernel(params, models, cases) -> dict:
         mk.fused_megakernel(models, raw, params, mega_valid=rung,
                             bert_config=TINY_CONFIG)
 
-    def packed(blobs, spec):
+    def packed(blobs, spec, param_args):
         score_fused_packed(models, blobs, spec, params, valid, bert_config=TINY_CONFIG,
-                           megakernel="cuda", mega_valid=(True,) * 5)
+                           megakernel="cuda", mega_valid=(True,) * 5,
+                           param_args=param_args)
 
     out = {}
     for rows, (blobs, spec, raw) in sorted(cases.items()):
+        param_args = mk.MegaParamArgs(models, TINY_CONFIG, torch.bfloat16,
+                                      mk._packed_layout(spec)[1], raw.features.device)
         ms = time_ms(lambda: call(raw))
         out[f"b{rows}"] = dict(
             ms=ms, device_ms=event_vs_device(f"megakernel TINY int8 b={rows}", ms,
                                              lambda: call(raw)),
             host_ms=host_ms_per_call(lambda: call(raw)),
-            packed_host_ms=host_ms_per_call(lambda: packed(blobs, spec)))
+            packed_host_ms=host_ms_per_call(lambda: packed(blobs, spec, param_args)))
     raw = cases[max(cases)][2]
     by_branch = {}
     for j, branch in enumerate(MEGA_BRANCHES + ("rules+combine",)):
@@ -883,15 +884,6 @@ def main() -> int:
     cpu_gen = torch.Generator()
     cpu_gen.manual_seed(SEED)
     params = EnsembleParams.from_config(Config(), MODEL_NAMES).to("cuda")
-    if "--mega-timing" in sys.argv[1:]:
-        # only the megakernel's timings, through its public wrapper (so the
-        # same lines can time another checkout's kernel)
-        int8, _ = mega_models()
-        cases = {rows: mega_batch(rows)[1:4] for rows in (8, BATCH)}
-        print(json.dumps({"mega_timing": time_megakernel(params, int8, cases)}),
-              flush=True)
-        print(smi, flush=True)
-        return 0
     entries = [
         check_epilogue(params, gen),
         check_attention(DISTILBERT_BASE, gen),

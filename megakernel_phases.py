@@ -3,109 +3,47 @@
 
 Run from the repository root on a machine with an H100:
 
-    python3 megakernel_phases.py [--threads 256] [--queries 8]
+    python3 megakernel_phases.py [--queries 8]
 
-It builds an instrumented copy of ``csrc/megakernel.cu`` (into the
-gitignored ``build/``) in which, at every phase boundary of the bf16 kernel,
-all threads meet at a barrier and thread 0 of block 0 stamps
-``%globaltimer`` into a device array: the start of its first row group,
-before and after the LSTM, after the GNN, after the embeddings' LN, after
-each dense layer, attention and LN of every BERT layer, and after BERT.
-The wrapper is pointed at that library, the TINY int8 megakernel runs at
-buckets 256 and 8 (held against its plain version first), and the script
-prints the microseconds of each phase of block 0's first group, with the
-profiler's device ms per launch of the instrumented kernel beside them.
-The stamps' extra barriers make the instrumented kernel ~25% slower than
-the committed one; compare phases within one run.
+It builds the kernels with ``-DMEGA_PHASES`` through the package's own
+build (``ops/build.py set_defines``, into the gitignored ``build/``). In
+that build ``csrc/megakernel.cu``'s ``MEGA_PHASE()`` marks become stamps:
+at every phase boundary of the bf16 kernel all threads meet at a barrier
+and thread 0 of block 0 records ``%globaltimer``: the start of its first
+row group, before and after the LSTM, after the GNN, after the embeddings'
+LN, after each dense layer, attention and LN of every BERT layer, and after
+BERT. The TINY int8 megakernel then runs at buckets 256 and 8 (held against
+its plain version first), and the script prints the microseconds of each
+phase of block 0's first group, with the profiler's device ms per launch of
+the instrumented kernel beside them. The stamps add barriers, so compare
+phases within one run.
 
-``--threads`` and ``--queries`` build variants of the kernel's
-``MEGA_THREADS`` (threads a CTA) and ``MEGA_ATT_Q`` (queries an attention
-warp takes), so two designs can be compared in one call.
+``--queries`` builds the kernel with another ``MEGA_ATT_Q`` (queries an
+attention warp takes), so two attention designs can be compared.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
-import re
-import subprocess
 import sys
-import tempfile
 
 import torch
 
 import chip_smoke as cs
 
-STAMP = ("{ __syncthreads(); if (blockIdx.x == 0 && threadIdx.x == 0) {"
-         " unsigned long long t; asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));"
-         " if (mega_ph_n < 256) mega_ph[mega_ph_n++] = t; } }")
 LAYER_PHASES = ("q", "k", "v", "attn", "o", "ln1", "ffn1", "ffn2", "ln2")
 
 
-def instrument(src: str, threads: int, queries: int) -> str:
-    """The kernel source with a stamp at every phase boundary."""
-    def once(old: str, new: str) -> None:
-        nonlocal src
-        if src.count(old) != 1:
-            raise RuntimeError(f"megakernel.cu no longer has: {old.strip()}")
-        src = src.replace(old, new)
-
-    once("#define MEGA_THREADS 256", f"#define MEGA_THREADS {threads}")
-    src = re.sub(r"#define MEGA_ATT_Q \d+", f"#define MEGA_ATT_Q {queries}", src)
-    once('#include "combine.cuh"', '#include "combine.cuh"\n'
-         "__device__ unsigned long long mega_ph[256];\n__device__ int mega_ph_n;\n"
-         f"#define PH {STAMP}")
-    once("  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {",
-         "  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {\n    PH;")
-    for line in ("    if (mv & 2) lstm_tc(", "    if (mv & 8) gnn_tc(", "    if (mv & 4) bert_tc<I8>("):
-        end = src.index("\n", src.index(line))
-        src = src[:end] + "\n    PH;" + src[end:]
-    once("    if (mv & 2) lstm_tc(", "    PH;\n    if (mv & 2) lstm_tc(")
-    emb_ln = ("nr * s, 1, h, P<float>(a.emb_ln_scale),\n"
-              "             P<float>(a.emb_ln_bias), a.ln_eps);\n")
-    once(emb_ln, emb_ln + "  PH;\n")
-    for pat in (r"(    dense_tc<I8, (?:true|false)>\([^;]*;)", r"(    attention_tc\([^;]*;)",
-                r"(    ln_rows_tc\(x, ldx, (?:kb|f2)[^;]*;)"):
-        src = re.sub(pat, r"\1\n    PH;", src)
-    return src + '''
-extern "C" int rtfd_megakernel_phases(unsigned long long* out, int* n) {
-  cudaMemcpyFromSymbol(out, mega_ph, sizeof(unsigned long long) * 256);
-  cudaMemcpyFromSymbol(n, mega_ph_n, sizeof(int));
-  const int zero = 0;
-  cudaMemcpyToSymbol(mega_ph_n, &zero, sizeof(int));
-  return static_cast<int>(cudaDeviceSynchronize());
-}
-'''
-
-
-def build(src: str):
-    from realtime_fraud_detection_tpu_torch.ops import build as bd
-
-    bd.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    out = tempfile.mkdtemp(prefix="phases-", dir=bd.BUILD_ROOT.parent)
-    with open(f"{out}/megakernel.cu", "w") as f:
-        f.write(src)
-    with open(f"{out}/combine.cuh", "w") as f:
-        f.write((bd.CSRC_DIR / "combine.cuh").read_text())
-    proc = subprocess.run([bd.find_nvcc(), *bd.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
-                           f"{out}/megakernel.cu", "-o", f"{out}/lib.so"],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError("instrumented build failed:\n" + proc.stdout + proc.stderr)
-    for line in (proc.stdout + proc.stderr).splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip(), flush=True)
-    lib = ctypes.CDLL(f"{out}/lib.so")
-    for name, args in bd.SIGNATURES.items():
-        if hasattr(lib, name):
-            getattr(lib, name).argtypes = args
-            getattr(lib, name).restype = ctypes.c_int
-    return lib
+def phase_labels(layers: int) -> list[str]:
+    """The phases between consecutive stamps of one row group."""
+    return (["rules+trees+forest", "lstm", "gnn", "embeddings+ln"]
+            + [f"L{li}.{p}" for li in range(layers) for p in LAYER_PHASES]
+            + ["cls head"])
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--threads", type=int, default=256)
     ap.add_argument("--queries", type=int, default=8)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -118,16 +56,13 @@ def main() -> int:
     from realtime_fraud_detection_tpu_torch.scoring.pipeline import MODEL_NAMES
     from realtime_fraud_detection_tpu_torch.utils.config import Config
 
-    print(f"variant: {args.threads} threads a CTA, {args.queries} queries an attention warp",
-          flush=True)
-    src = instrument((bd.CSRC_DIR / "megakernel.cu").read_text(), args.threads, args.queries)
-    lib = build(src)
-    mk.kernel_library = lambda: lib        # the wrapper launches the instrumented kernel
+    print(f"variant: {args.queries} queries an attention warp", flush=True)
+    bd.set_defines("MEGA_PHASES", f"MEGA_ATT_Q={args.queries}")
+    read = bd.kernel_library().rtfd_megakernel_phases
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
     params = EnsembleParams.from_config(Config(), MODEL_NAMES).to("cuda")
     models, _ = cs.mega_models()
-    labels = (["rules+trees+forest", "lstm", "gnn", "embeddings+ln"]
-              + [f"L{li}.{p}" for li in range(TINY_CONFIG.num_layers) for p in LAYER_PHASES]
-              + ["head+combine"])
+    labels = phase_labels(TINY_CONFIG.num_layers)
     buf, n = (ctypes.c_ulonglong * 256)(), ctypes.c_int()
     for rows in (cs.BATCH, 8):
         _, _, _, raw, plain = cs.mega_batch(rows)
@@ -143,10 +78,10 @@ def main() -> int:
             raise RuntimeError(f"instrumented megakernel b={rows}: err {err}")
         device_ms = cs.device_ms(call)[0]
         torch.cuda.synchronize()
-        lib.rtfd_megakernel_phases(buf, ctypes.byref(n))     # clear
+        bd.check_launch("rtfd_megakernel_phases", read(buf, ctypes.byref(n)))   # clear
         call()
         torch.cuda.synchronize()
-        lib.rtfd_megakernel_phases(buf, ctypes.byref(n))
+        bd.check_launch("rtfd_megakernel_phases", read(buf, ctypes.byref(n)))
         stamps = list(buf)[:n.value]
         if not stamps or len(stamps) % (len(labels) + 1):
             raise RuntimeError(f"{len(stamps)} stamps for {len(labels)} phases a group")

@@ -82,6 +82,28 @@
 
 #include "combine.cuh"
 
+// Phase stamps, compiled in only with -DMEGA_PHASES (megakernel_phases.py):
+// at each phase boundary of the bf16 path all threads meet at a barrier and
+// thread 0 of block 0 records %globaltimer; rtfd_megakernel_phases reads
+// the stamps back and clears them. Other builds compile MEGA_PHASE() away.
+#ifdef MEGA_PHASES
+__device__ unsigned long long mega_ph[256];
+__device__ int mega_ph_n;
+#define MEGA_PHASE()                                                     \
+  do {                                                                   \
+    __syncthreads();                                                     \
+    if (blockIdx.x == 0 && threadIdx.x == 0 && mega_ph_n < 256) {        \
+      unsigned long long t;                                              \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));              \
+      mega_ph[mega_ph_n++] = t;                                          \
+    }                                                                    \
+  } while (0)
+#else
+#define MEGA_PHASE() \
+  do {               \
+  } while (0)
+#endif
+
 #define MEGA_THREADS 256
 #define MEGA_WARPS (MEGA_THREADS / 32)
 #define MEGA_MAX_ROWS 2
@@ -94,7 +116,9 @@
 #define MEGA_MAX_WIDTH 256
 #define MEGA_MAX_HEAD_DIM 64
 #define MEGA_MAX_LSTM 128
-#define MEGA_ATT_Q 8      // a multiple of 4
+#ifndef MEGA_ATT_Q
+#define MEGA_ATT_Q 8      // a multiple of 4 (-DMEGA_ATT_Q=4 builds the variant)
+#endif
 // floats of one warp's attention scratch: queries, probabilities, biases
 #define MEGA_ATT_SCRATCH ((MEGA_MAX_HEAD_DIM + MEGA_MAX_TEXT) * MEGA_ATT_Q + 2 * MEGA_MAX_HEAD_DIM)
 #define MEGA_SMEM_LIMIT 232448
@@ -1502,6 +1526,7 @@ __device__ void bert_tc(const MegaArgs& a, int r0, int nr, int rows, uint8_t* sm
   __syncthreads();
   ln_rows_tc(x, ldx, nullptr, 0, nullptr, nr * s, 1, h, P<float>(a.emb_ln_scale),
              P<float>(a.emb_ln_bias), a.ln_eps);
+  MEGA_PHASE();
   for (int li = 0; li < a.layers; ++li) {
     const bool last = li == a.layers - 1;   // last layer: the [CLS] rows only
     const int mq = last ? nr : nr * s, step = last ? s : 1;
@@ -1514,22 +1539,31 @@ __device__ void bert_tc(const MegaArgs& a, int r0, int nr, int rows, uint8_t* sm
     }
     dense_tc<I8, true>(x, ldx, mq, step, h, w[D_Q], sc[D_Q], b[D_Q], h, false, qb, ldq, wide,
                        raw);
+    MEGA_PHASE();
     dense_tc<I8, true>(x, ldx, nr * s, 1, h, w[D_K], sc[D_K], b[D_K], h, false, kb, ldq, wide,
                        raw);
+    MEGA_PHASE();
     dense_tc<I8, true>(x, ldx, nr * s, 1, h, w[D_V], sc[D_V], b[D_V], h, false, vb, ldq, wide,
                        raw);
+    MEGA_PHASE();
     attention_tc(qb, kb, vb, ldq, b[D_Q], b[D_K], b[D_V], mask, nr, last ? 1 : s, s, h,
                  a.heads, a.sqrt_head_dim, wscr);
+    MEGA_PHASE();
     dense_tc<I8, false>(qb, ldq, mq, step, h, w[D_O], sc[D_O], b[D_O], h, false, kb, ldq, wide,
                         raw);
+    MEGA_PHASE();
     ln_rows_tc(x, ldx, kb, ldq, b[D_O], mq, step, h, P<float>(a.ln_scale[li][0]),
                P<float>(a.ln_bias[li][0]), a.ln_eps);
+    MEGA_PHASE();
     dense_tc<I8, true>(x, ldx, mq, step, h, w[D_FFN1], sc[D_FFN1], b[D_FFN1], f, true, hid, ldf,
                        wide, raw);
+    MEGA_PHASE();
     dense_tc<I8, false>(hid, ldf, mq, step, f, w[D_FFN2], sc[D_FFN2], b[D_FFN2], h, false, f2,
                         ldq, wide, raw);
+    MEGA_PHASE();
     ln_rows_tc(x, ldx, f2, ldq, b[D_FFN2], mq, step, h, P<float>(a.ln_scale[li][1]),
                P<float>(a.ln_bias[li][1]), a.ln_eps);
+    MEGA_PHASE();
   }
   __syncthreads();
   const float* pw = P<float>(a.pre_w);
@@ -1574,6 +1608,7 @@ __global__ void __launch_bounds__(MEGA_THREADS, 1)
   const int groups = (a.batch + rows - 1) / rows;
 
   for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    MEGA_PHASE();
     const int r0 = grp * rows, nr = min(rows, a.batch - r0);
     for (int i = tid; i < nr * fd; i += MEGA_THREADS)
       feat[i] = in_row<float>(a, IN_FEATURES, r0 + i / fd)[i % fd];
@@ -1615,9 +1650,13 @@ __global__ void __launch_bounds__(MEGA_THREADS, 1)
       }
       __syncthreads();
     }
+    MEGA_PHASE();
     if (mv & 2) lstm_tc(a, r0, nr, sm, l, small);           // lstm_sequential
+    MEGA_PHASE();
     if (mv & 8) gnn_tc(a, r0, nr, sm, l, feat, small);      // graph_neural
+    MEGA_PHASE();
     if (mv & 4) bert_tc<I8>(a, r0, nr, rows, sm, l, small);  // bert_text
+    MEGA_PHASE();
 
     if (tid < nr) {
       const int r = r0 + tid;
@@ -1655,6 +1694,18 @@ cudaError_t raise_smem_limit(Kernel kernel, bool& done) {
 extern "C" int rtfd_megakernel_smem_bytes(const void* args) {
   return mega_plan_smem_bytes(*static_cast<const MegaArgs*>(args));
 }
+
+#ifdef MEGA_PHASES
+// Copies the phase stamps (at most 256) into `out` and their count into
+// `n`, then clears the count.
+extern "C" int rtfd_megakernel_phases(unsigned long long* out, int* n) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, mega_ph, sizeof(unsigned long long) * 256);
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(n, mega_ph_n, sizeof(int));
+  const int zero = 0;
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(mega_ph_n, &zero, sizeof(int));
+  return static_cast<int>(err != cudaSuccess ? err : cudaDeviceSynchronize());
+}
+#endif
 
 // `sms` is the card's SM count: the grid is at most one CTA per SM. With
 // bf16 compute each CTA iteration scores `rows` rows, the fewest that cover

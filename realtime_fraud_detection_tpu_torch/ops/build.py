@@ -7,7 +7,9 @@ into one shared library with a plain C interface, and the library is loaded
 with ``ctypes``. The build happens on first use, into
 ``<repo>/build/kernels/<hash>/`` keyed on a hash of the sources and flags, so
 a fresh checkout builds everything by itself and a rebuilt source never
-loads a stale library. Nothing here runs at import time.
+loads a stale library. ``set_defines`` switches to a build with extra
+``-D`` macros (an instrumented variant, e.g. ``MEGA_PHASES``), built and
+cached the same way. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ SIGNATURES = {
 
 _lib = None
 _lock = threading.Lock()
+_defines: tuple[str, ...] = ()
 
 
 def sources() -> list[Path]:
@@ -53,8 +56,12 @@ def headers() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cuh"))
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: tuple[str, ...]) -> list[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def source_hash(defines: tuple[str, ...] = ()) -> str:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for path in sources() + headers():
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -71,10 +78,13 @@ def find_nvcc() -> str:
     return found
 
 
-def build_library(build_root: Path = BUILD_ROOT, verbose: bool = False) -> Path:
-    """Compile the kernels unless this source hash was built already;
-    returns the library path. Raises with the compiler's output on failure."""
-    out_dir = build_root / source_hash()
+def build_library(build_root: Path = BUILD_ROOT, verbose: bool = False,
+                  defines: tuple[str, ...] = ()) -> Path:
+    """Compile the kernels (with ``-D`` for each of ``defines``) unless this
+    source hash was built already; returns the library path. Raises with the
+    compiler's output on failure."""
+    flags = _flags(defines)
+    out_dir = build_root / source_hash(defines)
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         return lib_path
@@ -85,7 +95,7 @@ def build_library(build_root: Path = BUILD_ROOT, verbose: bool = False) -> Path:
     procs = []
     for src in sources():
         obj = tmp / (src.stem + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *flags, *extra, "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failures, objects = [], []
@@ -100,7 +110,7 @@ def build_library(build_root: Path = BUILD_ROOT, verbose: bool = False) -> Path:
         shutil.rmtree(tmp, ignore_errors=True)
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     link = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-shared", *objects, "-o", str(tmp / LIB_NAME)],
+        [nvcc, *flags, "-shared", *objects, "-o", str(tmp / LIB_NAME)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -113,12 +123,21 @@ def build_library(build_root: Path = BUILD_ROOT, verbose: bool = False) -> Path:
     return lib_path
 
 
+def set_defines(*defines: str) -> None:
+    """Build and load the kernels with these extra ``-D`` macros from the
+    next ``kernel_library()`` call on (``set_defines()`` goes back to the
+    plain build)."""
+    global _defines, _lib
+    with _lock:
+        _defines, _lib = tuple(defines), None
+
+
 def kernel_library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
+            lib = ctypes.CDLL(str(build_library(defines=_defines)))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

@@ -11,8 +11,11 @@ for tensors on the CPU it runs ``megakernel_reference``, the same branch
 functions composed as a plain chain. ``fused_megakernel.launches`` counts
 kernel launches. The scorer's packed path enters through
 ``fused_megakernel_packed``, which points the kernel straight into the
-packed blobs. The parameter half of the kernel's arguments is built once per
-models object (``MegaParamArgs``) and only the batch half is filled per call.
+packed blobs. The parameter half of the kernel's arguments
+(``MegaParamArgs``) is built by the caller that owns the models:
+``TorchFraudScorer`` builds it once per ``set_models`` and passes it with
+every batch, so a call fills only the batch half; a call without one builds
+its own.
 
 ``mega_valid`` is the QoS rung as a tuple of branch-validity booleans: a
 pruned branch does no work, its prediction lane is exactly 0.0 and its
@@ -28,12 +31,10 @@ the CUDA kernel's own shared-memory layout (``mega_kernel_shapes_ok``).
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 import functools
 import math
-import weakref
 from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
@@ -464,15 +465,24 @@ def _row_ptr(t, kind: str, name: str, b: int, device: torch.device) -> Tuple[int
     return t.data_ptr(), t.stride(0)
 
 
+def _checked_dims(models, bert_config, widths: Tuple[int, int, int, int]) -> Dict[str, int]:
+    """The kernel's widths for ``models`` at the batch ``widths``
+    (text_len, feat_dim, seq_len, fanout); raises where its layout does not
+    take them."""
+    text_len, feat_dim, seq_len, fanout = widths
+    dims = _dims(models, bert_config, text_len, feat_dim, seq_len)
+    if not mega_kernel_shapes_ok(dims, mega_smem_bytes(dims, fanout)):
+        raise ValueError(f"the megakernel does not take these shapes: {dims}")
+    return dims
+
+
 class MegaParamArgs:
     """The parameter half of the kernel's arguments for one models object:
     every weight pointer and width, checked and written into a ``MegaArgs``
-    once. ``fused_megakernel`` keeps the latest few, keyed by the models
-    object's identity (held by weak reference, so a freed models object can
-    never match a new one) and the batch widths, and on each call copies
-    the struct and fills only the batch half. The models are treated as
-    immutable: ``TorchFraudScorer.set_models`` replaces the object, which
-    rebuilds the arguments."""
+    once. Each launch copies the struct and fills only the batch half. The
+    pointers are those of the models' tensors when it was built, so its
+    owner rebuilds it whenever they change: ``TorchFraudScorer`` builds one
+    per ``set_models``, the only way its models change."""
 
     def __init__(self, models, bert_config, compute_dtype: torch.dtype,
                  widths: Tuple[int, int, int, int], device: torch.device):
@@ -480,11 +490,9 @@ class MegaParamArgs:
         from realtime_fraud_detection_tpu_torch.models.quant import is_quantized_bert
 
         text_len, feat_dim, seq_len, fanout = widths
-        self.models = weakref.ref(models)
+        self.models = models
         self.key = (bert_config, compute_dtype, widths, device)
-        self.dims = _dims(models, bert_config, text_len, feat_dim, seq_len)
-        if not mega_kernel_shapes_ok(self.dims, mega_smem_bytes(self.dims, fanout)):
-            raise ValueError(f"the megakernel does not take these shapes: {self.dims}")
+        self.dims = _checked_dims(models, bert_config, widths)
         if is_typed_gnn(models.gnn):
             raise ValueError("fused_megakernel: the typed GNN is not ported")
         self.keep = []                    # the tensors the pointers point into
@@ -557,36 +565,29 @@ class MegaParamArgs:
         a.sqrt_head_dim = math.sqrt(bert_config.head_dim)
 
 
-_PARAM_ARGS_KEPT = 4
-_param_args_cache: "collections.OrderedDict[int, MegaParamArgs]" = collections.OrderedDict()
-
-
 def _batch_widths(batch) -> Tuple[int, int, int, int]:
     """(text_len, feat_dim, seq_len, fanout) of a [B, ...] batch."""
     return (int(batch.token_ids.shape[1]), int(batch.features.shape[1]),
             int(batch.history.shape[1]), int(batch.user_neigh_feat.shape[1]))
 
 
-def mega_param_args(models, widths: Tuple[int, int, int, int],
-                    device: torch.device, bert_config,
-                    compute_dtype: torch.dtype) -> MegaParamArgs:
-    """The cached parameter half for ``models`` at the batch ``widths``
-    (text_len, feat_dim, seq_len, fanout); it is built, and the widths
-    checked, only when no kept entry matches."""
-    key = (bert_config, compute_dtype, widths, device)
-    entry = _param_args_cache.get(id(models))
-    if entry is None or entry.models() is not models or entry.key != key:
-        entry = MegaParamArgs(models, bert_config, compute_dtype, widths, device)
-        _param_args_cache[id(models)] = entry
-        _param_args_cache.move_to_end(id(models))
-        while len(_param_args_cache) > _PARAM_ARGS_KEPT:
-            _param_args_cache.popitem(last=False)
-    return entry
+def _param_args(given: Optional[MegaParamArgs], models,
+                widths: Tuple[int, int, int, int], device: torch.device,
+                bert_config, compute_dtype: torch.dtype) -> MegaParamArgs:
+    """``given`` once checked to be built from these models for this call,
+    else a new parameter half."""
+    if given is None:
+        return MegaParamArgs(models, bert_config, compute_dtype, widths, device)
+    if given.models is not models or given.key != (bert_config, compute_dtype,
+                                                   widths, device):
+        raise ValueError("fused_megakernel: param_args were built for other "
+                         "models, widths or settings than this call's")
+    return given
 
 
 def _launch(entry: MegaParamArgs, inputs, b: int, dev: torch.device, params,
             mega_valid: Tuple[bool, ...]) -> torch.Tensor:
-    """Copy the cached parameter half, fill the batch half (``inputs``: a
+    """Copy the parameter half, fill the batch half (``inputs``: a
     (pointer, row stride) per MEGA_INPUTS leaf) and launch."""
     a = MegaArgs.from_buffer_copy(entry.args)
     for j, (ptr, stride) in enumerate(inputs):
@@ -644,7 +645,8 @@ def _check_call(mega_valid, compute_dtype) -> Tuple[bool, ...]:
 
 def fused_megakernel_packed(models, blobs: Dict[str, torch.Tensor], spec: PackSpec,
                             params, *, mega_valid: Tuple[bool, ...], bert_config=None,
-                            compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                            compute_dtype: torch.dtype = torch.bfloat16,
+                            param_args: Optional[MegaParamArgs] = None) -> torch.Tensor:
     """``fused_megakernel`` for a packed batch (``core/packing.py``): on the
     card the batch half of the arguments points straight into the blobs,
     with no unpacking and no per-leaf checks (the leaf layout is cached per
@@ -655,13 +657,13 @@ def fused_megakernel_packed(models, blobs: Dict[str, torch.Tensor], spec: PackSp
     if blobs["f32"].device.type == "cpu":
         return fused_megakernel(models, unpack_tree(blobs, spec), params,
                                 mega_valid=mega_valid, bert_config=bert_config,
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype, param_args=param_args)
     bert_config = bert_config or TINY_CONFIG
     mega_valid = _check_call(mega_valid, compute_dtype)
     cols, widths = _packed_layout(spec)
     dev = blobs["f32"].device
     b = int(blobs["f32"].shape[0])
-    entry = mega_param_args(models, widths, dev, bert_config, compute_dtype)
+    entry = _param_args(param_args, models, widths, dev, bert_config, compute_dtype)
     base = {}
     for name, dtype in _BLOB_DTYPES.items():
         t = blobs[name]
@@ -682,14 +684,18 @@ def _sm_count(device: torch.device) -> int:
 
 def fused_megakernel(models, batch, params, *,
                      mega_valid: Tuple[bool, ...], bert_config=None,
-                     compute_dtype: torch.dtype = torch.bfloat16
+                     compute_dtype: torch.dtype = torch.bfloat16,
+                     param_args: Optional[MegaParamArgs] = None
                      ) -> torch.Tensor:
     """Score a whole microbatch in one launch -> the extended packed
     f32[B, 2M+10] matrix (OUT_COLUMNS, model predictions, contributions,
     rule_decision / rule_risk). ``mega_valid`` is the QoS rung. Raises on
     widths the kernel's layout does not take and on two-hop batches;
     whether a batch should take the megakernel at all (bucket size, L2
-    budget) is the caller's decision from ``mega_plan``."""
+    budget) is the caller's decision from ``mega_plan``. ``param_args``,
+    the parameter half built once by the models' owner, must come from
+    these very ``models`` (else this raises); without it the call builds
+    its own."""
     from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
 
     bert_config = bert_config or TINY_CONFIG
@@ -697,12 +703,17 @@ def fused_megakernel(models, batch, params, *,
     if batch.user_neigh2_feat is not None:
         raise ValueError("the megakernel does not take two-hop batches")
     dev = batch.features.device
-    entry = mega_param_args(models, _batch_widths(batch), dev, bert_config, compute_dtype)
-    if dev.type == "cpu":
+    widths = _batch_widths(batch)
+    if dev.type == "cpu":           # the same checks, then the plain version
+        if param_args is None:
+            _checked_dims(models, bert_config, widths)
+        else:
+            _param_args(param_args, models, widths, dev, bert_config, compute_dtype)
         return megakernel_reference(models, batch, params,
                                     mega_valid=mega_valid,
                                     bert_config=bert_config,
                                     compute_dtype=compute_dtype)
+    entry = _param_args(param_args, models, widths, dev, bert_config, compute_dtype)
     b = int(batch.features.shape[0])
     inputs = [_row_ptr(_batch_field(batch, name), kind, name, b, dev)
               for name, kind in MEGA_INPUTS]

@@ -54,7 +54,10 @@ from realtime_fraud_detection_tpu_torch.models.trees import (
     tree_ensemble_predict,
 )
 from realtime_fraud_detection_tpu_torch.ops.epilogue import epilogue_matrix
-from realtime_fraud_detection_tpu_torch.ops.megakernel import fused_megakernel_packed
+from realtime_fraud_detection_tpu_torch.ops.megakernel import (
+    MegaParamArgs,
+    fused_megakernel_packed,
+)
 
 MODEL_NAMES: tuple[str, ...] = (
     "xgboost_primary",
@@ -239,21 +242,25 @@ def score_fused_packed(models: ScoringModels, blobs: Dict[str, torch.Tensor],
                        epilogue_kernel: str = "off",
                        megakernel: str = "off",
                        mega_valid: Optional[Tuple[bool, ...]] = None,
-                       compute_dtype: torch.dtype = torch.bfloat16
+                       compute_dtype: torch.dtype = torch.bfloat16,
+                       param_args: Optional[MegaParamArgs] = None
                        ) -> torch.Tensor:
     """Packed blobs in, one f32 result matrix out (see ``OUT_COLUMNS``).
 
     With ``megakernel="cuda"`` and a ``mega_valid`` rung the batch is
     scored in one megakernel launch that returns the extended matrix
     itself; the caller passes the rung only for a batch the megakernel's
-    plan admits (``TorchFraudScorer.kernel_static``). Without a rung the
-    per-site chain below runs, unchanged.
+    plan admits (``TorchFraudScorer.kernel_static``), and with it the
+    kernel's parameter arguments built from ``models`` (``param_args``;
+    without them the launch builds its own). Without a rung the per-site
+    chain below runs, unchanged.
     """
     if megakernel == "cuda" and mega_valid is not None:
         return fused_megakernel_packed(models, blobs, spec, params,
                                        mega_valid=mega_valid,
                                        bert_config=bert_config,
-                                       compute_dtype=compute_dtype)
+                                       compute_dtype=compute_dtype,
+                                       param_args=param_args)
     batch = unpack_tree(blobs, spec)
     out = score_fused(models, batch, params, model_valid,
                       bert_config=bert_config, use_flash=use_flash,

@@ -50,6 +50,7 @@ from realtime_fraud_detection_tpu_torch.ops.dequant_matmul import (
     matmul_supported,
     rows_supported,
 )
+from realtime_fraud_detection_tpu_torch.ops.megakernel import MegaParamArgs
 from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
     MODEL_NAMES,
     NUM_MODELS,
@@ -118,13 +119,16 @@ class TorchFraudScorer:
         """Swap the model set; with int8 BERT configured the weights are
         quantized on the host first (idempotent), then moved to the device.
         Raises when a per-site kernel the settings ask for does not take the
-        configured widths (its wrapper would raise on every batch)."""
+        configured widths (its wrapper would raise on every batch). This is
+        the only way the scorer's models change: the megakernel's parameter
+        arguments point into them and are rebuilt here."""
         if self.quant.bert_mode() == "int8":
             models = dataclasses.replace(
                 models, bert=quantize_bert_params(models.bert))
         self._check_kernel_widths(models)
         self.models = models.to(self.device)
         self._mega_plans: Dict[int, Dict[str, Any]] = {}
+        self._mega_args: Optional[MegaParamArgs] = None
 
     def _check_kernel_widths(self, models: ScoringModels) -> None:
         modes = self.kernels.site_modes()
@@ -184,6 +188,17 @@ class TorchFraudScorer:
                 feature_dim=self.sc.feature_dim, has_two_hop=False,
                 fanout=self.sc.fanout)
         return plan
+
+    def _mega_param_args(self) -> MegaParamArgs:
+        """The megakernel's parameter arguments for the current models,
+        built at the first batch the megakernel serves after ``set_models``
+        and passed with every later one."""
+        if self._mega_args is None:
+            widths = (self.sc.text_len, self.sc.feature_dim, self.sc.seq_len,
+                      self.sc.fanout)
+            self._mega_args = MegaParamArgs(self.models, self.bert_config,
+                                            self.compute_dtype, widths, self.device)
+        return self._mega_args
 
     def _record_kernel_dispatch(self, size: int, model_valid,
                                 mega_served: bool) -> None:
@@ -258,10 +273,12 @@ class TorchFraudScorer:
         self._record_kernel_dispatch(size, mv,
                                      mega_served=static["mega_valid"] is not None)
         before = sum(launch_counts().values())
+        mega_args = self._mega_param_args() if static["mega_valid"] is not None else None
         out = score_fused_packed(
             self.models, dev_blobs, spec, self.ensemble_params,
             self._to_device(mv), bert_config=self.bert_config,
-            compute_dtype=self.compute_dtype, **self.quant.static(), **static)
+            compute_dtype=self.compute_dtype, param_args=mega_args,
+            **self.quant.static(), **static)
         self._last_kernel_launches = sum(launch_counts().values()) - before
         event = None
         if self.device.type == "cuda":

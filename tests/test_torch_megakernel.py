@@ -724,33 +724,43 @@ def test_tensor_core_fragment_mapping_reproduces_matmul_cd(k, n, rows, site):
 
 # ------------------------------------------------ the wrapper's host side
 def test_parameter_args_are_cached_per_models_and_rebuilt_on_set_models(
-        jax_models_q, batch):
+        jax_models_q, batch, monkeypatch):
     scorer = TorchFraudScorer(
         Config(quant=QuantSettings.full(), kernels=KernelSettings.mega()),
         models=models_from_numpy(jax_models_q), bert_config=TINY_CONFIG,
         device="cpu")
-    widths = (SC.text_len, SC.feature_dim, SC.seq_len, SC.fanout)
-    cpu = torch.device("cpu")
+    from realtime_fraud_detection_tpu_torch.scoring import pipeline
 
-    def entry():
-        return mk.mega_param_args(scorer.models, widths, cpu, TINY_CONFIG,
-                                  torch.bfloat16)
+    passed = []
+    real = mk.fused_megakernel_packed
 
-    first = entry()
+    def spy(*args, **kw):
+        passed.append(kw["param_args"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(pipeline, "fused_megakernel_packed", spy)
     for n in (8, 6):                       # two megakernel batches
         scorer.finalize(scorer.dispatch_assembled(_sub_batch(batch, n), [{}] * n))
-        assert entry() is first            # built once, reused
+    first = passed[0]
+    assert passed[1] is first              # built once, reused
+    assert first.models is scorer.models
     assert first.args.lstm_w_gates == scorer.models.lstm["w_gates"].data_ptr()
     old_ptr = first.args.dense_w[0][0]
     scorer.set_models(models_from_numpy(_jax_models(bert_int8=False)))
-    second = entry()
+    scorer.finalize(scorer.dispatch_assembled(_sub_batch(batch, 8), [{}] * 8))
+    second = passed[2]
     assert second is not first             # new models: rebuilt
     # (the scorer quantizes the new f32 weights, so the layout stays int8)
     assert second.args.dense_w[0][0] == scorer.models.bert["layers"][0]["q"]["qw"].data_ptr()
     assert second.args.dense_w[0][0] != old_ptr and second.args.int8 == 1
-    # another compute dtype or width is another entry, never a stale one
-    other = mk.mega_param_args(scorer.models, widths, cpu, TINY_CONFIG, torch.float32)
-    assert other is not second and other.args.bf16 == 0
+    # arguments built from other models, or for another compute dtype,
+    # are refused rather than launched with their pointers
+    eight = _to_port_batch(make_example_batch(8, rng=np.random.default_rng(0)))
+    for stale, cd in ((first, torch.bfloat16), (second, torch.float32)):
+        with pytest.raises(ValueError, match="param_args"):
+            mk.fused_megakernel(scorer.models, eight, _port_params(), mega_valid=FULL,
+                                bert_config=TINY_CONFIG, compute_dtype=cd,
+                                param_args=stale)
 
 
 @pytest.mark.parametrize("rows", [8, 32])
@@ -778,14 +788,23 @@ def test_packed_entry_points_into_the_blobs_like_unpack(jax_models_q, rows):
 
 
 def test_phase_profiler_stamps_every_phase_of_the_kernel(monkeypatch):
-    # megakernel_phases.py anchors its stamps on the kernel's phase calls; a
-    # renamed call must fail here, not as a short profile on the card
+    # megakernel_phases.py labels the kernel's MEGA_PHASE() stamps: group
+    # start, before/after the LSTM, after the GNN, after BERT, the
+    # embeddings' LN, and per layer 6 dense + attention + 2 LN (in the loop)
     monkeypatch.syspath_prepend(str(ROOT))
     import megakernel_phases as mp
 
-    src = mp.instrument((CSRC / "megakernel.cu").read_text(), threads=512, queries=4)
-    # group start, before/after the LSTM, after the GNN, after BERT, the
-    # embeddings' LN, and per layer 6 dense + attention + 2 LN (in the loop)
-    assert src.count("PH;") == 6 + len(mp.LAYER_PHASES)
-    assert "#define MEGA_THREADS 512" in src and re.search(r"#define MEGA_ATT_Q 4\b", src)
-    assert "rtfd_megakernel_phases" in src
+    from realtime_fraud_detection_tpu_torch.ops import build
+
+    src = (CSRC / "megakernel.cu").read_text()
+    assert src.count("MEGA_PHASE();") == 6 + len(mp.LAYER_PHASES)
+    one_layer = mp.phase_labels(1)
+    assert len(one_layer) + 1 == 6 + len(mp.LAYER_PHASES)
+    assert len(mp.phase_labels(TINY_CONFIG.num_layers)) == len(one_layer) + len(mp.LAYER_PHASES)
+    # the stamps and their reader exist only in the MEGA_PHASES build, which
+    # the package's build hashes, compiles and caches apart from the plain one
+    assert re.search(r"#ifdef MEGA_PHASES\s+// Copies the phase stamps", src)
+    assert re.search(r"#ifndef MEGA_ATT_Q\s+#define MEGA_ATT_Q \d+", src)
+    assert build.source_hash(("MEGA_PHASES",)) != build.source_hash()
+    assert build._flags(("MEGA_PHASES", "MEGA_ATT_Q=4"))[-2:] == ["-DMEGA_PHASES",
+                                                                  "-DMEGA_ATT_Q=4"]
