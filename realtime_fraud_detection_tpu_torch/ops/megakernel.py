@@ -490,6 +490,8 @@ class MegaParamArgs:
         from realtime_fraud_detection_tpu_torch.models.quant import is_quantized_bert
 
         text_len, feat_dim, seq_len, fanout = widths
+        if device.type == "cuda" and device.index is None:   # as tensors report it
+            device = torch.device("cuda", torch.cuda.current_device())
         self.models = models
         self.key = (bert_config, compute_dtype, widths, device)
         self.dims = _checked_dims(models, bert_config, widths)
