@@ -12,7 +12,9 @@ Phases, each of which raises (and exits non-zero) on failure:
 2. build the CUDA kernels of ``realtime_fraud_detection_tpu_torch/csrc``;
 3. run each kernel at the shapes its main path gives it, hold it against
    its plain PyTorch version on the card, and time the kernel, the plain
-   version and a library yardstick with CUDA events: the four per-site
+   version and a library yardstick with CUDA events (the epilogue also by
+   the profiler's device time, beside an empty kernel launched on the same
+   grid from the same build: the launch floor): the four per-site
    kernels at the bucket-256 DistilBERT-base slice's shapes, the
    megakernel at TINY width (int8 BERT at buckets 256 and 8, f32 BERT
    once, int8 BERT once more with f32 compute; its yardstick is the
@@ -41,7 +43,20 @@ Phases, each of which raises (and exits non-zero) on failure:
    the chain (1/6/36/2); the snapshot's ``kernel_launches`` equals the
    counters' sum each time;
 7. megakernel against the per-site chain at TINY int8, buckets 8, 32, 128
-   and 256: p50 / p99 per batch and txn/s, host clock, interleaved.
+   and 256: p50 / p99 per batch and txn/s, host clock, interleaved;
+8. the stream: seeded simulator transactions (the ``run-job`` defaults,
+   10,000 users and 5,000 merchants) through the port's ``StreamJob`` on the
+   in-memory broker, batches of 256, two in flight, a fixed virtual clock:
+   4,096 at TINY under ``KernelSettings.mega()`` (one megakernel launch a
+   batch) and 1,024 at DistilBERT-base under ``KernelSettings.full()`` (the
+   45-launch chain a batch), int8 BERT both, launch counters reset just
+   before and read just after. Every record scored once with no error, lag
+   0, each id once on the predictions, enriched and features topics;
+   decisions and risk levels equal to the same stream through a kernels-off
+   card scorer (and, at TINY, a CPU scorer) away from a rung; a re-produced
+   first batch all skipped as duplicates. Prints txn/s, batch p50 / p99
+   from dispatch to completion, the scorer's host stages per batch and the
+   smoke's own times for response building, write-back and fan-out.
 
 The last three lines of standard output are the kernel JSON line (all five
 kernels), the ``nvidia-smi`` name and power limit, and the result line
@@ -51,6 +66,7 @@ kernels), the ``nvidia-smi`` name and power limit, and the result line
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -79,6 +95,15 @@ DEQUANT_BF16_TOL = 2.0 ** -7     # one bf16 ulp of the output scale
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
+
+
+@functools.lru_cache(maxsize=None)
+def seeded_models(bert_config):
+    """The seeded random model set of a width, on the host (built once; the
+    scorers copy it to their device)."""
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import init_scoring_models
+
+    return init_scoring_models(SEED, bert_config)
 
 
 def bound(bytes_moved: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -110,6 +135,7 @@ def near_rung(values, rungs, tol):
 
 
 def check_epilogue(params, gen):
+    from realtime_fraud_detection_tpu_torch.ops.build import check_launch, kernel_library
     from realtime_fraud_detection_tpu_torch.ops.epilogue import (
         epilogue_matrix,
         epilogue_matrix_reference,
@@ -140,13 +166,26 @@ def check_epilogue(params, gen):
         worst = max(worst, err)
     params.strategy = 0
     ms = time_ms(lambda: epilogue_matrix(preds, vf, rule, params))
+    dev = event_vs_device("epilogue", ms,
+                          lambda: epilogue_matrix(preds, vf, rule, params))
+    # the launch floor: an empty kernel of the same build on the same grid
+    lib, stream = kernel_library(), torch.cuda.current_stream().cuda_stream
+
+    def empty():
+        check_launch("empty kernel", lib.rtfd_empty(b, stream))
+
+    empty_ms = time_ms(empty)
+    empty_dev = event_vs_device("empty kernel (epilogue grid)", empty_ms, empty)
+    print(f"  epilogue device {dev:.5f} ms per launch against an empty launch "
+          f"{empty_dev:.5f} ms ({dev / empty_dev:.2f}x)", flush=True)
     plain = time_ms(lambda: epilogue_matrix_reference(preds, vf, rule, params))
     n_bytes = (2 * b * m + b + 2 * m + b * (m + 6)) * 4
     bound_ms, by = bound(n_bytes, b * (12 * m + 20), "f32")
     return dict(name="epilogue", route="cuda",
                 source="realtime_fraud_detection_tpu_torch/csrc/epilogue.cu",
                 replaces="realtime_fraud_detection_tpu/ops/epilogue.py:194",
-                max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                max_abs_err=worst, ms=ms, device_ms=dev, empty_ms=empty_ms,
+                empty_device_ms=empty_dev, plain_ms=plain, bound_ms=bound_ms,
                 bound_by=by, library_ms=None,
                 note="library_ms: no single PyTorch call blends and ladders")
 
@@ -349,7 +388,6 @@ def run_slice(ops):
 
     from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE
     from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
-        init_scoring_models,
         make_example_batch,
         packed_width,
     )
@@ -360,7 +398,7 @@ def run_slice(ops):
         QuantSettings,
     )
 
-    models = init_scoring_models(SEED, DISTILBERT_BASE)
+    models = seeded_models(DISTILBERT_BASE)
     kernels_on = TorchFraudScorer(
         Config(quant=QuantSettings.full(), kernels=KernelSettings.full()),
         models=models, bert_config=DISTILBERT_BASE, device="cuda")
@@ -488,9 +526,8 @@ def mega_models():
 
     from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
     from realtime_fraud_detection_tpu_torch.models.quant import quantize_bert_params
-    from realtime_fraud_detection_tpu_torch.scoring.pipeline import init_scoring_models
 
-    base = init_scoring_models(SEED, TINY_CONFIG)
+    base = seeded_models(TINY_CONFIG)
     int8 = dataclasses.replace(base, bert=quantize_bert_params(base.bert)).to("cuda")
     return int8, base.to("cuda")
 
@@ -701,7 +738,6 @@ def run_mega_slice(ops, params):
 
     from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE, TINY_CONFIG
     from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
-        init_scoring_models,
         make_example_batch,
         packed_width,
     )
@@ -712,7 +748,7 @@ def run_mega_slice(ops, params):
         QuantSettings,
     )
 
-    models = init_scoring_models(SEED, TINY_CONFIG)
+    models = seeded_models(TINY_CONFIG)
     mega = TorchFraudScorer(
         Config(quant=QuantSettings.full(), kernels=KernelSettings.mega()),
         models=models, bert_config=TINY_CONFIG, device="cuda")
@@ -776,7 +812,7 @@ def run_mega_slice(ops, params):
     # DistilBERT-base under mega(): 70 MB of int8 parameters, declined
     big = TorchFraudScorer(
         Config(quant=QuantSettings.full(), kernels=KernelSettings.mega()),
-        models=init_scoring_models(SEED, DISTILBERT_BASE),
+        models=seeded_models(DISTILBERT_BASE),
         bert_config=DISTILBERT_BASE, device="cuda")
     big_batch = make_example_batch(BATCH, rng=np.random.default_rng(SEED),
                                    vocab_size=DISTILBERT_BASE.vocab_size)
@@ -832,6 +868,267 @@ def time_mega_vs_chain(mega, chain, params):
               f"each after 3 warm-up: " + json.dumps(line), flush=True)
 
 
+# the stream phase: the run-job defaults, a fixed virtual clock (the
+# simulator's start, 2026-01-05 08:00 UTC), one batch of warm-up per stream
+STREAM_USERS, STREAM_MERCHANTS = 10_000, 5_000
+STREAM_NOW = 1_767_600_000.0
+STREAM_WARMUP_BATCHES = 1
+STREAM_PARTS = ("_build_responses", "_write_back", "_fan_out")
+
+
+class StreamTimer:
+    """Per-batch host timing of a ``StreamJob`` run, by wrapping the job's
+    and the scorer's methods on the instances: dispatch to completion per
+    batch, the hand-written launches of each batch, the smoke's own
+    ``perf_counter`` around response building, write-back and fan-out, and
+    inside ``assemble`` around the encoder, the feature extraction, the
+    history ring, the text join and the tokenizer; plus the time the
+    interpreter's garbage collector ran. The scorer's spans and these sums
+    restart after the warm-up batches. ``close`` undoes the wrapping of the
+    scorer module's functions and the collector callback."""
+
+    ASSEMBLE_FUNCS = ("encode_transactions_columnar", "extract_features_host")
+
+    def __init__(self, job, scorer, warmup: int = STREAM_WARMUP_BATCHES):
+        import gc
+
+        from realtime_fraud_detection_tpu_torch.scoring import scorer as scorer_module
+
+        self.batches = []
+        self.parts = {name: [] for name in STREAM_PARTS}
+        self.inside = {name: [] for name in (
+            *self.ASSEMBLE_FUNCS, "append_and_gather", "_texts_for", "encode_batch")}
+        self.gc = {"ms": 0.0, "collections": [0, 0, 0]}
+        self.warmup = warmup
+        dispatch, complete = job.dispatch_batch, job.complete_batch
+
+        def dispatch_batch(records, now=None):
+            if len(self.batches) == warmup:
+                scorer.spans.reset()
+                for xs in (*self.parts.values(), *self.inside.values()):
+                    xs.clear()
+                self.gc = {"ms": 0.0, "collections": [0, 0, 0]}
+            t0 = time.perf_counter()
+            ctx = dispatch(records, now=now)
+            ctx.timing = dict(rows=len(ctx.fresh), t0=t0,
+                              launches=scorer.kernel_snapshot()["kernel_launches"])
+            self.batches.append(ctx.timing)
+            return ctx
+
+        def complete_batch(ctx):
+            out = complete(ctx)
+            ctx.timing["t1"] = time.perf_counter()
+            return out
+
+        job.dispatch_batch, job.complete_batch = dispatch_batch, complete_batch
+        for owner, name in ((scorer, "_build_responses"), (scorer, "_write_back"),
+                            (job, "_fan_out")):
+            setattr(owner, name, self._timed(getattr(owner, name), self.parts[name]))
+        for owner, name in ((scorer.history, "append_and_gather"),
+                            (scorer, "_texts_for"), (scorer.tokenizer, "encode_batch")):
+            setattr(owner, name, self._timed(getattr(owner, name), self.inside[name]))
+        self._module = scorer_module
+        self._saved = {name: getattr(scorer_module, name) for name in self.ASSEMBLE_FUNCS}
+        for name, fn in self._saved.items():
+            setattr(scorer_module, name, self._timed(fn, self.inside[name]))
+        self._gc_t0 = None
+
+        def on_gc(phase, info):
+            if phase == "start":
+                self._gc_t0 = time.perf_counter()
+            elif self._gc_t0 is not None:
+                self.gc["ms"] += (time.perf_counter() - self._gc_t0) * 1e3
+                self.gc["collections"][info["generation"]] += 1
+
+        self._on_gc = on_gc
+        gc.callbacks.append(on_gc)
+
+    def close(self) -> None:
+        import gc
+
+        for name, fn in self._saved.items():
+            setattr(self._module, name, fn)
+        gc.callbacks.remove(self._on_gc)
+
+    @staticmethod
+    def _timed(fn, sink):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                sink.append((time.perf_counter() - t0) * 1e3)
+        return wrapper
+
+    def summary(self, scorer) -> dict:
+        from realtime_fraud_detection_tpu_torch.obs.profiling import (
+            interpolated_percentile,
+        )
+
+        timed = self.batches[self.warmup:]
+        per_batch = [(b["t1"] - b["t0"]) * 1e3 for b in timed]
+        lat = sorted(per_batch)
+        span = timed[-1]["t1"] - timed[0]["t0"]
+        stages = scorer.host_stats()["stages"]
+
+        def mean(xs):
+            return sum(xs) / len(xs)
+
+        return {
+            "timed_batches": len(timed), "warmup_batches": self.warmup,
+            "txn_per_s": sum(b["rows"] for b in timed) / span,
+            "batch_ms_p50": interpolated_percentile(lat, 0.5),
+            "batch_ms_p99": interpolated_percentile(lat, 0.99),
+            "batch_ms": per_batch,
+            "host_ms_per_batch": {name: stages[name]["mean_ms"] for name in (
+                "assemble", "graph", "pack", "dispatch", "device_wait")},
+            "host_p50_ms_per_batch": {name: stages[name]["p50_ms"] for name in (
+                "assemble", "graph", "pack", "dispatch", "device_wait")},
+            "smoke_ms_per_batch": {k: mean(xs) for k, xs in self.parts.items()},
+            "smoke_p50_ms_per_batch": {
+                k: interpolated_percentile(sorted(xs), 0.5) for k, xs in self.parts.items()},
+            "inside_assemble_ms_per_batch": {k: mean(xs) for k, xs in self.inside.items()},
+            "gc_ms": self.gc["ms"], "gc_collections": self.gc["collections"],
+        }
+
+
+def drive_stream(records, profiles, bert_config, config, device, timed=False):
+    """The port's ``StreamJob`` over ``records`` on a fresh scorer and
+    in-memory broker, at the fixed virtual clock; returns (job, broker,
+    scorer, timer)."""
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
+    from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
+
+    scorer = TorchFraudScorer(config, models=seeded_models(bert_config),
+                              bert_config=bert_config, device=device)
+    scorer.seed_profiles(*profiles)
+    broker = InMemoryBroker()
+    job = StreamJob(broker, scorer, JobConfig(max_batch=BATCH, pipeline_depth=2))
+    broker.produce_batch(T.TRANSACTIONS, records, key_fn=lambda r: str(r["user_id"]))
+    timer = StreamTimer(job, scorer) if timed else None
+    try:
+        job.run_until_drained(now=STREAM_NOW)
+    finally:
+        if timer is not None:
+            timer.close()
+    return job, broker, scorer, timer
+
+
+def topic_values(broker, topic):
+    return [r.value for r in broker.consumer([topic], "smoke-check").poll(1 << 30)]
+
+
+def check_stream_output(name, job, broker, records):
+    """Every record scored once, no error, lag 0, and the predictions,
+    enriched and features topics each hold the stream's ids once."""
+    from collections import Counter
+
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+
+    want = Counter(r["transaction_id"] for r in records)
+    if job.counters["scored"] != len(records) or job.counters["errors"]:
+        fail(f"{name} stream: counters {job.counters}")
+    if broker.lag(job.config.group_id, T.TRANSACTIONS):
+        fail(f"{name} stream: lag {broker.lag(job.config.group_id, T.TRANSACTIONS)}")
+    preds = topic_values(broker, T.PREDICTIONS)
+    if any(p["explanation"].get("error") for p in preds):
+        fail(f"{name} stream: a prediction carries an error")
+    for topic in (T.PREDICTIONS, T.ENRICHED, T.FEATURES):
+        if Counter(v["transaction_id"] for v in topic_values(broker, topic)) != want:
+            fail(f"{name} stream: {topic} does not hold each id once")
+    return preds
+
+
+def compare_streams(name, preds, ref_preds, tol, label):
+    """Ids in the same order; decisions and risk levels equal on every row
+    whose reference probability and confidence lie farther than ``tol``
+    from a rung; fraud_score within ``tol``."""
+    if [p["transaction_id"] for p in preds] != [p["transaction_id"] for p in ref_preds]:
+        fail(f"{name} stream: ids differ from {label}")
+    rungs = (0.3, 0.6, 0.8, 0.95, 0.7)
+    prob = torch.tensor([p["fraud_probability"] for p in ref_preds], dtype=torch.float64)
+    conf = torch.tensor([p["confidence"] for p in ref_preds], dtype=torch.float64)
+    far = ~(near_rung(prob, rungs, tol) | near_rung(conf, rungs, tol))
+    for p, q, ok in zip(preds, ref_preds, far.tolist()):
+        if ok and (p["decision"], p["risk_level"]) != (q["decision"], q["risk_level"]):
+            fail(f"{name} stream: {p['transaction_id']} {p['decision']}/"
+                 f"{p['risk_level']} vs {label} {q['decision']}/{q['risk_level']}")
+    err = max(abs(p["fraud_score"] - q["fraud_score"]) for p, q in zip(preds, ref_preds))
+    if not err <= tol:
+        fail(f"{name} stream: fraud_score err {err} vs {label}")
+    print(f"  {name} stream vs {label}: fraud_score max err {err:.3e}, decision and "
+          f"risk equal on all {int(far.sum())}/{len(preds)} rows farther than {tol} "
+          f"from a rung", flush=True)
+    return err
+
+
+def run_stream(ops, name, bert_config, kernels, count, expected, cpu_reference):
+    """The stream phase of one width: ``count`` simulator transactions
+    through the port's ``StreamJob`` on the card (launch counters reset just
+    before, read just after), checked, held against a kernels-off card
+    scorer (and a CPU scorer) on the same stream, then the first batch
+    re-produced. Returns the stream's launch counts."""
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.utils.config import Config, QuantSettings
+
+    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                               seed=SEED)
+    profiles = (gen.users.profiles(), gen.merchants.profiles())
+    records = gen.generate_batch(count)
+    config = Config(quant=QuantSettings.full(), kernels=kernels)
+    n_batches = count // BATCH
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    job, broker, scorer, timer = drive_stream(records, profiles, bert_config, config,
+                                              "cuda", timed=True)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {k: v * n_batches for k, v in expected.items()}
+    per_batch = [b["launches"] for b in timer.batches]
+    print(f"{name} stream: {count} txns in {len(timer.batches)} batches, launches "
+          f"{launches} (expected {want}); hand-written launches per batch "
+          f"{sorted(set(per_batch))}", flush=True)
+    if launches != want or per_batch != [sum(expected.values())] * n_batches:
+        fail(f"{name} stream: launch counts {launches} / {per_batch}")
+    preds = check_stream_output(name, job, broker, records)
+    timing = timer.summary(scorer)
+
+    refs = [("a kernels-off card scorer", Config(quant=QuantSettings.full()), "cuda")]
+    if cpu_reference:
+        refs.append(("a CPU scorer", config, "cpu"))
+    errs = {}
+    for label, ref_config, device in refs:
+        ref_job, ref_broker, _, _ = drive_stream(records, profiles, bert_config,
+                                                 ref_config, device)
+        ref_preds = check_stream_output(f"{name} ({label})", ref_job, ref_broker,
+                                        records)
+        errs[label] = compare_streams(name, preds, ref_preds, SLICE_PROB_TOL, label)
+
+    # re-produce the first batch: every record is a cached duplicate
+    before = dict(job.counters)
+    ops.reset_launch_counts()
+    broker.produce_batch(T.TRANSACTIONS, records[:BATCH],
+                         key_fn=lambda r: str(r["user_id"]))
+    job.run_until_drained(now=STREAM_NOW)
+    skipped = job.counters["duplicates_skipped"] - before["duplicates_skipped"]
+    if (skipped != BATCH or job.counters["scored"] != before["scored"]
+            or sum(ops.launch_counts().values())
+            or broker.lag(job.config.group_id, T.TRANSACTIONS)):
+        fail(f"{name} stream replay: skipped {skipped}, counters {job.counters}")
+    summary = dict(stream=name, txns=count, **timing, counters=job.counters,
+                   max_err=errs)
+    print(f"{name} stream replay of the first {BATCH} records: "
+          f"{skipped} duplicates skipped, none scored", flush=True)
+    print(f"{name} stream timing (host clock, {STREAM_USERS} users, "
+          f"{STREAM_MERCHANTS} merchants, batch {BATCH}, pipeline depth 2): "
+          + json.dumps(summary), flush=True)
+    return launches
+
+
 def profile_slice(scorer, batch, records, n_batches: int = 5):
     """Device time by kernel over a few batches (torch.profiler, CUPTI)."""
     from torch.autograd import DeviceType
@@ -863,10 +1160,10 @@ def main() -> int:
 
     from realtime_fraud_detection_tpu_torch import ops
     from realtime_fraud_detection_tpu_torch.ensemble.combine import EnsembleParams
-    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE
+    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE, TINY_CONFIG
     from realtime_fraud_detection_tpu_torch.ops.build import build_library, kernel_library
     from realtime_fraud_detection_tpu_torch.scoring.pipeline import MODEL_NAMES
-    from realtime_fraud_detection_tpu_torch.utils.config import Config
+    from realtime_fraud_detection_tpu_torch.utils.config import Config, KernelSettings
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -900,7 +1197,21 @@ def main() -> int:
 
     launches = run_slice(ops)
     launches["megakernel"] = run_mega_slice(ops, params)["megakernel"]
-    extra = ("device_ms", "sites", "timing")
+    chain = {"epilogue": 1, "flash_attention": DISTILBERT_BASE.num_layers,
+             "dequant_matmul": 6 * DISTILBERT_BASE.num_layers, "dequant_rows": 2,
+             "megakernel": 0}
+    stream = {
+        "tiny": run_stream(ops, "TINY", TINY_CONFIG, KernelSettings.mega(),
+                           16 * BATCH, {k: int(k == "megakernel") for k in chain},
+                           cpu_reference=True),
+        "distilbert_base": run_stream(ops, "DistilBERT-base", DISTILBERT_BASE,
+                                      KernelSettings.full(), 4 * BATCH, chain,
+                                      cpu_reference=False),
+    }
+    for e in entries:
+        e["stream_launches"] = {k: v[e["name"]] for k, v in stream.items()}
+    extra = ("device_ms", "empty_ms", "empty_device_ms", "sites", "timing",
+             "stream_launches")
     kernels = [{"name": e["name"], "route": e["route"], "source": e["source"],
                 "replaces": e["replaces"], "launches": launches[e["name"]],
                 "max_abs_err": e["max_abs_err"], "ms": e["ms"],

@@ -1,9 +1,12 @@
 """PyTorch + CUDA port of the fraud scorer for one NVIDIA H100.
 
 A second package beside ``realtime_fraud_detection_tpu`` (the JAX reference,
-which it imports nothing of). This slice scores a packed microbatch end to
-end: ``scoring.pipeline.score_fused_packed`` and the device half of the
-streaming scorer, ``scoring.scorer.TorchFraudScorer``, with the quantized
-BERT branch, flash attention and the fused epilogue running through the
-hand-written kernels of ``csrc/`` (built on first use by ``ops.build``).
+which it imports nothing of). It scores a packed microbatch end to end
+(``scoring.pipeline.score_fused_packed``) with the quantized BERT branch,
+flash attention, the fused epilogue and the persistent megakernel running
+through the hand-written kernels of ``csrc/`` (built on first use by
+``ops.build``), and runs the streaming job around it: simulator -> in-memory
+broker -> ``stream.job.StreamJob`` -> ``scoring.scorer.TorchFraudScorer``
+(host assembly, the device program, state write-back) -> output topics;
+``python -m realtime_fraud_detection_tpu_torch run-job`` is its entry point.
 """

@@ -35,7 +35,18 @@ __global__ void epilogue_kernel(const float* __restrict__ preds,
               o, o + 4, o + 4 + M);
 }
 
+// A kernel that does nothing, launched with the epilogue's grid: its time is
+// the launch floor the epilogue's device time is held against.
+__global__ void empty_kernel() {}
+
 }  // namespace
+
+extern "C" int rtfd_empty(int B, void* stream) {
+  const int threads = 128;
+  empty_kernel<<<(B + threads - 1) / threads, threads, 0,
+                 static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int rtfd_epilogue(const void* preds, const void* vf, const void* rule,
                              const void* w, const void* cm, void* out, int B,

@@ -3,13 +3,16 @@
 Port of the JAX package's ``features/extract.py extract_features``
 (``FeatureExtractor.extractAllFeatures``, FeatureExtractor.java:50-87):
 ``TransactionBatch -> f32[B, 64]`` in the same canonical column order. It
-runs on whichever device the batch's columns lie on.
+runs on whichever device the batch's columns lie on; ``extract_features_host``
+runs it on the CPU over a numpy batch, as host assembly does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from realtime_fraud_detection_tpu_torch.features.schema import TransactionBatch
@@ -193,3 +196,12 @@ def extract_features(b: TransactionBatch) -> torch.Tensor:
         f32(b.card_type_code),
     ]
     return torch.stack(cols, dim=-1)
+
+
+def extract_features_host(b: TransactionBatch) -> np.ndarray:
+    """``extract_features`` on the CPU over a batch of numpy columns; returns
+    f32[B, 64] as a numpy array (the rows host assembly keeps for the
+    history store and the features topic)."""
+    cols = {f.name: torch.from_numpy(np.asarray(getattr(b, f.name)))
+            for f in dataclasses.fields(b)}
+    return extract_features(TransactionBatch(**cols)).numpy()

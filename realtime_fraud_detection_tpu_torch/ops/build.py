@@ -34,6 +34,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 SIGNATURES = {
     "rtfd_epilogue": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _F, _F, _F, _F, _F, _P],
+    # an empty kernel on the epilogue's grid (the launch floor)
+    "rtfd_empty": [_I, _P],
     "rtfd_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
     "rtfd_dequant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

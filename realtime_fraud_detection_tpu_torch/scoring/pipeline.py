@@ -22,18 +22,11 @@ from realtime_fraud_detection_tpu_torch.ensemble.combine import (
     EnsembleParams,
     combine_predictions,
 )
-from realtime_fraud_detection_tpu_torch.features.extract import extract_features
+from realtime_fraud_detection_tpu_torch.features.extract import extract_features_host
 from realtime_fraud_detection_tpu_torch.features.rules import rule_score
 from realtime_fraud_detection_tpu_torch.features.schema import (
-    CARD_TYPES,
-    FIELD_NAMES,
-    KYC_STATUSES,
-    MERCHANT_CATEGORIES,
-    PAYMENT_METHODS,
-    RISK_LEVELS,
-    TRANSACTION_TYPES,
     TransactionBatch,
-    column_dtype,
+    encode_transactions,
 )
 from realtime_fraud_detection_tpu_torch.models.bert import (
     TINY_CONFIG,
@@ -153,6 +146,9 @@ class ScorerConfig:
     node_dim: int = 16         # GNN node feature width
     fanout: int = 16           # GNN neighbour fan-out
     text_len: int = 64         # token length for the text branch
+    # "word" = the hash-OOV word tokenizer (models/tokenizer.py); the JAX
+    # package's "wordpiece" tokenizer is not ported
+    tokenizer: str = "word"
 
 
 def init_scoring_models(seed: int, bert_config: BertConfig = TINY_CONFIG,
@@ -286,59 +282,22 @@ def score_fused_packed(models: ScoringModels, blobs: Dict[str, torch.Tensor],
 def make_example_batch(batch_size: int, config: ScorerConfig = ScorerConfig(),
                        rng: Optional[np.random.Generator] = None,
                        vocab_size: int = 30522) -> ScoreBatch:
-    """Synthetic host-side ScoreBatch drawn from a numpy generator: the
-    transaction columns over the simulator's value ranges, features from
-    ``extract_features`` on the CPU, and standard-normal history and graph
-    tensors."""
+    """Synthetic host-side ScoreBatch, as the JAX package's
+    ``make_example_batch`` builds it: transaction columns encoded from
+    simulator records joined with their pools' profiles (the simulator
+    seeded from ``rng``), features from ``extract_features_host``, and
+    history, graph and token tensors drawn from ``rng``."""
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+
     rng = rng or np.random.default_rng(0)
     b, c = batch_size, config
-    cols: Dict[str, np.ndarray] = {}
-    for name in FIELD_NAMES:
-        dt = column_dtype(name)
-        if dt == np.bool_:
-            cols[name] = rng.random(b) < 0.5
-        elif dt == np.int32:
-            cols[name] = np.zeros(b, np.int32)
-        else:
-            cols[name] = rng.random(b).astype(np.float32)
-    ints = {   # codes include -1, the unknown value
-        "hour_of_day": (0, 24), "day_of_week": (1, 8), "day_of_month": (1, 29),
-        "payment_method_code": (-1, len(PAYMENT_METHODS)),
-        "transaction_type_code": (-1, len(TRANSACTION_TYPES)),
-        "card_type_code": (-1, len(CARD_TYPES)),
-        "kyc_code": (-1, len(KYC_STATUSES)), "preferred_start": (0, 12),
-        "preferred_end": (12, 24), "merchant_risk_code": (-1, len(RISK_LEVELS)),
-        "merchant_category_code": (-1, len(MERCHANT_CATEGORIES)),
-        "merchant_op_start": (0, 10), "merchant_op_end": (16, 25),
-    }
-    for name, (lo, hi) in ints.items():
-        cols[name] = rng.integers(lo, hi, b).astype(np.int32)
-    floats = {
-        "amount": rng.lognormal(4.0, 1.5, b),
-        "lat": rng.uniform(-80, 80, b), "lon": rng.uniform(-180, 180, b),
-        "merchant_lat": rng.uniform(-80, 80, b),
-        "merchant_lon": rng.uniform(-180, 180, b),
-        "ip_risk": np.where(cols["private_ip"], 0.1, 0.3),
-        "account_age_days": rng.uniform(0, 3000, b),
-        "user_avg_amount": rng.lognormal(4.0, 1.0, b),
-        "user_txn_frequency": rng.uniform(0, 30, b),
-        "merchant_fraud_rate": rng.uniform(0, 0.2, b),
-        "merchant_avg_amount": rng.lognormal(4.0, 1.0, b),
-        "velocity_5min_count": rng.integers(0, 8, b),
-        "velocity_5min_amount": rng.uniform(0, 2000, b),
-        "velocity_1hour_count": rng.integers(0, 30, b),
-        "velocity_1hour_amount": rng.uniform(0, 10000, b),
-        "velocity_24hour_count": rng.integers(0, 100, b),
-        "velocity_24hour_amount": rng.uniform(0, 50000, b),
-    }
-    for name, values in floats.items():
-        cols[name] = np.asarray(values, np.float32)
-    txn = TransactionBatch(**cols)
-    features = extract_features(TransactionBatch(
-        **{k: torch.from_numpy(v) for k, v in cols.items()})).numpy()
+    gen = TransactionGenerator(num_users=max(64, b), num_merchants=64,
+                               seed=int(rng.integers(2 ** 31)))
+    txn = encode_transactions(gen.generate_batch(b), gen.users.profiles(),
+                              gen.merchants.profiles())
     return ScoreBatch(
         txn=txn,
-        features=features,
+        features=extract_features_host(txn),
         history=rng.standard_normal((b, c.seq_len, c.feature_dim)).astype(np.float32),
         history_len=rng.integers(1, c.seq_len + 1, b).astype(np.int32),
         user_feat=rng.standard_normal((b, c.node_dim)).astype(np.float32),

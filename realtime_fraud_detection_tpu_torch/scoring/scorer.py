@@ -1,21 +1,32 @@
-"""The device half of the streaming scorer.
+"""The streaming scorer: host assembly, the device program, write-back.
 
-Port of the device half of the JAX package's ``scoring/scorer.py
-FraudScorer``: ``dispatch_assembled`` pads an assembled microbatch to its
-bucket, packs it into the three transfer blobs, copies them to the card
-from pinned host memory, launches the fused scorer and starts the copy of
-the result matrix back into pinned host memory behind a CUDA event;
-``finalize`` waits on that event and builds the response dicts. The kernel
-plane's host-side accounting (``kernel_snapshot``) records per batch which
-kernel sites the fused scorer dispatched, which fell back (the megakernel's
-plan declining a batch, or f32 BERT weights leaving the int8 site no work),
-and how many hand-written kernels the batch launched. Host assembly
-(stores, tokenizer, ``assemble``), state write-back, pools, the mesh and
-tracing are not part of this port yet.
+Port of the JAX package's ``scoring/scorer.py FraudScorer`` on the
+in-process state tier:
+
+- host half: ``assemble`` joins the profile, velocity and history state of
+  a microbatch of transaction dicts and encodes one dense ``ScoreBatch``
+  (columnar encode with the cross-batch entity row cache, the 64 features
+  extracted on the CPU, the history ring, the bipartite graph join, the
+  word tokenizer); ``finalize`` writes velocity and the transaction cache
+  back after scoring; ``host_stats`` reports the per-stage spans
+  (assemble, graph, pack, dispatch, device_wait) and the cache counters;
+- device half: ``dispatch_assembled`` pads the batch to its bucket, packs
+  it into the three transfer blobs, copies them to the card from pinned
+  host memory, launches the fused scorer and starts the copy of the result
+  matrix back into pinned host memory behind a CUDA event; ``finalize``
+  waits on that event and builds the response dicts. The kernel plane's
+  host-side accounting (``kernel_snapshot``) records per batch which kernel
+  sites the fused scorer dispatched, which fell back (the megakernel's plan
+  declining a batch, or f32 BERT weights leaving the int8 site no work),
+  and how many hand-written kernels the batch launched.
+
+The shared RESP state tier, the typed graph, the wordpiece tokenizer,
+``assemble_serial``, pools, the mesh and tracing are not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence
@@ -26,6 +37,7 @@ import torch
 from realtime_fraud_detection_tpu_torch.core.batching import pad_to_bucket
 from realtime_fraud_detection_tpu_torch.core.packing import pack_tree
 from realtime_fraud_detection_tpu_torch.ensemble.combine import EnsembleParams
+from realtime_fraud_detection_tpu_torch.features.extract import extract_features_host
 from realtime_fraud_detection_tpu_torch.features.rules import (
     APPROVE,
     APPROVE_WITH_MONITORING,
@@ -35,11 +47,20 @@ from realtime_fraud_detection_tpu_torch.features.rules import (
     RISK_LEVEL_NAMES,
     risk_level_codes_np,
 )
+from realtime_fraud_detection_tpu_torch.features.schema import (
+    MERCHANT_CATEGORIES,
+    EntityRowCache,
+    _code,
+    encode_transactions_columnar,
+)
 from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG, BertConfig
 from realtime_fraud_detection_tpu_torch.models.quant import (
     is_quantized_bert,
     quantize_bert_params,
 )
+from realtime_fraud_detection_tpu_torch.models.text import combined_text
+from realtime_fraud_detection_tpu_torch.models.tokenizer import FraudTokenizer
+from realtime_fraud_detection_tpu_torch.obs.profiling import SpanTimer
 from realtime_fraud_detection_tpu_torch.ops import (
     launch_counts,
     mega_launch_accounting,
@@ -61,25 +82,131 @@ from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
     init_scoring_models,
     score_fused_packed,
 )
+from realtime_fraud_detection_tpu_torch.state.history import (
+    EntityGraphStore,
+    UserHistoryStore,
+)
+from realtime_fraud_detection_tpu_torch.state.stores import (
+    ProfileStore,
+    TransactionCache,
+    VelocityStore,
+)
 from realtime_fraud_detection_tpu_torch.utils.config import VALID_KERNEL_SITES, Config
 
 
 @dataclasses.dataclass
 class PendingScore:
     """A dispatched-but-not-finalized microbatch. ``out`` is the host
-    result matrix, filled once ``event`` (None on the CPU) has completed."""
+    result matrix, filled once ``event`` (None on the CPU) has completed;
+    ``features`` is the host copy of the batch's 64-wide feature rows,
+    captured at dispatch (a later dispatch overwrites ``last_features``).
+    ``dispatch_ms`` is the host's assemble + dispatch time, so finalize adds
+    its own device wait and never the pipeline's queue wait."""
 
     records: List[Mapping[str, Any]]
     n: int
-    out: torch.Tensor
+    out: Optional[torch.Tensor]
     event: Optional[torch.cuda.Event]
     dispatch_ms: float
     model_valid: np.ndarray
     rules_only: bool = False
+    features: Optional[np.ndarray] = None
+
+
+class _EntityIndex:
+    """Stable string id -> dense int index with on-the-fly node features.
+
+    Rows live in one preallocated, doubling (capacity, node_dim) table
+    written in place; ``table()`` is a zero-copy slice.
+    """
+
+    def __init__(self, node_dim: int):
+        self.node_dim = node_dim
+        self._idx: Dict[str, int] = {}
+        self._profiled: set[str] = set()
+        self._tbl = np.zeros((256, node_dim), np.float32)
+        self._n = 0
+
+    def _grow(self, need: int) -> None:
+        cap = self._tbl.shape[0]
+        if need <= cap:
+            return
+        while cap < need:
+            cap *= 2
+        tbl = np.zeros((cap, self.node_dim), np.float32)
+        tbl[: self._tbl.shape[0]] = self._tbl
+        self._tbl = tbl
+
+    def lookup(self, entity_id: str, profile: Optional[Mapping[str, Any]],
+               is_merchant: bool) -> int:
+        i = self._idx.get(entity_id)
+        if i is None:
+            i = self._n
+            self._idx[entity_id] = i
+            self._grow(i + 1)
+            self._tbl[i] = self._featurize(profile, is_merchant)
+            self._n += 1
+        elif profile is not None and entity_id not in self._profiled:
+            # a profile arrived after first sight: refresh the zero row
+            self._tbl[i] = self._featurize(profile, is_merchant)
+        if profile is not None:
+            self._profiled.add(entity_id)
+        return i
+
+    def lookup_batch(self, entity_ids: Sequence[str],
+                     profiles: Mapping[str, Mapping[str, Any]],
+                     is_merchant: bool) -> np.ndarray:
+        """One dense index vector for a microbatch; featurization runs only
+        for ids never seen (or first seen without the profile they have
+        now)."""
+        out = np.empty((len(entity_ids),), np.int64)
+        idx_get = self._idx.get
+        prof_get = profiles.get
+        profiled = self._profiled
+        for k, eid in enumerate(entity_ids):
+            i = idx_get(eid)
+            if i is None or (eid not in profiled
+                             and prof_get(eid) is not None):
+                i = self.lookup(eid, prof_get(eid), is_merchant)
+            out[k] = i
+        return out
+
+    def _featurize(self, p: Optional[Mapping[str, Any]], is_merchant: bool) -> np.ndarray:
+        """Node features in the slots of the JAX package's
+        ``models/gnn.py build_node_features``."""
+        row = np.zeros((self.node_dim,), np.float32)
+        if p is None:
+            row[8] = 1.0 if is_merchant else 0.0
+            return row
+        if is_merchant:
+            risk = {"low": 0, "medium": 1, "high": 2}.get(str(p.get("risk_level")), 1)
+            hours = p.get("operating_hours") or {}
+            row[0] = risk / 2.0
+            row[1] = float(p.get("fraud_rate", 0.05))
+            row[2] = np.log1p(float(p.get("avg_transaction_amount", 0.0)))
+            row[3] = float(bool(p.get("is_blacklisted", False)))
+            row[4] = _code(MERCHANT_CATEGORIES, p.get("category")) / 10.0
+            row[5] = float(hours.get("start_hour", 0)) / 24.0
+            row[6] = float(hours.get("end_hour", 24)) / 24.0
+            row[8] = 1.0
+        else:
+            patterns = p.get("behavioral_patterns") or {}
+            row[0] = float(p.get("risk_score", 0.5))
+            row[1] = np.log1p(float(p.get("avg_transaction_amount", 0.0)))
+            row[2] = float(p.get("transaction_frequency", 0.0))
+            row[3] = float(p.get("account_age_days", 0.0)) / 365.0
+            row[4] = float(str(p.get("kyc_status", "")) == "verified")
+            row[5] = float(patterns.get("weekend_activity", 0.5))
+            row[6] = float(patterns.get("international_transactions", 0.0) or 0.0)
+            row[7] = float(patterns.get("online_preference", 0.7))
+        return row
+
+    def table(self) -> np.ndarray:
+        return self._tbl[: self._n] if self._n else self._tbl[:1]
 
 
 class TorchFraudScorer:
-    """Scores assembled microbatches on one device (``cuda`` by default)."""
+    """Stateful streaming scorer on one device (``cuda`` by default)."""
 
     def __init__(self, config: Optional[Config] = None,
                  models: Optional[ScoringModels] = None,
@@ -113,6 +240,43 @@ class TorchFraudScorer:
         self.set_models(models if models is not None else init_scoring_models(
             seed, bert_config, feature_dim=self.sc.feature_dim,
             node_dim=self.sc.node_dim))
+
+        # streaming state: in-process single-writer stores (the reference's
+        # Redis plane), read at assembly and written back at finalize
+        st = self.config.state
+        self.profiles = ProfileStore()
+        self.velocity = VelocityStore()
+        self.txn_cache = TransactionCache(
+            txn_ttl_s=st.transaction_ttl_s, features_ttl_s=st.features_ttl_s,
+            user_list_len=st.user_history_len,
+            merchant_list_len=st.merchant_history_len)
+        self.history = UserHistoryStore(self.sc.seq_len, self.sc.feature_dim)
+        self.graph = EntityGraphStore(self.sc.fanout)
+        if self.sc.tokenizer != "word":
+            # a tokenizer that is not ported must not silently feed the text
+            # model ids from another vocabulary
+            raise ValueError(
+                f"ScorerConfig.tokenizer must be 'word' (the only ported "
+                f"tokenizer), got {self.sc.tokenizer!r}")
+        self.tokenizer = FraudTokenizer(vocab_size=bert_config.vocab_size,
+                                        max_length=self.sc.text_len)
+        if self.tokenizer.vocab_size > bert_config.vocab_size:
+            # on the card an out-of-range id would reach a hand-written
+            # gather with no bounds check: refuse the pairing here
+            raise ValueError(
+                f"tokenizer vocab_size {self.tokenizer.vocab_size} exceeds "
+                f"bert_config.vocab_size {bert_config.vocab_size}")
+        self._users = _EntityIndex(self.sc.node_dim)
+        self._merchants = _EntityIndex(self.sc.node_dim)
+        self._join_cache = EntityRowCache()
+        self.spans = SpanTimer()
+        self.last_features = np.zeros((0, self.sc.feature_dim), np.float32)
+        self.stats: Dict[str, float] = {"scored": 0, "batches": 0, "total_time_s": 0.0}
+
+    # ------------------------------------------------------------ state plane
+    def seed_profiles(self, users: Mapping[str, Mapping[str, Any]],
+                      merchants: Mapping[str, Mapping[str, Any]]) -> None:
+        self.profiles.seed(users, merchants)
 
     # ----------------------------------------------------------------- models
     def set_models(self, models: ScoringModels) -> None:
@@ -248,14 +412,119 @@ class TorchFraudScorer:
             "kernel_launches": self._last_kernel_launches,
         }
 
+    # --------------------------------------------------------------- assembly
+    def assemble(self, records: Sequence[Mapping[str, Any]],
+                 now: Optional[float] = None) -> ScoreBatch:
+        """Join state + encode one dense host ``ScoreBatch``.
+
+        Profile and velocity joins gather through the generation-stamped
+        entity row cache, entity indices resolve in one batched lookup, the
+        features are extracted on the CPU and appended to the history ring
+        before it is gathered (each row is scored against a history that
+        ends with itself), and repeated texts hit the token LRU.
+        """
+        t0 = time.perf_counter()
+        user_ids = [str(r.get("user_id", "")) for r in records]
+        merchant_ids = [str(r.get("merchant_id", "")) for r in records]
+        uprofs = {u: p for u in user_ids
+                  if (p := self.profiles.get_user(u)) is not None}
+        mprofs = {m: p for m in merchant_ids
+                  if (p := self.profiles.get_merchant(m)) is not None}
+        velocities = {u: self.velocity.get_all(u, now) for u in set(user_ids)}
+
+        self._join_cache.sync(self.profiles)
+        txn = encode_transactions_columnar(records, uprofs, mprofs, velocities,
+                                           cache=self._join_cache)
+        feats = extract_features_host(txn)
+        self.last_features = feats  # host copy for the features topic
+        history, history_len = self.history.append_and_gather(user_ids, feats)
+
+        u_idx = self._users.lookup_batch(user_ids, uprofs, False)
+        m_idx = self._merchants.lookup_batch(merchant_ids, mprofs, True)
+        graph_t = self._graph_join(u_idx, m_idx)
+
+        token_ids, token_mask = self.tokenizer.encode_batch(
+            self._texts_for(records, merchant_ids, mprofs))
+
+        batch = ScoreBatch(
+            txn=txn,
+            features=feats,
+            history=history,
+            history_len=history_len,
+            token_ids=token_ids.astype(np.int32),
+            token_mask=token_mask.astype(bool),
+            valid=np.ones((len(records),), bool),
+            **graph_t,
+        )
+        self.spans.record("assemble", time.perf_counter() - t0)
+        return batch
+
+    def _graph_join(self, u_idx: np.ndarray, m_idx: np.ndarray
+                    ) -> Dict[str, np.ndarray]:
+        """The bipartite GNN's tensors: this batch's neighbourhoods see only
+        earlier batches' edges, then the batch's own edges are committed for
+        the next batch."""
+        t0 = time.perf_counter()
+        utable, mtable = self._users.table(), self._merchants.table()
+        un_idx, un_mask = self.graph.user_neighbors(u_idx)
+        mn_idx, mn_mask = self.graph.merchant_neighbors(m_idx)
+        out = {
+            "user_feat": utable[u_idx],
+            "merchant_feat": mtable[m_idx],
+            "user_neigh_feat": mtable[np.where(un_mask, un_idx, 0)],
+            "user_neigh_mask": un_mask,
+            "merch_neigh_feat": utable[np.where(mn_mask, mn_idx, 0)],
+            "merch_neigh_mask": mn_mask,
+        }
+        self.graph.add_edges(u_idx, m_idx)
+        self.spans.record("graph", time.perf_counter() - t0)
+        return out
+
+    def _texts_for(self, records, merchant_ids, mprofs) -> List[str]:
+        """Combined text per record for the text branch (models/text.py)."""
+        texts = []
+        for r, m in zip(records, merchant_ids):
+            mp = mprofs.get(m) or {}
+            texts.append(combined_text({
+                "merchant_name": mp.get("name") or str(r.get("merchant_name", "")),
+                "description": str(r.get("description", "") or ""),
+                "category": str(mp.get("category", "") or ""),
+                "location": str(r.get("location", "") or ""),
+            }))
+        return texts
+
+    def host_stats(self) -> Dict[str, Any]:
+        """Per-stage span stats (assemble / graph / pack / dispatch /
+        device_wait) and the entity-row and token cache counters."""
+        return {"stages": self.spans.stats(),
+                "caches": {"entity_rows": self._join_cache.stats(),
+                           "tokens": self.tokenizer.cache_stats()}}
+
     # ---------------------------------------------------------------- scoring
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         host = torch.from_numpy(arr)
         if self.device.type != "cuda":
             return host.to(self.device)
+        # a fresh pinned buffer per blob and batch: with two batches in
+        # flight a reused one could be rewritten while the earlier batch's
+        # non-blocking copy still reads it
         pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
         pinned.copy_(host)
         return pinned.to(self.device, non_blocking=True)
+
+    def dispatch(self, records: Sequence[Mapping[str, Any]],
+                 now: Optional[float] = None) -> PendingScore:
+        """Assemble + launch without waiting for the device: the caller can
+        assemble the next microbatch while the card runs this one;
+        ``finalize`` waits, builds the responses and writes state back."""
+        t0 = time.perf_counter()
+        if not records:
+            return PendingScore(records=[], n=0, out=None, event=None,
+                                dispatch_ms=0.0,
+                                model_valid=self.effective_model_valid(),
+                                features=self.last_features[:0])
+        batch = self.assemble(records, now)
+        return self.dispatch_assembled(batch, records, t0=t0)
 
     def dispatch_assembled(self, batch: ScoreBatch,
                            records: Sequence[Mapping[str, Any]],
@@ -263,10 +532,13 @@ class TorchFraudScorer:
         """Pad + pack + launch an assembled host batch without waiting for
         the device."""
         t0 = time.perf_counter() if t0 is None else t0
+        t_pack = time.perf_counter()
         n = len(records)
         padded, mask, size = pad_to_bucket(batch, n)
         padded = dataclasses.replace(padded, valid=mask)
         blobs, spec = pack_tree(padded)
+        self.spans.record("pack", time.perf_counter() - t_pack)
+        t_disp = time.perf_counter()
         dev_blobs = {name: self._to_device(arr) for name, arr in blobs.items()}
         mv = self.effective_model_valid()
         static = self.kernel_static(size, mv)
@@ -288,20 +560,54 @@ class TorchFraudScorer:
             event.record()
         else:
             host = out
+        self.spans.record("dispatch", time.perf_counter() - t_disp)
         return PendingScore(
             records=list(records), n=n, out=host, event=event,
             dispatch_ms=(time.perf_counter() - t0) * 1000.0,
-            model_valid=mv, rules_only=self._qos_rules_only)
+            model_valid=mv, rules_only=self._qos_rules_only,
+            features=np.asarray(batch.features))
 
-    def finalize(self, pending: PendingScore) -> List[Dict[str, Any]]:
-        """Wait for a dispatched batch and build its responses."""
+    def finalize(self, pending: PendingScore, now: Optional[float] = None,
+                 lock=None) -> List[Dict[str, Any]]:
+        """Wait for a dispatched batch, build its responses and write state
+        back. ``lock`` (optional) is held around the write-back only, not
+        the device wait."""
+        if pending.n == 0:
+            return []
         t_fin = time.perf_counter()
         if pending.event is not None:
             pending.event.synchronize()
+        self.spans.record("device_wait", time.perf_counter() - t_fin)
         elapsed_ms = pending.dispatch_ms + (time.perf_counter() - t_fin) * 1000.0
-        return self._build_responses(
+        results = self._build_responses(
             pending.records, pending.out.numpy(), pending.n, elapsed_ms,
             model_valid=pending.model_valid, rules_only=pending.rules_only)
+        with (lock if lock is not None else contextlib.nullcontext()):
+            self._write_back(pending.records, results, now)
+            self.stats["scored"] += pending.n
+            self.stats["batches"] += 1
+            self.stats["total_time_s"] += elapsed_ms / 1000.0
+        return results
+
+    def score_batch(self, records: Sequence[Mapping[str, Any]],
+                    now: Optional[float] = None) -> List[Dict[str, Any]]:
+        """Score transaction dicts -> prediction dicts (one batch, waited)."""
+        return self.finalize(self.dispatch(records, now), now)
+
+    def _write_back(self, records, results, now: Optional[float]) -> None:
+        """Post-scoring state updates (RedisTransactionSink.java:53-135):
+        velocity, and the transaction cache with enough of the result for
+        the job's dedupe path to re-emit a faithful prediction."""
+        ts = now if now is not None else time.time()
+        for rec, res in zip(records, results):
+            uid = str(rec.get("user_id", ""))
+            self.velocity.update(uid, float(rec.get("amount", 0.0)), ts)
+            merged = dict(rec)
+            merged["fraud_score"] = res["fraud_score"]
+            merged["decision"] = res["decision"]
+            merged["risk_level"] = res["risk_level"]
+            merged["confidence"] = res["confidence"]
+            self.txn_cache.cache_transaction(merged, now=ts)
 
     def _build_responses(self, records, out, n, elapsed_ms, model_valid=None,
                          rules_only=False) -> List[Dict[str, Any]]:

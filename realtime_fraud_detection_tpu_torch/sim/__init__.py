@@ -1,0 +1,1 @@
+"""sim of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""state of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""stream of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,89 @@
+"""Deadline-bounded microbatch assembly: the stream -> device seam.
+
+Port of ``MicrobatchAssembler`` from the JAX package's
+``stream/microbatch.py``: it drains a consumer into microbatches closed by
+whichever comes first, the size trigger (``max_batch`` records, aligned
+with the bucket set of ``core/batching.py``) or the deadline trigger
+(``max_delay_ms`` since the batch's first record arrived). The QoS budget
+and the tuning plane's close triggers are not ported.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, List, Optional
+
+from realtime_fraud_detection_tpu_torch.stream.transport import Consumer, Record
+
+# blocking mode's pause between polls of an empty consumer
+_IDLE_SLEEP_S = 0.0005
+
+
+class MicrobatchAssembler:
+    """Pull-based assembler over a transport consumer."""
+
+    def __init__(
+        self,
+        consumer: Consumer,
+        max_batch: int = 256,
+        max_delay_ms: float = 5.0,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        self.consumer = consumer
+        self.max_batch = max_batch
+        self.max_delay_ms = max_delay_ms
+        self.clock = clock
+        self._pending: List[Record] = []
+        self._first_ts: Optional[float] = None
+        self.batches_emitted = 0
+        self.records_emitted = 0
+        # why the last batch closed (size | deadline | timeout | flush) and
+        # the histogram of every close
+        self.last_close_reason: Optional[str] = None
+        self.close_reasons: dict = {}
+
+    def _deadline_passed(self) -> bool:
+        return (
+            self._first_ts is not None
+            and (self.clock() - self._first_ts) * 1000.0 >= self.max_delay_ms
+        )
+
+    def next_batch(self, block: bool = True,
+                   timeout_s: Optional[float] = None) -> List[Record]:
+        """Assemble the next microbatch.
+
+        Non-blocking mode returns [] when neither the size nor the deadline
+        condition holds yet. Blocking mode waits (bounded by ``timeout_s``)
+        until a batch closes or the wait times out with whatever is pending.
+        """
+        wait_start = self.clock()
+        while True:
+            if len(self._pending) < self.max_batch:
+                got = self.consumer.poll(self.max_batch - len(self._pending))
+                if got and self._first_ts is None:
+                    self._first_ts = self.clock()
+                self._pending.extend(got)
+
+            if len(self._pending) >= self.max_batch:
+                return self._emit("size")
+            if self._pending and self._deadline_passed():
+                return self._emit("deadline")
+
+            if not block:
+                return []
+            if timeout_s is not None and self.clock() - wait_start >= timeout_s:
+                return self._emit("timeout") if self._pending else []
+            time.sleep(_IDLE_SLEEP_S)
+
+    def _emit(self, reason: str = "size") -> List[Record]:
+        self.last_close_reason = reason
+        self.close_reasons[reason] = self.close_reasons.get(reason, 0) + 1
+        batch, self._pending = self._pending[: self.max_batch], self._pending[self.max_batch:]
+        self._first_ts = self.clock() if self._pending else None
+        self.batches_emitted += 1
+        self.records_emitted += len(batch)
+        return batch
+
+    def flush(self) -> List[Record]:
+        """Close and return whatever is pending (drain-on-shutdown)."""
+        return self._emit("flush") if self._pending else []

@@ -1,9 +1,10 @@
-"""Scoring configuration the port needs: the quant and kernel planes plus the
-ensemble defaults ``EnsembleParams.from_config`` reads.
+"""Scoring configuration the port needs: the quant and kernel planes, the
+ensemble defaults ``EnsembleParams.from_config`` reads, and the state
+stores' TTLs and list lengths.
 
 Values are copies of the JAX package's ``utils/config.py`` (QuantSettings,
-KernelSettings, the five-model registry weights, the confidence multipliers
-and the decision-ladder rungs). The port keeps its own copy so it imports
+KernelSettings, StateConfig's memory tier, the five-model registry
+weights, the confidence multipliers and the decision-ladder rungs). The port keeps its own copy so it imports
 nothing of the JAX package.
 """
 
@@ -164,6 +165,18 @@ class KernelSettings:
 
 
 @dataclass
+class StateConfig:
+    """In-process state store settings (RedisService.java key TTLs). Only
+    the memory tier is ported; velocity windows expire on their own
+    periods, so there is no velocity TTL."""
+
+    transaction_ttl_s: int = 24 * 3600
+    features_ttl_s: int = 2 * 3600
+    user_history_len: int = 100  # RedisService.java:296-306 last-100 list
+    merchant_history_len: int = 500
+
+
+@dataclass
 class Config:
     """The slice of the JAX package's root ``Config`` that scoring reads.
     A model left out of ``model_weights`` is disabled."""
@@ -173,6 +186,7 @@ class Config:
     ensemble: EnsembleConfig = field(default_factory=EnsembleConfig)
     quant: QuantSettings = field(default_factory=QuantSettings)
     kernels: KernelSettings = field(default_factory=KernelSettings)
+    state: StateConfig = field(default_factory=StateConfig)
 
     def __post_init__(self) -> None:
         self.validate()

@@ -1,0 +1,289 @@
+"""The main-path gate: the port's streaming job against the JAX job, on the
+CPU.
+
+The seeded stream of ``tests/test_stream.py`` (60 users, 25 merchants, seed
+11, microbatches of 32) goes through the JAX ``StreamJob`` + ``FraudScorer``
+and through the port's ``StreamJob`` + ``TorchFraudScorer(device="cpu")``
+on the same (bridged) models, each job on its own in-memory broker and its
+own simulator. Both must emit the same ids in the same order on every
+topic, the same decisions and risk levels on every row whose JAX
+probability and confidence lie farther than ``SERVED_BF16_TOL`` from every
+rung, ``fraud_score`` within that bound, the same feature rows (exact apart
+from the three transcendental columns, within 1e-5), the same counters and
+lag 0; then the replay-dedupe sequence of ``tests/test_stream.py`` gives the
+same counters and cache re-emissions on both.
+"""
+
+from collections import Counter
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from realtime_fraud_detection_tpu.models.isolation_forest import (
+    IsolationForest as JaxIsolationForest,
+)
+from realtime_fraud_detection_tpu.models.trees import (
+    TreeEnsemble as JaxTreeEnsemble,
+)
+from realtime_fraud_detection_tpu.scoring import FraudScorer
+from realtime_fraud_detection_tpu.scoring import ScorerConfig as JaxScorerConfig
+from realtime_fraud_detection_tpu.sim.simulator import (
+    TransactionGenerator as JaxTransactionGenerator,
+)
+from realtime_fraud_detection_tpu.stream import InMemoryBroker as JaxInMemoryBroker
+from realtime_fraud_detection_tpu.stream import JobConfig as JaxJobConfig
+from realtime_fraud_detection_tpu.stream import StreamJob as JaxStreamJob
+from realtime_fraud_detection_tpu_torch.__main__ import main as port_main
+from realtime_fraud_detection_tpu_torch.bridge import models_from_numpy
+from realtime_fraud_detection_tpu_torch.features.extract import FEATURE_NAMES
+from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+from realtime_fraud_detection_tpu_torch.scoring.pipeline import ScorerConfig
+from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+from realtime_fraud_detection_tpu_torch.stream import topics as T
+from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
+from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
+
+SERVED_BF16_TOL = 2e-3
+RUNGS = (0.3, 0.6, 0.8, 0.95, 0.7)      # risk + decision rungs, confidence
+ALERT_THRESHOLD = 0.7
+OUT_TOPICS = (T.PREDICTIONS, T.ALERTS, T.ENRICHED, T.FEATURES)
+TRANSCENDENTAL = [FEATURE_NAMES.index(n) for n in (
+    "amount_log", "amount_sqrt", "distance_to_merchant_km")]
+EXACT = [i for i in range(len(FEATURE_NAMES)) if i not in TRANSCENDENTAL]
+
+
+def _jax_models():
+    """The JAX model set with random trees and forest (every branch works),
+    f32 BERT, numpy leaves."""
+    rng = np.random.default_rng(29)
+    scorer = FraudScorer(scorer_config=JaxScorerConfig(text_len=32), seed=29)
+    depth, n_trees = 4, 16
+    trees = JaxTreeEnsemble(
+        feature=rng.integers(0, 64, (n_trees, 2 ** depth - 1)).astype(np.int32),
+        threshold=rng.normal(0.5, 1.0, (n_trees, 2 ** depth - 1)).astype(np.float32),
+        leaf=rng.normal(0.0, 0.4, (n_trees, 2 ** depth)).astype(np.float32),
+        base_score=np.float32(0.1))
+    forest = JaxIsolationForest(
+        feature=rng.integers(0, 64, (n_trees, 2 ** depth - 1)).astype(np.int32),
+        threshold=rng.normal(0.5, 1.0, (n_trees, 2 ** depth - 1)).astype(np.float32),
+        path_length=(4 + 4 * rng.random((n_trees, 2 ** depth))).astype(np.float32),
+        c_psi=np.float32(6.0))
+    return jax.tree_util.tree_map(
+        np.asarray, scorer.models.replace(trees=trees, iforest=forest))
+
+
+def _topic(broker, topic):
+    return [r.value for r in broker.consumer([topic], "check").poll(100_000)]
+
+
+def _drive(gen, job, broker):
+    """The stream and the replay-dedupe sequence; returns what each phase
+    left behind."""
+    out = {}
+    records = gen.generate_batch(96)
+    broker.produce_batch(T.TRANSACTIONS, records, key_fn=lambda r: str(r["user_id"]))
+    out["scored"] = job.run_until_drained(now=1000.0)
+    out["counters"] = dict(job.counters)
+    out["lag"] = broker.lag(job.config.group_id, T.TRANSACTIONS)
+    out["topics"] = {t: _topic(broker, t) for t in OUT_TOPICS}
+    out["records"] = records
+    # replay-dedupe (tests/test_stream.py test_stream_job_replay_dedupe)
+    replay = gen.generate_batch(10)
+    broker.produce_batch(T.TRANSACTIONS, replay, key_fn=lambda r: str(r["user_id"]))
+    job.run_until_drained(now=2000.0)
+    before = job.counters["scored"]
+    broker.produce_batch(T.TRANSACTIONS, replay, key_fn=lambda r: str(r["user_id"]))
+    job.run_until_drained(now=2001.0)
+    out["after_redelivery"] = dict(job.counters)
+    broker.produce_batch(T.TRANSACTIONS, replay + replay,
+                         key_fn=lambda r: str(r["user_id"]))
+    job.run_until_drained(now=2002.0)
+    out["after_double"] = dict(job.counters)
+    out["rescored"] = job.counters["scored"] - before
+    out["replayed"] = Counter(
+        p["transaction_id"] for p in _topic(broker, T.PREDICTIONS)
+        if p["explanation"].get("replayed_from_cache"))
+    out["final_lag"] = broker.lag(job.config.group_id, T.TRANSACTIONS)
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs():
+    jax_models = _jax_models()
+    jax_gen = JaxTransactionGenerator(num_users=60, num_merchants=25, seed=11)
+    jax_scorer = FraudScorer(models=jax_models,
+                             scorer_config=JaxScorerConfig(text_len=32))
+    jax_scorer.seed_profiles(jax_gen.users.profiles(), jax_gen.merchants.profiles())
+    jax_broker = JaxInMemoryBroker()
+    jax_job = JaxStreamJob(jax_broker, jax_scorer,
+                           JaxJobConfig(max_batch=32, max_delay_ms=1.0))
+
+    gen = TransactionGenerator(num_users=60, num_merchants=25, seed=11)
+    scorer = TorchFraudScorer(models=models_from_numpy(jax_models),
+                              scorer_config=ScorerConfig(text_len=32),
+                              bert_config=TINY_CONFIG, device="cpu")
+    scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+    broker = InMemoryBroker()
+    job = StreamJob(broker, scorer, JobConfig(max_batch=32, max_delay_ms=1.0))
+    return _drive(gen, job, broker), _drive(jax_gen, jax_job, jax_broker)
+
+
+def _near_rung(values):
+    return np.min(np.abs(np.asarray(values)[:, None] - np.asarray(RUNGS)[None, :]),
+                  axis=1) <= SERVED_BF16_TOL
+
+
+def test_stream_records_and_ids_per_topic_match_jax(runs):
+    got, want = runs
+    assert got["records"] == want["records"]           # the same stream
+    assert got["scored"] == want["scored"] == 96
+    for topic in OUT_TOPICS:
+        ids = [v["transaction_id"] for v in got["topics"][topic]]
+        assert ids == [v["transaction_id"] for v in want["topics"][topic]], topic
+    ids = [v["transaction_id"] for v in got["topics"][T.PREDICTIONS]]
+    assert sorted(ids) == sorted(r["transaction_id"] for r in got["records"])
+    for topic in (T.PREDICTIONS, T.ENRICHED, T.FEATURES):
+        assert len(got["topics"][topic]) == len(set(ids)) == 96
+
+
+def test_stream_decisions_and_scores_match_jax(runs):
+    got, want = runs
+    preds = got["topics"][T.PREDICTIONS]
+    jpreds = want["topics"][T.PREDICTIONS]
+    assert not any(p["explanation"].get("error") for p in preds)
+    prob = np.array([p["fraud_probability"] for p in jpreds])
+    conf = np.array([p["confidence"] for p in jpreds])
+    near = _near_rung(prob) | _near_rung(conf)
+    # the rows within the tolerance of a rung: the comparison skips these
+    assert int(near.sum()) == 3
+    for p, q, skip in zip(preds, jpreds, near):
+        if not skip:
+            assert (p["decision"], p["risk_level"]) == (q["decision"], q["risk_level"])
+    np.testing.assert_allclose([p["fraud_score"] for p in preds],
+                               [q["fraud_score"] for q in jpreds],
+                               rtol=0, atol=SERVED_BF16_TOL)
+    # the alert count is exact: no score lies within the bound of the threshold
+    assert np.min(np.abs(prob - ALERT_THRESHOLD)) > SERVED_BF16_TOL
+    enriched = [(e["decision"], e["risk_level"]) for e in got["topics"][T.ENRICHED]]
+    assert enriched == [(p["decision"], p["risk_level"]) for p in preds]
+
+
+def test_stream_features_match_jax(runs):
+    got, want = runs
+    feats = np.array([v["features"] for v in got["topics"][T.FEATURES]], np.float32)
+    jfeats = np.array([v["features"] for v in want["topics"][T.FEATURES]], np.float32)
+    assert feats.shape == (96, 64)
+    np.testing.assert_array_equal(feats[:, EXACT], jfeats[:, EXACT])
+    np.testing.assert_allclose(feats[:, TRANSCENDENTAL], jfeats[:, TRANSCENDENTAL],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_stream_counters_and_lag_match_jax(runs):
+    got, want = runs
+    assert got["counters"] == want["counters"]
+    assert got["counters"]["scored"] == 96 and got["counters"]["errors"] == 0
+    assert got["counters"]["batches"] == 3
+    assert got["lag"] == want["lag"] == 0
+
+
+def test_stream_replay_dedupe_matches_jax(runs):
+    got, want = runs
+    for key in ("after_redelivery", "after_double", "rescored", "final_lag"):
+        assert got[key] == want[key], key
+    assert got["rescored"] == 0 and got["final_lag"] == 0
+    assert got["after_redelivery"]["duplicates_skipped"] == 10
+    assert got["replayed"] == want["replayed"]
+    assert set(got["replayed"].values()) == {2} and len(got["replayed"]) == 10
+
+
+def test_job_config_refuses_unported_planes():
+    with pytest.raises(TypeError):
+        JobConfig(qos=object())
+    with pytest.raises(TypeError):
+        JobConfig(overlap_assembly=True)
+
+
+def test_dispatch_error_is_counted_not_hidden():
+    """A scorer that fails to dispatch takes the whole-batch REVIEW path,
+    and the job counts every record of it as an error."""
+    gen = TransactionGenerator(num_users=10, num_merchants=5, seed=3)
+    scorer = TorchFraudScorer(scorer_config=ScorerConfig(text_len=16), device="cpu")
+    scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+    broker = InMemoryBroker()
+    job = StreamJob(broker, scorer, JobConfig(max_batch=8))
+    broker.produce_batch(T.TRANSACTIONS, gen.generate_batch(6),
+                         key_fn=lambda r: str(r["user_id"]))
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("kernel launch failed")
+
+    scorer.dispatch = broken
+    assert job.run_until_drained(now=5.0) == 6
+    assert job.counters["errors"] == 6
+    preds = _topic(broker, T.PREDICTIONS)
+    assert all(p["explanation"] == {"error": True} for p in preds)
+    assert _topic(broker, T.FEATURES) == []
+
+
+def test_malformed_record_gets_its_own_error_result():
+    """Per-record degradation: a record the sanitizer rejects gets an error
+    result of its own; its batch-mates are scored."""
+    gen = TransactionGenerator(num_users=10, num_merchants=5, seed=6)
+    scorer = TorchFraudScorer(scorer_config=ScorerConfig(text_len=16), device="cpu")
+    scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+    broker = InMemoryBroker()
+    job = StreamJob(broker, scorer, JobConfig(max_batch=8))
+    records = gen.generate_batch(5)
+    bad = dict(records[0], transaction_id="bad-1", amount="not a number")
+    broker.produce_batch(T.TRANSACTIONS, records + [bad],
+                         key_fn=lambda r: str(r["user_id"]))
+    assert job.run_until_drained(now=7.0) == 5
+    assert job.counters["errors"] == 1
+    preds = {p["transaction_id"]: p for p in _topic(broker, T.PREDICTIONS)}
+    assert preds["bad-1"]["explanation"]["validation_errors"] == [
+        "amount must be a number"]
+    assert all(not preds[r["transaction_id"]]["explanation"].get("error")
+               for r in records)
+    assert broker.lag(job.config.group_id, T.TRANSACTIONS) == 0
+
+
+def test_run_for_scores_within_its_window_and_commits():
+    gen = TransactionGenerator(num_users=10, num_merchants=5, seed=8)
+    scorer = TorchFraudScorer(scorer_config=ScorerConfig(text_len=16), device="cpu")
+    scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+    broker = InMemoryBroker()
+    job = StreamJob(broker, scorer, JobConfig(max_batch=8, max_delay_ms=1.0))
+    broker.produce_batch(T.TRANSACTIONS, gen.generate_batch(11),
+                         key_fn=lambda r: str(r["user_id"]))
+    # each window ends the polling but completes and commits every batch it
+    # dispatched; the next window picks up what is left
+    scored = []
+    while sum(scored) < 11 and len(scored) < 20:
+        scored.append(job.run_for(0.5))
+        assert broker.lag(job.config.group_id, T.TRANSACTIONS) <= 11 - sum(scored)
+    assert sum(scored) == job.counters["scored"] == 11
+    assert job.counters["errors"] == 0 and job.counters["batches"] == 2
+    assert broker.lag(job.config.group_id, T.TRANSACTIONS) == 0
+
+
+def test_run_job_refuses_to_start_without_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    assert port_main(["run-job", "--count", "4"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_run_job_on_the_cpu_when_asked(capsys):
+    import json
+
+    rc = port_main(["run-job", "--count", "40", "--users", "30", "--merchants",
+                    "10", "--batch", "32", "--device", "cpu", "--seed", "4"])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0
+    assert summary["scored"] == 40 and summary["lag"] == 0
+    assert summary["counters"]["errors"] == 0 and summary["counters"]["batches"] == 2
+    assert set(summary["host_stage_mean_ms"]) == {
+        "assemble", "graph", "pack", "dispatch", "device_wait"}
