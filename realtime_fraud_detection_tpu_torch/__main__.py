@@ -1,6 +1,7 @@
 """Command-line entry point of the port.
 
     python -m realtime_fraud_detection_tpu_torch run-job --count 10000 --mega
+    python -m realtime_fraud_detection_tpu_torch kernel-drill --fast [--mega]
 
 ``run-job`` is the in-memory path of the JAX package's ``rtfd run-job``
 (``cli.py cmd_run_job``): the seeded simulator produces transactions into
@@ -9,6 +10,15 @@ in microbatches through ``TorchFraudScorer`` and fans the results out to
 the predictions, alerts, enriched and features topics. It runs on the CUDA
 card unless ``--device cpu`` is given, and fails without a card. The last
 line of standard output is a JSON summary.
+
+``kernel-drill`` is the port of the JAX package's ``rtfd kernel-drill``
+(``scoring/kernel_drill.py``): two seeded scorers on the quantized plane,
+kernels off and kernels on (``KernelSettings.full()``, or ``mega()`` with
+``--mega``), held to the measured bf16 noise bound with zero decision flips
+at every QoS rung, each kernel against its plain version, honest dispatch
+counts and a bit-identical replay. It prints the full summary, then the
+compact verdict as the last line, and exits 1 unless every check passed.
+It runs on the card (``--device cpu`` runs both sides' plain versions).
 """
 
 from __future__ import annotations
@@ -20,9 +30,17 @@ import time
 from typing import List, Optional
 
 
-def cmd_run_job(args: argparse.Namespace) -> int:
+def _no_card(command: str, device: str) -> bool:
     import torch
 
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        print(f"{command}: no CUDA device available (pass --device cpu to run on "
+              "the CPU)", file=sys.stderr)
+        return True
+    return False
+
+
+def cmd_run_job(args: argparse.Namespace) -> int:
     from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
     from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
     from realtime_fraud_detection_tpu_torch.stream import topics as T
@@ -34,9 +52,7 @@ def cmd_run_job(args: argparse.Namespace) -> int:
         QuantSettings,
     )
 
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        print("run-job: no CUDA device available (pass --device cpu to run on "
-              "the CPU)", file=sys.stderr)
+    if _no_card("run-job", args.device):
         return 2
     config = Config()
     if args.quant:
@@ -75,6 +91,25 @@ def cmd_run_job(args: argparse.Namespace) -> int:
     return 0 if job.counters["errors"] == 0 else 1
 
 
+def cmd_kernel_drill(args: argparse.Namespace) -> int:
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.scoring.kernel_drill import (
+        KernelDrillConfig,
+        compact_kernel_summary,
+        run_kernel_drill,
+    )
+
+    if _no_card("kernel-drill", args.device):
+        return 2
+    cfg = KernelDrillConfig.fast() if args.fast else KernelDrillConfig()
+    cfg = dataclasses.replace(cfg, seed=args.seed, mega=args.mega, device=args.device)
+    summary = run_kernel_drill(cfg)
+    print(json.dumps(summary, default=str))
+    print(json.dumps(compact_kernel_summary(summary), default=str))
+    return 0 if summary["passed"] else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="realtime_fraud_detection_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -103,6 +138,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
     sp.set_defaults(fn=cmd_run_job)
+    kd = sub.add_parser("kernel-drill", help="parity drill of the kernel plane: "
+                                             "kernels on vs off under the bf16 "
+                                             "noise bound")
+    kd.add_argument("--fast", action="store_true",
+                    help="tier-1 sizes (KernelDrillConfig.fast())")
+    kd.add_argument("--mega", action="store_true",
+                    help="the kernel side serves the megakernel (KernelSettings.mega())")
+    kd.add_argument("--seed", type=int, default=13)
+    kd.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain versions)")
+    kd.set_defaults(fn=cmd_kernel_drill)
     return parser
 
 

@@ -34,10 +34,14 @@ __device__ __forceinline__ float combine_risk_code(float p) {
 //   head[0..3]    prob, confidence, decision, risk
 //   contrib[0..M) the explanation contributions w * p
 //   rule_out[0,1] the rules-only decision and risk over ``rule``
-// (ints ride as exact small floats).
-__device__ __forceinline__ void combine_row(const float* p_row,
-                                            const float* v_row,
-                                            const float* w, const float* cm,
+// (ints ride as exact small floats). Each operand is anything indexed by
+// [m]: a pointer into global or shared memory (the megakernel) or an array
+// held in registers (the epilogue, whose weights arrive by value); with M a
+// compile-time constant the loops unroll and the arrays stay in registers.
+template <typename PRow, typename VRow, typename WVec, typename CVec>
+__device__ __forceinline__ void combine_row(const PRow& p_row,
+                                            const VRow& v_row,
+                                            const WVec& w, const CVec& cm,
                                             int M, float rule,
                                             const CombineParams& c,
                                             float* head, float* contrib,

@@ -1,19 +1,38 @@
-// Fused score-and-blend epilogue for Hopper (sm_90a).
+// Fused score-and-blend epilogue for Hopper (sm_90a), writing the packed
+// result matrix.
 //
 // Replaces the Pallas kernel realtime_fraud_detection_tpu/ops/epilogue.py
-// fused_epilogue (body _epilogue_kernel, math combine_matrix). One thread
-// per batch row: it combines the M branch probabilities under the validity
-// mask with the blend weights (strategy chosen at run time), derives the
-// per-model confidence, the decision and risk ladders, the explanation
-// contributions w*p and the rules-only ladder over the rule score, and
-// writes one row of the [B, M+6] epilogue matrix:
-//   prob, confidence, decision, risk, contributions[M], rule_decision,
-//   rule_risk  (ints ride as exact small floats).
+// fused_epilogue (body _epilogue_kernel, math combine_matrix). It blends the
+// M branch probabilities of each batch row under the validity mask with the
+// blend weights (strategy chosen at run time), derives the per-model
+// confidence, the decision and risk ladders, the explanation contributions
+// w*p and the rules-only ladder over the rule score, and writes the row's
+// columns of the packed [B, 8 + 2M + 2] result of scoring/pipeline.py:
+//   0-3  prob, confidence, decision, risk   4 the rule score
+//   5-7  0 (the key-factor flags; the caller writes them after the launch)
+//   8..  the M probabilities, then the M contributions, then the rules-only
+//        decision and risk                  (ints ride as exact small floats)
 // The row math is combine_row of combine.cuh, which the megakernel shares.
 //
-// Bound: bytes. It reads (2M+1)*4 bytes and writes (M+6)*4 bytes per row and
-// does a few dozen flops, so at B=256 the launch itself dominates. The design
-// keeps it to a single pass over each row held in registers.
+// Bound: launch latency. At B = 256, M = 5 the bytes bound is 7.1 ns, while
+// an empty kernel on the same grid takes ~0.8 us of device time on an H100
+// SXM. So the design counts global round trips and instructions, not bytes:
+//   - the weights, confidence multipliers, strategy and thresholds travel by
+//     value in EpilogueArgs (the kernel's parameter bank), so nothing of them
+//     is loaded from global memory;
+//   - validity is built in the kernel from the model-valid bits (by value)
+//     and one byte a row (batch.valid), so the host builds no [B, M] mask;
+//   - a block starts every load of its rows (probabilities, rule score,
+//     validity) in one coalesced pass into shared memory, and only then
+//     computes: one global round trip;
+//   - the served M = 5 is fixed at compile time, so its loops unroll and its
+//     operands stay in registers; every other M <= 8 runs one generic
+//     instance that reads M from the arguments. Strategy and validity source
+//     are read at run time: both are uniform across a launch;
+//   - the rows' output columns are staged in shared memory and written as one
+//     coalesced span per block, straight into the packed matrix at its row
+//     stride, so no copy assembles the packed result afterwards; at M = 5,
+//     rows at their width, in 16-byte stores.
 
 #include <cuda_runtime.h>
 
@@ -21,18 +40,126 @@
 
 namespace {
 
-__global__ void epilogue_kernel(const float* __restrict__ preds,
-                                const float* __restrict__ vf,
-                                const float* __restrict__ rule,
-                                const float* __restrict__ w,
-                                const float* __restrict__ cm,
-                                float* __restrict__ out, int B, int M,
-                                CombineParams c) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= B) return;
-  float* o = out + (size_t)r * (M + 6);
-  combine_row(preds + (size_t)r * M, vf + (size_t)r * M, w, cm, M, rule[r], c,
-              o, o + 4, o + 4 + M);
+constexpr int EPI_ROWS = 128;      // rows of a block, one thread each
+constexpr int EPI_MAX_M = 8;       // models the argument struct carries
+constexpr int EPI_SERVED_M = 5;    // scoring/pipeline.py MODEL_NAMES
+
+}  // namespace
+
+// Mirrored by ops/epilogue.py EpilogueArgs (ctypes); change both together.
+struct EpilogueArgs {
+  const float* preds;              // f32 [B, M], rows of M
+  const float* rule;               // f32 [B]
+  const unsigned char* row_valid;  // u8 [B] (batch.valid), or null: all 1
+  const unsigned char* valid;      // u8 [B, M] per row and model, or null:
+                                   //   then row_valid x model_bits
+  float* out;                      // f32 packed result, row stride out_stride
+  int B, M, out_stride, model_bits, strategy;
+  float fraud_threshold, confidence_threshold, decline, review, monitor;
+  float w[EPI_MAX_M], cm[EPI_MAX_M];
+};
+
+namespace {
+
+// MS: the model count fixed at compile time, or 0 for the generic instance,
+// which reads M (1..EPI_MAX_M) from the arguments. Validity comes from the
+// [B, M] byte mask ``valid`` when it is given (the JAX API's mask), else
+// from row_valid x model_bits (the main path).
+template <int MS>
+__global__ void __launch_bounds__(EPI_ROWS)
+    epilogue_packed_kernel(const EpilogueArgs a) {
+  constexpr int MC = MS > 0 ? MS : EPI_MAX_M;     // models a row can hold
+  constexpr int WC = 8 + 2 * MC + 2;              // packed width at MC
+  constexpr int SW = WC | 1;          // odd smem row stride: no bank conflicts
+  __shared__ float s_p[EPI_ROWS * MC];
+  __shared__ unsigned char s_v[EPI_ROWS * MC];
+  __shared__ float s_out[EPI_ROWS * SW];
+
+  const int M = MS > 0 ? MS : a.M;
+  const int W = 8 + 2 * M + 2;
+  const bool per_row = a.valid != nullptr;
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.x * EPI_ROWS;
+  const int rows = min(EPI_ROWS, a.B - r0);
+  const int n = rows * M;
+  const float* preds = a.preds + (size_t)r0 * M;
+
+  // every load in flight before any is used: one global round trip
+  float p[MC];
+  unsigned char v[MC];
+#pragma unroll
+  for (int i = 0; i < MC; ++i) {
+    const int e = t + i * EPI_ROWS;
+    p[i] = e < n ? preds[e] : 0.f;
+    v[i] = (per_row && e < n) ? a.valid[(size_t)r0 * M + e] : 1;
+  }
+  const float rule = t < rows ? a.rule[r0 + t] : 0.f;
+  const unsigned char row_ok =
+      (!per_row && a.row_valid != nullptr && t < rows) ? a.row_valid[r0 + t] : 1;
+#pragma unroll
+  for (int i = 0; i < MC; ++i) {
+    const int e = t + i * EPI_ROWS;
+    if (e < n) {
+      s_p[e] = p[i];
+      if (per_row) s_v[e] = v[i];
+    }
+  }
+  __syncthreads();
+
+  if (t < rows) {
+    float pr[MC], vf[MC], w[MC], cm[MC];
+    const float rv = row_ok ? 1.f : 0.f;
+#pragma unroll
+    for (int m = 0; m < MC; ++m) {
+      if (m < M) {
+        pr[m] = s_p[t * M + m];
+        const bool on = per_row ? s_v[t * M + m] != 0
+                                : ((a.model_bits >> m) & 1) != 0;
+        vf[m] = __fmul_rn(rv, on ? 1.f : 0.f);   // as the megakernel builds it
+        w[m] = a.w[m];
+        cm[m] = a.cm[m];
+      }
+    }
+    const CombineParams c{a.strategy, a.fraud_threshold, a.confidence_threshold,
+                          a.decline, a.review, a.monitor};
+    float* o = s_out + t * SW;
+    combine_row(pr, vf, w, cm, M, rule, c, o, o + 8 + M, o + 8 + 2 * M);
+    o[4] = rule;
+    o[5] = o[6] = o[7] = 0.f;
+#pragma unroll
+    for (int m = 0; m < MC; ++m)
+      if (m < M) o[8 + m] = pr[m];
+  }
+  __syncthreads();
+
+  // the block's rows as one coalesced span straight into the packed matrix.
+  // What costs here is the number of store instructions, not the bytes, so
+  // when the rows lie at their width (a multiple of 4, as at M = 5) from a
+  // 16-byte aligned base, a thread stores W/4 float4s instead of W floats;
+  // any other stride or width is honoured element by element.
+  float* out = a.out + (size_t)r0 * a.out_stride;
+  if constexpr (MS > 0 && WC % 4 == 0) {
+    if (a.out_stride == WC && (reinterpret_cast<size_t>(a.out) & 15) == 0) {
+      constexpr int V4 = WC / 4;
+#pragma unroll
+      for (int i = 0; i < V4; ++i) {
+        const int e = t + i * EPI_ROWS;       // float4 index in the span
+        const int r = e / V4;
+        const int q = e - r * V4;
+        if (r < rows) {
+          const float* src = s_out + r * SW + 4 * q;
+          reinterpret_cast<float4*>(out)[e] =
+              make_float4(src[0], src[1], src[2], src[3]);
+        }
+      }
+      return;
+    }
+  }
+  for (int e = t; e < rows * W; e += EPI_ROWS) {
+    const int r = e / W;
+    const int col = e - r * W;
+    out[(size_t)r * a.out_stride + col] = s_out[r * SW + col];
+  }
 }
 
 // A kernel that does nothing, launched with the epilogue's grid: its time is
@@ -42,24 +169,26 @@ __global__ void empty_kernel() {}
 }  // namespace
 
 extern "C" int rtfd_empty(int B, void* stream) {
-  const int threads = 128;
-  empty_kernel<<<(B + threads - 1) / threads, threads, 0,
+  empty_kernel<<<(B + EPI_ROWS - 1) / EPI_ROWS, EPI_ROWS, 0,
                  static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int rtfd_epilogue(const void* preds, const void* vf, const void* rule,
-                             const void* w, const void* cm, void* out, int B,
-                             int M, int strategy, float fraud_threshold,
-                             float confidence_threshold, float decline,
-                             float review, float monitor, void* stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  const CombineParams c{strategy, fraud_threshold, confidence_threshold,
-                        decline, review, monitor};
-  epilogue_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(preds), static_cast<const float*>(vf),
-      static_cast<const float*>(rule), static_cast<const float*>(w),
-      static_cast<const float*>(cm), static_cast<float*>(out), B, M, c);
+extern "C" int rtfd_epilogue_args_bytes() {
+  return static_cast<int>(sizeof(EpilogueArgs));
+}
+
+// One launch over the struct's B rows; the struct is copied into the
+// kernel's parameters, so the caller may reuse it as soon as this returns.
+extern "C" int rtfd_epilogue_packed(const void* args, void* stream) {
+  const EpilogueArgs& a = *static_cast<const EpilogueArgs*>(args);
+  if (a.B <= 0 || a.M < 1 || a.M > EPI_MAX_M || a.out_stride < 8 + 2 * a.M + 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (a.B + EPI_ROWS - 1) / EPI_ROWS;
+  if (a.M == EPI_SERVED_M)
+    epilogue_packed_kernel<EPI_SERVED_M><<<blocks, EPI_ROWS, 0, s>>>(a);
+  else
+    epilogue_packed_kernel<0><<<blocks, EPI_ROWS, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

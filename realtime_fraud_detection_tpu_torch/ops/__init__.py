@@ -18,6 +18,8 @@ from realtime_fraud_detection_tpu_torch.ops.dequant_matmul import (
 from realtime_fraud_detection_tpu_torch.ops.epilogue import (
     epilogue_matrix,
     epilogue_matrix_reference,
+    epilogue_packed,
+    epilogue_packed_reference,
     epilogue_reference,
     fused_epilogue,
 )
@@ -30,7 +32,7 @@ from realtime_fraud_detection_tpu_torch.ops.megakernel import (
 )
 
 KERNEL_WRAPPERS = {
-    "epilogue": epilogue_matrix,
+    "epilogue": epilogue_packed,
     "flash_attention": flash_attention,
     "dequant_matmul": dequant_matmul,
     "dequant_rows": dequant_rows,
@@ -50,7 +52,8 @@ def reset_launch_counts() -> None:
 __all__ = [
     "KERNEL_WRAPPERS", "attention_reference", "dequant_matmul",
     "dequant_matmul_reference", "dequant_rows", "dequant_rows_reference",
-    "epilogue_matrix", "epilogue_matrix_reference", "epilogue_reference",
+    "epilogue_matrix", "epilogue_matrix_reference", "epilogue_packed",
+    "epilogue_packed_reference", "epilogue_reference",
     "flash_attention", "fused_epilogue", "fused_megakernel",
     "fused_megakernel_packed",
     "launch_counts", "mega_launch_accounting", "mega_plan",

@@ -32,8 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points: argument types (every one returns a cudaError_t as int)
 SIGNATURES = {
-    "rtfd_epilogue": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _F, _F, _F, _F, _F, _P],
+    # one EpilogueArgs struct by address, the stream
+    "rtfd_epilogue_packed": [_P, _P],
+    "rtfd_epilogue_args_bytes": [],
     # an empty kernel on the epilogue's grid (the launch floor)
     "rtfd_empty": [_I, _P],
     "rtfd_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -46,7 +46,7 @@ from realtime_fraud_detection_tpu_torch.models.trees import (
     random_tree_ensemble,
     tree_ensemble_predict,
 )
-from realtime_fraud_detection_tpu_torch.ops.epilogue import epilogue_matrix
+from realtime_fraud_detection_tpu_torch.ops.epilogue import epilogue_packed
 from realtime_fraud_detection_tpu_torch.ops.megakernel import (
     MegaParamArgs,
     fused_megakernel_packed,
@@ -191,9 +191,13 @@ def score_fused(models: ScoringModels, batch: ScoreBatch,
     ``compute_dtype`` is the dense-product precision of the LSTM and BERT
     branches (bf16 served; f32 for tests).
 
+    ``model_valid`` is the rung's M branch flags, best on the host (a CPU
+    tensor, numpy or a tuple): the epilogue kernel takes them by value.
+
     Returns the combine outputs plus ``model_predictions`` (B, M), the
     rule score and the key-factor flags; with ``epilogue_kernel="cuda"``
-    the combine outputs are the [B, M+6] epilogue ``matrix`` instead.
+    the combine outputs are the whole ``packed`` result instead, which the
+    epilogue kernel writes but for the key-factor columns written here.
     """
     if batch.user_neigh2_feat is not None or batch.merch_neigh2_feat is not None:
         raise NotImplementedError(
@@ -215,14 +219,20 @@ def score_fused(models: ScoringModels, batch: ScoreBatch,
         iforest_predict(models.iforest, features, kernel=iforest_kernel),
     ], dim=1)                                                   # f32[B, M]
 
-    valid = model_valid.to(preds.device)[None, :] & batch.valid[:, None]
     rule = rule_score(batch.txn)
+    factors = _key_factors(batch.txn)
     if epilogue_kernel == "cuda":
-        out = {"matrix": epilogue_matrix(preds, valid, rule, params)}
+        packed = epilogue_packed(preds, rule, params, model_valid=model_valid,
+                                 row_valid=batch.valid)
+        packed[:, 5:8] = torch.stack([factors[name] for name in OUT_COLUMNS[5:]],
+                                     dim=1)
+        out = {"packed": packed}
     else:
+        valid = (torch.as_tensor(model_valid).to(preds.device)[None, :]
+                 & batch.valid[:, None])
         out = dict(combine_predictions(preds, valid, params))
     out["rule_score"] = rule
-    out.update(_key_factors(batch.txn))
+    out.update(factors)
     out["model_predictions"] = preds
     return out
 
@@ -264,16 +274,8 @@ def score_fused_packed(models: ScoringModels, blobs: Dict[str, torch.Tensor],
                       dequant_kernel=dequant_kernel,
                       epilogue_kernel=epilogue_kernel,
                       compute_dtype=compute_dtype)
-    if "matrix" in out:
-        # the epilogue matrix already holds prob, confidence, decision,
-        # risk, contributions and the rules-only ladder
-        mat = out["matrix"]
-        m = out["model_predictions"].shape[1]
-        head = torch.cat([mat[:, :4], torch.stack(
-            [out[name].to(torch.float32) for name in OUT_COLUMNS[4:]],
-            dim=1)], dim=1)
-        return torch.cat([head, out["model_predictions"], mat[:, 4:4 + m],
-                          mat[:, 4 + m:6 + m]], dim=1)
+    if "packed" in out:
+        return out["packed"]
     cols = [out[name].to(torch.float32) for name in OUT_COLUMNS]
     return torch.cat([torch.stack(cols, dim=1), out["model_predictions"]],
                      dim=1)

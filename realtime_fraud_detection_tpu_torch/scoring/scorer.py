@@ -229,6 +229,7 @@ class TorchFraudScorer:
             [n in self.config.model_weights for n in MODEL_NAMES], bool)
         self._qos_mask: Optional[np.ndarray] = None
         self._qos_rules_only = False
+        self.qos_level = 0
         self._kernel_counts: Dict[str, Dict[str, int]] = {
             "dispatch": {site: 0 for site in VALID_KERNEL_SITES},
             "fallback": {site: 0 for site in VALID_KERNEL_SITES},
@@ -311,11 +312,13 @@ class TorchFraudScorer:
                 f"{self.sc.text_len} / head width {self.bert_config.head_dim}")
 
     def set_degradation(self, mask: Optional[np.ndarray],
-                        rules_only: bool = False) -> None:
-        """QoS rung: ``mask`` narrows the enabled branches for later
-        dispatches; ``rules_only`` serves the rule score instead."""
+                        rules_only: bool = False, level: int = 0) -> None:
+        """QoS rung (``qos/ladder.py LADDER_LEVELS[level]``): ``mask``
+        narrows the enabled branches for later dispatches; ``rules_only``
+        serves the rule score instead; ``level`` is the rung's index."""
         self._qos_mask = None if mask is None else np.asarray(mask, bool)
         self._qos_rules_only = bool(rules_only)
+        self.qos_level = int(level)
 
     def effective_model_valid(self) -> np.ndarray:
         """Deployment validity AND the current QoS rung's mask."""
@@ -548,7 +551,7 @@ class TorchFraudScorer:
         mega_args = self._mega_param_args() if static["mega_valid"] is not None else None
         out = score_fused_packed(
             self.models, dev_blobs, spec, self.ensemble_params,
-            self._to_device(mv), bert_config=self.bert_config,
+            torch.from_numpy(mv), bert_config=self.bert_config,
             compute_dtype=self.compute_dtype, param_args=mega_args,
             **self.quant.static(), **static)
         self._last_kernel_launches = sum(launch_counts().values()) - before

@@ -4,16 +4,28 @@ stores' TTLs and list lengths.
 
 Values are copies of the JAX package's ``utils/config.py`` (QuantSettings,
 KernelSettings, StateConfig's memory tier, the five-model registry
-weights, the confidence multipliers and the decision-ladder rungs). The port keeps its own copy so it imports
-nothing of the JAX package.
+weights, the confidence multipliers and the decision-ladder rungs), and the
+ensemble part of its environment layering (``RTFD_ENSEMBLE_STRATEGY`` or
+``ENSEMBLE_STRATEGY``, ``CONFIDENCE_THRESHOLD``, ``FRAUD_THRESHOLD``). The
+port keeps its own copy so it imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Dict
 
 VALID_STRATEGIES = ("weighted_average", "voting", "stacking")
+
+
+def _env(name: str, default: str) -> str:
+    """``RTFD_<name>``, then ``name``, else ``default``."""
+    for key in (f"RTFD_{name}", name):
+        val = os.getenv(key)
+        if val is not None:
+            return val
+    return default
 
 # Decision-ladder rung defaults (ensemble_predictor.py:344-356).
 DECLINE_THRESHOLD_DEFAULT = 0.95
@@ -189,7 +201,19 @@ class Config:
     state: StateConfig = field(default_factory=StateConfig)
 
     def __post_init__(self) -> None:
+        self._apply_env()
         self.validate()
+
+    def _apply_env(self) -> None:
+        """The ensemble part of the JAX ``Config._apply_env``: strategy and
+        thresholds from ``RTFD_``-prefixed or plain environment variables.
+        (The JAX package's serving, logging and Redis variables configure
+        tiers the port does not have yet.)"""
+        e = self.ensemble
+        e.strategy = _env("ENSEMBLE_STRATEGY", e.strategy)
+        e.confidence_threshold = float(
+            _env("CONFIDENCE_THRESHOLD", str(e.confidence_threshold)))
+        e.fraud_threshold = float(_env("FRAUD_THRESHOLD", str(e.fraud_threshold)))
 
     def normalized_weights(self) -> Dict[str, float]:
         """Blend weights over the configured (enabled) models."""

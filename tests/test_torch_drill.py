@@ -1,0 +1,221 @@
+"""The port's kernel drill against the JAX package's, on the CPU.
+
+``_noise_floor`` on the same models (through the bridge) and the same
+numpy-seeded tokens: the BERT blend weight equal to 1e-7, the bound exactly
+``max(delta x w_bert, 1e-4)`` given the port's delta, and the port's bf16
+BERT delta within 2x of the JAX one (the two frameworks round bf16 at
+different places). The drill itself on the CPU through its command, where
+both sides run the kernels' plain versions: every check passes, the
+``rules_only`` rung bit-exact, the replay digest equal to a second run's.
+The ladder's rung table equals the JAX one field by field, and the drill
+and ladder modules import with JAX blocked.
+"""
+
+import contextlib
+import dataclasses
+import io
+import json
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+from types import SimpleNamespace
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from realtime_fraud_detection_tpu.ensemble.combine import (
+    EnsembleParams as JaxEnsembleParams,
+)
+from realtime_fraud_detection_tpu.models import bert as jbert
+from realtime_fraud_detection_tpu.models.quant import (
+    quantize_bert_params as jax_quantize_bert_params,
+)
+from realtime_fraud_detection_tpu.qos import ladder as jladder
+from realtime_fraud_detection_tpu.scoring import kernel_drill as jkd
+from realtime_fraud_detection_tpu.scoring import pipeline as jax_pipeline
+from realtime_fraud_detection_tpu.utils.config import Config as JaxConfig
+from realtime_fraud_detection_tpu_torch.__main__ import main as port_main
+from realtime_fraud_detection_tpu_torch.bridge import models_from_numpy
+from realtime_fraud_detection_tpu_torch.ensemble.combine import EnsembleParams
+from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+from realtime_fraud_detection_tpu_torch.ops import epilogue as ops_epilogue
+from realtime_fraud_detection_tpu_torch.qos import ladder
+from realtime_fraud_detection_tpu_torch.scoring import kernel_drill as kd
+from realtime_fraud_detection_tpu_torch.scoring.pipeline import MODEL_NAMES
+from realtime_fraud_detection_tpu_torch.utils.config import Config
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def jax_models():
+    """The JAX TINY model set with int8 BERT (the drill's served plane)."""
+    models = jax_pipeline.init_scoring_models(jax.random.PRNGKey(5),
+                                              jbert.TINY_CONFIG)
+    models = models.replace(bert=jax_quantize_bert_params(
+        jax.device_get(models.bert)))
+    return jax.tree_util.tree_map(np.asarray, models)
+
+
+@pytest.fixture(scope="module")
+def tokens():
+    rng = np.random.default_rng(41)
+    out = []
+    for _ in range(2):
+        ids = rng.integers(0, TINY_CONFIG.vocab_size, (16, 64)).astype(np.int32)
+        mask = np.arange(64)[None, :] < rng.integers(1, 65, 16)[:, None]
+        out.append((ids, mask))
+    return out
+
+
+# ------------------------------------------------------------ noise floor
+@pytest.mark.parametrize("valid", [
+    (True,) * 5,
+    (True, True, True, False, True),     # GNN dropped: BERT's share grows
+    (True, True, False, True, True),     # BERT dropped: the floor alone
+], ids=["full", "no_graph", "no_bert"])
+def test_noise_floor_matches_jax(jax_models, tokens, valid):
+    weights = np.asarray(JaxEnsembleParams.from_config(
+        JaxConfig(), jax_pipeline.MODEL_NAMES).weights)
+    stub = SimpleNamespace(bert_config=jbert.TINY_CONFIG, models=jax_models,
+                           ensemble_params=SimpleNamespace(weights=weights),
+                           effective_model_valid=lambda: np.asarray(valid))
+    want = jkd._noise_floor(jkd.KernelDrillConfig(), stub, tokens)
+    port_weights = EnsembleParams.from_config(Config(), MODEL_NAMES).weights
+    got = kd._noise_floor(models_from_numpy(jax_models), TINY_CONFIG, tokens,
+                          port_weights, valid)
+
+    assert abs(got["bert_blend_weight"] - want["bert_blend_weight"]) <= 1e-7
+    w = port_weights.double().numpy() * np.asarray(valid)
+    w_bert = w[2] / max(w.sum(), 1e-9)
+    assert got["bound"] == max(got["bert_branch_bf16_delta"] * w_bert, 1e-4)
+    delta, jdelta = got["bert_branch_bf16_delta"], want["bert_branch_bf16_delta"]
+    assert 0 < jdelta and jdelta / 2 <= delta <= 2 * jdelta
+    if not valid[2]:
+        assert got["bound"] == want["bound"] == 1e-4
+
+
+def test_noise_floor_reads_the_blend_under_the_rung():
+    models = SimpleNamespace(trees=SimpleNamespace(threshold=torch.zeros(1)),
+                             bert=None)
+    got = kd._noise_floor(models, TINY_CONFIG, [], torch.ones(5) / 5,
+                          (True,) * 5, noise_floor_abs=3e-4)
+    assert got == {"bert_branch_bf16_delta": 0.0, "bert_blend_weight": 0.2,
+                   "bound": 3e-4}
+
+
+# ----------------------------------------------------------------- ladder
+def test_ladder_levels_match_jax():
+    assert len(ladder.LADDER_LEVELS) == len(jladder.LADDER_LEVELS) == 4
+    for got, want in zip(ladder.LADDER_LEVELS, jladder.LADDER_LEVELS):
+        assert (got.name, got.dropped_branches, got.rules_only) == (
+            want.name, want.dropped_branches, want.rules_only)
+    assert set().union(*(lv.dropped_branches for lv in ladder.LADDER_LEVELS)) \
+        == set(MODEL_NAMES)
+
+
+def test_drill_config_matches_jax():
+    want = jkd.KernelDrillConfig()
+    got = kd.KernelDrillConfig()
+    for name in (f.name for f in dataclasses.fields(want)):
+        assert getattr(got, name) == getattr(want, name), name
+    assert kd.KernelDrillConfig.fast().rung_levels == \
+        jkd.KernelDrillConfig.fast().rung_levels == (0, 3)
+    assert got.device == "cuda"
+
+
+# ------------------------------------------------------- the drill on CPU
+@pytest.fixture(scope="module", params=[False, True], ids=["chain", "mega"])
+def drill_run(request):
+    argv = ["kernel-drill", "--fast", "--device", "cpu"]
+    if request.param:
+        argv.append("--mega")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = port_main(argv)
+    lines = out.getvalue().strip().splitlines()
+    return request.param, rc, json.loads(lines[-2]), json.loads(lines[-1])
+
+
+def test_kernel_drill_passes_on_cpu(drill_run):
+    mega, rc, summary, verdict = drill_run
+    assert rc == 0 and verdict["passed"] is True and summary["passed"] is True
+    assert all(verdict["checks"].values())
+    expected = {"divergence_below_noise", "zero_decision_flips",
+                "masked_rungs_equal", "rules_only_exact", "dequant_matmul_parity",
+                "dequant_rows_parity", "epilogue_parity", "attention_parity",
+                "zero_fallbacks", "replay_bit_identical"}
+    expected |= ({"mega_reference_parity", "gemm_tree_leaves_exact",
+                  "mega_dispatched", "per_site_subsumed",
+                  "launches_collapsed_to_one"} if mega else {"all_sites_dispatched"})
+    assert set(verdict["checks"]) == expected
+    # both sides run the plain versions on the CPU: no divergence at all
+    assert verdict["max_divergence"] == 0.0 and verdict["decision_flips"] == 0
+    assert verdict["noise_bound"] == summary["divergence"]["noise_floor"]["bound"] >= 1e-4
+
+
+def test_kernel_drill_rules_only_is_bit_exact(drill_run):
+    _, _, summary, _ = drill_run
+    assert set(summary["rungs"]) == {"full_ensemble", "rules_only"}
+    rules = summary["rungs"]["rules_only"]
+    assert rules["exact"] and rules["max_divergence"] == 0.0
+    assert rules["decision_flips"] == rules["risk_flips"] == 0
+
+
+def test_kernel_drill_replay_digest_is_stable(drill_run):
+    _, _, summary, verdict = drill_run
+    assert summary["replay"]["bit_identical"]
+    assert summary["replay"]["digest"] == summary["digest"]
+    assert verdict["digest"] == summary["digest"][:16]
+
+
+def test_kernel_oracle_holds_the_main_path_epilogue_call(monkeypatch):
+    """The oracle's epilogue check runs the packed entry as the main path
+    calls it (the rung's flags, one validity byte a row) for each strategy,
+    so a fault there (here: the row validity dropped) fails the check."""
+    cfg = dataclasses.replace(kd.KernelDrillConfig.fast(), device="cpu")
+    _, scorer = kd._make_side(cfg, kernels_on=True)
+    good = kd._kernel_oracle(cfg, scorer)["epilogue"]
+    assert good["ok"] and good["packed_ladders_exact"]
+    assert good["packed_max_delta"] == 0.0
+    real, calls = ops_epilogue.epilogue_packed, []
+
+    def faulty(preds, rule, params, model_valid=None, row_valid=None, **kw):
+        if model_valid is not None:
+            calls.append((tuple(model_valid), params.strategy, row_valid is not None))
+        return real(preds, rule, params, model_valid=model_valid, **kw)
+
+    monkeypatch.setattr(ops_epilogue, "epilogue_packed", faulty)
+    bad = kd._kernel_oracle(cfg, scorer)["epilogue"]
+    assert calls == [((True,) * 5, s, True) for s in range(3)]
+    assert not bad["ok"] and bad["packed_max_delta"] > 0.0
+
+
+def test_kernel_drill_refuses_to_start_without_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    assert port_main(["kernel-drill", "--fast"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_drill_and_ladder_import_with_jax_blocked():
+    script = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "flax", "ml_dtypes",
+                     "realtime_fraud_detection_tpu"):
+            sys.modules[name] = None          # any import of them now fails
+        from realtime_fraud_detection_tpu_torch.qos.ladder import LADDER_LEVELS
+        from realtime_fraud_detection_tpu_torch.scoring import kernel_drill as kd
+        from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+        s = TorchFraudScorer(device="cpu", seed=1)
+        s.set_degradation(None, rules_only=False, level=0)
+        assert len(LADDER_LEVELS) == 4 and kd.KernelDrillConfig.fast().batch == 32
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"

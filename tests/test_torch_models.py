@@ -4,8 +4,10 @@ quantization and parameter bridge against the JAX package on the CPU.
 Inputs come from numpy seeds and the JAX package's own initialisers; the
 port receives the JAX parameters through ``bridge.models_from_numpy``.
 Tolerances: tree and isolation-forest leaves exact, probabilities <= 1e-4;
-LSTM, GNN and BERT <= 1e-5 at f32 compute; the bf16 served path <= 2e-3 on
-the probability (the frameworks round bf16 at different places); features
+LSTM, GNN and BERT <= 1e-5 at f32 compute; on the bf16 served path the
+LSTM and BERT outputs within that branch's own bf16-against-f32 gap on the
+JAX side on the same inputs, floored at 1e-4 (the frameworks round bf16 at
+different places; ``torch_bounds.py``); features
 <= 1e-5 relative on the transcendental columns and exact elsewhere;
 combine <= 1e-6 with exact ladders; int8 quantization bit for bit.
 """
@@ -85,8 +87,8 @@ from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
     make_example_batch,
 )
 from realtime_fraud_detection_tpu_torch.utils.config import Config
+from torch_bounds import FLOOR
 
-SERVED_BF16_TOL = 2e-3
 TINY = tbert.TINY_CONFIG
 JTINY = jbert.TINY_CONFIG
 
@@ -170,19 +172,32 @@ def test_isolation_forest_matches_jax(kernel):
 
 
 # ------------------------------------------------------------- lstm / gnn
-@pytest.mark.parametrize("compute,tol", [("f32", 1e-5), ("bf16", SERVED_BF16_TOL)])
-def test_lstm_matches_jax(jax_models, port_models, compute, tol):
+def _branch_bound(jax_fn, compute):
+    """f32 compute: 1e-5; bf16: the JAX branch's own bf16-vs-f32 gap on
+    the same inputs, floored at 1e-4."""
+    if compute == "f32":
+        return 1e-5
+    gap = np.abs(np.asarray(jax_fn(jnp.bfloat16), np.float64)
+                 - np.asarray(jax_fn(jnp.float32), np.float64)).max()
+    return max(float(gap), FLOOR)
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_lstm_matches_jax(jax_models, port_models, compute):
     rng = np.random.default_rng(21)
     seq = rng.standard_normal((16, 10, 64)).astype(np.float32)
     lengths = rng.integers(0, 11, 16).astype(np.int32)      # incl. empty
-    jdt, tdt = ((jnp.float32, torch.float32) if compute == "f32"
-                else (jnp.bfloat16, torch.bfloat16))
-    want = np.asarray(jlstm.lstm_logits(
-        jax_models.lstm, jnp.asarray(seq), jnp.asarray(lengths),
-        compute_dtype=jdt))
+
+    def jax_fn(dt):
+        return jlstm.lstm_logits(jax_models.lstm, jnp.asarray(seq),
+                                 jnp.asarray(lengths), compute_dtype=dt)
+
+    tdt = torch.float32 if compute == "f32" else torch.bfloat16
+    want = np.asarray(jax_fn(jnp.float32 if compute == "f32" else jnp.bfloat16))
     got = lstm_logits(port_models.lstm, _t(seq), _t(lengths),
                       compute_dtype=tdt).numpy()
-    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=_branch_bound(jax_fn, compute))
 
 
 def test_gnn_matches_jax(jax_models, port_models):
@@ -328,8 +343,8 @@ def test_bert_layer_matches_jax(jax_models, port_models):
 
 
 @pytest.mark.parametrize("layout", ["f32", "int8"])
-@pytest.mark.parametrize("compute,tol", [("f32", 1e-5), ("bf16", SERVED_BF16_TOL)])
-def test_bert_predict_matches_jax(jax_models, layout, compute, tol):
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_bert_predict_matches_jax(jax_models, layout, compute):
     ids, mask = _bert_inputs()
     jparams = jax_models.bert
     kernels = {}
@@ -337,16 +352,19 @@ def test_bert_predict_matches_jax(jax_models, layout, compute, tol):
         jparams = _np_tree(jax_quantize_bert_params(jparams))
         kernels = dict(dequant_kernel="pallas", kernel_interpret=True)
     tparams = models_from_numpy(jax_models.replace(bert=jparams)).bert
-    jdt, tdt = ((jnp.float32, torch.float32) if compute == "f32"
-                else (jnp.bfloat16, torch.bfloat16))
-    want = np.asarray(jbert.bert_predict(
-        jparams, jnp.asarray(ids), jnp.asarray(mask), JTINY,
-        use_pallas=True, compute_dtype=jdt,
-        **dict(kernels, kernel_interpret=True)))
+
+    def jax_fn(dt):
+        return jbert.bert_predict(jparams, jnp.asarray(ids), jnp.asarray(mask),
+                                  JTINY, use_pallas=True, compute_dtype=dt,
+                                  **dict(kernels, kernel_interpret=True))
+
+    tdt = torch.float32 if compute == "f32" else torch.bfloat16
+    want = np.asarray(jax_fn(jnp.float32 if compute == "f32" else jnp.bfloat16))
     predict = partial(tbert.bert_predict, tparams, _t(ids), _t(mask), TINY,
                       compute_dtype=tdt)
     got = predict(use_flash=True,
                   dequant_kernel="cuda" if layout == "int8" else "off").numpy()
-    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=_branch_bound(jax_fn, compute))
     # the plain path gives the same numbers on the CPU
     np.testing.assert_array_equal(predict().numpy(), got)

@@ -27,6 +27,7 @@ from realtime_fraud_detection_tpu.models.quant import (
 from realtime_fraud_detection_tpu.ops import (
     dequant_matmul as jax_dequant_matmul,
     dequant_rows as jax_dequant_rows,
+    epilogue_reference as jax_epilogue_reference,
     flash_attention as jax_flash_attention,
     fused_epilogue as jax_fused_epilogue,
 )
@@ -54,8 +55,13 @@ from realtime_fraud_detection_tpu_torch.ops.dequant_matmul import (
     rows_supported,
 )
 from realtime_fraud_detection_tpu_torch.ops.epilogue import (
+    MAX_EPILOGUE_MODELS,
+    EpilogueArgs,
     combine_matrix,
+    epilogue_args,
     epilogue_matrix,
+    epilogue_packed,
+    packed_columns,
     fused_epilogue,
 )
 from realtime_fraud_detection_tpu_torch.utils.config import Config
@@ -122,6 +128,110 @@ def test_epilogue_rejects_empty_batch():
     with pytest.raises(ValueError, match="unsupported"):
         epilogue_matrix(torch.zeros((0, 5)), torch.ones(5, dtype=torch.bool),
                         torch.zeros(0), tp)
+
+
+@pytest.mark.parametrize("b", [1, 37, 256])
+@pytest.mark.parametrize("strategy", [0, 1, 2])
+def test_packed_epilogue_matches_pallas(strategy, b):
+    """The packed entry's columns (validity from the rung's host flags and
+    one byte a row) against the JAX kernel (interpret mode) and its XLA
+    reference under the same mask."""
+    rng = np.random.default_rng(100 * strategy + b)
+    m = len(MODEL_NAMES)
+    preds = rng.random((b, m)).astype(np.float32)
+    rule = rng.random(b).astype(np.float32)
+    row_valid = rng.random(b) < 0.9                   # bucket padding rows
+    rung = (True, True, False, True, True)             # BERT dropped
+    valid = row_valid[:, None] & np.asarray(rung)[None, :]
+    jp, tp = _params(strategy)
+    got = epilogue_packed(_t(preds), _t(rule), tp, model_valid=rung,
+                          row_valid=_t(row_valid)).numpy()
+    cols = packed_columns(m)
+    assert got.shape == (b, 8 + 2 * m + 2)
+    np.testing.assert_array_equal(got[:, cols["rule_score"]][:, 0], rule)
+    np.testing.assert_array_equal(got[:, cols["model_predictions"]], preds)
+    assert not got[:, cols["key_factors"]].any()    # the caller's columns
+    for want in (jax_fused_epilogue(jnp.asarray(preds), jnp.asarray(valid),
+                                    jnp.asarray(rule), jp, interpret=True),
+                 jax_epilogue_reference(jnp.asarray(preds), jnp.asarray(valid),
+                                        jnp.asarray(rule), jp)):
+        want = {k: np.asarray(v) for k, v in want.items()}
+        for j, key in ((2, "decision"), (3, "risk_level")):
+            np.testing.assert_array_equal(got[:, j], want[key])
+        np.testing.assert_array_equal(got[:, cols["rule_ladder"]],
+                                      np.stack([want["rule_decision"],
+                                                want["rule_risk"]], axis=1))
+        for j, key in ((0, "fraud_probability"), (1, "confidence")):
+            np.testing.assert_allclose(got[:, j], want[key], rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got[:, cols["model_contributions"]],
+                                   want["model_contributions"], rtol=0, atol=1e-6)
+
+
+def test_epilogue_args_carry_weights_and_multipliers_by_value():
+    _, tp = _params(2)
+    tp.fraud_threshold = 0.45
+    a = epilogue_args(tp, 5)
+    assert (a.M, a.strategy) == (5, 2)
+    np.testing.assert_array_equal(np.array(a.w[:5], np.float32), tp.weights.numpy())
+    np.testing.assert_array_equal(np.array(a.cm[:5], np.float32),
+                                  tp.confidence_multipliers.numpy())
+    assert list(a.w[5:]) == list(a.cm[5:]) == [0.0] * (MAX_EPILOGUE_MODELS - 5)
+    assert (a.fraud_threshold, a.confidence_threshold) == (np.float32(0.45),
+                                                           np.float32(0.7))
+    assert (a.decline, a.review, a.monitor) == (np.float32(0.95), np.float32(0.8),
+                                                np.float32(0.6))
+    # new weights are read again (the host copy is keyed by the tensors)
+    tp.weights = tp.weights * 2
+    assert a.w[0] * 2 == epilogue_args(tp, 5).w[0]
+
+
+def test_epilogue_args_follow_weights_replaced_twice_between_calls():
+    """The host copy is held with the tensors themselves: a tensor that
+    replaces another, even one that could reuse a freed tensor's address at
+    the same version counter, or an in-place write, is read again."""
+    _, tp = _params(0)
+    w0, cm0 = tp.weights.clone(), tp.confidence_multipliers.clone()
+    epilogue_args(tp, 5)
+    tp.weights = w0 * 2                  # replaced, then replaced again
+    tp.weights = w0 * 3                  # before the next call
+    tp.confidence_multipliers = cm0 * 0.5
+    a = epilogue_args(tp, 5)
+    np.testing.assert_array_equal(np.array(a.w[:5], np.float32), (w0 * 3).numpy())
+    np.testing.assert_array_equal(np.array(a.cm[:5], np.float32), (cm0 * 0.5).numpy())
+    tp.weights.mul_(2)                   # in place: same tensor, new version
+    np.testing.assert_array_equal(np.array(epilogue_args(tp, 5).w[:5], np.float32),
+                                  (w0 * 6).numpy())
+
+
+def test_epilogue_kernel_specialises_the_served_model_count():
+    """The kernel's compile-time instance is the served ensemble's width;
+    every other width up to the struct's runs the generic instance."""
+    text = (CSRC / "epilogue.cu").read_text()
+    assert re.search(rf"EPI_SERVED_M = {len(MODEL_NAMES)};", text)
+    assert len(re.findall(r"epilogue_packed_kernel<[^>]+><<<", text)) == 2
+
+
+def test_epilogue_args_struct_matches_the_kernel_source():
+    text = (CSRC / "epilogue.cu").read_text()
+    body = text[text.index("struct EpilogueArgs {"):]
+    body = body[:body.index("};")]
+    body = re.sub(r"//[^\n]*", "", body)
+    names = re.findall(r"(\w+)(?:\[\w+\])?\s*[,;]", body)
+    assert names == [name for name, _ in EpilogueArgs._fields_]
+    assert re.search(rf"EPI_MAX_M = {MAX_EPILOGUE_MODELS};", text)
+
+
+def test_epilogue_refuses_more_models_than_the_kernel_carries():
+    b, m = 4, MAX_EPILOGUE_MODELS + 1
+    tp = EnsembleParams(weights=torch.full((m,), 1.0 / m),
+                        confidence_multipliers=torch.ones(m))
+    with pytest.raises(ValueError, match="unsupported epilogue shape"):
+        epilogue_packed(torch.rand(b, m), torch.rand(b), tp)
+    with pytest.raises(ValueError, match="models"):
+        epilogue_args(tp, m)
+    with pytest.raises(ValueError, match="unsupported"):
+        epilogue_matrix(torch.rand(b, m), torch.ones(m, dtype=torch.bool),
+                        torch.rand(b), tp)
 
 
 # -------------------------------------------------------------- attention

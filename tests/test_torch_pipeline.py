@@ -6,8 +6,12 @@ scorer's dispatch / finalize responses, and the port's isolation from JAX.
 
 Tolerances: decision, risk and rules-only ladders exact (the seed is
 checked to keep every probability and confidence farther than the bound
-from a rung), probability <= 2e-3 on the bf16 served path (the frameworks
-round bf16 at different places), <= 1e-5 at f32 compute.
+from a rung); on the bf16 served path (the frameworks round bf16 at
+different places) probability and confidence within the JAX kernel drill's
+measured bf16 noise bound for these models and tokens, each branch's
+prediction and contribution within that branch's own bf16 gap on the JAX
+side, both floored at 1e-4 (``torch_bounds.py``), the rule score exact;
+<= 1e-5 at f32 compute.
 """
 
 import dataclasses
@@ -77,10 +81,10 @@ from realtime_fraud_detection_tpu_torch.utils.config import (
     QuantSettings,
 )
 
+from torch_bounds import branch_bounds, near_rung, noise_bound
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "realtime_fraud_detection_tpu_torch"
-SERVED_BF16_TOL = 2e-3
-RUNGS = (0.3, 0.6, 0.8, 0.95, 0.7)      # risk + decision rungs, confidence
 N_ROWS = 8
 JAX_STATICS = dict(bert_config=jbert.TINY_CONFIG, use_pallas=True,
                    tree_kernel="gemm", iforest_kernel="gemm",
@@ -191,15 +195,21 @@ def test_slice_bf16_matches_jax(jax_models, port_models, batch):
     want = _jax_matrix(jax_models, batch)
     got = _port_matrix(port_models, batch)
     assert got.shape == want.shape == (N_ROWS, packed_width(5, epilogue=True))
+    bound = noise_bound(jax_models.bert, [(batch.token_ids, batch.token_mask)],
+                        _jax_params().weights, np.ones(5, bool))
+    branch = branch_bounds(jax_models, batch)
     # the seed keeps every served probability and confidence away from a
     # rung, so the ladders must agree exactly; the rule score is computed
     # identically on both sides, so the rules-only ladder needs no margin
     for col in (0, 1):                    # probability, confidence
-        gap = np.min(np.abs(want[:, col][:, None] - np.asarray(RUNGS)[None, :]))
-        assert gap > SERVED_BF16_TOL
-    ladders = [2, 3, 4, 5, 6, 7, 18, 19]  # decision, risk, rule, key factors,
-    np.testing.assert_array_equal(got[:, ladders], want[:, ladders])
-    np.testing.assert_allclose(got, want, rtol=0, atol=SERVED_BF16_TOL)
+        assert not near_rung(want[:, col], bound).any()
+    exact = [2, 3, 4, 5, 6, 7, 18, 19]    # decision, risk, rule, key factors,
+    np.testing.assert_array_equal(got[:, exact], want[:, exact])  # rule ladder
+    np.testing.assert_allclose(got[:, :2], want[:, :2], rtol=0, atol=bound)
+    for j, tol in enumerate(branch):      # predictions, then contributions
+        for col in (8 + j, 13 + j):
+            np.testing.assert_allclose(got[:, col], want[:, col], rtol=0,
+                                       atol=tol, err_msg=f"column {col}")
 
 
 def test_slice_f32_compute_matches_jax(jax_models, port_models, batch,

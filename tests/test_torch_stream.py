@@ -7,11 +7,16 @@ and through the port's ``StreamJob`` + ``TorchFraudScorer(device="cpu")``
 on the same (bridged) models, each job on its own in-memory broker and its
 own simulator. Both must emit the same ids in the same order on every
 topic, the same decisions and risk levels on every row whose JAX
-probability and confidence lie farther than ``SERVED_BF16_TOL`` from every
-rung, ``fraud_score`` within that bound, the same feature rows (exact apart
-from the three transcendental columns, within 1e-5), the same counters and
-lag 0; then the replay-dedupe sequence of ``tests/test_stream.py`` gives the
-same counters and cache re-emissions on both.
+probability and confidence lie farther than the bound from every rung
+(the number of rows skipped is asserted), ``fraud_score`` within the bound,
+the same feature rows (exact apart from the three transcendental columns,
+within 1e-5), the same counters and lag 0; then the replay-dedupe sequence
+of ``tests/test_stream.py`` gives the same counters and cache re-emissions
+on both. The bound is the JAX kernel drill's measured bf16 noise bound on
+the JAX job's own tokens, floored at 1e-4 (``torch_bounds.py``). Last, both
+jobs are stepped down the QoS ladder through ``set_degradation`` and score
+one batch at each lower rung: decisions equal there too, and at
+``rules_only`` every score bit-exact.
 """
 
 from collections import Counter
@@ -21,6 +26,9 @@ import numpy as np
 import pytest
 import torch
 
+from realtime_fraud_detection_tpu.ensemble.combine import (
+    EnsembleParams as JaxEnsembleParams,
+)
 from realtime_fraud_detection_tpu.models.isolation_forest import (
     IsolationForest as JaxIsolationForest,
 )
@@ -35,20 +43,22 @@ from realtime_fraud_detection_tpu.sim.simulator import (
 from realtime_fraud_detection_tpu.stream import InMemoryBroker as JaxInMemoryBroker
 from realtime_fraud_detection_tpu.stream import JobConfig as JaxJobConfig
 from realtime_fraud_detection_tpu.stream import StreamJob as JaxStreamJob
+from realtime_fraud_detection_tpu.utils.config import Config as JaxConfig
 from realtime_fraud_detection_tpu_torch.__main__ import main as port_main
 from realtime_fraud_detection_tpu_torch.bridge import models_from_numpy
 from realtime_fraud_detection_tpu_torch.features.extract import FEATURE_NAMES
 from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
-from realtime_fraud_detection_tpu_torch.scoring.pipeline import ScorerConfig
+from realtime_fraud_detection_tpu_torch.qos.ladder import LADDER_LEVELS
+from realtime_fraud_detection_tpu_torch.scoring.pipeline import MODEL_NAMES, ScorerConfig
 from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
 from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
 from realtime_fraud_detection_tpu_torch.stream import topics as T
 from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
 from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
+from torch_bounds import near_rung, noise_bound
 
-SERVED_BF16_TOL = 2e-3
-RUNGS = (0.3, 0.6, 0.8, 0.95, 0.7)      # risk + decision rungs, confidence
 ALERT_THRESHOLD = 0.7
+RUNG_LEVELS = (1, 2, 3)                 # the lower rungs (0 is the stream)
 OUT_TOPICS = (T.PREDICTIONS, T.ALERTS, T.ENRICHED, T.FEATURES)
 TRANSCENDENTAL = [FEATURE_NAMES.index(n) for n in (
     "amount_log", "amount_sqrt", "distance_to_merchant_km")]
@@ -79,13 +89,29 @@ def _topic(broker, topic):
     return [r.value for r in broker.consumer([topic], "check").poll(100_000)]
 
 
+def _rung_mask(level):
+    rung = LADDER_LEVELS[level]
+    return np.asarray([n not in rung.dropped_branches for n in MODEL_NAMES])
+
+
 def _drive(gen, job, broker):
-    """The stream and the replay-dedupe sequence; returns what each phase
-    left behind."""
+    """The stream, the replay-dedupe sequence and one batch at each lower
+    QoS rung; returns what each phase left behind, with the token batches
+    the scorer assembled for the stream and for each rung."""
     out = {}
+    tokens = []
+    assemble = job.scorer.assemble
+
+    def keep_tokens(*args, **kwargs):
+        batch = assemble(*args, **kwargs)
+        tokens.append((np.asarray(batch.token_ids), np.asarray(batch.token_mask)))
+        return batch
+
+    job.scorer.assemble = keep_tokens
     records = gen.generate_batch(96)
     broker.produce_batch(T.TRANSACTIONS, records, key_fn=lambda r: str(r["user_id"]))
     out["scored"] = job.run_until_drained(now=1000.0)
+    out["stream_tokens"] = list(tokens)
     out["counters"] = dict(job.counters)
     out["lag"] = broker.lag(job.config.group_id, T.TRANSACTIONS)
     out["topics"] = {t: _topic(broker, t) for t in OUT_TOPICS}
@@ -107,6 +133,22 @@ def _drive(gen, job, broker):
         p["transaction_id"] for p in _topic(broker, T.PREDICTIONS)
         if p["explanation"].get("replayed_from_cache"))
     out["final_lag"] = broker.lag(job.config.group_id, T.TRANSACTIONS)
+    # both jobs step down the ladder the same way, one batch a rung
+    out["rungs"], out["rung_tokens"] = {}, {}
+    for level in RUNG_LEVELS:
+        job.scorer.set_degradation(_rung_mask(level),
+                                   rules_only=LADDER_LEVELS[level].rules_only,
+                                   level=level)
+        batch = gen.generate_batch(32)
+        start = len(tokens)
+        broker.produce_batch(T.TRANSACTIONS, batch, key_fn=lambda r: str(r["user_id"]))
+        job.run_until_drained(now=3000.0 + level)
+        ids = {r["transaction_id"] for r in batch}
+        out["rungs"][level] = [p for p in _topic(broker, T.PREDICTIONS)
+                               if p["transaction_id"] in ids]
+        out["rung_tokens"][level] = tokens[start:]
+    job.scorer.set_degradation(None, rules_only=False, level=0)
+    job.scorer.assemble = assemble
     return out
 
 
@@ -128,12 +170,33 @@ def runs():
     scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
     broker = InMemoryBroker()
     job = StreamJob(broker, scorer, JobConfig(max_batch=32, max_delay_ms=1.0))
-    return _drive(gen, job, broker), _drive(jax_gen, jax_job, jax_broker)
+    got, want = _drive(gen, job, broker), _drive(jax_gen, jax_job, jax_broker)
+    # the JAX drill's noise bound on the JAX job's own tokens, per rung
+    weights = JaxEnsembleParams.from_config(JaxConfig(), MODEL_NAMES).weights
+    want["bound"] = noise_bound(jax_models.bert, want["stream_tokens"], weights,
+                                np.ones(5, bool))
+    want["rung_bound"] = {level: noise_bound(jax_models.bert,
+                                             want["rung_tokens"][level], weights,
+                                             _rung_mask(level))
+                          for level in RUNG_LEVELS}
+    return got, want
 
 
-def _near_rung(values):
-    return np.min(np.abs(np.asarray(values)[:, None] - np.asarray(RUNGS)[None, :]),
-                  axis=1) <= SERVED_BF16_TOL
+def _compare_decisions(preds, jpreds, bound):
+    """Decisions and risk levels equal on every row whose JAX probability
+    and confidence lie farther than ``bound`` from a rung, fraud_score
+    within ``bound``; returns the rows skipped near a rung."""
+    assert [p["transaction_id"] for p in preds] == [q["transaction_id"] for q in jpreds]
+    assert not any(p["explanation"].get("error") for p in preds)
+    prob = np.array([q["fraud_probability"] for q in jpreds])
+    conf = np.array([q["confidence"] for q in jpreds])
+    near = near_rung(prob, bound) | near_rung(conf, bound)
+    for p, q, skip in zip(preds, jpreds, near):
+        if not skip:
+            assert (p["decision"], p["risk_level"]) == (q["decision"], q["risk_level"])
+    np.testing.assert_allclose([p["fraud_score"] for p in preds],
+                               [q["fraud_score"] for q in jpreds], rtol=0, atol=bound)
+    return near
 
 
 def test_stream_records_and_ids_per_topic_match_jax(runs):
@@ -153,22 +216,36 @@ def test_stream_decisions_and_scores_match_jax(runs):
     got, want = runs
     preds = got["topics"][T.PREDICTIONS]
     jpreds = want["topics"][T.PREDICTIONS]
-    assert not any(p["explanation"].get("error") for p in preds)
-    prob = np.array([p["fraud_probability"] for p in jpreds])
-    conf = np.array([p["confidence"] for p in jpreds])
-    near = _near_rung(prob) | _near_rung(conf)
-    # the rows within the tolerance of a rung: the comparison skips these
-    assert int(near.sum()) == 3
-    for p, q, skip in zip(preds, jpreds, near):
-        if not skip:
-            assert (p["decision"], p["risk_level"]) == (q["decision"], q["risk_level"])
-    np.testing.assert_allclose([p["fraud_score"] for p in preds],
-                               [q["fraud_score"] for q in jpreds],
-                               rtol=0, atol=SERVED_BF16_TOL)
+    bound = want["bound"]
+    assert 1e-4 <= bound <= 1e-3
+    near = _compare_decisions(preds, jpreds, bound)
+    # the rows within the bound of a rung: the comparison skips these
+    assert int(near.sum()) == 0
     # the alert count is exact: no score lies within the bound of the threshold
-    assert np.min(np.abs(prob - ALERT_THRESHOLD)) > SERVED_BF16_TOL
+    prob = np.array([q["fraud_probability"] for q in jpreds])
+    assert np.min(np.abs(prob - ALERT_THRESHOLD)) > bound
     enriched = [(e["decision"], e["risk_level"]) for e in got["topics"][T.ENRICHED]]
     assert enriched == [(p["decision"], p["risk_level"]) for p in preds]
+
+
+@pytest.mark.parametrize("level", RUNG_LEVELS,
+                         ids=[LADDER_LEVELS[lv].name for lv in RUNG_LEVELS])
+def test_stream_degraded_rungs_match_jax(runs, level):
+    got, want = runs
+    preds, jpreds = got["rungs"][level], want["rungs"][level]
+    assert len(preds) == len(jpreds) == 32
+    if LADDER_LEVELS[level].rules_only:
+        # the rule score and its ladder are pure f32 comparisons: bit-exact
+        for key in ("fraud_score", "confidence", "decision", "risk_level"):
+            assert [p[key] for p in preds] == [q[key] for q in jpreds], key
+        assert all(p["explanation"]["degraded"] == "rules_only" for p in preds)
+        return
+    near = _compare_decisions(preds, jpreds, want["rung_bound"][level])
+    assert int(near.sum()) == 0
+    dropped = [j for j, on in enumerate(_rung_mask(level)) if not on]
+    for p in preds:
+        assert set(p["model_predictions"]) == {
+            n for j, n in enumerate(MODEL_NAMES) if j not in dropped}
 
 
 def test_stream_features_match_jax(runs):
