@@ -62,7 +62,25 @@ Phases, each of which raises (and exits non-zero) on failure:
    first batch all skipped as duplicates. Prints txn/s, batch p50 / p99
    from dispatch to completion, the scorer's host stages per batch and the
    smoke's own times for response building, write-back and fan-out;
-9. the port's kernel drill (``KernelDrillConfig.fast()``) on the card, on
+9. the typed entity graph: 2,048 transactions of a seeded stream with the
+   simulator's fraud ring (rate 0.08) through ``StreamJob`` on a
+   ``TorchFraudScorer`` at TINY width with typed GNN parameters,
+   ``ScorerConfig(graph_mode="typed", transfer_bf16=True)``, int8 BERT and
+   ``KernelSettings.mega()``: the megakernel's plan declines every batch
+   (two-hop) and each batch runs the per-site chain (12 / 2 / 2 / 1
+   launches), counted as a fallback. The same stream through a kernels-off
+   CPU scorer; decisions held to the drill's bound at the full rung and at
+   one batch of each lower QoS rung, ``rules_only`` bit-exact, the typed
+   graph's digest and the sampler's counters equal. Prints the launches,
+   the sampling span, the sampler's cache counters, the two-hop bytes a
+   batch, txn/s and batch p50 / p99;
+10. overlapped assembly: phase 8's TINY stream with
+   ``JobConfig.overlap_assembly`` off, then on, in this call; every record
+   emitted once, every offset committed, completions in the serial run's
+   order (decisions are not compared: under overlap, which write-backs land
+   before an assembly depends on timing); txn/s, p50 / p99 and host ms per
+   stage of both;
+11. the port's kernel drill (``KernelDrillConfig.fast()``) on the card, on
    the per-site chain and on the megakernel: both verdicts must pass.
 
 The last three lines of standard output are the kernel JSON line (all five
@@ -1055,6 +1073,7 @@ class StreamTimer:
         from realtime_fraud_detection_tpu_torch.scoring import scorer as scorer_module
 
         self.batches = []
+        self.ctxs = []                  # the warm-up batches' contexts
         self.parts = {name: [] for name in STREAM_PARTS}
         self.inside = {name: [] for name in (
             *self.ASSEMBLE_FUNCS, "append_and_gather", "_texts_for", "encode_batch")}
@@ -1064,6 +1083,12 @@ class StreamTimer:
 
         def dispatch_batch(records, now=None):
             if len(self.batches) == warmup:
+                if getattr(job, "_stage", None) is not None:
+                    # overlapped assembly: let the warm-up batches' stage
+                    # work finish before the spans restart
+                    for ctx in self.ctxs:
+                        if ctx.pending is not None:
+                            ctx.pending.result()
                 scorer.spans.reset()
                 for xs in (*self.parts.values(), *self.inside.values()):
                     xs.clear()
@@ -1073,6 +1098,8 @@ class StreamTimer:
             ctx.timing = dict(rows=len(ctx.fresh), t0=t0,
                               launches=scorer.kernel_snapshot()["kernel_launches"])
             self.batches.append(ctx.timing)
+            if len(self.ctxs) < warmup:
+                self.ctxs.append(ctx)
             return ctx
 
         def complete_batch(ctx):
@@ -1153,17 +1180,20 @@ class StreamTimer:
 
 
 def drive_stream(records, profiles, bert_config, config, device, timed=False,
-                 tokens=None):
-    """The port's ``StreamJob`` over ``records`` on a fresh scorer and
-    in-memory broker, at the fixed virtual clock; returns (job, broker,
-    scorer, timer). With a ``tokens`` list, each batch's (ids, mask) is
-    appended to it."""
+                 tokens=None, models=None, scorer_config=None, overlap=False):
+    """The port's ``StreamJob`` over ``records`` on a fresh scorer (the
+    width's seeded models unless ``models`` is given) and in-memory broker,
+    at the fixed virtual clock; returns (job, broker, scorer, timer). With a
+    ``tokens`` list, each batch's (ids, mask) is appended to it; with
+    ``overlap`` the job runs the overlapped assembly stage (closed before
+    this returns)."""
     from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
     from realtime_fraud_detection_tpu_torch.stream import topics as T
     from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
     from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
 
-    scorer = TorchFraudScorer(config, models=seeded_models(bert_config),
+    scorer = TorchFraudScorer(config, models=models or seeded_models(bert_config),
+                              scorer_config=scorer_config,
                               bert_config=bert_config, device=device)
     scorer.seed_profiles(*profiles)
     if tokens is not None:
@@ -1176,12 +1206,14 @@ def drive_stream(records, profiles, bert_config, config, device, timed=False,
 
         scorer.assemble = keep_tokens
     broker = InMemoryBroker()
-    job = StreamJob(broker, scorer, JobConfig(max_batch=BATCH, pipeline_depth=2))
+    job = StreamJob(broker, scorer, JobConfig(max_batch=BATCH, pipeline_depth=2,
+                                              overlap_assembly=overlap))
     broker.produce_batch(T.TRANSACTIONS, records, key_fn=lambda r: str(r["user_id"]))
     timer = StreamTimer(job, scorer) if timed else None
     try:
         job.run_until_drained(now=STREAM_NOW)
     finally:
+        job.close()
         if timer is not None:
             timer.close()
     return job, broker, scorer, timer
@@ -1229,11 +1261,12 @@ def compare_streams(name, preds, ref_preds, tol, label):
     err = max(abs(p["fraud_score"] - q["fraud_score"]) for p, q in zip(preds, ref_preds))
     if not err <= tol:
         fail(f"{name} stream: fraud_score err {err} vs {label}")
+    old = (f" (under the former fixed tolerance: {OLD_SKIPPED[name]})"
+           if name in OLD_SKIPPED else "")
     print(f"  {name} stream vs {label}: fraud_score max err {err:.3e}, decision and "
           f"risk equal on all {int(far.sum())}/{len(preds)} rows farther than the "
           f"drill's bound {tol:.3e} from a rung; {len(preds) - int(far.sum())}/"
-          f"{len(preds)} skipped (under the former fixed tolerance: {OLD_SKIPPED[name]})",
-          flush=True)
+          f"{len(preds)} skipped{old}", flush=True)
     return err
 
 
@@ -1304,6 +1337,205 @@ def run_stream(ops, name, bert_config, kernels, count, expected, cpu_reference):
           f"{STREAM_MERCHANTS} merchants, batch {BATCH}, pipeline depth 2): "
           + json.dumps(summary), flush=True)
     return launches
+
+
+# the typed-graph stream phase: the TINY default model with typed GNN
+# parameters on a fraud-ring stream (the ring's default rate, 0.08), the
+# typed graph's default fan-outs (16, two-hop 8), the two-hop context on the
+# bf16 wire; then one batch at each lower QoS rung
+TYPED_COUNT = 8 * BATCH
+RUNG_LEVELS = (1, 2, 3)
+# the overlap phase reruns phase 8's TINY stream, overlap off then on
+OVERLAP_COUNT = 16 * BATCH
+
+
+def run_typed_stream(ops):
+    """The typed-graph stream through the port's ``StreamJob`` on the card
+    (launch counters reset just before, read just after): every batch is
+    declined by the megakernel's plan (two-hop) and runs the per-site chain;
+    held against the same stream through a kernels-off CPU scorer at every
+    QoS rung. Returns the stream's launch counts."""
+    import numpy as np
+
+    from realtime_fraud_detection_tpu_torch.core.batching import pad_to_bucket
+    from realtime_fraud_detection_tpu_torch.core.packing import pack_tree
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.qos.ladder import LADDER_LEVELS
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
+        MODEL_NAMES,
+        ScorerConfig,
+        init_scoring_models,
+    )
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import _stage_bf16
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    name = "TINY typed"
+    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                               seed=SEED)
+    ring = gen.inject_fraud_ring()
+    profiles = (gen.users.profiles(), gen.merchants.profiles())
+    records = gen.generate_batch(TYPED_COUNT)
+    rung_records = {level: gen.generate_batch(BATCH) for level in RUNG_LEVELS}
+    models = init_scoring_models(SEED, TINY_CONFIG, gnn_typed=True)
+    sc = ScorerConfig(graph_mode="typed", transfer_bf16=True)
+    config = Config(quant=QuantSettings.full(), kernels=KernelSettings.mega())
+    n_batches = TYPED_COUNT // BATCH
+    layers = TINY_CONFIG.num_layers
+    expected = {"epilogue": 1, "flash_attention": layers, "dequant_matmul": 6 * layers,
+                "dequant_rows": 2, "megakernel": 0}
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    job, broker, scorer, timer = drive_stream(records, profiles, TINY_CONFIG, config,
+                                              "cuda", timed=True, models=models,
+                                              scorer_config=sc)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {k: v * n_batches for k, v in expected.items()}
+    per_batch = [b["launches"] for b in timer.batches]
+    snap = scorer.kernel_snapshot()
+    print(f"{name} stream: {TYPED_COUNT} txns ({ring.applied} ring) in "
+          f"{len(timer.batches)} batches, launches {launches} (expected {want}); "
+          f"hand-written launches per batch {sorted(set(per_batch))}; megakernel "
+          f"dispatched {snap['dispatch']['megakernel']}, fallback "
+          f"{snap['fallback']['megakernel']} (batches {n_batches})", flush=True)
+    if launches != want or per_batch != [sum(expected.values())] * n_batches:
+        fail(f"{name} stream: launch counts {launches} / {per_batch}")
+    if (snap["dispatch"]["megakernel"] != n_batches
+            or snap["fallback"] != {"dequant_matmul": 0, "epilogue": 0, "attention": 0,
+                                    "megakernel": n_batches}
+            or any(snap["dispatch"][k] != n_batches
+                   for k in ("dequant_matmul", "epilogue", "attention"))
+            or scorer._mega_args is not None):
+        fail(f"{name} stream: kernel snapshot {snap}")
+    preds = check_stream_output(name, job, broker, records)
+    timing = timer.summary(scorer)
+    host = scorer.host_stats()
+    graph = scorer.graph_snapshot()
+
+    label = "a kernels-off CPU scorer"
+    tokens = []
+    ref_job, ref_broker, ref_scorer, _ = drive_stream(
+        records, profiles, TINY_CONFIG, Config(quant=QuantSettings.full()), "cpu",
+        tokens=tokens, models=models, scorer_config=sc)
+    ref_preds = check_stream_output(f"{name} ({label})", ref_job, ref_broker, records)
+    weights = scorer.ensemble_params.weights
+    tol = noise_bound(scorer.models, TINY_CONFIG, tokens, weights)
+    errs = {"full_ensemble": compare_streams(name, preds, ref_preds, tol, label)}
+    if scorer.typed_graph.digest() != ref_scorer.typed_graph.digest():
+        fail(f"{name} stream: the card's typed graph differs from the CPU's")
+    if graph["sampler"] != ref_scorer.graph_snapshot()["sampler"]:
+        fail(f"{name} stream: sampler counters differ from the CPU's")
+
+    # one batch at each lower rung, on both jobs alike
+    for level in RUNG_LEVELS:
+        rung = LADDER_LEVELS[level]
+        mask = np.asarray([n not in rung.dropped_branches for n in MODEL_NAMES])
+        batch = rung_records[level]
+        ids = {r["transaction_id"] for r in batch}
+        got = {}
+        start = len(tokens)
+        for side, (j, b) in (("card", (job, broker)), ("cpu", (ref_job, ref_broker))):
+            j.scorer.set_degradation(mask, rules_only=rung.rules_only, level=level)
+            b.produce_batch(T.TRANSACTIONS, batch, key_fn=lambda r: str(r["user_id"]))
+            j.run_until_drained(now=STREAM_NOW)
+            got[side] = [p for p in topic_values(b, T.PREDICTIONS)
+                         if p["transaction_id"] in ids]
+            if len(got[side]) != BATCH or j.counters["errors"]:
+                fail(f"{name} rung {rung.name}: {side} {len(got[side])} predictions, "
+                     f"counters {j.counters}")
+        if rung.rules_only:
+            keys = ("transaction_id", "fraud_score", "confidence", "decision", "risk_level")
+            if [[p[k] for k in keys] for p in got["card"]] != \
+                    [[p[k] for k in keys] for p in got["cpu"]]:
+                fail(f"{name} rung {rung.name}: not bit-exact against the CPU")
+            errs[rung.name] = 0.0
+            print(f"  {name} rung {rung.name}: {BATCH} rows bit-exact against the CPU",
+                  flush=True)
+            continue
+        rung_tol = noise_bound(scorer.models, TINY_CONFIG, tokens[start:], weights,
+                               tuple(bool(v) for v in mask))
+        errs[rung.name] = compare_streams(f"{name} rung {rung.name}", got["card"],
+                                          got["cpu"], rung_tol, label)
+
+    # the two-hop payload on the wire, from one more batch of the stream
+    extra = scorer.assemble(rung_records[1], now=STREAM_NOW)
+    padded, _, _ = pad_to_bucket(extra, BATCH)
+    blobs, spec = pack_tree(_stage_bf16(padded))
+    two_hop = sum(int(np.prod(e[2])) * (2 if e[0] == "bf16" else 1)
+                  for e in spec.entries[-4:]) * BATCH
+    summary = dict(stream=name, txns=TYPED_COUNT, ring_txns=ring.applied, **timing,
+                   counters=job.counters, max_err=errs, bound=tol,
+                   megakernel_fallback=snap["fallback"]["megakernel"],
+                   batches=n_batches, launches=launches,
+                   graph_ms_per_batch=host["stages"]["graph"]["mean_ms"],
+                   sampler=graph["sampler"], store=graph["store"],
+                   two_hop_bytes_per_batch=two_hop,
+                   h2d_bytes_per_batch=sum(int(b.nbytes) for b in blobs.values()))
+    print(f"{name} stream timing (host clock, {STREAM_USERS} users, "
+          f"{STREAM_MERCHANTS} merchants, batch {BATCH}, pipeline depth 2, fan-out "
+          f"{sc.fanout} / {sc.graph_fanout2}): " + json.dumps(summary), flush=True)
+    return launches
+
+
+def run_overlap(ops):
+    """The TINY ``mega()`` stream (phase 8's) with the overlapped assembly
+    stage off, then on, in one call. Delivery must be exact both times and
+    the completions in the same order. Decisions are not compared: under
+    overlap, which velocity write-backs land before a batch is assembled
+    depends on timing (``scoring/host_pipeline.py``). Returns the overlap
+    run's launch counts."""
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                               seed=SEED)
+    profiles = (gen.users.profiles(), gen.merchants.profiles())
+    count = OVERLAP_COUNT
+    records = gen.generate_batch(count)
+    config = Config(quant=QuantSettings.full(), kernels=KernelSettings.mega())
+    want = {"epilogue": 0, "flash_attention": 0, "dequant_matmul": 0, "dequant_rows": 0,
+            "megakernel": count // BATCH}
+    runs = {}
+    for overlap in (False, True):
+        name = f"TINY overlap {'on' if overlap else 'off'}"
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        job, broker, scorer, timer = drive_stream(records, profiles, TINY_CONFIG, config,
+                                                  "cuda", timed=True, overlap=overlap)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        if launches != want:
+            fail(f"{name}: launch counts {launches} != {want}")
+        preds = check_stream_output(name, job, broker, records)
+        runs[overlap] = dict(order=[p["transaction_id"] for p in preds],
+                             summary=timer.summary(scorer), launches=launches,
+                             stage=job._stage)
+    if runs[True]["order"] != runs[False]["order"]:
+        fail("overlap stream: completions are not in the serial run's order")
+    stage = runs[True]["stage"]
+    for overlap in (False, True):
+        t = runs[overlap]["summary"]
+        print(f"TINY overlap {'on ' if overlap else 'off'}: {t['txn_per_s']:.1f} txn/s, "
+              f"batch p50 {t['batch_ms_p50']:.2f} ms, p99 {t['batch_ms_p99']:.2f} ms; host "
+              f"ms per batch {json.dumps(t['host_ms_per_batch'])}; smoke "
+              f"{json.dumps(t['smoke_ms_per_batch'])}; gc {t['gc_ms']:.1f} ms", flush=True)
+    print(f"overlap stream ({count} txns, {STREAM_USERS} users, batch {BATCH}, depth 2): "
+          f"every record emitted once, completions in dispatch order, every offset "
+          f"committed; stage busy {stage.busy_s:.3f} s over {stage.batches} batches; "
+          + json.dumps({str(k): v["summary"] for k, v in runs.items()}), flush=True)
+    return runs[True]["launches"]
 
 
 def run_drills() -> dict:
@@ -1415,6 +1647,8 @@ def main() -> int:
         "distilbert_base": run_stream(ops, "DistilBERT-base", DISTILBERT_BASE,
                                       KernelSettings.full(), 4 * BATCH, chain,
                                       cpu_reference=False),
+        "tiny_typed": run_typed_stream(ops),
+        "tiny_overlap": run_overlap(ops),
     }
     run_drills()
     for e in entries:

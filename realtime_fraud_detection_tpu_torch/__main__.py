@@ -1,15 +1,17 @@
 """Command-line entry point of the port.
 
-    python -m realtime_fraud_detection_tpu_torch run-job --count 10000 --mega
+    python -m realtime_fraud_detection_tpu_torch run-job --count 10000 --mega [--overlap-assembly]
     python -m realtime_fraud_detection_tpu_torch kernel-drill --fast [--mega]
 
 ``run-job`` is the in-memory path of the JAX package's ``rtfd run-job``
 (``cli.py cmd_run_job``): the seeded simulator produces transactions into
 an in-memory broker, keyed by user; the port's ``StreamJob`` scores them
 in microbatches through ``TorchFraudScorer`` and fans the results out to
-the predictions, alerts, enriched and features topics. It runs on the CUDA
-card unless ``--device cpu`` is given, and fails without a card. The last
-line of standard output is a JSON summary.
+the predictions, alerts, enriched and features topics; with
+``--overlap-assembly`` the scorer's host assembly runs on a background
+thread, overlapped with the card. It runs on the CUDA card unless
+``--device cpu`` is given, and fails without a card. The last line of
+standard output is a JSON summary.
 
 ``kernel-drill`` is the port of the JAX package's ``rtfd kernel-drill``
 (``scoring/kernel_drill.py``): two seeded scorers on the quantized plane,
@@ -67,16 +69,20 @@ def cmd_run_job(args: argparse.Namespace) -> int:
     scorer = TorchFraudScorer(config, seed=args.seed, device=args.device)
     scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
     job = StreamJob(broker, scorer, JobConfig(
-        max_batch=args.batch, pipeline_depth=args.pipeline_depth))
+        max_batch=args.batch, pipeline_depth=args.pipeline_depth,
+        overlap_assembly=args.overlap_assembly))
 
     t0 = time.perf_counter()
     produced = scored = 0
-    while produced < args.count:
-        chunk = min(args.count - produced, 10_000)
-        broker.produce_batch(T.TRANSACTIONS, gen.generate_batch(chunk),
-                             key_fn=lambda r: str(r["user_id"]))
-        produced += chunk
-        scored += job.run_until_drained()
+    try:
+        while produced < args.count:
+            chunk = min(args.count - produced, 10_000)
+            broker.produce_batch(T.TRANSACTIONS, gen.generate_batch(chunk),
+                                 key_fn=lambda r: str(r["user_id"]))
+            produced += chunk
+            scored += job.run_until_drained()
+    finally:
+        job.close()
     dt = time.perf_counter() - t0
     stages = {name: round(st["mean_ms"], 4)
               for name, st in scorer.host_stats()["stages"].items()}
@@ -134,6 +140,10 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--mega", action="store_true",
                     help="the megakernel, with the per-site kernels as its "
                          "fallback (KernelSettings.mega())")
+    sp.add_argument("--overlap-assembly", action="store_true",
+                    help="assemble + dispatch on a background thread while "
+                         "the card runs the previous batch "
+                         "(JobConfig.overlap_assembly)")
     sp.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")

@@ -198,10 +198,28 @@ def extract_features(b: TransactionBatch) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
+# rows per padded block of ``extract_features_host``: a multiple of every
+# CPU vector loop's step (two vectors of 16 f32 lanes at most)
+_HOST_ROW_BLOCK = 64
+
+
 def extract_features_host(b: TransactionBatch) -> np.ndarray:
     """``extract_features`` on the CPU over a batch of numpy columns; returns
     f32[B, 64] as a numpy array (the rows host assembly keeps for the
-    history store and the features topic)."""
-    cols = {f.name: torch.from_numpy(np.asarray(getattr(b, f.name)))
-            for f in dataclasses.fields(b)}
-    return extract_features(TransactionBatch(**cols)).numpy()
+    history store and the features topic).
+
+    The columns are padded (row 0 repeated) to a multiple of
+    ``_HOST_ROW_BLOCK`` rows: PyTorch's CPU loops run whole vectors and
+    finish a remainder with scalar code, whose sin / cos / atan2 round
+    differently, so without the padding a row's haversine distance would
+    depend on its position and the batch size, and the columnar assembly
+    would not equal the record-at-a-time one."""
+    n = len(np.asarray(b.amount))
+    pad = -n % _HOST_ROW_BLOCK
+    cols = {}
+    for f in dataclasses.fields(b):
+        col = np.asarray(getattr(b, f.name))
+        if pad and n:
+            col = np.concatenate([col, np.repeat(col[:1], pad, axis=0)])
+        cols[f.name] = torch.from_numpy(col)
+    return extract_features(TransactionBatch(**cols)).numpy()[:n]

@@ -1,0 +1,1 @@
+"""graph of the PyTorch port (see the package docstring)."""

@@ -39,7 +39,12 @@ from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
-from realtime_fraud_detection_tpu_torch.core.packing import PackSpec, tree_unflatten, unpack_tree
+from realtime_fraud_detection_tpu_torch.core.packing import (
+    PackSpec,
+    tree_unflatten,
+    unpack_tree,
+    widen_bf16,
+)
 from realtime_fraud_detection_tpu_torch.ops.build import check_launch, kernel_library
 from realtime_fraud_detection_tpu_torch.ops.epilogue import _statics, combine_matrix
 
@@ -267,17 +272,24 @@ def mega_plan(models, bert_config, *, b: int, text_len: int, seq_len: int,
               feature_dim: int, has_two_hop: bool,
               fanout: int = 16) -> Dict[str, Any]:
     """The shape plan for a ``b``-row dispatch: ``supported`` when the L2
-    budget admits it and the kernel's layout takes its widths."""
+    budget admits it and the kernel's layout takes its widths. The kernel
+    has no typed GNN (per-node-type projections), so typed parameters are
+    declined too."""
+    from realtime_fraud_detection_tpu_torch.models.gnn import is_typed_gnn
+
     pb = mega_param_bytes(models)
     dims = _dims(models, bert_config, text_len, feature_dim, seq_len)
     smem = mega_smem_bytes(dims, fanout)
     shapes_ok = mega_kernel_shapes_ok(dims, smem)
+    typed = is_typed_gnn(models.gnn)
     return {
         "param_bytes": pb,
         "has_two_hop": bool(has_two_hop),
+        "typed_gnn": typed,
         "smem_bytes": smem,
         "kernel_shapes": shapes_ok,
-        "supported": shapes_ok and mega_supported(b, pb, has_two_hop),
+        "supported": (shapes_ok and not typed
+                      and mega_supported(b, pb, has_two_hop)),
     }
 
 
@@ -496,7 +508,8 @@ class MegaParamArgs:
         self.key = (bert_config, compute_dtype, widths, device)
         self.dims = _checked_dims(models, bert_config, widths)
         if is_typed_gnn(models.gnn):
-            raise ValueError("fused_megakernel: the typed GNN is not ported")
+            raise ValueError("fused_megakernel: the kernel has no typed GNN "
+                             "(per-node-type projections)")
         self.keep = []                    # the tensors the pointers point into
         a = self.args = MegaArgs()
 
@@ -653,11 +666,12 @@ def fused_megakernel_packed(models, blobs: Dict[str, torch.Tensor], spec: PackSp
     card the batch half of the arguments points straight into the blobs,
     with no unpacking and no per-leaf checks (the leaf layout is cached per
     ``spec``; the three blobs are checked); for blobs on the CPU they are
-    unpacked and the plain version runs."""
+    unpacked and the plain version runs. A batch with bf16 wire leaves is
+    unpacked and widened, then launched through ``fused_megakernel``."""
     from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
 
-    if blobs["f32"].device.type == "cpu":
-        return fused_megakernel(models, unpack_tree(blobs, spec), params,
+    if blobs["f32"].device.type == "cpu" or "bf16" in blobs:
+        return fused_megakernel(models, widen_bf16(unpack_tree(blobs, spec)), params,
                                 mega_valid=mega_valid, bert_config=bert_config,
                                 compute_dtype=compute_dtype, param_args=param_args)
     bert_config = bert_config or TINY_CONFIG

@@ -4,8 +4,10 @@ Port of the JAX package's ``scoring/pipeline.py``: the microbatch arrives as
 the packed blobs of ``core/packing.py`` and leaves as ONE f32 matrix, laid
 out as ``OUT_COLUMNS`` + the M model predictions and, with the fused
 epilogue on, the ``EXT_COLUMNS`` extension: ``[B, 8+M]`` or ``[B, 8+2M+2]``.
-Between them run the five branches (GBDT, LSTM, BERT text, bipartite GNN,
-isolation forest), the rule score and the ensemble combine. Model order in
+Between them run the five branches (GBDT, LSTM, BERT text, GNN on the
+bipartite or the typed entity graph, isolation forest), the rule score and
+the ensemble combine. Leaves that crossed the wire in bf16 are widened back
+to f32 before the branches. Model order in
 the (B, M) prediction matrix is the reference registry order.
 """
 
@@ -17,7 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from realtime_fraud_detection_tpu_torch.core.packing import PackSpec, unpack_tree
+from realtime_fraud_detection_tpu_torch.core.packing import PackSpec, unpack_tree, widen_bf16
 from realtime_fraud_detection_tpu_torch.ensemble.combine import (
     EnsembleParams,
     combine_predictions,
@@ -110,9 +112,10 @@ def _nested_to(obj, device):
 @dataclasses.dataclass
 class ScoreBatch:
     """Dense inputs for one scoring microbatch (numpy on the host, tensors
-    on the device). ``valid`` masks bucket padding rows. The typed-graph
-    two-hop fields of the JAX package stay None here: they contribute no
-    leaves, so the packed layout is the bipartite one."""
+    on the device). ``valid`` masks bucket padding rows. The four two-hop
+    fields are set by the typed graph's sampler and None in bipartite mode,
+    where they contribute no leaves: the bipartite packed layout is the one
+    the megakernel reads."""
 
     txn: TransactionBatch
     features: Any            # f32[B, 64]
@@ -127,10 +130,10 @@ class ScoreBatch:
     token_ids: Any           # i32[B, S]
     token_mask: Any          # bool[B, S]
     valid: Any               # bool[B]
-    user_neigh2_feat: Any = None
-    user_neigh2_mask: Any = None
-    merch_neigh2_feat: Any = None
-    merch_neigh2_mask: Any = None
+    user_neigh2_feat: Any = None    # f32[B, K, K2, D] users around the user's entities
+    user_neigh2_mask: Any = None    # bool[B, K, K2]
+    merch_neigh2_feat: Any = None   # f32[B, K, K2, D] merchants around the merchant's users
+    merch_neigh2_mask: Any = None   # bool[B, K, K2]
 
     @property
     def batch_size(self) -> int:
@@ -145,26 +148,38 @@ class ScorerConfig:
     feature_dim: int = 64      # the feature contract width
     node_dim: int = 16         # GNN node feature width
     fanout: int = 16           # GNN neighbour fan-out
+    # "bipartite" = the user <-> merchant EntityGraphStore neighbourhoods;
+    # "typed" = the typed entity graph (user <-> device <-> merchant <-> IP,
+    # two-hop sampling by graph/sampler.py, edges ingested at write-back)
+    graph_mode: str = "bipartite"
+    graph_fanout2: int = 8     # typed mode's two-hop width K2
     text_len: int = 64         # token length for the text branch
     # "word" = the hash-OOV word tokenizer (models/tokenizer.py); the JAX
     # package's "wordpiece" tokenizer is not ported
     tokenizer: str = "word"
+    # ship the history, the node and neighbour features (and the two-hop
+    # context) as bf16 on the wire, widened back to f32 on the card; it
+    # perturbs scores at bf16 resolution, so it is off by default
+    transfer_bf16: bool = False
 
 
 def init_scoring_models(seed: int, bert_config: BertConfig = TINY_CONFIG,
                         feature_dim: int = 64, node_dim: int = 16,
                         n_trees: int = 100, tree_depth: int = 6,
-                        iforest_depth: int = 8) -> ScoringModels:
+                        iforest_depth: int = 8,
+                        gnn_typed: bool = False) -> ScoringModels:
     """Randomly initialised model set from a numpy seed. Unlike the JAX
     package's all-zero trees, the GBDT and isolation forest get random
-    splits, so every branch does real work."""
+    splits, so every branch does real work. ``gnn_typed`` selects the typed
+    entity graph's GNN layout."""
     rng = np.random.default_rng(seed)
     return ScoringModels(
         trees=random_tree_ensemble(rng, n_trees, tree_depth, feature_dim),
         iforest=random_isolation_forest(rng, n_trees, iforest_depth,
                                         feature_dim),
         lstm=init_lstm_params(rng, feature_dim=feature_dim),
-        gnn=init_gnn_params(rng, node_dim=node_dim, txn_dim=feature_dim),
+        gnn=init_gnn_params(rng, node_dim=node_dim, txn_dim=feature_dim,
+                            typed=gnn_typed),
         bert=init_bert_params(rng, bert_config),
     )
 
@@ -199,9 +214,6 @@ def score_fused(models: ScoringModels, batch: ScoreBatch,
     the combine outputs are the whole ``packed`` result instead, which the
     epilogue kernel writes but for the key-factor columns written here.
     """
-    if batch.user_neigh2_feat is not None or batch.merch_neigh2_feat is not None:
-        raise NotImplementedError(
-            "two-hop (typed graph) batches are not ported yet")
     features = batch.features
     preds = torch.stack([
         tree_ensemble_predict(models.trees, features, kernel=tree_kernel),
@@ -215,7 +227,11 @@ def score_fused(models: ScoringModels, batch: ScoreBatch,
         torch.sigmoid(gnn_logits(
             models.gnn, features, batch.user_feat, batch.merchant_feat,
             batch.user_neigh_feat, batch.user_neigh_mask,
-            batch.merch_neigh_feat, batch.merch_neigh_mask)),
+            batch.merch_neigh_feat, batch.merch_neigh_mask,
+            user_neigh2_feat=batch.user_neigh2_feat,
+            user_neigh2_mask=batch.user_neigh2_mask,
+            merch_neigh2_feat=batch.merch_neigh2_feat,
+            merch_neigh2_mask=batch.merch_neigh2_mask)),
         iforest_predict(models.iforest, features, kernel=iforest_kernel),
     ], dim=1)                                                   # f32[B, M]
 
@@ -267,7 +283,7 @@ def score_fused_packed(models: ScoringModels, blobs: Dict[str, torch.Tensor],
                                        bert_config=bert_config,
                                        compute_dtype=compute_dtype,
                                        param_args=param_args)
-    batch = unpack_tree(blobs, spec)
+    batch = widen_bf16(unpack_tree(blobs, spec))
     out = score_fused(models, batch, params, model_valid,
                       bert_config=bert_config, use_flash=use_flash,
                       tree_kernel=tree_kernel, iforest_kernel=iforest_kernel,

@@ -6,12 +6,20 @@ in-process state tier:
 - host half: ``assemble`` joins the profile, velocity and history state of
   a microbatch of transaction dicts and encodes one dense ``ScoreBatch``
   (columnar encode with the cross-batch entity row cache, the 64 features
-  extracted on the CPU, the history ring, the bipartite graph join, the
-  word tokenizer); ``finalize`` writes velocity and the transaction cache
-  back after scoring; ``host_stats`` reports the per-stage spans
-  (assemble, graph, pack, dispatch, device_wait) and the cache counters;
+  extracted on the CPU, the history ring, the graph join, the word
+  tokenizer); ``assemble_serial`` is its record-at-a-time oracle;
+  ``finalize`` writes velocity, the transaction cache and, in typed graph
+  mode, the batch's entity links back after scoring; ``host_stats``
+  reports the per-stage spans (assemble, graph, pack, dispatch,
+  device_wait) and the cache counters, ``graph_snapshot`` the typed
+  graph's store and sampler counters;
+- graph plane: ``ScorerConfig.graph_mode`` "bipartite" joins the user <->
+  merchant ``EntityGraphStore``; "typed" samples the ``TypedEntityGraph``
+  (user <-> device <-> merchant <-> IP) through ``NeighborSampler`` into
+  one- and two-hop tensors, with edges ingested at write-back;
 - device half: ``dispatch_assembled`` pads the batch to its bucket, packs
-  it into the three transfer blobs, copies them to the card from pinned
+  it into the three transfer blobs (a fourth, half-width one with
+  ``ScorerConfig.transfer_bf16``), copies them to the card from pinned
   host memory, launches the fused scorer and starts the copy of the result
   matrix back into pinned host memory behind a CUDA event; ``finalize``
   waits on that event and builds the response dicts. The kernel plane's
@@ -20,8 +28,8 @@ in-process state tier:
   declining a batch, or f32 BERT weights leaving the int8 site no work),
   and how many hand-written kernels the batch launched.
 
-The shared RESP state tier, the typed graph, the wordpiece tokenizer,
-``assemble_serial``, pools, the mesh and tracing are not ported.
+The shared RESP state tier, cross-partition graph fetch, the wordpiece
+tokenizer, pools, the mesh and tracing are not ported.
 """
 
 from __future__ import annotations
@@ -51,8 +59,11 @@ from realtime_fraud_detection_tpu_torch.features.schema import (
     MERCHANT_CATEGORIES,
     EntityRowCache,
     _code,
+    encode_transactions,
     encode_transactions_columnar,
 )
+from realtime_fraud_detection_tpu_torch.graph.sampler import NeighborSampler
+from realtime_fraud_detection_tpu_torch.graph.store import TypedEntityGraph
 from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG, BertConfig
 from realtime_fraud_detection_tpu_torch.models.quant import (
     is_quantized_bert,
@@ -67,6 +78,7 @@ from realtime_fraud_detection_tpu_torch.ops import (
     mega_plan,
 )
 from realtime_fraud_detection_tpu_torch.ops.attention import attention_supported
+from realtime_fraud_detection_tpu_torch.ops.epilogue import _host_vectors
 from realtime_fraud_detection_tpu_torch.ops.dequant_matmul import (
     matmul_supported,
     rows_supported,
@@ -204,6 +216,34 @@ class _EntityIndex:
     def table(self) -> np.ndarray:
         return self._tbl[: self._n] if self._n else self._tbl[:1]
 
+    def peek_rows(self, entity_ids: Sequence[str]) -> np.ndarray:
+        """Feature rows for known ids, zero rows for unknown ones: a
+        read-only probe that never creates entries (the typed sampler's
+        two-hop users need not be entities this scorer scores)."""
+        out = np.zeros((len(entity_ids), self.node_dim), np.float32)
+        get = self._idx.get
+        for k, eid in enumerate(entity_ids):
+            i = get(eid)
+            if i is not None:
+                out[k] = self._tbl[i]
+        return out
+
+
+def _stage_bf16(padded: ScoreBatch) -> ScoreBatch:
+    """The padded batch with its float-heavy leaves (history, node and
+    neighbour features, the two-hop context) as CPU bfloat16 tensors, which
+    ``pack_tree`` ships in the half-width bf16 blob (the JAX scorer's
+    ``transfer_bf16`` staging, rounded to nearest even as ``ml_dtypes``
+    rounds)."""
+    names = ["history", "user_feat", "merchant_feat", "user_neigh_feat",
+             "merch_neigh_feat"]
+    if padded.user_neigh2_feat is not None:
+        names += ["user_neigh2_feat", "merch_neigh2_feat"]
+    return dataclasses.replace(padded, **{
+        name: torch.from_numpy(np.ascontiguousarray(getattr(padded, name),
+                                                    np.float32)).to(torch.bfloat16)
+        for name in names})
+
 
 class TorchFraudScorer:
     """Stateful streaming scorer on one device (``cuda`` by default)."""
@@ -253,6 +293,19 @@ class TorchFraudScorer:
             merchant_list_len=st.merchant_history_len)
         self.history = UserHistoryStore(self.sc.seq_len, self.sc.feature_dim)
         self.graph = EntityGraphStore(self.sc.fanout)
+        if self.sc.graph_mode not in ("bipartite", "typed"):
+            raise ValueError(
+                f"ScorerConfig.graph_mode must be 'bipartite' or 'typed', "
+                f"got {self.sc.graph_mode!r}")
+        self.typed_graph: Optional[TypedEntityGraph] = None
+        self._sampler: Optional[NeighborSampler] = None
+        if self.sc.graph_mode == "typed":
+            self.typed_graph = TypedEntityGraph(self.sc.fanout)
+            self._sampler = NeighborSampler(
+                self.typed_graph, self.sc.node_dim, self.sc.fanout,
+                self.sc.graph_fanout2,
+                user_rows=lambda ids: self._users.peek_rows(ids),
+                merchant_rows=lambda ids: self._merchants.peek_rows(ids))
         if self.sc.tokenizer != "word":
             # a tokenizer that is not ported must not silently feed the text
             # model ids from another vocabulary
@@ -292,7 +345,7 @@ class TorchFraudScorer:
                 models, bert=quantize_bert_params(models.bert))
         self._check_kernel_widths(models)
         self.models = models.to(self.device)
-        self._mega_plans: Dict[int, Dict[str, Any]] = {}
+        self._mega_plans: Dict[tuple, Dict[str, Any]] = {}
         self._mega_args: Optional[MegaParamArgs] = None
 
     def _check_kernel_widths(self, models: ScoringModels) -> None:
@@ -327,39 +380,44 @@ class TorchFraudScorer:
         return self.model_valid & self._qos_mask
 
     # ----------------------------------------------------------- kernel plane
-    def kernel_static(self, size: int, model_valid=None) -> Dict[str, Any]:
+    def kernel_static(self, size: int, model_valid=None,
+                      has_two_hop: bool = False) -> Dict[str, Any]:
         """The kernel selection the fused scorer takes for a ``size``-row
-        batch. ``mega_valid`` is the QoS rung as a tuple of branch-validity
-        booleans (``model_valid`` when given, the dispatch-time snapshot;
-        else the current effective mask) when the megakernel is on and its
-        plan admits the batch; None otherwise, which runs the per-site
-        chain."""
+        batch (with two-hop context when ``has_two_hop``). ``mega_valid``
+        is the QoS rung as a tuple of branch-validity booleans
+        (``model_valid`` when given, the dispatch-time snapshot; else the
+        current effective mask) when the megakernel is on and its plan
+        admits the batch; None otherwise, which runs the per-site chain."""
         static = dict(self.kernels.static())
         mega_valid = None
-        if static["megakernel"] == "cuda" and self._mega_plan(size)["supported"]:
+        if (static["megakernel"] == "cuda"
+                and self._mega_plan(size, has_two_hop)["supported"]):
             mv = (self.effective_model_valid() if model_valid is None
                   else np.asarray(model_valid))
             mega_valid = tuple(bool(v) for v in mv)
         static["mega_valid"] = mega_valid
         return static
 
-    def _mega_plan(self, size: int) -> Dict[str, Any]:
-        """The megakernel's shape plan for a ``size``-row batch (the typed
-        graph, the only source of two-hop batches, is not ported). Kept per
-        size until the models change."""
-        plan = self._mega_plans.get(size)
+    def _mega_plan(self, size: int, has_two_hop: bool = False) -> Dict[str, Any]:
+        """The megakernel's shape plan for a ``size``-row batch, two-hop or
+        not (a typed-graph batch carries two-hop context and is declined,
+        as the JAX plan declines it). Kept per (size, two-hop) until the
+        models change."""
+        key = (size, bool(has_two_hop))
+        plan = self._mega_plans.get(key)
         if plan is None:
-            plan = self._mega_plans[size] = mega_plan(
+            plan = self._mega_plans[key] = mega_plan(
                 self.models, self.bert_config, b=size,
                 text_len=self.sc.text_len, seq_len=self.sc.seq_len,
-                feature_dim=self.sc.feature_dim, has_two_hop=False,
+                feature_dim=self.sc.feature_dim, has_two_hop=has_two_hop,
                 fanout=self.sc.fanout)
         return plan
 
     def _mega_param_args(self) -> MegaParamArgs:
         """The megakernel's parameter arguments for the current models,
         built at the first batch the megakernel serves after ``set_models``
-        and passed with every later one."""
+        and passed with every later one. A typed-mode scorer never builds
+        them: its plan declines every batch it assembles."""
         if self._mega_args is None:
             widths = (self.sc.text_len, self.sc.feature_dim, self.sc.seq_len,
                       self.sc.fanout)
@@ -444,7 +502,7 @@ class TorchFraudScorer:
 
         u_idx = self._users.lookup_batch(user_ids, uprofs, False)
         m_idx = self._merchants.lookup_batch(merchant_ids, mprofs, True)
-        graph_t = self._graph_join(u_idx, m_idx)
+        graph_t = self._graph_join(user_ids, merchant_ids, u_idx, m_idx)
 
         token_ids, token_mask = self.tokenizer.encode_batch(
             self._texts_for(records, merchant_ids, mprofs))
@@ -462,26 +520,86 @@ class TorchFraudScorer:
         self.spans.record("assemble", time.perf_counter() - t0)
         return batch
 
-    def _graph_join(self, u_idx: np.ndarray, m_idx: np.ndarray
+    def _graph_join(self, user_ids: Sequence[str], merchant_ids: Sequence[str],
+                    u_idx: np.ndarray, m_idx: np.ndarray
                     ) -> Dict[str, np.ndarray]:
-        """The bipartite GNN's tensors: this batch's neighbourhoods see only
-        earlier batches' edges, then the batch's own edges are committed for
-        the next batch."""
+        """The GNN's tensors, the one seam both assemble paths call.
+        Bipartite: this batch's neighbourhoods see only earlier batches'
+        edges, then the batch's own edges are committed for the next batch.
+        Typed: the sampler's one- and two-hop tensors; the edges are
+        ingested at write-back."""
         t0 = time.perf_counter()
         utable, mtable = self._users.table(), self._merchants.table()
-        un_idx, un_mask = self.graph.user_neighbors(u_idx)
-        mn_idx, mn_mask = self.graph.merchant_neighbors(m_idx)
-        out = {
-            "user_feat": utable[u_idx],
-            "merchant_feat": mtable[m_idx],
-            "user_neigh_feat": mtable[np.where(un_mask, un_idx, 0)],
-            "user_neigh_mask": un_mask,
-            "merch_neigh_feat": utable[np.where(mn_mask, mn_idx, 0)],
-            "merch_neigh_mask": mn_mask,
-        }
-        self.graph.add_edges(u_idx, m_idx)
+        out = {"user_feat": utable[u_idx], "merchant_feat": mtable[m_idx]}
+        if self._sampler is not None:
+            out.update(self._sampler.sample(user_ids, merchant_ids))
+        else:
+            un_idx, un_mask = self.graph.user_neighbors(u_idx)
+            mn_idx, mn_mask = self.graph.merchant_neighbors(m_idx)
+            out.update(
+                user_neigh_feat=mtable[np.where(un_mask, un_idx, 0)],
+                user_neigh_mask=un_mask,
+                merch_neigh_feat=utable[np.where(mn_mask, mn_idx, 0)],
+                merch_neigh_mask=mn_mask,
+            )
+            self.graph.add_edges(u_idx, m_idx)
         self.spans.record("graph", time.perf_counter() - t0)
         return out
+
+    def assemble_serial(self, records: Sequence[Mapping[str, Any]],
+                        now: Optional[float] = None) -> ScoreBatch:
+        """Record-at-a-time assembly, the oracle of the columnar
+        ``assemble``: each record runs the join, a 1-row encode, a 1-row
+        feature extraction, a history append and a tokenize alone, and the
+        rows are stacked at the end. One batch-level carve-out: the graph
+        join for all records precedes this batch's edge inserts, as in
+        ``assemble``."""
+        n = len(records)
+        user_ids = [str(r.get("user_id", "")) for r in records]
+        merchant_ids = [str(r.get("merchant_id", "")) for r in records]
+        txns, feat_rows, hist_rows, hist_lens, tok_rows, tok_masks = (
+            [], [], [], [], [], [])
+        u_idx = np.empty((n,), np.int64)
+        m_idx = np.empty((n,), np.int64)
+        mprofs: Dict[str, Any] = {}
+        for i, (r, uid, mid) in enumerate(zip(records, user_ids, merchant_ids)):
+            up = self.profiles.get_user(uid)
+            mp = self.profiles.get_merchant(mid)
+            if mp is not None:
+                mprofs[mid] = mp
+            txn = encode_transactions(
+                [r], {uid: up} if up is not None else {},
+                {mid: mp} if mp is not None else {},
+                {uid: self.velocity.get_all(uid, now)})
+            feats = extract_features_host(txn)
+            hist, hlen = self.history.append_and_gather([uid], feats)
+            u_idx[i] = self._users.lookup(uid, up, False)
+            m_idx[i] = self._merchants.lookup(mid, mp, True)
+            ids, mask = self.tokenizer.encode_batch(
+                self._texts_for([r], [mid], mprofs))
+            txns.append(txn)
+            feat_rows.append(feats)
+            hist_rows.append(hist)
+            hist_lens.append(hlen)
+            tok_rows.append(ids)
+            tok_masks.append(mask)
+
+        graph_t = self._graph_join(user_ids, merchant_ids, u_idx, m_idx)
+        txn_all = type(txns[0])(**{
+            f.name: np.concatenate([np.asarray(getattr(t, f.name)) for t in txns])
+            for f in dataclasses.fields(txns[0])})
+        feats = np.concatenate(feat_rows, axis=0)
+        self.last_features = feats
+        return ScoreBatch(
+            txn=txn_all,
+            features=feats,
+            history=np.concatenate(hist_rows, axis=0),
+            history_len=np.concatenate(hist_lens, axis=0),
+            token_ids=np.concatenate(tok_rows, axis=0).astype(np.int32),
+            token_mask=np.concatenate(tok_masks, axis=0).astype(bool),
+            valid=np.ones((n,), bool),
+            **graph_t,
+        )
 
     def _texts_for(self, records, merchant_ids, mprofs) -> List[str]:
         """Combined text per record for the text branch (models/text.py)."""
@@ -502,6 +620,16 @@ class TorchFraudScorer:
         return {"stages": self.spans.stats(),
                 "caches": {"entity_rows": self._join_cache.stats(),
                            "tokens": self.tokenizer.cache_stats()}}
+
+    def graph_snapshot(self) -> Dict[str, Any]:
+        """The graph mode and, in typed mode, the typed store's node and
+        edge counts by type and the sampler's cache hits, misses and
+        evictions."""
+        snap: Dict[str, Any] = {"mode": self.sc.graph_mode}
+        if self.typed_graph is not None:
+            snap["store"] = self.typed_graph.stats()
+            snap["sampler"] = self._sampler.stats()
+        return snap
 
     # ---------------------------------------------------------------- scoring
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
@@ -539,12 +667,15 @@ class TorchFraudScorer:
         n = len(records)
         padded, mask, size = pad_to_bucket(batch, n)
         padded = dataclasses.replace(padded, valid=mask)
+        if self.sc.transfer_bf16:
+            padded = _stage_bf16(padded)
         blobs, spec = pack_tree(padded)
         self.spans.record("pack", time.perf_counter() - t_pack)
         t_disp = time.perf_counter()
         dev_blobs = {name: self._to_device(arr) for name, arr in blobs.items()}
         mv = self.effective_model_valid()
-        static = self.kernel_static(size, mv)
+        static = self.kernel_static(size, mv,
+                                    has_two_hop=batch.user_neigh2_feat is not None)
         self._record_kernel_dispatch(size, mv,
                                      mega_served=static["mega_valid"] is not None)
         before = sum(launch_counts().values())
@@ -559,8 +690,10 @@ class TorchFraudScorer:
         if self.device.type == "cuda":
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
+            # on the stream that ran the batch: this thread's current one
+            # (with overlapped assembly, the stage thread's)
             event = torch.cuda.Event()
-            event.record()
+            event.record(torch.cuda.current_stream(self.device))
         else:
             host = out
         self.spans.record("dispatch", time.perf_counter() - t_disp)
@@ -599,8 +732,9 @@ class TorchFraudScorer:
 
     def _write_back(self, records, results, now: Optional[float]) -> None:
         """Post-scoring state updates (RedisTransactionSink.java:53-135):
-        velocity, and the transaction cache with enough of the result for
-        the job's dedupe path to re-emit a faithful prediction."""
+        velocity, the transaction cache with enough of the result for the
+        job's dedupe path to re-emit a faithful prediction, and in typed
+        graph mode the batch's entity links."""
         ts = now if now is not None else time.time()
         for rec, res in zip(records, results):
             uid = str(rec.get("user_id", ""))
@@ -611,6 +745,16 @@ class TorchFraudScorer:
             merged["risk_level"] = res["risk_level"]
             merged["confidence"] = res["confidence"]
             self.txn_cache.cache_transaction(merged, now=ts)
+        if self.typed_graph is not None:
+            # the typed graph's ingest: the batch's user -> device / merchant
+            # / IP links, then the sampler evicts what they changed
+            self.typed_graph.add_batch(
+                [str(r.get("user_id", "")) for r in records],
+                [str(r.get("merchant_id", "")) for r in records],
+                [str(r.get("device_id") or r.get("device_fingerprint") or "")
+                 for r in records],
+                [str(r.get("ip_address") or "") for r in records])
+            self._sampler.sync()
 
     def _build_responses(self, records, out, n, elapsed_ms, model_valid=None,
                          rules_only=False) -> List[Dict[str, Any]]:
@@ -651,8 +795,11 @@ class TorchFraudScorer:
         per_txn_ms = elapsed_ms / max(n, 1)
 
         results = []
-        weights = self.ensemble_params.weights.cpu().numpy()
         with_explanation = self.config.ensemble.enable_explanation
+        # the weights' host copy is cached: reading the card here would wait
+        # on whatever another thread has queued on its stream
+        weights = (np.asarray(_host_vectors(self.ensemble_params)[0], np.float32)
+                   if with_explanation and contrib_cols is None else None)
         for i, rec in enumerate(records):
             model_predictions = {
                 name: float(preds[i, j])

@@ -7,7 +7,9 @@ takeover and impossible travel, structuring amounts for laundering, and the
 simulator's basic 7-pattern mix (simulator.py:106-127) as
 ``BASIC_FRAUD_MIX``. Every draw comes from an injected
 ``numpy.random.Generator``, so a seed replays the same records as the JAX
-package's simulator. The coordinated fraud ring is not ported.
+package's simulator. ``FraudRing`` is the coordinated ring (a user cohort
+funnelling traffic through a small shared set of merchants, device
+fingerprints and egress IPs), the traffic the typed entity graph exists for.
 """
 
 from __future__ import annotations
@@ -207,3 +209,102 @@ def _random_public_ip(rng: np.random.Generator) -> str:
     if octets[0] in (10, 192, 172, 127):
         octets[0] = 52
     return ".".join(str(int(o)) for o in octets)
+
+
+# ---------------------------------------------------------------------------
+# coordinated fraud ring
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class FraudRingConfig:
+    """Shape of a coordinated fraud ring: one attacker operating many
+    compromised accounts through a SHARED, small entity set."""
+
+    n_members: int = 24       # compromised user cohort
+    n_merchants: int = 6      # complicit merchant set (one benign category)
+    n_devices: int = 4        # shared device fingerprints (the attacker's)
+    n_ips: int = 3            # shared egress IPs
+    rate: float = 0.08        # fraction of the stream that is ring traffic
+    merchant_category: str = "grocery"   # camouflage category
+
+    def validate(self) -> None:
+        if not 0.0 <= self.rate <= 1.0:
+            raise ValueError(f"ring rate must be in [0, 1], got {self.rate}")
+        if min(self.n_members, self.n_merchants, self.n_devices,
+               self.n_ips) < 1:
+            raise ValueError("ring needs >= 1 member/merchant/device/ip")
+
+
+class FraudRing:
+    """Stateful coordinated-ring applier over transaction dicts.
+
+    A user cohort funnels transactions through a handful of shared
+    merchants, device fingerprints and egress IPs. Each transaction stays in
+    distribution per feature (the member's own amount, geo near home, a
+    benign prior score); the signal is the shared-entity structure the
+    typed graph's two-hop frontier sees. Membership and every per-record
+    draw come from the injected rng, so a seed replays the same ring.
+    """
+
+    def __init__(self, config: FraudRingConfig, users,
+                 merchant_ids: np.ndarray,
+                 merchant_categories: np.ndarray,
+                 rng: np.random.Generator):
+        config.validate()
+        self.config = config
+        self.users = users              # sim.simulator.UserPool
+        member_idx = rng.choice(users.n,
+                                size=min(config.n_members, users.n),
+                                replace=False)
+        self.member_idx = np.sort(member_idx)
+        self.member_ids = users.ids[self.member_idx]
+        in_cat = merchant_ids[merchant_categories
+                              == config.merchant_category]
+        if len(in_cat) == 0:
+            in_cat = merchant_ids
+        self.merchant_ids = in_cat[:config.n_merchants]
+        self.device_ids = [f"ringdev_{int(rng.integers(0, 2**32)):08x}"
+                           for _ in range(config.n_devices)]
+        self.ips = [_random_public_ip(rng) for _ in range(config.n_ips)]
+        self.rng = rng
+        self.applied = 0
+
+    def apply(self, txn: Dict[str, Any]) -> Dict[str, Any]:
+        """Rewrite one transaction as ring traffic: a member's own spend
+        and home geo, one of the ring's merchants, devices and IPs."""
+        rng = self.rng
+        u = int(self.member_idx[int(rng.integers(0,
+                                                 len(self.member_idx)))])
+        txn["user_id"] = str(self.users.ids[u])
+        txn["amount"] = max(1.0, round(
+            float(self.users.avg_amount[u])
+            * float(rng.normal(1.0, 0.3)) * float(rng.normal(1.0, 0.2)), 2))
+        txn["geolocation"] = {
+            "lat": float(self.users.home_lat[u] + rng.normal(0, 0.5)),
+            "lon": float(self.users.home_lon[u] + rng.normal(0, 0.5)),
+        }
+        txn["merchant_id"] = str(
+            self.merchant_ids[int(rng.integers(0, len(self.merchant_ids)))])
+        device = self.device_ids[int(rng.integers(0, len(self.device_ids)))]
+        txn["device_id"] = device
+        txn["device_fingerprint"] = device
+        txn["ip_address"] = self.ips[int(rng.integers(0, len(self.ips)))]
+        txn["is_fraud"] = True
+        txn["fraud_type"] = "fraud_ring"
+        txn["fraud_score"] = float(rng.uniform(0.0, 0.3))
+        txn["fraud_reason"] = (
+            "coordinated ring (shared devices/merchants/IPs across cohort)")
+        self.applied += 1
+        return txn
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "members": len(self.member_ids),
+            "merchants": len(self.merchant_ids),
+            "devices": len(self.device_ids),
+            "ips": len(self.ips),
+            "category": self.config.merchant_category,
+            "rate": self.config.rate,
+            "applied": self.applied,
+        }

@@ -12,7 +12,11 @@ the same profiles as the JAX package's generator.
 - ``generate_encoded(n)``: columns straight into a ``TransactionBatch`` +
   labels, vectorized in numpy.
 
-Drift injection, the fraud ring and label events are not ported.
+- ``inject_fraud_ring(config)``: a coordinated ring (``FraudRing``) takes a
+  ``config.rate`` share of the stream; the per-record draw happens only
+  while a ring is set, so a stream without one is unchanged.
+
+Drift injection and label events are not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from realtime_fraud_detection_tpu_torch.features.schema import (
 from realtime_fraud_detection_tpu_torch.sim.fraud_patterns import (
     AdvancedFraudPatterns,
     BASIC_FRAUD_MIX,
+    FraudRing,
+    FraudRingConfig,
 )
 
 # (category, mcc, risk_level, avg_amount, fraud_rate) — simulator.py:255-266
@@ -185,6 +191,8 @@ class TransactionGenerator:
         self.clock = start_time or datetime(2026, 1, 5, 8, 0, tzinfo=timezone.utc)
         self.tps = tps
         self._txn_counter = 0
+        # coordinated fraud ring (inject_fraud_ring); None = off
+        self._ring: FraudRing | None = None
 
     # ------------------------------------------------------------------ dicts
     def generate_batch(self, n: int) -> List[Dict[str, Any]]:
@@ -267,7 +275,22 @@ class TransactionGenerator:
         else:
             txn["fraud_score"] = float(rng.uniform(0.0, 0.3))
             self.patterns.record_location(txn["user_id"], geo)
+        if self._ring is not None and rng.random() < self._ring.config.rate:
+            txn = self._ring.apply(txn)
         return txn
+
+    # ------------------------------------------------------------ fraud ring
+    def inject_fraud_ring(self, config: FraudRingConfig | None = None) -> FraudRing:
+        """Activate a coordinated fraud ring: a deterministic user cohort
+        funnels a ``config.rate`` share of the stream through a small shared
+        merchant / device / IP set. Returns the live ring."""
+        self._ring = FraudRing(config or FraudRingConfig(), self.users,
+                               self.merchants.ids, self.merchants.category,
+                               self.rng)
+        return self._ring
+
+    def clear_fraud_ring(self) -> None:
+        self._ring = None
 
     def _random_ip(self) -> str:
         rng = self.rng

@@ -12,10 +12,12 @@ graph, FraudDetectionJob.java:33-106, with the ML seam wired):
 Offsets are committed only after write-back and every produce, so a crash
 replays the uncommitted tail, and replayed transaction ids are
 deduplicated against the in-flight ids and the scorer's transaction cache
-(at-least-once delivery, effectively-once scoring). The QoS, tracing,
-tuning, feedback, analytics, enrichment, device-pool and overlapped-assembly
-planes are not ported: ``JobConfig`` has no fields for them, so passing one
-is an error.
+(at-least-once delivery, effectively-once scoring). With
+``JobConfig.overlap_assembly`` the scorer's assemble + dispatch run on an
+``AssemblerStage`` thread while this thread waits on the card; admission,
+dedupe, completion order and commits stay on this thread. The QoS, tracing,
+tuning, feedback, analytics, enrichment and device-pool planes are not
+ported: ``JobConfig`` has no fields for them, so passing one is an error.
 """
 
 from __future__ import annotations
@@ -51,6 +53,13 @@ class JobConfig:
     # at depth D a user's transactions in D consecutive batches see velocity
     # counts missing up to D-1 batches' updates.
     pipeline_depth: int = 2
+    # overlapped host assembly (scoring/host_pipeline.AssemblerStage): a
+    # background thread assembles and launches batch N+1 while this thread
+    # waits out batch N on the card. Completion order and commits are
+    # unchanged, but which write-backs land before an assembly depends on
+    # timing, so decisions are not bit-reproducible: off where replays must
+    # match, on for throughput
+    overlap_assembly: bool = False
     transactions_topic: str = T.TRANSACTIONS
     predictions_topic: str = T.PREDICTIONS
     alerts_topic: str = T.ALERTS
@@ -64,7 +73,7 @@ class _BatchCtx:
 
     fresh: List[Record]
     ids: set
-    pending: Any                      # scoring.scorer.PendingScore | None
+    pending: Any                      # PendingScore | AssembledHandle | None
     positions: Dict[tuple, int]       # offsets to commit at completion
     now: Optional[float]
     # records rejected by per-record sanitization: each gets its own error
@@ -95,7 +104,9 @@ class StreamJob:
 
     The run loops keep up to ``JobConfig.pipeline_depth`` microbatches in
     flight and complete them (fan-out + offset commit) strictly in dispatch
-    order. The whole job runs on the caller's thread.
+    order. The job runs on the caller's thread, but for the scorer's
+    assemble + dispatch under ``overlap_assembly``; ``close`` stops that
+    stage's thread.
     """
 
     def __init__(self, broker: InMemoryBroker, scorer: Any,
@@ -118,6 +129,19 @@ class StreamJob:
         # transaction ids dispatched but not yet written back: batch N+1 is
         # deduplicated against them before batch N lands in the txn cache
         self._inflight_ids: set = set()
+        self._stage = None
+        if self.config.overlap_assembly:
+            from realtime_fraud_detection_tpu_torch.scoring.host_pipeline import (
+                AssemblerStage,
+            )
+
+            self._stage = AssemblerStage(
+                scorer, depth=max(1, self.config.pipeline_depth))
+
+    def close(self) -> None:
+        """Stop the background assembler stage (no-op without overlap)."""
+        if self._stage is not None:
+            self._stage.close()
 
     # ----------------------------------------------------------------- steps
     def dispatch_batch(self, records: List[Record],
@@ -157,7 +181,12 @@ class StreamJob:
                              cached_dups)
         pending = None
         try:
-            pending = self.scorer.dispatch([r.value for r in fresh], now=now)
+            if self._stage is not None:
+                # resolves to the PendingScore at completion, where an
+                # assembly or dispatch error takes the degradation path
+                pending = self._stage.submit([r.value for r in fresh], now=now)
+            else:
+                pending = self.scorer.dispatch([r.value for r in fresh], now=now)
         except Exception:
             # whole-batch degradation: REVIEW at 0.5 keeps the stream alive;
             # counted as errors at completion
@@ -179,8 +208,13 @@ class StreamJob:
         scored_ok, results, feats = False, None, None
         if ctx.pending is not None:
             try:
-                results = self.scorer.finalize(ctx.pending, now=now)
-                feats = ctx.pending.features
+                pending = ctx.pending
+                if self._stage is not None:
+                    pending = pending.result()
+                results = self.scorer.finalize(
+                    pending, now=now,
+                    lock=self._stage.lock if self._stage is not None else None)
+                feats = pending.features
                 scored_ok = True
             except Exception:
                 results = None

@@ -525,3 +525,78 @@ def test_score_batch_writes_back_and_dispatch_of_nothing(assemble_pair):
         "assemble", "graph", "pack", "dispatch", "device_wait"}
     empty = scorer.dispatch([], now=51.0)
     assert empty.n == 0 and scorer.finalize(empty, now=51.0) == []
+
+
+# ------------------------------------------------------ assemble_serial
+def _serial_pair(seed=5):
+    """Two identically seeded port scorers (each assembly path mutates the
+    history and graph state, so each gets its own) and a JAX scorer."""
+    gen = TransactionGenerator(num_users=120, num_merchants=40, seed=seed)
+    jax_scorer = FraudScorer(scorer_config=JaxScorerConfig(text_len=32), seed=3)
+    models = models_from_numpy(jax.tree_util.tree_map(np.asarray, jax_scorer.models))
+    port = [TorchFraudScorer(models=models, scorer_config=ScorerConfig(text_len=32),
+                             bert_config=TINY_CONFIG, device="cpu") for _ in range(2)]
+    for s in (*port, jax_scorer):
+        s.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+    return gen, port, jax_scorer
+
+
+def _assert_leaves_equal(got, want, exact=True):
+    from realtime_fraud_detection_tpu_torch.core.packing import tree_flatten
+
+    la, ta = tree_flatten(got)
+    lb = jax.tree_util.tree_leaves(want) if not exact else tree_flatten(want)[0]
+    assert len(la) == len(lb)
+    if exact:
+        assert ta == tree_flatten(want)[1]
+    for x, y in zip(la, lb):
+        x, y = np.asarray(x), np.asarray(y)
+        assert x.dtype == y.dtype and x.shape == y.shape
+        if x.ndim and x.shape[-1] == len(FEATURE_NAMES) and not exact:
+            assert_features_close(x, y)
+        else:
+            np.testing.assert_array_equal(x, y)
+
+
+def test_assemble_serial_matches_assemble_and_jax_on_randomized_records():
+    """``assemble`` == ``assemble_serial`` leaf for leaf on randomized
+    record streams (holes, ghosts, repeated users), and ``assemble_serial``
+    equals the JAX package's over the same stream."""
+    gen, (col, ser), jax_scorer = _serial_pair()
+    rng = np.random.default_rng(7)
+    for it in range(5):
+        records = _mutate(gen.generate_batch(int(rng.integers(1, 40))), rng)
+        now = 1000.0 + it
+        got = ser.assemble_serial(records, now=now)
+        _assert_leaves_equal(col.assemble(records, now=now), got)
+        _assert_leaves_equal(got, jax_scorer.assemble_serial(records, now=now),
+                             exact=False)
+        np.testing.assert_array_equal(ser.last_features, got.features)
+        results = [{"transaction_id": r["transaction_id"], "fraud_score": 0.1,
+                    "decision": "APPROVE", "risk_level": "LOW", "confidence": 0.9}
+                   for r in records]
+        for s in (col, ser, jax_scorer):
+            s._write_back(records, results, now)
+
+
+def test_assemble_serial_scores_and_profile_rewrites_match_assemble():
+    """The same batch through both assembly paths gives identical responses,
+    and a profile rewrite between batches is seen by both (the columnar
+    path's join cache is invalidated)."""
+    gen, (col, ser), _ = _serial_pair(seed=9)
+    for step in range(2):
+        records = gen.generate_batch(12)
+        if step:
+            uid = str(records[0]["user_id"])
+            for s in (col, ser):
+                s.profiles.put_user(uid, dict(s.profiles.get_user(uid) or {},
+                                              risk_score=0.97))
+        a = col.assemble(records, now=50.0 + step)
+        b = ser.assemble_serial(records, now=50.0 + step)
+        _assert_leaves_equal(a, b)
+        ra = col.finalize(col.dispatch_assembled(a, records), now=50.0 + step)
+        rb = ser.finalize(ser.dispatch_assembled(b, records), now=50.0 + step)
+        for x, y in zip(ra, rb):
+            assert (x["fraud_probability"], x["decision"], x["model_predictions"]) == \
+                (y["fraud_probability"], y["decision"], y["model_predictions"])
+    assert float(np.asarray(a.txn.user_risk_score)[0]) == pytest.approx(0.97)

@@ -216,12 +216,21 @@ def test_gnn_matches_jax(jax_models, port_models):
 
 
 def test_typed_gnn_is_not_ported_yet(port_models):
-    typed = dict(port_models.gnn, w_node_user=torch.eye(16))
-    z = torch.zeros((2, 16))
-    with pytest.raises(NotImplementedError):
-        gnn_logits(typed, torch.zeros((2, 64)), z, z, z[:, None].repeat(1, 4, 1),
-                   torch.ones((2, 4), dtype=torch.bool),
-                   z[:, None].repeat(1, 4, 1), torch.ones((2, 4), dtype=torch.bool))
+    # the typed layout is ported now (tests/test_torch_graph.py holds it
+    # against JAX): identity projections and untagged rows reduce it to the
+    # bipartite GNN over clipped transaction features
+    typed = dict(port_models.gnn, **{f"w_node_{t}": torch.eye(16) for t in
+                                     ("user", "merchant", "device", "ip")})
+    rng = np.random.default_rng(23)
+    args = [_t(rng.standard_normal(s).astype(np.float32))
+            for s in ((2, 64), (2, 16), (2, 16), (2, 4, 16))]
+    for node in args[1:]:
+        node[..., 8:11] = 0.0                 # the type-tag slots: users
+    mask = torch.ones((2, 4), dtype=torch.bool)
+    got = gnn_logits(typed, args[0] * 20, *args[1:], mask, args[3], mask)
+    want = gnn_logits(port_models.gnn, torch.clamp(args[0] * 20, -10.0, 10.0),
+                      *args[1:], mask, args[3], mask)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
 
 
 # -------------------------------------------------- features / rules / blend

@@ -324,6 +324,29 @@ def test_port_runs_with_jax_blocked():
         b = make_example_batch(3, rng=np.random.default_rng(0))
         out = s.finalize(s.dispatch_assembled(b, [{}] * 3))
         assert len(out) == 3 and all(0 <= r["fraud_probability"] <= 1 for r in out)
+        # the typed graph on a ring stream, bf16 wire, overlapped assembly
+        from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
+            ScorerConfig, init_scoring_models)
+        from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+        from realtime_fraud_detection_tpu_torch.stream import topics as T
+        from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
+        from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
+        gen = TransactionGenerator(num_users=30, num_merchants=10, seed=2)
+        gen.inject_fraud_ring()
+        t = TorchFraudScorer(
+            Config(kernels=KernelSettings.mega()),
+            models=init_scoring_models(1, n_trees=4, tree_depth=3, gnn_typed=True),
+            scorer_config=ScorerConfig(graph_mode="typed", text_len=16,
+                                       transfer_bf16=True), device="cpu")
+        t.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+        broker = InMemoryBroker()
+        job = StreamJob(broker, t, JobConfig(max_batch=16, overlap_assembly=True))
+        broker.produce_batch(T.TRANSACTIONS, gen.generate_batch(32),
+                             key_fn=lambda r: str(r["user_id"]))
+        assert job.run_until_drained(now=1.0) == 32 and job.counters["errors"] == 0
+        job.close()
+        assert t.kernel_snapshot()["fallback"]["megakernel"] == 2
+        assert t.graph_snapshot()["store"]["edges_added"] == 96
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

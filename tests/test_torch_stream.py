@@ -19,6 +19,7 @@ one batch at each lower rung: decisions equal there too, and at
 ``rules_only`` every score bit-exact.
 """
 
+import time
 from collections import Counter
 
 import jax
@@ -280,7 +281,9 @@ def test_job_config_refuses_unported_planes():
     with pytest.raises(TypeError):
         JobConfig(qos=object())
     with pytest.raises(TypeError):
-        JobConfig(overlap_assembly=True)
+        JobConfig(device_pool=True)
+    # the overlapped assembly stage is ported now
+    assert JobConfig(overlap_assembly=True).overlap_assembly
 
 
 def test_dispatch_error_is_counted_not_hidden():
@@ -364,3 +367,182 @@ def test_run_job_on_the_cpu_when_asked(capsys):
     assert summary["counters"]["errors"] == 0 and summary["counters"]["batches"] == 2
     assert set(summary["host_stage_mean_ms"]) == {
         "assemble", "graph", "pack", "dispatch", "device_wait"}
+
+
+# ------------------------------------------------ overlapped assembly stage
+def _stage_scorers(seed):
+    """A JAX scorer and a port scorer on the same (bridged) models and
+    profiles, with their simulators."""
+    jax_models = _jax_models()
+    jax_gen = JaxTransactionGenerator(num_users=60, num_merchants=20, seed=seed)
+    gen = TransactionGenerator(num_users=60, num_merchants=20, seed=seed)
+    jax_scorer = FraudScorer(models=jax_models,
+                             scorer_config=JaxScorerConfig(text_len=32))
+    scorer = TorchFraudScorer(models=models_from_numpy(jax_models),
+                              scorer_config=ScorerConfig(text_len=32),
+                              bert_config=TINY_CONFIG, device="cpu")
+    jax_scorer.seed_profiles(jax_gen.users.profiles(), jax_gen.merchants.profiles())
+    scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+    return jax_models, (jax_gen, jax_scorer), (gen, scorer)
+
+
+def test_assembler_stage_direct_matches_jax():
+    """``submit`` / ``finalize`` join in FIFO order on both stages, with the
+    same decisions as the JAX stage's (velocity written back between
+    batches: each is finalized before the next is submitted)."""
+    from realtime_fraud_detection_tpu.scoring import AssemblerStage as JaxAssemblerStage
+    from realtime_fraud_detection_tpu_torch.scoring.host_pipeline import AssemblerStage
+
+    jax_models, (jax_gen, jax_scorer), (gen, scorer) = _stage_scorers(21)
+    weights = JaxEnsembleParams.from_config(JaxConfig(), MODEL_NAMES).weights
+    tokens = []
+    assemble = jax_scorer.assemble
+
+    def keep_tokens(*args, **kwargs):
+        batch = assemble(*args, **kwargs)
+        tokens.append((np.asarray(batch.token_ids), np.asarray(batch.token_mask)))
+        return batch
+
+    jax_scorer.assemble = keep_tokens
+    stage, jstage = AssemblerStage(scorer, depth=2), JaxAssemblerStage(jax_scorer, depth=2)
+    try:
+        got, want = [], []
+        for i in range(3):
+            batch = gen.generate_batch(8)
+            assert batch == jax_gen.generate_batch(8)
+            got.append(stage.finalize(stage.submit(batch, now=100.0 + i), now=100.0 + i))
+            want.append(jstage.finalize(jstage.submit(batch, now=100.0 + i),
+                                        now=100.0 + i))
+            assert [r["transaction_id"] for r in got[-1]] == \
+                [str(rec["transaction_id"]) for rec in batch]
+        # submitted back to back: FIFO, whatever the thread interleaving
+        batches = [gen.generate_batch(8) for _ in range(3)]
+        handles = [stage.submit(b, now=200.0) for b in batches]
+        order = [r["transaction_id"] for h in handles
+                 for r in stage.finalize(h, now=200.0)]
+        assert order == [str(r["transaction_id"]) for b in batches for r in b]
+        assert stage.batches == 6 and stage.busy_s > 0.0
+    finally:
+        stage.close()
+        jstage.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        stage.submit(batches[0])
+    bound = noise_bound(jax_models.bert, tokens, weights, np.ones(5, bool))
+    near = _compare_decisions([r for b in got for r in b],
+                              [r for b in want for r in b], bound)
+    assert int(near.sum()) == 0
+
+
+class _SlowScorer(TorchFraudScorer):
+    """A port scorer with a fixed assembly and device latency and a timeline
+    of (stage, start, end) intervals from whichever thread ran them."""
+
+    ASSEMBLE_S = 0.015
+    DEVICE_S = 0.03
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.events = []
+
+    def assemble(self, records, now=None):
+        t0 = time.perf_counter()
+        time.sleep(self.ASSEMBLE_S)
+        batch = super().assemble(records, now)
+        self.events.append(("assemble", t0, time.perf_counter()))
+        return batch
+
+    def finalize(self, pending, now=None, lock=None):
+        t0 = time.perf_counter()
+        time.sleep(self.DEVICE_S)
+        out = super().finalize(pending, now=now, lock=lock)
+        self.events.append(("device", t0, time.perf_counter()))
+        return out
+
+
+def _overlap_run(overlap, jax_side=False):
+    """192 records (a duplicate and a malformed one among them) in batches
+    of 32 at a fixed virtual clock, through the port's or the JAX job."""
+    seed = 13
+    if jax_side:
+        gen = JaxTransactionGenerator(num_users=60, num_merchants=20, seed=seed)
+        scorer = FraudScorer(scorer_config=JaxScorerConfig(text_len=16))
+        broker = JaxInMemoryBroker()
+        job = JaxStreamJob(broker, scorer, JaxJobConfig(
+            max_batch=32, overlap_assembly=overlap, pipeline_depth=2,
+            emit_features=False))
+    else:
+        gen = TransactionGenerator(num_users=60, num_merchants=20, seed=seed)
+        scorer = _SlowScorer(scorer_config=ScorerConfig(text_len=16), device="cpu")
+        broker = InMemoryBroker()
+        job = StreamJob(broker, scorer, JobConfig(
+            max_batch=32, overlap_assembly=overlap, pipeline_depth=2,
+            emit_features=False))
+    scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+    records = gen.generate_batch(190)
+    records += [dict(records[5]), dict(records[6], transaction_id="bad", amount="x")]
+    broker.produce_batch(T.TRANSACTIONS, records, key_fn=lambda r: str(r["user_id"]))
+    job.run_until_drained(now=500.0)
+    job.close()
+    order = [p["transaction_id"] for p in _topic(broker, T.PREDICTIONS)]
+    return job, scorer, order, broker
+
+
+def test_overlap_keeps_order_admission_and_delivery_like_jax():
+    """The stage changes when work happens, not what happens: the same
+    prediction order, counters and commits as the serial run and as the
+    JAX job with overlap on, while an assembly provably overlaps another
+    batch's device wait. Decisions are not compared: which write-backs
+    land before an assembly depends on timing."""
+    job_a, sc_a, order_a, broker_a = _overlap_run(overlap=False)
+    job_b, sc_b, order_b, broker_b = _overlap_run(overlap=True)
+    jax_job, _, jax_order, _ = _overlap_run(overlap=True, jax_side=True)
+    assert order_a == order_b == jax_order
+    assert job_a.counters == job_b.counters == jax_job.counters
+    assert job_b.counters["scored"] == 190 and job_b.counters["errors"] == 1
+    assert job_b.counters["duplicates_skipped"] == 1
+    for broker, job in ((broker_a, job_a), (broker_b, job_b)):
+        assert broker.lag(job.config.group_id, T.TRANSACTIONS) == 0
+    assert len(set(order_b)) == len(order_b) == 191
+
+    def overlapped(events, slack):
+        asm = [e for e in events if e[0] == "assemble"]
+        dev = [e for e in events if e[0] == "device"]
+        return any(min(a1, d1) - max(a0, d0) > slack
+                   for _, a0, a1 in asm for _, d0, d1 in dev)
+
+    assert overlapped(sc_b.events, 0.005), "no assemble / device overlap"
+    assert not overlapped(sc_a.events, 0.0)
+    assert job_b._stage.batches == 6
+
+
+@pytest.mark.parametrize("jax_side", [False, True], ids=["port", "jax"])
+def test_stage_error_takes_the_degradation_path(jax_side):
+    """An assembly error inside the stage surfaces at completion as the
+    whole-batch REVIEW result, on both jobs alike: never a hang or a lost
+    batch."""
+    if jax_side:
+        gen = JaxTransactionGenerator(num_users=20, num_merchants=10, seed=2)
+        scorer = FraudScorer(scorer_config=JaxScorerConfig(text_len=16))
+        broker = JaxInMemoryBroker()
+        job = JaxStreamJob(broker, scorer, JaxJobConfig(
+            max_batch=16, overlap_assembly=True, emit_features=False))
+    else:
+        gen = TransactionGenerator(num_users=20, num_merchants=10, seed=2)
+        scorer = TorchFraudScorer(scorer_config=ScorerConfig(text_len=16), device="cpu")
+        broker = InMemoryBroker()
+        job = StreamJob(broker, scorer, JobConfig(
+            max_batch=16, overlap_assembly=True, emit_features=False))
+    scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+
+    def boom(*args, **kwargs):
+        raise RuntimeError("assembly exploded")
+
+    scorer.assemble = boom
+    broker.produce_batch(T.TRANSACTIONS, gen.generate_batch(16),
+                         key_fn=lambda r: str(r["user_id"]))
+    job.run_until_drained(now=10.0)
+    job.close()
+    preds = _topic(broker, T.PREDICTIONS)
+    assert len(preds) == 16 and all(p["decision"] == "REVIEW" for p in preds)
+    assert job.counters["errors"] == 16
+    assert broker.lag(job.config.group_id, T.TRANSACTIONS) == 0
