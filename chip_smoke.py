@@ -81,7 +81,41 @@ Phases, each of which raises (and exits non-zero) on failure:
    before an assembly depends on timing); txn/s, p50 / p99 and host ms per
    stage of both;
 11. the port's kernel drill (``KernelDrillConfig.fast()``) on the card, on
-   the per-site chain and on the megakernel: both verdicts must pass.
+   the per-site chain and on the megakernel: both verdicts must pass;
+12. the wordpiece tokenizer at full width: phase 8's DistilBERT-base stream
+   (the same 1,024 transactions, ``KernelSettings.full()``, int8 BERT, the
+   kernels-off card scorer as reference) with
+   ``ScorerConfig(tokenizer="wordpiece")``: 1 / 6 / 36 / 2 launches a batch,
+   every batch's ids and masks equal a CPU ``WordPieceTokenizer``'s on the
+   same texts, the highest id inside the word table, ``dequant_rows`` at the
+   word site bit-exact on a stream batch's ids; prints the tokenizer's host
+   ms a batch, the token cache's counters, txn/s and batch p50 / p99 beside
+   phase 8's word-tokenizer stream;
+13. the QoS plane live on the card: the TINY ``mega()`` stream (int8 BERT,
+   overlap off, depth 2, batches of 256) under ``QosSettings(enabled=True)``
+   at the JAX defaults (budget 20 ms, margin 2 ms, watermarks 2,048 / 256,
+   patience 2, up-patience 8) with admission at 25,000 txn/s and a bucket
+   of 1,024. Ingest timestamps, admission and the budget run on a virtual
+   clock of one 5.12 ms period a batch (256 transactions at 50,000 txn/s):
+   6,100 transactions arrive in period 0 (23 batches the size trigger
+   closes, then 212 the budget closes), then 64 a period for 32 periods
+   (each closed by the 5 ms deadline). The ladder steps down to
+   ``rules_only`` in the burst and back to ``full_ensemble`` in the
+   trickle. The rung sequence, the shed ids and reasons equal the same
+   schedule through a kernels-off CPU scorer; no high-priority record is
+   shed; each produced id is on the predictions topic once; each batch
+   launches the megakernel once with its rung's ``mega_valid`` (all false
+   at ``rules_only``) and no per-site kernel; decisions within the drill's
+   bound at every rung, ``rules_only`` bit-exact; the exposition carries the
+   ``qos_*`` families and the budget closes. Prints per rung the batches,
+   the megakernel's device ms (CUDA events behind a spin kernel, each launch
+   replayed once on a second run of the schedule, whose rungs and masks must
+   equal the first's) and host batch p50 / p99, the
+   transitions, the sheds by priority, the close reasons and the admitted
+   records' virtual latency p99 against the budget. Last, a scorer built
+   from ``Config()`` + ``apply_quality_artifact("QUALITY_r05.json")`` serves
+   its blend on one TINY bucket-256 batch in one megakernel launch at
+   ``mega_valid`` (T, T, F, F, T), held against the kernels-off plain path.
 
 The last three lines of standard output are the kernel JSON line (all five
 kernels), the ``nvidia-smi`` name and power limit, and the result line
@@ -818,22 +852,50 @@ def _kernel_smem(mk, models, raw, cfg) -> int:
     return int(mk.kernel_library().rtfd_megakernel_smem_bytes(ctypes.addressof(args)))
 
 
-def device_events(fn, reps: int = 5) -> list:
+def spun_ms(fn, spin_cycles: int = 4_000_000, tries: int = 4) -> tuple[float, int]:
+    """Device ms of the work ``fn`` queues, by CUDA events behind a spin
+    kernel (about 2 ms at H100 clocks): the card spins while the host fills
+    the launch's arguments, so the start event fires with the kernel already
+    queued. If the card passed the start event before ``fn`` returned, it
+    waited on the host: retried with twice the spin. Returns the ms and the
+    number of retries."""
+    for retry in range(tries):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        fn()
+        late = start.query()
+        end.record()
+        end.synchronize()
+        if not late:
+            return start.elapsed_time(end), retry
+        spin_cycles *= 2
+    fail(f"spun_ms: the card reached the start event before the launch was "
+         f"queued, {tries} times")
+
+
+def device_events(fn, reps: int = 5, want: str | None = None,
+                  tries: int = 3) -> list:
     """The profiler's device events (kernels and copies) over ``reps`` calls
-    after one warm-up call."""
+    after one warm-up call. CUPTI drops device records now and then: a pass
+    that saw no device time (or no kernel whose name holds ``want``) is
+    profiled again, up to ``tries`` passes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    if sum(e.self_device_time_total for e in device) <= 0:
-        fail("the profiler saw no device time")
-    return device
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if (sum(e.self_device_time_total for e in device) > 0
+                and (want is None or any(want in e.key for e in device))):
+            return device
+    fail(f"the profiler saw no device time{f' in {want}' if want else ''} "
+         f"in {tries} passes")
 
 
 def device_ms(fn, reps: int = 5) -> tuple[float, float]:
@@ -1180,13 +1242,14 @@ class StreamTimer:
 
 
 def drive_stream(records, profiles, bert_config, config, device, timed=False,
-                 tokens=None, models=None, scorer_config=None, overlap=False):
+                 tokens=None, models=None, scorer_config=None, overlap=False,
+                 texts=None):
     """The port's ``StreamJob`` over ``records`` on a fresh scorer (the
     width's seeded models unless ``models`` is given) and in-memory broker,
     at the fixed virtual clock; returns (job, broker, scorer, timer). With a
-    ``tokens`` list, each batch's (ids, mask) is appended to it; with
-    ``overlap`` the job runs the overlapped assembly stage (closed before
-    this returns)."""
+    ``tokens`` list, each batch's (ids, mask) is appended to it, with a
+    ``texts`` list each batch's tokenizer input texts; with ``overlap`` the
+    job runs the overlapped assembly stage (closed before this returns)."""
     from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
     from realtime_fraud_detection_tpu_torch.stream import topics as T
     from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
@@ -1205,6 +1268,15 @@ def drive_stream(records, profiles, bert_config, config, device, timed=False,
             return batch
 
         scorer.assemble = keep_tokens
+    if texts is not None:
+        texts_for = scorer._texts_for
+
+        def keep_texts(*args, **kwargs):
+            out = texts_for(*args, **kwargs)
+            texts.append(out)
+            return out
+
+        scorer._texts_for = keep_texts
     broker = InMemoryBroker()
     job = StreamJob(broker, scorer, JobConfig(max_batch=BATCH, pipeline_depth=2,
                                               overlap_assembly=overlap))
@@ -1270,12 +1342,14 @@ def compare_streams(name, preds, ref_preds, tol, label):
     return err
 
 
-def run_stream(ops, name, bert_config, kernels, count, expected, cpu_reference):
+def run_stream(ops, name, bert_config, kernels, count, expected, cpu_reference,
+               scorer_config=None):
     """The stream phase of one width: ``count`` simulator transactions
     through the port's ``StreamJob`` on the card (launch counters reset just
     before, read just after), checked, held against a kernels-off card
     scorer (and a CPU scorer) on the same stream, then the first batch
-    re-produced. Returns the stream's launch counts."""
+    re-produced. Returns the stream's launch counts, its timing summary, the
+    card's scorer and each batch's tokens and tokenizer texts."""
     from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
     from realtime_fraud_detection_tpu_torch.stream import topics as T
     from realtime_fraud_detection_tpu_torch.utils.config import Config, QuantSettings
@@ -1287,10 +1361,12 @@ def run_stream(ops, name, bert_config, kernels, count, expected, cpu_reference):
     config = Config(quant=QuantSettings.full(), kernels=kernels)
     n_batches = count // BATCH
 
+    card_tokens, texts = [], []
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     job, broker, scorer, timer = drive_stream(records, profiles, bert_config, config,
-                                              "cuda", timed=True)
+                                              "cuda", timed=True, tokens=card_tokens,
+                                              scorer_config=scorer_config, texts=texts)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     want = {k: v * n_batches for k, v in expected.items()}
@@ -1310,7 +1386,8 @@ def run_stream(ops, name, bert_config, kernels, count, expected, cpu_reference):
     for label, ref_config, device in refs:
         tokens = []
         ref_job, ref_broker, _, _ = drive_stream(records, profiles, bert_config,
-                                                 ref_config, device, tokens=tokens)
+                                                 ref_config, device, tokens=tokens,
+                                                 scorer_config=scorer_config)
         ref_preds = check_stream_output(f"{name} ({label})", ref_job, ref_broker,
                                         records)
         if tol is None:         # the stream's own tokens, the served models
@@ -1336,7 +1413,8 @@ def run_stream(ops, name, bert_config, kernels, count, expected, cpu_reference):
     print(f"{name} stream timing (host clock, {STREAM_USERS} users, "
           f"{STREAM_MERCHANTS} merchants, batch {BATCH}, pipeline depth 2): "
           + json.dumps(summary), flush=True)
-    return launches
+    return dict(launches=launches, summary=summary, scorer=scorer, tokens=card_tokens,
+                texts=texts)
 
 
 # the typed-graph stream phase: the TINY default model with typed GNN
@@ -1538,6 +1616,514 @@ def run_overlap(ops):
     return runs[True]["launches"]
 
 
+def run_wordpiece_stream(ops, chain, word):
+    """The DistilBERT-base stream of phase 8 with
+    ``ScorerConfig(tokenizer="wordpiece")``: the same transactions, kernels,
+    checks and kernels-off card reference (``run_stream``), plus: every
+    batch's token ids and masks equal a CPU ``WordPieceTokenizer``'s on the
+    same texts, the highest id lies inside the word embedding table, and
+    ``dequant_rows`` at the word site on a stream batch's ids is bit-exact.
+    ``word`` is phase 8's word-tokenizer stream, printed beside it. Returns
+    the stream's launch counts."""
+    import numpy as np
+
+    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE
+    from realtime_fraud_detection_tpu_torch.models.wordpiece import WordPieceTokenizer
+    from realtime_fraud_detection_tpu_torch.ops.dequant_matmul import (
+        dequant_rows,
+        dequant_rows_reference,
+    )
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import ScorerConfig
+    from realtime_fraud_detection_tpu_torch.utils.config import KernelSettings
+
+    name = "DistilBERT-base wordpiece"
+    sc = ScorerConfig(tokenizer="wordpiece")
+    out = run_stream(ops, name, DISTILBERT_BASE, KernelSettings.full(), 4 * BATCH,
+                     chain, cpu_reference=False, scorer_config=sc)
+    scorer = out["scorer"]
+    if not isinstance(scorer.tokenizer, WordPieceTokenizer):
+        fail(f"{name}: the scorer's tokenizer is {type(scorer.tokenizer).__name__}")
+    if len(out["tokens"]) != len(out["texts"]) or not out["tokens"]:
+        fail(f"{name}: {len(out['tokens'])} token batches for {len(out['texts'])} texts")
+    cpu = WordPieceTokenizer(max_length=sc.text_len)
+    for k, ((ids, mask), texts) in enumerate(zip(out["tokens"], out["texts"])):
+        want_ids, want_mask = cpu.encode_batch(texts)
+        if not (np.array_equal(ids, want_ids) and np.array_equal(mask, want_mask)):
+            fail(f"{name}: batch {k} tokens differ from a CPU WordPieceTokenizer's")
+    table = scorer.models.bert["word_emb"]
+    rows = int(table["qe"].shape[0])
+    top = max(int(ids.max()) for ids, _ in out["tokens"])
+    if not top < min(rows, cpu.vocab_size):
+        fail(f"{name}: token id {top} outside the table ({rows} rows) or the "
+             f"vocabulary ({cpu.vocab_size})")
+    idx = torch.from_numpy(np.ascontiguousarray(out["tokens"][0][0], np.int32)).cuda()
+    got = dequant_rows(table["qe"], table["scale"], idx=idx)
+    ref = dequant_rows_reference(table["qe"], table["scale"], idx=idx)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        fail(f"{name}: dequant_rows at the word site is not bit-exact on the "
+             f"stream's ids")
+    pieces = int((idx >= 1000).sum())
+    stats = {}
+    for label, run in (("word", word), ("wordpiece", out)):
+        t = run["summary"]
+        stats[label] = dict(
+            txn_per_s=t["txn_per_s"], batch_ms_p50=t["batch_ms_p50"],
+            batch_ms_p99=t["batch_ms_p99"],
+            tokenizer_ms_per_batch=t["inside_assemble_ms_per_batch"]["encode_batch"],
+            token_cache=run["scorer"].host_stats()["caches"]["tokens"])
+    print(f"{name}: every batch's ids and masks equal a CPU WordPieceTokenizer's "
+          f"({len(out['tokens'])} batches); highest id {top} < {rows} table rows and "
+          f"vocabulary {cpu.vocab_size}; dequant_rows word site bit-exact on "
+          f"{idx.numel()} ids ({pieces} vocabulary pieces); "
+          + json.dumps(stats), flush=True)
+    return out["launches"]
+
+
+# the QoS phase: the TINY mega() stream under the QoS plane at the JAX
+# package's defaults, admission at half the offered rate, on a virtual clock
+# of one batch period (256 transactions at the north star's 50,000 txn/s) a
+# dispatched batch: a burst, then a trickle of one step a period
+QOS_PERIOD_S = BATCH / 50_000.0          # 5.12 ms
+QOS_BURST = 6_100                        # 23 full batches, then 212 the budget closes
+QOS_TRICKLE_STEPS, QOS_TRICKLE = 32, 64
+QOS_ADMISSION_RATE = 25_000.0            # txn/s of virtual time
+QOS_ADMISSION_BURST = 1_024.0            # 40.96 ms of tokens at that rate
+QOS_FAMILIES = ("qos_admitted_total", "qos_shed_total", "qos_ladder_level",
+                "qos_ladder_transitions_total", "qos_degraded_scored_total",
+                "qos_budget_remaining_seconds")
+
+
+def qos_settings():
+    from realtime_fraud_detection_tpu_torch.utils.config import QosSettings
+
+    return QosSettings(enabled=True, admission_rate=QOS_ADMISSION_RATE,
+                       admission_burst=QOS_ADMISSION_BURST)
+
+
+def drive_qos(arrivals, profiles, config, device, models, timed=False):
+    """One run of the QoS schedule through the port's ``StreamJob`` with its
+    own ``QosPlane``, pipeline depth 2, overlap off. ``arrivals[k]`` are the
+    records of batch period k, produced at the period's start with that
+    virtual timestamp; the assembler and the plane's clocks read the same
+    virtual clock. A period dispatches at most one batch: one the size or
+    budget trigger closes at the period's start, else one the deadline
+    (5 ms) or budget closes at its end. Returns what the checks read: per
+    dispatched batch its served rung, its ids, host ms from dispatch to
+    completion and the ``mega_valid`` of each megakernel launch it made; with
+    ``timed`` (on the card), each launch is replayed once on the same inputs
+    and mask under ``spun_ms``, and ``kernel_ms`` holds those device ms in
+    launch order."""
+    from collections import deque
+
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.ops import megakernel as mk
+    from realtime_fraud_detection_tpu_torch.qos.plane import QosPlane
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
+    from realtime_fraud_detection_tpu_torch.stream.microbatch import MicrobatchAssembler
+    from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
+
+    scorer = TorchFraudScorer(config, models=models, bert_config=TINY_CONFIG,
+                              device=device)
+    scorer.seed_profiles(*profiles)
+    plane = QosPlane(qos_settings())
+    broker = InMemoryBroker()
+    job = StreamJob(broker, scorer, JobConfig(max_batch=BATCH, pipeline_depth=2,
+                                              qos=plane))
+    clock = [0.0]
+    job.assembler = MicrobatchAssembler(
+        job.consumer, max_batch=BATCH, max_delay_ms=job.config.max_delay_ms,
+        clock=lambda: clock[0], budget=plane.budget, budget_clock=lambda: clock[0])
+    launches, kernel_ms, spin_retries = [], ([] if timed else None), [0]
+    launch = mk._launch
+
+    def spy(entry, inputs, b, dev, params, mega_valid):
+        launches.append(tuple(mega_valid))
+        out = launch(entry, inputs, b, dev, params, mega_valid)
+        if timed:
+            ms, retries = spun_ms(
+                lambda: launch(entry, inputs, b, dev, params, mega_valid))
+            kernel_ms.append(ms)
+            spin_retries[0] += retries
+        return out
+
+    batches, in_flight = [], deque()
+
+    def complete():
+        ctx, info = in_flight.popleft()
+        job.complete_batch(ctx, now=clock[0])
+        info["t1"], info["t_done"] = time.perf_counter(), clock[0]
+
+    mk._launch = spy
+    try:
+        k = 0
+        while True:
+            clock[0] = k * QOS_PERIOD_S
+            for r in arrivals.get(k, ()):
+                broker.produce(T.TRANSACTIONS, r, key=str(r["user_id"]),
+                               timestamp=clock[0])
+            batch = job.assembler.next_batch(block=False)
+            if not batch:
+                clock[0] = (k + 1) * QOS_PERIOD_S
+                batch = job.assembler.next_batch(block=False)
+            k += 1
+            if not batch:
+                if k > max(arrivals):
+                    break           # every arrival assembled and dispatched
+                continue
+            before = len(launches)
+            t0 = time.perf_counter()
+            ctx = job.dispatch_batch(batch, now=clock[0])
+            info = dict(rung=plane.effective_level(), t0=t0, rows=len(batch),
+                        ids=[r.value["transaction_id"] for r in ctx.fresh],
+                        launches=launches[before:],
+                        kernel_launches=scorer.kernel_snapshot()["kernel_launches"]
+                        if ctx.pending is not None else 0)
+            batches.append(info)
+            in_flight.append((ctx, info))
+            while len(in_flight) >= job.config.pipeline_depth:
+                complete()
+        while in_flight:
+            complete()
+        if device != "cpu":
+            torch.cuda.synchronize()
+    finally:
+        mk._launch = launch
+    return dict(job=job, broker=broker, scorer=scorer, plane=plane, batches=batches,
+                kernel_ms=kernel_ms, spin_retries=spin_retries[0])
+
+
+def run_qos(ops):
+    """The QoS plane on the card: the TINY ``mega()`` stream under
+    ``QosSettings(enabled=True)`` at the JAX defaults (budget 20 ms, margin
+    2 ms, watermarks 2,048 / 256, patience 2, up-patience 8), admission at
+    25,000 txn/s with a bucket of 1,024, on a virtual clock of 5.12 ms a
+    batch period: a burst of 6,100 transactions in period 0 (23 batches the
+    size trigger closes and one of 212 the budget closes), then 32 periods
+    of 64 (each closed by the 5 ms deadline). The ladder steps down to
+    ``rules_only`` in the burst and back to ``full_ensemble`` in the
+    trickle. Gates: the rung sequence, the shed ids and every shed reason
+    equal a kernels-off CPU run of the same schedule; no high-priority
+    record shed; every id once on the predictions topic; one megakernel
+    launch per dispatched batch with that rung's mask and no per-site
+    kernel (counters and ``kernel_snapshot()`` agree); decisions within the
+    drill's bound at every rung, ``rules_only`` bit-exact; the exposition's
+    ``qos_*`` families and budget closes. Then the quality artifact's blend
+    in one launch. Returns the card run's launch counts."""
+    from collections import Counter
+
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.obs.profiling import interpolated_percentile
+    from realtime_fraud_detection_tpu_torch.qos.ladder import LADDER_LEVELS
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import MODEL_NAMES
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    name = "TINY QoS"
+    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                               seed=SEED)
+    profiles = (gen.users.profiles(), gen.merchants.profiles())
+    burst_periods = -(-QOS_BURST // BATCH)
+    arrivals = {0: gen.generate_batch(QOS_BURST)}
+    for k in range(burst_periods, burst_periods + QOS_TRICKLE_STEPS):
+        arrivals[k] = gen.generate_batch(QOS_TRICKLE)
+    produced = [r["transaction_id"] for k in sorted(arrivals) for r in arrivals[k]]
+    models = seeded_models(TINY_CONFIG)
+    config = Config(quant=QuantSettings.full(), kernels=KernelSettings.mega())
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    card = drive_qos(arrivals, profiles, config, "cuda", models)
+    launches = ops.launch_counts()
+    cpu = drive_qos(arrivals, profiles, Config(quant=QuantSettings.full()), "cpu", models)
+
+    rungs = [b["rung"] for b in card["batches"]]
+    if rungs != [b["rung"] for b in cpu["batches"]]:
+        fail(f"{name}: rung sequence {rungs} differs from the CPU run's "
+             f"{[b['rung'] for b in cpu['batches']]}")
+    if max(rungs) != 3 or rungs[-1] != 0 or rungs[0] != 0:
+        fail(f"{name}: the ladder did not step down to rules_only and back: {rungs}")
+    preds = {side: topic_values(run["broker"], T.PREDICTIONS)
+             for side, run in (("card", card), ("cpu", cpu))}
+    for side, ps in preds.items():
+        if Counter(p["transaction_id"] for p in ps) != Counter(produced):
+            fail(f"{name}: the {side} predictions do not hold each produced id once")
+        if any(p["explanation"].get("error") for p in ps):
+            fail(f"{name}: a {side} prediction carries an error")
+    shed = {side: {p["transaction_id"]: p["explanation"] for p in ps
+                   if p["explanation"].get("shed")} for side, ps in preds.items()}
+    if shed["card"] != shed["cpu"]:
+        fail(f"{name}: the shed ids or reasons differ from the CPU run's")
+    if not shed["card"] or any(e["priority"] == "high" for e in shed["card"].values()):
+        fail(f"{name}: {len(shed['card'])} shed, high priority among them: "
+             f"{Counter(e['priority'] for e in shed['card'].values())}")
+
+    # one megakernel launch per dispatched batch, with its rung's mask
+    n_scored = 0
+    for b in card["batches"]:
+        rung = LADDER_LEVELS[b["rung"]]
+        mask = tuple(n not in rung.dropped_branches for n in MODEL_NAMES)
+        want = [mask] if b["ids"] else []
+        if b["launches"] != want or b["kernel_launches"] != len(want):
+            fail(f"{name}: a batch at {rung.name} launched {b['launches']} / "
+                 f"{b['kernel_launches']}")
+        n_scored += bool(b["ids"])
+    want = {"epilogue": 0, "flash_attention": 0, "dequant_matmul": 0,
+            "dequant_rows": 0, "megakernel": n_scored}
+    snap = card["scorer"].kernel_snapshot()
+    if (launches != want or snap["dispatch"]["megakernel"] != n_scored
+            or any(snap["fallback"].values())
+            or any(snap["dispatch"][k] for k in ("dequant_matmul", "epilogue",
+                                                 "attention"))
+            or snap["launches_per_batch"] != 1):
+        fail(f"{name}: launches {launches} (expected {want}), snapshot {snap}")
+
+    # decisions per rung against the CPU run; rules_only bit-exact
+    rung_of = {i: b["rung"] for b in card["batches"] for i in b["ids"]}
+    scored = {side: [p for p in ps if not p["explanation"].get("shed")]
+              for side, ps in preds.items()}
+    errs = {}
+    for level, rung in enumerate(LADDER_LEVELS):
+        got = [p for p in scored["card"] if rung_of[p["transaction_id"]] == level]
+        ref = [p for p in scored["cpu"] if rung_of[p["transaction_id"]] == level]
+        if not got:
+            fail(f"{name}: no batch served at {rung.name}")
+        if rung.rules_only:
+            keys = ("transaction_id", "fraud_score", "confidence", "decision",
+                    "risk_level")
+            if [[p[k] for k in keys] for p in got] != [[p[k] for k in keys] for p in ref]:
+                fail(f"{name} rung {rung.name}: not bit-exact against the CPU")
+            errs[rung.name] = 0.0
+            print(f"  {name} rung {rung.name}: {len(got)} rows bit-exact against the "
+                  f"CPU", flush=True)
+            continue
+        mask = tuple(n not in rung.dropped_branches for n in MODEL_NAMES)
+        ids = {p["transaction_id"] for p in got}
+        tol = noise_bound(card["scorer"].models, TINY_CONFIG,
+                          qos_tokens(card["scorer"], arrivals, ids),
+                          card["scorer"].ensemble_params.weights, mask)
+        errs[rung.name] = compare_streams(f"{name} rung {rung.name}", got, ref, tol,
+                                          "a kernels-off CPU run")
+
+    # the exposition
+    plane, job = card["plane"], card["job"]
+    metrics = plane.metrics
+    metrics.sync_microbatch(job.assembler.close_reasons)
+    metrics.sync_kernels(snap)
+    metrics.sync_host_stats(card["scorer"].host_stats())
+    text = metrics.render_prometheus()
+    missing = [f for f in QOS_FAMILIES if f"# TYPE {f} " not in text]
+    closes = dict(job.assembler.close_reasons)
+    budget_line = f'microbatch_close_reason_total{{reason="budget"}} {closes.get("budget", 0)}'
+    if missing or (closes.get("budget") and budget_line not in text):
+        fail(f"{name}: exposition lacks {missing} or {budget_line!r}")
+
+    # the schedule once more on the card, each megakernel launch replayed
+    # under CUDA events: the same rungs, and the device ms of each batch's
+    # launch at its own rows and mask
+    timed = drive_qos(arrivals, profiles, config, "cuda", models, timed=True)
+    scored_batches = [b for b in timed["batches"] if b["ids"]]
+    if ([b["rung"] for b in timed["batches"]] != rungs
+            or [b["launches"] for b in timed["batches"]]
+            != [b["launches"] for b in card["batches"]]):
+        fail(f"{name}: the timed run served other rungs or masks than the first")
+    it = iter(timed["kernel_ms"])
+    for b in scored_batches:
+        b["device_ms"] = next(it)
+
+    # per rung: batches, megakernel device ms, host ms dispatch to completion
+    per_rung = {}
+    for level, rung in enumerate(LADDER_LEVELS):
+        bs = [b for b in card["batches"] if b["rung"] == level and b["ids"]]
+        dev = [b["device_ms"] for b in scored_batches if b["rung"] == level]
+        host = sorted((b["t1"] - b["t0"]) * 1e3 for b in bs)
+        per_rung[rung.name] = dict(
+            batches=len(bs), rows=sum(len(b["ids"]) for b in bs),
+            batch_rows=dict(Counter(b["rows"] for b in bs)),
+            megakernel_device_ms=sum(dev) / max(len(dev), 1),
+            megakernel_device_ms_min=min(dev, default=None),
+            megakernel_device_ms_max=max(dev, default=None),
+            batch_ms_p50=interpolated_percentile(host, 0.5),
+            batch_ms_p99=interpolated_percentile(host, 0.99))
+    sweep = rung_sweep(card["scorer"])
+    lat = sorted((c - t) * 1e3 for c, t in qos_latencies(card, arrivals))
+    summary = dict(
+        stream=name, produced=len(produced), batches=len(card["batches"]),
+        scored=job.counters["scored"], shed=job.counters["shed"],
+        shed_by_priority=dict(Counter(e["priority"] for e in shed["card"].values())),
+        shed_by_reason=dict(Counter(e["shed_reason"] for e in shed["card"].values())),
+        transitions_down=plane.ladder.transitions_down,
+        transitions_up=plane.ladder.transitions_up, close_reasons=closes,
+        rungs=rungs, per_rung=per_rung, rung_sweep_bucket_256=sweep, max_err=errs,
+        admitted_virtual_latency_ms=dict(
+            p50=interpolated_percentile(lat, 0.5), p99=interpolated_percentile(lat, 0.99),
+            max=lat[-1]),
+        budget_ms=plane.settings.budget_ms, launches=launches,
+        timing_spin_retries=timed["spin_retries"])
+    print(f"{name}: rungs {rungs} equal to the CPU run's; {len(shed['card'])} shed "
+          f"(none high priority) with the CPU run's ids and reasons; one megakernel "
+          f"launch with its rung's mask on each of {n_scored} batches; "
+          + json.dumps(summary), flush=True)
+    run_quality_artifact(ops, models)
+    return launches
+
+
+def rung_sweep(scorer, reps: int = 20) -> dict:
+    """What each rung buys at one shape: one seeded TINY bucket-256 batch
+    through ``dispatch_assembled`` + ``finalize`` at every rung, the
+    megakernel's device ms a launch (profiler) and the host ms of the call
+    (p50 over ``reps`` calls a rung, the rungs interleaved)."""
+    import numpy as np
+
+    from realtime_fraud_detection_tpu_torch.obs.profiling import interpolated_percentile
+    from realtime_fraud_detection_tpu_torch.qos.ladder import LADDER_LEVELS
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
+        MODEL_NAMES,
+        make_example_batch,
+    )
+
+    batch = make_example_batch(BATCH, rng=np.random.default_rng(SEED + 13))
+    records = [{"transaction_id": f"rung-{i}"} for i in range(BATCH)]
+
+    def at(level):
+        rung = LADDER_LEVELS[level]
+        mask = np.asarray([n not in rung.dropped_branches for n in MODEL_NAMES])
+        scorer.set_degradation(None if level == 0 else mask,
+                               rules_only=rung.rules_only, level=level)
+
+    def call():
+        scorer.finalize(scorer.dispatch_assembled(batch, records))
+
+    out, host = {}, {level: [] for level in range(len(LADDER_LEVELS))}
+    try:
+        for level, rung in enumerate(LADDER_LEVELS):
+            at(level)
+            kernels = [e for e in device_events(call, want="megakernel")
+                       if "megakernel" in e.key]
+            launches = sum(e.count for e in kernels)
+            if not launches:
+                fail(f"rung sweep: the profiler saw no megakernel launch at {rung.name}")
+            out[rung.name] = dict(megakernel_device_ms=sum(
+                e.self_device_time_total for e in kernels) / launches / 1e3,
+                profiled_launches=launches)
+        for _ in range(reps):
+            for level in host:
+                at(level)
+                t0 = time.perf_counter()
+                call()
+                host[level].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        scorer.set_degradation(None)
+    for level, rung in enumerate(LADDER_LEVELS):
+        out[rung.name]["host_ms_p50"] = interpolated_percentile(sorted(host[level]), 0.5)
+    return out
+
+
+def qos_tokens(scorer, arrivals, ids):
+    """The (ids, mask) pairs the scorer's tokenizer gives the texts of the
+    records ``ids`` (the drill's bound is measured on a rung's own tokens)."""
+    records = [r for k in sorted(arrivals) for r in arrivals[k]
+               if r["transaction_id"] in ids]
+    merchant_ids = [str(r.get("merchant_id", "")) for r in records]
+    mprofs = {m: p for m in merchant_ids
+              if (p := scorer.profiles.get_merchant(m)) is not None}
+    texts = scorer._texts_for(records, merchant_ids, mprofs)
+    return [scorer.tokenizer.encode_batch(texts[i:i + BATCH])
+            for i in range(0, len(texts), BATCH)]
+
+
+def qos_latencies(run, arrivals):
+    """(completion, ingest) virtual times of every admitted record: the
+    budget histogram's observations, recomputed from the predictions'
+    order (a batch completes when the next one is dispatched)."""
+    ts = {r["transaction_id"]: k * QOS_PERIOD_S
+          for k in arrivals for r in arrivals[k]}
+    out = []
+    for b in run["batches"]:
+        out += [(b["t_done"], ts[i]) for i in b["ids"]]
+    return out
+
+
+def run_quality_artifact(ops, models):
+    """``Config()`` + ``apply_quality_artifact`` of the committed
+    ``QUALITY_r05.json``: its selected blend (trees, LSTM, isolation forest)
+    is the scorer's validity, served on one TINY bucket-256 batch in one
+    megakernel launch with ``mega_valid`` (T, T, F, F, T), held against the
+    kernels-off plain path on the card."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import make_example_batch
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    artifact = Path(__file__).resolve().with_name("QUALITY_r05.json")
+    scorers = {}
+    for label, kernels in (("mega", KernelSettings.mega()), ("plain", None)):
+        config = Config(quant=QuantSettings.full())
+        if kernels is not None:
+            config.kernels = kernels
+        weights = config.apply_quality_artifact(str(artifact))
+        scorers[label] = TorchFraudScorer(config, models=models,
+                                          bert_config=TINY_CONFIG, device="cuda")
+    mega, plain = scorers["mega"], scorers["plain"]
+    valid = tuple(bool(v) for v in mega.model_valid)
+    if valid != (True, True, False, False, True):
+        fail(f"quality artifact: validity {valid}")
+    batch = make_example_batch(BATCH, rng=np.random.default_rng(SEED + 11))
+    records = [{"transaction_id": f"qa-{i}"} for i in range(BATCH)]
+    ops.reset_launch_counts()
+    seen = []
+    from realtime_fraud_detection_tpu_torch.ops import megakernel as mk
+    launch = mk._launch
+
+    def spy(entry, inputs, b, dev, params, mega_valid):
+        seen.append(tuple(mega_valid))
+        return launch(entry, inputs, b, dev, params, mega_valid)
+
+    mk._launch = spy
+    try:
+        pending = mega.dispatch_assembled(batch, records)
+        results = mega.finalize(pending)
+    finally:
+        mk._launch = launch
+    got = ops.launch_counts()
+    if got != {"epilogue": 0, "flash_attention": 0, "dequant_matmul": 0,
+               "dequant_rows": 0, "megakernel": 1} or seen != [valid]:
+        fail(f"quality artifact: launches {got}, mega_valid {seen}")
+    ref_pending = plain.dispatch_assembled(batch, records)
+    ref_results = plain.finalize(ref_pending)
+    mat, ref = pending.out, ref_pending.out
+    tol = noise_bound(mega.models, TINY_CONFIG, [(batch.token_ids, batch.token_mask)],
+                      mega.ensemble_params.weights, valid)
+    err = float((mat[:, 0] - ref[:, 0]).abs().max())
+    rungs = (0.3, 0.6, 0.8, 0.95, 0.7)
+    far = ~(near_rung(ref[:, 0], rungs, tol) | near_rung(ref[:, 1], rungs, tol))
+    if not err <= tol or not torch.equal(mat[far][:, 2:4], ref[far][:, 2:4]):
+        fail(f"quality artifact: prob err {err} (bound {tol}) or decisions differ")
+    branches = {n for r in results for n in r["model_predictions"]}
+    if branches != {n for r in ref_results for n in r["model_predictions"]} or \
+            branches != {"xgboost_primary", "lstm_sequential", "isolation_forest"}:
+        fail(f"quality artifact: served branches {branches}")
+    print(f"quality artifact {artifact.name}: blend {json.dumps(weights)} served in one "
+          f"megakernel launch with mega_valid {valid}; prob max err {err:.3e} vs the "
+          f"kernels-off plain path, decision/risk equal on all {int(far.sum())}/{BATCH} "
+          f"rows farther than the bound {tol:.3e} from a rung", flush=True)
+
+
 def run_drills() -> dict:
     """The port's kernel drill (``KernelDrillConfig.fast()``) on the card,
     once on the per-site chain and once on the megakernel; a verdict that is
@@ -1640,17 +2226,19 @@ def main() -> int:
     chain = {"epilogue": 1, "flash_attention": DISTILBERT_BASE.num_layers,
              "dequant_matmul": 6 * DISTILBERT_BASE.num_layers, "dequant_rows": 2,
              "megakernel": 0}
+    tiny = run_stream(ops, "TINY", TINY_CONFIG, KernelSettings.mega(), 16 * BATCH,
+                      {k: int(k == "megakernel") for k in chain}, cpu_reference=True)
+    word = run_stream(ops, "DistilBERT-base", DISTILBERT_BASE, KernelSettings.full(),
+                      4 * BATCH, chain, cpu_reference=False)
     stream = {
-        "tiny": run_stream(ops, "TINY", TINY_CONFIG, KernelSettings.mega(),
-                           16 * BATCH, {k: int(k == "megakernel") for k in chain},
-                           cpu_reference=True),
-        "distilbert_base": run_stream(ops, "DistilBERT-base", DISTILBERT_BASE,
-                                      KernelSettings.full(), 4 * BATCH, chain,
-                                      cpu_reference=False),
+        "tiny": tiny["launches"],
+        "distilbert_base": word["launches"],
         "tiny_typed": run_typed_stream(ops),
         "tiny_overlap": run_overlap(ops),
     }
     run_drills()
+    stream["distilbert_base_wordpiece"] = run_wordpiece_stream(ops, chain, word)
+    stream["tiny_qos"] = run_qos(ops)
     for e in entries:
         e["stream_launches"] = {k: v[e["name"]] for k, v in stream.items()}
     extra = ("device_ms", "empty_ms", "empty_device_ms", "host_ms", "tail_launches",

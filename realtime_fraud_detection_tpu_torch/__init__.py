@@ -7,6 +7,8 @@ flash attention, the fused epilogue and the persistent megakernel running
 through the hand-written kernels of ``csrc/`` (built on first use by
 ``ops.build``), and runs the streaming job around it: simulator -> in-memory
 broker -> ``stream.job.StreamJob`` -> ``scoring.scorer.TorchFraudScorer``
-(host assembly, the device program, state write-back) -> output topics;
-``python -m realtime_fraud_detection_tpu_torch run-job`` is its entry point.
+(host assembly, the device program, state write-back) -> output topics,
+with the deadline-aware QoS plane (``qos``: admission, latency budgets, the
+degradation ladder) optional in the job; ``python -m
+realtime_fraud_detection_tpu_torch run-job`` is its entry point.
 """

@@ -1,7 +1,8 @@
 """Command-line entry point of the port.
 
-    python -m realtime_fraud_detection_tpu_torch run-job --count 10000 --mega [--overlap-assembly]
+    python -m realtime_fraud_detection_tpu_torch run-job --count 10000 --mega [--overlap-assembly] [--qos]
     python -m realtime_fraud_detection_tpu_torch kernel-drill --fast [--mega]
+    python -m realtime_fraud_detection_tpu_torch qos-drill
 
 ``run-job`` is the in-memory path of the JAX package's ``rtfd run-job``
 (``cli.py cmd_run_job``): the seeded simulator produces transactions into
@@ -9,7 +10,9 @@ an in-memory broker, keyed by user; the port's ``StreamJob`` scores them
 in microbatches through ``TorchFraudScorer`` and fans the results out to
 the predictions, alerts, enriched and features topics; with
 ``--overlap-assembly`` the scorer's host assembly runs on a background
-thread, overlapped with the card. It runs on the CUDA card unless
+thread, overlapped with the card; with ``--qos`` the deadline-aware QoS
+plane (admission at ``--qos-rate`` txn/s, the ``--qos-budget-ms`` budget and
+the degradation ladder) runs in the job. It runs on the CUDA card unless
 ``--device cpu`` is given, and fails without a card. The last line of
 standard output is a JSON summary.
 
@@ -21,6 +24,12 @@ at every QoS rung, each kernel against its plain version, honest dispatch
 counts and a bit-identical replay. It prints the full summary, then the
 compact verdict as the last line, and exits 1 unless every check passed.
 It runs on the card (``--device cpu`` runs both sides' plain versions).
+
+``qos-drill`` is the port of ``rtfd qos-drill`` (``qos/drill.py``): offered
+load at ``--multiplier`` x the sustainable rate through the port's stream
+path on a virtual clock, the scorer a deterministic stand-in that touches
+no device. The last line is the summary as compact JSON; it exits 1 when
+the admitted p99 missed the budget.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ def cmd_run_job(args: argparse.Namespace) -> int:
     from realtime_fraud_detection_tpu_torch.utils.config import (
         Config,
         KernelSettings,
+        QosSettings,
         QuantSettings,
     )
 
@@ -68,9 +78,11 @@ def cmd_run_job(args: argparse.Namespace) -> int:
     broker = InMemoryBroker()
     scorer = TorchFraudScorer(config, seed=args.seed, device=args.device)
     scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+    qos = (QosSettings(enabled=True, budget_ms=args.qos_budget_ms,
+                       admission_rate=args.qos_rate) if args.qos else None)
     job = StreamJob(broker, scorer, JobConfig(
         max_batch=args.batch, pipeline_depth=args.pipeline_depth,
-        overlap_assembly=args.overlap_assembly))
+        overlap_assembly=args.overlap_assembly, qos=qos))
 
     t0 = time.perf_counter()
     produced = scored = 0
@@ -93,6 +105,7 @@ def cmd_run_job(args: argparse.Namespace) -> int:
         "lag": broker.lag(job.config.group_id, T.TRANSACTIONS),
         "host_stage_mean_ms": stages,
         "kernels": scorer.kernel_snapshot(),
+        "qos": job.qos.snapshot() if job.qos is not None else None,
     }))
     return 0 if job.counters["errors"] == 0 else 1
 
@@ -114,6 +127,23 @@ def cmd_kernel_drill(args: argparse.Namespace) -> int:
     print(json.dumps(summary, default=str))
     print(json.dumps(compact_kernel_summary(summary), default=str))
     return 0 if summary["passed"] else 1
+
+
+def cmd_qos_drill(args: argparse.Namespace) -> int:
+    from realtime_fraud_detection_tpu_torch.qos.drill import run_overload_drill
+
+    summary = run_overload_drill(
+        offered_multiplier=args.multiplier,
+        overload_s=args.overload_s,
+        recovery_s=args.recovery_s,
+        max_batch=args.batch,
+        budget_ms=args.budget_ms,
+        high_frac=args.high_frac,
+        low_frac=args.low_frac,
+        seed=args.seed,
+    )
+    print(json.dumps(summary))
+    return 0 if summary["p99_within_budget"] else 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -144,6 +174,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="assemble + dispatch on a background thread while "
                          "the card runs the previous batch "
                          "(JobConfig.overlap_assembly)")
+    sp.add_argument("--qos", action="store_true",
+                    help="enable the deadline-aware QoS plane (admission + "
+                         "degradation ladder + latency budgets)")
+    sp.add_argument("--qos-budget-ms", type=float, default=20.0,
+                    help="per-transaction latency budget")
+    sp.add_argument("--qos-rate", type=float, default=0.0,
+                    help="admission token rate in txn/s (0 = unlimited)")
     sp.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
@@ -159,6 +196,24 @@ def build_parser() -> argparse.ArgumentParser:
     kd.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain versions)")
     kd.set_defaults(fn=cmd_kernel_drill)
+    qd = sub.add_parser("qos-drill",
+                        help="deterministic QoS overload drill (virtual clock, "
+                             "the port's stream path; the scorer is a "
+                             "stand-in that touches no device)")
+    qd.add_argument("--multiplier", type=float, default=2.0,
+                    help="offered load as a multiple of the sustainable rate")
+    qd.add_argument("--overload-s", type=float, default=1.5,
+                    help="virtual seconds of overload")
+    qd.add_argument("--recovery-s", type=float, default=1.5,
+                    help="virtual seconds of post-overload trickle")
+    qd.add_argument("--batch", type=int, default=64)
+    qd.add_argument("--budget-ms", type=float, default=20.0)
+    qd.add_argument("--high-frac", type=float, default=0.2,
+                    help="fraction of traffic in the high (never-shed) class")
+    qd.add_argument("--low-frac", type=float, default=0.5,
+                    help="fraction of traffic in the low (sheds-first) class")
+    qd.add_argument("--seed", type=int, default=7)
+    qd.set_defaults(fn=cmd_qos_drill)
     return parser
 
 

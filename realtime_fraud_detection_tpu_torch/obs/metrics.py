@@ -1,0 +1,615 @@
+"""Metrics plane: counters, gauges, histograms and the Prometheus text format.
+
+Port of the JAX package's ``obs/metrics.py``: a small registry of its own
+(instances are isolated, the render order is deterministic), and a
+``MetricsCollector`` with the families of the planes the port has:
+
+- predictions, batches and errors (``record_prediction``, ``record_batch``,
+  ``record_error``; the JSON ``summary`` of the recent window);
+- the QoS plane's six ``qos_*`` families, written by ``qos/plane.py``;
+- ``microbatch_close_reason_total`` (``sync_microbatch``), the host-assembly
+  caches and stage times (``sync_host_stats``), the kernel plane
+  (``sync_kernels``) and the entity graph (``sync_graph``), each mirrored
+  from a snapshot at exposition time as counter deltas against the values
+  last seen.
+
+The families of planes the port does not have (tracing, tuning, feedback,
+chaos, mesh, device pool, cluster, autoscale, network faults, serving
+queue, graph fetch) are not ported, nor ``kernel_interpret_active``: the
+port has no kernel interpreter (a CPU tensor runs the plain version).
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+__all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsCollector",
+    "Registry",
+    "DEFAULT_LATENCY_BUCKETS",
+]
+
+# Reference latency buckets: 1 ms .. 5 s (metrics.py:74-78).
+DEFAULT_LATENCY_BUCKETS: Tuple[float, ...] = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+)
+SCORE_BUCKETS: Tuple[float, ...] = tuple(i / 10 for i in range(1, 10))
+
+
+def _fmt(v: float) -> str:
+    if v == math.inf:
+        return "+Inf"
+    if float(v).is_integer():
+        return str(int(v))
+    return repr(float(v))
+
+
+def _labels_key(labels: Mapping[str, str]) -> Tuple[Tuple[str, str], ...]:
+    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+def _escape(v: str) -> str:
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _render_labels(key: Tuple[Tuple[str, str], ...]) -> str:
+    if not key:
+        return ""
+    body = ",".join(f'{k}="{_escape(v)}"' for k, v in key)
+    return "{" + body + "}"
+
+
+class _Metric:
+    kind = "untyped"
+
+    def __init__(self, name: str, help_text: str,
+                 labelnames: Sequence[str] = ()):
+        self.name = name
+        self.help = help_text
+        self.labelnames = tuple(labelnames)
+        self._lock = threading.Lock()
+
+    def render(self) -> List[str]:
+        raise NotImplementedError
+
+
+class Counter(_Metric):
+    kind = "counter"
+
+    def __init__(self, name, help_text, labelnames=()):
+        super().__init__(name, help_text, labelnames)
+        self._values: Dict[Tuple[Tuple[str, str], ...], float] = {}
+
+    def inc(self, amount: float = 1.0, **labels: str) -> None:
+        if amount < 0:
+            raise ValueError("counters only go up")
+        key = _labels_key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def value(self, **labels: str) -> float:
+        return self._values.get(_labels_key(labels), 0.0)
+
+    def by_label(self) -> List[Tuple[Dict[str, str], float]]:
+        """Sorted snapshot of (labels, value) pairs."""
+        with self._lock:
+            return [(dict(k), v) for k, v in sorted(self._values.items())]
+
+    def total(self) -> float:
+        with self._lock:
+            return sum(self._values.values())
+
+    def render(self) -> List[str]:
+        with self._lock:
+            items = sorted(self._values.items())
+        lines = [f"# HELP {self.name} {self.help}",
+                 f"# TYPE {self.name} {self.kind}"]
+        if not items:
+            items = [((), 0.0)]
+        for key, v in items:
+            lines.append(f"{self.name}{_render_labels(key)} {_fmt(v)}")
+        return lines
+
+
+class Gauge(_Metric):
+    kind = "gauge"
+
+    def __init__(self, name, help_text, labelnames=()):
+        super().__init__(name, help_text, labelnames)
+        self._values: Dict[Tuple[Tuple[str, str], ...], float] = {}
+
+    def set(self, value: float, **labels: str) -> None:
+        with self._lock:
+            self._values[_labels_key(labels)] = float(value)
+
+    def inc(self, amount: float = 1.0, **labels: str) -> None:
+        key = _labels_key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def dec(self, amount: float = 1.0, **labels: str) -> None:
+        self.inc(-amount, **labels)
+
+    def value(self, **labels: str) -> float:
+        return self._values.get(_labels_key(labels), 0.0)
+
+    def render(self) -> List[str]:
+        with self._lock:
+            items = sorted(self._values.items()) or [((), 0.0)]
+        lines = [f"# HELP {self.name} {self.help}",
+                 f"# TYPE {self.name} {self.kind}"]
+        for key, v in items:
+            lines.append(f"{self.name}{_render_labels(key)} {_fmt(v)}")
+        return lines
+
+
+class Histogram(_Metric):
+    kind = "histogram"
+
+    def __init__(self, name, help_text, labelnames=(),
+                 buckets: Sequence[float] = DEFAULT_LATENCY_BUCKETS):
+        super().__init__(name, help_text, labelnames)
+        self.buckets = tuple(sorted(buckets)) + (math.inf,)
+        self._counts: Dict[Tuple[Tuple[str, str], ...], List[int]] = {}
+        self._sums: Dict[Tuple[Tuple[str, str], ...], float] = {}
+        self._maxes: Dict[Tuple[Tuple[str, str], ...], float] = {}
+        # one exemplar per series: (bucket index, labels, value), rendered
+        # as a comment line beside its bucket
+        self._exemplars: Dict[Tuple[Tuple[str, str], ...],
+                              Tuple[int, Dict[str, str], float]] = {}
+
+    def observe(self, value: float, **labels: str) -> None:
+        if not math.isfinite(value):
+            # NaN / inf would poison _sum forever; dropped, so the count
+            # stays consistent with the bucket lines
+            return
+        key = _labels_key(labels)
+        with self._lock:
+            counts = self._counts.setdefault(key, [0] * len(self.buckets))
+            for i, ub in enumerate(self.buckets):
+                if value <= ub:
+                    counts[i] += 1
+                    break
+            self._sums[key] = self._sums.get(key, 0.0) + float(value)
+            self._maxes[key] = max(self._maxes.get(key, value), value)
+
+    def add_bucket_deltas(self, deltas: Sequence[float], sum_delta: float,
+                          max_value: Optional[float] = None,
+                          exemplar: Optional[Mapping[str, Any]] = None,
+                          **labels: str) -> None:
+        """Merge pre-bucketed observation deltas (aligned with
+        ``self.buckets``, +Inf last, all >= 0) into this histogram.
+        ``exemplar`` is ``{"value": v, **labels}`` and replaces the series'
+        stored one."""
+        if len(deltas) != len(self.buckets):
+            raise ValueError(
+                f"{self.name}: expected {len(self.buckets)} bucket deltas "
+                f"(incl. +Inf), got {len(deltas)}")
+        if any(d < 0 for d in deltas) or sum_delta < 0:
+            raise ValueError(f"{self.name}: bucket deltas must be >= 0")
+        key = _labels_key(labels)
+        with self._lock:
+            counts = self._counts.setdefault(key, [0] * len(self.buckets))
+            for i, d in enumerate(deltas):
+                counts[i] += int(d)
+            self._sums[key] = self._sums.get(key, 0.0) + float(sum_delta)
+            if max_value is not None:
+                self._maxes[key] = max(self._maxes.get(key, max_value),
+                                       float(max_value))
+            if exemplar:
+                ex = dict(exemplar)
+                v = float(ex.pop("value"))
+                idx = next((i for i, ub in enumerate(self.buckets)
+                            if v <= ub), len(self.buckets) - 1)
+                self._exemplars[key] = (
+                    idx, {str(k): str(val) for k, val in ex.items()}, v)
+
+    def count(self, **labels: str) -> int:
+        return sum(self._counts.get(_labels_key(labels), ()))
+
+    def sum(self, **labels: str) -> float:
+        return self._sums.get(_labels_key(labels), 0.0)
+
+    def quantile(self, q: float, **labels: str) -> float:
+        """Upper bound of the hit bucket; in the +Inf bucket, the largest
+        observation (never understates the tail)."""
+        key = _labels_key(labels)
+        counts = self._counts.get(key)
+        if not counts:
+            return 0.0
+        total = sum(counts)
+        target = q * total
+        acc = 0
+        for i, c in enumerate(counts):
+            acc += c
+            if acc >= target and c:
+                return self.buckets[i] if self.buckets[i] != math.inf \
+                    else self._maxes.get(key, self.buckets[-2])
+        return self._maxes.get(key, self.buckets[-2])
+
+    def render(self) -> List[str]:
+        with self._lock:
+            keys = sorted(self._counts) or [()]
+            lines = [f"# HELP {self.name} {self.help}",
+                     f"# TYPE {self.name} {self.kind}"]
+            for key in keys:
+                counts = self._counts.get(key, [0] * len(self.buckets))
+                ex = self._exemplars.get(key)
+                cum = 0
+                for i, (ub, c) in enumerate(zip(self.buckets, counts)):
+                    cum += c
+                    lk = key + (("le", _fmt(ub)),)
+                    lines.append(
+                        f"{self.name}_bucket{_render_labels(lk)} {cum}")
+                    if ex is not None and ex[0] == i:
+                        # a comment line: the classic text format has no
+                        # exemplar syntax, and every parser skips '#'
+                        ex_labels = ",".join(
+                            f'{k}="{_escape(v)}"' for k, v in ex[1].items())
+                        lines.append(
+                            f"# exemplar {self.name}_bucket"
+                            f"{_render_labels(lk)} {{{ex_labels}}} "
+                            f"{_fmt(ex[2])}")
+                lines.append(
+                    f"{self.name}_sum{_render_labels(key)} "
+                    f"{_fmt(self._sums.get(key, 0.0))}"
+                )
+                lines.append(f"{self.name}_count{_render_labels(key)} {cum}")
+        return lines
+
+
+class Registry:
+    """Named metric collection with Prometheus text rendering."""
+
+    def __init__(self) -> None:
+        self._metrics: Dict[str, _Metric] = {}
+        self._lock = threading.Lock()
+
+    def register(self, metric: _Metric) -> _Metric:
+        with self._lock:
+            if metric.name in self._metrics:
+                raise ValueError(f"duplicate metric {metric.name!r}")
+            self._metrics[metric.name] = metric
+        return metric
+
+    def counter(self, name, help_text, labelnames=()) -> Counter:
+        return self.register(Counter(name, help_text, labelnames))  # type: ignore[return-value]
+
+    def gauge(self, name, help_text, labelnames=()) -> Gauge:
+        return self.register(Gauge(name, help_text, labelnames))  # type: ignore[return-value]
+
+    def histogram(self, name, help_text, labelnames=(),
+                  buckets=DEFAULT_LATENCY_BUCKETS) -> Histogram:
+        return self.register(Histogram(name, help_text, labelnames, buckets))  # type: ignore[return-value]
+
+    def render(self) -> str:
+        with self._lock:
+            metrics = list(self._metrics.values())
+        lines: List[str] = []
+        for m in metrics:
+            lines.extend(m.render())
+        return "\n".join(lines) + "\n"
+
+
+def _mirror(counter: Counter, seen: Dict[Any, float], key: Any, total: Any,
+            **labels: str) -> None:
+    """Increment ``counter`` by ``total``'s growth since the last mirror of
+    ``key`` (a source that restarts from zero adds nothing until it catches
+    up: never a negative increment)."""
+    total = float(total)
+    delta = total - seen.get(key, 0.0)
+    if delta > 0:
+        counter.inc(delta, **labels)
+    seen[key] = total
+
+
+class MetricsCollector:
+    """Domain metrics of the scoring plane (reference metrics.py:36-432),
+    with a bounded window of recent predictions behind ``summary()``."""
+
+    def __init__(self, window: int = 10_000, clock=time.monotonic) -> None:
+        self.registry = Registry()
+        self._clock = clock
+        self._start = clock()
+        self._lock = threading.Lock()
+        self._recent: deque = deque(maxlen=window)  # (t, duration_s, score, decision)
+        self._total = 0
+        # per-second event counts for throughput, independent of the
+        # window's cap
+        self._sec_counts: deque = deque(maxlen=120)  # (int_second, count)
+
+        r = self.registry
+        self.predictions_total = r.counter(
+            "ml_predictions_total", "Total predictions served",
+            ("model", "decision"))
+        self.prediction_errors = r.counter(
+            "ml_prediction_errors_total", "Prediction failures", ("stage",))
+        self.prediction_duration = r.histogram(
+            "ml_prediction_duration_seconds", "End-to-end scoring latency")
+        self.fraud_score = r.histogram(
+            "ml_fraud_score", "Fraud score distribution", buckets=SCORE_BUCKETS)
+        self.batch_size = r.histogram(
+            "scoring_microbatch_size", "Scored microbatch sizes",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512))
+        self.batch_duration = r.histogram(
+            "scoring_microbatch_duration_seconds", "Per-microbatch latency")
+        self.active_models = r.gauge(
+            "ml_active_models", "Number of live ensemble branches")
+        self.uptime = r.gauge("ml_uptime_seconds", "Process uptime")
+        self.throughput = r.gauge(
+            "ml_throughput_tps", "Scored txns/sec over the last 60 s")
+        # QoS plane (qos/): admission, shedding, the degradation ladder and
+        # per-transaction budget headroom
+        self.qos_admitted = r.counter(
+            "qos_admitted_total", "Transactions admitted by the QoS plane",
+            ("priority",))
+        self.qos_shed = r.counter(
+            "qos_shed_total",
+            "Transactions shed by admission control (explicit decisions, "
+            "never silent drops)", ("priority", "reason"))
+        self.qos_ladder_level = r.gauge(
+            "qos_ladder_level",
+            "Current degradation-ladder level (0=full ensemble, "
+            "3=rules only)")
+        self.qos_ladder_transitions = r.counter(
+            "qos_ladder_transitions_total",
+            "Degradation-ladder steps", ("direction",))
+        self.qos_degraded_scored = r.counter(
+            "qos_degraded_scored_total",
+            "Transactions scored at a degraded ladder level", ("level",))
+        self.qos_budget_remaining = r.histogram(
+            "qos_budget_remaining_seconds",
+            "Per-transaction latency budget remaining at completion "
+            "(negative = deadline blown)",
+            buckets=(-0.1, -0.02, -0.005, 0.0, 0.001, 0.0025, 0.005,
+                     0.01, 0.015, 0.02, 0.05, 0.1))
+        # host assembly: cache hit / miss totals and per-stage times,
+        # mirrored from TorchFraudScorer.host_stats() by sync_host_stats
+        self.host_cache_hits = r.counter(
+            "host_assembly_cache_hits_total",
+            "Cumulative host-assembly cache hits (token LRU, entity join "
+            "rows)", ("cache",))
+        self.host_cache_misses = r.counter(
+            "host_assembly_cache_misses_total",
+            "Cumulative host-assembly cache misses", ("cache",))
+        self.host_stage_ms = r.gauge(
+            "host_assembly_stage_ms",
+            "Host-side per-stage timing (assemble/pack/dispatch/"
+            "device_wait)", ("stage", "stat"))
+        self._host_cache_seen: Dict[Tuple[str, str], float] = {}
+        # why each microbatch closed, mirrored from the assembler's
+        # close_reasons by sync_microbatch
+        self.microbatch_close_reason = r.counter(
+            "microbatch_close_reason_total",
+            "Microbatch close decisions by trigger "
+            "(size/deadline/budget/timeout/flush/jit)", ("reason",))
+        self._close_reason_seen: Dict[str, float] = {}
+        # kernel plane (ops/ + KernelSettings): per-site modes as exhaustive
+        # 0/1 gauges and the dispatch / fallback counters of
+        # TorchFraudScorer.kernel_snapshot(), mirrored by sync_kernels
+        self.kernel_site_mode = r.gauge(
+            "kernel_site_mode",
+            "1 for the kernel mode each fusion site currently serves "
+            "(off/cuda for dequant_matmul, epilogue and megakernel, "
+            "reference/flash for attention)",
+            ("site", "mode"))
+        self.kernel_dispatches = r.counter(
+            "kernel_dispatch_total",
+            "Batches dispatched with this site's kernel engaged",
+            ("site",))
+        self.kernel_fallbacks = r.counter(
+            "kernel_fallback_total",
+            "Batches where this site's kernel was requested but the "
+            "shape/param-form guard fell back to the plain path",
+            ("site",))
+        self._kernel_seen: Dict[str, Dict[str, float]] = {
+            "dispatch": {}, "fallback": {}}
+        self.kernel_mega_dispatch = r.counter(
+            "kernel_mega_dispatch_total",
+            "Batches dispatched with the persistent megakernel engaged "
+            "(one program serving every branch plus the epilogue)")
+        self.kernel_mega_fallback = r.counter(
+            "kernel_mega_fallback_total",
+            "Batches where the megakernel was requested but its shape "
+            "plan declined and the per-site kernel chain served instead")
+        self.kernel_launches_per_batch = r.gauge(
+            "kernel_launches_per_batch",
+            "Device programs launched for the most recent scoring "
+            "microbatch (1 when the megakernel served it; the per-site "
+            "chain length otherwise)")
+        self._mega_seen: Dict[str, float] = {}
+        # entity graph (graph/): typed-store occupancy and the sampler's
+        # cache, mirrored from TorchFraudScorer.graph_snapshot() by
+        # sync_graph
+        self.graph_typed_mode = r.gauge(
+            "graph_typed_mode",
+            "1 while the scorer assembles typed entity-graph "
+            "neighborhoods (graph/ plane), 0 on the bipartite "
+            "user<->merchant store")
+        self.graph_nodes = r.gauge(
+            "graph_nodes",
+            "Typed-graph nodes resident by node type (partitioned "
+            "stores report the sum of owned-partition shards)",
+            ("type",))
+        self.graph_edges = r.gauge(
+            "graph_edges",
+            "Typed-graph ring entries resident by directed edge type",
+            ("edge",))
+        self.graph_edges_added = r.counter(
+            "graph_edges_added_total",
+            "Entity links ingested into the typed graph at finalize "
+            "time (both directions of one link count once)")
+        self.graph_sampler_cache_hits = r.counter(
+            "graph_sampler_cache_hits_total",
+            "Neighborhood-sampler cache hits (center sample reused)")
+        self.graph_sampler_cache_misses = r.counter(
+            "graph_sampler_cache_misses_total",
+            "Neighborhood-sampler cache misses (center sample rebuilt)")
+        self.graph_sampler_cache_evictions = r.counter(
+            "graph_sampler_cache_evictions_total",
+            "Sampler cache entries evicted (adjacency-dependency dirt, "
+            "age-out, ownership-epoch clear, or the capacity cap)")
+        self.graph_sampler_entries = r.gauge(
+            "graph_sampler_entries",
+            "Center samples currently resident in the sampler cache")
+        self._graph_seen: Dict[str, float] = {}
+
+    # ------------------------------------------------------------- mirrors
+    def sync_host_stats(self, host_stats: Mapping[str, Any]) -> None:
+        """Mirror ``TorchFraudScorer.host_stats()``: cache totals as counter
+        deltas, stage mean / p50 / p99 as gauges."""
+        for name, st in (host_stats.get("caches") or {}).items():
+            for kind, counter in (("hits", self.host_cache_hits),
+                                  ("misses", self.host_cache_misses)):
+                _mirror(counter, self._host_cache_seen, (name, kind),
+                        st.get(kind, 0), cache=name)
+        for stage, st in (host_stats.get("stages") or {}).items():
+            for stat in ("mean_ms", "p50_ms", "p99_ms"):
+                self.host_stage_ms.set(float(st.get(stat, 0.0)),
+                                       stage=stage,
+                                       stat=stat.replace("_ms", ""))
+
+    def sync_microbatch(self, close_reasons: Mapping[str, int]) -> None:
+        """Mirror an assembler's cumulative close-reason histogram
+        (``MicrobatchAssembler.close_reasons``)."""
+        for reason, total in (close_reasons or {}).items():
+            _mirror(self.microbatch_close_reason, self._close_reason_seen,
+                    reason, total, reason=str(reason))
+
+    def sync_kernels(self, snapshot: Mapping[str, Any]) -> None:
+        """Mirror ``TorchFraudScorer.kernel_snapshot()``: the mode gauges
+        are exhaustive over each site's valid modes (a swap reads as a
+        transition, not a new series), the dispatch / fallback counts
+        mirror as deltas, the megakernel's also on its own series."""
+        from realtime_fraud_detection_tpu_torch.utils.config import (
+            VALID_ATTENTION_KERNELS,
+            VALID_KERNEL_MODES,
+            VALID_KERNEL_SITES,
+        )
+
+        modes = snapshot.get("modes") or {}
+        for site in VALID_KERNEL_SITES:
+            served = modes.get(site)
+            valid = (VALID_ATTENTION_KERNELS if site == "attention"
+                     else VALID_KERNEL_MODES)
+            for mode in valid:
+                self.kernel_site_mode.set(
+                    1.0 if mode == served else 0.0,
+                    site=str(site), mode=str(mode))
+        for kind, counter in (("dispatch", self.kernel_dispatches),
+                              ("fallback", self.kernel_fallbacks)):
+            for site, total in (snapshot.get(kind) or {}).items():
+                _mirror(counter, self._kernel_seen[kind], site, total,
+                        site=str(site))
+        for kind, counter in (("dispatch", self.kernel_mega_dispatch),
+                              ("fallback", self.kernel_mega_fallback)):
+            _mirror(counter, self._mega_seen, kind,
+                    (snapshot.get(kind) or {}).get("megakernel", 0.0))
+        self.kernel_launches_per_batch.set(
+            float(snapshot.get("launches_per_batch", 0)))
+
+    def sync_graph(self, snapshot: Mapping[str, Any]) -> None:
+        """Mirror ``TorchFraudScorer.graph_snapshot()``. A bipartite
+        snapshot carries only ``mode``; the typed series keep their last
+        mirrored values."""
+        self.graph_typed_mode.set(
+            1.0 if snapshot.get("mode") == "typed" else 0.0)
+        store = snapshot.get("store") or {}
+        for ntype, count in (store.get("nodes") or {}).items():
+            self.graph_nodes.set(float(count), type=str(ntype))
+        for edge, count in (store.get("edges") or {}).items():
+            self.graph_edges.set(float(count), edge=str(edge))
+        if "edges_added" in store:
+            _mirror(self.graph_edges_added, self._graph_seen, "edges_added",
+                    store["edges_added"])
+        sampler = snapshot.get("sampler") or {}
+        if sampler:
+            for key, counter in (("hits", self.graph_sampler_cache_hits),
+                                 ("misses", self.graph_sampler_cache_misses),
+                                 ("evictions",
+                                  self.graph_sampler_cache_evictions)):
+                _mirror(counter, self._graph_seen, key, sampler.get(key, 0))
+            self.graph_sampler_entries.set(
+                float(sampler.get("entries", 0)))
+
+    # -------------------------------------------------------------- events
+    def record_prediction(self, decision: str, fraud_score: float,
+                          duration_s: float,
+                          model_predictions: Optional[Mapping[str, float]] = None,
+                          ) -> None:
+        self.predictions_total.inc(model="ensemble", decision=decision)
+        for name in (model_predictions or {}):
+            self.predictions_total.inc(model=name, decision=decision)
+        self.prediction_duration.observe(duration_s)
+        self.fraud_score.observe(fraud_score)
+        now = self._clock()
+        with self._lock:
+            self._recent.append((now, duration_s, fraud_score, decision))
+            self._total += 1
+            sec = int(now)
+            if self._sec_counts and self._sec_counts[-1][0] == sec:
+                self._sec_counts[-1][1] += 1
+            else:
+                self._sec_counts.append([sec, 1])
+
+    def record_batch(self, size: int, duration_s: float) -> None:
+        self.batch_size.observe(size)
+        self.batch_duration.observe(duration_s)
+
+    def record_error(self, stage: str = "predict") -> None:
+        self.prediction_errors.inc(stage=stage)
+
+    # ------------------------------------------------------------- summaries
+    def summary(self) -> Dict[str, Any]:
+        """The JSON metrics payload (reference ``GET /metrics``,
+        main.py:268-288)."""
+        now = self._clock()
+        self.uptime.set(now - self._start)
+        with self._lock:
+            recent = list(self._recent)
+            in_window = sum(c for s, c in self._sec_counts if now - s <= 60.0)
+        tps = in_window / 60.0
+        self.throughput.set(tps)
+        durations = sorted(r[1] for r in recent)
+        decisions: Dict[str, int] = {}
+        for _, _, _, d in recent:
+            decisions[d] = decisions.get(d, 0) + 1
+
+        def pct(q: float) -> float:
+            if not durations:
+                return 0.0
+            return durations[min(int(q * len(durations)), len(durations) - 1)]
+
+        return {
+            "uptime_seconds": now - self._start,
+            "total_predictions": self._total,
+            "recent_predictions": len(recent),
+            "throughput_tps_60s": tps,
+            "latency_ms": {
+                "p50": pct(0.50) * 1e3,
+                "p95": pct(0.95) * 1e3,
+                "p99": pct(0.99) * 1e3,
+            },
+            "avg_fraud_score": (
+                sum(r[2] for r in recent) / len(recent) if recent else 0.0),
+            "decision_counts": decisions,
+            "errors": int(self.prediction_errors.total()),
+        }
+
+    def render_prometheus(self) -> str:
+        self.uptime.set(self._clock() - self._start)
+        return self.registry.render()
+
+    def reset(self) -> None:
+        """Drop the windowed state (reference reset_metrics,
+        metrics.py:403-417)."""
+        with self._lock:
+            self._recent.clear()
+            self._sec_counts.clear()

@@ -154,9 +154,14 @@ class ScorerConfig:
     graph_mode: str = "bipartite"
     graph_fanout2: int = 8     # typed mode's two-hop width K2
     text_len: int = 64         # token length for the text branch
-    # "word" = the hash-OOV word tokenizer (models/tokenizer.py); the JAX
-    # package's "wordpiece" tokenizer is not ported
+    # "word" = the hash-OOV word tokenizer (models/tokenizer.py);
+    # "wordpiece" = the trained subword vocabulary with BERT's greedy
+    # longest-match encoding (models/wordpiece.py)
     tokenizer: str = "word"
+    # the whole-text token LRU's size (models/tokenizer.TokenLruCache):
+    # merchant texts repeat heavily, so the default keeps every live
+    # merchant string resident
+    token_cache_entries: int = 65_536
     # ship the history, the node and neighbour features (and the two-hop
     # context) as bf16 on the wire, widened back to f32 on the card; it
     # perturbs scores at bf16 resolution, so it is off by default

@@ -6,8 +6,10 @@ in-process state tier:
 - host half: ``assemble`` joins the profile, velocity and history state of
   a microbatch of transaction dicts and encodes one dense ``ScoreBatch``
   (columnar encode with the cross-batch entity row cache, the 64 features
-  extracted on the CPU, the history ring, the graph join, the word
-  tokenizer); ``assemble_serial`` is its record-at-a-time oracle;
+  extracted on the CPU, the history ring, the graph join, the tokenizer:
+  ``ScorerConfig.tokenizer`` "word" or "wordpiece", refused when its
+  vocabulary is wider than the BERT config's embedding table);
+  ``assemble_serial`` is its record-at-a-time oracle;
   ``finalize`` writes velocity, the transaction cache and, in typed graph
   mode, the batch's entity links back after scoring; ``host_stats``
   reports the per-stage spans (assemble, graph, pack, dispatch,
@@ -26,10 +28,14 @@ in-process state tier:
   host-side accounting (``kernel_snapshot``) records per batch which kernel
   sites the fused scorer dispatched, which fell back (the megakernel's plan
   declining a batch, or f32 BERT weights leaving the int8 site no work),
-  and how many hand-written kernels the batch launched.
+  and how many hand-written kernels the batch launched;
+- QoS seam: ``set_degradation`` takes a ladder rung (``qos/plane.py
+  apply_degradation``) as a branch mask anded with the deployment's
+  validity (the enabled models of ``Config.models``); a megakernel batch
+  passes it as ``mega_valid`` (all false at ``rules_only``).
 
-The shared RESP state tier, cross-partition graph fetch, the wordpiece
-tokenizer, pools, the mesh and tracing are not ported.
+The shared RESP state tier, cross-partition graph fetch, pools, the mesh
+and tracing are not ported.
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ from realtime_fraud_detection_tpu_torch.models.quant import (
 )
 from realtime_fraud_detection_tpu_torch.models.text import combined_text
 from realtime_fraud_detection_tpu_torch.models.tokenizer import FraudTokenizer
+from realtime_fraud_detection_tpu_torch.models.wordpiece import WordPieceTokenizer
 from realtime_fraud_detection_tpu_torch.obs.profiling import SpanTimer
 from realtime_fraud_detection_tpu_torch.ops import (
     launch_counts,
@@ -265,8 +272,8 @@ class TorchFraudScorer:
         self.kernels = self.config.kernels
         self.ensemble_params = EnsembleParams.from_config(
             self.config, MODEL_NAMES).to(self.device)
-        self.model_valid = np.asarray(
-            [n in self.config.model_weights for n in MODEL_NAMES], bool)
+        enabled = self.config.get_enabled_models()
+        self.model_valid = np.asarray([n in enabled for n in MODEL_NAMES], bool)
         self._qos_mask: Optional[np.ndarray] = None
         self._qos_rules_only = False
         self.qos_level = 0
@@ -306,14 +313,20 @@ class TorchFraudScorer:
                 self.sc.graph_fanout2,
                 user_rows=lambda ids: self._users.peek_rows(ids),
                 merchant_rows=lambda ids: self._merchants.peek_rows(ids))
-        if self.sc.tokenizer != "word":
-            # a tokenizer that is not ported must not silently feed the text
-            # model ids from another vocabulary
+        if self.sc.tokenizer == "wordpiece":
+            self.tokenizer = WordPieceTokenizer(
+                max_length=self.sc.text_len,
+                cache_entries=self.sc.token_cache_entries)
+        elif self.sc.tokenizer == "word":
+            self.tokenizer = FraudTokenizer(
+                vocab_size=bert_config.vocab_size, max_length=self.sc.text_len,
+                cache_entries=self.sc.token_cache_entries)
+        else:
+            # a typo'd tokenizer name must not silently feed the text model
+            # ids from another vocabulary
             raise ValueError(
-                f"ScorerConfig.tokenizer must be 'word' (the only ported "
-                f"tokenizer), got {self.sc.tokenizer!r}")
-        self.tokenizer = FraudTokenizer(vocab_size=bert_config.vocab_size,
-                                        max_length=self.sc.text_len)
+                f"ScorerConfig.tokenizer must be 'word' or 'wordpiece', "
+                f"got {self.sc.tokenizer!r}")
         if self.tokenizer.vocab_size > bert_config.vocab_size:
             # on the card an out-of-range id would reach a hand-written
             # gather with no bounds check: refuse the pairing here

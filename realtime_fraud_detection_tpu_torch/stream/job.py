@@ -15,9 +15,19 @@ deduplicated against the in-flight ids and the scorer's transaction cache
 (at-least-once delivery, effectively-once scoring). With
 ``JobConfig.overlap_assembly`` the scorer's assemble + dispatch run on an
 ``AssemblerStage`` thread while this thread waits on the card; admission,
-dedupe, completion order and commits stay on this thread. The QoS, tracing,
-tuning, feedback, analytics, enrichment and device-pool planes are not
-ported: ``JobConfig`` has no fields for them, so passing one is an error.
+dedupe, completion order and commits stay on this thread.
+
+With ``JobConfig.qos`` (``QosSettings`` with ``enabled=True``, or a
+``QosPlane``) the deadline-aware QoS plane is wired in: the assembler closes
+a batch early when its oldest record's latency budget runs low; admission
+runs after dedupe and before dispatch, and a shed record gets an explicit
+REVIEW with its reason on the predictions topic, covered by its batch's
+commit; the degradation ladder observes the backlog once per dispatched
+batch and pushes its rung into the scorer (under the stage lock with
+overlap on); completion records the scored count and each record's budget
+headroom. The tracing, tuning, feedback, analytics, enrichment and
+device-pool planes are not ported: ``JobConfig`` has no fields for them, so
+passing one is an error.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from realtime_fraud_detection_tpu_torch.stream.transport import (
     InMemoryBroker,
     Record,
 )
+from realtime_fraud_detection_tpu_torch.utils.config import QosSettings
 
 
 @dataclasses.dataclass
@@ -60,11 +71,22 @@ class JobConfig:
     # timing, so decisions are not bit-reproducible: off where replays must
     # match, on for throughput
     overlap_assembly: bool = False
+    # the deadline-aware QoS plane (qos/): a QosSettings (the plane is built
+    # when enabled) or a live QosPlane; None or enabled=False = off, and the
+    # job behaves as without it
+    qos: Optional[Any] = None
     transactions_topic: str = T.TRANSACTIONS
     predictions_topic: str = T.PREDICTIONS
     alerts_topic: str = T.ALERTS
     enriched_topic: str = T.ENRICHED
     features_topic: str = T.FEATURES
+
+    def __post_init__(self) -> None:
+        from realtime_fraud_detection_tpu_torch.qos.plane import QosPlane
+
+        if self.qos is not None and not isinstance(self.qos, (QosSettings, QosPlane)):
+            raise TypeError(f"JobConfig.qos must be QosSettings or QosPlane, "
+                            f"got {type(self.qos).__name__}")
 
 
 @dataclasses.dataclass
@@ -83,6 +105,9 @@ class _BatchCtx:
     # from the cache at completion (a crash between write-back and fan-out
     # may have lost the first prediction)
     cached_dups: List[tuple] = dataclasses.field(default_factory=list)
+    # QoS admission sheds: (record, AdmissionDecision) pairs, each produced
+    # as an explicit REVIEW at completion
+    shed: List[tuple] = dataclasses.field(default_factory=list)
 
 
 def _error_result(transaction_id: str, explanation: Dict[str, Any]) -> Dict[str, Any]:
@@ -117,11 +142,16 @@ class StreamJob:
         self.config = config or JobConfig()
         self.consumer = broker.consumer(
             [self.config.transactions_topic], self.config.group_id, faults)
+        self.qos = None
+        qs = self.config.qos
+        if qs is not None and qs.enabled:
+            from realtime_fraud_detection_tpu_torch.qos.plane import QosPlane
+
+            self.qos = qs if isinstance(qs, QosPlane) else QosPlane(qs)
         self.assembler = MicrobatchAssembler(
             self.consumer, max_batch=self.config.max_batch,
-            max_delay_ms=self.config.max_delay_ms)
-        # "shed" stays 0: admission control is not ported; the key keeps
-        # the counters' shape equal to the JAX job's
+            max_delay_ms=self.config.max_delay_ms,
+            budget=self.qos.budget if self.qos is not None else None)
         self.counters: Dict[str, int] = {
             "scored": 0, "alerts": 0, "batches": 0, "duplicates_skipped": 0,
             "errors": 0, "shed": 0,
@@ -154,7 +184,9 @@ class StreamJob:
         fresh: List[Record] = []
         invalid: List[tuple] = []
         cached_dups: List[tuple] = []
+        shed: List[tuple] = []
         batch_ids: set = set()
+        t_adm = now if now is not None else time.time()
         for r in records:
             txn, errors = sanitize_for_stream(r.value)
             if errors:
@@ -173,12 +205,32 @@ class StreamJob:
                 batch_ids.add(txn_id)
                 cached_dups.append((r, cached))
                 continue
+            if self.qos is not None:
+                # after dedupe (a replayed duplicate must not burn tokens)
+                # and before dispatch: a shed is produced at completion
+                decision = self.qos.admit(txn, t_adm)
+                if not decision.admitted:
+                    self.counters["shed"] += 1
+                    shed.append((dataclasses.replace(r, value=txn), decision))
+                    continue
             batch_ids.add(txn_id)
             fresh.append(dataclasses.replace(r, value=txn))
         positions = self.consumer.snapshot_positions()
+        if self.qos is not None:
+            # one ladder observation per dispatched batch: consumer lag is
+            # everything not yet committed (the unread topic plus every
+            # batch in flight), minus this batch
+            self.qos.observe_backlog(max(0, self.consumer.lag() - len(records)))
+            if self._stage is not None:
+                # the stage thread reads the scorer's mask and rules_only
+                # flag at dispatch: one batch must never see a torn pair
+                with self._stage.lock:
+                    self.qos.apply_degradation(self.scorer)
+            else:
+                self.qos.apply_degradation(self.scorer)
         if not fresh:
             return _BatchCtx([], set(), None, positions, now, invalid,
-                             cached_dups)
+                             cached_dups, shed)
         pending = None
         try:
             if self._stage is not None:
@@ -193,14 +245,21 @@ class StreamJob:
             pass
         self._inflight_ids |= batch_ids
         return _BatchCtx(fresh, batch_ids, pending, positions, now, invalid,
-                         cached_dups)
+                         cached_dups, shed)
 
-    def complete_batch(self, ctx: _BatchCtx) -> List[Dict[str, Any]]:
-        """Stage 2: wait for the device result, fan out, commit offsets."""
+    def complete_batch(self, ctx: _BatchCtx,
+                       now: Optional[float] = None) -> List[Dict[str, Any]]:
+        """Stage 2: wait for the device result, fan out, commit offsets.
+        ``now`` is the completion time of the QoS budget accounting (the
+        drill's virtual clock; default the dispatch clock, else wall time);
+        ``ctx.now`` stays the event clock of the state TTLs."""
         fresh = ctx.fresh
+        t_done = now if now is not None else (
+            ctx.now if ctx.now is not None else time.time())
         now = ctx.now
         if not fresh:
             invalid_results = self._emit_invalid(ctx)
+            self._emit_shed(ctx)
             self._emit_cached_dups(ctx)
             self.consumer.commit(ctx.positions)
             return invalid_results
@@ -222,8 +281,15 @@ class StreamJob:
             self.counters["errors"] += len(fresh)
             results = [_error_result(str(r.value.get("transaction_id", "")),
                                      {"error": True}) for r in fresh]
+        if self.qos is not None:
+            self.qos.record_scored(len(fresh))
+            for r in fresh:
+                # budget headroom at completion, from the ingest timestamp
+                self.qos.record_completion(
+                    r.timestamp if r.timestamp is not None else t_done, t_done)
         try:
             invalid_results = self._emit_invalid(ctx)
+            self._emit_shed(ctx)
             self._emit_cached_dups(ctx)
             return invalid_results + self._fan_out(ctx, fresh, results, feats,
                                                    scored_ok)
@@ -249,6 +315,19 @@ class StreamJob:
             self.broker.produce_batch_keyed(self.config.predictions_topic,
                                             items)
         return results
+
+    def _emit_shed(self, ctx: _BatchCtx) -> None:
+        """A score-with-reason for every shed record
+        (``QosPlane.shed_result``): downstream sees a REVIEW with the shed
+        reason and priority class, covered by this batch's commit."""
+        if not ctx.shed or self.qos is None:
+            return
+        items = []
+        for rec, decision in ctx.shed:
+            value = rec.value if isinstance(rec.value, dict) else {}
+            items.append((str(value.get("user_id", "")),
+                          self.qos.shed_result(value, decision)))
+        self.broker.produce_batch_keyed(self.config.predictions_topic, items)
 
     def _emit_cached_dups(self, ctx: _BatchCtx) -> None:
         """Re-emit predictions for transaction-cache duplicates from their

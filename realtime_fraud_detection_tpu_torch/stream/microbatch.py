@@ -2,10 +2,17 @@
 
 Port of ``MicrobatchAssembler`` from the JAX package's
 ``stream/microbatch.py``: it drains a consumer into microbatches closed by
-whichever comes first, the size trigger (``max_batch`` records, aligned
-with the bucket set of ``core/batching.py``) or the deadline trigger
-(``max_delay_ms`` since the batch's first record arrived). The QoS budget
-and the tuning plane's close triggers are not ported.
+whichever comes first:
+
+- size: ``max_batch`` records (aligned with the bucket set of
+  ``core/batching.py``);
+- budget (with a ``qos.LatencyBudget``): the oldest pending record's
+  remaining latency budget, from its ingest timestamp, has dropped under
+  the assembly margin; checked before the deadline;
+- deadline: ``max_delay_ms`` since the batch's first record arrived.
+
+Without a budget it closes exactly the batches it closed before the budget
+trigger existed. The tuning plane's just-in-time close is not ported.
 """
 
 from __future__ import annotations
@@ -28,17 +35,25 @@ class MicrobatchAssembler:
         max_batch: int = 256,
         max_delay_ms: float = 5.0,
         clock: Callable[[], float] = time.monotonic,
+        budget=None,
+        budget_clock: Callable[[], float] = time.time,
     ):
         self.consumer = consumer
         self.max_batch = max_batch
         self.max_delay_ms = max_delay_ms
         self.clock = clock
+        # optional qos.LatencyBudget; ``budget_clock`` shares the record
+        # timestamps' time base (wall clock in the job, the virtual clock
+        # in the overload drill)
+        self.budget = budget
+        self.budget_clock = budget_clock
         self._pending: List[Record] = []
         self._first_ts: Optional[float] = None
+        self._oldest_event_ts: Optional[float] = None
         self.batches_emitted = 0
         self.records_emitted = 0
-        # why the last batch closed (size | deadline | timeout | flush) and
-        # the histogram of every close
+        # why the last batch closed (size | budget | deadline | timeout |
+        # flush) and the histogram of every close
         self.last_close_reason: Optional[str] = None
         self.close_reasons: dict = {}
 
@@ -48,12 +63,25 @@ class MicrobatchAssembler:
             and (self.clock() - self._first_ts) * 1000.0 >= self.max_delay_ms
         )
 
+    def _budget_low(self) -> bool:
+        return (
+            self.budget is not None
+            and self._oldest_event_ts is not None
+            and self.budget.should_close(self._oldest_event_ts,
+                                         self.budget_clock())
+        )
+
+    def _oldest(self, records: List[Record]) -> float:
+        # an explicit None check: t = 0.0 is a real ingest timestamp (the
+        # drill's virtual clock starts there)
+        return min((r.timestamp if r.timestamp is not None
+                    else self.budget_clock()) for r in records)
+
     def next_batch(self, block: bool = True,
                    timeout_s: Optional[float] = None) -> List[Record]:
         """Assemble the next microbatch.
 
-        Non-blocking mode returns [] when neither the size nor the deadline
-        condition holds yet. Blocking mode waits (bounded by ``timeout_s``)
+        Non-blocking mode returns [] when no close condition holds yet. Blocking mode waits (bounded by ``timeout_s``)
         until a batch closes or the wait times out with whatever is pending.
         """
         wait_start = self.clock()
@@ -62,10 +90,17 @@ class MicrobatchAssembler:
                 got = self.consumer.poll(self.max_batch - len(self._pending))
                 if got and self._first_ts is None:
                     self._first_ts = self.clock()
+                if got and self.budget is not None:
+                    ts = self._oldest(got)
+                    self._oldest_event_ts = (
+                        ts if self._oldest_event_ts is None
+                        else min(self._oldest_event_ts, ts))
                 self._pending.extend(got)
 
             if len(self._pending) >= self.max_batch:
                 return self._emit("size")
+            if self._pending and self._budget_low():
+                return self._emit("budget")
             if self._pending and self._deadline_passed():
                 return self._emit("deadline")
 
@@ -80,6 +115,9 @@ class MicrobatchAssembler:
         self.close_reasons[reason] = self.close_reasons.get(reason, 0) + 1
         batch, self._pending = self._pending[: self.max_batch], self._pending[self.max_batch:]
         self._first_ts = self.clock() if self._pending else None
+        self._oldest_event_ts = (self._oldest(self._pending)
+                                 if self.budget is not None and self._pending
+                                 else None)
         self.batches_emitted += 1
         self.records_emitted += len(batch)
         return batch

@@ -1,20 +1,28 @@
-"""Scoring configuration the port needs: the quant and kernel planes, the
-ensemble defaults ``EnsembleParams.from_config`` reads, and the state
-stores' TTLs and list lengths.
+"""Scoring configuration of the port: one typed tree with layering
 
-Values are copies of the JAX package's ``utils/config.py`` (QuantSettings,
-KernelSettings, StateConfig's memory tier, the five-model registry
-weights, the confidence multipliers and the decision-ladder rungs), and the
-ensemble part of its environment layering (``RTFD_ENSEMBLE_STRATEGY`` or
-``ENSEMBLE_STRATEGY``, ``CONFIDENCE_THRESHOLD``, ``FRAUD_THRESHOLD``). The
-port keeps its own copy so it imports nothing of the JAX package.
+    defaults -> JSON file (``Config.from_file``) -> environment variables
+
+as in the JAX package's ``utils/config.py``. The blocks the port has: the
+five-model registry (``ModelConfig``, enable / disable, weights), the
+ensemble defaults ``EnsembleParams.from_config`` reads, the quant and kernel
+planes, the state stores' TTLs and list lengths, and the QoS plane's knobs
+(``QosSettings``); plus the quality-artifact loaders that deploy a measured
+blend (``Config.apply_quality_artifact``). The environment part is the
+ensemble's (``RTFD_ENSEMBLE_STRATEGY`` or ``ENSEMBLE_STRATEGY``,
+``CONFIDENCE_THRESHOLD``, ``FRAUD_THRESHOLD``). Values are copies of the
+JAX package's; the port keeps its own so it imports nothing of it. The
+blocks of planes the port does not have (mesh, serving, stream, sim,
+monitoring, feedback, tracing, tuning, chaos, cluster) are not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import logging
 import os
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Any, Dict, Optional
 
 VALID_STRATEGIES = ("weighted_average", "voting", "stacking")
 
@@ -32,15 +40,82 @@ DECLINE_THRESHOLD_DEFAULT = 0.95
 REVIEW_THRESHOLD_DEFAULT = 0.8
 MONITOR_THRESHOLD_DEFAULT = 0.6
 
-# The five-model registry weights (reference config.py:126-199), in
-# registry order.
-DEFAULT_MODEL_WEIGHTS: Dict[str, float] = {
-    "xgboost_primary": 0.40,
-    "lstm_sequential": 0.25,
-    "bert_text": 0.15,
-    "graph_neural": 0.15,
-    "isolation_forest": 0.05,
-}
+
+@dataclass
+class ModelConfig:
+    """Per-model configuration (reference config.py:9-18). ``model_path``
+    is kept for the schema's sake: all five branches live in one model set,
+    swapped through ``TorchFraudScorer.set_models``."""
+
+    name: str
+    model_type: str  # 'gbdt' | 'lstm' | 'bert' | 'gnn' | 'isolation_forest'
+    weight: float = 1.0
+    enabled: bool = True
+    model_path: str = ""
+    hyperparameters: Dict[str, Any] = field(default_factory=dict)
+
+
+def _default_models() -> Dict[str, ModelConfig]:
+    """The five-model registry (reference config.py:126-199), in registry
+    order."""
+    return {
+        "xgboost_primary": ModelConfig(
+            name="xgboost_primary",
+            model_type="gbdt",
+            weight=0.40,
+            hyperparameters={
+                "n_estimators": 100,
+                "max_depth": 6,
+                "learning_rate": 0.1,
+                "subsample": 0.8,
+                "colsample_bytree": 0.8,
+            },
+        ),
+        "lstm_sequential": ModelConfig(
+            name="lstm_sequential",
+            model_type="lstm",
+            weight=0.25,
+            hyperparameters={
+                "sequence_length": 10,
+                "hidden_units": 128,
+                "dropout": 0.2,
+            },
+        ),
+        "bert_text": ModelConfig(
+            name="bert_text",
+            model_type="bert",
+            weight=0.15,
+            hyperparameters={
+                "max_length": 128,  # reference uses 512 but its texts are <64 tokens
+                "vocab_size": 30522,
+                "hidden_size": 768,
+                "num_layers": 6,
+                "num_heads": 12,
+                "intermediate_size": 3072,
+            },
+        ),
+        "graph_neural": ModelConfig(
+            name="graph_neural",
+            model_type="gnn",
+            weight=0.15,
+            hyperparameters={
+                "hidden_channels": 64,
+                "num_layers": 3,
+                "dropout": 0.1,
+                "num_neighbors": 16,
+            },
+        ),
+        "isolation_forest": ModelConfig(
+            name="isolation_forest",
+            model_type="isolation_forest",
+            weight=0.05,
+            hyperparameters={
+                "contamination": 0.1,
+                "n_estimators": 100,
+                "random_state": 42,
+            },
+        ),
+    }
 
 # Confidence multipliers per model (ensemble_predictor.py:331-337).
 MODEL_CONFIDENCE_MULTIPLIER: Dict[str, float] = {
@@ -189,16 +264,67 @@ class StateConfig:
 
 
 @dataclass
-class Config:
-    """The slice of the JAX package's root ``Config`` that scoring reads.
-    A model left out of ``model_weights`` is disabled."""
+class QosSettings:
+    """The deadline-aware QoS plane's knobs (qos/): admission, budgets,
+    ladder. Off by default; ``run-job --qos`` or a config file turns it on.
+    Every knob is run-time state of the plane (``QosPlane.configure``)."""
 
-    model_weights: Dict[str, float] = field(
-        default_factory=lambda: dict(DEFAULT_MODEL_WEIGHTS))
+    enabled: bool = False
+    # the per-transaction latency budget (the p99 contract) and the slice
+    # of it reserved for transfer + compute + return: assembly closes a
+    # batch margin_ms before the oldest waiter's deadline
+    budget_ms: float = 20.0
+    assemble_margin_ms: float = 2.0
+    # token-bucket admission: sustainable txn/s (0 = unlimited), bucket size
+    # (0 = one second of tokens), and the reserve fraction under which the
+    # low class sheds first
+    admission_rate: float = 0.0
+    admission_burst: float = 0.0
+    low_reserve_frac: float = 0.25
+    # priority by amount when a record carries no "priority" field:
+    # >= high_value_amount -> high (never shed), < low_value_amount -> low
+    # (sheds first), else normal
+    high_value_amount: float = 500.0
+    low_value_amount: float = 25.0
+    # the degradation ladder (qos/ladder.py): backlog watermarks in records
+    # and consecutive observations per step (the hysteresis)
+    ladder_enabled: bool = True
+    ladder_high_backlog: float = 2048.0
+    ladder_low_backlog: float = 256.0
+    ladder_patience: int = 2
+    # recovery (step-up) patience; 0 = ladder_patience. Slower recovery
+    # keeps a sustained overload from flapping the ensemble
+    ladder_up_patience: int = 8
+
+    def validate(self) -> None:
+        """The QoS invariants, checked at load (``Config.validate``) and on
+        every run-time update (``QosPlane.configure``)."""
+        if self.budget_ms <= 0 or self.assemble_margin_ms < 0 \
+                or self.assemble_margin_ms >= self.budget_ms:
+            raise ValueError(
+                f"qos budget must satisfy 0 <= assemble_margin_ms < "
+                f"budget_ms, got margin={self.assemble_margin_ms} "
+                f"budget={self.budget_ms}")
+        if self.ladder_low_backlog > self.ladder_high_backlog:
+            # inverted watermarks would step down and up on the same backlog
+            raise ValueError(
+                f"qos ladder watermarks must satisfy low_backlog <= "
+                f"high_backlog, got low={self.ladder_low_backlog} "
+                f"high={self.ladder_high_backlog}")
+
+
+@dataclass
+class Config:
+    """The slice of the JAX package's root ``Config`` the port reads. A
+    disabled model is left out of the blend and of the scorer's validity
+    mask."""
+
+    models: Dict[str, ModelConfig] = field(default_factory=_default_models)
     ensemble: EnsembleConfig = field(default_factory=EnsembleConfig)
     quant: QuantSettings = field(default_factory=QuantSettings)
     kernels: KernelSettings = field(default_factory=KernelSettings)
     state: StateConfig = field(default_factory=StateConfig)
+    qos: QosSettings = field(default_factory=QosSettings)
 
     def __post_init__(self) -> None:
         self._apply_env()
@@ -215,23 +341,160 @@ class Config:
             _env("CONFIDENCE_THRESHOLD", str(e.confidence_threshold)))
         e.fraud_threshold = float(_env("FRAUD_THRESHOLD", str(e.fraud_threshold)))
 
+    # -- registry helpers (reference config.py:201-224) --------------------
+    def get_model_config(self, model_name: str) -> ModelConfig:
+        if model_name not in self.models:
+            raise ValueError(f"Model '{model_name}' not found in configuration")
+        return self.models[model_name]
+
+    def get_enabled_models(self) -> Dict[str, ModelConfig]:
+        return {n: c for n, c in self.models.items() if c.enabled}
+
     def normalized_weights(self) -> Dict[str, float]:
-        """Blend weights over the configured (enabled) models."""
-        total = sum(self.model_weights.values())
+        """Blend weights over the enabled models."""
+        enabled = self.get_enabled_models()
+        total = sum(c.weight for c in enabled.values())
         if total <= 0:
-            return {n: 0.0 for n in self.model_weights}
-        return {n: w / total for n, w in self.model_weights.items()}
+            return {n: 0.0 for n in enabled}
+        return {n: c.weight / total for n, c in enabled.items()}
+
+    def update_model_weight(self, model_name: str, weight: float) -> None:
+        if model_name in self.models:
+            self.models[model_name].weight = weight
+
+    def disable_model(self, model_name: str) -> None:
+        if model_name in self.models:
+            self.models[model_name].enabled = False
+
+    def enable_model(self, model_name: str) -> None:
+        if model_name in self.models:
+            self.models[model_name].enabled = True
+
+    # -- quality artifacts (``QUALITY_r*.json``) ---------------------------
+    @staticmethod
+    def _artifact_section(artifact_path: str, key: str) -> Optional[dict]:
+        with open(artifact_path) as f:
+            artifact = json.load(f)
+        section = artifact.get(key) if isinstance(artifact, dict) else None
+        return section if isinstance(section, dict) else None
+
+    @staticmethod
+    def load_selected_blend_weights(artifact_path: str) -> Dict[str, float]:
+        """A quality-eval artifact's ``selected_blend.weights``. Malformed
+        shapes raise ValueError."""
+        blend = Config._artifact_section(artifact_path, "selected_blend")
+        weights = blend.get("weights") if blend is not None else None
+        if not isinstance(weights, dict) or not weights:
+            raise ValueError(
+                f"{artifact_path} has no selected_blend.weights — not a "
+                f"quality-eval artifact?")
+        return {str(n): float(w) for n, w in weights.items()}
+
+    @staticmethod
+    def load_selected_blend_strategy(artifact_path: str) -> Optional[str]:
+        """The artifact's measured combine strategy, or None for artifacts
+        from before strategies were recorded (all measured under
+        weighted_average). An unknown name raises."""
+        blend = Config._artifact_section(artifact_path, "selected_blend")
+        strategy = blend.get("strategy") if blend is not None else None
+        if strategy is None:
+            return None
+        if strategy not in VALID_STRATEGIES:
+            raise ValueError(
+                f"{artifact_path} selected_blend.strategy {strategy!r} not "
+                f"one of {VALID_STRATEGIES}")
+        return str(strategy)
+
+    @staticmethod
+    def load_artifact_text_model(artifact_path: str) -> Optional[Dict[str, Any]]:
+        """The artifact's recorded text-encoder architecture
+        (``protocol.text_model``: layers / width / vocab), or None."""
+        proto = Config._artifact_section(artifact_path, "protocol")
+        tm = proto.get("text_model") if proto is not None else None
+        return dict(tm) if isinstance(tm, dict) else None
+
+    def apply_quality_artifact(self, artifact_path: str) -> Dict[str, float]:
+        """Deploy a measured blend: the artifact's ``selected_blend`` (the
+        branches that survived its validation gate, at their weights)
+        becomes this config's model table; branches outside it stay
+        configured but disabled, and a recorded combine strategy deploys
+        too. Returns the applied weights."""
+        weights = self.load_selected_blend_weights(artifact_path)
+        strategy = self.load_selected_blend_strategy(artifact_path)
+        unknown = [n for n in weights if n not in self.models]
+        if unknown:
+            raise ValueError(
+                f"artifact names unknown model(s) {unknown}; "
+                f"configured: {sorted(self.models)}")
+        for name, mc in self.models.items():
+            if name in weights:
+                mc.enabled = True
+                mc.weight = float(weights[name])
+            else:
+                mc.enabled = False
+        if strategy is not None:
+            self.ensemble.strategy = strategy
+        return {n: float(w) for n, w in weights.items()}
+
+    # -- serialization -----------------------------------------------------
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_file(cls, config_path: str) -> "Config":
+        with open(config_path) as f:
+            data = json.load(f)
+        return cls.from_dict(data)
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any]) -> "Config":
+        cfg = cls()
+        _merge_dataclass(cfg, data)
+        # the environment applies after the file: defaults -> file -> env
+        cfg._apply_env()
+        cfg.validate()
+        return cfg
 
     def validate(self) -> None:
         if self.ensemble.strategy not in VALID_STRATEGIES:
             raise ValueError(
-                f"ensemble.strategy must be one of {VALID_STRATEGIES}, got "
-                f"{self.ensemble.strategy!r}")
+                f"ensemble.strategy (env RTFD_ENSEMBLE_STRATEGY) must be one of "
+                f"{VALID_STRATEGIES}, got {self.ensemble.strategy!r}")
         e = self.ensemble
         if not (0.0 <= e.monitor_threshold <= e.review_threshold
                 <= e.decline_threshold <= 1.0):
             raise ValueError(
                 "decision ladder must satisfy 0 <= monitor_threshold <= "
-                "review_threshold <= decline_threshold <= 1")
+                "review_threshold <= decline_threshold <= 1, got "
+                f"monitor={e.monitor_threshold} review={e.review_threshold} "
+                f"decline={e.decline_threshold}")
+        self.qos.validate()
         self.quant.validate()
         self.kernels.validate()
+
+
+def _merge_dataclass(obj: Any, data: Dict[str, Any]) -> None:
+    """Overlay a dict onto a dataclass tree, recursively. An unknown key
+    warns instead of vanishing: a typo'd knob must not quietly leave the
+    default in force."""
+    for key, value in data.items():
+        if not hasattr(obj, key):
+            logging.getLogger(__name__).warning(
+                "config: unknown key %r on %s — ignored (typo or renamed "
+                "knob?)", key, type(obj).__name__)
+            continue
+        current = getattr(obj, key)
+        if dataclasses.is_dataclass(current) and isinstance(value, dict):
+            _merge_dataclass(current, value)
+        elif key == "models" and isinstance(value, dict):
+            for model_name, model_data in value.items():
+                if model_name in current and isinstance(model_data, dict):
+                    for attr, v in model_data.items():
+                        if hasattr(current[model_name], attr):
+                            setattr(current[model_name], attr, v)
+                elif isinstance(model_data, dict) and "model_type" in model_data:
+                    current[model_name] = ModelConfig(
+                        name=model_name,
+                        **{k: v for k, v in model_data.items() if k != "name"})
+        else:
+            setattr(obj, key, value)

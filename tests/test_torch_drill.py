@@ -213,6 +213,25 @@ def test_drill_and_ladder_import_with_jax_blocked():
         s = TorchFraudScorer(device="cpu", seed=1)
         s.set_degradation(None, rules_only=False, level=0)
         assert len(LADDER_LEVELS) == 4 and kd.KernelDrillConfig.fast().batch == 32
+        # the QoS plane, its drill, the metrics and the config layer
+        from realtime_fraud_detection_tpu_torch.obs.metrics import MetricsCollector
+        from realtime_fraud_detection_tpu_torch.qos import (
+            AdmissionController, DegradationLadder, LatencyBudget, QosPlane,
+            run_overload_drill)
+        from realtime_fraud_detection_tpu_torch.utils.config import Config, QosSettings
+        plane = QosPlane(QosSettings(enabled=True, admission_rate=10.0),
+                         metrics=MetricsCollector())
+        assert plane.admit({"amount": 900}, 0.0).admitted
+        assert plane.apply_degradation(s) == 0
+        assert "qos_admitted_total" in plane.metrics.render_prometheus()
+        assert AdmissionController(0).decide("low", 0.0).admitted
+        assert DegradationLadder().level == 0 and LatencyBudget().budget_ms == 20.0
+        summary = run_overload_drill(overload_s=0.1, recovery_s=0.1)
+        assert summary["scored"] > 0 and summary["p99_within_budget"]
+        cfg = Config()
+        cfg.apply_quality_artifact("QUALITY_r05.json")
+        assert sorted(cfg.get_enabled_models()) == [
+            "isolation_forest", "lstm_sequential", "xgboost_primary"]
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

@@ -501,10 +501,17 @@ def test_assemble_matches_jax_over_three_batches(assemble_pair):
 
 
 def test_scorer_refuses_an_unported_tokenizer_or_a_wider_vocab():
+    # "word" and "wordpiece" are ported; any other name is refused
     with pytest.raises(ValueError, match="tokenizer"):
-        TorchFraudScorer(scorer_config=ScorerConfig(tokenizer="wordpiece"),
+        TorchFraudScorer(scorer_config=ScorerConfig(tokenizer="sentencepiece"),
                          device="cpu")
-    # the tokenizer's vocab is the BERT vocab: an id is always in range
+    # a vocabulary wider than the BERT embedding table is refused: on the
+    # card an out-of-range id would reach a gather with no bounds check
+    narrow = dataclasses.replace(TINY_CONFIG, vocab_size=2000)
+    with pytest.raises(ValueError, match="vocab_size"):
+        TorchFraudScorer(scorer_config=ScorerConfig(tokenizer="wordpiece"),
+                         bert_config=narrow, device="cpu")
+    # the word tokenizer's vocab is the BERT vocab: an id is always in range
     s = TorchFraudScorer(scorer_config=ScorerConfig(text_len=16), device="cpu")
     assert s.tokenizer.vocab_size == s.bert_config.vocab_size
 

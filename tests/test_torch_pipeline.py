@@ -347,6 +347,23 @@ def test_port_runs_with_jax_blocked():
         job.close()
         assert t.kernel_snapshot()["fallback"]["megakernel"] == 2
         assert t.graph_snapshot()["store"]["edges_added"] == 96
+        # the wordpiece tokenizer under the QoS plane, with its metrics
+        from realtime_fraud_detection_tpu_torch.models.wordpiece import WordPieceTokenizer
+        from realtime_fraud_detection_tpu_torch.utils.config import QosSettings
+        w = TorchFraudScorer(scorer_config=ScorerConfig(tokenizer="wordpiece",
+                                                        text_len=16),
+                             models=init_scoring_models(1, n_trees=4, tree_depth=3),
+                             device="cpu")
+        assert isinstance(w.tokenizer, WordPieceTokenizer)
+        w.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+        broker = InMemoryBroker()
+        job = StreamJob(broker, w, JobConfig(
+            max_batch=16, qos=QosSettings(enabled=True, admission_rate=1e6)))
+        broker.produce_batch(T.TRANSACTIONS, gen.generate_batch(16),
+                             key_fn=lambda r: str(r["user_id"]))
+        assert job.run_until_drained(now=2.0) == 16 and job.counters["shed"] == 0
+        job.qos.metrics.sync_microbatch(job.assembler.close_reasons)
+        assert "microbatch_close_reason_total" in job.qos.metrics.render_prometheus()
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

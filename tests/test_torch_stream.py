@@ -56,6 +56,7 @@ from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerato
 from realtime_fraud_detection_tpu_torch.stream import topics as T
 from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
 from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
+from realtime_fraud_detection_tpu_torch.utils.config import QosSettings
 from torch_bounds import near_rung, noise_bound
 
 ALERT_THRESHOLD = 0.7
@@ -282,8 +283,9 @@ def test_job_config_refuses_unported_planes():
         JobConfig(qos=object())
     with pytest.raises(TypeError):
         JobConfig(device_pool=True)
-    # the overlapped assembly stage is ported now
+    # the overlapped assembly stage and the QoS plane are ported now
     assert JobConfig(overlap_assembly=True).overlap_assembly
+    assert JobConfig(qos=QosSettings(enabled=True)).qos.enabled
 
 
 def test_dispatch_error_is_counted_not_hidden():
