@@ -116,6 +116,48 @@ Phases, each of which raises (and exits non-zero) on failure:
    from ``Config()`` + ``apply_quality_artifact("QUALITY_r05.json")`` serves
    its blend on one TINY bucket-256 batch in one megakernel launch at
    ``mega_valid`` (T, T, F, F, T), held against the kernels-off plain path.
+14. the tracing plane: (a) phase 8's TINY ``mega()`` stream (4,096
+   transactions, int8 BERT, batches of 256, depth 2) four times in turns,
+   ``JobConfig(tracing=None)`` then ``TracingSettings(enabled=True)`` on
+   ``time.monotonic``, twice each: every run one megakernel launch a batch;
+   ids, order and decisions identical across the runs; one ``scored`` trace
+   per scored transaction, each ending with the scorer's stages (queue,
+   assemble, pack, dispatch, device_wait, finalize), ``device_wait``
+   positive on every traced batch. Prints the breakdown's per-stage shares
+   at p50 / p95 / p99 with the dominant stage, txn/s off and on, the plane's
+   host cost a transaction (inside its calls, and the trace drill's loop)
+   and the size of the exported Chrome trace
+   (``chiprun_out/tiny_traced_stream.json``). (b) the SLO-burn gate: phase
+   13's QoS schedule with a ``Tracer`` on the same virtual clock (objective
+   20 ms; fast / slow windows 0.12 / 0.48 s, buckets of 0.01 s, so the
+   burst's violations age out inside the trickle; threshold 2, patience 2,
+   up-patience 4): the gate engages in the burst and releases before the
+   end, holding rung 1 for a few batches after the ladder's own recovery;
+   the rungs, the gate's state at each dispatch and the sheds equal a
+   kernels-off CPU run's; one megakernel launch per batch with its rung's
+   mask; decisions within the drill's bound at every rung, ``rules_only``
+   bit-exact. Prints the rungs beside phase 13's;
+15. the tuning plane: (a) the autotune drill's offered-load timeline
+   (``AutotuneDrillConfig.fast()``, a compressed diurnal cycle of 3 s from
+   150 to 8,000 txn/s with bursts x4, cut to its first 1.5 s to keep the
+   command near 150 s: 9,508 arrivals, the trough, the ramp, one burst and
+   the peak) on the seeded simulator's
+   records (the drill's priority mix by amount) through ``StreamJob`` with
+   ``JobConfig(qos=..., tracing=..., autotune=...)``, on the card scorer and
+   on a kernels-off CPU scorer, each on a virtual clock advanced by the
+   drill's service curve (2 ms + 6 us a padded row), so the close decisions
+   do not depend on the device: the batch sizes, close reasons, the tuner's
+   snapshot and the trace counters equal the CPU run's, decisions within the
+   drill's bound; each batch of two or more rows one megakernel launch,
+   each one-row batch the per-site chain (1 / 2 / 12 / 2 launches) and one
+   counted megakernel fallback, the counters' growth equal to the
+   snapshot's ``kernel_launches`` every batch. Prints the bucket histogram
+   and the launches by bucket. (b) the same timeline paced in wall time (a
+   producer thread), once with the tuning plane of ``run-job --autotune
+   --qos`` fed the card's dispatch-to-completion times, once with the fixed
+   5 ms deadline: each id emitted once, lag 0, no high-priority shed.
+   Prints admitted p50 / p99 and txn/s, the close reasons, the tuner's
+   moves, the learned T(bucket) and the measured one.
 
 The last three lines of standard output are the kernel JSON line (all five
 kernels), the ``nvidia-smi`` name and power limit, and the result line
@@ -1243,13 +1285,14 @@ class StreamTimer:
 
 def drive_stream(records, profiles, bert_config, config, device, timed=False,
                  tokens=None, models=None, scorer_config=None, overlap=False,
-                 texts=None):
+                 texts=None, tracing=None):
     """The port's ``StreamJob`` over ``records`` on a fresh scorer (the
     width's seeded models unless ``models`` is given) and in-memory broker,
     at the fixed virtual clock; returns (job, broker, scorer, timer). With a
     ``tokens`` list, each batch's (ids, mask) is appended to it, with a
     ``texts`` list each batch's tokenizer input texts; with ``overlap`` the
-    job runs the overlapped assembly stage (closed before this returns)."""
+    job runs the overlapped assembly stage (closed before this returns);
+    ``tracing`` is the job's ``JobConfig.tracing``."""
     from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
     from realtime_fraud_detection_tpu_torch.stream import topics as T
     from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
@@ -1279,7 +1322,8 @@ def drive_stream(records, profiles, bert_config, config, device, timed=False,
         scorer._texts_for = keep_texts
     broker = InMemoryBroker()
     job = StreamJob(broker, scorer, JobConfig(max_batch=BATCH, pipeline_depth=2,
-                                              overlap_assembly=overlap))
+                                              overlap_assembly=overlap,
+                                              tracing=tracing))
     broker.produce_batch(T.TRANSACTIONS, records, key_fn=lambda r: str(r["user_id"]))
     timer = StreamTimer(job, scorer) if timed else None
     try:
@@ -1701,9 +1745,12 @@ def qos_settings():
                        admission_burst=QOS_ADMISSION_BURST)
 
 
-def drive_qos(arrivals, profiles, config, device, models, timed=False):
+def drive_qos(arrivals, profiles, config, device, models, timed=False, slo=None):
     """One run of the QoS schedule through the port's ``StreamJob`` with its
-    own ``QosPlane``, pipeline depth 2, overlap off. ``arrivals[k]`` are the
+    own ``QosPlane``, pipeline depth 2, overlap off; with ``slo`` (a
+    ``TracingSettings``) a ``Tracer`` on the same virtual clock closes each
+    batch's traces and feeds the plane's SLO-burn gate, and each batch
+    records whether the gate was engaged at its dispatch. ``arrivals[k]`` are the
     records of batch period k, produced at the period's start with that
     virtual timestamp; the assembler and the plane's clocks read the same
     virtual clock. A period dispatches at most one batch: one the size or
@@ -1730,9 +1777,14 @@ def drive_qos(arrivals, profiles, config, device, models, timed=False):
     scorer.seed_profiles(*profiles)
     plane = QosPlane(qos_settings())
     broker = InMemoryBroker()
-    job = StreamJob(broker, scorer, JobConfig(max_batch=BATCH, pipeline_depth=2,
-                                              qos=plane))
     clock = [0.0]
+    tracer = None
+    if slo is not None:
+        from realtime_fraud_detection_tpu_torch.obs.tracing import Tracer
+
+        tracer = Tracer(slo, clock=lambda: clock[0])
+    job = StreamJob(broker, scorer, JobConfig(max_batch=BATCH, pipeline_depth=2,
+                                              qos=plane, tracing=tracer))
     job.assembler = MicrobatchAssembler(
         job.consumer, max_batch=BATCH, max_delay_ms=job.config.max_delay_ms,
         clock=lambda: clock[0], budget=plane.budget, budget_clock=lambda: clock[0])
@@ -1776,7 +1828,8 @@ def drive_qos(arrivals, profiles, config, device, models, timed=False):
             before = len(launches)
             t0 = time.perf_counter()
             ctx = job.dispatch_batch(batch, now=clock[0])
-            info = dict(rung=plane.effective_level(), t0=t0, rows=len(batch),
+            info = dict(rung=plane.effective_level(), gate=plane.slo_engaged,
+                        t0=t0, rows=len(batch),
                         ids=[r.value["transaction_id"] for r in ctx.fresh],
                         launches=launches[before:],
                         kernel_launches=scorer.kernel_snapshot()["kernel_launches"]
@@ -1792,64 +1845,22 @@ def drive_qos(arrivals, profiles, config, device, models, timed=False):
     finally:
         mk._launch = launch
     return dict(job=job, broker=broker, scorer=scorer, plane=plane, batches=batches,
-                kernel_ms=kernel_ms, spin_retries=spin_retries[0])
+                kernel_ms=kernel_ms, spin_retries=spin_retries[0], tracer=tracer)
 
 
-def run_qos(ops):
-    """The QoS plane on the card: the TINY ``mega()`` stream under
-    ``QosSettings(enabled=True)`` at the JAX defaults (budget 20 ms, margin
-    2 ms, watermarks 2,048 / 256, patience 2, up-patience 8), admission at
-    25,000 txn/s with a bucket of 1,024, on a virtual clock of 5.12 ms a
-    batch period: a burst of 6,100 transactions in period 0 (23 batches the
-    size trigger closes and one of 212 the budget closes), then 32 periods
-    of 64 (each closed by the 5 ms deadline). The ladder steps down to
-    ``rules_only`` in the burst and back to ``full_ensemble`` in the
-    trickle. Gates: the rung sequence, the shed ids and every shed reason
-    equal a kernels-off CPU run of the same schedule; no high-priority
-    record shed; every id once on the predictions topic; one megakernel
-    launch per dispatched batch with that rung's mask and no per-site
-    kernel (counters and ``kernel_snapshot()`` agree); decisions within the
-    drill's bound at every rung, ``rules_only`` bit-exact; the exposition's
-    ``qos_*`` families and budget closes. Then the quality artifact's blend
-    in one launch. Returns the card run's launch counts."""
+def check_qos_run(name, card, cpu, produced):
+    """The card's run of the QoS schedule against the CPU's: the same rung
+    sequence, each produced id once on both predictions topics, no error,
+    the same shed ids and reasons, none of high priority. Returns the card's
+    sheds by id."""
     from collections import Counter
 
-    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
-    from realtime_fraud_detection_tpu_torch.obs.profiling import interpolated_percentile
-    from realtime_fraud_detection_tpu_torch.qos.ladder import LADDER_LEVELS
-    from realtime_fraud_detection_tpu_torch.scoring.pipeline import MODEL_NAMES
-    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
     from realtime_fraud_detection_tpu_torch.stream import topics as T
-    from realtime_fraud_detection_tpu_torch.utils.config import (
-        Config,
-        KernelSettings,
-        QuantSettings,
-    )
-
-    name = "TINY QoS"
-    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
-                               seed=SEED)
-    profiles = (gen.users.profiles(), gen.merchants.profiles())
-    burst_periods = -(-QOS_BURST // BATCH)
-    arrivals = {0: gen.generate_batch(QOS_BURST)}
-    for k in range(burst_periods, burst_periods + QOS_TRICKLE_STEPS):
-        arrivals[k] = gen.generate_batch(QOS_TRICKLE)
-    produced = [r["transaction_id"] for k in sorted(arrivals) for r in arrivals[k]]
-    models = seeded_models(TINY_CONFIG)
-    config = Config(quant=QuantSettings.full(), kernels=KernelSettings.mega())
-
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    card = drive_qos(arrivals, profiles, config, "cuda", models)
-    launches = ops.launch_counts()
-    cpu = drive_qos(arrivals, profiles, Config(quant=QuantSettings.full()), "cpu", models)
 
     rungs = [b["rung"] for b in card["batches"]]
     if rungs != [b["rung"] for b in cpu["batches"]]:
         fail(f"{name}: rung sequence {rungs} differs from the CPU run's "
              f"{[b['rung'] for b in cpu['batches']]}")
-    if max(rungs) != 3 or rungs[-1] != 0 or rungs[0] != 0:
-        fail(f"{name}: the ladder did not step down to rules_only and back: {rungs}")
     preds = {side: topic_values(run["broker"], T.PREDICTIONS)
              for side, run in (("card", card), ("cpu", cpu))}
     for side, ps in preds.items():
@@ -1864,8 +1875,17 @@ def run_qos(ops):
     if not shed["card"] or any(e["priority"] == "high" for e in shed["card"].values()):
         fail(f"{name}: {len(shed['card'])} shed, high priority among them: "
              f"{Counter(e['priority'] for e in shed['card'].values())}")
+    card["preds"], cpu["preds"] = preds["card"], preds["cpu"]
+    return shed["card"]
 
-    # one megakernel launch per dispatched batch, with its rung's mask
+
+def check_qos_launches(name, card, launches):
+    """One megakernel launch per dispatched batch of the card's run, with
+    its rung's mask, and no per-site kernel: the spy, the launch counters
+    and ``kernel_snapshot()`` agree. Returns (batches scored, snapshot)."""
+    from realtime_fraud_detection_tpu_torch.qos.ladder import LADDER_LEVELS
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import MODEL_NAMES
+
     n_scored = 0
     for b in card["batches"]:
         rung = LADDER_LEVELS[b["rung"]]
@@ -1884,11 +1904,20 @@ def run_qos(ops):
                                                  "attention"))
             or snap["launches_per_batch"] != 1):
         fail(f"{name}: launches {launches} (expected {want}), snapshot {snap}")
+    return n_scored, snap
 
-    # decisions per rung against the CPU run; rules_only bit-exact
+
+def compare_qos_rungs(name, card, cpu, arrivals):
+    """Decisions of the card's run against the CPU's, rung by rung: within
+    the drill's bound measured on each rung's own tokens and mask,
+    ``rules_only`` bit-exact. Returns the max error per rung."""
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.qos.ladder import LADDER_LEVELS
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import MODEL_NAMES
+
     rung_of = {i: b["rung"] for b in card["batches"] for i in b["ids"]}
-    scored = {side: [p for p in ps if not p["explanation"].get("shed")]
-              for side, ps in preds.items()}
+    scored = {side: [p for p in run["preds"] if not p["explanation"].get("shed")]
+              for side, run in (("card", card), ("cpu", cpu))}
     errs = {}
     for level, rung in enumerate(LADDER_LEVELS):
         got = [p for p in scored["card"] if rung_of[p["transaction_id"]] == level]
@@ -1911,6 +1940,70 @@ def run_qos(ops):
                           card["scorer"].ensemble_params.weights, mask)
         errs[rung.name] = compare_streams(f"{name} rung {rung.name}", got, ref, tol,
                                           "a kernels-off CPU run")
+    return errs
+
+
+def qos_schedule():
+    """The QoS schedule's seeded records: (profiles, arrivals by batch
+    period, the produced ids in order)."""
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+
+    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                               seed=SEED)
+    profiles = (gen.users.profiles(), gen.merchants.profiles())
+    burst_periods = -(-QOS_BURST // BATCH)
+    arrivals = {0: gen.generate_batch(QOS_BURST)}
+    for k in range(burst_periods, burst_periods + QOS_TRICKLE_STEPS):
+        arrivals[k] = gen.generate_batch(QOS_TRICKLE)
+    produced = [r["transaction_id"] for k in sorted(arrivals) for r in arrivals[k]]
+    return profiles, arrivals, produced
+
+
+def run_qos(ops):
+    """The QoS plane on the card: the TINY ``mega()`` stream under
+    ``QosSettings(enabled=True)`` at the JAX defaults (budget 20 ms, margin
+    2 ms, watermarks 2,048 / 256, patience 2, up-patience 8), admission at
+    25,000 txn/s with a bucket of 1,024, on a virtual clock of 5.12 ms a
+    batch period: a burst of 6,100 transactions in period 0 (23 batches the
+    size trigger closes and one of 212 the budget closes), then 32 periods
+    of 64 (each closed by the 5 ms deadline). The ladder steps down to
+    ``rules_only`` in the burst and back to ``full_ensemble`` in the
+    trickle. Gates: the rung sequence, the shed ids and every shed reason
+    equal a kernels-off CPU run of the same schedule; no high-priority
+    record shed; every id once on the predictions topic; one megakernel
+    launch per dispatched batch with that rung's mask and no per-site
+    kernel (counters and ``kernel_snapshot()`` agree); decisions within the
+    drill's bound at every rung, ``rules_only`` bit-exact; the exposition's
+    ``qos_*`` families and budget closes. Then the quality artifact's blend
+    in one launch. Returns the card run's launch counts and rung sequence."""
+    from collections import Counter
+
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.obs.profiling import interpolated_percentile
+    from realtime_fraud_detection_tpu_torch.qos.ladder import LADDER_LEVELS
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    name = "TINY QoS"
+    profiles, arrivals, produced = qos_schedule()
+    models = seeded_models(TINY_CONFIG)
+    config = Config(quant=QuantSettings.full(), kernels=KernelSettings.mega())
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    card = drive_qos(arrivals, profiles, config, "cuda", models)
+    launches = ops.launch_counts()
+    cpu = drive_qos(arrivals, profiles, Config(quant=QuantSettings.full()), "cpu", models)
+
+    rungs = [b["rung"] for b in card["batches"]]
+    if max(rungs) != 3 or rungs[-1] != 0 or rungs[0] != 0:
+        fail(f"{name}: the ladder did not step down to rules_only and back: {rungs}")
+    shed = check_qos_run(name, card, cpu, produced)
+    n_scored, snap = check_qos_launches(name, card, launches)
+    errs = compare_qos_rungs(name, card, cpu, arrivals)
 
     # the exposition
     plane, job = card["plane"], card["job"]
@@ -1957,8 +2050,8 @@ def run_qos(ops):
     summary = dict(
         stream=name, produced=len(produced), batches=len(card["batches"]),
         scored=job.counters["scored"], shed=job.counters["shed"],
-        shed_by_priority=dict(Counter(e["priority"] for e in shed["card"].values())),
-        shed_by_reason=dict(Counter(e["shed_reason"] for e in shed["card"].values())),
+        shed_by_priority=dict(Counter(e["priority"] for e in shed.values())),
+        shed_by_reason=dict(Counter(e["shed_reason"] for e in shed.values())),
         transitions_down=plane.ladder.transitions_down,
         transitions_up=plane.ladder.transitions_up, close_reasons=closes,
         rungs=rungs, per_rung=per_rung, rung_sweep_bucket_256=sweep, max_err=errs,
@@ -1967,12 +2060,624 @@ def run_qos(ops):
             max=lat[-1]),
         budget_ms=plane.settings.budget_ms, launches=launches,
         timing_spin_retries=timed["spin_retries"])
-    print(f"{name}: rungs {rungs} equal to the CPU run's; {len(shed['card'])} shed "
+    print(f"{name}: rungs {rungs} equal to the CPU run's; {len(shed)} shed "
           f"(none high priority) with the CPU run's ids and reasons; one megakernel "
           f"launch with its rung's mask on each of {n_scored} batches; "
           + json.dumps(summary), flush=True)
     run_quality_artifact(ops, models)
+    return dict(launches=launches, rungs=rungs)
+
+
+# the tracing phase: phase 8's TINY mega() stream with tracing off and on,
+# in turns; then the QoS schedule with a Tracer on its virtual clock, SLO
+# windows scaled to the schedule (a fast window of ~23 batch periods, so the
+# burst's violations age out inside the trickle)
+TRACE_COUNT = 16 * BATCH
+TRACE_RUNS = (False, True, False, True)
+TRACED_STAGES = ("queue", "assemble", "pack", "dispatch", "device_wait", "finalize")
+SLO_FAST_S, SLO_SLOW_S, SLO_BUCKET_S = 0.12, 0.48, 0.01
+SLO_THRESHOLD, SLO_PATIENCE, SLO_UP_PATIENCE = 2.0, 2, 4
+
+
+class PlaneTimer:
+    """The host time spent inside the tracing plane's calls during a run:
+    the tracer's ``begin`` / ``batch`` / ``finish_batch`` /
+    ``finish_terminal`` (wrapped on the instance) and ``TraceBatch.mark``
+    (wrapped on the class until ``close``)."""
+
+    def __init__(self, tracer):
+        from realtime_fraud_detection_tpu_torch.obs import tracing
+
+        self.s = 0.0
+        self._cls, self._mark = tracing.TraceBatch, tracing.TraceBatch.mark
+        for name in ("begin", "batch", "finish_batch", "finish_terminal"):
+            setattr(tracer, name, self._timed(getattr(tracer, name)))
+        self._cls.mark = self._timed(self._mark)
+
+    def _timed(self, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.s += time.perf_counter() - t0
+        return wrapper
+
+    def close(self) -> None:
+        self._cls.mark = self._mark
+
+
+def run_traced_stream(ops):
+    """Phase 8's TINY ``mega()`` stream (int8 BERT, batches of 256, depth 2)
+    with ``JobConfig(tracing=None)`` and with ``TracingSettings(enabled=True)``
+    on ``time.monotonic``, in turns (off, on, off, on). Gates: every run's
+    launches one megakernel a batch; ids, order and decisions of every run
+    identical; one ``scored`` trace per scored transaction, each with the
+    scorer's stage names, ``device_wait`` positive on every traced batch.
+    Prints the breakdown's per-stage shares at p50 / p95 / p99 with the
+    dominant stage, txn/s off and on, the plane's host cost a transaction
+    (inside its calls, and the trace drill's loop), and the size of the
+    exported Chrome trace (``chiprun_out/``). Returns the traced runs'
+    launch counts (summed)."""
+    import os
+    from collections import Counter
+
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.obs.trace_drill import (
+        TraceDrillConfig,
+        _measure_overhead,
+    )
+    from realtime_fraud_detection_tpu_torch.obs.tracing import Tracer
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+        TracingSettings,
+    )
+
+    name = "TINY traced"
+    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                               seed=SEED)
+    profiles = (gen.users.profiles(), gen.merchants.profiles())
+    records = gen.generate_batch(TRACE_COUNT)
+    config = Config(quant=QuantSettings.full(), kernels=KernelSettings.mega())
+    n_batches = TRACE_COUNT // BATCH
+    want = {"epilogue": 0, "flash_attention": 0, "dequant_matmul": 0, "dequant_rows": 0,
+            "megakernel": n_batches}
+    runs, traced_launches = [], Counter()
+    for traced in TRACE_RUNS:
+        tracer = (Tracer(TracingSettings(enabled=True, ring_size=2 * TRACE_COUNT))
+                  if traced else None)
+        plane = PlaneTimer(tracer) if traced else None
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        try:
+            job, broker, scorer, timer = drive_stream(
+                records, profiles, TINY_CONFIG, config, "cuda", timed=True,
+                tracing=tracer)
+        finally:
+            if plane is not None:
+                plane.close()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        if launches != want:
+            fail(f"{name} ({'on' if traced else 'off'}): launches {launches} != {want}")
+        if traced:
+            traced_launches.update(launches)
+        preds = check_stream_output(name, job, broker, records)
+        runs.append(dict(traced=traced, tracer=tracer, plane_s=plane.s if traced else 0.0,
+                         summary=timer.summary(scorer), job=job,
+                         out=[(p["transaction_id"], p["decision"], p["risk_level"],
+                               p["fraud_score"]) for p in preds]))
+    base = runs[0]["out"]
+    for run in runs[1:]:
+        if [o[:3] for o in run["out"]] != [o[:3] for o in base]:
+            fail(f"{name}: ids, order or decisions differ between tracing off and on")
+    score_diff = max(abs(a[3] - b[3]) for run in runs[1:]
+                     for a, b in zip(run["out"], base))
+
+    for run in (r for r in runs if r["traced"]):
+        tracer = run["tracer"]
+        scored = [t for t in tracer.traces() if t.terminal == "scored"]
+        if Counter(t.txn_id for t in scored) != Counter(o[0] for o in base):
+            fail(f"{name}: not one scored trace per scored transaction")
+        if any(list(t.stages)[-len(TRACED_STAGES):] != list(TRACED_STAGES)
+               for t in scored):
+            fail(f"{name}: a trace lacks the scorer's stage names")
+        if any(not t.stages["device_wait"] > 0.0 for t in scored):
+            fail(f"{name}: device_wait is not positive on every traced batch")
+        if tracer.counters["completed"] != TRACE_COUNT or tracer.counters["errors"]:
+            fail(f"{name}: tracer counters {tracer.counters}")
+
+    last = runs[-1]
+    bd = last["tracer"].breakdown()
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out", "tiny_traced_stream.json")
+    with open(path, "w") as f:
+        json.dump(last["tracer"].export_chrome_trace(), f)
+    tps = {str(traced): [r["summary"]["txn_per_s"] for r in runs if r["traced"] == traced]
+           for traced in (False, True)}
+    mean = {k: sum(v) / len(v) for k, v in tps.items()}
+    wall_us = {str(traced): [1e6 / r["summary"]["txn_per_s"] for r in runs
+                             if r["traced"] == traced] for traced in (False, True)}
+    drill = _measure_overhead(TraceDrillConfig())
+    summary = dict(
+        stream=name, txns=TRACE_COUNT, runs=["on" if t else "off" for t in TRACE_RUNS],
+        txn_per_s_off=tps["False"], txn_per_s_on=tps["True"],
+        txn_per_s_change=mean["True"] / mean["False"] - 1.0,
+        wall_us_per_txn_off=wall_us["False"], wall_us_per_txn_on=wall_us["True"],
+        plane_us_per_txn=[r["plane_s"] / TRACE_COUNT * 1e6 for r in runs if r["traced"]],
+        drill_loop_us_per_txn=drill["enabled_us_per_txn"],
+        drill_noop_us_per_txn=drill["disabled_us_per_txn"],
+        batch_ms_p50={("on" if r["traced"] else "off") + str(i): r["summary"]["batch_ms_p50"]
+                      for i, r in enumerate(runs)},
+        fraud_score_max_diff=score_diff,
+        breakdown={q: dict(e2e_ms=v["e2e_ms"], tail_n=v["tail_n"], stage_ms=v["stage_ms"],
+                           dominant_stage=v["dominant_stage"],
+                           dominant_frac=v["dominant_frac"])
+                   for q, v in bd["quantiles"].items()},
+        host_ms_per_batch=last["summary"]["host_ms_per_batch"],
+        gc_ms=last["summary"]["gc_ms"], chrome_trace=path,
+        chrome_trace_bytes=os.path.getsize(path), launches=dict(traced_launches))
+    print(f"{name}: {len(TRACE_RUNS)} runs of {TRACE_COUNT} txns, tracing off / on in "
+          f"turns, ids, order and decisions identical (fraud_score max diff "
+          f"{score_diff:.3e}); one scored trace per transaction with the stages "
+          f"{list(TRACED_STAGES)}, device_wait > 0 on all; " + json.dumps(summary),
+          flush=True)
+    for q in ("p50", "p95", "p99"):
+        v = bd["quantiles"][q]
+        print(f"  {name} {q}: e2e {v['e2e_ms']:.3f} ms, dominant {v['dominant_stage']} "
+              f"({v['dominant_frac']:.3f}); stage ms {json.dumps(v['stage_ms'])}",
+              flush=True)
+    return dict(traced_launches)
+
+
+def run_qos_slo(ops, qos_rungs):
+    """The SLO-burn gate on the card: phase 13's QoS schedule with a
+    ``Tracer`` on the same virtual clock (objective 20 ms, the budget; fast /
+    slow windows 0.12 / 0.48 s, buckets of 0.01 s, threshold 2, patience 2,
+    up-patience 4), so each completed batch feeds its burn rate to the QoS
+    plane's gate. Gates: the gate engages in the burst and is released by the
+    end of the trickle; the rung sequence, the gate's state at each dispatch
+    and the shed ids equal a kernels-off CPU run's; one megakernel launch per
+    batch with its rung's mask; decisions within the drill's bound at every
+    rung, ``rules_only`` bit-exact. Prints the rungs beside phase 13's.
+    Returns the card run's launch counts."""
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+        TracingSettings,
+    )
+
+    name = "TINY QoS + SLO gate"
+    profiles, arrivals, produced = qos_schedule()
+    models = seeded_models(TINY_CONFIG)
+    slo = TracingSettings(enabled=True, ring_size=2 * len(produced),
+                          slo_objective_ms=qos_settings().budget_ms,
+                          slo_fast_window_s=SLO_FAST_S, slo_slow_window_s=SLO_SLOW_S,
+                          slo_bucket_s=SLO_BUCKET_S, slo_burn_threshold=SLO_THRESHOLD,
+                          slo_gate_patience=SLO_PATIENCE,
+                          slo_gate_up_patience=SLO_UP_PATIENCE)
+    config = Config(quant=QuantSettings.full(), kernels=KernelSettings.mega())
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    card = drive_qos(arrivals, profiles, config, "cuda", models, slo=slo)
+    launches = ops.launch_counts()
+    cpu = drive_qos(arrivals, profiles, Config(quant=QuantSettings.full()), "cpu", models,
+                    slo=slo)
+
+    rungs = [b["rung"] for b in card["batches"]]
+    gates = [b["gate"] for b in card["batches"]]
+    if gates != [b["gate"] for b in cpu["batches"]]:
+        fail(f"{name}: the gate's states differ from the CPU run's")
+    burst = -(-QOS_BURST // BATCH)
+    if not any(gates[:burst]) or gates[-1] or rungs[-1] != 0:
+        fail(f"{name}: the gate did not engage in the burst and release by the end: "
+             f"{gates}")
+    shed = check_qos_run(name, card, cpu, produced)
+    n_scored, _ = check_qos_launches(name, card, launches)
+    errs = compare_qos_rungs(name, card, cpu, arrivals)
+    flips = [i for i in range(1, len(gates)) if gates[i] != gates[i - 1]]
+    tracer = card["tracer"]
+    summary = dict(
+        stream=name, batches=len(rungs), scored=card["job"].counters["scored"],
+        shed=len(shed), gate_engaged_at_batch=flips[0] if flips else None,
+        gate_released_at_batch=flips[-1] if len(flips) > 1 else None,
+        gate_transitions=len(flips), max_err=errs, launches=launches,
+        trace_counters=tracer.counters, slo=tracer.slo.snapshot(),
+        held_by_gate=sum(1 for r, q in zip(rungs, qos_rungs) if r > q))
+    print(f"{name}: rungs {''.join(map(str, rungs))} (phase 13: "
+          f"{''.join(map(str, qos_rungs))}), gate {''.join(str(int(g)) for g in gates)}, "
+          f"equal to the CPU run's with its sheds; one megakernel launch with its "
+          f"rung's mask on each of {n_scored} batches; " + json.dumps(summary),
+          flush=True)
     return launches
+
+
+# the tuning phase: the autotune drill's offered-load timeline (a compressed
+# diurnal cycle with flash-sale bursts, AutotuneDrillConfig.fast(): 150 to
+# 8,000 txn/s, bursts x4), its first half cycle (the whole cycle's 15,769
+# arrivals took the phase 65 s, 34 of them the CPU reference), on the seeded
+# simulator's records, with the drill's priority mix by amount
+AUTOTUNE_DURATION_S = 1.5
+AUTOTUNE_STEP_S = 0.0005         # the drive loop's step while a batch is open
+LIVE_TIMEOUT_S = 0.005           # the live loop's blocking poll
+CHAIN_LAUNCHES = {"epilogue": 1, "flash_attention": 2, "dequant_matmul": 12,
+                  "dequant_rows": 2, "megakernel": 0}
+MEGA_LAUNCHES = {"epilogue": 0, "flash_attention": 0, "dequant_matmul": 0,
+                 "dequant_rows": 0, "megakernel": 1}
+
+
+def autotune_timeline():
+    """(drill config, arrival times, simulator records with the drill's
+    amounts, profiles, warm-up records)."""
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.tuning.drill import (
+        AutotuneDrillConfig,
+        _arrivals,
+    )
+
+    cfg = dataclasses.replace(AutotuneDrillConfig.fast(),
+                              duration_s=AUTOTUNE_DURATION_S)
+    arrivals = _arrivals(cfg)
+    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                               seed=SEED)
+    profiles = (gen.users.profiles(), gen.merchants.profiles())
+    records = gen.generate_batch(len(arrivals))
+    for rec, (_, txn) in zip(records, arrivals):
+        rec["amount"] = txn["amount"]
+    warm = gen.generate_batch(sum(MEGA_BUCKETS) + 1)
+    return cfg, [ts for ts, _ in arrivals], records, profiles, warm
+
+
+def autotune_planes(cfg, live=False, tuned=True):
+    """The drill's QoS plane (its budget, no ladder, no admission limit),
+    a tracer on ``clock`` (None: ``time.monotonic``) with the drill's SLO
+    windows, and the tuning plane: the drill's (serial) on the virtual
+    clock, ``run-job --autotune --qos``'s in the live run."""
+    from realtime_fraud_detection_tpu_torch.qos.plane import QosPlane
+    from realtime_fraud_detection_tpu_torch.tuning.drill import _tuning_plane
+    from realtime_fraud_detection_tpu_torch.tuning.plane import TuningPlane
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        QosSettings,
+        TracingSettings,
+        TuningSettings,
+    )
+
+    qos = QosSettings(enabled=True, budget_ms=cfg.budget_ms,
+                      assemble_margin_ms=cfg.assemble_margin_ms,
+                      ladder_high_backlog=1e9, ladder_low_backlog=1e8)
+    slo = TracingSettings(enabled=True, ring_size=4096, slo_objective_ms=cfg.budget_ms,
+                          slo_fast_window_s=0.5, slo_slow_window_s=2.0,
+                          slo_bucket_s=0.05)
+    tuning = None
+    if tuned and live:
+        settings = TuningSettings(enabled=True)
+        settings.clamp_to_qos(qos)
+        tuning = TuningPlane(settings)
+    elif tuned:
+        tuning = _tuning_plane(cfg)
+    return QosPlane(qos), slo, tuning
+
+
+def batch_spy(scorer, ops, batches):
+    """Wrap ``scorer.dispatch``: each dispatched batch appends its rows,
+    the launch counters' growth, the snapshot's ``kernel_launches`` and the
+    megakernel's dispatch / fallback growth to ``batches``."""
+    dispatch = scorer.dispatch
+
+    def spy(records, now=None, **kw):
+        before = ops.launch_counts()
+        snap0 = scorer.kernel_snapshot()
+        out = dispatch(records, now=now, **kw)
+        after = ops.launch_counts()
+        snap = scorer.kernel_snapshot()
+        batches.append(dict(
+            rows=len(records), rung=scorer.qos_level,
+            launches={k: after[k] - before[k] for k in after},
+            kernel_launches=snap["kernel_launches"],
+            mega=(snap["dispatch"]["megakernel"] - snap0["dispatch"]["megakernel"],
+                  snap["fallback"]["megakernel"] - snap0["fallback"]["megakernel"])))
+        return out
+
+    scorer.dispatch = spy
+
+
+def drive_autotune(cfg, times, records, profiles, config, device, models, ops):
+    """The timeline through the port's ``StreamJob`` with
+    ``JobConfig(qos=..., tracing=..., autotune=...)`` on a virtual clock that
+    the assembler, the budget, the tracer and the tuning plane all read; the
+    drill's drive loop, the device its bucket-padded service curve (2 ms +
+    6 us a padded row of virtual time a batch), so every close decision is
+    the card's and the CPU's alike. Returns what the checks read."""
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.obs.tracing import Tracer
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
+    from realtime_fraud_detection_tpu_torch.stream.microbatch import MicrobatchAssembler
+    from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
+    from realtime_fraud_detection_tpu_torch.tuning.drill import AutotuneDrillScorer
+
+    clock = [0.0]
+    vclock = lambda: clock[0]                                   # noqa: E731
+    curve = AutotuneDrillScorer(cfg).cost_s
+    scorer = TorchFraudScorer(config, models=models, bert_config=TINY_CONFIG,
+                              device=device)
+    scorer.seed_profiles(*profiles)
+    tokens, batches = [], []
+    assemble = scorer.assemble
+
+    def keep_tokens(*args, **kwargs):
+        batch = assemble(*args, **kwargs)
+        tokens.append((batch.token_ids, batch.token_mask))
+        return batch
+
+    scorer.assemble = keep_tokens
+    batch_spy(scorer, ops, batches)
+    plane, slo, tuning = autotune_planes(cfg)
+    broker = InMemoryBroker()
+    job = StreamJob(broker, scorer, JobConfig(
+        max_batch=cfg.max_batch, qos=plane, tracing=Tracer(slo, clock=vclock),
+        autotune=tuning))
+    job.assembler = MicrobatchAssembler(
+        job.consumer, max_batch=cfg.max_batch, max_delay_ms=5.0, clock=vclock,
+        budget=plane.budget, budget_clock=vclock, controller=job.tuning)
+    n, next_i, lat = len(times), 0, []
+    t0 = time.perf_counter()
+    while True:
+        while next_i < n and times[next_i] <= clock[0]:
+            broker.produce(T.TRANSACTIONS, records[next_i],
+                           key=str(records[next_i]["user_id"]), timestamp=times[next_i])
+            next_i += 1
+        batch = job.assembler.next_batch(block=False)
+        if not batch and next_i >= n and job.consumer.lag() == 0:
+            batch = job.assembler.flush()
+        if batch:
+            ctx = job.dispatch_batch(batch, now=clock[0])
+            clock[0] += (curve(len(ctx.fresh)) if ctx is not None and ctx.pending
+                         is not None else AUTOTUNE_STEP_S)
+            if ctx is not None:
+                job.complete_batch(ctx, now=clock[0])
+                lat += [(clock[0] - r.timestamp) * 1e3 for r in ctx.fresh]
+            continue
+        if next_i >= n and job.consumer.lag() == 0 and not job.assembler._pending:
+            break
+        if job.assembler._pending:
+            clock[0] += AUTOTUNE_STEP_S
+        else:
+            clock[0] = (max(clock[0] + AUTOTUNE_STEP_S, times[next_i]) if next_i < n
+                        else clock[0] + AUTOTUNE_STEP_S)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return dict(job=job, broker=broker, scorer=scorer, batches=batches, tokens=tokens,
+                latencies_ms=sorted(lat), host_s=time.perf_counter() - t0,
+                virtual_s=clock[0], tuning=job.tuning.snapshot(),
+                close_reasons=dict(sorted(job.assembler.close_reasons.items())),
+                trace_counters=dict(job.tracer.counters))
+
+
+def drive_live(cfg, times, records, profiles, config, models, warm, ops, tuned):
+    """The timeline paced in wall time: a producer thread produces each
+    record at its offset from the start (broker timestamp = wall time),
+    while this thread runs the job's loop (blocking polls of 5 ms, the
+    in-flight window the job's ``_inflight_depth``) until every record is
+    scored. ``tuned``: the tuning plane of ``run-job --autotune --qos``, fed
+    the card's measured dispatch-to-completion times; else the fixed 5 ms
+    deadline. The scorer is warmed on other records at every bucket first.
+    Returns what the checks and the summary read."""
+    import threading
+    from collections import deque
+
+    from realtime_fraud_detection_tpu_torch.core.batching import bucket_for
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.obs.tracing import Tracer
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
+    from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
+
+    scorer = TorchFraudScorer(config, models=models, bert_config=TINY_CONFIG,
+                              device="cuda")
+    scorer.seed_profiles(*profiles)
+    i = 0
+    for size in (1, *MEGA_BUCKETS):
+        scorer.score_batch(warm[i:i + size], now=time.time())
+        i += size
+    torch.cuda.synchronize()
+    batches = []
+    batch_spy(scorer, ops, batches)
+    plane, slo, tuning = autotune_planes(cfg, live=True, tuned=tuned)
+    broker = InMemoryBroker()
+    job = StreamJob(broker, scorer, JobConfig(
+        max_batch=cfg.max_batch, max_delay_ms=5.0, qos=plane, tracing=Tracer(slo),
+        autotune=tuning))
+    lat, service = [], {}
+
+    def complete(ctx):
+        job.complete_batch(ctx)
+        done = time.time()
+        lat.extend((done - r.timestamp) * 1e3 for r in ctx.fresh)
+        if ctx.fresh:
+            service.setdefault(bucket_for(len(ctx.fresh)), []).append(
+                (done - ctx.t_dispatch) * 1e3)
+
+    start = time.perf_counter() + 0.05
+
+    def produce():
+        for ts, rec in zip(times, records):
+            wait = start + ts - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            broker.produce(T.TRANSACTIONS, rec, key=str(rec["user_id"]))
+
+    producer = threading.Thread(target=produce, name="live-producer", daemon=True)
+    producer.start()
+    in_flight, depths = deque(), []
+    try:
+        while producer.is_alive() or job.consumer.lag() or job.assembler._pending:
+            batch = job.assembler.next_batch(block=True, timeout_s=LIVE_TIMEOUT_S)
+            if batch:
+                in_flight.append(job.dispatch_batch(batch))
+                depths.append(job._inflight_depth())
+            while in_flight and (len(in_flight) >= job._inflight_depth() or not batch):
+                complete(in_flight.popleft())
+        while in_flight:
+            complete(in_flight.popleft())
+    finally:
+        producer.join()
+    end = time.perf_counter()
+    torch.cuda.synchronize()
+    return dict(job=job, broker=broker, scorer=scorer, batches=batches,
+                latencies_ms=sorted(lat), wall_s=end - start, service_ms=service,
+                depths=depths, tuning=job.tuning.snapshot() if job.tuning else None,
+                close_reasons=dict(sorted(job.assembler.close_reasons.items())))
+
+
+def run_autotune(ops):
+    """The tuning plane on the card. (a) The autotune drill's timeline
+    (``AutotuneDrillConfig.fast()``'s first ``AUTOTUNE_DURATION_S``) on the
+    seeded simulator's records
+    through ``StreamJob`` with ``JobConfig(qos=..., tracing=...,
+    autotune=...)`` on the card scorer (TINY, int8 BERT, ``mega()``) and on
+    a kernels-off CPU scorer, both on a virtual clock advanced by the drill's
+    service curve. Gates: the batch sizes, close reasons, the tuner's
+    snapshot (moves, learned T(bucket)) and the trace counts equal the CPU
+    run's; decisions within the drill's bound; each batch of two or more
+    rows one megakernel launch, each one-row batch the per-site chain (1 /
+    2 / 12 / 2 launches) and one counted megakernel fallback, the counters'
+    growth equal to the snapshot's ``kernel_launches`` every batch. Prints
+    the bucket histogram and the launches by bucket. (b) The same timeline
+    paced in wall time, twice: the tuning plane of ``run-job --autotune
+    --qos`` (fed the card's dispatch-to-completion times), and the fixed
+    5 ms deadline. Gates delivery only: each id emitted once, lag 0, no
+    high-priority record shed. Prints admitted p50 / p99 and txn/s, the close
+    reasons, the tuner's moves and the learned T(bucket) beside the measured
+    one. Returns each run's launch counts."""
+    from collections import Counter
+
+    from realtime_fraud_detection_tpu_torch.core.batching import bucket_for
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.obs.profiling import interpolated_percentile
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    name = "TINY autotune"
+    cfg, times, records, profiles, warm = autotune_timeline()
+    models = seeded_models(TINY_CONFIG)
+    config = Config(quant=QuantSettings.full(), kernels=KernelSettings.mega())
+    ids = [r["transaction_id"] for r in records]
+    out = {}
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    card = drive_autotune(cfg, times, records, profiles, config, "cuda", models, ops)
+    out["autotune_timeline"] = ops.launch_counts()
+    cpu = drive_autotune(cfg, times, records, profiles, Config(quant=QuantSettings.full()),
+                         "cpu", models, ops)
+    sizes = [b["rows"] for b in card["batches"]]
+    for key in ("close_reasons", "tuning", "trace_counters", "latencies_ms"):
+        if card[key] != cpu[key]:
+            fail(f"{name}: {key} differs from the CPU run's")
+    if sizes != [b["rows"] for b in cpu["batches"]]:
+        fail(f"{name}: batch sizes differ from the CPU run's")
+    if any(b["rung"] for b in card["batches"]):
+        fail(f"{name}: a batch was served below the full ensemble")
+    by_bucket, n_one = {}, 0
+    for b in card["batches"]:
+        one = b["rows"] == 1
+        want = CHAIN_LAUNCHES if one else MEGA_LAUNCHES
+        if (b["launches"] != want or b["kernel_launches"] != sum(want.values())
+                or b["mega"] != (1, int(one))):
+            fail(f"{name}: a {b['rows']}-row batch launched {b['launches']} "
+                 f"(snapshot {b['kernel_launches']}, megakernel {b['mega']})")
+        n_one += one
+        row = by_bucket.setdefault(bucket_for(b["rows"]), Counter(batches=0))
+        row["batches"] += 1
+        row.update(b["launches"])
+    snap = card["scorer"].kernel_snapshot()
+    total = {k: sum(b["launches"][k] for b in card["batches"]) for k in CHAIN_LAUNCHES}
+    if (total != out["autotune_timeline"] or snap["dispatch"]["megakernel"] != len(sizes)
+            or snap["fallback"]["megakernel"] != n_one):
+        fail(f"{name}: launches {out['autotune_timeline']} / {total}, snapshot {snap}")
+    preds = check_stream_output(name, card["job"], card["broker"], records)
+    ref = check_stream_output(f"{name} (CPU)", cpu["job"], cpu["broker"], records)
+    tol = noise_bound(card["scorer"].models, TINY_CONFIG, chunked(card["tokens"]),
+                      card["scorer"].ensemble_params.weights)
+    err = compare_streams(name, preds, ref, tol, "a kernels-off CPU run")
+    lat = card["latencies_ms"]
+    timeline = dict(
+        stream=name, txns=len(records), batches=len(sizes), one_row_batches=n_one,
+        close_reasons=card["close_reasons"], tuner=card["tuning"]["tuner"],
+        learned_service_ms=card["tuning"]["controller"]["service_ms"],
+        decisions=card["tuning"]["controller"]["decisions"],
+        virtual_p50_ms=interpolated_percentile(lat, 0.5),
+        virtual_p99_ms=interpolated_percentile(lat, 0.99), virtual_s=card["virtual_s"],
+        card_host_s=card["host_s"], cpu_host_s=cpu["host_s"], max_err=err,
+        bucket_histogram={str(k): v["batches"] for k, v in sorted(by_bucket.items())},
+        launches_by_bucket={str(k): dict(v) for k, v in sorted(by_bucket.items())},
+        trace_counters=card["trace_counters"], launches=out["autotune_timeline"])
+    print(f"{name} (a), virtual clock: {len(sizes)} batches ({n_one} of one row on the "
+          f"per-site chain, the rest one megakernel launch each), sizes, close "
+          f"reasons, tuner and traces equal to the CPU run's; " + json.dumps(timeline),
+          flush=True)
+
+    live = {}
+    for tuned in (True, False):
+        key = "autotune_live_" + ("tuned" if tuned else "static")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        run = drive_live(cfg, times, records, profiles, config, models, warm, ops, tuned)
+        out[key] = ops.launch_counts()
+        job, broker = run["job"], run["broker"]
+        emitted = Counter(p["transaction_id"] for p in topic_values(broker, T.PREDICTIONS))
+        if emitted != Counter(ids) or broker.lag(job.config.group_id, T.TRANSACTIONS):
+            fail(f"{name} live ({key}): not each id emitted once, or lag left")
+        shed = [p for p in topic_values(broker, T.PREDICTIONS)
+                if p["explanation"].get("shed")]
+        if any(p["explanation"]["priority"] == "high" for p in shed) or job.counters["errors"]:
+            fail(f"{name} live ({key}): a high-priority shed or an error: {job.counters}")
+        lat = run["latencies_ms"]
+        live[key] = dict(
+            txn_per_s=job.counters["scored"] / run["wall_s"], wall_s=run["wall_s"],
+            admitted_p50_ms=interpolated_percentile(lat, 0.5),
+            admitted_p99_ms=interpolated_percentile(lat, 0.99), admitted_max_ms=lat[-1],
+            batches=len(run["batches"]), shed=job.counters["shed"],
+            close_reasons=run["close_reasons"],
+            bucket_histogram=dict(sorted(Counter(
+                str(bucket_for(b["rows"])) for b in run["batches"]).items())),
+            measured_service_ms={str(b): dict(n=len(v), mean=sum(v) / len(v),
+                                              p50=interpolated_percentile(sorted(v), 0.5))
+                                 for b, v in sorted(run["service_ms"].items())},
+            inflight_depths=dict(Counter(run["depths"])), launches=out[key])
+        if run["tuning"] is not None:
+            live[key].update(tuner=run["tuning"]["tuner"],
+                             learned_service_ms=run["tuning"]["controller"]["service_ms"],
+                             decisions=run["tuning"]["controller"]["decisions"],
+                             tuned_max_wait_ms=run["tuning"]["controller"]["max_wait_ms"])
+    print(f"{name} (b), paced in wall time ({len(records)} txns over "
+          f"{times[-1]:.2f} s, offered {len(records) / times[-1]:.0f} txn/s): each id "
+          f"emitted once, lag 0, no high-priority shed; " + json.dumps(live), flush=True)
+    return out
+
+
+def chunked(tokens):
+    """Per-batch (ids, mask) pairs regrouped into chunks of up to ``BATCH``
+    rows (the noise bound runs BERT once a chunk)."""
+    import numpy as np
+
+    ids = np.concatenate([np.asarray(i) for i, _ in tokens])
+    mask = np.concatenate([np.asarray(m) for _, m in tokens])
+    return [(ids[k:k + BATCH], mask[k:k + BATCH]) for k in range(0, len(ids), BATCH)]
 
 
 def rung_sweep(scorer, reps: int = 20) -> dict:
@@ -2183,6 +2888,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         fail("TF32 is still on")
+    # wall seconds by phase, printed before the kernel line
+    seconds, t_phase = {}, [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        seconds[label] = round(now - t_phase[0], 1)
+        t_phase[0] = now
 
     from realtime_fraud_detection_tpu_torch import ops
     from realtime_fraud_detection_tpu_torch.ensemble.combine import EnsembleParams
@@ -2221,8 +2933,10 @@ def main() -> int:
               f"{e['bound_ms']:.4f} ms by {e['bound_by']}, library "
               f"{e['library_ms']}) -- {e.pop('note')}", flush=True)
 
+    lap("1-3")
     launches = run_slice(ops)
     launches["megakernel"] = run_mega_slice(ops, params)["megakernel"]
+    lap("4-7")
     chain = {"epilogue": 1, "flash_attention": DISTILBERT_BASE.num_layers,
              "dequant_matmul": 6 * DISTILBERT_BASE.num_layers, "dequant_rows": 2,
              "megakernel": 0}
@@ -2230,15 +2944,26 @@ def main() -> int:
                       {k: int(k == "megakernel") for k in chain}, cpu_reference=True)
     word = run_stream(ops, "DistilBERT-base", DISTILBERT_BASE, KernelSettings.full(),
                       4 * BATCH, chain, cpu_reference=False)
-    stream = {
-        "tiny": tiny["launches"],
-        "distilbert_base": word["launches"],
-        "tiny_typed": run_typed_stream(ops),
-        "tiny_overlap": run_overlap(ops),
-    }
+    stream = {"tiny": tiny["launches"], "distilbert_base": word["launches"]}
+    lap("8")
+    stream["tiny_typed"] = run_typed_stream(ops)
+    lap("9")
+    stream["tiny_overlap"] = run_overlap(ops)
+    lap("10")
     run_drills()
+    lap("11")
     stream["distilbert_base_wordpiece"] = run_wordpiece_stream(ops, chain, word)
-    stream["tiny_qos"] = run_qos(ops)
+    lap("12")
+    qos = run_qos(ops)
+    stream["tiny_qos"] = qos["launches"]
+    lap("13")
+    stream["tiny_traced"] = run_traced_stream(ops)
+    lap("14a")
+    stream["tiny_qos_slo"] = run_qos_slo(ops, qos["rungs"])
+    lap("14b")
+    stream.update(run_autotune(ops))
+    lap("15")
+    print(f"seconds by phase: {json.dumps(seconds)}", flush=True)
     for e in entries:
         e["stream_launches"] = {k: v[e["name"]] for k, v in stream.items()}
     extra = ("device_ms", "empty_ms", "empty_device_ms", "host_ms", "tail_launches",

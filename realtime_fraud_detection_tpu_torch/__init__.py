@@ -9,6 +9,9 @@ through the hand-written kernels of ``csrc/`` (built on first use by
 broker -> ``stream.job.StreamJob`` -> ``scoring.scorer.TorchFraudScorer``
 (host assembly, the device program, state write-back) -> output topics,
 with the deadline-aware QoS plane (``qos``: admission, latency budgets, the
-degradation ladder) optional in the job; ``python -m
-realtime_fraud_detection_tpu_torch run-job`` is its entry point.
+degradation ladder), the tracing plane (``obs.tracing``: per-transaction
+stage spans, the SLO burn rate that gates the QoS plane) and the tuning
+plane (``tuning``: the just-in-time batch closer and the online tuner)
+optional in the job; ``python -m realtime_fraud_detection_tpu_torch
+run-job`` is its entry point.
 """

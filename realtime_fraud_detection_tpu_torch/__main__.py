@@ -1,8 +1,11 @@
 """Command-line entry point of the port.
 
-    python -m realtime_fraud_detection_tpu_torch run-job --count 10000 --mega [--overlap-assembly] [--qos]
+    python -m realtime_fraud_detection_tpu_torch run-job --count 10000 --mega [--overlap-assembly] [--qos] [--trace] [--autotune]
     python -m realtime_fraud_detection_tpu_torch kernel-drill --fast [--mega]
     python -m realtime_fraud_detection_tpu_torch qos-drill
+    python -m realtime_fraud_detection_tpu_torch trace-drill [--fast]
+    python -m realtime_fraud_detection_tpu_torch autotune-drill [--fast]
+    python -m realtime_fraud_detection_tpu_torch trace-export --count 2048 --out trace.json
 
 ``run-job`` is the in-memory path of the JAX package's ``rtfd run-job``
 (``cli.py cmd_run_job``): the seeded simulator produces transactions into
@@ -12,9 +15,14 @@ the predictions, alerts, enriched and features topics; with
 ``--overlap-assembly`` the scorer's host assembly runs on a background
 thread, overlapped with the card; with ``--qos`` the deadline-aware QoS
 plane (admission at ``--qos-rate`` txn/s, the ``--qos-budget-ms`` budget and
-the degradation ladder) runs in the job. It runs on the CUDA card unless
-``--device cpu`` is given, and fails without a card. The last line of
-standard output is a JSON summary.
+the degradation ladder) runs in the job; with ``--trace`` the tracing plane
+(the summary's ``tracing`` block: the p99 stage breakdown, the fast SLO
+window, the trace counters); with ``--autotune`` the tuning plane, its
+deadline bound clamped to the QoS budget under ``--qos`` (the ``autotune``
+block: the controller's decisions, the tuned max-wait, the tuner's counters,
+the close reasons). It runs on the CUDA card unless ``--device cpu`` is
+given, and fails without a card. The last line of standard output is a JSON
+summary.
 
 ``kernel-drill`` is the port of the JAX package's ``rtfd kernel-drill``
 (``scoring/kernel_drill.py``): two seeded scorers on the quantized plane,
@@ -30,6 +38,16 @@ load at ``--multiplier`` x the sustainable rate through the port's stream
 path on a virtual clock, the scorer a deterministic stand-in that touches
 no device. The last line is the summary as compact JSON; it exits 1 when
 the admitted p99 missed the budget.
+
+``trace-drill`` and ``autotune-drill`` are the ports of the JAX package's
+drills of the same names (``obs/trace_drill.py``, ``tuning/drill.py``): the
+port's stream path on a virtual clock with a deterministic stand-in scorer
+that touches no device. Each prints the full summary, then the compact
+verdict as the last line, and exits 1 unless every check passed.
+
+``trace-export`` runs a traced ``run-job`` stream (on the card unless
+``--device cpu``) and writes the flight recorder's window as Chrome-trace /
+Perfetto JSON to ``--out``; a one-line capture summary goes to stdout.
 """
 
 from __future__ import annotations
@@ -62,6 +80,8 @@ def cmd_run_job(args: argparse.Namespace) -> int:
         KernelSettings,
         QosSettings,
         QuantSettings,
+        TracingSettings,
+        TuningSettings,
     )
 
     if _no_card("run-job", args.device):
@@ -80,9 +100,17 @@ def cmd_run_job(args: argparse.Namespace) -> int:
     scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
     qos = (QosSettings(enabled=True, budget_ms=args.qos_budget_ms,
                        admission_rate=args.qos_rate) if args.qos else None)
+    tracing = TracingSettings(enabled=True) if args.trace else None
+    tuning = None
+    if args.autotune:
+        tuning = TuningSettings(enabled=True)
+        # the QoS floor: with --qos the tuner's deadline search space is
+        # clamped to the budget's assembly slice, then validated
+        tuning.clamp_to_qos(qos)
     job = StreamJob(broker, scorer, JobConfig(
         max_batch=args.batch, pipeline_depth=args.pipeline_depth,
-        overlap_assembly=args.overlap_assembly, qos=qos))
+        overlap_assembly=args.overlap_assembly, qos=qos, tracing=tracing,
+        autotune=tuning))
 
     t0 = time.perf_counter()
     produced = scored = 0
@@ -106,8 +134,31 @@ def cmd_run_job(args: argparse.Namespace) -> int:
         "host_stage_mean_ms": stages,
         "kernels": scorer.kernel_snapshot(),
         "qos": job.qos.snapshot() if job.qos is not None else None,
+        "tracing": _tracing_block(job),
+        "autotune": _autotune_block(job),
     }))
     return 0 if job.counters["errors"] == 0 else 1
+
+
+def _tracing_block(job) -> Optional[dict]:
+    """The ``tracing`` block of the JAX ``rtfd run-job`` summary."""
+    if job.tracer is None:
+        return None
+    bd = job.tracer.breakdown()
+    return {"traces": bd["n"], "p99": bd["quantiles"].get("p99"),
+            "slo_fast": job.tracer.slo.snapshot()["windows"]["fast"],
+            "counters": dict(job.tracer.counters)}
+
+
+def _autotune_block(job) -> Optional[dict]:
+    """The ``autotune`` block of the JAX ``rtfd run-job`` summary."""
+    if job.tuning is None:
+        return None
+    snap = job.tuning.snapshot()
+    return {"decisions": snap["controller"]["decisions"],
+            "max_wait_ms": snap["controller"]["max_wait_ms"],
+            "tuner": snap["tuner"]["counters"],
+            "close_reasons": dict(job.assembler.close_reasons)}
 
 
 def cmd_kernel_drill(args: argparse.Namespace) -> int:
@@ -146,6 +197,75 @@ def cmd_qos_drill(args: argparse.Namespace) -> int:
     return 0 if summary["p99_within_budget"] else 1
 
 
+def cmd_trace_drill(args: argparse.Namespace) -> int:
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.obs.trace_drill import (
+        TraceDrillConfig,
+        compact_trace_summary,
+        run_trace_drill,
+    )
+
+    cfg = TraceDrillConfig.fast() if args.fast else TraceDrillConfig()
+    summary = run_trace_drill(dataclasses.replace(cfg, seed=args.seed))
+    print(json.dumps(summary), flush=True)
+    print(json.dumps(compact_trace_summary(summary), separators=(",", ":")),
+          flush=True)
+    return 0 if summary["passed"] else 1
+
+
+def cmd_autotune_drill(args: argparse.Namespace) -> int:
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.tuning.drill import (
+        AutotuneDrillConfig,
+        compact_autotune_summary,
+        run_autotune_drill,
+    )
+
+    cfg = AutotuneDrillConfig.fast() if args.fast else AutotuneDrillConfig()
+    summary = run_autotune_drill(dataclasses.replace(cfg, seed=args.seed))
+    print(json.dumps(summary), flush=True)
+    print(json.dumps(compact_autotune_summary(summary), separators=(",", ":")),
+          flush=True)
+    return 0 if summary["passed"] else 1
+
+
+def cmd_trace_export(args: argparse.Namespace) -> int:
+    from realtime_fraud_detection_tpu_torch.obs.tracing import Tracer
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
+    from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
+    from realtime_fraud_detection_tpu_torch.utils.config import TracingSettings
+
+    if _no_card("trace-export", args.device):
+        return 2
+    gen = TransactionGenerator(num_users=args.users, num_merchants=args.merchants,
+                               seed=args.seed, tps=args.tps)
+    scorer = TorchFraudScorer(seed=args.seed, device=args.device)
+    scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+    tracer = Tracer(TracingSettings(enabled=True, ring_size=max(64, args.count)))
+    broker = InMemoryBroker()
+    job = StreamJob(broker, scorer, JobConfig(max_batch=args.batch, tracing=tracer,
+                                              emit_features=False))
+    produced = 0
+    while produced < args.count:
+        chunk = min(args.count - produced, 10_000)
+        broker.produce_batch(T.TRANSACTIONS, gen.generate_batch(chunk),
+                             key_fn=lambda r: str(r["user_id"]))
+        produced += chunk
+        job.run_until_drained()
+    payload = tracer.export_chrome_trace()
+    with open(args.out, "w") as f:
+        json.dump(payload, f)
+    bd = tracer.breakdown()
+    print(json.dumps({"traces": bd["n"], "events": len(payload["traceEvents"]),
+                      "p99": bd["quantiles"].get("p99"), "out": args.out}))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="realtime_fraud_detection_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -181,6 +301,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-transaction latency budget")
     sp.add_argument("--qos-rate", type=float, default=0.0,
                     help="admission token rate in txn/s (0 = unlimited)")
+    sp.add_argument("--trace", action="store_true",
+                    help="enable the tracing plane (per-transaction stage "
+                         "spans, the SLO burn rate and its QoS gate)")
+    sp.add_argument("--autotune", action="store_true",
+                    help="enable the tuning plane (the just-in-time batch "
+                         "closer and the online tuner)")
     sp.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
@@ -214,6 +340,38 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fraction of traffic in the low (sheds-first) class")
     qd.add_argument("--seed", type=int, default=7)
     qd.set_defaults(fn=cmd_qos_drill)
+    td = sub.add_parser("trace-drill",
+                        help="deterministic tracing drill (virtual clock, the "
+                             "port's stream path, a stand-in scorer): stage "
+                             "attribution, the SLO burn and its gate, traced "
+                             "vs untraced equality, the plane's overhead")
+    td.add_argument("--fast", action="store_true",
+                    help="tier-1 sizes (TraceDrillConfig.fast())")
+    td.add_argument("--seed", type=int, default=7)
+    td.set_defaults(fn=cmd_trace_drill)
+    ad = sub.add_parser("autotune-drill",
+                        help="deterministic self-tuning drill (virtual clock, a "
+                             "diurnal + burst timeline): the just-in-time "
+                             "closer against a grid of fixed deadlines")
+    ad.add_argument("--fast", action="store_true",
+                    help="tier-1 sizes (AutotuneDrillConfig.fast())")
+    ad.add_argument("--seed", type=int, default=7)
+    ad.set_defaults(fn=cmd_autotune_drill)
+    te = sub.add_parser("trace-export",
+                        help="run a traced stream and export the flight "
+                             "recorder as Chrome-trace / Perfetto JSON")
+    te.add_argument("--users", type=int, default=10_000)
+    te.add_argument("--merchants", type=int, default=5_000)
+    te.add_argument("--tps", type=float, default=1000.0)
+    te.add_argument("--seed", type=int, default=42)
+    te.add_argument("--count", type=int, default=2048,
+                    help="transactions to score through the traced job")
+    te.add_argument("--batch", type=int, default=128)
+    te.add_argument("--out", default="trace.json",
+                    help="Chrome-trace JSON output path (open in ui.perfetto.dev)")
+    te.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain versions)")
+    te.set_defaults(fn=cmd_trace_export)
     return parser
 
 

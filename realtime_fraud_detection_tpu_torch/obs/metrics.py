@@ -8,12 +8,13 @@ Port of the JAX package's ``obs/metrics.py``: a small registry of its own
   ``record_error``; the JSON ``summary`` of the recent window);
 - the QoS plane's six ``qos_*`` families, written by ``qos/plane.py``;
 - ``microbatch_close_reason_total`` (``sync_microbatch``), the host-assembly
-  caches and stage times (``sync_host_stats``), the kernel plane
-  (``sync_kernels``) and the entity graph (``sync_graph``), each mirrored
-  from a snapshot at exposition time as counter deltas against the values
-  last seen.
+  caches and stage times (``sync_host_stats``), the tracing plane's
+  ``trace_*`` (``sync_tracing``), the tuning plane's ``autotune_*``
+  (``sync_autotune``), the kernel plane (``sync_kernels``) and the entity
+  graph (``sync_graph``), each mirrored from a snapshot at exposition time
+  as counter deltas against the values last seen.
 
-The families of planes the port does not have (tracing, tuning, feedback,
+The families of planes the port does not have (feedback,
 chaos, mesh, device pool, cluster, autoscale, network faults, serving
 queue, graph fetch) are not ported, nor ``kernel_interpret_active``: the
 port has no kernel interpreter (a CPU tensor runs the plain version).
@@ -384,6 +385,40 @@ class MetricsCollector:
             "Host-side per-stage timing (assemble/pack/dispatch/"
             "device_wait)", ("stage", "stat"))
         self._host_cache_seen: Dict[Tuple[str, str], float] = {}
+        # tracing plane (obs/tracing.py): per-stage latency histograms
+        # with exemplar trace_ids, trace terminal counters, and the SLO
+        # burn-rate gauges — mirrored from Tracer.snapshot() by
+        # sync_tracing at exposition time
+        from realtime_fraud_detection_tpu_torch.obs.tracing import (
+            TRACE_STAGE_BUCKETS_MS,
+        )
+
+        self.trace_stage_ms = r.histogram(
+            "trace_stage_ms",
+            "Per-transaction stage latency from the tracing plane "
+            "(exemplars carry trace_ids)", ("stage",),
+            buckets=TRACE_STAGE_BUCKETS_MS)
+        self.trace_completed = r.counter(
+            "trace_completed_total",
+            "Traces closed by the flight recorder", ("terminal",))
+        self.trace_slo_violations = r.counter(
+            "trace_slo_violations_total",
+            "Transactions that blew the SLO latency objective")
+        # trace carriers: adopted = producer-stamped contexts re-hydrated at
+        # consume time; lost = expected but missing or garbled, degraded to
+        # fresh local roots (counted, never a gap)
+        self.trace_carrier_adopted = r.counter(
+            "trace_carrier_adopted_total",
+            "Producer-stamped trace carriers adopted at consume time")
+        self.trace_carrier_lost = r.counter(
+            "trace_carrier_lost_total",
+            "Expected trace carriers missing/unparseable — degraded to "
+            "fresh local roots")
+        self.trace_slo_burn = r.gauge(
+            "trace_slo_burn_rate",
+            "SLO error-budget burn rate (1.0 = budget consumed exactly at "
+            "the sustainable rate)", ("window",))
+        self._trace_seen: Dict[Tuple[str, ...], Any] = {}
         # why each microbatch closed, mirrored from the assembler's
         # close_reasons by sync_microbatch
         self.microbatch_close_reason = r.counter(
@@ -391,6 +426,33 @@ class MetricsCollector:
             "Microbatch close decisions by trigger "
             "(size/deadline/budget/timeout/flush/jit)", ("reason",))
         self._close_reason_seen: Dict[str, float] = {}
+        # self-tuning plane (tuning/): arrival forecast, JIT close
+        # decision mix, live knob values, tuner trial/freeze audit —
+        # mirrored from TuningPlane.snapshot() by sync_autotune
+        self.autotune_decisions = r.counter(
+            "autotune_close_decisions_total",
+            "JIT controller decisions (jit/deadline close, wait)",
+            ("decision",))
+        self.autotune_tuner_events = r.counter(
+            "autotune_tuner_events_total",
+            "Online-tuner epoch outcomes "
+            "(trials/accepted/reverted/frozen_epochs)", ("event",))
+        self.autotune_forecast_tps = r.gauge(
+            "autotune_forecast_tps",
+            "Short-horizon forecast arrival rate (txn/s)")
+        self.autotune_max_wait_ms = r.gauge(
+            "autotune_max_wait_ms",
+            "Current tuned batch max-wait bound (ms)")
+        self.autotune_bucket_set = r.gauge(
+            "autotune_bucket_set",
+            "Index of the bucket set the tuner currently serves")
+        self.autotune_inflight_depth = r.gauge(
+            "autotune_inflight_depth",
+            "Overlap/in-flight depth the tuner currently recommends")
+        self.autotune_frozen = r.gauge(
+            "autotune_frozen",
+            "1 while the tuner is frozen by the QoS ladder / SLO burn")
+        self._autotune_seen: Dict[Tuple[str, str], float] = {}
         # kernel plane (ops/ + KernelSettings): per-site modes as exhaustive
         # 0/1 gauges and the dispatch / fallback counters of
         # TorchFraudScorer.kernel_snapshot(), mirrored by sync_kernels
@@ -483,6 +545,46 @@ class MetricsCollector:
             _mirror(self.microbatch_close_reason, self._close_reason_seen,
                     reason, total, reason=str(reason))
 
+    def sync_tracing(self, snapshot: Mapping[str, Any]) -> None:
+        """Mirror ``Tracer.snapshot()``. The tracer buckets stage durations
+        with ``TRACE_STAGE_BUCKETS_MS``, the buckets of ``trace_stage_ms``,
+        so the histogram mirror is a bucket-count delta (plus the slowest
+        sample as exemplar); terminal, carrier and violation totals mirror
+        as counter deltas, the burn rates as gauges."""
+        for stage, st in (snapshot.get("stages") or {}).items():
+            counts = list(st.get("bucket_counts") or ())
+            if len(counts) != len(self.trace_stage_ms.buckets):
+                continue
+            prev = self._trace_seen.get(("stage", stage)) or {}
+            deltas = [max(0, c - p) for c, p in zip(
+                counts, prev.get("bucket_counts", [0] * len(counts)))]
+            sum_ms = float(st.get("sum_ms", 0.0))
+            sum_delta = max(0.0, sum_ms - float(prev.get("sum_ms", 0.0)))
+            if any(deltas) or sum_delta > 0:
+                ex = st.get("exemplar") or None
+                self.trace_stage_ms.add_bucket_deltas(
+                    deltas, sum_delta, max_value=st.get("max_ms"),
+                    exemplar=({"value": ex["ms"], "trace_id": ex["trace_id"]}
+                              if ex else None),
+                    stage=stage)
+            self._trace_seen[("stage", stage)] = {"bucket_counts": counts,
+                                                  "sum_ms": sum_ms}
+        counters = snapshot.get("counters") or {}
+        for key, terminal in (("completed", "scored"), ("shed", "shed"),
+                              ("errors", "error"), ("cached", "cached")):
+            _mirror(self.trace_completed, self._trace_seen, ("terminal", terminal),
+                    counters.get(key, 0), terminal=terminal)
+        for key, counter in (("carrier_adopted", self.trace_carrier_adopted),
+                             ("carrier_lost", self.trace_carrier_lost)):
+            _mirror(counter, self._trace_seen, ("carrier", key), counters.get(key, 0))
+        slo = snapshot.get("slo") or {}
+        _mirror(self.trace_slo_violations, self._trace_seen, ("slo", "violations"),
+                slo.get("violations_total", 0))
+        for window, w in (slo.get("windows") or {}).items():
+            burn = w.get("burn_rate")
+            if burn is not None and math.isfinite(float(burn)):
+                self.trace_slo_burn.set(float(burn), window=window)
+
     def sync_kernels(self, snapshot: Mapping[str, Any]) -> None:
         """Mirror ``TorchFraudScorer.kernel_snapshot()``: the mode gauges
         are exhaustive over each site's valid modes (a swap reads as a
@@ -514,6 +616,24 @@ class MetricsCollector:
                     (snapshot.get(kind) or {}).get("megakernel", 0.0))
         self.kernel_launches_per_batch.set(
             float(snapshot.get("launches_per_batch", 0)))
+
+    def sync_autotune(self, snapshot: Mapping[str, Any]) -> None:
+        """Mirror ``TuningPlane.snapshot()``: the controller's decisions and
+        the tuner's epoch outcomes as counter deltas, the live knobs and
+        the forecast as gauges."""
+        ctrl = snapshot.get("controller") or {}
+        for decision, total in (ctrl.get("decisions") or {}).items():
+            _mirror(self.autotune_decisions, self._autotune_seen,
+                    ("decision", str(decision)), total, decision=str(decision))
+        tuner = snapshot.get("tuner") or {}
+        for event in ("trials", "accepted", "reverted", "frozen_epochs"):
+            _mirror(self.autotune_tuner_events, self._autotune_seen, ("tuner", event),
+                    (tuner.get("counters") or {}).get(event, 0), event=event)
+        self.autotune_forecast_tps.set(float(snapshot.get("forecast_tps", 0.0)))
+        self.autotune_max_wait_ms.set(float(ctrl.get("max_wait_ms", 0.0)))
+        self.autotune_bucket_set.set(float(tuner.get("bucket_set_idx", 0)))
+        self.autotune_inflight_depth.set(float(tuner.get("inflight_depth", 0)))
+        self.autotune_frozen.set(1.0 if tuner.get("frozen") else 0.0)
 
     def sync_graph(self, snapshot: Mapping[str, Any]) -> None:
         """Mirror ``TorchFraudScorer.graph_snapshot()``. A bipartite

@@ -5,8 +5,8 @@ Port of the JAX package's ``qos/plane.py``: what the stream job holds
 :class:`~realtime_fraud_detection_tpu_torch.obs.metrics.MetricsCollector`, so
 every admit, shed, ladder step and budget observation lands on its
 Prometheus exposition. ``observe_slo_burn`` is the tracing plane's gate into
-the served rung; the port has no tracing plane yet, so nothing calls it
-there.
+the served rung: with ``JobConfig.tracing`` on, the job feeds it the SLO burn
+rate after every completed batch.
 """
 
 from __future__ import annotations

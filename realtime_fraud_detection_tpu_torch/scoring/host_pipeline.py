@@ -121,15 +121,18 @@ class AssemblerStage:
 
     # --------------------------------------------------------------- submit
     def submit(self, records: Sequence[Mapping[str, Any]],
-               now: Optional[float] = None) -> AssembledHandle:
+               now: Optional[float] = None,
+               trace: Optional[Any] = None) -> AssembledHandle:
         """Enqueue one microbatch for background assembly and dispatch;
         blocks while ``depth`` batches are queued. The handle resolves in
-        FIFO order."""
+        FIFO order. ``trace`` (an ``obs.tracing.TraceBatch``) rides the
+        queue item, so the stage thread's marks land on the batch being
+        assembled (attached by identity, not timing)."""
         if self._closed:
             raise RuntimeError("assembler stage is closed")
         self._ensure_started()
         handle = AssembledHandle()
-        self._q.put((list(records), now, handle))
+        self._q.put((list(records), now, handle, trace))
         return handle
 
     def finalize(self, handle: AssembledHandle,
@@ -146,12 +149,18 @@ class AssemblerStage:
             item = self._q.get()
             if item is None:
                 return
-            records, now, handle = item
+            records, now, handle, trace = item
             t0 = time.perf_counter()
             try:
                 with self.lock:
+                    # the trace kwarg only when tracing is live, as the job
+                    # passes it: a scorer need not know the argument
+                    kw = {"trace": trace} if trace is not None else {}
+                    if trace is not None:
+                        trace.mark("assemble")
                     batch = self.scorer.assemble(records, now)
-                    pending = self.scorer.dispatch_assembled(batch, records, t0=t0)
+                    pending = self.scorer.dispatch_assembled(batch, records, t0=t0,
+                                                             **kw)
             except BaseException as e:  # noqa: BLE001 - surfaces at result()
                 # count the batch before resolving its handle: a caller that
                 # reads busy_s after the last result() sees every batch

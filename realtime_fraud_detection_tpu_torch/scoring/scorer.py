@@ -32,10 +32,16 @@ in-process state tier:
 - QoS seam: ``set_degradation`` takes a ladder rung (``qos/plane.py
   apply_degradation``) as a branch mask anded with the deployment's
   validity (the enabled models of ``Config.models``); a megakernel batch
-  passes it as ``mega_valid`` (all false at ``rules_only``).
+  passes it as ``mega_valid`` (all false at ``rules_only``);
+- tracing seam: ``dispatch`` and ``dispatch_assembled`` take an optional
+  ``obs.tracing.TraceBatch`` and mark the JAX scorer's stages on it
+  (``assemble`` before ``assemble`` runs, ``pack``, ``dispatch``,
+  ``device_wait`` once the launches and the D2H copy are queued,
+  ``finalize`` once the copy's event has completed), so ``device_wait``
+  is the card's time as the batch sees it, not the launch's return.
 
-The shared RESP state tier, cross-partition graph fetch, pools, the mesh
-and tracing are not ported.
+The shared RESP state tier, cross-partition graph fetch, pools and the
+mesh are not ported.
 """
 
 from __future__ import annotations
@@ -130,6 +136,9 @@ class PendingScore:
     model_valid: np.ndarray
     rules_only: bool = False
     features: Optional[np.ndarray] = None
+    # the batch's obs.tracing.TraceBatch (None = tracing off): finalize
+    # marks "finalize" on it once the result is on the host
+    trace: Optional[Any] = None
 
 
 class _EntityIndex:
@@ -657,25 +666,33 @@ class TorchFraudScorer:
         return pinned.to(self.device, non_blocking=True)
 
     def dispatch(self, records: Sequence[Mapping[str, Any]],
-                 now: Optional[float] = None) -> PendingScore:
+                 now: Optional[float] = None,
+                 trace: Optional[Any] = None) -> PendingScore:
         """Assemble + launch without waiting for the device: the caller can
         assemble the next microbatch while the card runs this one;
-        ``finalize`` waits, builds the responses and writes state back."""
+        ``finalize`` waits, builds the responses and writes state back.
+        ``trace`` (an ``obs.tracing.TraceBatch``) collects the batch's stage
+        marks; None costs one branch a stage."""
         t0 = time.perf_counter()
         if not records:
             return PendingScore(records=[], n=0, out=None, event=None,
                                 dispatch_ms=0.0,
                                 model_valid=self.effective_model_valid(),
                                 features=self.last_features[:0])
+        if trace is not None:
+            trace.mark("assemble")
         batch = self.assemble(records, now)
-        return self.dispatch_assembled(batch, records, t0=t0)
+        return self.dispatch_assembled(batch, records, t0=t0, trace=trace)
 
     def dispatch_assembled(self, batch: ScoreBatch,
                            records: Sequence[Mapping[str, Any]],
-                           t0: Optional[float] = None) -> PendingScore:
+                           t0: Optional[float] = None,
+                           trace: Optional[Any] = None) -> PendingScore:
         """Pad + pack + launch an assembled host batch without waiting for
         the device."""
         t0 = time.perf_counter() if t0 is None else t0
+        if trace is not None:
+            trace.mark("pack")
         t_pack = time.perf_counter()
         n = len(records)
         padded, mask, size = pad_to_bucket(batch, n)
@@ -684,6 +701,8 @@ class TorchFraudScorer:
             padded = _stage_bf16(padded)
         blobs, spec = pack_tree(padded)
         self.spans.record("pack", time.perf_counter() - t_pack)
+        if trace is not None:
+            trace.mark("dispatch")
         t_disp = time.perf_counter()
         dev_blobs = {name: self._to_device(arr) for name, arr in blobs.items()}
         mv = self.effective_model_valid()
@@ -710,11 +729,15 @@ class TorchFraudScorer:
         else:
             host = out
         self.spans.record("dispatch", time.perf_counter() - t_disp)
+        if trace is not None:
+            # the launches and the D2H copy are queued: from the batch's
+            # point of view the card's time (and any pipeline dwell) starts
+            trace.mark("device_wait")
         return PendingScore(
             records=list(records), n=n, out=host, event=event,
             dispatch_ms=(time.perf_counter() - t0) * 1000.0,
             model_valid=mv, rules_only=self._qos_rules_only,
-            features=np.asarray(batch.features))
+            features=np.asarray(batch.features), trace=trace)
 
     def finalize(self, pending: PendingScore, now: Optional[float] = None,
                  lock=None) -> List[Dict[str, Any]]:
@@ -727,6 +750,10 @@ class TorchFraudScorer:
         if pending.event is not None:
             pending.event.synchronize()
         self.spans.record("device_wait", time.perf_counter() - t_fin)
+        if pending.trace is not None:
+            # read after the D2H event completed, not after the launch
+            # returned: device_wait ends with the result on the host
+            pending.trace.mark("finalize")
         elapsed_ms = pending.dispatch_ms + (time.perf_counter() - t_fin) * 1000.0
         results = self._build_responses(
             pending.records, pending.out.numpy(), pending.n, elapsed_ms,

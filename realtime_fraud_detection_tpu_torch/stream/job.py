@@ -25,9 +25,21 @@ REVIEW with its reason on the predictions topic, covered by its batch's
 commit; the degradation ladder observes the backlog once per dispatched
 batch and pushes its rung into the scorer (under the stage lock with
 overlap on); completion records the scored count and each record's budget
-headroom. The tracing, tuning, feedback, analytics, enrichment and
-device-pool planes are not ported: ``JobConfig`` has no fields for them, so
-passing one is an error.
+headroom.
+
+With ``JobConfig.tracing`` (``TracingSettings`` with ``enabled=True``, or a
+``Tracer``) every admitted transaction opens a trace at admission, its batch
+carries an ``obs.tracing.TraceBatch`` through the scorer's stage marks, and
+completion closes the batch's traces and reads the SLO burn rate, which
+feeds the QoS plane's SLO-burn gate (``QosPlane.observe_slo_burn``); a shed,
+an invalid record and a duplicate each close a terminal trace. With
+``JobConfig.autotune`` (``TuningSettings`` with ``enabled=True``, or a
+``TuningPlane``) the assembler's just-in-time closer replaces the fixed
+deadline, each completed batch feeds the plane its dispatch-to-completion
+time, its admitted latencies, the burn rate and the served rung, and the run
+loops re-read the tuner's in-flight depth every iteration. The feedback,
+analytics, enrichment and device-pool planes are not ported: ``JobConfig``
+has no fields for them, so passing one is an error.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+from realtime_fraud_detection_tpu_torch.obs.tracing import CARRIER_KEY
 from realtime_fraud_detection_tpu_torch.serving.validation import sanitize_for_stream
 from realtime_fraud_detection_tpu_torch.stream import topics as T
 from realtime_fraud_detection_tpu_torch.stream.microbatch import MicrobatchAssembler
@@ -45,7 +58,11 @@ from realtime_fraud_detection_tpu_torch.stream.transport import (
     InMemoryBroker,
     Record,
 )
-from realtime_fraud_detection_tpu_torch.utils.config import QosSettings
+from realtime_fraud_detection_tpu_torch.utils.config import (
+    QosSettings,
+    TracingSettings,
+    TuningSettings,
+)
 
 
 @dataclasses.dataclass
@@ -75,6 +92,14 @@ class JobConfig:
     # when enabled) or a live QosPlane; None or enabled=False = off, and the
     # job behaves as without it
     qos: Optional[Any] = None
+    # the tracing plane (obs/tracing.py): a TracingSettings (the Tracer is
+    # built when enabled) or a live Tracer (the drills pass one on a
+    # virtual clock); None or disabled = off, one ``is None`` branch a batch
+    tracing: Optional[Any] = None
+    # the tuning plane (tuning/): a TuningSettings (the plane is built when
+    # enabled) or a live TuningPlane; None or disabled = off, and batch
+    # closes are bit-identical to the fixed-deadline path
+    autotune: Optional[Any] = None
     transactions_topic: str = T.TRANSACTIONS
     predictions_topic: str = T.PREDICTIONS
     alerts_topic: str = T.ALERTS
@@ -82,11 +107,19 @@ class JobConfig:
     features_topic: str = T.FEATURES
 
     def __post_init__(self) -> None:
+        from realtime_fraud_detection_tpu_torch.obs.tracing import Tracer
         from realtime_fraud_detection_tpu_torch.qos.plane import QosPlane
+        from realtime_fraud_detection_tpu_torch.tuning.plane import TuningPlane
 
-        if self.qos is not None and not isinstance(self.qos, (QosSettings, QosPlane)):
-            raise TypeError(f"JobConfig.qos must be QosSettings or QosPlane, "
-                            f"got {type(self.qos).__name__}")
+        for name, kinds in (("qos", (QosSettings, QosPlane)),
+                            ("tracing", (TracingSettings, Tracer)),
+                            ("autotune", (TuningSettings, TuningPlane))):
+            value = getattr(self, name)
+            if value is not None and not isinstance(value, kinds):
+                raise TypeError(
+                    f"JobConfig.{name} must be "
+                    f"{' or '.join(k.__name__ for k in kinds)}, "
+                    f"got {type(value).__name__}")
 
 
 @dataclasses.dataclass
@@ -108,6 +141,12 @@ class _BatchCtx:
     # QoS admission sheds: (record, AdmissionDecision) pairs, each produced
     # as an explicit REVIEW at completion
     shed: List[tuple] = dataclasses.field(default_factory=list)
+    # the batch's obs.tracing.TraceBatch (None = tracing off)
+    trace: Optional[Any] = None
+    # dispatch instant on the record timestamps' clock (wall time, or the
+    # drills' virtual clock): the tuning plane's service time is completion
+    # minus this
+    t_dispatch: float = 0.0
 
 
 def _error_result(transaction_id: str, explanation: Dict[str, Any]) -> Dict[str, Any]:
@@ -148,10 +187,26 @@ class StreamJob:
             from realtime_fraud_detection_tpu_torch.qos.plane import QosPlane
 
             self.qos = qs if isinstance(qs, QosPlane) else QosPlane(qs)
+        # the tuning plane: the assembler consults its just-in-time closer
+        # instead of the fixed deadline
+        self.tuning = None
+        ts = self.config.autotune
+        if ts is not None and ts.enabled:
+            from realtime_fraud_detection_tpu_torch.tuning.plane import TuningPlane
+
+            self.tuning = ts if isinstance(ts, TuningPlane) else TuningPlane(ts)
         self.assembler = MicrobatchAssembler(
             self.consumer, max_batch=self.config.max_batch,
             max_delay_ms=self.config.max_delay_ms,
-            budget=self.qos.budget if self.qos is not None else None)
+            budget=self.qos.budget if self.qos is not None else None,
+            controller=self.tuning)
+        # the tracing plane: a live Tracer is adopted as given
+        self.tracer = None
+        tr = self.config.tracing
+        if tr is not None and tr.enabled:
+            from realtime_fraud_detection_tpu_torch.obs.tracing import Tracer
+
+            self.tracer = tr if isinstance(tr, Tracer) else Tracer(tr)
         self.counters: Dict[str, int] = {
             "scored": 0, "alerts": 0, "batches": 0, "duplicates_skipped": 0,
             "errors": 0, "shed": 0,
@@ -173,6 +228,14 @@ class StreamJob:
         if self._stage is not None:
             self._stage.close()
 
+    def _inflight_depth(self) -> int:
+        """The run loops' in-flight window: the configured pipeline depth,
+        or with the tuning plane its online-tuned depth (re-read every loop
+        iteration, so a tuner move takes effect one batch later)."""
+        if self.tuning is not None:
+            return max(1, self.tuning.recommended_inflight_depth())
+        return max(1, self.config.pipeline_depth)
+
     # ----------------------------------------------------------------- steps
     def dispatch_batch(self, records: List[Record],
                        now: Optional[float] = None) -> Optional[_BatchCtx]:
@@ -185,17 +248,49 @@ class StreamJob:
         invalid: List[tuple] = []
         cached_dups: List[tuple] = []
         shed: List[tuple] = []
+        trace_ctxs: List[Any] = []
+        tracer = self.tracer
         batch_ids: set = set()
         t_adm = now if now is not None else time.time()
+
+        def ingest_lag(rec: Record) -> float:
+            # upstream of admission: the record's ingest stamp when it has
+            # one, else the broker's produce timestamp (wall minus wall, or
+            # virtual minus virtual in the drills)
+            src = rec.value.get("ingest_ts") if isinstance(rec.value, dict) else None
+            if src is None:
+                src = rec.timestamp
+            try:
+                return max(0.0, t_adm - float(src)) if src is not None else 0.0
+            except (TypeError, ValueError):
+                return 0.0
+
+        def begin(rec: Record, txn_id: str, priority: str = ""):
+            # a producer-stamped carrier is adopted when the record has one,
+            # read from the raw value (sanitizing strips it)
+            carrier = (rec.value.get(CARRIER_KEY)
+                       if isinstance(rec.value, dict) else None)
+            return tracer.begin(txn_id, ingest_lag_s=ingest_lag(rec),
+                                priority=priority, carrier=carrier,
+                                now_wall=t_adm)
+
         for r in records:
             txn, errors = sanitize_for_stream(r.value)
             if errors:
                 invalid.append((r, errors))
+                if tracer is not None:
+                    value = r.value if isinstance(r.value, dict) else {}
+                    tracer.finish_terminal(
+                        begin(r, str(value.get("transaction_id", ""))), "error",
+                        reason="invalid")
                 continue
             txn_id = txn["transaction_id"]  # the sanitizer guarantees it
             if txn_id in batch_ids or txn_id in self._inflight_ids:
                 # the first instance emits the prediction itself
                 self.counters["duplicates_skipped"] += 1
+                if tracer is not None:
+                    tracer.finish_terminal(begin(r, txn_id), "cached",
+                                           reason="duplicate")
                 continue
             cached = self.scorer.txn_cache.get_transaction(txn_id, now=now)
             if cached is not None:
@@ -204,17 +299,29 @@ class StreamJob:
                 self.counters["duplicates_skipped"] += 1
                 batch_ids.add(txn_id)
                 cached_dups.append((r, cached))
+                if tracer is not None:
+                    tracer.finish_terminal(begin(r, txn_id), "cached",
+                                           reason="duplicate")
                 continue
+            priority = ""
             if self.qos is not None:
                 # after dedupe (a replayed duplicate must not burn tokens)
                 # and before dispatch: a shed is produced at completion
                 decision = self.qos.admit(txn, t_adm)
+                priority = decision.priority
                 if not decision.admitted:
                     self.counters["shed"] += 1
                     shed.append((dataclasses.replace(r, value=txn), decision))
+                    if tracer is not None:
+                        # a shed is a recorded terminal trace, not a gap
+                        tracer.finish_terminal(
+                            begin(r, txn_id, decision.priority), "shed",
+                            reason=decision.reason, priority=decision.priority)
                     continue
             batch_ids.add(txn_id)
             fresh.append(dataclasses.replace(r, value=txn))
+            if tracer is not None:
+                trace_ctxs.append(begin(r, txn_id, priority))
         positions = self.consumer.snapshot_positions()
         if self.qos is not None:
             # one ladder observation per dispatched batch: consumer lag is
@@ -231,21 +338,31 @@ class StreamJob:
         if not fresh:
             return _BatchCtx([], set(), None, positions, now, invalid,
                              cached_dups, shed)
+        trace = None
+        if tracer is not None:
+            trace = tracer.batch(trace_ctxs, batch_size=len(fresh),
+                                 close_reason=self.assembler.last_close_reason)
+        # the trace is passed only when tracing is live: the drills' stand-in
+        # scorers need not know the argument
+        kw = {"trace": trace} if trace is not None else {}
         pending = None
         try:
             if self._stage is not None:
                 # resolves to the PendingScore at completion, where an
-                # assembly or dispatch error takes the degradation path
-                pending = self._stage.submit([r.value for r in fresh], now=now)
+                # assembly or dispatch error takes the degradation path;
+                # the trace rides the stage's queue item
+                pending = self._stage.submit([r.value for r in fresh], now=now,
+                                             **kw)
             else:
-                pending = self.scorer.dispatch([r.value for r in fresh], now=now)
+                pending = self.scorer.dispatch([r.value for r in fresh], now=now,
+                                               **kw)
         except Exception:
             # whole-batch degradation: REVIEW at 0.5 keeps the stream alive;
             # counted as errors at completion
             pass
         self._inflight_ids |= batch_ids
         return _BatchCtx(fresh, batch_ids, pending, positions, now, invalid,
-                         cached_dups, shed)
+                         cached_dups, shed, trace, t_adm)
 
     def complete_batch(self, ctx: _BatchCtx,
                        now: Optional[float] = None) -> List[Dict[str, Any]]:
@@ -291,13 +408,43 @@ class StreamJob:
             invalid_results = self._emit_invalid(ctx)
             self._emit_shed(ctx)
             self._emit_cached_dups(ctx)
-            return invalid_results + self._fan_out(ctx, fresh, results, feats,
-                                                   scored_ok)
+            out = invalid_results + self._fan_out(ctx, fresh, results, feats,
+                                                  scored_ok)
+            self._observe_planes(ctx, fresh, scored_ok, t_done)
+            return out
         finally:
             # always release, even when fan-out raises: a leaked id would
             # make the replayed record look like an in-flight duplicate and
             # the next commit would advance past it
             self._inflight_ids -= ctx.ids
+
+    def _observe_planes(self, ctx: _BatchCtx, fresh: List[Record],
+                        scored_ok: bool, t_done: float) -> None:
+        """After fan-out: close the batch's traces and feed the SLO burn
+        rate to the QoS plane's gate, then give the tuning plane the batch's
+        dispatch-to-completion time, its admitted latencies, the burn rate
+        and the served rung (it freezes while the ladder is degraded)."""
+        burn = 0.0
+        if ctx.trace is not None and self.tracer is not None:
+            self.tracer.finish_batch(ctx.trace,
+                                     terminal="scored" if scored_ok else "error")
+            # the burn rate reads the tracer's clock, the clock the traces
+            # closed on: one time base end to end
+            ts = self.tracer.settings
+            burn = self.tracer.slo.burn_rate(ts.slo_fast_window_s)
+            if self.qos is not None:
+                self.qos.observe_slo_burn(
+                    burn, threshold=ts.slo_burn_threshold,
+                    patience=ts.slo_gate_patience,
+                    up_patience=ts.slo_gate_up_patience)
+        if self.tuning is not None:
+            lat = [max(0.0, t_done - r.timestamp) * 1e3
+                   for r in fresh if r.timestamp is not None]
+            self.tuning.on_batch_complete(
+                len(fresh), max(0.0, t_done - ctx.t_dispatch), t_done,
+                latencies_ms=lat, burn_rate=burn,
+                ladder_level=(self.qos.effective_level()
+                              if self.qos is not None else 0))
 
     def _emit_invalid(self, ctx: _BatchCtx) -> List[Dict[str, Any]]:
         """Per-record error results for sanitization rejects, produced to
@@ -414,7 +561,6 @@ class StreamJob:
                           now: Optional[float] = None) -> int:
         """Process until the input topic is fully consumed. Returns #scored."""
         start_scored = self.counters["scored"]
-        depth = max(1, self.config.pipeline_depth)
         in_flight: deque = deque()
         for _ in range(max_batches):
             batch = self.assembler.next_batch(block=False)
@@ -428,7 +574,7 @@ class StreamJob:
                     break
                 continue
             in_flight.append(self.dispatch_batch(batch, now=now))
-            while len(in_flight) >= depth:
+            while len(in_flight) >= self._inflight_depth():
                 self.complete_batch(in_flight.popleft())
         while in_flight:
             self.complete_batch(in_flight.popleft())
@@ -438,13 +584,12 @@ class StreamJob:
         """Process the stream for a wall-clock window (soak entry)."""
         t_end = time.monotonic() + duration_s
         start = self.counters["scored"]
-        depth = max(1, self.config.pipeline_depth)
         in_flight: deque = deque()
         while time.monotonic() < t_end:
             batch = self.assembler.next_batch(block=True, timeout_s=0.05)
             if batch:
                 in_flight.append(self.dispatch_batch(batch))
-            if in_flight and (len(in_flight) >= depth or not batch):
+            if in_flight and (len(in_flight) >= self._inflight_depth() or not batch):
                 self.complete_batch(in_flight.popleft())
         while in_flight:
             self.complete_batch(in_flight.popleft())

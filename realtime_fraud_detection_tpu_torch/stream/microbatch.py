@@ -9,10 +9,13 @@ whichever comes first:
 - budget (with a ``qos.LatencyBudget``): the oldest pending record's
   remaining latency budget, from its ingest timestamp, has dropped under
   the assembly margin; checked before the deadline;
-- deadline: ``max_delay_ms`` since the batch's first record arrived.
+- deadline: ``max_delay_ms`` since the batch's first record arrived; with a
+  ``controller`` (the tuning plane's just-in-time closer) its
+  ``should_close`` decision replaces the fixed deadline, after the budget
+  trigger, and every polled record is fed to its arrival forecast.
 
-Without a budget it closes exactly the batches it closed before the budget
-trigger existed. The tuning plane's just-in-time close is not ported.
+Without a budget and a controller it closes exactly the batches it closed
+before either trigger existed.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ class MicrobatchAssembler:
         clock: Callable[[], float] = time.monotonic,
         budget=None,
         budget_clock: Callable[[], float] = time.time,
+        controller=None,
     ):
         self.consumer = consumer
         self.max_batch = max_batch
@@ -47,13 +51,18 @@ class MicrobatchAssembler:
         # in the overload drill)
         self.budget = budget
         self.budget_clock = budget_clock
+        # optional tuning.TuningPlane (or a bare JitBatchController): polled
+        # records feed its forecaster on this assembler's clock, and its
+        # close decision replaces the fixed deadline; the budget trigger
+        # still runs first, so it never outwaits a QoS latency budget
+        self.controller = controller
         self._pending: List[Record] = []
         self._first_ts: Optional[float] = None
         self._oldest_event_ts: Optional[float] = None
         self.batches_emitted = 0
         self.records_emitted = 0
-        # why the last batch closed (size | budget | deadline | timeout |
-        # flush) and the histogram of every close
+        # why the last batch closed (size | budget | deadline | jit |
+        # timeout | flush) and the histogram of every close
         self.last_close_reason: Optional[str] = None
         self.close_reasons: dict = {}
 
@@ -95,13 +104,21 @@ class MicrobatchAssembler:
                     self._oldest_event_ts = (
                         ts if self._oldest_event_ts is None
                         else min(self._oldest_event_ts, ts))
+                if got and self.controller is not None:
+                    self.controller.observe(self.clock(), len(got))
                 self._pending.extend(got)
 
             if len(self._pending) >= self.max_batch:
                 return self._emit("size")
             if self._pending and self._budget_low():
                 return self._emit("budget")
-            if self._pending and self._deadline_passed():
+            if self.controller is not None:
+                if self._pending:
+                    d = self.controller.should_close(
+                        len(self._pending), self._first_ts, self.clock())
+                    if d.close:
+                        return self._emit(d.reason)
+            elif self._pending and self._deadline_passed():
                 return self._emit("deadline")
 
             if not block:

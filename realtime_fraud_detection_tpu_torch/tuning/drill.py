@@ -1,0 +1,431 @@
+"""Deterministic autotune drill: JIT batching vs every static config.
+
+Drives the REAL stream path — MicrobatchAssembler → StreamJob
+dispatch/complete → QoS budget → fan-out — under a nonstationary offered
+load (sim/arrivals.py: diurnal ramp + Poisson bursts) on a virtual clock,
+with the one substitution every drill here makes: the device is a
+deterministic stand-in whose per-batch cost is the BUCKET-PADDED service
+curve ``T(bucket(n)) = fixed + per_row * bucket`` of virtual time — the
+pad-waste economics the JIT controller reasons about, with exact
+arithmetic instead of wall-clock noise.
+
+The same arrival timeline is replayed through a pinned grid of static
+fixed-deadline configs AND through the self-tuning plane (forecaster +
+just-in-time closer + online tuner). The acceptance bar:
+
+- the controller beats EVERY static config on admitted p99 at
+  equal-or-better admitted throughput;
+- it never sheds high-value traffic a static config would have admitted
+  (high-value sheds are zero across the board — checked, not assumed);
+- its tuned max-wait bound never leaves the validated range (the QoS
+  budget floor), and admitted p99 stays inside the budget;
+- decisions are fully reproducible: a second controller run produces a
+  bit-identical verdict (p99, close-reason histogram, scored count).
+
+Port of the JAX package's ``tuning/drill.py``: the same timeline, configs
+and stand-in give the same summary. Used by ``python -m
+realtime_fraud_detection_tpu_torch autotune-drill [--fast]`` (last stdout
+line: a compact JSON verdict).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from realtime_fraud_detection_tpu_torch.core.batching import (
+    BATCH_BUCKETS,
+    bucket_for,
+)
+from realtime_fraud_detection_tpu_torch.sim.arrivals import (
+    DiurnalBurstConfig,
+    DiurnalBurstProcess,
+)
+from realtime_fraud_detection_tpu_torch.utils.config import (
+    QosSettings,
+    TuningSettings,
+)
+
+__all__ = ["AutotuneDrillConfig", "run_autotune_drill",
+           "compact_autotune_summary"]
+
+
+@dataclasses.dataclass
+class AutotuneDrillConfig:
+    seed: int = 7
+    max_batch: int = 256
+    # offered load: one compressed diurnal cycle per period_s, bursts on a
+    # deterministic schedule (sim/arrivals.py)
+    duration_s: float = 6.0
+    trough_tps: float = 150.0
+    peak_tps: float = 8_000.0
+    period_s: float = 3.0
+    burst_every_s: float = 1.5
+    burst_offset_s: float = 1.2
+    burst_duration_s: float = 0.15
+    burst_mult: float = 4.0
+    # bucket-padded service model (virtual ms): T(bucket) = fixed + row*B
+    fixed_ms: float = 2.0
+    per_row_us: float = 6.0
+    # pinned static comparison grid: fixed max_delay_ms configs
+    static_grid: Tuple[float, ...] = (0.5, 1.0, 2.5, 5.0, 10.0)
+    # QoS plane (shared by every run — the budget trigger is fair)
+    budget_ms: float = 20.0
+    assemble_margin_ms: float = 2.0
+    # tuning plane
+    deadline_min_ms: float = 0.25
+    deadline_max_ms: float = 8.0
+    patience_factor: float = 1.0
+    tune_interval_batches: int = 40
+    # drive-loop evaluation step while a batch is open (virtual s)
+    step_s: float = 0.0005
+
+    @staticmethod
+    def fast() -> "AutotuneDrillConfig":
+        return AutotuneDrillConfig(duration_s=3.0,
+                                   static_grid=(0.5, 2.5, 10.0),
+                                   tune_interval_batches=25)
+
+
+class _NoCache:
+    def get_transaction(self, txn_id, now=None):
+        return None
+
+
+class _DrillPending:
+    __slots__ = ("records", "n", "features", "cost_s")
+
+    def __init__(self, records, cost_s):
+        self.records = list(records)
+        self.n = len(self.records)
+        self.features = None
+        self.cost_s = cost_s
+
+
+class AutotuneDrillScorer:
+    """Deterministic stand-in with the bucket-padded service curve."""
+
+    def __init__(self, cfg: AutotuneDrillConfig):
+        self.cfg = cfg
+        self.model_valid = np.ones(5, bool)
+        self.txn_cache = _NoCache()
+        self.qos_level = 0
+        self.last_cost_s = 0.0
+
+    def set_degradation(self, mask, rules_only: bool = False,
+                        level: int = 0) -> None:
+        self.qos_level = int(level)
+
+    def cost_s(self, n: int) -> float:
+        # bucket-padded, with the REAL compile-cached shapes: a batch
+        # pays the program of the bucket it lands on (core/batching)
+        b = bucket_for(n, BATCH_BUCKETS)
+        return (self.cfg.fixed_ms + b * self.cfg.per_row_us / 1e3) / 1e3
+
+    def dispatch(self, records, now=None, trace=None) -> _DrillPending:
+        if trace is not None:
+            for s in ("assemble", "pack", "dispatch", "device_wait"):
+                trace.mark(s)
+        self.last_cost_s = self.cost_s(len(records))
+        return _DrillPending(records, self.last_cost_s)
+
+    def finalize(self, pending: _DrillPending, now=None,
+                 lock=None) -> List[Dict[str, Any]]:
+        out = []
+        for r in pending.records:
+            tid = str(r.get("transaction_id", ""))
+            score = (zlib.crc32(tid.encode()) % 650) / 1000.0
+            out.append({
+                "transaction_id": tid,
+                "fraud_probability": score,
+                "fraud_score": score,
+                "risk_level": "LOW" if score < 0.3 else "MEDIUM",
+                "decision": "APPROVE" if score < 0.6
+                            else "APPROVE_WITH_MONITORING",
+                "model_predictions": {},
+                "confidence": 0.9,
+                "processing_time_ms": pending.cost_s * 1e3
+                                      / max(pending.n, 1),
+                "explanation": {"drill": True},
+            })
+        return out
+
+
+def _arrivals(cfg: AutotuneDrillConfig) -> List[Tuple[float, Dict[str, Any]]]:
+    """The shared offered-load timeline: diurnal ramp + bursts, with a
+    deterministic high/normal/low priority mix by amount."""
+    proc = DiurnalBurstProcess(DiurnalBurstConfig(
+        trough_tps=cfg.trough_tps, peak_tps=cfg.peak_tps,
+        period_s=cfg.period_s, burst_every_s=cfg.burst_every_s,
+        burst_offset_s=cfg.burst_offset_s,
+        burst_duration_s=cfg.burst_duration_s,
+        burst_mult=cfg.burst_mult), seed=cfg.seed)
+    times = proc.generate(cfg.duration_s)
+    out = []
+    for i, ts in enumerate(times.tolist()):
+        amount = (1000.0, 60.0, 5.0)[0 if i % 10 < 2
+                                     else (1 if i % 10 < 7 else 2)]
+        out.append((ts, {
+            "transaction_id": f"at-{i}",
+            "user_id": f"u{i % 97}",
+            "merchant_id": f"m{i % 31}",
+            "amount": amount,
+            "timestamp": str(ts),
+        }))
+    return out
+
+
+def _run_config(cfg: AutotuneDrillConfig,
+                arrivals: List[Tuple[float, Dict[str, Any]]],
+                max_delay_ms: Optional[float] = None,
+                tuning: Optional[Any] = None,
+                admission_rate: float = 0.0) -> Dict[str, Any]:
+    """One full replay of the arrival timeline through the real stream
+    path: either a static fixed-deadline config (``max_delay_ms``) or the
+    self-tuning plane (``tuning``). Returns the run's admitted-latency
+    stats, scored/shed counts, and the close-reason histogram."""
+    from realtime_fraud_detection_tpu_torch.obs.tracing import Tracer
+    from realtime_fraud_detection_tpu_torch.qos import QosPlane
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
+    from realtime_fraud_detection_tpu_torch.stream.microbatch import (
+        MicrobatchAssembler,
+    )
+    from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
+    from realtime_fraud_detection_tpu_torch.utils.config import TracingSettings
+
+    clock = [0.0]
+    vclock = lambda: clock[0]                                  # noqa: E731
+    scorer = AutotuneDrillScorer(cfg)
+    plane = QosPlane(QosSettings(
+        enabled=True, budget_ms=cfg.budget_ms,
+        assemble_margin_ms=cfg.assemble_margin_ms,
+        admission_rate=admission_rate,
+        admission_burst=(admission_rate * 0.05 if admission_rate else 0.0),
+        ladder_high_backlog=1e9, ladder_low_backlog=1e8))
+    tracer = None
+    if tuning is not None:
+        # the tuner reads the SLO burn through the job's tracer wiring
+        tracer = Tracer(TracingSettings(
+            enabled=True, ring_size=4096,
+            slo_objective_ms=cfg.budget_ms,
+            slo_fast_window_s=0.5, slo_slow_window_s=2.0,
+            slo_bucket_s=0.05), clock=vclock)
+    broker = InMemoryBroker()
+    job = StreamJob(broker, scorer, JobConfig(
+        max_batch=cfg.max_batch,
+        max_delay_ms=(max_delay_ms if max_delay_ms is not None else 5.0),
+        emit_features=False, emit_enriched=False,
+        qos=plane, tracing=tracer, autotune=tuning))
+    job.assembler = MicrobatchAssembler(
+        job.consumer, max_batch=cfg.max_batch,
+        max_delay_ms=(max_delay_ms if max_delay_ms is not None else 5.0),
+        clock=vclock, budget=plane.budget, budget_clock=vclock,
+        controller=job.tuning)
+
+    latencies: List[float] = []
+    max_wait_ms = 0.0
+    next_i = 0
+    step = cfg.step_s
+    while True:
+        while next_i < len(arrivals) and arrivals[next_i][0] <= clock[0]:
+            ts, txn = arrivals[next_i]
+            broker.produce(T.TRANSACTIONS, txn, key=txn["user_id"],
+                           timestamp=ts)
+            next_i += 1
+        batch = job.assembler.next_batch(block=False)
+        if not batch and next_i >= len(arrivals) \
+                and job.consumer.lag() == 0:
+            batch = job.assembler.flush()
+        if batch:
+            for r in batch:
+                max_wait_ms = max(
+                    max_wait_ms, (clock[0] - float(r.timestamp)) * 1e3)
+            ctx = job.dispatch_batch(batch, now=clock[0])
+            clock[0] += (scorer.last_cost_s
+                         if ctx is not None and ctx.pending is not None
+                         else step)
+            if ctx is not None:
+                job.complete_batch(ctx, now=clock[0])
+                for r in ctx.fresh:
+                    latencies.append(
+                        (clock[0] - float(r.timestamp)) * 1e3)
+            continue
+        if next_i >= len(arrivals) and job.consumer.lag() == 0 \
+                and not job.assembler._pending:
+            break
+        if job.assembler._pending:
+            # a batch is open: advance in fine steps so deadline/budget/
+            # JIT triggers fire at the same granularity for every config
+            clock[0] += step
+        else:
+            clock[0] = (max(clock[0] + step, arrivals[next_i][0])
+                        if next_i < len(arrivals) else clock[0] + step)
+
+    lat = np.asarray(sorted(latencies)) if latencies else np.zeros(1)
+    shed_high = sum(
+        int(count) for key, count in plane.metrics.qos_shed._values.items()
+        if dict(key).get("priority") == "high")
+
+    def pct(q: float) -> float:
+        from realtime_fraud_detection_tpu_torch.obs.profiling import (
+            interpolated_percentile,
+        )
+
+        return round(float(interpolated_percentile(lat, q)), 4)
+
+    out = {
+        "scored": job.counters["scored"],
+        "shed": job.counters["shed"],
+        "shed_high": shed_high,
+        "p50_ms": pct(0.50),
+        "p99_ms": pct(0.99),
+        "max_ms": round(float(lat[-1]), 4),
+        "mean_batch": round(job.counters["scored"]
+                            / max(job.counters["batches"], 1), 2),
+        "batches": job.counters["batches"],
+        "max_wait_ms": round(max_wait_ms, 4),
+        "close_reasons": dict(sorted(
+            job.assembler.close_reasons.items())),
+        "virtual_duration_s": round(clock[0], 4),
+        "throughput_tps": round(
+            job.counters["scored"] / max(clock[0], 1e-9), 1),
+    }
+    if job.tuning is not None:
+        out["tuning"] = job.tuning.snapshot()
+    return out
+
+
+def _tuning_plane(cfg: AutotuneDrillConfig):
+    from realtime_fraud_detection_tpu_torch.tuning import TuningPlane
+
+    settings = TuningSettings(
+        enabled=True,
+        deadline_min_ms=cfg.deadline_min_ms,
+        deadline_max_ms=cfg.deadline_max_ms,
+        patience_factor=cfg.patience_factor,
+        tune_interval_batches=cfg.tune_interval_batches,
+        # the drill's drive loop is serial (depth 1) — pin the in-flight
+        # dimension so tuner trials spend epochs on knobs that act here
+        inflight_min=1, inflight_max=1,
+        forecast_bucket_s=0.02)
+    settings.validate(qos=QosSettings(enabled=True, budget_ms=cfg.budget_ms,
+                                      assemble_margin_ms=cfg
+                                      .assemble_margin_ms))
+    return TuningPlane(settings)
+
+
+def run_autotune_drill(
+        cfg: Optional[AutotuneDrillConfig] = None) -> Dict[str, Any]:
+    cfg = cfg or AutotuneDrillConfig()
+    arrivals = _arrivals(cfg)
+    proc_summary = DiurnalBurstProcess(DiurnalBurstConfig(
+        trough_tps=cfg.trough_tps, peak_tps=cfg.peak_tps,
+        period_s=cfg.period_s), seed=cfg.seed).summary(
+            [t for t, _ in arrivals])
+
+    summary: Dict[str, Any] = {
+        "config": dataclasses.asdict(cfg),
+        "offered": proc_summary,
+    }
+
+    statics: Dict[str, Dict[str, Any]] = {}
+    for d in cfg.static_grid:
+        statics[f"deadline_{d}ms"] = _run_config(cfg, arrivals,
+                                                 max_delay_ms=d)
+    summary["static_grid"] = statics
+
+    ctrl = _run_config(cfg, arrivals, tuning=_tuning_plane(cfg))
+    summary["controller"] = ctrl
+    # reproducibility: a fresh plane over the same timeline must make
+    # bit-identical decisions (same p99, same close mix, same count)
+    ctrl2 = _run_config(cfg, arrivals, tuning=_tuning_plane(cfg))
+    reproducible = (
+        ctrl["p99_ms"] == ctrl2["p99_ms"]
+        and ctrl["scored"] == ctrl2["scored"]
+        and ctrl["close_reasons"] == ctrl2["close_reasons"])
+    summary["reproducible"] = reproducible
+
+    # admission-limited guard phase: the high-value-shed check must be
+    # FALSIFIABLE, so the same timeline is replayed under a token bucket
+    # the bursts overrun — low-priority sheds genuinely occur (asserted),
+    # and a controller that made admission shed high-value traffic a
+    # static config would have admitted fails here, not silently passes
+    guard_rate = cfg.peak_tps * 0.5
+    guard: Dict[str, Dict[str, Any]] = {
+        "controller": _run_config(cfg, arrivals, tuning=_tuning_plane(cfg),
+                                  admission_rate=guard_rate)}
+    for d in cfg.static_grid:
+        guard[f"deadline_{d}ms"] = _run_config(
+            cfg, arrivals, max_delay_ms=d, admission_rate=guard_rate)
+    summary["admission_guard"] = {
+        "admission_rate": guard_rate,
+        "runs": {k: {x: v[x] for x in ("scored", "shed", "shed_high")}
+                 for k, v in guard.items()},
+    }
+
+    static_p99 = {k: v["p99_ms"] for k, v in statics.items()}
+    beats_p99 = all(ctrl["p99_ms"] < p for p in static_p99.values())
+    tput_ok = all(ctrl["scored"] >= v["scored"] for v in statics.values())
+    # never sheds high-value traffic a static would have admitted: high
+    # never sheds on ANY run — main grid AND the admission-limited guard
+    # (where sheds demonstrably happen, so the check can actually fail)
+    no_high_sheds = (ctrl["shed_high"] == 0
+                     and all(v["shed_high"] == 0 for v in statics.values())
+                     and all(v["shed_high"] == 0 for v in guard.values()))
+    admission_exercised = (guard["controller"]["shed"] > 0
+                           and all(v["shed"] > 0 for v in guard.values()))
+    tuned_wait = ctrl["tuning"]["controller"]["max_wait_ms"]
+    budget_ok = (tuned_wait <= cfg.deadline_max_ms + 1e-9
+                 and cfg.deadline_max_ms
+                 <= cfg.budget_ms - cfg.assemble_margin_ms
+                 and ctrl["p99_ms"] <= cfg.budget_ms)
+
+    checks = {
+        "beats_every_static_p99": beats_p99,
+        "throughput_equal_or_better": tput_ok,
+        "no_high_value_sheds": no_high_sheds,
+        "admission_guard_exercised": admission_exercised,
+        "qos_budget_respected": budget_ok,
+        "reproducible": reproducible,
+        "jit_decisions_used": ctrl["close_reasons"].get("jit", 0) > 0,
+    }
+    summary["checks"] = checks
+    summary["passed"] = all(checks.values())
+    return summary
+
+
+def compact_autotune_summary(summary: Dict[str, Any]) -> Dict[str, Any]:
+    """The compact (< 2 KB) verdict the CLI prints as its last line."""
+    ctrl = summary["controller"]
+    return {
+        "drill": "autotune",
+        "passed": summary["passed"],
+        "checks": summary["checks"],
+        "controller": {
+            "p99_ms": ctrl["p99_ms"],
+            "p50_ms": ctrl["p50_ms"],
+            "scored": ctrl["scored"],
+            "mean_batch": ctrl["mean_batch"],
+            "tuned_max_wait_ms":
+                ctrl["tuning"]["controller"]["max_wait_ms"],
+            "close_reasons": ctrl["close_reasons"],
+        },
+        "static_p99_ms": {
+            k: v["p99_ms"] for k, v in summary["static_grid"].items()},
+        "static_scored": {
+            k: v["scored"] for k, v in summary["static_grid"].items()},
+        "offered": {
+            "n": summary["offered"].get("n"),
+            "mean_tps": summary["offered"].get("mean_tps"),
+        },
+        "admission_guard": {
+            "shed": summary["admission_guard"]["runs"]["controller"][
+                "shed"],
+            "shed_high": summary["admission_guard"]["runs"]["controller"][
+                "shed_high"],
+        },
+    }

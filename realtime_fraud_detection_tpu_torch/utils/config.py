@@ -5,14 +5,15 @@
 as in the JAX package's ``utils/config.py``. The blocks the port has: the
 five-model registry (``ModelConfig``, enable / disable, weights), the
 ensemble defaults ``EnsembleParams.from_config`` reads, the quant and kernel
-planes, the state stores' TTLs and list lengths, and the QoS plane's knobs
-(``QosSettings``); plus the quality-artifact loaders that deploy a measured
+planes, the state stores' TTLs and list lengths, and the QoS, tracing and
+tuning planes' knobs (``QosSettings``, ``TracingSettings``,
+``TuningSettings``, with the QoS floor on the tuner's deadline); plus the quality-artifact loaders that deploy a measured
 blend (``Config.apply_quality_artifact``). The environment part is the
 ensemble's (``RTFD_ENSEMBLE_STRATEGY`` or ``ENSEMBLE_STRATEGY``,
 ``CONFIDENCE_THRESHOLD``, ``FRAUD_THRESHOLD``). Values are copies of the
 JAX package's; the port keeps its own so it imports nothing of it. The
 blocks of planes the port does not have (mesh, serving, stream, sim,
-monitoring, feedback, tracing, tuning, chaos, cluster) are not ported.
+monitoring, feedback, chaos, cluster) are not ported.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import json
 import logging
 import os
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 VALID_STRATEGIES = ("weighted_average", "voting", "stacking")
 
@@ -314,6 +315,179 @@ class QosSettings:
 
 
 @dataclass
+class TracingSettings:
+    """End-to-end transaction tracing plane knobs (obs/tracing.py):
+    flight recorder, critical-path analyzer, SLO burn-rate tracking.
+
+    Disabled by default — the plane is opt-in (``run-job --trace``, or a
+    config file) with a no-op fast path when off (one ``is None`` branch
+    per batch on the scoring path; ``trace-drill`` pins the enabled path's
+    overhead bound too). All knobs are host state.
+    """
+
+    enabled: bool = False
+    # process identity stamped into minted trace ids and wire carriers
+    # ("" = single-process id format): what keeps two workers' fresh
+    # roots globally distinct when the coordinator stitches their rings
+    origin: str = ""
+    # flight recorder: ring of the most recent completed traces, plus the
+    # slowest-N kept verbatim (the tail exemplars Chrome-trace export and
+    # /latency/breakdown surface regardless of ring churn)
+    ring_size: int = 4096
+    slowest_n: int = 32
+    # SLO objective: objective_frac of scored transactions complete under
+    # objective_ms, evaluated over a fast and a slow window (the standard
+    # multi-window burn-rate pair); bucket_s is the counting granularity
+    slo_objective_ms: float = 20.0
+    slo_objective_frac: float = 0.99
+    slo_fast_window_s: float = 3600.0
+    slo_slow_window_s: float = 21600.0
+    slo_bucket_s: float = 60.0
+    # QoS consultation: a fast-window burn rate above slo_burn_threshold
+    # for slo_gate_patience consecutive observations engages an extra
+    # degradation floor (>= ladder rung 1); recovery needs
+    # slo_gate_up_patience consecutive under-threshold observations —
+    # the same asymmetric hysteresis discipline as the backlog ladder
+    slo_burn_threshold: float = 2.0
+    slo_gate_patience: int = 3
+    slo_gate_up_patience: int = 12
+
+    def validate(self) -> None:
+        if not 0.0 < self.slo_objective_frac < 1.0:
+            raise ValueError(
+                f"tracing.slo_objective_frac must be in (0, 1), got "
+                f"{self.slo_objective_frac}")
+        if self.slo_objective_ms <= 0 or self.ring_size < 16 \
+                or self.slowest_n < 1:
+            raise ValueError(
+                "tracing requires slo_objective_ms > 0, ring_size >= 16 "
+                "and slowest_n >= 1")
+        if not (0 < self.slo_bucket_s <= self.slo_fast_window_s
+                <= self.slo_slow_window_s):
+            # a fast window longer than the slow one would invert the
+            # burn-alerting pair; a bucket wider than the fast window
+            # would make its burn rate a single stale cell
+            raise ValueError(
+                f"tracing SLO windows must satisfy 0 < bucket_s <= "
+                f"fast_window_s <= slow_window_s, got "
+                f"bucket={self.slo_bucket_s} fast={self.slo_fast_window_s} "
+                f"slow={self.slo_slow_window_s}")
+        if self.slo_burn_threshold <= 0 or self.slo_gate_patience < 1 \
+                or self.slo_gate_up_patience < 1:
+            raise ValueError(
+                "tracing SLO gate requires burn_threshold > 0 and "
+                "patience/up_patience >= 1")
+
+
+@dataclass
+class TuningSettings:
+    """Self-tuning host pipeline knobs (tuning/): arrival-rate forecast,
+    just-in-time batch closing, and the gradient-free online config tuner.
+
+    Disabled by default — the plane is opt-in (``run-job --autotune``, or a
+    config file). With it off, batch-close decisions are BIT-IDENTICAL to
+    the fixed-deadline path (the assembler takes the controller branch
+    only when one is attached). All knobs are host state.
+    """
+
+    enabled: bool = False
+    # arrival forecaster (tuning/forecast.py): Holt double-exponential
+    # smoothing over time-bucketed admission counts. bucket_s is the
+    # counting granularity (and the forecast reaction time); alpha/beta
+    # the level/trend smoothing factors
+    forecast_bucket_s: float = 0.02
+    forecast_alpha: float = 0.5
+    forecast_beta: float = 0.2
+    # just-in-time closer (tuning/controller.py): the tuned max-wait
+    # deadline moves within [deadline_min_ms, deadline_max_ms]; with a
+    # QoS plane configured, deadline_max_ms must leave the budget's
+    # assembly slice intact (validated — the tuner can NEVER starve a
+    # latency budget the QoS plane promised)
+    deadline_min_ms: float = 0.25
+    deadline_max_ms: float = 10.0
+    # free-rider patience: waiting for one more (service-free, pad-riding)
+    # txn is worth `patience_factor x T(bucket) / fill` of the current
+    # waiters' time — the marginal-gain-vs-cost knob (arXiv:1904.07421)
+    patience_factor: float = 1.0
+    # candidate bucket sets the tuner may select among (index 0 is the
+    # starting set). Each must be a non-empty ascending list of positive
+    # sizes; the defaults are subsets of core/batching.BATCH_BUCKETS so a
+    # tuned close boundary always lands on a compile-cached padded shape
+    # (closing at an off-bucket size pads up and wastes the difference).
+    bucket_sets: List[List[int]] = field(default_factory=lambda: [
+        [1, 8, 32, 128, 256],
+        [1, 32, 256],
+        [1, 8, 32, 256],
+    ])
+    # online tuner (tuning/tuner.py): epoch length in completed batches,
+    # the relative admitted-p99 improvement required to KEEP a move (the
+    # hysteresis), and the post-move cooldown in epochs
+    tune_interval_batches: int = 50
+    hysteresis_frac: float = 0.05
+    tuner_cooldown_epochs: int = 2
+    # overlap / in-flight depth search range
+    inflight_min: int = 1
+    inflight_max: int = 4
+
+    def clamp_to_qos(self, qos: "QosSettings | None") -> None:
+        """Clamp the deadline search space to the QoS budget's assembly
+        slice, then re-validate — the clamp-then-check recipe
+        ``run-job --autotune`` applies."""
+        if qos is not None and getattr(qos, "enabled", False):
+            limit = qos.budget_ms - qos.assemble_margin_ms
+            self.deadline_max_ms = min(self.deadline_max_ms, limit)
+            self.deadline_min_ms = min(self.deadline_min_ms,
+                                       self.deadline_max_ms)
+        self.validate(qos=qos)
+
+    def validate(self, qos: "QosSettings | None" = None) -> None:
+        if not (0.0 < self.deadline_min_ms <= self.deadline_max_ms):
+            raise ValueError(
+                f"tuning deadline bounds must satisfy 0 < deadline_min_ms "
+                f"<= deadline_max_ms, got min={self.deadline_min_ms} "
+                f"max={self.deadline_max_ms}")
+        if not self.bucket_sets:
+            raise ValueError("tuning.bucket_sets must not be empty")
+        for bs in self.bucket_sets:
+            if not bs or list(bs) != sorted(bs) or min(bs) < 1 \
+                    or len(set(bs)) != len(bs):
+                raise ValueError(
+                    f"every tuning bucket set must be a non-empty strictly "
+                    f"ascending list of positive sizes, got {bs!r}")
+        if not (0.0 < self.forecast_alpha <= 1.0
+                and 0.0 <= self.forecast_beta <= 1.0
+                and self.forecast_bucket_s > 0):
+            raise ValueError(
+                "tuning forecast requires 0 < alpha <= 1, 0 <= beta <= 1 "
+                "and bucket_s > 0")
+        if self.tune_interval_batches < 1 or self.hysteresis_frac < 0 \
+                or self.tuner_cooldown_epochs < 0:
+            raise ValueError(
+                "tuning requires tune_interval_batches >= 1, "
+                "hysteresis_frac >= 0 and tuner_cooldown_epochs >= 0")
+        if not (1 <= self.inflight_min <= self.inflight_max):
+            raise ValueError(
+                f"tuning requires 1 <= inflight_min <= inflight_max, got "
+                f"min={self.inflight_min} max={self.inflight_max}")
+        if self.patience_factor <= 0:
+            raise ValueError("tuning.patience_factor must be > 0")
+        if self.enabled and qos is not None \
+                and getattr(qos, "enabled", False):
+            # the hard QoS floor: the tuner's deadline search space may
+            # never reach past the budget's assembly slice — a tuned
+            # max-wait that outlives close_by would hold batches past the
+            # deadline the QoS plane promised every admitted transaction.
+            # Checked only when the plane is ON: a disabled tuner imposes
+            # no constraint on an otherwise-valid QoS config.
+            limit = qos.budget_ms - qos.assemble_margin_ms
+            if self.deadline_max_ms > limit:
+                raise ValueError(
+                    f"tuning.deadline_max_ms={self.deadline_max_ms} "
+                    f"violates the QoS budget: must be <= budget_ms - "
+                    f"assemble_margin_ms = {limit}")
+
+
+@dataclass
 class Config:
     """The slice of the JAX package's root ``Config`` the port reads. A
     disabled model is left out of the blend and of the scorer's validity
@@ -325,6 +499,8 @@ class Config:
     kernels: KernelSettings = field(default_factory=KernelSettings)
     state: StateConfig = field(default_factory=StateConfig)
     qos: QosSettings = field(default_factory=QosSettings)
+    tracing: TracingSettings = field(default_factory=TracingSettings)
+    tuning: TuningSettings = field(default_factory=TuningSettings)
 
     def __post_init__(self) -> None:
         self._apply_env()
@@ -469,6 +645,8 @@ class Config:
                 f"monitor={e.monitor_threshold} review={e.review_threshold} "
                 f"decline={e.decline_threshold}")
         self.qos.validate()
+        self.tracing.validate()
+        self.tuning.validate(qos=self.qos)
         self.quant.validate()
         self.kernels.validate()
 

@@ -232,6 +232,26 @@ def test_drill_and_ladder_import_with_jax_blocked():
         cfg.apply_quality_artifact("QUALITY_r05.json")
         assert sorted(cfg.get_enabled_models()) == [
             "isolation_forest", "lstm_sequential", "xgboost_primary"]
+        # the tracing and tuning planes, their drills and the arrivals
+        import dataclasses
+        from realtime_fraud_detection_tpu_torch.obs.trace_drill import (
+            TraceDrillConfig, run_trace_drill)
+        from realtime_fraud_detection_tpu_torch.obs.tracing import SloTracker, Tracer
+        from realtime_fraud_detection_tpu_torch.sim.arrivals import DiurnalBurstProcess
+        from realtime_fraud_detection_tpu_torch.tuning import (
+            ArrivalForecaster, ConfigTuner, JitBatchController, TuningPlane)
+        from realtime_fraud_detection_tpu_torch.tuning.drill import (
+            AutotuneDrillConfig, run_autotune_drill)
+        assert len(DiurnalBurstProcess(seed=1).generate(0.5)) > 0
+        assert Tracer().enabled and SloTracker().burn_rate(60.0) == 0.0
+        assert ArrivalForecaster().rate(0.0) == 0.0 and JitBatchController().buckets
+        assert TuningPlane().recommended_inflight_depth() >= 1 and ConfigTuner
+        trace = run_trace_drill(dataclasses.replace(
+            TraceDrillConfig.fast(), bursts_per_phase=4, overhead_txns=256))
+        assert trace["checks"]["slow_device_attributed"]
+        auto = run_autotune_drill(AutotuneDrillConfig(duration_s=0.5,
+                                                      static_grid=(2.5,)))
+        assert auto["controller"]["scored"] > 0 and auto["reproducible"]
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

@@ -364,6 +364,23 @@ def test_port_runs_with_jax_blocked():
         assert job.run_until_drained(now=2.0) == 16 and job.counters["shed"] == 0
         job.qos.metrics.sync_microbatch(job.assembler.close_reasons)
         assert "microbatch_close_reason_total" in job.qos.metrics.render_prometheus()
+        # the tracing and tuning planes in the job, with their metrics
+        from realtime_fraud_detection_tpu_torch.utils.config import (
+            TracingSettings, TuningSettings)
+        broker = InMemoryBroker()
+        job = StreamJob(broker, w, JobConfig(
+            max_batch=16, qos=QosSettings(enabled=True),
+            tracing=TracingSettings(enabled=True),
+            autotune=TuningSettings(enabled=True)))
+        broker.produce_batch(T.TRANSACTIONS, gen.generate_batch(16),
+                             key_fn=lambda r: str(r["user_id"]))
+        assert job.run_until_drained(now=3.0) == 16
+        assert job.tracer.counters["completed"] == 16
+        assert job.tracer.breakdown()["n"] == 16
+        job.qos.metrics.sync_tracing(job.tracer.snapshot())
+        job.qos.metrics.sync_autotune(job.tuning.snapshot())
+        text = job.qos.metrics.render_prometheus()
+        assert "trace_completed_total" in text and "autotune_max_wait_ms" in text
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

@@ -654,7 +654,9 @@ def test_metric_exposition_equals_jax_line_for_line():
     got = port.render_prometheus().splitlines()
     names = {ln.split(" ")[2] for ln in got if ln.startswith("# TYPE ")}
     want = _family_lines(ref.render_prometheus(), names)
-    assert len(names) == 33 and len(got) == len(want)
+    # 33 families, and the tracing plane's 6 trace_* and the tuning plane's
+    # 7 autotune_* ones
+    assert len(names) == 46 and len(got) == len(want)
     # the JAX package's mode "pallas" is the port's "cuda", which sorts to
     # another place among the site-mode samples: compare those as sets
     want = [w.replace('mode="pallas"', 'mode="cuda"') for w in want]
