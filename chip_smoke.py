@@ -158,6 +158,40 @@ Phases, each of which raises (and exits non-zero) on failure:
    5 ms deadline: each id emitted once, lag 0, no high-priority shed.
    Prints admitted p50 / p99 and txn/s, the close reasons, the tuner's
    moves, the learned T(bucket) and the measured one.
+16. the scoring service: the port's ``ServingApp`` on ``127.0.0.1:0`` with
+   the scorer injected (int8 BERT, the concurrency cap raised to 256 so the
+   256-row body is admitted, no dedicated metrics listener; the kernels
+   built before it listens), the clients in a process of their own
+   (``serving/loadgen.py``, 64 keep-alive clients, one request in flight
+   each, a 503 counted and retried). (a) DistilBERT-base under
+   ``KernelSettings.full()``: one ``POST /batch-predict`` of 256 seeded
+   transactions launches 1 / 6 / 36 / 2 (counters reset just before, read
+   just after), held against the same body through a CPU port app with the
+   same models (scores within the drill's bound, decisions exact off a
+   rung); then 1,024 ``POST /predict``: each answered once with a 200, each
+   batch the 45-launch chain; prints request p50 / p99, txn/s, the
+   microbatcher's batch sizes, launches a batch, the collector's
+   collections during the load and ``kernel_fallback_total``. (b) TINY
+   under ``KernelSettings.mega()``: the same, each batch of two or more rows
+   one megakernel launch, each one-row batch the chain (1 / 2 / 12 / 2) and
+   one counted fallback; then 16 ``/predict`` one at a time, 16 one-row
+   batches on the chain, the exposition's fallback total equal to the
+   snapshot's; then the hot swap: a fresh app takes 2,048 ``/predict`` and,
+   a quarter of them answered, ``/reload-models`` restores a port checkpoint
+   of the second seed's models while the rest are in flight: every
+   transaction answered once with a 200, the app's batches replayed in order
+   through two kernels-off card scorers (one per model set), each answer
+   equal to the replay under the set its batch was launched with, none sent
+   after the reload returned answered by the old set. (c)
+   ``serving.overlap_assembly`` on: the first 64 of (a)'s body sent one at a
+   time as ``/predict`` to DistilBERT-base apps with overlap on and off,
+   decisions equal off a rung, then 1,024 concurrent ``/predict`` on the
+   overlapped app (two batches in flight), p50 / p99 and txn/s. ``/health``
+   and ``/metrics/prometheus`` are read once in each part. (d) ``python -m
+   realtime_fraud_detection_tpu_torch serve --mega`` in a process of its
+   own: ``/health`` and the ``health-check`` command healthy, four
+   ``/predict`` answered, the dedicated metrics listener read, and SIGTERM
+   drains it to exit 0.
 
 The last three lines of standard output are the kernel JSON line (all five
 kernels), the ``nvidia-smi`` name and power limit, and the result line
@@ -2829,6 +2863,634 @@ def run_quality_artifact(ops, models):
           f"rows farther than the bound {tol:.3e} from a rung", flush=True)
 
 
+# the serving phase: the port's ServingApp on 127.0.0.1:0 with the scorer
+# injected, the run-job simulator's users and merchants; the concurrency cap
+# raised to the body's 256 rows so /batch-predict admits it (64 clients stay
+# under it), the prediction timeout to 60 s, no dedicated metrics listener
+SERVE_CLIENTS = 64
+SERVE_PREDICTS = 4 * BATCH
+SERVE_SWAP_PREDICTS = 8 * BATCH
+SERVE_SEQUENTIAL = 64
+RUNGS = (0.3, 0.6, 0.8, 0.95, 0.7)      # risk and decision rungs, confidence
+
+
+class AppThread:
+    """A ``ServingApp`` serving from an event loop of its own thread;
+    ``start`` builds the kernels before it listens. ``request`` is one HTTP
+    call on a fresh connection."""
+
+    def __init__(self, app):
+        import asyncio
+        import threading
+
+        self.app = app
+        self.loop = asyncio.new_event_loop()
+        self.started = threading.Event()
+        self.error = None
+        self.thread = threading.Thread(target=self._run, name="serving", daemon=True)
+
+    def _run(self):
+        import asyncio
+
+        asyncio.set_event_loop(self.loop)
+        try:
+            self.loop.run_until_complete(self.app.start())
+        except Exception as e:          # reported by __enter__
+            self.error = e
+            self.started.set()
+            return
+        self.started.set()
+        self.loop.run_forever()
+
+    def __enter__(self):
+        self.thread.start()
+        if not self.started.wait(600) or self.error is not None:
+            fail(f"the serving app did not start: {self.error!r}")
+        return self
+
+    def __exit__(self, *exc):
+        import asyncio
+
+        asyncio.run_coroutine_threadsafe(self.app.stop(), self.loop).result(60)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(60)
+        if self.thread.is_alive():
+            fail("the serving app's thread did not stop")
+        self.loop.close()
+
+    def request(self, method, path, body=None):
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", self.app.port, timeout=120)
+        try:
+            conn.request(method, path, body=json.dumps(body) if body is not None else None,
+                         headers={"Content-Type": "application/json"} if body else {})
+            resp = conn.getresponse()
+            raw = resp.read()
+        finally:
+            conn.close()
+        ctype = resp.getheader("Content-Type", "")
+        return resp.status, (json.loads(raw) if "json" in ctype else raw.decode())
+
+
+def serving_app(models, bert_config, kernels, device, profiles, overlap=False,
+                tracing=False):
+    """A ``ServingApp`` on a fresh ``TorchFraudScorer`` (int8 BERT) with the
+    simulator's profiles."""
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.serving.app import ServingApp
+    from realtime_fraud_detection_tpu_torch.utils.config import Config, QuantSettings
+
+    config = Config(quant=QuantSettings.full(), kernels=kernels)
+    config.serving.max_concurrent_predictions = BATCH
+    config.serving.prediction_timeout_seconds = 60.0
+    config.serving.overlap_assembly = overlap
+    config.tracing.enabled = tracing
+    config.monitoring.prometheus_port = 0
+    scorer = TorchFraudScorer(config, models=models, bert_config=bert_config,
+                              device=device)
+    scorer.seed_profiles(*profiles)
+    return ServingApp(config, scorer=scorer, host="127.0.0.1", port=0, device=device)
+
+
+def dispatch_spy(scorer, ops, batches):
+    """Wrap ``scorer.dispatch`` (the app calls it under its score lock):
+    each batch appends its records, the launch counters' growth, the
+    megakernel's dispatch / fallback growth and which model set it was
+    launched with (the ``id`` of ``scorer.models``)."""
+    dispatch = scorer.dispatch
+
+    def spy(records, now=None, **kw):
+        before = ops.launch_counts()
+        snap0 = scorer.kernel_snapshot()
+        models = id(scorer.models)
+        out = dispatch(records, now=now, **kw)
+        after = ops.launch_counts()
+        snap = scorer.kernel_snapshot()
+        batches.append(dict(
+            records=list(records), rows=len(records), models=models,
+            launches={k: after[k] - before[k] for k in after if after[k] > before[k]},
+            kernel_launches=snap["kernel_launches"],
+            mega_fallback=snap["fallback"]["megakernel"] - snap0["fallback"]["megakernel"]))
+        return out
+
+    scorer.dispatch = spy
+
+
+def token_spy(scorer, tokens):
+    assemble = scorer.assemble
+
+    def keep(*args, **kwargs):
+        batch = assemble(*args, **kwargs)
+        tokens.append((batch.token_ids, batch.token_mask))
+        return batch
+
+    scorer.assemble = keep
+
+
+def compare_answers(name, got, want, tol, label):
+    """Answers matched by transaction id: fraud_score and confidence within
+    ``tol`` (the drill's bound), decision and risk level equal on every row
+    whose reference probability and confidence lie farther than ``tol``
+    from a rung. Returns (max err, rows compared exactly, rows skipped)."""
+    ref = {a["transaction_id"]: a for a in want}
+    if sorted(ref) != sorted(a["transaction_id"] for a in got):
+        fail(f"{name}: ids differ from {label}")
+    err, exact = 0.0, 0
+    for a in got:
+        b = ref[a["transaction_id"]]
+        for key in ("fraud_score", "confidence"):
+            err = max(err, abs(a[key] - b[key]))
+        near = any(abs(b[key] - r) <= tol for key in ("fraud_probability", "confidence")
+                   for r in RUNGS)
+        if not near:
+            exact += 1
+            if (a["decision"], a["risk_level"]) != (b["decision"], b["risk_level"]):
+                fail(f"{name}: {a['transaction_id']} {a['decision']}/{a['risk_level']}"
+                     f" vs {label} {b['decision']}/{b['risk_level']}")
+    if not err <= tol:
+        fail(f"{name}: fraud_score / confidence err {err} vs {label} (bound {tol})")
+    return err, exact, len(got) - exact
+
+
+def run_load_process(port, txns, progress_at=None, on_progress=None):
+    """``serving/loadgen.py`` in a process of its own (the clients must not
+    share the server's interpreter), its answers read back; calls
+    ``on_progress`` once ``progress_at`` answers are in."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        txn_path, out_path = os.path.join(tmp, "txns.json"), os.path.join(tmp, "out.json")
+        with open(txn_path, "w") as f:
+            json.dump(txns, f)
+        cmd = [sys.executable, "-m", "realtime_fraud_detection_tpu_torch.serving.loadgen",
+               "--port", str(port), "--clients", str(SERVE_CLIENTS), "--txns", txn_path,
+               "--out", out_path]
+        if progress_at is not None:
+            cmd += ["--progress-at", str(progress_at)]
+        proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, text=True)
+        try:
+            lines = []
+            for line in proc.stdout:
+                if line.strip() == "progress" and on_progress is not None:
+                    on_progress()
+                else:
+                    lines.append(line)
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if rc != 0:
+            fail(f"the load generator exited {rc}: {''.join(lines)[-2000:]}")
+        with open(out_path) as f:
+            result = json.load(f)
+    ids = [t["transaction_id"] for t in txns]
+    answered = [a["body"].get("transaction_id") for a in result["answers"]]
+    if sorted(answered) != sorted(ids) or len(set(answered)) != len(ids):
+        fail("the load: not every transaction answered exactly once")
+    bad = [a for a in result["answers"] if a["status"] != 200]
+    if bad:
+        fail(f"the load: {len(bad)} answers not 200, e.g. {bad[0]['status']} "
+             f"{bad[0]['body']}")
+    return result
+
+
+def load_summary(result, batches):
+    """Request latency percentiles and txn/s of a load, the microbatcher's
+    batch sizes and the launches a batch."""
+    from collections import Counter
+
+    from realtime_fraud_detection_tpu_torch.obs.profiling import interpolated_percentile
+
+    lat = sorted((a["t1"] - a["t0"]) * 1e3 for a in result["answers"])
+    launches = Counter(json.dumps(b["launches"], sort_keys=True) for b in batches)
+    return dict(
+        requests=len(lat), clients=SERVE_CLIENTS, shed_503=result["shed_503"],
+        wall_s=result["wall_s"], txn_per_s=len(lat) / result["wall_s"],
+        p50_ms=interpolated_percentile(lat, 0.5), p99_ms=interpolated_percentile(lat, 0.99),
+        max_ms=lat[-1], batches=len(batches),
+        batch_sizes=dict(sorted(Counter(b["rows"] for b in batches).items())),
+        launches_per_batch={k: n for k, n in launches.most_common()},
+        one_row_batches=sum(b["rows"] == 1 for b in batches))
+
+
+class GcCount:
+    """Collections of the interpreter's garbage collector (by generation)
+    and the time they took, while inside the ``with``."""
+
+    def __enter__(self):
+        import gc
+
+        self.ms, self.collections, self._t0 = 0.0, [0, 0, 0], None
+
+        def on_gc(phase, info):
+            if phase == "start":
+                self._t0 = time.perf_counter()
+            elif self._t0 is not None:
+                self.ms += (time.perf_counter() - self._t0) * 1e3
+                self.collections[info["generation"]] += 1
+
+        self._cb = on_gc
+        gc.callbacks.append(on_gc)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._cb)
+
+
+def prom_value(text, series):
+    """The value of one sample line of a Prometheus exposition (0 if absent)."""
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.split()[-1])
+    return 0.0
+
+
+def check_batches(name, batches, mega, chain):
+    """Each batch the chain (``full()``, or a one-row batch under ``mega()``
+    with one counted fallback) or one megakernel launch, the snapshot's
+    ``kernel_launches`` equal to the counters' growth."""
+    for b in batches:
+        one = mega and b["rows"] == 1
+        want = chain if (one or not mega) else {"megakernel": 1}
+        if b["launches"] != want or b["mega_fallback"] != int(one) \
+                or b["kernel_launches"] != sum(want.values()):
+            fail(f"{name}: a {b['rows']}-row batch launched {b['launches']} "
+                 f"(snapshot {b['kernel_launches']}, fallback {b['mega_fallback']})")
+
+
+def serve_part(ops, name, bert_config, models, kernels, chain, profiles, gen):
+    """One width's service on the card: a ``/batch-predict`` of 256 seeded
+    transactions (launch counters reset just before, read just after) held
+    against the same body through a CPU port app with the same models, then
+    ``SERVE_PREDICTS`` ``/predict`` from ``SERVE_CLIENTS`` clients in
+    another process, traced (the tracer's ``/latency/breakdown`` of the load
+    beside the clients' latencies: the difference is the HTTP path); under
+    ``mega()`` then 16 ``/predict`` one at a time (one-row batches);
+    ``/health`` and ``/metrics/prometheus`` read once.
+    ``chain`` is the per-site chain's launches a batch; under
+    ``KernelSettings.mega()`` a batch of two or more rows launches the
+    megakernel once and a one-row batch runs the chain and counts a
+    fallback. Returns the load's launch counts and the body."""
+    mega = kernels.megakernel == "cuda"
+    body = gen.generate_batch(BATCH)
+    load = gen.generate_batch(SERVE_PREDICTS)
+    app = serving_app(models, bert_config, kernels, "cuda", profiles, tracing=True)
+    tokens, batches = [], []
+    token_spy(app.scorer, tokens)
+    dispatch_spy(app.scorer, ops, batches)
+    with AppThread(app) as srv:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        status, out = srv.request("POST", "/batch-predict", {"transactions": body})
+        torch.cuda.synchronize()
+        body_launches = {k: v for k, v in ops.launch_counts().items() if v}
+        want = {"megakernel": 1} if mega else chain
+        if status != 200 or out["count"] != BATCH:
+            fail(f"{name} /batch-predict: {status} {str(out)[:300]}")
+        if body_launches != want:
+            fail(f"{name} /batch-predict launches {body_launches} != {want}")
+        tol = noise_bound(app.scorer.models, bert_config, tokens,
+                          app.scorer.ensemble_params.weights)
+        t0 = time.perf_counter()
+        cpu = serving_app(models, bert_config, kernels, "cpu", profiles)
+        with AppThread(cpu) as ref:
+            ref_status, ref_out = ref.request("POST", "/batch-predict",
+                                              {"transactions": body})
+        cpu_s = time.perf_counter() - t0
+        if ref_status != 200:
+            fail(f"{name} CPU /batch-predict: {ref_status}")
+        err, exact, skipped = compare_answers(f"{name} /batch-predict", out["results"],
+                                              ref_out["results"], tol, "the CPU app")
+        print(f"{name} /batch-predict of {BATCH}: launches {body_launches}; vs a CPU "
+              f"port app on the same body ({cpu_s:.1f} s on the CPU): fraud_score / "
+              f"confidence max err {err:.3e} (drill bound {tol:.3e}), decision and risk "
+              f"equal on all {exact} rows off a rung ({skipped} skipped)", flush=True)
+
+        batches.clear()
+        ops.reset_launch_counts()
+        with GcCount() as gc_count:
+            result = run_load_process(app.port, load)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        summary = load_summary(result, batches)
+        check_batches(f"{name} load", batches, mega, chain)
+        status, bd = srv.request("GET", "/latency/breakdown")
+        if status != 200 or bd["n"] != SERVE_PREDICTS:
+            fail(f"{name}: /latency/breakdown {status}, {bd.get('n')} scored traces")
+        summary["trace_breakdown"] = {
+            q: {k: bd["quantiles"][q][k] for k in ("e2e_ms", "dominant_stage", "stage_ms")}
+            for q in ("p50", "p99")}
+        if mega:
+            batches.clear()
+            for txn in gen.generate_batch(16):
+                status, out = srv.request("POST", "/predict", txn)
+                if status != 200:
+                    fail(f"{name} sequential /predict: {status} {out}")
+            if [b["rows"] for b in batches] != [1] * 16:
+                fail(f"{name} sequential /predict: batches {[b['rows'] for b in batches]}")
+            check_batches(f"{name} sequential", batches, mega, chain)
+            summary["sequential_one_row_batches"] = dict(
+                batches=16, launches_each=batches[0]["launches"],
+                fallbacks=sum(b["mega_fallback"] for b in batches))
+        status, health = srv.request("GET", "/health")
+        status_p, prom = srv.request("GET", "/metrics/prometheus")
+        if status != 200 or health["status"] != "healthy" or status_p != 200:
+            fail(f"{name}: /health {status} {health}, /metrics/prometheus {status_p}")
+        snap = app.scorer.kernel_snapshot()
+        fallback = prom_value(prom, 'kernel_fallback_total{site="megakernel"}')
+        if mega and (fallback != snap["fallback"]["megakernel"] or fallback < 16):
+            fail(f"{name}: kernel_fallback_total {fallback} != snapshot {snap['fallback']}")
+        summary.update(
+            gc_collections=gc_count.collections, gc_ms=gc_count.ms,
+            kernel_fallback_total={s: prom_value(prom, f'kernel_fallback_total{{site="{s}"}}')
+                                   for s in snap["fallback"]},
+            kernel_launches_per_batch=prom_value(prom, "kernel_launches_per_batch"),
+            health=health)
+    print(f"{name} load: {json.dumps(summary)}", flush=True)
+    return dict(launches=launches, body=body)
+
+
+def run_hot_swap(ops, models, new_models, profiles, gen):
+    """Phase 16(b)'s hot swap: a fresh TINY ``mega()`` app takes
+    ``SERVE_SWAP_PREDICTS`` ``/predict`` from ``SERVE_CLIENTS`` clients; once a
+    quarter are answered, ``/reload-models`` restores a port checkpoint of
+    ``new_models`` while the rest are in flight. Every transaction answered
+    once with a 200 (503s counted and retried); the batches the app
+    dispatched are replayed in order through two kernels-off card scorers,
+    one with each model set (the scorer's state does not depend on the
+    models, so both see the app's state); each answer equals the replay
+    under the set its batch was launched with, and every request sent after
+    the reload returned was answered by the new set."""
+    import tempfile
+
+    from realtime_fraud_detection_tpu_torch.checkpoint import CheckpointManager
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    load = gen.generate_batch(SERVE_SWAP_PREDICTS)
+    app = serving_app(models, TINY_CONFIG, KernelSettings.mega(), "cuda", profiles)
+    batches, tokens = [], []
+    dispatch_spy(app.scorer, ops, batches)
+    token_spy(app.scorer, tokens)
+    old_models = app.scorer.models
+    old_id = id(old_models)
+    reload = {}
+    with tempfile.TemporaryDirectory() as ckdir, AppThread(app) as srv:
+        CheckpointManager(ckdir).save(1, params=new_models)
+
+        def swap():
+            reload["t0"] = time.monotonic()
+            reload["status"], reload["out"] = srv.request(
+                "POST", "/reload-models", {"checkpoint_dir": ckdir})
+            reload["t1"] = time.monotonic()
+
+        result = run_load_process(app.port, load, progress_at=SERVE_SWAP_PREDICTS // 4,
+                                  on_progress=swap)
+        status, health = srv.request("GET", "/health")
+        status_p, prom = srv.request("GET", "/metrics/prometheus")
+        new_dev = app.scorer.models
+        new_id = id(new_dev)
+    if reload.get("status") != 200 or reload["out"]["source"].get("step") != 1:
+        fail(f"hot swap: /reload-models {reload}")
+    if status != 200 or status_p != 200 or new_id == old_id:
+        fail(f"hot swap: /health {status}, /metrics/prometheus {status_p}")
+    sets = {old_id: "old", new_id: "new"}
+    if {b["models"] for b in batches} != set(sets):
+        fail(f"hot swap: batches launched with {len({b['models'] for b in batches})} "
+             f"model sets")
+    # the replay: the same batches in the same order, on each model set
+    refs = {}
+    for label, m in (("old", models), ("new", new_models)):
+        plain = TorchFraudScorer(Config(quant=QuantSettings.full()), models=m,
+                                 bert_config=TINY_CONFIG, device="cuda")
+        plain.seed_profiles(*profiles)
+        refs[label] = {}
+        for b in batches:
+            for r in plain.finalize(plain.dispatch(b["records"])):
+                refs[label][r["transaction_id"]] = r
+    used = {r["transaction_id"]: sets[b["models"]] for b in batches for r in b["records"]}
+    tol = max(noise_bound(m, TINY_CONFIG, tokens, app.scorer.ensemble_params.weights)
+              for m in (old_models, new_dev))
+    answers = {a["body"]["transaction_id"]: a for a in result["answers"]}
+    late_old = [i for i, a in answers.items()
+                if a["t0"] > reload["t1"] and used[i] != "new"]
+    if late_old:
+        fail(f"hot swap: {len(late_old)} requests sent after the reload returned were "
+             f"answered by the old models")
+    errs, counts = {}, {}
+    for label in ("old", "new"):
+        got = [a["body"] for i, a in answers.items() if used[i] == label]
+        want = [refs[label][a["transaction_id"]] for a in got]
+        counts[label] = len(got)
+        errs[label] = compare_answers(f"hot swap ({label} set)", got, want, tol,
+                                      f"the plain path on the {label} models")
+    after_reload = sum(a["t0"] > reload["t1"] for a in answers.values())
+    summary = dict(
+        requests=len(answers), shed_503=result["shed_503"], batches=len(batches),
+        answered_by=counts, sent_after_reload=after_reload,
+        reload_ms=(reload["t1"] - reload["t0"]) * 1e3,
+        max_err={k: v[0] for k, v in errs.items()},
+        rows_exact={k: v[1] for k, v in errs.items()},
+        rows_skipped={k: v[2] for k, v in errs.items()}, bound=tol,
+        one_row_batches=sum(b["rows"] == 1 for b in batches),
+        kernel_fallback_megakernel=prom_value(
+            prom, 'kernel_fallback_total{site="megakernel"}'),
+        health_queue_depth=health["queue_depth"])
+    print(f"TINY hot swap under load: every transaction answered once with a 200, "
+          f"each answer the plain path's on the set its batch was launched with, "
+          f"none sent after the reload answered by the old set: {json.dumps(summary)}",
+          flush=True)
+    return summary
+
+
+def run_overlap_serving(ops, models, chain, profiles, gen, body):
+    """Phase 16(c): ``serving.overlap_assembly`` on and off, DistilBERT-base
+    under ``KernelSettings.full()``: the first ``SERVE_SEQUENTIAL`` of (a)'s
+    body sent one at a time as ``/predict`` to each app (fresh scorers, the
+    same models and profiles), decisions equal off a rung and scores within
+    the drill's bound; then ``SERVE_PREDICTS`` concurrent ``/predict`` on the
+    overlapped app, two batches in flight."""
+    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE
+    from realtime_fraud_detection_tpu_torch.utils.config import KernelSettings
+
+    seq = body[:SERVE_SEQUENTIAL]
+    answers, tokens = {}, []
+    for overlap in (False, True):
+        app = serving_app(models, DISTILBERT_BASE, KernelSettings.full(), "cuda",
+                          profiles, overlap=overlap)
+        if not overlap:
+            token_spy(app.scorer, tokens)
+            ref_models = app.scorer.models
+        batches = []
+        dispatch_spy(app.scorer, ops, batches)
+        with AppThread(app) as srv:
+            got = []
+            for txn in seq:
+                status, out = srv.request("POST", "/predict", txn)
+                if status != 200:
+                    fail(f"overlap={overlap} /predict: {status} {out}")
+                got.append(out)
+            answers[overlap] = got
+            if any(b["launches"] != chain for b in batches):
+                fail(f"overlap={overlap}: a batch launched other than {chain}")
+            if overlap:
+                batches.clear()
+                ops.reset_launch_counts()
+                with GcCount() as gc_count:
+                    result = run_load_process(app.port, gen.generate_batch(SERVE_PREDICTS))
+                torch.cuda.synchronize()
+                launches = ops.launch_counts()
+                summary = load_summary(result, batches)
+                summary.update(gc_collections=gc_count.collections, gc_ms=gc_count.ms)
+                if any(b["launches"] != chain for b in batches):
+                    fail("overlapped load: a batch launched other than the chain")
+                status, health = srv.request("GET", "/health")
+                status_p, _ = srv.request("GET", "/metrics/prometheus")
+                if status != 200 or status_p != 200:
+                    fail(f"overlapped app: /health {status}, /metrics/prometheus {status_p}")
+    tol = noise_bound(ref_models, DISTILBERT_BASE, tokens,
+                      app.scorer.ensemble_params.weights)
+    err, exact, skipped = compare_answers("overlapped /predict", answers[True],
+                                          answers[False], tol, "two-phase off")
+    print(f"DistilBERT-base sequential /predict x{SERVE_SEQUENTIAL}, overlap on vs off: "
+          f"max err {err:.3e} (bound {tol:.3e}), decisions equal on {exact} rows off a "
+          f"rung ({skipped} skipped); overlapped load: {json.dumps(summary)}", flush=True)
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_serve_command(gen):
+    """Phase 16(d): ``python -m realtime_fraud_detection_tpu_torch serve
+    --mega`` in a process of its own (a ``--config`` file moves its
+    dedicated metrics listener to a free port): ``/health`` polled until it
+    answers, the ``health-check`` command, four ``/predict`` and the
+    dedicated listener's ``/metrics``, then SIGTERM: the service drains and
+    exits 0."""
+    import http.client
+    import os
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    port, metrics_port = free_port(), free_port()
+
+    def call(p, method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", p, timeout=60)
+        try:
+            conn.request(method, path, body=json.dumps(body) if body else None)
+            resp = conn.getresponse()
+            return resp.status, resp.read().decode()
+        finally:
+            conn.close()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, log = os.path.join(tmp, "serve.json"), os.path.join(tmp, "serve.log")
+        with open(cfg, "w") as f:
+            json.dump({"monitoring": {"prometheus_port": metrics_port}}, f)
+        t0 = time.perf_counter()
+        with open(log, "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "realtime_fraud_detection_tpu_torch", "serve",
+                 "--mega", "--host", "127.0.0.1", "--port", str(port), "--config", cfg],
+                cwd=root, stdout=err, stderr=subprocess.STDOUT)
+        try:
+            while True:
+                try:
+                    status, _ = call(port, "GET", "/health")
+                    break
+                except OSError:
+                    if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                        fail(f"serve did not come up (exit {proc.poll()}): "
+                             f"{open(log).read()[-2000:]}")
+                    time.sleep(0.25)
+            t_up = time.perf_counter() - t0
+            check = subprocess.run(
+                [sys.executable, "-m", "realtime_fraud_detection_tpu_torch",
+                 "health-check", "--url", f"http://127.0.0.1:{port}"],
+                cwd=root, capture_output=True, text=True, timeout=120)
+            answers = [call(port, "POST", "/predict", t) for t in gen.generate_batch(4)]
+            m_status, m_text = call(metrics_port, "GET", "/metrics")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out = open(log).read()
+    if status != 200 or check.returncode != 0 \
+            or not json.loads(check.stdout.strip().splitlines()[-1])["healthy"]:
+        fail(f"serve --mega: /health {status}, health-check {check.returncode} "
+             f"{check.stdout[-500:]}")
+    if any(a[0] != 200 for a in answers) or m_status != 200 \
+            or "kernel_mega_dispatch_total" not in m_text or rc != 0:
+        fail(f"serve --mega: /predict {[a[0] for a in answers]}, metrics {m_status}, "
+             f"exit {rc}: {out[-2000:]}")
+    decisions = [json.loads(a[1])["decision"] for a in answers]
+    print(f"serve --mega (its own process): up in {t_up:.1f} s, health-check "
+          f"{check.stdout.strip().splitlines()[-1][:120]}..., /predict x4 {decisions}, "
+          f"dedicated /metrics 200, SIGTERM exit {rc}", flush=True)
+
+
+def run_serving(ops):
+    """Phase 16: the scoring service on the card (see the module docstring)."""
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE, TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.models.quant import quantize_bert_params
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import init_scoring_models
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.utils.config import KernelSettings
+
+    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                               seed=SEED + 16)
+    profiles = (gen.users.profiles(), gen.merchants.profiles())
+    chain = {"epilogue": 1, "flash_attention": DISTILBERT_BASE.num_layers,
+             "dequant_matmul": 6 * DISTILBERT_BASE.num_layers, "dequant_rows": 2}
+    tiny_chain = {"epilogue": 1, "flash_attention": TINY_CONFIG.num_layers,
+                  "dequant_matmul": 6 * TINY_CONFIG.num_layers, "dequant_rows": 2}
+    t0 = time.perf_counter()
+    base = serve_part(ops, "DistilBERT-base", DISTILBERT_BASE,
+                      seeded_models(DISTILBERT_BASE), KernelSettings.full(), chain,
+                      profiles, gen)
+    t_a = time.perf_counter()
+    tiny = serve_part(ops, "TINY mega", TINY_CONFIG, seeded_models(TINY_CONFIG),
+                      KernelSettings.mega(), tiny_chain, profiles, gen)
+    second = init_scoring_models(SEED + 1, TINY_CONFIG)
+    swap = run_hot_swap(ops, seeded_models(TINY_CONFIG), dataclasses.replace(
+        second, bert=quantize_bert_params(second.bert)), profiles, gen)
+    t_b = time.perf_counter()
+    overlap = run_overlap_serving(ops, seeded_models(DISTILBERT_BASE), chain, profiles,
+                                  gen, base["body"])
+    t_c = time.perf_counter()
+    run_serve_command(gen)
+    t_d = time.perf_counter()
+    print(f"serving phase: (a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s "
+          f"(hot swap: {swap['requests']} answered), (c) {t_c - t_b:.1f} s, "
+          f"(d) {t_d - t_c:.1f} s", flush=True)
+    return {"serve_distilbert_base": base["launches"], "serve_tiny_mega": tiny["launches"],
+            "serve_overlap": overlap}
+
+
 def run_drills() -> dict:
     """The port's kernel drill (``KernelDrillConfig.fast()``) on the card,
     once on the per-site chain and once on the megakernel; a verdict that is
@@ -2963,6 +3625,8 @@ def main() -> int:
     lap("14b")
     stream.update(run_autotune(ops))
     lap("15")
+    stream.update(run_serving(ops))
+    lap("16")
     print(f"seconds by phase: {json.dumps(seconds)}", flush=True)
     for e in entries:
         e["stream_launches"] = {k: v[e["name"]] for k, v in stream.items()}

@@ -13,5 +13,10 @@ degradation ladder), the tracing plane (``obs.tracing``: per-transaction
 stage spans, the SLO burn rate that gates the QoS plane) and the tuning
 plane (``tuning``: the just-in-time batch closer and the online tuner)
 optional in the job; ``python -m realtime_fraud_detection_tpu_torch
-run-job`` is its entry point.
+run-job`` is its entry point. The scoring HTTP service (``serving.app
+ServingApp``: request microbatcher, prediction cache, checkpoint restore and
+hot reload, drift, A/B experiments) is the other: ``python -m
+realtime_fraud_detection_tpu_torch serve``.
 """
+
+__version__ = "0.1.0"

@@ -6,6 +6,8 @@
     python -m realtime_fraud_detection_tpu_torch trace-drill [--fast]
     python -m realtime_fraud_detection_tpu_torch autotune-drill [--fast]
     python -m realtime_fraud_detection_tpu_torch trace-export --count 2048 --out trace.json
+    python -m realtime_fraud_detection_tpu_torch serve --port 8080 [--quant] [--kernels|--mega] [--trace] [--qos] [--autotune] [--overlap-assembly]
+    python -m realtime_fraud_detection_tpu_torch health-check --url http://127.0.0.1:8080
 
 ``run-job`` is the in-memory path of the JAX package's ``rtfd run-job``
 (``cli.py cmd_run_job``): the seeded simulator produces transactions into
@@ -44,6 +46,19 @@ drills of the same names (``obs/trace_drill.py``, ``tuning/drill.py``): the
 port's stream path on a virtual clock with a deterministic stand-in scorer
 that touches no device. Each prints the full summary, then the compact
 verdict as the last line, and exits 1 unless every check passed.
+
+``serve`` is the port of ``rtfd serve`` (``cli.py cmd_serve``): the
+scoring HTTP service (``serving/app.py ServingApp``) on the card, or on the
+CPU with ``--device cpu``; it fails without a card. It takes the JAX
+command's flags except ``--state``, ``--device-pool`` and
+``--inflight-depth``. With ``--quality-artifact`` it serves the artifact's
+blend and builds the scorer at the text model, text length and tokenizer
+the artifact records; ``--checkpoint-dir`` restores a port checkpoint
+(``checkpoint.py``) before it listens, and a missing checkpoint or a
+refused restore (a crossed quantization or graph mode, or other widths)
+exits 2. The CUDA kernels are
+built before the service listens. ``health-check`` probes a running
+service's ``/health`` and prints the JSON verdict (exit 1 unless healthy).
 
 ``trace-export`` runs a traced ``run-job`` stream (on the card unless
 ``--device cpu``) and writes the flight recorder's window as Chrome-trace /
@@ -266,6 +281,107 @@ def cmd_trace_export(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_serve(args: argparse.Namespace) -> int:
+    from realtime_fraud_detection_tpu_torch.checkpoint import CheckpointManager
+    from realtime_fraud_detection_tpu_torch.models.bert import BertConfig
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import ScorerConfig
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.serving.app import ServingApp
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    if _no_card("serve", args.device):
+        return 2
+    config = Config.from_file(args.config) if args.config else Config()
+    if args.host:
+        config.serving.host = args.host
+    if args.port is not None:
+        config.serving.port = args.port
+    if args.qos:
+        config.qos.enabled = True
+    if args.qos_budget_ms:
+        config.qos.budget_ms = args.qos_budget_ms
+    if args.qos_rate:
+        config.qos.admission_rate = args.qos_rate
+    if args.trace:
+        config.tracing.enabled = True
+    if args.quant:
+        config.quant = QuantSettings.full()
+    if args.mega:
+        config.kernels = KernelSettings.mega()
+    elif args.kernels:
+        config.kernels = KernelSettings.full()
+    if args.autotune:
+        config.tuning.enabled = True
+        # the tuner's deadline search space clamped to the budget's
+        # assembly slice, then validated
+        config.tuning.clamp_to_qos(config.qos)
+    if args.overlap_assembly:
+        config.serving.overlap_assembly = True
+    scorer_kwargs = {}
+    if args.quality_artifact:
+        applied = config.apply_quality_artifact(args.quality_artifact)
+        print(f"serving the measured blend from {args.quality_artifact}: "
+              f"{applied}", file=sys.stderr)
+        # the text model, text length and tokenizer the blend was measured
+        # with: the scorer is built to match, or a restore would mismatch
+        with open(args.quality_artifact) as f:
+            proto = json.load(f).get("protocol", {})
+        if proto.get("text_model"):
+            scorer_kwargs["bert_config"] = BertConfig(**proto["text_model"])
+            scorer_kwargs["scorer_config"] = ScorerConfig(
+                text_len=int(proto.get("text_len", 32)),
+                tokenizer=proto.get("tokenizer", "word"))
+    scorer = TorchFraudScorer(config, device=args.device, **scorer_kwargs)
+    app = ServingApp(config=config, scorer=scorer)
+    if args.checkpoint_dir:
+        mgr = CheckpointManager(args.checkpoint_dir)
+        try:
+            if args.quality_artifact:
+                # an artifact and a checkpoint recording different text
+                # encoders are refused; --allow-arch-mismatch overrides
+                art_tm = Config.load_artifact_text_model(args.quality_artifact)
+                ck_tm = (mgr.manifest().get("metadata") or {}).get("text_model")
+                if (art_tm is not None and ck_tm is not None
+                        and dict(art_tm) != dict(ck_tm) and not args.allow_arch_mismatch):
+                    print(f"text-encoder architecture mismatch: artifact "
+                          f"{args.quality_artifact} records {art_tm}, checkpoint "
+                          f"{args.checkpoint_dir} records {ck_tm}; pass "
+                          f"--allow-arch-mismatch to combine anyway", file=sys.stderr)
+                    return 2
+            ck = mgr.restore_into_scorer(app.scorer,
+                                         allow_arch_mismatch=args.allow_arch_mismatch)
+        except (FileNotFoundError, ValueError) as e:
+            # no checkpoint there, or its stamps refuse this server's config
+            print(str(e), file=sys.stderr)
+            return 2
+        print(f"restored checkpoint step {ck.step} from {args.checkpoint_dir}",
+              file=sys.stderr)
+    print(f"serving on {config.serving.host}:{config.serving.port} "
+          f"({scorer.device})", file=sys.stderr)
+    app.run_forever()
+    return 0
+
+
+def cmd_health_check(args: argparse.Namespace) -> int:
+    import urllib.error
+    import urllib.request
+
+    url = args.url.rstrip("/") + "/health"
+    try:
+        with urllib.request.urlopen(url, timeout=args.timeout) as resp:
+            body = json.loads(resp.read())
+    except (urllib.error.URLError, OSError, json.JSONDecodeError) as e:
+        print(json.dumps({"healthy": False, "error": str(e)}))
+        return 1
+    healthy = body.get("status") == "healthy"
+    print(json.dumps({"healthy": healthy, **body}))
+    return 0 if healthy else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="realtime_fraud_detection_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -372,6 +488,52 @@ def build_parser() -> argparse.ArgumentParser:
     te.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain versions)")
     te.set_defaults(fn=cmd_trace_export)
+    sv = sub.add_parser("serve", help="run the scoring HTTP service")
+    sv.add_argument("--host", default="")
+    sv.add_argument("--port", type=int, default=None)
+    sv.add_argument("--config", default="", help="JSON config file")
+    sv.add_argument("--checkpoint-dir", default="",
+                    help="restore a port checkpoint's params (and host state) "
+                         "at startup")
+    sv.add_argument("--quality-artifact", default="",
+                    help="deploy the measured blend of a quality-eval JSON "
+                         "(e.g. QUALITY_r05.json), at the text model it records")
+    sv.add_argument("--qos", action="store_true",
+                    help="enable the deadline-aware QoS plane (also at run "
+                         "time through POST /qos)")
+    sv.add_argument("--qos-budget-ms", type=float, default=0.0,
+                    help="per-transaction latency budget (0 = default)")
+    sv.add_argument("--qos-rate", type=float, default=0.0,
+                    help="admission token rate in txn/s (0 = unlimited)")
+    sv.add_argument("--overlap-assembly", action="store_true",
+                    help="two-phase microbatcher: dispatch batch N+1 while "
+                         "batch N waits on the card (serving.overlap_assembly)")
+    sv.add_argument("--allow-arch-mismatch", action="store_true",
+                    help="combine a checkpoint and a quality artifact whose "
+                         "text encoders differ, and restore a checkpoint whose "
+                         "quantization or graph mode crosses this server's")
+    sv.add_argument("--quant", action="store_true",
+                    help="int8 BERT + GEMM-form trees (QuantSettings.full())")
+    sv.add_argument("--kernels", action="store_true",
+                    help="the per-site CUDA kernels (KernelSettings.full())")
+    sv.add_argument("--mega", action="store_true",
+                    help="the megakernel, with the per-site kernels as its "
+                         "fallback (KernelSettings.mega())")
+    sv.add_argument("--trace", action="store_true",
+                    help="enable the tracing plane: GET /latency/breakdown, "
+                         "GET /slo, trace_* series")
+    sv.add_argument("--autotune", action="store_true",
+                    help="enable the tuning plane: the microbatcher closes "
+                         "just in time against the arrival forecast; GET "
+                         "/autotune, autotune_* series")
+    sv.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain "
+                         "versions of the kernels)")
+    sv.set_defaults(fn=cmd_serve)
+    hc = sub.add_parser("health-check", help="probe a running service's /health")
+    hc.add_argument("--url", default="http://127.0.0.1:8080")
+    hc.add_argument("--timeout", type=float, default=5.0)
+    hc.set_defaults(fn=cmd_health_check)
     return parser
 
 
@@ -380,5 +542,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     return args.fn(args)
 
 
+def configure_process_logging() -> None:
+    """The process's logging from the config's environment layer
+    (``LOG_LEVEL``, ``LOG_FILE``: with a file, JSON lines stamped with the
+    service name and the tracer's log context). Library callers and tests
+    keep their own configuration; a bad level falls back to the default."""
+    import logging
+
+    from realtime_fraud_detection_tpu_torch.obs.logs import setup_logging
+    from realtime_fraud_detection_tpu_torch.utils.config import Config
+
+    try:
+        cfg = Config()
+        setup_logging(level=cfg.monitoring.log_level,
+                      json_file=cfg.monitoring.log_file or None,
+                      service_name="realtime_fraud_detection_tpu_torch")
+    except ValueError as e:
+        logging.basicConfig(level=logging.INFO)
+        logging.getLogger(__name__).warning("logging setup failed (%s)", e)
+
+
 if __name__ == "__main__":
+    configure_process_logging()
     sys.exit(main())

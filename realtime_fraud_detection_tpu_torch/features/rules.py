@@ -1,7 +1,8 @@
 """Rule-based fraud score and the decision / risk ladders, on tensors.
 
 Port of the JAX package's ``features/rules.py`` (``rule_score``,
-``risk_level_code`` and the constants), itself a vectorised
+``risk_level_code``, the constants and the host-side scalar twins the
+serving A/B path recombines with), itself a vectorised
 ``TransactionProcessor.applyFraudDetectionRules``
 (TransactionProcessor.java:327-439).
 """
@@ -12,6 +13,11 @@ import numpy as np
 import torch
 
 from realtime_fraud_detection_tpu_torch.features.schema import TransactionBatch
+from realtime_fraud_detection_tpu_torch.utils.config import (
+    DECLINE_THRESHOLD_DEFAULT,
+    MONITOR_THRESHOLD_DEFAULT,
+    REVIEW_THRESHOLD_DEFAULT,
+)
 
 DECISIONS: tuple[str, ...] = (
     "APPROVE", "APPROVE_WITH_MONITORING", "REVIEW", "DECLINE",
@@ -87,3 +93,33 @@ def risk_level_codes_np(probs) -> np.ndarray:
     for t in RISK_LEVEL_THRESHOLDS:
         code += (probs >= t).astype(np.int32)
     return code
+
+
+def ensemble_decision_name(prob: float, confidence: float,
+                           confidence_threshold: float = 0.7,
+                           decline: float = DECLINE_THRESHOLD_DEFAULT,
+                           review: float = REVIEW_THRESHOLD_DEFAULT,
+                           monitor: float = MONITOR_THRESHOLD_DEFAULT) -> str:
+    """Host-side scalar twin of the device decision ladder
+    (ensemble_predictor.py:344-356); callers serving configured rungs pass
+    the same values the device ladder reads."""
+    if confidence < confidence_threshold:
+        return DECISIONS[REVIEW]
+    if prob >= decline:
+        return DECISIONS[DECLINE]
+    if prob >= review:
+        return DECISIONS[REVIEW]
+    if prob >= monitor:
+        return DECISIONS[APPROVE_WITH_MONITORING]
+    return DECISIONS[APPROVE]
+
+
+def risk_level_name(prob: float) -> str:
+    """Host-side scalar twin of ``risk_level_code``."""
+    return RISK_LEVEL_NAMES[int(sum(prob >= t for t in RISK_LEVEL_THRESHOLDS))]
+
+
+def model_confidence_value(prob: float, multiplier: float) -> float:
+    """Host-side scalar twin of one branch's confidence
+    (ensemble_predictor.py:325-342)."""
+    return min(1.0, abs(prob - 0.5) * 2.0 * multiplier)

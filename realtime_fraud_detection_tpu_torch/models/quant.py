@@ -80,3 +80,14 @@ def is_quantized_bert(params: Any) -> bool:
             and "qe" in params["word_emb"]
     except (TypeError, KeyError, IndexError):
         return False
+
+
+def bert_param_bytes(params: Any) -> int:
+    """Total parameter bytes of a (plain or int8) BERT parameter tree, from
+    each leaf's element count and size: the ``quant_param_bytes`` series."""
+    if isinstance(params, dict):
+        return sum(bert_param_bytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(bert_param_bytes(v) for v in params)
+    nbytes = getattr(params, "nbytes", None)      # a tensor or an array
+    return int(nbytes if nbytes is not None else np.asarray(params).nbytes)

@@ -6,18 +6,20 @@ Port of the JAX package's ``obs/metrics.py``: a small registry of its own
 
 - predictions, batches and errors (``record_prediction``, ``record_batch``,
   ``record_error``; the JSON ``summary`` of the recent window);
+- the serving queue's depth (``serving_queue_depth``, set by the app);
 - the QoS plane's six ``qos_*`` families, written by ``qos/plane.py``;
 - ``microbatch_close_reason_total`` (``sync_microbatch``), the host-assembly
   caches and stage times (``sync_host_stats``), the tracing plane's
   ``trace_*`` (``sync_tracing``), the tuning plane's ``autotune_*``
-  (``sync_autotune``), the kernel plane (``sync_kernels``) and the entity
-  graph (``sync_graph``), each mirrored from a snapshot at exposition time
-  as counter deltas against the values last seen.
+  (``sync_autotune``), the quantized plane's ``quant_*`` (``sync_quant``),
+  the kernel plane (``sync_kernels``) and the entity graph (``sync_graph``), each
+  mirrored from a snapshot at exposition time as counter deltas against the
+  values last seen.
 
 The families of planes the port does not have (feedback,
-chaos, mesh, device pool, cluster, autoscale, network faults, serving
-queue, graph fetch) are not ported, nor ``kernel_interpret_active``: the
-port has no kernel interpreter (a CPU tensor runs the plain version).
+chaos, mesh, device pool, cluster, autoscale, network faults, graph fetch)
+are not ported, nor ``kernel_interpret_active``: the port has no kernel
+interpreter (a CPU tensor runs the plain version).
 """
 
 from __future__ import annotations
@@ -346,6 +348,8 @@ class MetricsCollector:
         self.uptime = r.gauge("ml_uptime_seconds", "Process uptime")
         self.throughput = r.gauge(
             "ml_throughput_tps", "Scored txns/sec over the last 60 s")
+        self.queue_depth = r.gauge(
+            "serving_queue_depth", "Requests waiting in the microbatcher")
         # QoS plane (qos/): admission, shedding, the degradation ladder and
         # per-transaction budget headroom
         self.qos_admitted = r.counter(
@@ -453,6 +457,26 @@ class MetricsCollector:
             "autotune_frozen",
             "1 while the tuner is frozen by the QoS ladder / SLO burn")
         self._autotune_seen: Dict[Tuple[str, str], float] = {}
+        # quantized plane (the JAX package's help texts): the mode each
+        # quantizable branch serves (read from the live parameters), its
+        # parameter bytes and the divergence gate's verdicts, mirrored from
+        # TorchFraudScorer.quant_snapshot() by sync_quant
+        self.quant_branch_mode = r.gauge(
+            "quant_branch_mode",
+            "1 for the weight/kernel mode each branch currently serves "
+            "(f32/int8 for bert_text, gather/gemm for the tree branches)",
+            ("branch", "mode"))
+        self.quant_param_bytes = r.gauge(
+            "quant_param_bytes",
+            "Serialized parameter bytes of the quantizable branch as "
+            "served (the per-replica replication / hot-swap payload)",
+            ("branch",))
+        self.quant_gate_verdicts = r.counter(
+            "quant_gate_verdicts_total",
+            "Divergence-oracle verdicts recorded against this scorer "
+            "(rtfd quant-drill and any caller running the quantized-vs-"
+            "f32 comparison)", ("verdict",))
+        self._quant_seen: Dict[str, float] = {}
         # kernel plane (ops/ + KernelSettings): per-site modes as exhaustive
         # 0/1 gauges and the dispatch / fallback counters of
         # TorchFraudScorer.kernel_snapshot(), mirrored by sync_kernels
@@ -616,6 +640,29 @@ class MetricsCollector:
                     (snapshot.get(kind) or {}).get("megakernel", 0.0))
         self.kernel_launches_per_batch.set(
             float(snapshot.get("launches_per_batch", 0)))
+
+    def sync_quant(self, snapshot: Mapping[str, Any]) -> None:
+        """Mirror ``TorchFraudScorer.quant_snapshot()``: the branch-mode
+        gauges are exhaustive over each branch's valid modes (a flip reads
+        as a transition), the gate's verdicts mirror as counter deltas."""
+        from realtime_fraud_detection_tpu_torch.utils.config import (
+            VALID_BERT_WEIGHTS,
+            VALID_TREE_KERNELS,
+        )
+
+        valid_by_branch = {"bert_text": VALID_BERT_WEIGHTS,
+                           "xgboost_primary": VALID_TREE_KERNELS,
+                           "isolation_forest": VALID_TREE_KERNELS}
+        for branch, served in (snapshot.get("modes") or {}).items():
+            for mode in valid_by_branch.get(branch, (served,)):
+                self.quant_branch_mode.set(
+                    1.0 if mode == served else 0.0,
+                    branch=str(branch), mode=str(mode))
+        for branch, nbytes in (snapshot.get("param_bytes") or {}).items():
+            self.quant_param_bytes.set(float(nbytes), branch=str(branch))
+        for verdict, total in (snapshot.get("gate") or {}).items():
+            _mirror(self.quant_gate_verdicts, self._quant_seen, verdict, total,
+                    verdict=str(verdict))
 
     def sync_autotune(self, snapshot: Mapping[str, Any]) -> None:
         """Mirror ``TuningPlane.snapshot()``: the controller's decisions and

@@ -33,6 +33,14 @@ in-process state tier:
   apply_degradation``) as a branch mask anded with the deployment's
   validity (the enabled models of ``Config.models``); a megakernel batch
   passes it as ``mega_valid`` (all false at ``rules_only``);
+- serving seam: ``model_info`` (the branches, their blend weights, the
+  strategy), ``quant_snapshot`` (the BERT weight form read from the live
+  parameters, the tree kernels, the BERT parameter bytes, the divergence
+  gate's verdicts) and ``refresh_blend_from_config`` (a new blend from
+  ``Config`` with no new parameters). ``set_models`` may run while
+  batches are queued on the card: each ``PendingScore`` holds the models,
+  ensemble parameters and megakernel arguments it was launched with until
+  ``finalize`` has waited for its event;
 - tracing seam: ``dispatch`` and ``dispatch_assembled`` take an optional
   ``obs.tracing.TraceBatch`` and mark the JAX scorer's stages on it
   (``assemble`` before ``assemble`` runs, ``pack``, ``dispatch``,
@@ -78,6 +86,7 @@ from realtime_fraud_detection_tpu_torch.graph.sampler import NeighborSampler
 from realtime_fraud_detection_tpu_torch.graph.store import TypedEntityGraph
 from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG, BertConfig
 from realtime_fraud_detection_tpu_torch.models.quant import (
+    bert_param_bytes,
     is_quantized_bert,
     quantize_bert_params,
 )
@@ -139,6 +148,12 @@ class PendingScore:
     # the batch's obs.tracing.TraceBatch (None = tracing off): finalize
     # marks "finalize" on it once the result is on the host
     trace: Optional[Any] = None
+    # what the batch's launches read (models, ensemble parameters, the
+    # megakernel's parameter arguments), held until finalize has waited for
+    # ``event``: a hot swap (set_models) or a new blend in between frees
+    # nothing a queued kernel still reads, whichever stream a later
+    # allocation runs on
+    launched_with: Optional[tuple] = None
 
 
 class _EntityIndex:
@@ -286,6 +301,9 @@ class TorchFraudScorer:
         self._qos_mask: Optional[np.ndarray] = None
         self._qos_rules_only = False
         self.qos_level = 0
+        # divergence-oracle verdicts recorded against this scorer
+        # (record_quant_gate; mirrored by MetricsCollector.sync_quant)
+        self._quant_gate_counts: Dict[str, int] = {"pass": 0, "fail": 0}
         self._kernel_counts: Dict[str, Dict[str, int]] = {
             "dispatch": {site: 0 for site in VALID_KERNEL_SITES},
             "fallback": {site: 0 for site in VALID_KERNEL_SITES},
@@ -385,6 +403,54 @@ class TorchFraudScorer:
             raise ValueError(
                 f"the flash attention kernel does not take text length "
                 f"{self.sc.text_len} / head width {self.bert_config.head_dim}")
+
+    def refresh_blend_from_config(self) -> None:
+        """Re-read the blend (weights, strategy, thresholds) and the enabled
+        branches from ``self.config``: weights and validity are run-time
+        tensors of the fused scorer, so the next batch runs the new blend.
+        Callers hold the serving score lock."""
+        self.ensemble_params = EnsembleParams.from_config(
+            self.config, MODEL_NAMES).to(self.device)
+        enabled = self.config.get_enabled_models()
+        self.model_valid = np.asarray([n in enabled for n in MODEL_NAMES], bool)
+
+    def record_quant_gate(self, passed: bool) -> None:
+        """Record a divergence-oracle verdict of a caller comparing the
+        quantized plane with f32 (``quant_gate_verdicts_total``)."""
+        self._quant_gate_counts["pass" if passed else "fail"] += 1
+
+    def quant_snapshot(self) -> Dict[str, Any]:
+        """The quantized plane as served: the BERT weight form read from the
+        live parameters (the truth after an ``allow_arch_mismatch``
+        restore), the tree kernels, the BERT parameter bytes and the gate's
+        verdicts."""
+        static = self.quant.static()
+        return {
+            "modes": {
+                "bert_text": ("int8" if is_quantized_bert(self.models.bert)
+                              else "f32"),
+                "xgboost_primary": static["tree_kernel"],
+                "isolation_forest": static["iforest_kernel"],
+            },
+            "param_bytes": {"bert_text": bert_param_bytes(self.models.bert)},
+            "gate": dict(self._quant_gate_counts),
+        }
+
+    def model_info(self) -> Dict[str, Any]:
+        """The branches (enabled, normalised blend weight), the strategy,
+        the branch count and the device layout in the JAX scorer's mesh
+        axes (one device: every axis 1)."""
+        norm = self.config.normalized_weights()
+        return {
+            "models": {
+                name: {"enabled": bool(self.model_valid[j]),
+                       "weight": float(norm.get(name, 0.0))}
+                for j, name in enumerate(MODEL_NAMES)
+            },
+            "strategy": self.config.ensemble.strategy,
+            "num_models": NUM_MODELS,
+            "mesh": {"data": 1, "model": 1, "seq": 1},
+        }
 
     def set_degradation(self, mask: Optional[np.ndarray],
                         rules_only: bool = False, level: int = 0) -> None:
@@ -737,7 +803,8 @@ class TorchFraudScorer:
             records=list(records), n=n, out=host, event=event,
             dispatch_ms=(time.perf_counter() - t0) * 1000.0,
             model_valid=mv, rules_only=self._qos_rules_only,
-            features=np.asarray(batch.features), trace=trace)
+            features=np.asarray(batch.features), trace=trace,
+            launched_with=(self.models, self.ensemble_params, mega_args))
 
     def finalize(self, pending: PendingScore, now: Optional[float] = None,
                  lock=None) -> List[Dict[str, Any]]:
@@ -749,6 +816,7 @@ class TorchFraudScorer:
         t_fin = time.perf_counter()
         if pending.event is not None:
             pending.event.synchronize()
+        pending.launched_with = None
         self.spans.record("device_wait", time.perf_counter() - t_fin)
         if pending.trace is not None:
             # read after the D2H event completed, not after the launch

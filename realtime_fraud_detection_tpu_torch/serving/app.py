@@ -1,0 +1,698 @@
+"""The scoring HTTP service over the microbatched port scorer.
+
+Port of the JAX package's ``serving/app.py`` (``ServingApp``), on one
+device (the CUDA card unless the caller passes ``device="cpu"``):
+
+    POST /predict             one transaction -> its prediction
+    POST /batch-predict       a list -> {results, count, processing_time_ms}
+    GET  /health              liveness, model inventory, prediction cache
+    GET  /metrics             JSON summary, the scorer's host stages
+    GET  /model-info          branches, blend weights, strategy
+    POST /reload-models       hot swap: from a checkpoint, from a seed, or a
+                              quality artifact's blend
+    GET  /metrics/prometheus  text exposition (also alone on
+                              ``monitoring.prometheus_port``)
+    GET  /metrics/fleet       fleet exposition of this process's counters
+    GET  /drift               feature drift (PSI) report
+    POST /experiments         create an A/B experiment
+    GET  /experiments?name=   arm metrics and significance
+    GET  /qos, POST /qos      the QoS plane's state and run-time knobs
+    GET  /latency/breakdown   the tracing plane's critical path
+    GET  /slo                 SLO burn rates and the QoS gate
+    GET  /autotune            the tuning plane's state
+
+Every concurrent ``/predict`` goes through ``RequestMicrobatcher`` into one
+scorer dispatch a batch; ``/batch-predict`` scores its list as one batch.
+The score lock is held for host-state mutation only (the cache lookup and
+the dispatch; the write-back inside finalize), never across the device
+wait. With ``serving.overlap_assembly`` the microbatcher dispatches batch
+N+1 while batch N's finalize waits on the card, two batches in flight.
+Dispatch and finalize run on different executor threads: the scorer
+records its completion event on the thread's current stream, and every
+thread here launches on the default stream. A ``/reload-models`` may swap
+the models while batches are queued on the card; each pending batch holds
+what it was launched with until its event completes
+(``scoring/scorer.py PendingScore.launched_with``).
+
+Not ported: the feedback plane's ``/labels`` and ``/quality/live``, the
+shard router's ``/cluster`` and 421, the device pool and mesh executor, and
+the shared RESP state tier.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+from realtime_fraud_detection_tpu_torch import __version__
+from realtime_fraud_detection_tpu_torch.checkpoint import CheckpointManager
+from realtime_fraud_detection_tpu_torch.obs.drift import DriftConfig, FeatureDriftMonitor
+from realtime_fraud_detection_tpu_torch.obs.fleetmetrics import FleetMetrics
+from realtime_fraud_detection_tpu_torch.obs.metrics import MetricsCollector
+from realtime_fraud_detection_tpu_torch.obs.tracing import Tracer
+from realtime_fraud_detection_tpu_torch.qos.plane import QosPlane
+from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
+    MODEL_NAMES,
+    init_scoring_models,
+)
+from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+from realtime_fraud_detection_tpu_torch.serving.batcher import RequestMicrobatcher
+from realtime_fraud_detection_tpu_torch.serving.cache import PredictionCache
+from realtime_fraud_detection_tpu_torch.serving.httpd import HttpError, HttpServer
+from realtime_fraud_detection_tpu_torch.serving.validation import (
+    validate_batch,
+    validate_transaction,
+)
+from realtime_fraud_detection_tpu_torch.testing import (
+    ABTestManager,
+    Variant,
+    apply_weight_overrides,
+)
+from realtime_fraud_detection_tpu_torch.tuning.plane import TuningPlane
+from realtime_fraud_detection_tpu_torch.utils.config import Config, TuningSettings
+
+__all__ = ["ServingApp"]
+
+# a prediction counts as flagged in an experiment's arm above this score
+# (the JAX package's StreamConfig.alert_score_threshold,
+# FraudDetectionJob.java:66)
+ALERT_SCORE_THRESHOLD = 0.7
+
+
+class ServingApp:
+    """Scorer, microbatcher, observability and experiments behind HTTP."""
+
+    def __init__(self, config: Optional[Config] = None,
+                 scorer: Optional[TorchFraudScorer] = None,
+                 host: Optional[str] = None, port: Optional[int] = None,
+                 device: str = "cuda"):
+        self.config = config or Config()
+        sc = self.config.serving
+        self.scorer = (scorer if scorer is not None
+                       else TorchFraudScorer(self.config, device=device))
+        self.metrics = MetricsCollector()
+        self.drift = FeatureDriftMonitor(DriftConfig(
+            num_features=self.scorer.sc.feature_dim))
+        self.ab = ABTestManager()
+        # always built, so POST /qos can turn it on at run time; admission
+        # and the ladder act only while it is enabled. It writes its series
+        # on this app's collector.
+        self.qos = QosPlane(self.config.qos, metrics=self.metrics)
+        # built only when enabled: off, the scoring path pays one `is None`
+        # branch a batch
+        self.tracer = Tracer(self.config.tracing) if self.config.tracing.enabled else None
+        # GET /metrics/fleet: this process's tracer counters fold in under
+        # its worker id at render time
+        self.fleet_metrics = FleetMetrics()
+        two_phase = sc.overlap_assembly
+        # the tuning plane: the microbatcher's close decisions move from the
+        # fixed deadline to the just-in-time controller; the tuner reads the
+        # SLO burn and the QoS level through signals_fn and freezes while
+        # either says the service is in trouble
+        self.tuning = None
+        if sc.autotune or self.config.tuning.enabled:
+            fields = {**dataclasses.asdict(self.config.tuning), "enabled": True}
+            if not two_phase:
+                # single-phase serving has no pipeline depth: pin the tuner's
+                # in-flight dimension, or it would trial a change that does
+                # nothing and keep measurement noise as a gain
+                fields["inflight_min"] = fields["inflight_max"] = 1
+            tset = TuningSettings(**fields)
+            tset.validate(qos=self.config.qos)
+            self.tuning = TuningPlane(tset)
+            self.tuning.signals_fn = lambda: (
+                (self.tracer.slo.burn_rate(self.config.tracing.slo_fast_window_s)
+                 if self.tracer is not None else 0.0),
+                (self.qos.effective_level() if self.qos.enabled else 0))
+        self.batcher = RequestMicrobatcher(
+            self._score_batch_sync,
+            max_batch=sc.microbatch_max_size,
+            deadline_ms=sc.microbatch_deadline_ms,
+            budget=self.qos.budget if self.config.qos.enabled else None,
+            tracer=self.tracer,
+            controller=self.tuning,
+            # priority classes appear in the queue-wait split only while the
+            # QoS plane is enabled; otherwise traffic is "unclassified"
+            classify_fn=lambda t: (self.qos.classify(t) if self.qos.enabled else ""),
+            dispatch_fn=(self._dispatch_batch_sync if two_phase else None),
+            finalize_fn=(self._finalize_batch_sync if two_phase else None),
+            pipeline_depth=2,
+        )
+        self.http = HttpServer(host if host is not None else sc.host,
+                               port if port is not None else sc.port)
+        # the dedicated Prometheus listener (metrics on their own port, the
+        # reference's monitoring contract); 0 = none, and the main port
+        # serves /metrics/prometheus either way
+        self.metrics_http: Optional[HttpServer] = None
+        mon = self.config.monitoring
+        if mon.enable_prometheus and mon.prometheus_port:
+            self.metrics_http = HttpServer(
+                host if host is not None else sc.host, mon.prometheus_port)
+            self.metrics_http.route("GET", "/metrics", self._metrics_prometheus)
+        self._reload_lock = asyncio.Lock()
+        # idempotent retries of a transaction_id are served the stored
+        # response (reference ensemble_predictor.py:437-471)
+        self.prediction_cache = (
+            PredictionCache(self.config.ensemble.cache_ttl_seconds,
+                            self.config.ensemble.cache_max_entries)
+            if sc.enable_prediction_cache else None)
+        # the scorer, the cache and the drift monitor are single-writer;
+        # /predict's and /batch-predict's executor threads both score
+        self._score_lock = threading.Lock()
+        # set by _predict on the event loop when the QoS served rung moved,
+        # applied by _dispatch_batch_sync under the score lock (the event
+        # loop never takes that lock: a dispatch holds it across assembly)
+        self._qos_rung_dirty = False
+        self._started = time.monotonic()
+        # transactions admitted and not yet answered: beyond
+        # max_concurrent_predictions a request gets an immediate 503
+        # (one event loop: a plain counter)
+        self._inflight_txns = 0
+        self._register_routes()
+
+    # --------------------------------------------------------------- scoring
+    def _score_batch_sync(self, txns, trace=None) -> List[Dict[str, Any]]:
+        """Dispatch and finalize one batch in the calling executor thread."""
+        return self._finalize_batch_sync(self._dispatch_batch_sync(txns, trace))
+
+    def _dispatch_batch_sync(self, txns, trace=None) -> tuple:
+        """Stage 1 (executor thread): the prediction cache, then assembly
+        and launch without waiting for the card."""
+        t0 = time.perf_counter()
+        cache = self.prediction_cache
+        cached: Dict[int, Dict[str, Any]] = {}
+        to_score = txns
+        if cache is not None:
+            with self._score_lock:
+                for i, txn in enumerate(txns):
+                    hit = cache.get(str(txn.get("transaction_id", "")))
+                    if hit is not None:
+                        cached[i] = hit
+            if cached:
+                to_score = [t for i, t in enumerate(txns) if i not in cached]
+        if trace is not None and cached:
+            # cache hits never reach the card: close their traces as
+            # `cached` and keep the scored contexts (in queue order)
+            kept = []
+            for i, c in enumerate(trace.contexts):
+                if i in cached:
+                    self.tracer.finish_terminal(c, "cached")
+                else:
+                    kept.append(c)
+            trace.contexts = kept
+        try:
+            pending = None
+            if to_score:
+                with self._score_lock:
+                    if self._qos_rung_dirty and self.qos.enabled:
+                        self._qos_rung_dirty = False
+                        self.qos.apply_degradation(self.scorer)
+                    pending = self.scorer.dispatch(to_score, trace=trace)
+        except Exception:
+            self.metrics.record_error("score")
+            self._close_trace_error(trace)
+            raise
+        return (t0, txns, to_score, cached, pending, trace)
+
+    def _close_trace_error(self, trace) -> None:
+        """Close every open context of a failed batch as `error`: the
+        waiters got the exception, the flight recorder still sees them."""
+        if trace is None or self.tracer is None:
+            return
+        for c in trace.contexts:
+            self.tracer.finish_terminal(c, "error")
+        trace.contexts = []
+
+    def _finalize_batch_sync(self, ctx: tuple) -> List[Dict[str, Any]]:
+        """Stage 2 (executor thread): wait for the card, then metrics,
+        drift, experiments, the cache and the SLO gate; results in request
+        order."""
+        t0, txns, to_score, cached, pending, trace = ctx
+        cache = self.prediction_cache
+        try:
+            fresh = (self.scorer.finalize(pending, lock=self._score_lock)
+                     if pending is not None else [])
+        except Exception:
+            self.metrics.record_error("score")
+            self._close_trace_error(trace)
+            raise
+        dt = time.perf_counter() - t0
+        # batch and per-prediction metrics count fresh results only (a cache
+        # hit costs ~0 and is a retry of a transaction already counted)
+        if fresh:
+            self.metrics.record_batch(len(fresh), dt)
+        if self.config.monitoring.enable_drift_detection and pending is not None:
+            with self._score_lock:
+                self.drift.update(pending.features)
+        self._apply_experiments(to_score, fresh)
+        if self.config.monitoring.enable_performance_tracking:
+            per_txn = dt / max(len(fresh), 1)
+            for r in fresh:
+                self.metrics.record_prediction(
+                    r["decision"], r["fraud_score"], per_txn, r["model_predictions"])
+        if cache is not None:
+            # after the experiments: the stored response is what this
+            # request served, so a retry gets exactly it
+            with self._score_lock:
+                for r in fresh:
+                    cache.put(r["transaction_id"], r)
+        if trace is not None and self.tracer is not None:
+            # closing the batch feeds the SLO window; the burn gate is a
+            # hysteresis-guarded degradation signal on top of the ladder
+            self.tracer.finish_batch(trace)
+            if self.qos.enabled:
+                ts = self.config.tracing
+                self.qos.observe_slo_burn(
+                    self.tracer.slo.burn_rate(ts.slo_fast_window_s),
+                    threshold=ts.slo_burn_threshold,
+                    patience=ts.slo_gate_patience,
+                    up_patience=ts.slo_gate_up_patience)
+        if cached:
+            results, it_fresh = [], iter(fresh)
+            for i in range(len(txns)):
+                results.append(cached[i] if i in cached else next(it_fresh))
+            return results
+        return fresh
+
+    def _apply_experiments(self, txns, results) -> None:
+        """Route each transaction through the active experiments: a weight
+        override re-weights the blend on the host over the returned branch
+        predictions (and recomputes decision and risk level), and every arm
+        records the prediction, with the producer's ``is_fraud`` label when
+        there is one."""
+        base = self.config.normalized_weights()
+        for txn, res in zip(txns, results):
+            uid = str(txn.get("user_id", ""))
+            for name in self.ab.active_experiments():
+                variant = self.ab.assign(name, uid)
+                if variant.overrides.get("weights"):
+                    ens = self.config.ensemble
+                    reweighted = apply_weight_overrides(
+                        res["model_predictions"], base, variant.overrides["weights"],
+                        ens.confidence_threshold,
+                        decline_threshold=ens.decline_threshold,
+                        review_threshold=ens.review_threshold,
+                        monitor_threshold=ens.monitor_threshold)
+                    if reweighted is not None:
+                        res.update(reweighted)
+                        res["fraud_score"] = reweighted["fraud_probability"]
+                        res.setdefault("explanation", {})["experiment"] = {
+                            "name": name, "variant": variant.name}
+                actual = txn.get("is_fraud")
+                self.ab.record_prediction(
+                    name, variant.name, res["fraud_score"],
+                    res["fraud_score"] > ALERT_SCORE_THRESHOLD,
+                    bool(actual) if actual is not None else None)
+
+    # ---------------------------------------------------------------- routes
+    def _register_routes(self) -> None:
+        r = self.http.route
+        r("POST", "/predict", self._predict)
+        r("POST", "/batch-predict", self._batch_predict)
+        r("GET", "/health", self._health)
+        r("GET", "/metrics", self._metrics)
+        r("GET", "/model-info", self._model_info)
+        r("POST", "/reload-models", self._reload_models)
+        r("GET", "/metrics/prometheus", self._metrics_prometheus)
+        r("GET", "/metrics/fleet", self._metrics_fleet)
+        r("GET", "/drift", self._drift)
+        r("POST", "/experiments", self._create_experiment)
+        r("GET", "/experiments", self._experiment_results)
+        r("GET", "/qos", self._qos_status)
+        r("POST", "/qos", self._qos_configure)
+        r("GET", "/latency/breakdown", self._latency_breakdown)
+        r("GET", "/slo", self._slo_status)
+        r("GET", "/autotune", self._autotune_status)
+
+    def _admit(self, n: int) -> None:
+        limit = self.config.serving.max_concurrent_predictions
+        if self._inflight_txns + n > limit:
+            self.metrics.record_error("at_capacity")
+            raise HttpError(503, f"at capacity ({self._inflight_txns} in flight, "
+                                 f"limit {limit})")
+        self._inflight_txns += n
+
+    def _release_on_done(self, fut: "asyncio.Future", n: int) -> None:
+        """Free n admission slots when the batcher resolves ``fut``, not when
+        the waiter gives up: a timed-out request's transaction is still
+        queued and will be scored."""
+        def _done(f: "asyncio.Future") -> None:
+            self._inflight_txns -= n
+            if not f.cancelled():
+                f.exception()        # retrieved: no "never retrieved" warning
+        fut.add_done_callback(_done)
+
+    async def _predict(self, body, query) -> Tuple[int, Any]:
+        txn, errors = validate_transaction(body)
+        if errors:
+            raise HttpError(422, errors)
+        if self.qos.enabled:
+            # admission ahead of the concurrency gate: a shed is an explicit
+            # score-with-reason (200, REVIEW, risk level SHED); the ladder
+            # reads the microbatcher's queue as its backlog
+            decision = self.qos.admit(txn, time.monotonic())
+            if not decision.admitted:
+                return 200, self.qos.shed_result(txn, decision)
+            self.qos.observe_backlog(self.batcher.queue_depth)
+            # a rung change is only flagged here (see _qos_rung_dirty)
+            if self.qos.effective_level() != self.scorer.qos_level:
+                self._qos_rung_dirty = True
+        timeout = self.config.serving.prediction_timeout_seconds
+        self._admit(1)
+        try:
+            fut = self.batcher.submit_nowait(txn)
+        except (asyncio.QueueFull, RuntimeError):
+            self._inflight_txns -= 1
+            self.metrics.record_error("at_capacity")
+            raise HttpError(503, "scoring queue full")
+        self._release_on_done(fut, 1)
+        t_enq = time.monotonic()
+        try:
+            # shield: the waiter's timeout must not cancel the scoring
+            result = await asyncio.wait_for(asyncio.shield(fut), timeout=timeout)
+        except asyncio.TimeoutError:
+            self.metrics.record_error("timeout")
+            raise HttpError(408, "prediction timed out")
+        if self.qos.enabled:
+            self.qos.record_completion(t_enq, time.monotonic())
+        self.metrics.queue_depth.set(self.batcher.queue_depth)
+        return 200, result
+
+    async def _batch_predict(self, body, query) -> Tuple[int, Any]:
+        txns, errors = validate_batch(body, self.config.serving.batch_size_limit)
+        if errors:
+            raise HttpError(422, errors)
+        limit = self.config.serving.max_concurrent_predictions
+        if len(txns) > limit:
+            # oversize, not overload: no retry can ever fit it
+            raise HttpError(
+                413, f"batch of {len(txns)} exceeds the concurrency "
+                     f"capacity {limit}; split into smaller batches")
+        t0 = time.perf_counter()
+        self._admit(len(txns))
+        try:
+            loop = asyncio.get_running_loop()
+            results = await loop.run_in_executor(None, self._score_batch_sync, txns)
+        finally:
+            self._inflight_txns -= len(txns)
+        return 200, {"results": results, "count": len(results),
+                     "processing_time_ms": (time.perf_counter() - t0) * 1e3}
+
+    async def _health(self, body, query) -> Tuple[int, Any]:
+        info = self.scorer.model_info()
+        payload = {
+            "status": "healthy",
+            "models_loaded": sum(1 for m in info["models"].values() if m["enabled"]),
+            "num_models": info["num_models"],
+            "uptime_seconds": time.monotonic() - self._started,
+            "queue_depth": self.batcher.queue_depth,
+        }
+        if self.prediction_cache is not None:
+            # lock-free by contract (serving/cache.py stats)
+            payload["prediction_cache"] = self.prediction_cache.stats()
+        return 200, payload
+
+    async def _metrics(self, body, query) -> Tuple[int, Any]:
+        payload = self.metrics.summary()
+        payload["host_assembly"] = self.scorer.host_stats()
+        return 200, payload
+
+    async def _metrics_prometheus(self, body, query) -> Tuple[int, Any]:
+        self.metrics.sync_host_stats(self.scorer.host_stats())
+        self.metrics.sync_quant(self.scorer.quant_snapshot())
+        self.metrics.sync_kernels(self.scorer.kernel_snapshot())
+        self.metrics.sync_graph(self.scorer.graph_snapshot())
+        self.metrics.sync_microbatch(self.batcher.close_reasons)
+        if self.tracer is not None:
+            self.metrics.sync_tracing(self.tracer.snapshot())
+        if self.tuning is not None:
+            self.metrics.sync_autotune(self.tuning.snapshot())
+        return 200, self.metrics.render_prometheus()
+
+    async def _metrics_fleet(self, body, query) -> Tuple[int, Any]:
+        """The fleet exposition: this process is a one-worker fleet whose
+        tracing counters fold in at render time."""
+        local_id = "serving"
+        if self.tracer is not None:
+            self.fleet_metrics.ingest_cumulative(
+                local_id, {f"trace_{k}": v for k, v in self.tracer.counters.items()})
+            self.fleet_metrics.set_worker_info(local_id, pid=os.getpid(),
+                                               version=__version__)
+        return 200, self.fleet_metrics.render(version=__version__)
+
+    async def _model_info(self, body, query) -> Tuple[int, Any]:
+        return 200, self.scorer.model_info()
+
+    async def _reload_models(self, body, query) -> Tuple[int, Any]:
+        """Hot swap under the reload lock (reference main.py:291-305).
+        Body: {"checkpoint_dir": ..., "step": optional} restores params (and
+        host state when saved); {"quality_artifact": path} deploys an
+        artifact's blend (weights and validity are run-time tensors of the
+        scorer), alone or with a checkpoint; {"seed": n} or {} re-initialises
+        the models from a seed. The swap lands between dispatches; batches
+        already on the card finish with the models they were launched with."""
+        body = body or {}
+        async with self._reload_lock:
+            loop = asyncio.get_running_loop()
+            source: Dict[str, Any] = {}
+            blend_requested = "quality_artifact" in body
+            if blend_requested:
+                # validated up front, applied only after a restore succeeded:
+                # a failed restore leaves the live blend untouched
+                try:
+                    weights = Config.load_selected_blend_weights(
+                        str(body["quality_artifact"]))
+                except FileNotFoundError as e:
+                    raise HttpError(404, str(e))
+                except (ValueError, OSError) as e:
+                    raise HttpError(422, str(e))
+                unknown = [n for n in weights if n not in self.config.models]
+                if unknown:
+                    raise HttpError(
+                        422, f"artifact names unknown model(s) {unknown}; "
+                             f"configured: {sorted(self.config.models)}")
+            if "checkpoint_dir" in body:
+                step = body.get("step")
+                if step is not None:
+                    try:
+                        step = int(step)
+                    except (TypeError, ValueError):
+                        raise HttpError(422, f"step must be an integer, got {step!r}")
+                if blend_requested:
+                    # an artifact and a checkpoint recording different text
+                    # encoders are refused before the restore;
+                    # {"allow_arch_mismatch": true} overrides
+                    art_tm = Config.load_artifact_text_model(
+                        str(body["quality_artifact"]))
+                    try:
+                        ck_meta = (CheckpointManager(body["checkpoint_dir"])
+                                   .manifest(step).get("metadata") or {})
+                    except FileNotFoundError as e:
+                        raise HttpError(404, str(e))
+                    ck_tm = ck_meta.get("text_model")
+                    if (art_tm is not None and ck_tm is not None
+                            and dict(art_tm) != dict(ck_tm)
+                            and not body.get("allow_arch_mismatch")):
+                        raise HttpError(
+                            409, f"text-encoder architecture mismatch: "
+                                 f"artifact records {art_tm}, checkpoint "
+                                 f"records {ck_tm}; pass "
+                                 f"allow_arch_mismatch to combine anyway")
+
+                def _restore():
+                    return CheckpointManager(body["checkpoint_dir"]).restore_into_scorer(
+                        self.scorer, step=step, lock=self._score_lock,
+                        allow_arch_mismatch=bool(body.get("allow_arch_mismatch")))
+                try:
+                    ck = await loop.run_in_executor(None, _restore)
+                except FileNotFoundError as e:
+                    raise HttpError(404, str(e))
+                except ValueError as e:
+                    raise HttpError(409, str(e))   # mode or shape mismatch
+                source.update(checkpoint=body["checkpoint_dir"], step=ck.step)
+            elif not blend_requested:
+                seed = int(body.get("seed", 0))
+
+                def _reinit():
+                    sc = self.scorer.sc
+                    fresh = init_scoring_models(
+                        seed, bert_config=self.scorer.bert_config,
+                        feature_dim=sc.feature_dim, node_dim=sc.node_dim,
+                        gnn_typed=sc.graph_mode == "typed")
+                    with self._score_lock:
+                        self.scorer.set_models(fresh)
+                await loop.run_in_executor(None, _reinit)
+                source["reinit_seed"] = seed
+            if blend_requested:
+                # the params are in place; deploy the validated blend, and
+                # roll the model table back if that still fails, so the
+                # served blend is wholly the old one or wholly the new one
+                snapshot = {n: (mc.enabled, mc.weight)
+                            for n, mc in self.config.models.items()}
+                try:
+                    applied = self.config.apply_quality_artifact(
+                        str(body["quality_artifact"]))
+                    with self._score_lock:
+                        self.scorer.refresh_blend_from_config()
+                except Exception:
+                    for name, (was_enabled, was_weight) in snapshot.items():
+                        self.config.models[name].enabled = was_enabled
+                        self.config.models[name].weight = was_weight
+                    with self._score_lock:
+                        self.scorer.refresh_blend_from_config()
+                    raise
+                source["quality_artifact"] = {
+                    "path": str(body["quality_artifact"]), "weights": applied}
+            if self.prediction_cache is not None:
+                # cached responses describe the replaced models (the hit /
+                # miss counters stay: they are monotonic on /health)
+                with self._score_lock:
+                    self.prediction_cache.clear()
+        return 200, {"status": "reloaded", "source": source}
+
+    async def _qos_status(self, body, query) -> Tuple[int, Any]:
+        snap = self.qos.snapshot()
+        snap["queue_depth"] = self.batcher.queue_depth
+        return 200, snap
+
+    async def _qos_configure(self, body, query) -> Tuple[int, Any]:
+        """Update QoS knobs at run time: any subset of ``QosSettings``."""
+        try:
+            applied = self.qos.configure(body or {})
+        except (TypeError, ValueError) as e:
+            raise HttpError(422, str(e))
+        # the budget binds the batcher only while the plane is enabled
+        self.batcher.budget = self.qos.budget if self.config.qos.enabled else None
+        if not self.config.qos.enabled:
+            # a disabled plane also lifts any degradation
+            with self._score_lock:
+                self.scorer.set_degradation(None)
+        return 200, {"status": "configured", "applied": applied,
+                     "qos": self.qos.snapshot()}
+
+    async def _latency_breakdown(self, body, query) -> Tuple[int, Any]:
+        if self.tracer is None:
+            return 200, {"enabled": False, "n": 0,
+                         "hint": "start with --trace or config.tracing.enabled"}
+        return 200, self.tracer.breakdown()
+
+    async def _slo_status(self, body, query) -> Tuple[int, Any]:
+        if self.tracer is None:
+            return 200, {"enabled": False}
+        payload = self.tracer.slo.snapshot()
+        payload["enabled"] = True
+        payload["qos_gate"] = {"engaged": self.qos.slo_engaged,
+                               "threshold": self.config.tracing.slo_burn_threshold}
+        return 200, payload
+
+    async def _autotune_status(self, body, query) -> Tuple[int, Any]:
+        if self.tuning is None:
+            return 200, {"enabled": False,
+                         "hint": "start with --autotune or config.tuning.enabled"}
+        return 200, self.tuning.snapshot()
+
+    async def _drift(self, body, query) -> Tuple[int, Any]:
+        rep = self.drift.report()
+        return 200, {
+            "drifted": rep.drifted,
+            "max_psi": rep.max_psi,
+            "top_features": rep.top_features[:10],
+            "psi": [float(x) for x in rep.psi],
+            "rows_seen": rep.rows_seen,
+            "baseline_frozen": rep.baseline_frozen,
+        }
+
+    async def _create_experiment(self, body, query) -> Tuple[int, Any]:
+        body = body or {}
+        try:
+            name = body["name"]
+            if "from_quality_artifact" in body:
+                # canary a measured blend; every branch it weights must be
+                # enabled here (the host re-weighting only has the
+                # predictions the card returned)
+                art = str(body["from_quality_artifact"])
+                weights = Config.load_selected_blend_weights(art)
+                disabled = [n for n in weights if n in MODEL_NAMES
+                            and not self.scorer.model_valid[MODEL_NAMES.index(n)]]
+                if disabled:
+                    raise HttpError(
+                        409, f"artifact blend uses branch(es) {disabled} that "
+                             f"are disabled in the current deployment; enable "
+                             f"them first (POST /reload-models with the artifact)")
+                self.ab.experiment_from_artifact(
+                    name, art, traffic=float(body.get("traffic", 0.5)),
+                    salt=body.get("salt", ""))
+            else:
+                variants = [Variant(v["name"], float(v["traffic"]),
+                                    v.get("overrides", {}))
+                            for v in body["variants"]]
+                self.ab.create_experiment(name, variants, salt=body.get("salt", ""))
+        except FileNotFoundError as e:
+            raise HttpError(404, str(e))
+        except (KeyError, TypeError) as e:
+            raise HttpError(422, f"bad experiment spec: {e}")
+        except ValueError as e:
+            raise HttpError(422, str(e))
+        return 200, {"status": "created", "experiment": name}
+
+    async def _experiment_results(self, body, query) -> Tuple[int, Any]:
+        name = query.get("name")
+        if not name:
+            raise HttpError(422, "query param 'name' required")
+        try:
+            return 200, self.ab.results(name)
+        except KeyError:
+            raise HttpError(404, f"no experiment {name!r}")
+
+    # -------------------------------------------------------------- lifecycle
+    def _build_kernels(self) -> None:
+        """Build and load the CUDA kernels when the scorer runs any, so the
+        first request does not pay the ``nvcc`` build (tens of seconds,
+        well over the prediction timeout)."""
+        if self.scorer.device.type == "cuda" and self.scorer.kernels.enabled:
+            from realtime_fraud_detection_tpu_torch.ops.build import kernel_library
+
+            kernel_library()
+
+    async def start(self) -> None:
+        await asyncio.get_running_loop().run_in_executor(None, self._build_kernels)
+        await self.batcher.start()
+        await self.http.start()
+        if self.metrics_http is not None:
+            await self.metrics_http.start()
+
+    async def stop(self) -> None:
+        if self.metrics_http is not None:
+            await self.metrics_http.stop()
+        await self.http.stop()
+        await self.batcher.stop()
+
+    @property
+    def port(self) -> int:
+        return self.http.port
+
+    def run_forever(self) -> None:
+        """Serve until SIGTERM / SIGINT, then stop: the HTTP server closes
+        first (no new admissions), then the microbatcher drains, so every
+        admitted transaction is answered before the process exits."""
+        import signal
+
+        async def _main():
+            await self.start()
+            stopping = asyncio.Event()
+            loop = asyncio.get_running_loop()
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                try:
+                    loop.add_signal_handler(sig, stopping.set)
+                except (NotImplementedError, RuntimeError, ValueError):
+                    pass          # no signal support on this platform / thread
+            try:
+                await stopping.wait()
+            finally:
+                await self.stop()
+
+        asyncio.run(_main())

@@ -1,10 +1,11 @@
-"""Per-record validation of stream input.
+"""Validation of stream records and of the scoring service's requests.
 
-Port of ``sanitize_for_stream`` and ``validate_transaction`` from the JAX
-package's ``serving/validation.py`` (the reference's request models,
-main.py:67-106): strict on identity and amount (the record is rejected),
-lenient on everything else (a field is coerced, or dropped so the encoder's
-default applies). The HTTP batch validator is not ported.
+Port of the JAX package's ``serving/validation.py`` (the reference's
+request models, main.py:67-106): ``validate_transaction`` is strict on
+identity and amount; ``sanitize_for_stream`` is lenient on everything else
+(a field is coerced, or dropped so the encoder's default applies);
+``validate_batch`` takes a ``/batch-predict`` body, ``{"transactions":
+[...]}`` or a bare list, up to a size limit.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, List, Mapping, Tuple
 
-__all__ = ["validate_transaction", "sanitize_for_stream"]
+__all__ = ["validate_transaction", "validate_batch", "sanitize_for_stream"]
 
 _REQUIRED = ("transaction_id", "user_id", "merchant_id", "amount")
 _STRING_FIELDS = ("transaction_id", "user_id", "merchant_id", "currency",
@@ -95,3 +96,26 @@ def validate_transaction(body: Any) -> Tuple[Dict[str, Any], List[str]]:
     if feats is not None and not isinstance(feats, Mapping):
         errors.append("features must be an object of name -> value")
     return txn, errors
+
+
+def validate_batch(body: Any, limit: int) -> Tuple[List[Dict[str, Any]], List[str]]:
+    """Validate a /batch-predict payload: {"transactions": [...]} or a bare
+    list (the reference accepts a list of TransactionFeatures,
+    main.py:218-233)."""
+    if isinstance(body, Mapping) and "transactions" in body:
+        body = body["transactions"]
+    if not isinstance(body, list):
+        return [], ["body must be a list of transactions or "
+                    "{'transactions': [...]}"]
+    if len(body) == 0:
+        return [], ["empty batch"]
+    if len(body) > limit:
+        return [], [f"batch size {len(body)} exceeds limit {limit}"]
+    txns: List[Dict[str, Any]] = []
+    errors: List[str] = []
+    for i, item in enumerate(body):
+        txn, errs = validate_transaction(item)
+        if errs:
+            errors.extend(f"[{i}] {e}" for e in errs)
+        txns.append(txn)
+    return txns, errors

@@ -5,15 +5,20 @@
 as in the JAX package's ``utils/config.py``. The blocks the port has: the
 five-model registry (``ModelConfig``, enable / disable, weights), the
 ensemble defaults ``EnsembleParams.from_config`` reads, the quant and kernel
-planes, the state stores' TTLs and list lengths, and the QoS, tracing and
-tuning planes' knobs (``QosSettings``, ``TracingSettings``,
-``TuningSettings``, with the QoS floor on the tuner's deadline); plus the quality-artifact loaders that deploy a measured
-blend (``Config.apply_quality_artifact``). The environment part is the
-ensemble's (``RTFD_ENSEMBLE_STRATEGY`` or ``ENSEMBLE_STRATEGY``,
-``CONFIDENCE_THRESHOLD``, ``FRAUD_THRESHOLD``). Values are copies of the
-JAX package's; the port keeps its own so it imports nothing of it. The
-blocks of planes the port does not have (mesh, serving, stream, sim,
-monitoring, feedback, chaos, cluster) are not ported.
+planes, the state stores' TTLs and list lengths, the scoring service
+(``ServingConfig``, with the prediction cache's TTL and size on
+``EnsembleConfig``) and its monitoring switches (``MonitoringConfig``), and
+the QoS, tracing and tuning planes' knobs (``QosSettings``,
+``TracingSettings``, ``TuningSettings``, with the QoS floor on the tuner's
+deadline); plus the quality-artifact loaders that deploy a measured blend
+(``Config.apply_quality_artifact``). The environment part: the ensemble's
+(``RTFD_ENSEMBLE_STRATEGY`` or ``ENSEMBLE_STRATEGY``,
+``CONFIDENCE_THRESHOLD``, ``FRAUD_THRESHOLD``), the service's address
+(``ML_SERVICE_HOST``, ``ML_SERVICE_PORT``) and logging (``LOG_LEVEL``,
+``LOG_FILE``), each also under its ``RTFD_`` name, which wins. Values are
+copies of the JAX package's; the port keeps its own so it imports nothing
+of it. The blocks of planes the port does not have (mesh, stream, sim,
+feedback, chaos, cluster) are not ported.
 """
 
 from __future__ import annotations
@@ -140,6 +145,70 @@ class EnsembleConfig:
     decline_threshold: float = DECLINE_THRESHOLD_DEFAULT
     review_threshold: float = REVIEW_THRESHOLD_DEFAULT
     monitor_threshold: float = MONITOR_THRESHOLD_DEFAULT
+    # the serving prediction cache (ensemble_predictor.py:57-58, 460-471)
+    cache_ttl_seconds: float = 300.0
+    cache_max_entries: int = 1000
+
+
+@dataclass
+class ServingConfig:
+    """The scoring service's settings (reference config.py:72-88 and the
+    TF-Serving batching block, ml-models-deployment.yaml:270-290)."""
+
+    host: str = "0.0.0.0"
+    port: int = 8080
+    max_concurrent_predictions: int = 100
+    prediction_timeout_seconds: float = 5.0
+    batch_size_limit: int = 1000
+    # the request microbatcher: close after deadline_ms or at max_size
+    microbatch_deadline_ms: float = 5.0
+    microbatch_max_size: int = 256
+    # idempotent retries of a transaction_id are served from the prediction
+    # cache (TTL and size on EnsembleConfig)
+    enable_prediction_cache: bool = True
+    # two-phase microbatcher: dispatch batch N+1 while batch N waits on the
+    # card. A retry arriving while its first copy is between dispatch and
+    # finalize misses the cache and is scored (and written back) again
+    overlap_assembly: bool = False
+    # the tuning plane's just-in-time closer drives the microbatcher's
+    # close decisions (knobs on Config.tuning)
+    autotune: bool = False
+
+    def validate(self) -> None:
+        if not 0 <= self.port <= 65535:
+            raise ValueError(f"serving.port must be in [0, 65535], got {self.port}")
+        if self.max_concurrent_predictions < 1 or self.batch_size_limit < 1 \
+                or self.microbatch_max_size < 1:
+            raise ValueError(
+                "serving requires max_concurrent_predictions, batch_size_limit "
+                "and microbatch_max_size >= 1")
+        if self.prediction_timeout_seconds <= 0 or self.microbatch_deadline_ms < 0:
+            raise ValueError(
+                "serving requires prediction_timeout_seconds > 0 and "
+                "microbatch_deadline_ms >= 0")
+
+
+@dataclass
+class MonitoringConfig:
+    """The service's monitoring switches: the dedicated Prometheus listener
+    (0 = none; ``GET /metrics/prometheus`` on the main port either way),
+    the log level and rotating JSON log file, per-prediction metrics and
+    feature drift."""
+
+    enable_prometheus: bool = True
+    prometheus_port: int = 8081
+    log_level: str = "INFO"
+    log_file: str = ""
+    enable_performance_tracking: bool = True
+    enable_drift_detection: bool = True
+
+    def validate(self) -> None:
+        if not 0 <= self.prometheus_port <= 65535:
+            raise ValueError(f"monitoring.prometheus_port must be in [0, 65535], "
+                             f"got {self.prometheus_port}")
+        if logging.getLevelName(str(self.log_level).upper()) not in range(0, 51):
+            raise ValueError(f"monitoring.log_level {self.log_level!r} is not a "
+                             f"logging level")
 
 
 VALID_BERT_WEIGHTS = ("f32", "int8")
@@ -498,6 +567,8 @@ class Config:
     quant: QuantSettings = field(default_factory=QuantSettings)
     kernels: KernelSettings = field(default_factory=KernelSettings)
     state: StateConfig = field(default_factory=StateConfig)
+    serving: ServingConfig = field(default_factory=ServingConfig)
+    monitoring: MonitoringConfig = field(default_factory=MonitoringConfig)
     qos: QosSettings = field(default_factory=QosSettings)
     tracing: TracingSettings = field(default_factory=TracingSettings)
     tuning: TuningSettings = field(default_factory=TuningSettings)
@@ -507,10 +578,15 @@ class Config:
         self.validate()
 
     def _apply_env(self) -> None:
-        """The ensemble part of the JAX ``Config._apply_env``: strategy and
-        thresholds from ``RTFD_``-prefixed or plain environment variables.
-        (The JAX package's serving, logging and Redis variables configure
-        tiers the port does not have yet.)"""
+        """The JAX ``Config._apply_env`` for the blocks the port has:
+        the service's address, the ensemble's strategy and thresholds, the
+        log level and file, from ``RTFD_``-prefixed or plain environment
+        variables. (Its Redis variables configure a tier the port does not
+        have.)"""
+        self.serving.port = int(_env("ML_SERVICE_PORT", str(self.serving.port)))
+        self.serving.host = _env("ML_SERVICE_HOST", self.serving.host)
+        self.monitoring.log_level = _env("LOG_LEVEL", self.monitoring.log_level)
+        self.monitoring.log_file = _env("LOG_FILE", self.monitoring.log_file)
         e = self.ensemble
         e.strategy = _env("ENSEMBLE_STRATEGY", e.strategy)
         e.confidence_threshold = float(
@@ -644,6 +720,12 @@ class Config:
                 "review_threshold <= decline_threshold <= 1, got "
                 f"monitor={e.monitor_threshold} review={e.review_threshold} "
                 f"decline={e.decline_threshold}")
+        if e.cache_ttl_seconds < 0 or e.cache_max_entries < 1:
+            raise ValueError(
+                "ensemble prediction cache requires cache_ttl_seconds >= 0 and "
+                "cache_max_entries >= 1")
+        self.serving.validate()
+        self.monitoring.validate()
         self.qos.validate()
         self.tracing.validate()
         self.tuning.validate(qos=self.qos)

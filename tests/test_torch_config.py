@@ -58,3 +58,47 @@ def test_an_unknown_strategy_from_the_environment_is_refused_like_jax(env):
         JaxConfig()
     with pytest.raises(ValueError, match="strategy"):
         Config()
+
+
+SERVICE_ENV = [f"{prefix}{name}" for prefix in ("RTFD_", "")
+               for name in ("ML_SERVICE_PORT", "ML_SERVICE_HOST", "LOG_LEVEL",
+                            "LOG_FILE")]
+
+
+@pytest.mark.parametrize("setting", [
+    {},
+    {"ML_SERVICE_PORT": "9090", "ML_SERVICE_HOST": "127.0.0.1", "LOG_LEVEL": "DEBUG",
+     "LOG_FILE": "/var/log/rtfd.json"},
+    # the prefixed name wins over the plain one
+    {"RTFD_ML_SERVICE_PORT": "7070", "ML_SERVICE_PORT": "9090",
+     "RTFD_LOG_LEVEL": "WARNING", "LOG_LEVEL": "DEBUG"},
+], ids=["unset", "plain", "prefixed_wins"])
+def test_serving_and_monitoring_follow_the_environment_like_jax(monkeypatch, setting):
+    for name in SERVICE_ENV + ENV_NAMES:
+        monkeypatch.delenv(name, raising=False)
+    for name, value in setting.items():
+        monkeypatch.setenv(name, value)
+    got, want = Config(), JaxConfig()
+    for block in ("serving", "monitoring"):
+        for f in dataclasses.fields(getattr(got, block)):
+            assert getattr(getattr(got, block), f.name) == \
+                getattr(getattr(want, block), f.name), (block, f.name)
+    for f in ("cache_ttl_seconds", "cache_max_entries"):
+        assert getattr(got.ensemble, f) == getattr(want.ensemble, f)
+
+
+@pytest.mark.parametrize("patch", [
+    {"serving": {"port": 70000}},
+    {"serving": {"max_concurrent_predictions": 0}},
+    {"serving": {"prediction_timeout_seconds": 0}},
+    {"monitoring": {"prometheus_port": -1}},
+    {"monitoring": {"log_level": "LOUD"}},
+    {"ensemble": {"cache_max_entries": 0}},
+])
+def test_serving_settings_are_validated(monkeypatch, patch):
+    for name in SERVICE_ENV + ENV_NAMES:
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError):
+        Config.from_dict(patch)
+    assert Config.from_dict({"serving": {"port": 0, "overlap_assembly": True}}) \
+        .serving.overlap_assembly is True

@@ -252,6 +252,37 @@ def test_drill_and_ladder_import_with_jax_blocked():
         auto = run_autotune_drill(AutotuneDrillConfig(duration_s=0.5,
                                                       static_grid=(2.5,)))
         assert auto["controller"]["scored"] > 0 and auto["reproducible"]
+        # the serving tier's host-side modules
+        import asyncio, numpy as np
+        from realtime_fraud_detection_tpu_torch.obs.drift import FeatureDriftMonitor
+        from realtime_fraud_detection_tpu_torch.obs.fleetmetrics import FleetMetrics
+        from realtime_fraud_detection_tpu_torch.obs.logs import JsonFormatter
+        from realtime_fraud_detection_tpu_torch.serving.batcher import RequestMicrobatcher
+        from realtime_fraud_detection_tpu_torch.serving.cache import PredictionCache
+        from realtime_fraud_detection_tpu_torch.testing import ABTestManager, Variant
+        cache = PredictionCache(ttl_seconds=1.0)
+        cache.put("t", {"a": 1}, now=0.0)
+        assert cache.get("t", now=0.5) == {"a": 1} and cache.get("t", now=2.0) is None
+        mon = FeatureDriftMonitor()
+        mon.update(np.zeros((8, 64), np.float32))
+        assert mon.report().rows_seen == 8
+        ab = ABTestManager()
+        ab.create_experiment("e", [Variant("a", 0.5), Variant("b", 0.5)])
+        assert ab.assign("e", "u1").name in ("a", "b")
+        fleet = FleetMetrics()
+        fleet.ingest_cumulative("w0", {"scored": 3})
+        assert "rtfd_fleet_scored_total 3" in fleet.render()
+        assert JsonFormatter("svc").service_name == "svc"
+
+        async def batch():
+            b = RequestMicrobatcher(lambda txns: [dict(t) for t in txns],
+                                    max_batch=4, deadline_ms=1.0)
+            await b.start()
+            got = await asyncio.gather(*[b.submit({"i": i}) for i in range(6)])
+            await b.stop()
+            return got
+
+        assert [g["i"] for g in asyncio.run(batch())] == list(range(6))
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

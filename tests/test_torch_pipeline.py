@@ -381,6 +381,45 @@ def test_port_runs_with_jax_blocked():
         job.qos.metrics.sync_autotune(job.tuning.snapshot())
         text = job.qos.metrics.render_prometheus()
         assert "trace_completed_total" in text and "autotune_max_wait_ms" in text
+        # the scoring service over HTTP, a checkpoint hot swap included
+        import asyncio, http.client, json, tempfile
+        from realtime_fraud_detection_tpu_torch.checkpoint import CheckpointManager
+        from realtime_fraud_detection_tpu_torch.serving.app import ServingApp
+        from realtime_fraud_detection_tpu_torch.utils.config import Config
+        cfg = Config()
+        cfg.monitoring.prometheus_port = 0
+        cfg.tracing.enabled = True
+        app = ServingApp(cfg, scorer=w, host="127.0.0.1", port=0, device="cpu")
+
+        def call(method, path, body=None):
+            conn = http.client.HTTPConnection("127.0.0.1", app.port, timeout=60)
+            conn.request(method, path, body=json.dumps(body) if body else None)
+            resp = conn.getresponse()
+            out = (resp.status, json.loads(resp.read()))
+            conn.close()
+            return out
+
+        async def serve():
+            await app.start()
+            try:
+                with tempfile.TemporaryDirectory() as ck:
+                    CheckpointManager(ck).save(
+                        1, params=init_scoring_models(2, n_trees=4, tree_depth=3))
+                    status, out = await asyncio.to_thread(
+                        call, "POST", "/batch-predict",
+                        {"transactions": gen.generate_batch(4)})
+                    assert status == 200 and out["count"] == 4
+                    status, out = await asyncio.to_thread(
+                        call, "POST", "/reload-models", {"checkpoint_dir": ck})
+                    assert status == 200 and out["source"]["step"] == 1
+                    status, out = await asyncio.to_thread(
+                        call, "POST", "/predict", gen.generate_batch(1)[0])
+                    assert status == 200 and 0 <= out["fraud_score"] <= 1
+            finally:
+                await app.stop()
+
+        asyncio.run(serve())
+        assert app.tracer.counters["completed"] == 1      # /predict is traced
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

@@ -630,6 +630,11 @@ def _observe(m, kernel_mode):
                             "edges": {"user->ip": 4}, "edges_added": 6},
                   "sampler": {"hits": 2, "misses": 8, "evictions": 1, "entries": 7}})
     m.sync_graph({"mode": "bipartite"})
+    m.queue_depth.set(3)
+    m.sync_quant({"modes": {"bert_text": "int8", "xgboost_primary": "gemm",
+                            "isolation_forest": "gather"},
+                  "param_bytes": {"bert_text": 4445168}, "gate": {"pass": 2, "fail": 0}})
+    m.sync_quant({"modes": {"bert_text": "f32"}, "gate": {"pass": 3, "fail": 1}})
 
 
 def _family_lines(text, names):
@@ -654,9 +659,9 @@ def test_metric_exposition_equals_jax_line_for_line():
     got = port.render_prometheus().splitlines()
     names = {ln.split(" ")[2] for ln in got if ln.startswith("# TYPE ")}
     want = _family_lines(ref.render_prometheus(), names)
-    # 33 families, and the tracing plane's 6 trace_* and the tuning plane's
-    # 7 autotune_* ones
-    assert len(names) == 46 and len(got) == len(want)
+    # 33 families, the tracing plane's 6 trace_* and the tuning plane's 7
+    # autotune_* ones, the serving queue's and the quant plane's 3 quant_*
+    assert len(names) == 50 and len(got) == len(want)
     # the JAX package's mode "pallas" is the port's "cuda", which sorts to
     # another place among the site-mode samples: compare those as sets
     want = [w.replace('mode="pallas"', 'mode="cuda"') for w in want]
