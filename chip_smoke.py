@@ -192,6 +192,35 @@ Phases, each of which raises (and exits non-zero) on failure:
    own: ``/health`` and the ``health-check`` command healthy, four
    ``/predict`` answered, the dedicated metrics listener read, and SIGTERM
    drains it to exit 0.
+17. the training plane: (a) ``python -m realtime_fraud_detection_tpu_torch
+   train --neural`` at its defaults (10,000 rows, 100 trees of depth 6, the
+   LSTM at hidden 128, the GNN at 16 / 64, TINY BERT on 8,000 transactions)
+   on the card and, beside it, with ``--device cpu`` (on half the cores):
+   the two checkpoints' tree and isolation-forest arrays equal, the GBDT
+   AUC and importances equal, each neural branch's held-out AUC (4,096
+   rows of a fresh stream) within ``TRAIN_AUC_BAND``; prints the card's ms
+   per optimizer step for each branch and the GBDT's host seconds. (b)
+   ``validate`` on the card's checkpoint on the card and on the CPU: the
+   same report keys, AUCs within ``VALIDATE_AUC_TOL``; ``--min-auc 0.99``
+   exits 1 unless the AUC reaches it; the textfile written; a card and a
+   CPU scorer restored from it answer with the trainer's
+   ``top_feature_importances``. (c) the checkpoint restored into TINY
+   scorers with int8 BERT (quantized on the host): one 256-row stream batch
+   under ``full()`` launches 1 / 2 / 12 / 2, under ``mega()`` the
+   megakernel once, each within the drill's bound of the kernels-off plain
+   path, decisions equal off a rung; then the megakernel's typed GNN:
+   typed parameters from ``train_typed_gnn`` (2,048 fraud-ring
+   transactions, one epoch) on a one-hop 256-row batch of a typed scorer,
+   against its plain version. (d) ``quality-eval --checkpoint-dir`` at
+   ``BlendEvalConfig()`` defaults on the card (started when the card's
+   ``train`` ends, so it runs beside the rest of the phase): the per-branch
+   AUC, the admission, the strategy, the seconds per stage
+   (``chiprun_out/quality_eval_card.json``), printed beside the earlier JAX
+   artifact ``QUALITY_r05.json`` for context; then the artifact and its
+   checkpoint applied together to a megakernel scorer at the artifact's
+   text model (attention "reference": the flash kernel takes head width 64
+   only): one 256-row batch, one megakernel launch under the artifact's
+   branch mask, within the bound of the plain path.
 
 The last three lines of standard output are the kernel JSON line (all five
 kernels), the ``nvidia-smi`` name and power limit, and the result line
@@ -3491,6 +3520,445 @@ def run_serving(ops):
             "serve_overlap": overlap}
 
 
+# the training phase (17): the port's train / validate / quality-eval commands
+# on the card, each in a process of its own, and the trained weights served
+# through every ported kernel. The CPU side of each pair runs beside the card
+# side on half the machine's cores (TRAIN_CPU_THREADS), so the card process's
+# host half is not starved.
+TRAIN_CPU_THREADS = "4"
+# |card - CPU| held-out AUC of each neural branch after ``train --neural``:
+# the same data, seed and initial weights, the f32 arithmetic of two devices
+# (and the card's atomic adds in the gather backward) diverging over ~70-110
+# Adam steps
+TRAIN_AUC_BAND = 0.05
+# |card - CPU| AUC of ``validate`` on one checkpoint (the served bf16 path on
+# two devices; 4,096 rows)
+VALIDATE_AUC_TOL = 2e-3
+
+
+def _port_proc(args, cpu: bool = False, stdout=subprocess.PIPE):
+    """``python -m realtime_fraud_detection_tpu_torch <args>`` from the
+    repository root, in a process of its own."""
+    import os
+    from pathlib import Path
+
+    env = dict(os.environ)
+    if cpu:
+        env.update(OMP_NUM_THREADS=TRAIN_CPU_THREADS, MKL_NUM_THREADS=TRAIN_CPU_THREADS)
+    return subprocess.Popen(
+        [sys.executable, "-m", "realtime_fraud_detection_tpu_torch", *args],
+        cwd=Path(__file__).resolve().parent, env=env, stdout=stdout,
+        stderr=subprocess.PIPE, text=True)
+
+
+def _finish(name, proc, want_rc=0, timeout=900):
+    """Wait for a command; its exit code must be ``want_rc``. Returns the
+    (stdout, stderr) text and the seconds it took from here."""
+    t0 = time.perf_counter()
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != want_rc:
+        fail(f"{name}: exit {proc.returncode} (want {want_rc}): {err[-3000:]}")
+    return out or "", err, time.perf_counter() - t0
+
+
+def _kill(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _stderr_json(err: str, prefix: str) -> dict:
+    line = [ln for ln in err.splitlines() if prefix in ln][-1]
+    return json.loads(line.split(prefix, 1)[1])
+
+
+def held_out_aucs(models, data, device="cuda") -> dict:
+    """Held-out AUC of each neural branch of ``models`` (the plain path, the
+    served bf16 products) on ``data`` (the port's dataset builders)."""
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG, bert_logits
+    from realtime_fraud_detection_tpu_torch.models.gnn import gnn_logits
+    from realtime_fraud_detection_tpu_torch.models.lstm import lstm_logits
+    from realtime_fraud_detection_tpu_torch.training.blend_eval import _auc
+    from realtime_fraud_detection_tpu_torch.training.neural import eval_logits
+
+    dev = torch.device(device)
+    m = models.to(dev)
+    seqs, lens, y_seq = data["sequence"]
+    graph, y_graph = data["graph"]
+    ids, mask, y_text = data["text"]
+    lg = eval_logits(lambda p, i, k: bert_logits(p, i, k, TINY_CONFIG), m.bert,
+                      (ids, mask), dev)
+    return {"lstm": _auc(y_seq, eval_logits(lstm_logits, m.lstm, (seqs, lens), dev)),
+            "gnn": _auc(y_graph, eval_logits(gnn_logits, m.gnn, graph, dev)),
+            "bert": _auc(y_text, lg[:, 1] - lg[:, 0])}
+
+
+def held_out_data():
+    """4,096 held-out rows per neural branch from a fresh seeded stream at
+    the ``train`` defaults' pool sizes (seed 43: never a training seed)."""
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.training.neural import (
+        build_graph_dataset,
+        build_sequence_dataset,
+    )
+    from realtime_fraud_detection_tpu_torch.training.text import build_text_dataset
+
+    def gen():
+        return TransactionGenerator(num_users=10_000, num_merchants=5_000, seed=43)
+
+    graph, y_graph, _ = build_graph_dataset(gen(), 4096)
+    return {"sequence": build_sequence_dataset(gen(), 4096), "graph": (graph, y_graph),
+            "text": build_text_dataset(gen(), 4096, max_length=64)}
+
+
+def _trees_equal(a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("feature", "threshold", "leaf", "base_score"))
+
+
+def _forest_equal(a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("feature", "threshold", "path_length", "c_psi"))
+
+
+def served_batch(scorer, gen):
+    """``BATCH`` seeded stream records assembled by ``scorer`` (its profiles
+    seeded from ``gen``): the host batch and the records."""
+    scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+    records = gen.generate_batch(BATCH)
+    return scorer.assemble(records), records
+
+
+def compare_packed(name, got, ref, tol):
+    """The packed result against the plain path's: probability and
+    confidence within ``tol``, decision and risk equal on every row farther
+    than ``tol`` from a rung."""
+    err = float((got[:, :2] - ref[:, :2]).abs().max())
+    far = ~(near_rung(ref[:, 0], (0.3, 0.6, 0.8, 0.95), tol)
+            | near_rung(ref[:, 1], (0.7,), tol))
+    if not err <= tol or not torch.equal(got[far][:, 2:4], ref[far][:, 2:4]):
+        fail(f"{name}: prob/confidence err {err} (bound {tol}) or decisions differ")
+    return err, int(far.sum())
+
+
+def serve_trained(ops, ck_dir, gen):
+    """17(c): the ``train --neural`` checkpoint restored into TINY scorers
+    with int8 BERT (an f32 checkpoint into an int8 scorer: quantized on the
+    host as ``serve --quant --allow-arch-mismatch`` does), one 256-row batch
+    under ``full()`` (1 / 2 / 12 / 2 launches) and under ``mega()`` (one
+    megakernel launch), each held against the kernels-off plain path on the
+    same models."""
+    from realtime_fraud_detection_tpu_torch.checkpoint import CheckpointManager
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    mgr = CheckpointManager(ck_dir)
+    scorers = {}
+    for label, kernels in (("plain", KernelSettings()), ("full", KernelSettings.full()),
+                           ("mega", KernelSettings.mega())):
+        s = TorchFraudScorer(Config(quant=QuantSettings.full(), kernels=kernels),
+                             device="cuda")
+        mgr.restore_into_scorer(s, allow_arch_mismatch=True)
+        scorers[label] = s
+    batch, records = served_batch(scorers["plain"], gen)
+    ref = scorers["plain"].dispatch_assembled(batch, records)
+    scorers["plain"].finalize(ref)
+    plain = scorers["plain"]
+    tol = noise_bound(plain.models, TINY_CONFIG, [(batch.token_ids, batch.token_mask)],
+                      plain.ensemble_params.weights)
+    want = {"full": {"epilogue": 1, "flash_attention": 2, "dequant_matmul": 12,
+                     "dequant_rows": 2, "megakernel": 0},
+            "mega": {"epilogue": 0, "flash_attention": 0, "dequant_matmul": 0,
+                     "dequant_rows": 0, "megakernel": 1}}
+    out = {}
+    for label in ("full", "mega"):
+        ops.reset_launch_counts()
+        pending = scorers[label].dispatch_assembled(batch, records)
+        scorers[label].finalize(pending)
+        got = ops.launch_counts()
+        if got != want[label]:
+            fail(f"trained weights, {label}(): launches {got}")
+        err, far = compare_packed(f"trained weights, {label}()", pending.out, ref.out,
+                                  tol)
+        out[label] = got
+        print(f"  trained weights under {label}(): launches {json.dumps(got)}; prob max err "
+              f"{err:.3e} (bound {tol:.3e}), decisions equal on {far}/{BATCH} rows away "
+              f"from a rung", flush=True)
+    return out
+
+
+def typed_megakernel(ck_dir, gen_ring):
+    """The megakernel's typed GNN on the card: typed parameters from
+    ``train_typed_gnn`` (2,048 transactions of a fraud-ring stream, one
+    epoch) in the trained TINY models with int8 BERT, one 256-row one-hop
+    batch (a typed scorer's assembled batch without its two-hop frontiers),
+    held against its plain version on the same inputs."""
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.checkpoint import CheckpointManager
+    from realtime_fraud_detection_tpu_torch.ensemble.combine import EnsembleParams
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.models.quant import quantize_bert_params
+    from realtime_fraud_detection_tpu_torch.ops import megakernel as mk
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import MODEL_NAMES, ScorerConfig
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.training.neural import train_typed_gnn
+    from realtime_fraud_detection_tpu_torch.utils.config import Config
+
+    t0 = time.perf_counter()
+    stats = {}
+    gen = TransactionGenerator(num_users=2_000, num_merchants=500, seed=SEED + 19)
+    gen.inject_fraud_ring()
+    typed = train_typed_gnn(gen, n_transactions=2048, epochs=1, device="cuda", stats=stats)
+    base = CheckpointManager(ck_dir).restore().params
+    models = dataclasses.replace(base, gnn=typed, bert=quantize_bert_params(base.bert))
+    assembler = TorchFraudScorer(Config(), models=models, device="cuda",
+                                 scorer_config=ScorerConfig(graph_mode="typed"))
+    gen_ring.inject_fraud_ring()
+    assembler.seed_profiles(gen_ring.users.profiles(), gen_ring.merchants.profiles())
+    for _ in range(3):          # the typed graph grows at write-back: score first
+        assembler.score_batch(gen_ring.generate_batch(BATCH))
+    batch = assembler.assemble(gen_ring.generate_batch(BATCH))
+    one_hop = dataclasses.replace(batch, user_neigh2_feat=None, user_neigh2_mask=None,
+                                  merch_neigh2_feat=None, merch_neigh2_mask=None)
+    _, _, raw, plain_batch = _packed(one_hop, BATCH)
+    models = models.to("cuda")
+    params = EnsembleParams.from_config(Config(), MODEL_NAMES).to("cuda")
+    plan = mk.mega_plan(models, TINY_CONFIG, b=BATCH, text_len=64, seq_len=10,
+                        feature_dim=64, has_two_hop=False, fanout=int(raw.user_neigh_feat.shape[1]))
+    if not plan["supported"] or not plan["typed_gnn"]:
+        fail(f"typed megakernel: plan {plan}")
+    mv = (True,) * 5
+    got = mk.fused_megakernel(models, raw, params, mega_valid=mv, bert_config=TINY_CONFIG)
+    ref = mk.megakernel_reference(models, plain_batch, params, mega_valid=mv,
+                                  bert_config=TINY_CONFIG)
+    torch.cuda.synchronize()
+    gnn_col = 8 + MODEL_NAMES.index("graph_neural")
+    gnn_err = float((got[:, gnn_col] - ref[:, gnn_col]).abs().max())
+    tol = noise_bound(models, TINY_CONFIG, [(one_hop.token_ids, one_hop.token_mask)],
+                      params.weights)
+    err = float((got - ref).abs().max())
+    if not (err <= tol and gnn_err <= 1e-5):
+        fail(f"typed megakernel: err {err} (bound {tol}), GNN column err {gnn_err}")
+    tagged = float((plain_batch.user_neigh_feat[..., 9:11].sum(-1) > 0).float().mean())
+    if not tagged > 0:
+        fail("typed megakernel: no device / IP neighbour rows in the batch")
+    print(f"  typed GNN in the megakernel (params from train_typed_gnn, "
+          f"{stats['steps']} steps at {stats['ms_per_step']:.2f} ms): one-hop batch of "
+          f"{BATCH}, fanout {int(raw.user_neigh_feat.shape[1])}, {tagged:.3f} of the user "
+          f"neighbour rows device/IP-tagged; GNN column max err {gnn_err:.3e} (bound 1e-5), "
+          f"matrix max err {err:.3e} (bound {tol:.3e}) ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+
+def serve_quality_artifact(ops, artifact, ck_dir, gen):
+    """17(d) tail: the quality-eval artifact and its checkpoint applied
+    together to a megakernel scorer at the artifact's text model, text
+    length and tokenizer (int8 BERT; attention "reference": the per-site
+    flash kernel takes head width 64 only, and this encoder's is 32), one
+    256-row batch: one megakernel launch under the artifact's branch mask,
+    against the kernels-off plain path."""
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.checkpoint import CheckpointManager
+    from realtime_fraud_detection_tpu_torch.models.bert import BertConfig
+    from realtime_fraud_detection_tpu_torch.ops import megakernel as mk
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import ScorerConfig
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    proto = json.load(open(artifact))["protocol"]
+    bert_config = BertConfig(**proto["text_model"])
+    sc = ScorerConfig(text_len=int(proto["text_len"]), tokenizer=proto["tokenizer"])
+    scorers = {}
+    for label, kernels in (("mega", dataclasses.replace(KernelSettings.mega(),
+                                                        attention="reference")),
+                           ("plain", KernelSettings())):
+        config = Config(quant=QuantSettings.full(), kernels=kernels)
+        weights = config.apply_quality_artifact(str(artifact))
+        s = TorchFraudScorer(config, bert_config=bert_config, scorer_config=sc,
+                             device="cuda")
+        CheckpointManager(ck_dir).restore_into_scorer(s, allow_arch_mismatch=True)
+        scorers[label] = s
+    mega, plain = scorers["mega"], scorers["plain"]
+    valid = tuple(bool(v) for v in mega.model_valid)
+    batch, records = served_batch(plain, gen)
+    seen = []
+    launch = mk._launch
+
+    def spy(entry, inputs, b, dev, params, mega_valid):
+        seen.append(tuple(mega_valid))
+        return launch(entry, inputs, b, dev, params, mega_valid)
+
+    ops.reset_launch_counts()
+    mk._launch = spy
+    try:
+        pending = mega.dispatch_assembled(batch, records)
+        mega.finalize(pending)
+    finally:
+        mk._launch = launch
+    got = ops.launch_counts()
+    if got["megakernel"] != 1 or sum(got.values()) != 1 or seen != [valid]:
+        fail(f"quality-eval artifact: launches {got}, mega_valid {seen} (want {valid})")
+    ref = plain.dispatch_assembled(batch, records)
+    plain.finalize(ref)
+    tol = noise_bound(plain.models, bert_config, [(batch.token_ids, batch.token_mask)],
+                      plain.ensemble_params.weights, valid)
+    err, far = compare_packed("quality-eval artifact", pending.out, ref.out, tol)
+    print(f"  quality-eval artifact + checkpoint: blend {json.dumps(weights)} "
+          f"({mega.config.ensemble.strategy}) in one megakernel launch with mega_valid "
+          f"{valid}; prob max err {err:.3e} (bound {tol:.3e}), decisions equal on "
+          f"{far}/{BATCH} rows away from a rung", flush=True)
+
+
+def run_training(ops):
+    """Phase 17: the training plane on the card (see the module docstring)."""
+    import tempfile
+    from pathlib import Path
+
+    from realtime_fraud_detection_tpu_torch.checkpoint import CheckpointManager
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        card_ck, cpu_ck, q_ck = (str(Path(tmp) / n) for n in ("card", "cpu", "quality"))
+        artifact = out_dir / "quality_eval_card.json"
+        t0 = time.perf_counter()
+        try:
+            # (a) train --neural on the card and on the CPU, side by side
+            card = _port_proc(["train", "--neural", "--out", card_ck])
+            cpu = _port_proc(["train", "--neural", "--device", "cpu", "--out", cpu_ck],
+                             cpu=True)
+            procs += [card, cpu]
+            out_c, err_c, _ = _finish("train (card)", card)
+            t_card = time.perf_counter() - t0
+            # (d) quality-eval on the card at BlendEvalConfig() defaults, from
+            # here on beside the rest of the phase
+            quality = _port_proc(["quality-eval", "--checkpoint-dir", q_ck,
+                                  "--output", str(artifact)])
+            procs.append(quality)
+            out_p, err_p, _ = _finish("train (cpu)", cpu)
+            t_cpu = time.perf_counter() - t0
+            rep = {"card": json.loads(out_c.strip().splitlines()[-1]),
+                   "cpu": json.loads(out_p.strip().splitlines()[-1])}
+            timing = {"card": _stderr_json(err_c, "train timing: "),
+                      "cpu": _stderr_json(err_p, "train timing: ")}
+            mc, mp = (CheckpointManager(d).restore().params for d in (card_ck, cpu_ck))
+            if not (_trees_equal(mc.trees, mp.trees) and _forest_equal(mc.iforest, mp.iforest)):
+                fail("train: the card's and the CPU's tree / isolation-forest arrays differ")
+            if rep["card"]["auc"] != rep["cpu"]["auc"] or rep["card"][
+                    "top_feature_importances"] != rep["cpu"]["top_feature_importances"]:
+                fail(f"train: GBDT AUC / importances differ: {rep}")
+            data = held_out_data()
+            aucs = {k: held_out_aucs(m, data) for k, m in (("card", mc), ("cpu", mp))}
+            gaps = {b: abs(aucs["card"][b] - aucs["cpu"][b]) for b in aucs["card"]}
+            if not all(g <= TRAIN_AUC_BAND for g in gaps.values()):
+                fail(f"train: held-out AUC card vs CPU {aucs} beyond {TRAIN_AUC_BAND}")
+            tc = timing["card"]
+            print(f"train --neural: card {t_card:.1f} s, CPU ({TRAIN_CPU_THREADS} threads) "
+                  f"{t_cpu:.1f} s; trees and isolation forest equal, GBDT AUC "
+                  f"{rep['card']['auc']} on both; GBDT host {tc['gbdt_host_s']:.2f} s, "
+                  f"isolation forest host {tc['iforest_host_s']:.2f} s; ms per optimizer "
+                  f"step on the card: " + json.dumps(
+                      {b: round(tc[b]["ms_per_step"], 3) for b in ("lstm", "gnn", "bert")})
+                  + " (steps " + json.dumps({b: tc[b]["steps"] for b in ("lstm", "gnn", "bert")})
+                  + "), on the CPU: " + json.dumps(
+                      {b: round(timing["cpu"][b]["ms_per_step"], 3)
+                       for b in ("lstm", "gnn", "bert")}), flush=True)
+            print("  held-out AUC (4,096 rows each, seed 43): " + json.dumps(
+                {k: {b: round(v, 4) for b, v in a.items()} for k, a in aucs.items()})
+                + f", |card - CPU| <= {TRAIN_AUC_BAND}", flush=True)
+
+            # (b) validate on the card and on the CPU; --min-auc 0.99 gates
+            t1 = time.perf_counter()
+            prom = str(Path(tmp) / "validate.prom")
+            v_card = _port_proc(["validate", "--checkpoint-dir", card_ck,
+                                 "--metrics-out", prom])
+            v_cpu = _port_proc(["validate", "--checkpoint-dir", card_ck, "--device", "cpu"],
+                               cpu=True)
+            v_gate = _port_proc(["validate", "--checkpoint-dir", card_ck,
+                                 "--min-auc", "0.99"])
+            procs += [v_card, v_cpu, v_gate]
+            vr = {}
+            for name, p in (("card", v_card), ("cpu", v_cpu)):
+                vr[name] = json.loads(_finish(f"validate ({name})", p)[0].strip().splitlines()[-1])
+            gate_out, gate_err = v_gate.communicate(timeout=900)
+            gate_rc = v_gate.returncode
+            if not gate_out.strip():
+                fail(f"validate --min-auc 0.99: exit {gate_rc}, no report: {gate_err[-2000:]}")
+            gate = json.loads(gate_out.strip().splitlines()[-1])
+            if list(vr["card"]) != list(vr["cpu"]) or abs(
+                    vr["card"]["auc"] - vr["cpu"]["auc"]) > VALIDATE_AUC_TOL or any(
+                    vr["card"][k] != vr["cpu"][k] for k in ("n", "fraud_rate", "eval_seed")):
+                fail(f"validate: card {vr['card']} vs CPU {vr['cpu']}")
+            if gate_rc != (0 if gate["auc"] >= 0.99 else 1) or gate["passed"] != (gate_rc == 0):
+                fail(f"validate --min-auc 0.99: exit {gate_rc}, report {gate}")
+            if "rtfd_validation_auc " not in open(prom).read():
+                fail("validate --metrics-out: no rtfd_validation_auc")
+            # a restored card scorer's explanations carry the importances
+            answers = {}
+            for device in ("cuda", "cpu"):
+                s = TorchFraudScorer(device=device)
+                CheckpointManager(card_ck).restore_into_scorer(s)
+                g = TransactionGenerator(num_users=500, num_merchants=100, seed=SEED + 23)
+                s.seed_profiles(g.users.profiles(), g.merchants.profiles())
+                answers[device] = s.score_batch(g.generate_batch(4))
+            imps = [r["explanation"].get("top_feature_importances")
+                    for rs in answers.values() for r in rs]
+            if any(i != rep["card"]["top_feature_importances"] for i in imps):
+                fail(f"restored explanations: top_feature_importances {imps[0]}")
+            print(f"validate ({time.perf_counter() - t1:.1f} s): card {json.dumps(vr['card'])}; "
+                  f"CPU auc {vr['cpu']['auc']} (|diff| <= {VALIDATE_AUC_TOL}); "
+                  f"--min-auc 0.99 exit {gate_rc}; restored explanations carry "
+                  f"{len(imps[0])} top_feature_importances on the card and the CPU",
+                  flush=True)
+
+            # (c) the trained weights through every kernel, and the typed GNN
+            gen = TransactionGenerator(num_users=10_000, num_merchants=5_000, seed=SEED + 17)
+            launches = serve_trained(ops, card_ck, gen)
+            typed_megakernel(card_ck, TransactionGenerator(
+                num_users=2_000, num_merchants=500, seed=SEED + 29))
+
+            # (d) quality-eval's result, then its artifact served
+            out_q, err_q, t_wait = _finish("quality-eval", quality)
+            result = json.loads(artifact.read_text())
+            stages = _stderr_json(err_q, "seconds: ")
+            print(f"quality-eval (card, BlendEvalConfig() defaults; waited {t_wait:.1f} s "
+                  f"after the rest of the phase): branch AUC "
+                  f"{json.dumps(result['branch_auc'])}; admission "
+                  + json.dumps([(a['branch'], a['weight_scale'], a['accepted'])
+                                for a in result["admission"]])
+                  + f"; strategy {json.dumps(result['strategy_selection'])}; test "
+                  f"{json.dumps(result['test'])}; seconds per stage "
+                  + json.dumps({k: round(v, 3) for k, v in stages.items()}), flush=True)
+            r05 = json.loads((Path(__file__).resolve().with_name("QUALITY_r05.json"))
+                             .read_text())
+            print(f"  beside QUALITY_r05.json (an earlier JAX artifact, context only): "
+                  f"branch AUC {json.dumps(r05['branch_auc'])}, selected "
+                  f"{json.dumps(r05['selected_blend'])}, test {json.dumps(r05['test'])}",
+                  flush=True)
+            serve_quality_artifact(ops, artifact, q_ck, TransactionGenerator(
+                num_users=result["protocol"]["stream"]["users"],
+                num_merchants=result["protocol"]["stream"]["merchants"], seed=SEED + 31))
+        finally:
+            _kill(procs)
+    return {"trained_" + k: v for k, v in launches.items()}
+
+
 def run_drills() -> dict:
     """The port's kernel drill (``KernelDrillConfig.fast()``) on the card,
     once on the per-site chain and once on the megakernel; a verdict that is
@@ -3627,6 +4095,8 @@ def main() -> int:
     lap("15")
     stream.update(run_serving(ops))
     lap("16")
+    stream.update(run_training(ops))
+    lap("17")
     print(f"seconds by phase: {json.dumps(seconds)}", flush=True)
     for e in entries:
         e["stream_launches"] = {k: v[e["name"]] for k, v in stream.items()}

@@ -16,7 +16,10 @@ optional in the job; ``python -m realtime_fraud_detection_tpu_torch
 run-job`` is its entry point. The scoring HTTP service (``serving.app
 ServingApp``: request microbatcher, prediction cache, checkpoint restore and
 hot reload, drift, A/B experiments) is the other: ``python -m
-realtime_fraud_detection_tpu_torch serve``.
+realtime_fraud_detection_tpu_torch serve``. The training plane
+(``training``: the GBDT and isolation-forest trainers, the neural trainers
+on ``torch.optim``, Platt calibration, the blend-selection protocol) backs
+the ``train``, ``validate`` and ``quality-eval`` commands.
 """
 
 __version__ = "0.1.0"

@@ -8,6 +8,10 @@
     python -m realtime_fraud_detection_tpu_torch trace-export --count 2048 --out trace.json
     python -m realtime_fraud_detection_tpu_torch serve --port 8080 [--quant] [--kernels|--mega] [--trace] [--qos] [--autotune] [--overlap-assembly]
     python -m realtime_fraud_detection_tpu_torch health-check --url http://127.0.0.1:8080
+    python -m realtime_fraud_detection_tpu_torch simulate --count 1000
+    python -m realtime_fraud_detection_tpu_torch train --rows 10000 [--neural] --out ./checkpoints
+    python -m realtime_fraud_detection_tpu_torch validate --checkpoint-dir ./checkpoints [--min-auc 0.8]
+    python -m realtime_fraud_detection_tpu_torch quality-eval [--checkpoint-dir D] [--output Q.json]
 
 ``run-job`` is the in-memory path of the JAX package's ``rtfd run-job``
 (``cli.py cmd_run_job``): the seeded simulator produces transactions into
@@ -59,6 +63,21 @@ refused restore (a crossed quantization or graph mode, or other widths)
 exits 2. The CUDA kernels are
 built before the service listens. ``health-check`` probes a running
 service's ``/health`` and prints the JSON verdict (exit 1 unless healthy).
+
+``simulate``, ``train``, ``validate`` and ``quality-eval`` are the ports of
+the JAX commands of the same names, with their arguments, defaults, printed
+JSON and exit codes. ``simulate`` writes the seeded simulator's transactions
+as JSON lines (producing into a broker, ``--broker``, needs the network tier
+and is not offered). ``train`` fits the GBDT (on the host) and the isolation
+forest on simulated rows, with ``--neural`` also the LSTM, GNN and TINY BERT
+branches (on the card unless ``--device cpu``), and saves a port checkpoint
+whose manifest carries the trees' feature importances; per-branch step times
+go to standard error. ``validate`` restores a checkpoint into a scorer,
+scores a fresh labelled stream (its seed moved off the checkpoint's training
+seed), prints the report and exits 1 below ``--min-auc``; ``--metrics-out``
+writes the ``rtfd_validation_*`` Prometheus textfile. ``quality-eval`` runs
+the blend-selection protocol (``training/blend_eval.py``) and prints or
+writes its evidence JSON; the seconds of each stage go to standard error.
 
 ``trace-export`` runs a traced ``run-job`` stream (on the card unless
 ``--device cpu``) and writes the flight recorder's window as Chrome-trace /
@@ -366,6 +385,235 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return 0
 
 
+def _sim_generator(args: argparse.Namespace, seed: int):
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+
+    return TransactionGenerator(num_users=args.users, num_merchants=args.merchants,
+                                seed=seed, tps=args.tps)
+
+
+def cmd_simulate(args: argparse.Namespace) -> int:
+    """Generate transactions as JSON lines (event time is synthesised)."""
+    gen = _sim_generator(args, args.seed)
+    out = sys.stdout if args.output == "-" else open(args.output, "w")
+    try:
+        n_fraud = 0
+        remaining = args.count
+        while remaining > 0:
+            for txn in gen.generate_batch(min(1000, remaining)):
+                n_fraud += bool(txn.get("is_fraud"))
+                out.write(json.dumps(txn) + "\n")
+            remaining -= min(1000, remaining)
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    print(f"generated {args.count} txns ({n_fraud} fraud)", file=sys.stderr)
+    return 0
+
+
+def _auc(y, score) -> float:
+    """Mann-Whitney AUC with tie-averaged ranks; 0.5 when a class is
+    missing (the JAX commands' convention)."""
+    import math
+
+    from realtime_fraud_detection_tpu_torch.training.blend_eval import _auc as auc
+
+    value = auc(y, score)
+    return 0.5 if math.isnan(value) else value
+
+
+def cmd_train(args: argparse.Namespace) -> int:
+    """Train the tree models (and with ``--neural`` the neural branches) on
+    simulated data and save a full ``ScoringModels`` checkpoint that
+    ``serve --checkpoint-dir`` and ``/reload-models`` load directly."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from realtime_fraud_detection_tpu_torch.checkpoint import CheckpointManager
+    from realtime_fraud_detection_tpu_torch.features.extract import (
+        extract_features_host,
+        top_feature_importances,
+    )
+    from realtime_fraud_detection_tpu_torch.models.isolation_forest import (
+        IsolationForestTrainer,
+    )
+    from realtime_fraud_detection_tpu_torch.models.trees import tree_ensemble_logits
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import init_scoring_models
+    from realtime_fraud_detection_tpu_torch.training import GBDTTrainer
+
+    if _no_card("train", args.device):
+        return 2
+    gen = _sim_generator(args, args.seed)
+    batch, labels = gen.generate_encoded(args.rows)
+    x = extract_features_host(batch)
+    y = labels["is_fraud"].astype(np.float32)
+    split = int(0.8 * len(y))
+
+    timing = {}
+    t0 = time.perf_counter()
+    gbdt_trainer = GBDTTrainer(n_estimators=args.trees, seed=args.seed)
+    trees = gbdt_trainer.fit(x[:split], y[:split])
+    timing["gbdt_host_s"] = time.perf_counter() - t0
+    logits = tree_ensemble_logits(trees, torch.from_numpy(x[split:])).numpy()
+    auc = _auc(y[split:], logits)
+
+    t0 = time.perf_counter()
+    iforest = IsolationForestTrainer(seed=args.seed).fit(
+        x[:split][y[:split] == 0])          # fit on normals only
+    timing["iforest_host_s"] = time.perf_counter() - t0
+
+    models = dataclasses.replace(init_scoring_models(args.seed),
+                                 trees=trees, iforest=iforest)
+    if args.neural:
+        from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+        from realtime_fraud_detection_tpu_torch.training.neural import (
+            train_gnn,
+            train_lstm,
+        )
+        from realtime_fraud_detection_tpu_torch.training.text import train_bert
+
+        n = args.rows
+        for name in ("lstm", "gnn", "bert"):
+            timing[name] = {}
+        lstm = train_lstm(gen, n_transactions=n, hidden=128, epochs=2,
+                          seed=args.seed, device=args.device, stats=timing["lstm"])
+        gnn, _, _, _ = train_gnn(gen, n_transactions=n, node_dim=16, hidden=64,
+                                 epochs=2, seed=args.seed, device=args.device,
+                                 stats=timing["gnn"])
+        bert = train_bert(gen, config=TINY_CONFIG, n_transactions=min(n, 8000),
+                          epochs=1, seed=args.seed, device=args.device,
+                          stats=timing["bert"])
+        models = dataclasses.replace(models, lstm=lstm, gnn=gnn, bert=bert)
+
+    mgr = CheckpointManager(args.out)
+    # a fresh step per run (never overwrite in place); the recorded
+    # sim_seed lets validate refuse a contaminated eval stream
+    latest = mgr.latest_step()
+    step = 0 if latest is None else latest + 1
+    path = mgr.save(step, params=models,
+                    metadata={"rows": args.rows, "auc": auc,
+                              "fraud_rate": float(y.mean()),
+                              "sim_seed": args.seed,
+                              "sim_users": args.users,
+                              "sim_merchants": args.merchants,
+                              # restored by restore_into_scorer so served
+                              # explanations keep their importances
+                              "feature_importances":
+                                  [round(float(v), 6) for v in
+                                   gbdt_trainer.feature_importances_]})
+    print(f"train timing: {json.dumps(timing)}", file=sys.stderr)
+    print(json.dumps({"auc": round(auc, 4),
+                      "fraud_rate": round(float(y.mean()), 4),
+                      "neural_trained": bool(args.neural),
+                      "top_feature_importances": top_feature_importances(
+                          gbdt_trainer.feature_importances_),
+                      "checkpoint": str(path)}))
+    return 0
+
+
+def cmd_validate(args: argparse.Namespace) -> int:
+    """Validate a trained checkpoint against a fresh labelled stream:
+    restore it into a scorer, score a simulated stream with known fraud,
+    report AUC / accuracy / precision / recall, optionally write a
+    Prometheus textfile, and exit 1 below ``--min-auc``."""
+    import numpy as np
+
+    from realtime_fraud_detection_tpu_torch.checkpoint import CheckpointManager
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+
+    if _no_card("validate", args.device):
+        return 2
+    scorer = TorchFraudScorer(device=args.device)
+    ckpt = CheckpointManager(args.checkpoint_dir).restore_into_scorer(
+        scorer, step=args.step)
+    # a held-out eval stream: never the checkpoint's recorded training seed
+    train_seed = (ckpt.metadata or {}).get("sim_seed")
+    val_seed = args.seed + 1
+    if train_seed is not None and val_seed == int(train_seed):
+        val_seed += 1
+    gen = _sim_generator(args, val_seed)
+    scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+
+    ys, ss = [], []
+    remaining = args.rows
+    while remaining > 0:
+        recs = gen.generate_batch(min(256, remaining))
+        remaining -= len(recs)
+        res = scorer.score_batch(recs)
+        ys += [bool(r.get("is_fraud")) for r in recs]
+        ss += [r["fraud_probability"] for r in res]
+    y = np.asarray(ys, float)
+    s = np.asarray(ss, float)
+    pos = y > 0.5
+    flag = s >= 0.5
+    auc = _auc(y, s)
+    tp = float((flag & pos).sum())
+    report = {
+        "n": int(len(y)),
+        "fraud_rate": round(float(pos.mean()), 4),
+        "auc": round(auc, 4),
+        "accuracy": round(float((flag == pos).mean()), 4),
+        "precision": round(tp / max(float(flag.sum()), 1.0), 4),
+        "recall": round(tp / max(float(pos.sum()), 1.0), 4),
+        "min_auc": args.min_auc,
+        "passed": bool(auc >= args.min_auc),
+        "eval_seed": val_seed,
+        "checkpoint_step": int(ckpt.step),
+    }
+    if args.metrics_out:
+        # a Prometheus textfile (node-exporter textfile-collector format)
+        from realtime_fraud_detection_tpu_torch.obs.metrics import Registry
+
+        reg = Registry()
+        for k, v in report.items():
+            if isinstance(v, bool):
+                v = int(v)
+            elif not isinstance(v, (int, float)):
+                continue
+            reg.gauge(f"rtfd_validation_{k}",
+                      f"model validation gate: {k}").set(float(v))
+        with open(args.metrics_out, "w") as f:
+            f.write(reg.render())
+    print(json.dumps(report))
+    return 0 if report["passed"] else 1
+
+
+def cmd_quality_eval(args: argparse.Namespace) -> int:
+    """Run the blend-selection protocol (``training/blend_eval.py``): train
+    all five branches on a stream-matched segment, admit branches into the
+    blend by validation A/B, report held-out quality and ablations."""
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.training.blend_eval import (
+        BlendEvalConfig,
+        run_blend_eval,
+    )
+
+    if _no_card("quality-eval", args.device):
+        return 2
+
+    def log(m: str) -> None:
+        print(f"[quality-eval] {m}", file=sys.stderr, flush=True)
+
+    cfg = dataclasses.replace(
+        BlendEvalConfig(), seed=args.seed, train_batches=args.train_batches,
+        val_batches=args.val_batches, test_batches=args.test_batches)
+    stages = {}
+    result = run_blend_eval(cfg, log=log, checkpoint_dir=args.checkpoint_dir or None,
+                            device=args.device, stage_seconds=stages)
+    log(f"seconds: {json.dumps(stages)}")
+    payload = json.dumps(result, indent=2)
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write(payload + "\n")
+        print(f"wrote {args.output}", file=sys.stderr)
+    else:
+        print(payload)
+    return 0
+
+
 def cmd_health_check(args: argparse.Namespace) -> int:
     import urllib.error
     import urllib.request
@@ -380,6 +628,14 @@ def cmd_health_check(args: argparse.Namespace) -> int:
     healthy = body.get("status") == "healthy"
     print(json.dumps({"healthy": healthy, **body}))
     return 0 if healthy else 1
+
+
+def _add_sim_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--users", type=int, default=10_000, help="user pool size")
+    p.add_argument("--merchants", type=int, default=5_000, help="merchant pool size")
+    p.add_argument("--tps", type=float, default=1000.0,
+                   help="simulated event-time rate")
+    p.add_argument("--seed", type=int, default=42)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -534,6 +790,52 @@ def build_parser() -> argparse.ArgumentParser:
     hc.add_argument("--url", default="http://127.0.0.1:8080")
     hc.add_argument("--timeout", type=float, default=5.0)
     hc.set_defaults(fn=cmd_health_check)
+    sm = sub.add_parser("simulate", help="generate transaction JSON lines")
+    _add_sim_args(sm)
+    sm.add_argument("--count", type=int, default=1000)
+    sm.add_argument("--output", default="-")
+    sm.set_defaults(fn=cmd_simulate)
+    tr = sub.add_parser("train", help="train tree models on synthetic data")
+    _add_sim_args(tr)
+    tr.add_argument("--rows", type=int, default=10_000,
+                    help="synthetic rows (model_trainer.py:123)")
+    tr.add_argument("--trees", type=int, default=100)
+    tr.add_argument("--neural", action="store_true",
+                    help="also train the LSTM/GNN/BERT branches")
+    tr.add_argument("--out", default="./checkpoints")
+    tr.add_argument("--device", default="cuda",
+                    help="torch device of the neural trainers (default cuda)")
+    tr.set_defaults(fn=cmd_train)
+    va = sub.add_parser("validate", help="quality-gate a checkpoint on a fresh stream")
+    _add_sim_args(va)
+    va.add_argument("--checkpoint-dir", required=True)
+    va.add_argument("--step", type=int, default=None)
+    va.add_argument("--rows", type=int, default=4096)
+    va.add_argument("--min-auc", type=float, default=0.80)
+    va.add_argument("--metrics-out", default=None,
+                    help="write a Prometheus textfile here")
+    va.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain versions)")
+    va.set_defaults(fn=cmd_validate)
+    from realtime_fraud_detection_tpu_torch.training.blend_eval import BlendEvalConfig
+
+    blend = BlendEvalConfig()
+    qe = sub.add_parser("quality-eval", help="run the blend-selection quality protocol")
+    qe.add_argument("--output", default="",
+                    help="write the evidence JSON here (default stdout)")
+    qe.add_argument("--seed", type=int, default=3)
+    # the defaults are BlendEvalConfig's: the command and the Python entry
+    # make identical admission decisions
+    qe.add_argument("--train-batches", type=int, default=blend.train_batches)
+    qe.add_argument("--val-batches", type=int, default=blend.val_batches)
+    qe.add_argument("--test-batches", type=int, default=blend.test_batches)
+    qe.add_argument("--checkpoint-dir", default="",
+                    help="also save the trained+calibrated branches as a "
+                         "serving checkpoint (deploy with serve "
+                         "--checkpoint-dir + --quality-artifact)")
+    qe.add_argument("--device", default="cuda",
+                    help="torch device of the neural trainers (default cuda)")
+    qe.set_defaults(fn=cmd_quality_eval)
     return parser
 
 
@@ -556,7 +858,7 @@ def configure_process_logging() -> None:
         cfg = Config()
         setup_logging(level=cfg.monitoring.log_level,
                       json_file=cfg.monitoring.log_file or None,
-                      service_name="realtime_fraud_detection_tpu_torch")
+                      service_name=cfg.service_name)
     except ValueError as e:
         logging.basicConfig(level=logging.INFO)
         logging.getLogger(__name__).warning("logging setup failed (%s)", e)

@@ -3,7 +3,9 @@
 ``models_from_numpy`` turns the JAX scorer's model set, already mapped to
 numpy arrays by the caller (e.g. ``jax.tree.map(np.asarray, models)``), into
 the port's ``ScoringModels`` of CPU tensors. Fields are read by attribute or
-by key, so a dict of the same shape works too. The BERT dict is carried in
+by key, so a dict of the same shape works too. ``params_from_numpy`` maps one
+branch's parameter tree (the JAX trainers' initial weights, say) the same
+way, for the port's trainers' ``init``. The BERT dict is carried in
 whichever layout it has: f32 ``{"w", "b"}`` or the int8 ``{"qw", "scale",
 "b"}`` / ``{"qe", "scale"}`` of ``models/quant.py``. This module imports
 nothing of JAX.
@@ -41,6 +43,12 @@ def _tree(obj: Any) -> Any:
     if isinstance(obj, (list, tuple)):
         return [_tree(v) for v in obj]
     return _tensor(obj)
+
+
+def params_from_numpy(tree: Any) -> Any:
+    """Nested dicts / lists of numpy leaves -> the same structure of CPU
+    tensors (f32 for floating leaves)."""
+    return _tree(tree)
 
 
 def models_from_numpy(obj: Any) -> ScoringModels:

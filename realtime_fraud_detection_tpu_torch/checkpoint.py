@@ -17,7 +17,11 @@ carries the JAX manager's stamps under the same keys: ``model_shapes``,
 ``quant_mode`` (the BERT weight form) and ``graph_mode`` (typed or
 bipartite GNN); ``restore_into_scorer`` refuses a restore that crosses the
 scorer's widths, quantization mode or graph mode with the JAX manager's
-``ValueError`` text unless ``allow_arch_mismatch``. The JAX package writes
+``ValueError`` text unless ``allow_arch_mismatch``, and re-attaches the
+trainer's feature importances to the scorer's explanations: from the host
+state when the checkpoint has one, else from the manifest's
+``feature_importances`` (a ``train`` checkpoint), leniently, with a
+warning when they do not fit the feature contract. The JAX package writes
 its parameters with orbax, which cannot be read without JAX: a port
 checkpoint and a JAX checkpoint are not interchangeable.
 """
@@ -27,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import pickle
 import shutil
 import time
@@ -284,6 +289,19 @@ class CheckpointManager:
                 scorer.set_models(ck.params)
             if ck.host_state is not None:
                 restore_scorer_host_state(scorer, ck.host_state)
+            # re-attach the trainer's gain importances (set_models cleared
+            # them): a host-state snapshot carries them, a params-only
+            # ``train`` checkpoint records them in its manifest
+            imp = (ck.metadata or {}).get("feature_importances")
+            if imp is not None and scorer._top_importances is None:
+                try:
+                    scorer.set_feature_importances(imp)
+                except (ValueError, TypeError) as e:
+                    # lenient (an old or foreign manifest) but never silent
+                    logging.getLogger(__name__).warning(
+                        "checkpoint step %s: feature_importances in "
+                        "manifest not attachable (%s); explanations will "
+                        "omit top_feature_importances", step, e)
         return ck
 
 
@@ -303,6 +321,7 @@ def snapshot_scorer_host_state(scorer) -> Dict[str, Any]:
         "merchants_index": scorer._merchants,
         "typed_graph": scorer.typed_graph,
         "stats": dict(scorer.stats),
+        "top_importances": scorer._top_importances,
     }
 
 
@@ -326,3 +345,5 @@ def restore_scorer_host_state(scorer, state: Mapping[str, Any]) -> None:
         scorer._sampler._cache.clear()
         scorer._sampler._deps.clear()
     scorer.stats.update(state["stats"])
+    if state.get("top_importances") is not None:
+        scorer._top_importances = dict(state["top_importances"])

@@ -4,8 +4,11 @@
 // fused_megakernel (_mega_call, body at :318, pallas_call at :352): one
 // launch scores a whole packed microbatch. Per transaction it computes the
 // rule score and key factors, the GBDT (100 trees) and isolation forest
-// (100 trees) leaves, the LSTM over the front-padded history, the bipartite
-// GNN with masked neighbour means, the BERT text branch (int8 or f32
+// (100 trees) leaves, the LSTM over the front-padded history, the GNN with
+// masked neighbour means (bipartite, or typed: every node row first goes
+// through its node type's (D, D) projection, models/gnn.py
+// typed_node_projection, and the transaction features are clipped to
+// [-10, 10]), the BERT text branch (int8 or f32
 // weights) and the ensemble combine with its ladders, and writes one row of
 // the extended packed matrix [B, 2M+10]:
 //   prob, confidence, decision, risk, rule_score, high_amount, unusual_hour,
@@ -25,8 +28,11 @@
 //     then each step's gate product [x_t ; h] @ W runs on the tensor cores
 //     (mma.sync m16n8k16, the group's rows in one 16-row tile) and a thread
 //     per (row, unit) updates c and h (masked steps keep the state);
-//  5. GNN: its weights are staged in shared memory once per group, then
-//     frontier, masked means, SAGE layer and head as scalar f32 FMAs;
+//  5. GNN: its weights are staged in shared memory once per group; typed
+//     parameters project the group's centre and neighbour rows into shared
+//     memory first (a thread per output element, the four type matrices
+//     blended by the row's tag slots); then frontier, masked means, SAGE
+//     layer and head as scalar f32 FMAs;
 //  6. BERT: dequantized embedding rows + positions, LN (a half-warp per
 //     row), then per layer the q/k/v dense, masked softmax attention (f32
 //     as the reference; a warp per (row, head, eight queries), so each k
@@ -113,7 +119,8 @@ __device__ int mega_ph_n;
 #define MEGA_NUM_MODELS 5
 #define MEGA_MAX_LAYERS 8
 #define MEGA_MAX_TEXT 64
-#define MEGA_MAX_WIDTH 256
+#define MEGA_MAX_WIDTH 256     // the hidden width (LN keeps 8 values a lane)
+#define MEGA_MAX_FFN 1024      // the FFN width (column passes of 256 / MEGA_NP)
 #define MEGA_MAX_HEAD_DIM 64
 #define MEGA_MAX_LSTM 128
 #ifndef MEGA_ATT_Q
@@ -194,6 +201,7 @@ struct MegaArgs {
   const void* pos_scale;
   const void* emb_ln_scale;
   const void* emb_ln_bias;
+  const void* gnn_w_node[4];      // typed GNN: user, merchant, device, ip
   const void* dense_w[MEGA_MAX_LAYERS][6];
   const void* dense_scale[MEGA_MAX_LAYERS][6];
   const void* dense_b[MEGA_MAX_LAYERS][6];
@@ -230,6 +238,7 @@ struct MegaArgs {
   int strategy;
   int int8;
   int bf16;
+  int gnn_typed;
   float fraud_threshold;
   float confidence_threshold;
   float decline;
@@ -253,7 +262,8 @@ __host__ __device__ inline MegaLayout mega_layout_f32(const MegaArgs& a) {
   const int s = a.text_len, h = a.hidden, f = a.ffn;
   int scr = MEGA_KC_F32 * mega_imax(h, f);
   scr = mega_imax(scr, 6 * a.lstm_hidden + a.lstm_head);
-  scr = mega_imax(scr, 2 * a.fanout * a.gnn_hidden + 4 * a.gnn_hidden + a.gnn_head);
+  scr = mega_imax(scr, 2 * a.fanout * a.gnn_hidden + 4 * a.gnn_hidden + a.gnn_head +
+                           2 * (a.fanout + 1) * a.node_dim);
   scr = mega_imax(scr, mega_imax(a.n_trees, a.n_iforest));
   scr = mega_imax(scr, mega_imax(h, MEGA_WARPS * s));
   MegaLayout l;
@@ -277,7 +287,7 @@ struct MegaLayoutTc {
   int ldx, ldq, ldf, ldg;
   int x, act, wide, raw;                        // BERT
   int wg, xh, hist, z, hc, lhead;               // LSTM (reuses BERT's region)
-  int ws1, ws2, wh1, fr, agg, hv, gz;           // GNN (reuses BERT's region)
+  int ws1, ws2, wh1, fr, agg, hv, gz, pj;       // GNN (reuses BERT's region)
   int leaves;                                   // trees (reuses BERT's region)
   int feat, mask, small, cls, total;            // per-row tail
 };
@@ -313,7 +323,8 @@ __host__ __device__ inline MegaLayoutTc mega_layout_tc(const MegaArgs& a, int ro
   l.agg = l.fr + mega_al16(rows * 2 * a.fanout * g * 4);
   l.hv = l.agg + mega_al16(rows * 2 * g * 4);
   l.gz = l.hv + mega_al16(rows * 2 * g * 4);
-  end = mega_imax(end, l.gz + mega_al16(rows * a.gnn_head * 4));
+  l.pj = l.gz + mega_al16(rows * a.gnn_head * 4);
+  end = mega_imax(end, l.pj + mega_al16(rows * 2 * (a.fanout + 1) * d * 4));
   l.leaves = 0;
   end = mega_imax(end, mega_al16(rows * mega_imax(a.n_trees, a.n_iforest) * 4));
   l.feat = end;
@@ -485,15 +496,61 @@ __device__ float lstm_row_f32(const MegaArgs& a, int r, float* scr) {
   return logit;
 }
 
-// models/gnn.py gnn_logits (bipartite) -> sigmoid, one row.
-// scr: frontier [2][K][G], agg [2][G], h [2][G], head [GH].
+// A GNN node row of row r: side 0 the user's, 1 the merchant's; n 0 the
+// centre, 1..K its neighbours.
+__device__ __forceinline__ const float* gnn_node(const MegaArgs& a, int r, int side, int n) {
+  if (n == 0) return in_row<float>(a, side ? IN_MERCHANT_FEAT : IN_USER_FEAT, r);
+  return in_row<float>(a, side ? IN_MERCH_NEIGH_FEAT : IN_USER_NEIGH_FEAT, r) +
+         (n - 1) * a.node_dim;
+}
+
+// models/gnn.py typed_node_projection for the nodes of nr rows (from row
+// r0) into pj[((r * 2 + side) * (K + 1) + n) * D + j], a thread per output
+// element: the user / merchant / device / ip matrices weighted by the row's
+// tags (slots 8, 9, 10; users untagged), each product an f32 dot in the
+// plain version's order. Every thread of the block must call it.
+__device__ void gnn_project(const MegaArgs& a, int r0, int nr, float* pj) {
+  const int d = a.node_dim, k1 = a.fanout + 1;
+  const float* wu = P<float>(a.gnn_w_node[0]);
+  const float* wm = P<float>(a.gnn_w_node[1]);
+  const float* wd = P<float>(a.gnn_w_node[2]);
+  const float* wi = P<float>(a.gnn_w_node[3]);
+  for (int idx = threadIdx.x; idx < nr * 2 * k1 * d; idx += blockDim.x) {
+    const int j = idx % d, node = idx / d;
+    const int n = node % k1, side = (node / k1) & 1, r = node / (2 * k1);
+    const float* x = gnn_node(a, r0 + r, side, n);
+    const float tm = x[8], td = x[9], ti = x[10];
+    const float tu = fminf(fmaxf(__fsub_rn(__fsub_rn(__fsub_rn(1.f, tm), td), ti), 0.f), 1.f);
+    float pu = 0.f, pm = 0.f, pd = 0.f, pi = 0.f;
+    for (int i = 0; i < d; ++i) {
+      pu = fmaf(x[i], wu[i * d + j], pu);
+      pm = fmaf(x[i], wm[i * d + j], pm);
+      pd = fmaf(x[i], wd[i * d + j], pd);
+      pi = fmaf(x[i], wi[i * d + j], pi);
+    }
+    pj[idx] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(tu, pu), __fmul_rn(tm, pm)),
+                                  __fmul_rn(td, pd)),
+                        __fmul_rn(ti, pi));
+  }
+  __syncthreads();
+}
+
+// models/gnn.py gnn_logits -> sigmoid, one row.
+// scr: frontier [2][K][G], agg [2][G], h [2][G], head [GH], then (typed)
+// the projected node rows [2][K+1][D].
 __device__ float gnn_row(const MegaArgs& a, int r, const float* x, float* scr) {
   const int d = a.node_dim, k = a.fanout, g = a.gnn_hidden, gh = a.gnn_head;
   const int nf = a.feat_dim;
+  const bool typed = a.gnn_typed != 0;
   float* fr = scr;
   float* agg = fr + 2 * k * g;
   float* hv = agg + 2 * g;
   float* z = hv + 2 * g;
+  float* pj = z + gh;
+  if (typed) gnn_project(a, r, 1, pj);
+  auto node = [&](int side, int n) -> const float* {
+    return typed ? pj + (side * (k + 1) + n) * d : gnn_node(a, r, side, n);
+  };
   const float* w1 = P<float>(a.gnn_w_sage1);
   const float* b1 = P<float>(a.gnn_b_sage1);
   const float* w2 = P<float>(a.gnn_w_sage2);
@@ -502,8 +559,7 @@ __device__ float gnn_row(const MegaArgs& a, int r, const float* x, float* scr) {
   // so the aggregate half of [self ; agg] is zero and only self contributes
   for (int idx = threadIdx.x; idx < 2 * k * g; idx += blockDim.x) {
     const int side = idx / (k * g), kk = (idx / g) % k, gg = idx % g;
-    const float* nfeat =
-        in_row<float>(a, side ? IN_MERCH_NEIGH_FEAT : IN_USER_NEIGH_FEAT, r) + kk * d;
+    const float* nfeat = node(side, kk + 1);
     float acc = 0.f;
     for (int j = 0; j < d; ++j) acc = fmaf(nfeat[j], w1[j * g + gg], acc);
     fr[idx] = fmaxf(acc + b1[gg], 0.f);
@@ -524,7 +580,7 @@ __device__ float gnn_row(const MegaArgs& a, int r, const float* x, float* scr) {
   __syncthreads();
   for (int idx = threadIdx.x; idx < 2 * g; idx += blockDim.x) {
     const int side = idx / g, gg = idx % g;
-    const float* self = in_row<float>(a, side ? IN_MERCHANT_FEAT : IN_USER_FEAT, r);
+    const float* self = node(side, 0);
     float acc = 0.f;
     for (int j = 0; j < d; ++j) acc = fmaf(self[j], w2[j * g + gg], acc);
     for (int j = 0; j < g; ++j) acc = fmaf(agg[side * g + j], w2[(d + j) * g + gg], acc);
@@ -536,7 +592,10 @@ __device__ float gnn_row(const MegaArgs& a, int r, const float* x, float* scr) {
   for (int j = threadIdx.x; j < gh; j += blockDim.x) {
     float acc = 0.f;
     for (int i = 0; i < 2 * g; ++i) acc = fmaf(hv[i], wh[i * gh + j], acc);
-    for (int i = 0; i < nf; ++i) acc = fmaf(x[i], wh[(2 * g + i) * gh + j], acc);
+    for (int i = 0; i < nf; ++i) {
+      const float xi = typed ? fminf(fmaxf(x[i], -10.f), 10.f) : x[i];
+      acc = fmaf(xi, wh[(2 * g + i) * gh + j], acc);
+    }
     z[j] = fmaxf(acc + bh[j], 0.f);
   }
   __syncthreads();
@@ -551,62 +610,67 @@ __device__ float gnn_row(const MegaArgs& a, int r, const float* x, float* scr) {
 
 // f32 compute: Y[rows, N] = X[rows, K] @ W[K, N] + b (act 1: tanh GELU) as
 // models/bert.py _dense at f32. W is int8 with per-column scales (I8) or f32.
-// A warp owns rows warp + 8i, a lane columns lane + 32j; weight tiles of
-// MEGA_KC_F32 rows are staged in wtile. Every thread of the block must call it.
+// The columns go in passes of up to 256 (an FFN wider than that takes
+// several); in a pass a warp owns rows warp + 8i, a lane columns
+// nb + lane + 32j; weight tiles of MEGA_KC_F32 rows x the pass's columns are
+// staged in wtile. Every thread of the block must call it.
 template <bool I8>
 __device__ void dense_f32(const float* X, int ldx, int rows, int K, const void* wp,
                       const float* scale, const float* bias, int N, float* Y,
                       int ldy, int act, float* wtile) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nj = N >> 5;
   const int ri = rows > warp ? (rows - warp + MEGA_WARPS - 1) / MEGA_WARPS : 0;
-  float acc[8][8];
+  for (int nb = 0; nb < N; nb += 256) {
+    const int nw = N - nb < 256 ? N - nb : 256;
+    const int nj = nw >> 5;
+    float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += MEGA_KC_F32) {
-    const int kc = K - k0 < MEGA_KC_F32 ? K - k0 : MEGA_KC_F32;
-    __syncthreads();                      // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < kc * N; idx += blockDim.x) {
-      const int kk = idx / N, n = idx - kk * N;
-      const size_t off = (size_t)(k0 + kk) * N + n;
-      float w;
-      if (I8) {
-        w = (float)P<signed char>(wp)[off] * scale[n];
-      } else {
-        w = P<float>(wp)[off];
+    for (int k0 = 0; k0 < K; k0 += MEGA_KC_F32) {
+      const int kc = K - k0 < MEGA_KC_F32 ? K - k0 : MEGA_KC_F32;
+      __syncthreads();                    // the previous tile is consumed
+      for (int idx = threadIdx.x; idx < kc * nw; idx += blockDim.x) {
+        const int kk = idx / nw, n = nb + idx - kk * nw;
+        const size_t off = (size_t)(k0 + kk) * N + n;
+        float w;
+        if (I8) {
+          w = (float)P<signed char>(wp)[off] * scale[n];
+        } else {
+          w = P<float>(wp)[off];
+        }
+        wtile[idx] = w;
       }
-      wtile[idx] = w;
-    }
-    __syncthreads();
-    if (ri > 0) {
-      for (int kk = 0; kk < kc; ++kk) {
-        float xv[8], wv[8];
+      __syncthreads();
+      if (ri > 0) {
+        for (int kk = 0; kk < kc; ++kk) {
+          float xv[8], wv[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          xv[i] = i < ri ? X[(warp + MEGA_WARPS * i) * ldx + k0 + kk] : 0.f;
+          for (int i = 0; i < 8; ++i)
+            xv[i] = i < ri ? X[(warp + MEGA_WARPS * i) * ldx + k0 + kk] : 0.f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) wv[j] = j < nj ? wtile[kk * N + lane + 32 * j] : 0.f;
+          for (int j = 0; j < 8; ++j) wv[j] = j < nj ? wtile[kk * nw + lane + 32 * j] : 0.f;
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+          for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
+        }
       }
     }
-  }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    if (i >= ri) continue;
-    const int r = warp + MEGA_WARPS * i;
+    for (int i = 0; i < 8; ++i) {
+      if (i >= ri) continue;
+      const int r = warp + MEGA_WARPS * i;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (j >= nj) continue;
-      const int n = lane + 32 * j;
-      float y = acc[i][j] + bias[n];
-      if (act == 1) y = gelu_tanh(y);
-      Y[r * ldy + n] = y;
+      for (int j = 0; j < 8; ++j) {
+        if (j >= nj) continue;
+        const int n = nb + lane + 32 * j;
+        float y = acc[i][j] + bias[n];
+        if (act == 1) y = gelu_tanh(y);
+        Y[r * ldy + n] = y;
+      }
     }
   }
 }
@@ -1400,9 +1464,10 @@ __device__ void lstm_tc(const MegaArgs& a, int r0, int nr, uint8_t* sm, const Me
   __syncthreads();
 }
 
-// models/gnn.py gnn_logits (bipartite) -> sigmoid for the group's nr rows,
-// into small[r * 16 + 3]; the SAGE and head weights are staged in shared
-// memory once, the arithmetic is the f32 FMA order of the plain version.
+// models/gnn.py gnn_logits -> sigmoid for the group's nr rows, into
+// small[r * 16 + 3]; the SAGE and head weights are staged in shared memory
+// once (typed parameters also project the rows' nodes there first), the
+// arithmetic is the f32 FMA order of the plain version.
 __device__ void gnn_tc(const MegaArgs& a, int r0, int nr, uint8_t* sm, const MegaLayoutTc& l,
                        const float* feat, float* small) {
   const int tid = threadIdx.x;
@@ -1415,6 +1480,11 @@ __device__ void gnn_tc(const MegaArgs& a, int r0, int nr, uint8_t* sm, const Meg
   float* agg = reinterpret_cast<float*>(sm + l.agg);
   float* hv = reinterpret_cast<float*>(sm + l.hv);
   float* z = reinterpret_cast<float*>(sm + l.gz);
+  const bool typed = a.gnn_typed != 0;
+  float* pj = reinterpret_cast<float*>(sm + l.pj);
+  auto node = [&](int r, int side, int n) -> const float* {
+    return typed ? pj + ((r * 2 + side) * (k + 1) + n) * d : gnn_node(a, r0 + r, side, n);
+  };
   // the first SAGE layer's neighbours have an empty two-hop frontier, so
   // only the self half (the first d rows) of w_sage1 contributes
   for (int i = tid; i < d * g; i += MEGA_THREADS) ws1[i] = P<float>(a.gnn_w_sage1)[i];
@@ -1422,13 +1492,13 @@ __device__ void gnn_tc(const MegaArgs& a, int r0, int nr, uint8_t* sm, const Meg
   for (int i = tid; i < (2 * g + fd) * gh; i += MEGA_THREADS)
     wh1[i] = P<float>(a.gnn_w_head1)[i];
   __syncthreads();
+  if (typed) gnn_project(a, r0, nr, pj);
   const float* b1 = P<float>(a.gnn_b_sage1);
   const float* b2 = P<float>(a.gnn_b_sage2);
   for (int idx = tid; idx < nr * 2 * k * g; idx += MEGA_THREADS) {
     const int r = idx / (2 * k * g), side = (idx / (k * g)) & 1;
     const int kk = (idx / g) % k, gg = idx % g;
-    const float* nfeat =
-        in_row<float>(a, side ? IN_MERCH_NEIGH_FEAT : IN_USER_NEIGH_FEAT, r0 + r) + kk * d;
+    const float* nfeat = node(r, side, kk + 1);
     float acc = 0.f;
     for (int j = 0; j < d; ++j) acc = fmaf(nfeat[j], ws1[j * g + gg], acc);
     fr[idx] = fmaxf(acc + b1[gg], 0.f);
@@ -1449,7 +1519,7 @@ __device__ void gnn_tc(const MegaArgs& a, int r0, int nr, uint8_t* sm, const Meg
   __syncthreads();
   for (int idx = tid; idx < nr * 2 * g; idx += MEGA_THREADS) {
     const int r = idx / (2 * g), side = (idx / g) & 1, gg = idx % g;
-    const float* self = in_row<float>(a, side ? IN_MERCHANT_FEAT : IN_USER_FEAT, r0 + r);
+    const float* self = node(r, side, 0);
     const float* ag = agg + (r * 2 + side) * g;
     float acc = 0.f;
     for (int j = 0; j < d; ++j) acc = fmaf(self[j], ws2[j * g + gg], acc);
@@ -1462,7 +1532,10 @@ __device__ void gnn_tc(const MegaArgs& a, int r0, int nr, uint8_t* sm, const Meg
     const int r = idx / gh, j = idx - r * gh;
     float acc = 0.f;
     for (int i = 0; i < 2 * g; ++i) acc = fmaf(hv[r * 2 * g + i], wh1[i * gh + j], acc);
-    for (int i = 0; i < fd; ++i) acc = fmaf(feat[r * fd + i], wh1[(2 * g + i) * gh + j], acc);
+    for (int i = 0; i < fd; ++i) {
+      const float xi = feat[r * fd + i];
+      acc = fmaf(typed ? fminf(fmaxf(xi, -10.f), 10.f) : xi, wh1[(2 * g + i) * gh + j], acc);
+    }
     z[idx] = fmaxf(acc + bh[j], 0.f);
   }
   __syncthreads();
@@ -1714,9 +1787,10 @@ extern "C" int rtfd_megakernel(const void* args, int sms, void* stream) {
   const MegaArgs& a = *static_cast<const MegaArgs*>(args);
   if (mega_plan_smem_bytes(a) > MEGA_SMEM_LIMIT || sms <= 0 || a.batch <= 0 ||
       a.layers <= 0 || a.layers > MEGA_MAX_LAYERS || a.text_len > MEGA_MAX_TEXT ||
-      a.hidden > MEGA_MAX_WIDTH || a.ffn > MEGA_MAX_WIDTH || a.hidden % 32 || a.ffn % 32 ||
+      a.hidden > MEGA_MAX_WIDTH || a.ffn > MEGA_MAX_FFN || a.hidden % 32 || a.ffn % 32 ||
       a.heads <= 0 || a.hidden % a.heads || a.hidden / a.heads > MEGA_MAX_HEAD_DIM ||
-      a.lstm_hidden > MEGA_MAX_LSTM || a.lstm_hidden % 4 || (a.feat_dim + a.lstm_hidden) % 16)
+      a.lstm_hidden > MEGA_MAX_LSTM || a.lstm_hidden % 4 || (a.feat_dim + a.lstm_hidden) % 16 ||
+      (a.gnn_typed && a.node_dim < 11))     // the tag slots 8, 9, 10
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   static bool ready[4] = {false, false, false, false};

@@ -154,3 +154,34 @@ def combine_predictions(preds: torch.Tensor, valid: torch.Tensor,
     if with_confidences:
         out["model_confidences"] = conf
     return out
+
+
+def blend_branch_scores(scores_by_branch: Dict[str, "object"],
+                        weights_by_name: Dict[str, float],
+                        strategy: str = "weighted_average"):
+    """Host-side serving-parity blend over named branch score arrays (the
+    JAX package's ``blend_branch_scores``, the recipe of the blend-selection
+    protocol): branch scores laid out in ``MODEL_NAMES`` order, the weights
+    mapped onto ``EnsembleParams``, validity = (weight > 0 and the branch
+    produced scores), and the serving ``combine_predictions`` doing the
+    math at any strategy. Returns the fraud probabilities as numpy."""
+    import numpy as np
+
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import MODEL_NAMES
+
+    if strategy not in STRATEGIES:
+        raise ValueError(
+            f"strategy must be one of {STRATEGIES}, got {strategy!r}")
+    params = EnsembleParams.from_config(Config(), list(MODEL_NAMES))
+    params.weights = torch.tensor([float(weights_by_name.get(n, 0.0))
+                                   for n in MODEL_NAMES], dtype=torch.float32)
+    params.strategy = STRATEGIES.index(strategy)
+    valid = np.asarray([weights_by_name.get(n, 0.0) > 0.0
+                        and n in scores_by_branch for n in MODEL_NAMES])
+    n_rows = len(next(iter(scores_by_branch.values())))
+    preds = np.stack(
+        [np.asarray(scores_by_branch.get(name, np.zeros(n_rows)), np.float32)
+         for name in MODEL_NAMES], axis=1)
+    out = combine_predictions(torch.from_numpy(preds), torch.from_numpy(valid),
+                              params, with_confidences=False)
+    return out["fraud_probability"].numpy()

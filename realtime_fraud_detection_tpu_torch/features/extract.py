@@ -53,6 +53,21 @@ FEATURE_NAMES: tuple[str, ...] = (
 NUM_FEATURES = len(FEATURE_NAMES)
 
 
+def top_feature_importances(importances, k: int = 10):
+    """Top-k {feature name: score} from a per-feature importance vector
+    (the reference's explanation field, ensemble_predictor.py:371-435). Its
+    length must match the 64-name contract: a trainer fit on another
+    feature matrix must not get its indices mislabelled with these names."""
+    arr = np.asarray(importances, np.float32)
+    if arr.shape != (len(FEATURE_NAMES),):
+        raise ValueError(
+            f"importances shape {arr.shape} != ({len(FEATURE_NAMES)},) — "
+            "not the canonical feature contract")
+    order = np.argsort(arr)[::-1][:k]
+    return {FEATURE_NAMES[i]: round(float(arr[i]), 6)
+            for i in order if arr[i] > 0}
+
+
 def _haversine_km(lat1, lon1, lat2, lon2):
     """Haversine distance (FeatureExtractor.java:407-417)."""
     rad = math.pi / 180.0

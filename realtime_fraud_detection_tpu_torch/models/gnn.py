@@ -143,6 +143,45 @@ def gnn_logits(params: Dict[str, torch.Tensor],
     return (z @ params["w_head2"] + params["b_head2"])[:, 0]
 
 
+def build_node_features(user_pool, merchant_pool,
+                        node_dim: int = 16) -> tuple[np.ndarray, np.ndarray]:
+    """Static node feature tables from the simulator's profile pools.
+
+    User rows: [risk, log avg amount, frequency, age/365, verified, weekend,
+    intl, online], zero-padded to ``node_dim``; merchant rows: [risk code/2,
+    fraud rate, log avg amount, blacklisted, category/10, opening hour/24,
+    closing hour/24], with the merchant tag at slot 8 (so ``node_dim`` >= 9).
+    """
+    if node_dim < 9:
+        raise ValueError(f"node_dim must be >= 9 (8 stat slots + type tag), got {node_dim}")
+    u = np.zeros((user_pool.n, node_dim), np.float32)
+    u[:, 0] = user_pool.risk_score
+    u[:, 1] = np.log1p(user_pool.avg_amount)
+    u[:, 2] = user_pool.txn_frequency
+    u[:, 3] = user_pool.account_age_days / 365.0
+    u[:, 4] = (user_pool.kyc_code == 0)
+    u[:, 5] = user_pool.weekend_activity
+    u[:, 6] = user_pool.intl_ratio
+    u[:, 7] = user_pool.online_preference
+
+    m = np.zeros((merchant_pool.n, node_dim), np.float32)
+    m[:, 0] = merchant_pool.risk_code / 2.0
+    m[:, 1] = merchant_pool.fraud_rate
+    m[:, 2] = np.log1p(merchant_pool.avg_amount)
+    m[:, 3] = merchant_pool.is_blacklisted
+    m[:, 4] = merchant_pool.category_code / 10.0
+    m[:, 5] = merchant_pool.op_start / 24.0
+    m[:, 6] = merchant_pool.op_end / 24.0
+    m[:, MERCHANT_TAG_SLOT] = 1.0
+    return u, m
+
+
+def gather_neighbor_features(node_table: np.ndarray, idx: np.ndarray,
+                             mask: np.ndarray) -> np.ndarray:
+    """Safe gather: padded (-1) indices read row 0 but are masked out."""
+    return node_table[np.where(mask, idx, 0)]
+
+
 def typed_entity_features(kind: str, degrees: np.ndarray, node_dim: int,
                           fanout: int) -> np.ndarray:
     """Node feature rows for the profile-less entity types (device, IP, cold

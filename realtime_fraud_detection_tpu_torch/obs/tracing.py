@@ -136,7 +136,8 @@ def parse_carrier(obj: Any) -> Optional[Dict[str, Any]]:
 
 # Log/trace correlation seam: ``Tracer.batch`` publishes the active batch's
 # lead trace id (+ worker origin) thread-locally, for a log formatter to
-# stamp on its lines (the JAX package's ``obs/logs.py``; not ported).
+# stamp on its lines (``obs/logs.py`` reads it through
+# ``current_log_context``).
 _log_ctx = threading.local()
 
 

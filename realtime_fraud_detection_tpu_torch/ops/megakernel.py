@@ -2,8 +2,9 @@
 
 ``fused_megakernel`` replaces the JAX package's Pallas kernel
 ``ops/megakernel.py fused_megakernel`` (``_mega_call``): the five branches
-(GEMM-form GBDT and isolation forest, LSTM, TINY BERT, bipartite GNN), the
-rule score and the ensemble combine in ONE launch that writes the extended
+(GEMM-form GBDT and isolation forest, LSTM, TINY BERT, and the GNN, bipartite
+or typed: typed parameters run their per-node-type projections ahead of the
+aggregation on a one-hop batch), the rule score and the ensemble combine in ONE launch that writes the extended
 packed ``f32[B, 2M+10]`` matrix ``TorchFraudScorer._build_responses``
 reads; no branch intermediate reaches device memory. On the card it runs
 the CUDA kernel of ``csrc/megakernel.cu`` (design and bound noted there);
@@ -79,7 +80,8 @@ MEGA_NUM_MODELS = 5
 MEGA_MAX_ROWS = 2
 MEGA_MAX_LAYERS = 8
 MEGA_MAX_TEXT = 64
-MEGA_MAX_WIDTH = 256
+MEGA_MAX_WIDTH = 256     # the hidden width
+MEGA_MAX_FFN = 1024      # the FFN width
 MEGA_MAX_HEAD_DIM = 64
 MEGA_MAX_LSTM = 128
 MEGA_ATT_Q = 8
@@ -205,7 +207,8 @@ def mega_smem_bytes_tc(dims: Dict[str, int], fanout: int, rows: int) -> int:
     ``[2, KC, NP]`` i8 weight rings (attention's per-warp scratch,
     MEGA_ATT_SCRATCH floats, lives in the widened ring between dense
     layers); the staged LSTM (w_gates in bf16, the history and the
-    per-row state), GNN (weights in f32 and per-row scratch) and tree
+    per-row state), GNN (weights in f32 and per-row scratch, the typed
+    projections' node rows included) and tree
     leaves reuse that region when larger; then per row the features, token
     mask and 16 slots, and the [CLS] head."""
     s, h, ffn, rs = dims["text_len"], dims["hidden"], dims["ffn"], rows * dims["text_len"]
@@ -221,7 +224,7 @@ def mega_smem_bytes_tc(dims: Dict[str, int], fanout: int, rows: int) -> int:
             + _al16(rows * dims["lstm_head"] * 4))
     gnn = (_al16(d * g * 4) + _al16((d + g) * g * 4) + _al16((2 * g + fd) * gh * 4)
            + _al16(rows * 2 * fanout * g * 4) + 2 * _al16(rows * 2 * g * 4)
-           + _al16(rows * gh * 4))
+           + _al16(rows * gh * 4) + _al16(rows * 2 * (fanout + 1) * d * 4))
     trees = _al16(rows * max(dims["n_trees"], dims["n_iforest"]) * 4)
     tail = (_al16(rows * fd * 4) + _al16(rows * s * 4) + _al16(rows * 16 * 4)
             + _al16(rows * h * 4))
@@ -233,12 +236,13 @@ def mega_smem_bytes_f32(dims: Dict[str, int], fanout: int) -> int:
     (``mega_layout_f32``): x and q ``[S, H]``, the k|v region ``[S,
     max(2H+1, FFN)]`` (k padded to H+1 columns against bank conflicts; the
     FFN activations reuse it), a scratch region sized for the largest of the
-    weight tile, the LSTM, GNN and tree stages and the attention rows, the
+    weight tile, the LSTM, GNN (with the typed projections' node rows) and
+    tree stages and the attention rows, the
     feature row, 16 small slots and the token mask."""
     s, h, ffn = dims["text_len"], dims["hidden"], dims["ffn"]
-    lh, g = dims["lstm_hidden"], dims["gnn_hidden"]
+    lh, g, d = dims["lstm_hidden"], dims["gnn_hidden"], dims["node_dim"]
     scratch = max(MEGA_KC_F32 * max(h, ffn), 6 * lh + dims["lstm_head"],
-                  2 * fanout * g + 4 * g + dims["gnn_head"],
+                  2 * fanout * g + 4 * g + dims["gnn_head"] + 2 * (fanout + 1) * d,
                   dims["n_trees"], dims["n_iforest"], h,
                   MEGA_WARPS * s)
     floats = (2 * s * h + s * max(2 * h + 1, ffn) + scratch
@@ -259,7 +263,7 @@ def mega_kernel_shapes_ok(dims: Dict[str, int], smem_bytes: int) -> bool:
     heads, lh = dims["heads"], dims["lstm_hidden"]
     return (0 < s <= MEGA_MAX_TEXT and 0 < dims["layers"] <= MEGA_MAX_LAYERS
             and h % 32 == 0 and 0 < h <= MEGA_MAX_WIDTH
-            and ffn % 32 == 0 and 0 < ffn <= MEGA_MAX_WIDTH
+            and ffn % 32 == 0 and 0 < ffn <= MEGA_MAX_FFN
             and heads > 0 and h % heads == 0
             and h // heads <= MEGA_MAX_HEAD_DIM
             and 0 < lh <= MEGA_MAX_LSTM and lh % 4 == 0
@@ -272,9 +276,9 @@ def mega_plan(models, bert_config, *, b: int, text_len: int, seq_len: int,
               feature_dim: int, has_two_hop: bool,
               fanout: int = 16) -> Dict[str, Any]:
     """The shape plan for a ``b``-row dispatch: ``supported`` when the L2
-    budget admits it and the kernel's layout takes its widths. The kernel
-    has no typed GNN (per-node-type projections), so typed parameters are
-    declined too."""
+    budget admits it and the kernel's layout takes its widths. Typed GNN
+    parameters are admitted on a one-hop batch, as in the JAX plan; a typed
+    scorer's batches carry two-hop frontiers and are declined."""
     from realtime_fraud_detection_tpu_torch.models.gnn import is_typed_gnn
 
     pb = mega_param_bytes(models)
@@ -288,8 +292,7 @@ def mega_plan(models, bert_config, *, b: int, text_len: int, seq_len: int,
         "typed_gnn": typed,
         "smem_bytes": smem,
         "kernel_shapes": shapes_ok,
-        "supported": (shapes_ok and not typed
-                      and mega_supported(b, pb, has_two_hop)),
+        "supported": shapes_ok and mega_supported(b, pb, has_two_hop),
     }
 
 
@@ -411,7 +414,7 @@ _INT_FIELDS = (
     "batch", "n_trees", "tree_depth", "n_iforest", "iforest_depth",
     "feat_dim", "seq_len", "lstm_hidden", "lstm_head", "node_dim", "fanout",
     "gnn_hidden", "gnn_head", "text_len", "hidden", "ffn", "heads", "layers",
-    "vocab", "max_pos", "mega_valid", "strategy", "int8", "bf16")
+    "vocab", "max_pos", "mega_valid", "strategy", "int8", "bf16", "gnn_typed")
 _FLOAT_FIELDS = ("fraud_threshold", "confidence_threshold", "decline",
                  "review", "monitor", "ln_eps", "sqrt_head_dim")
 _PTR_FIELDS = (
@@ -423,6 +426,8 @@ _PTR_FIELDS = (
     "gnn_w_head1", "gnn_b_head1", "gnn_w_head2", "gnn_b_head2",
     "word_emb", "word_scale", "pos_emb", "pos_scale",
     "emb_ln_scale", "emb_ln_bias")
+# the typed GNN's per-node-type projections, csrc/megakernel.cu's order
+_GNN_NODE_TYPES = ("user", "merchant", "device", "ip")
 _TAIL_PTR_FIELDS = ("pre_w", "pre_b", "cls_w", "cls_b", "weights",
                     "conf_mult", "out")
 
@@ -434,7 +439,8 @@ class MegaArgs(ctypes.Structure):
     _fields_ = (
         [("inp", _P * len(MEGA_INPUTS)), ("inp_stride", _L * len(MEGA_INPUTS))]
         + [(name, _P) for name in _PTR_FIELDS]
-        + [("dense_w", _LAYER_DENSE), ("dense_scale", _LAYER_DENSE),
+        + [("gnn_w_node", _P * len(_GNN_NODE_TYPES)),
+           ("dense_w", _LAYER_DENSE), ("dense_scale", _LAYER_DENSE),
            ("dense_b", _LAYER_DENSE), ("ln_scale", _LAYER_LN),
            ("ln_bias", _LAYER_LN)]
         + [(name, _P) for name in _TAIL_PTR_FIELDS]
@@ -507,9 +513,6 @@ class MegaParamArgs:
         self.models = models
         self.key = (bert_config, compute_dtype, widths, device)
         self.dims = _checked_dims(models, bert_config, widths)
-        if is_typed_gnn(models.gnn):
-            raise ValueError("fused_megakernel: the kernel has no typed GNN "
-                             "(per-node-type projections)")
         self.keep = []                    # the tensors the pointers point into
         a = self.args = MegaArgs()
 
@@ -533,6 +536,10 @@ class MegaParamArgs:
         for key in ("w_sage1", "b_sage1", "w_sage2", "b_sage2", "w_head1",
                     "b_head1", "w_head2", "b_head2"):
             setattr(a, "gnn_" + key, ptr(gnn[key], f32, "gnn." + key))
+        typed = is_typed_gnn(gnn)
+        if typed:
+            for i, name in enumerate(_GNN_NODE_TYPES):
+                a.gnn_w_node[i] = ptr(gnn["w_node_" + name], f32, "gnn.w_node_" + name)
         int8 = is_quantized_bert(bert)
         wdt = i8 if int8 else f32
         for name in ("word_emb", "pos_emb"):
@@ -573,7 +580,8 @@ class MegaParamArgs:
             text_len=text_len, hidden=d["hidden"], ffn=d["ffn"],
             heads=d["heads"], layers=len(bert["layers"]),
             vocab=int(word.shape[0]), max_pos=int(pos.shape[0]),
-            int8=int(int8), bf16=int(compute_dtype == torch.bfloat16))
+            int8=int(int8), bf16=int(compute_dtype == torch.bfloat16),
+            gnn_typed=int(typed))
         for name, value in ints.items():
             setattr(a, name, value)
         a.ln_eps = bert_config.layer_norm_eps

@@ -33,6 +33,9 @@ in-process state tier:
   apply_degradation``) as a branch mask anded with the deployment's
   validity (the enabled models of ``Config.models``); a megakernel batch
   passes it as ``mega_valid`` (all false at ``rules_only``);
+- explanations: ``set_feature_importances`` attaches a trainer's gain
+  importances as the top-10 ``top_feature_importances`` of every
+  explanation; ``set_models`` clears them (they describe the old trees);
 - serving seam: ``model_info`` (the branches, their blend weights, the
   strategy), ``quant_snapshot`` (the BERT weight form read from the live
   parameters, the tree kernels, the BERT parameter bytes, the divergence
@@ -65,7 +68,10 @@ import torch
 from realtime_fraud_detection_tpu_torch.core.batching import pad_to_bucket
 from realtime_fraud_detection_tpu_torch.core.packing import pack_tree
 from realtime_fraud_detection_tpu_torch.ensemble.combine import EnsembleParams
-from realtime_fraud_detection_tpu_torch.features.extract import extract_features_host
+from realtime_fraud_detection_tpu_torch.features.extract import (
+    extract_features_host,
+    top_feature_importances,
+)
 from realtime_fraud_detection_tpu_torch.features.rules import (
     APPROVE,
     APPROVE_WITH_MONITORING,
@@ -312,6 +318,9 @@ class TorchFraudScorer:
         # the megakernel served it) and the port's hand-written launches
         self._last_launches_per_batch = 0
         self._last_kernel_launches = 0
+        # the top-10 global feature importances attached to every
+        # explanation (set_feature_importances; cleared by set_models)
+        self._top_importances: Optional[Dict[str, float]] = None
         self.set_models(models if models is not None else init_scoring_models(
             seed, bert_config, feature_dim=self.sc.feature_dim,
             node_dim=self.sc.node_dim))
@@ -387,6 +396,16 @@ class TorchFraudScorer:
         self.models = models.to(self.device)
         self._mega_plans: Dict[tuple, Dict[str, Any]] = {}
         self._mega_args: Optional[MegaParamArgs] = None
+        # the importances described the old trees; the caller re-attaches
+        # them for the new set
+        self._top_importances = None
+
+    def set_feature_importances(self, importances) -> None:
+        """Attach global gain importances (e.g. ``GBDTTrainer.
+        feature_importances_``) to prediction explanations as the top-10
+        name -> score mapping; None clears them."""
+        self._top_importances = (None if importances is None
+                                 else top_feature_importances(importances))
 
     def _check_kernel_widths(self, models: ScoringModels) -> None:
         modes = self.kernels.site_modes()
@@ -938,6 +957,11 @@ class TorchFraudScorer:
                 }
                 if rules_only:
                     explanation["degraded"] = "rules_only"
+                if self._top_importances is not None:
+                    # a fresh dict per response: a consumer mutating one
+                    # explanation must not change its batch-mates'
+                    explanation["top_feature_importances"] = dict(
+                        self._top_importances)
             else:
                 explanation = {}
             results.append({

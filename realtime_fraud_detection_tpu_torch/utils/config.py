@@ -560,8 +560,10 @@ class TuningSettings:
 class Config:
     """The slice of the JAX package's root ``Config`` the port reads. A
     disabled model is left out of the blend and of the scorer's validity
-    mask."""
+    mask. ``service_name`` stamps the process's JSON log lines."""
 
+    service_name: str = "rtfd-tpu"
+    environment: str = "development"
     models: Dict[str, ModelConfig] = field(default_factory=_default_models)
     ensemble: EnsembleConfig = field(default_factory=EnsembleConfig)
     quant: QuantSettings = field(default_factory=QuantSettings)

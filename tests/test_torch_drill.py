@@ -219,6 +219,7 @@ def test_drill_and_ladder_import_with_jax_blocked():
             AdmissionController, DegradationLadder, LatencyBudget, QosPlane,
             run_overload_drill)
         from realtime_fraud_detection_tpu_torch.utils.config import Config, QosSettings
+        from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
         plane = QosPlane(QosSettings(enabled=True, admission_rate=10.0),
                          metrics=MetricsCollector())
         assert plane.admit({"amount": 900}, 0.0).admitted
@@ -283,6 +284,43 @@ def test_drill_and_ladder_import_with_jax_blocked():
             return got
 
         assert [g["i"] for g in asyncio.run(batch())] == list(range(6))
+        # the training plane: trainers, calibration, the protocol's blend
+        from realtime_fraud_detection_tpu_torch.ensemble.combine import blend_branch_scores
+        from realtime_fraud_detection_tpu_torch.features.extract import (
+            top_feature_importances)
+        from realtime_fraud_detection_tpu_torch.models.isolation_forest import (
+            IsolationForestTrainer)
+        from realtime_fraud_detection_tpu_torch.models.lstm import init_lstm_params
+        from realtime_fraud_detection_tpu_torch.training import GBDTTrainer
+        from realtime_fraud_detection_tpu_torch.training.blend_eval import (
+            BlendEvalConfig, _auc)
+        from realtime_fraud_detection_tpu_torch.training.calibrate import (
+            calibrate_lstm_head, platt_fit)
+        from realtime_fraud_detection_tpu_torch.training.neural import (
+            NeuralTrainer, weighted_bce_loss)
+        from realtime_fraud_detection_tpu_torch.training.text import build_text_dataset
+        from realtime_fraud_detection_tpu_torch.models.lstm import lstm_logits
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((200, 64)).astype(np.float32)
+        y = (x[:, 0] > 1.0).astype(np.float32)
+        gbdt = GBDTTrainer(n_estimators=2, max_depth=3)
+        trees = gbdt.fit(x, y)
+        assert trees.leaf.shape == (2, 8)
+        assert len(top_feature_importances(gbdt.feature_importances_)) > 0
+        assert IsolationForestTrainer(n_estimators=2, max_samples=32).fit(x).c_psi > 0
+        a, b = platt_fit(x[:, 0] * 3.0, y)
+        lstm = init_lstm_params(rng, 64, 8)
+        seqs = rng.standard_normal((64, 4, 64)).astype(np.float32)
+        lens = np.full(64, 4, np.int32)
+        trained = NeuralTrainer(epochs=1, batch_size=32, device="cpu").train(
+            lstm, lambda p, i, t: weighted_bce_loss(lstm_logits(p, *i), t, 3.0),
+            (seqs, lens), (rng.random(64) < 0.2).astype(np.float32))
+        assert calibrate_lstm_head(trained, a, b)["w_head2"].shape == trained["w_head2"].shape
+        assert 0.0 <= _auc(y, x[:, 0]) <= 1.0 and BlendEvalConfig().n_trees == 40
+        assert blend_branch_scores({"xgboost_primary": y}, {"xgboost_primary": 1.0}).shape == (200,)
+        ids, mask, labels = build_text_dataset(TransactionGenerator(
+            num_users=20, num_merchants=5, seed=1), 8, max_length=8)
+        assert ids.shape == (8, 8) and labels.shape == (8,)
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

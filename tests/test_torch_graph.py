@@ -564,7 +564,13 @@ def test_typed_scorer_under_mega_serves_and_counts_like_jax(typed_jax_models):
     assert snap["fallback"]["megakernel"] == snap["dispatch"]["megakernel"] == 2
     assert scorer._mega_args is None          # never built in typed mode
     assert not scorer._mega_plan(32, has_two_hop=True)["supported"]
-    assert not scorer._mega_plan(32, has_two_hop=False)["supported"]   # typed params
+    # typed parameters on a one-hop batch: the port's kernel runs the typed
+    # GNN, and its plan admits them where the JAX plan does
+    from realtime_fraud_detection_tpu.ops.megakernel import mega_plan as jax_mega_plan
+
+    want = jax_mega_plan(jq, jbert.TINY_CONFIG, b=32, text_len=64, seq_len=10,
+                         feature_dim=64, has_two_hop=False)["supported"]
+    assert scorer._mega_plan(32, has_two_hop=False)["supported"] == want
 
 
 def test_scorer_refuses_an_unknown_graph_mode():

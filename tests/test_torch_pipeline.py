@@ -420,6 +420,13 @@ def test_port_runs_with_jax_blocked():
 
         asyncio.run(serve())
         assert app.tracer.counters["completed"] == 1      # /predict is traced
+        # the training commands: train, then validate its checkpoint
+        from realtime_fraud_detection_tpu_torch.__main__ import main
+        with tempfile.TemporaryDirectory() as ck:
+            sim = ["--users", "60", "--merchants", "20", "--device", "cpu"]
+            assert main(["train", "--rows", "400", "--trees", "2", "--out", ck] + sim) == 0
+            assert main(["validate", "--checkpoint-dir", ck, "--rows", "64",
+                         "--min-auc", "0.0"] + sim) == 0
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

@@ -450,6 +450,8 @@ def _qos_stream(side, models, settings, overlap):
             max_batch=32, overlap_assembly=overlap, pipeline_depth=2,
             qos=JaxQosSettings(**settings), emit_features=False))
     scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+    if side == "port" and overlap:
+        _serial_interleaving(job)
     tokens = []
     if side == "jax":
         _keep_tokens(scorer, tokens)
@@ -476,6 +478,28 @@ def _qos_stream(side, models, settings, overlap):
                 ladder=job.qos.ladder.snapshot(), recs=recs, tokens=tokens)
 
 
+def _serial_interleaving(job):
+    """Pin the overlapped job's interleaving to the serial job's: each
+    submitted batch is assembled and dispatched on the stage thread before
+    the job goes on, so (as in the serial loop) batch N+1 is assembled after
+    its own rung was applied and before batch N writes back. Without this,
+    which rung a batch reads and which write-backs land before its assembly
+    depend on thread timing, and with them its features, decisions and the
+    alert counter."""
+    stage = job._stage
+    submit = stage.submit
+
+    def submit_and_wait(*args, **kw):
+        handle = submit(*args, **kw)
+        try:
+            handle.result()
+        except Exception:           # surfaces at the batch's own completion
+            pass
+        return handle
+
+    stage.submit = submit_and_wait
+
+
 _JAX_STREAMS = {}
 
 
@@ -497,9 +521,10 @@ def jax_models():
 def test_scorer_stream_under_qos_matches_jax(jax_models, case, overlap):
     """Shed set, prediction order, the served rung per dispatched batch and
     the counters equal the JAX job's; decisions match within the bound.
-    Under overlapped assembly which write-back lands before an assembly,
-    and which batch a ladder step reaches first, depend on timing (in both
-    packages), so there decisions are held only on the serial run."""
+    Under overlapped assembly the job's interleaving is pinned to the
+    serial one (``_serial_interleaving``): which rung a batch reads and
+    which write-back lands before its assembly otherwise depend on timing
+    (in both packages)."""
     settings = QOS_CASES[case]
     got = _qos_stream("port", jax_models, settings, overlap)
     want = _jax_qos_stream(jax_models, case)
@@ -519,8 +544,6 @@ def test_scorer_stream_under_qos_matches_jax(jax_models, case, overlap):
         assert max(got["rungs"]) >= 1 and got["ladder"]["transitions_down"] >= 1
     else:
         assert set(got["rungs"]) == {0}
-    if overlap:
-        return
     # the bound of the full rung covers every lower one (BERT's share only
     # shrinks down the ladder)
     weights = JaxEnsembleParams.from_config(JaxConfig(), MODEL_NAMES).weights

@@ -62,3 +62,24 @@ def near_rung(values, bound) -> np.ndarray:
     """bool mask of ``values`` within ``bound`` of a rung."""
     values = np.asarray(values, np.float64)
     return np.min(np.abs(values[:, None] - np.asarray(RUNGS)[None, :]), axis=1) <= bound
+
+
+# ------------------------------------------------------- the training plane
+# host feature columns: exact apart from amount_log, amount_sqrt and the
+# haversine distance, which PyTorch's CPU loops round differently
+FEATURE_TOL = 1e-5
+# one optimizer step at f32 compute, the same parameters and batch: the
+# loss relative to JAX's, and each gradient leaf against its own largest
+# absolute value
+TRAIN_LOSS_REL = 1e-6
+TRAIN_GRAD_REL = 1e-5
+# five torch.optim Adam / AdamW steps against optax on the same gradients
+OPTIMIZER_TOL = 1e-6
+# the trained branch's probabilities on 256 held-out rows after the public
+# trainer ran from JAX's own initial weights (8-17 steps, then the tail Platt
+# fit). Measured on the CPU: LSTM 8.4e-4 and BERT 2.4e-4 (both at the served
+# bf16 product rounding, which XLA and the port's f32 emulation round at
+# different points), GNN 1.2e-6 (f32); the bounds are about 5x those
+LOOP_PROB_BOUND = {"lstm": 4e-3, "gnn": 6e-6, "bert": 1.2e-3}
+# the tree / isolation-forest scores and the host blend: f32 round-off
+BLEND_SCORE_TOL = 1e-6
