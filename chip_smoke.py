@@ -221,6 +221,34 @@ Phases, each of which raises (and exits non-zero) on failure:
    text model (attention "reference": the flash kernel takes head width 64
    only): one 256-row batch, one megakernel launch under the artifact's
    branch mask, within the bound of the plain path.
+18. the feedback plane and the quantization drill: (a) the feedback drill at
+   its defaults on the card and, beside it, on the CPU (in a process of its
+   own): both pass; the labels matched, the join, the buffer, the triggers
+   and their reasons, the gate's verdicts, the promotions and the promoted
+   blend equal; baseline / dip / recovered AUC within ``FEEDBACK_AUC_TOL``;
+   the promoted trees' arrays equal; the retrains' host seconds. (b) the
+   drill's promoted candidate pushed by ``promote_candidate`` mid-stream,
+   with a batch in flight, into a TINY int8 ``mega()`` scorer and a
+   DistilBERT-base int8 ``full()`` one under ``StreamJob``, at the drill's
+   strategy and at ``stacking``: each batch launched before the swap within
+   the drill's bound of a kernels-off card scorer holding the incumbent, each
+   after it of one holding the promoted set (decisions off a rung), one
+   megakernel launch or 1 / 6 / 36 / 2 a batch throughout, the promotion's
+   host ms; a gate-rejected candidate leaves the scorer's fingerprint
+   bit-identical. (c) ``run-job --feedback --mega --quant`` (20,000
+   transactions at the ``run-job`` defaults) as a command on the card, the
+   same without ``--feedback``, the first with ``--device cpu``: the
+   feedback blocks' labels, buffer and policy counts equal, decisions off a
+   rung equal; txn/s with and without the plane. (d) a DistilBERT-base
+   ``full()`` ``ServingApp`` with the plane on: 256 ``/predict`` from 64
+   clients (the chain a batch), their labels on ``POST /labels``, ``GET
+   /quality/live``, the ``prequential_*`` / ``feedback_*`` families, 409
+   with the plane off, 400 on a malformed body. (e) ``quant-drill`` at its
+   defaults as a command on the card (its replay the second card run) beside
+   the CPU port run, then a DistilBERT-base leg: 1,024 stream transactions
+   through f32 BERT (kernels off) and int8 BERT under ``full()`` (1 / 6 / 36
+   / 2 launches a batch), the divergence printed against that width's noise
+   bound.
 
 The last three lines of standard output are the kernel JSON line (all five
 kernels), the ``nvidia-smi`` name and power limit, and the result line
@@ -2963,9 +2991,9 @@ class AppThread:
 
 
 def serving_app(models, bert_config, kernels, device, profiles, overlap=False,
-                tracing=False):
+                tracing=False, feedback=False):
     """A ``ServingApp`` on a fresh ``TorchFraudScorer`` (int8 BERT) with the
-    simulator's profiles."""
+    simulator's profiles (``feedback``: the feedback plane on)."""
     from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
     from realtime_fraud_detection_tpu_torch.serving.app import ServingApp
     from realtime_fraud_detection_tpu_torch.utils.config import Config, QuantSettings
@@ -2975,6 +3003,7 @@ def serving_app(models, bert_config, kernels, device, profiles, overlap=False,
     config.serving.prediction_timeout_seconds = 60.0
     config.serving.overlap_assembly = overlap
     config.tracing.enabled = tracing
+    config.feedback.enabled = feedback
     config.monitoring.prometheus_port = 0
     scorer = TorchFraudScorer(config, models=models, bert_config=bert_config,
                               device=device)
@@ -3959,6 +3988,632 @@ def run_training(ops):
     return {"trained_" + k: v for k, v in launches.items()}
 
 
+# the feedback phase (18): the feedback plane and the quantization drill on
+# the card. The CPU side of each comparison runs in a process of its own
+# beside the card side, on half the machine's cores (TRAIN_CPU_THREADS).
+# |card - CPU| of the feedback drill's baseline / dip / recovered AUCs (the
+# served scores of two devices; the drill rounds them to 4 places)
+FEEDBACK_AUC_TOL = 1e-3
+# part (b): the TINY mega() stream of the promotion (8 batches, the swap
+# before batch 4 with batch 3 in flight) and the DistilBERT-base full() one
+# (4 batches, the swap before batch 2)
+PROMOTE_TXNS = {"TINY": 8 * BATCH, "DistilBERT-base": 4 * BATCH}
+PROMOTE_SWAP = {"TINY": 4, "DistilBERT-base": 2}
+# part (c): run-job --feedback --mega --quant at the run-job defaults
+FEEDBACK_JOB_TXNS = 20_000
+FEEDBACK_JOB_SEED = 42
+# part (e): the DistilBERT-base leg of the quantization drill
+QUANT_LEG_TXNS = 4 * BATCH
+
+# the CPU feedback drill at its defaults, in a process of its own: the full
+# summary, then the promoted trees and forest (host arrays) into argv[1]
+FEEDBACK_DRILL_CPU = """
+import json, sys, torch
+from realtime_fraud_detection_tpu_torch.feedback.drill import (
+    FeedbackDrillConfig, run_feedback_drill)
+summary, plane, job, scorer = run_feedback_drill(
+    FeedbackDrillConfig(device="cpu"), return_state=True)
+t, f = scorer.models.trees, scorer.models.iforest
+torch.save([t.feature, t.threshold, t.leaf, t.base_score,
+            f.feature, f.threshold, f.path_length, f.c_psi], sys.argv[1])
+print(json.dumps({"summary": summary, "events": list(plane.events)}))
+"""
+
+
+def _python_proc(code, *args, cpu=True):
+    """``python -c code args`` from the repository root, in a process of its
+    own (with ``cpu``, on ``TRAIN_CPU_THREADS`` threads)."""
+    import os
+    from pathlib import Path
+
+    env = dict(os.environ)
+    if cpu:
+        env.update(OMP_NUM_THREADS=TRAIN_CPU_THREADS, MKL_NUM_THREADS=TRAIN_CPU_THREADS)
+    return subprocess.Popen([sys.executable, "-c", code, *args],
+                            cwd=Path(__file__).resolve().parent, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _host_leaves(models):
+    t, f = models.trees, models.iforest
+    return [x.detach().cpu() for x in (t.feature, t.threshold, t.leaf, t.base_score,
+                                       f.feature, f.threshold, f.path_length, f.c_psi)]
+
+
+def check_feedback_drills(card, card_s, cpu, cpu_s, card_leaves, cpu_leaves):
+    """Part (a): the card's and the CPU's drill at their defaults. Both
+    pass; the host-only quantities and the score-driven ones equal; the
+    AUCs within ``FEEDBACK_AUC_TOL``; the promoted trees' arrays equal. A
+    difference in a trigger or a verdict names the virtual second (the
+    batch) where the two audit trails part."""
+    from realtime_fraud_detection_tpu_torch.feedback.drill import compact_drill_summary
+
+    if not (card["passed"] and cpu["passed"]):
+        fail(f"feedback drill: card {compact_drill_summary(card)}, CPU "
+             f"{compact_drill_summary(cpu)}")
+    keys = ("labeled_total", "label_join", "buffer", "incumbent", "retrain_triggered",
+            "trigger_reason", "gate_control_rejected", "gate_control_reason",
+            "blend_unchanged_on_reject", "promoted", "promoted_blend", "policy",
+            "events", "virtual_duration_s")
+    diff = [k for k in keys if card[k] != cpu[k]]
+    gate_keys = ("passed", "reason", "strategy", "holdout_n", "holdout_positives",
+                 "trained_on", "select_auc", "trigger_reason")
+    diff += [f"gate.{k}" for k in gate_keys if card["gate"][k] != cpu["gate"][k]]
+    if diff:
+        cpu_events = cpu["_events"]
+        first = next((i for i, (a, b) in enumerate(zip(card["_events"], cpu_events))
+                      if a.get("type") != b.get("type") or a.get("reason") != b.get("reason")
+                      or a.get("passed") != b.get("passed")), None)
+        where = (f"; the audit trails part at event {first}: card "
+                 f"{card['_events'][first]} vs CPU {cpu_events[first]} (virtual second "
+                 f"{card['_events'][first].get('ts')})" if first is not None else "")
+        fail(f"feedback drill: card and CPU differ in {diff}{where}")
+    aucs = {k: abs(card[k] - cpu[k]) for k in ("baseline_auc", "dip_auc", "recovered_auc")}
+    aucs.update({f"gate.{k}": abs(card["gate"][k] - cpu["gate"][k])
+                 for k in ("auc_as_served", "auc_candidate")})
+    if not all(v <= FEEDBACK_AUC_TOL for v in aucs.values()):
+        fail(f"feedback drill: AUC gaps card vs CPU {aucs} beyond {FEEDBACK_AUC_TOL}")
+    if not all(torch.equal(a, b) for a, b in zip(card_leaves, cpu_leaves)):
+        fail("feedback drill: the promoted trees / isolation forest differ card vs CPU")
+    print(f"feedback drill (defaults): card {card_s:.1f} s, CPU ({TRAIN_CPU_THREADS} "
+          f"threads, beside it) {cpu_s:.1f} s; both passed: baseline / dip / recovered "
+          f"AUC card {card['baseline_auc']} / {card['dip_auc']} / {card['recovered_auc']}, "
+          f"CPU {cpu['baseline_auc']} / {cpu['dip_auc']} / {cpu['recovered_auc']} "
+          f"(|diff| <= {FEEDBACK_AUC_TOL}); triggers {card['policy']['triggers']} "
+          f"(first {card['trigger_reason']}), gate fail / pass "
+          f"{card['policy']['gate_fail']} / {card['policy']['gate_pass']}, promotions "
+          f"{card['policy']['promotions']}, promoted blend "
+          f"{json.dumps(card['promoted_blend'])}; labels matched "
+          f"{card['label_join']['matched']} on both; join, buffer, events and the "
+          f"promoted trees' arrays equal", flush=True)
+
+
+def _promote_stream(records, profiles, bert_config, config, models, candidate=None,
+                    swap_at=None, ops=None, spy=None, tokens=None, promote_ms=None):
+    """``records`` through a depth-2 ``StreamJob`` on a fresh card scorer at
+    the fixed virtual clock. ``candidate`` is promoted with
+    ``promote_candidate`` before the first batch (``swap_at`` None) or right
+    before batch ``swap_at`` is dispatched, while batch ``swap_at - 1`` is
+    still in flight. ``spy``, a list, gets each batch's dispatch record
+    (``dispatch_spy`` over ``ops``), ``promote_ms`` the host ms of the
+    mid-stream promotion. Returns (predictions, scorer, config)."""
+    from realtime_fraud_detection_tpu_torch.feedback.plane import promote_candidate
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
+    from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
+
+    scorer = TorchFraudScorer(config, models=models, bert_config=bert_config,
+                              device="cuda")
+    scorer.seed_profiles(*profiles)
+    if tokens is not None:
+        token_spy(scorer, tokens)
+    if candidate is not None and swap_at is None:
+        promote_candidate(scorer, config, candidate)
+    broker = InMemoryBroker()
+    job = StreamJob(broker, scorer, JobConfig(max_batch=BATCH, pipeline_depth=2))
+    dispatched = [0]
+    dispatch = job.dispatch_batch
+
+    def dispatch_batch(batch, now=None):
+        if candidate is not None and dispatched[0] == swap_at:
+            t0 = time.perf_counter()
+            promote_candidate(scorer, config, candidate)
+            if promote_ms is not None:
+                promote_ms.append((time.perf_counter() - t0) * 1e3)
+        dispatched[0] += 1
+        return dispatch(batch, now=now)
+
+    job.dispatch_batch = dispatch_batch
+    if spy is not None:
+        dispatch_spy(scorer, ops, spy)
+    broker.produce_batch(T.TRANSACTIONS, records, key_fn=lambda r: str(r["user_id"]))
+    job.run_until_drained(now=STREAM_NOW)
+    return check_stream_output("promotion", job, broker, records), scorer, config
+
+
+def run_promotion(ops, name, bert_config, kernels, chain, cand, profiles, gen):
+    """Part (b) at one width: the drill's promoted candidate (trees, forest,
+    weights) pushed by ``promote_candidate`` into a live kernel scorer
+    mid-stream, with two batches in flight, at the candidate's strategy
+    and once more at the other one. Every batch launched before the swap
+    equals a kernels-off card scorer holding the incumbent set, every batch
+    after it one holding the promoted set (the drill's bound, decisions off
+    a rung); each batch launches ``chain`` (or the megakernel once); a
+    gate-rejected candidate leaves the scorer's fingerprint bit-identical.
+    Returns the launch counts of the live streams."""
+    from realtime_fraud_detection_tpu_torch.feedback.drill import (
+        _blend_fingerprint,
+        _fingerprints_equal,
+    )
+    from realtime_fraud_detection_tpu_torch.feedback.plane import FeedbackPlane
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        FeedbackSettings,
+        QuantSettings,
+    )
+
+    mega = kernels.megakernel == "cuda"
+    records = gen.generate_batch(PROMOTE_TXNS[name])
+    swap = PROMOTE_SWAP[name]
+    models = seeded_models(bert_config)
+    quant = QuantSettings.full()
+    tokens = []
+    t0 = time.perf_counter()
+    ref_inc, ref_scorer, _ = _promote_stream(records, profiles, bert_config,
+                                             Config(quant=quant), models, tokens=tokens)
+    inc_bound = noise_bound(ref_scorer.models, bert_config, tokens,
+                            ref_scorer.ensemble_params.weights)
+    strategies = [cand["strategy"]] + [s for s in ("stacking", "weighted_average")
+                                       if s != cand["strategy"]][:1]
+    launches = {k: 0 for k in ops.launch_counts()}
+    lines = []
+    for strategy in strategies:
+        c = dict(cand, strategy=strategy)
+        ref_pro, pro_scorer, _ = _promote_stream(records, profiles, bert_config,
+                                                 Config(quant=quant), models, candidate=c)
+        pro_bound = noise_bound(pro_scorer.models, bert_config, tokens,
+                                pro_scorer.ensemble_params.weights,
+                                valid=pro_scorer.model_valid)
+        spy, promote_ms = [], []
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        live, scorer, config = _promote_stream(
+            records, profiles, bert_config, Config(quant=quant, kernels=kernels),
+            models, candidate=c, swap_at=swap, ops=ops, spy=spy, promote_ms=promote_ms)
+        torch.cuda.synchronize()
+        for k, v in ops.launch_counts().items():
+            launches[k] += v
+        pre_ids = {r["transaction_id"] for b in spy[:swap] for r in b["records"]}
+        if len({b["models"] for b in spy[:swap]}) != 1 or \
+                len({b["models"] for b in spy[swap:]}) != 1 or \
+                spy[0]["models"] == spy[swap]["models"]:
+            fail(f"{name} promotion: the batches' model sets "
+                 f"{[b['models'] for b in spy]} do not change once, before batch {swap}")
+        want = {"megakernel": 1} if mega else chain
+        for i, b in enumerate(spy):
+            if b["launches"] != want or b["kernel_launches"] != sum(want.values()) \
+                    or b["mega_fallback"]:
+                fail(f"{name} promotion ({strategy}): batch {i} launched "
+                     f"{b['launches']} (snapshot {b['kernel_launches']}, fallback "
+                     f"{b['mega_fallback']})")
+        if config.ensemble.strategy != strategy or \
+                scorer.ensemble_params.strategy != ("weighted_average", "voting",
+                                                    "stacking").index(strategy):
+            fail(f"{name} promotion: the scorer serves {config.ensemble.strategy}")
+        if mega and scorer.kernel_static(BATCH)["mega_valid"] != tuple(
+                bool(v) for v in scorer.model_valid):
+            fail(f"{name} promotion: mega_valid does not follow the promoted validity")
+        def split(preds, pre):
+            return [p for p in preds if (p["transaction_id"] in pre_ids) == pre]
+
+        err_pre = compare_streams(f"{name} promotion ({strategy}), before the swap",
+                                  split(live, True), split(ref_inc, True), inc_bound,
+                                  "the incumbent's kernels-off scorer")
+        err_post = compare_streams(f"{name} promotion ({strategy}), after the swap",
+                                   split(live, False), split(ref_pro, False), pro_bound,
+                                   "the promoted set's kernels-off scorer")
+        moved = max(abs(a["fraud_score"] - b["fraud_score"])
+                    for a, b in zip(split(live, False), split(ref_inc, False)))
+        if not moved > pro_bound:
+            fail(f"{name} promotion: the promoted batches score as the incumbent "
+                 f"(max move {moved})")
+        # a gate-rejected candidate changes nothing on the live card scorer
+        before = _blend_fingerprint(scorer, config)
+        plane = FeedbackPlane(FeedbackSettings(enabled=True), scorer=scorer,
+                              config=config)
+        y = (torch.arange(64) % 4 == 0).double().numpy()
+        verdict = plane.submit_candidate(dict(c, holdout={
+            "y": y, "as_served": y, "candidate": 1.0 - y, "n": 64}), now=0.0)
+        if verdict["passed"] or not _fingerprints_equal(
+                before, _blend_fingerprint(scorer, config)):
+            fail(f"{name} promotion: a rejected candidate changed the blend ({verdict})")
+        lines.append(f"{strategy}: promotion {promote_ms[0]:.2f} ms on the host, "
+                     f"before the swap max err {err_pre:.3e} (bound "
+                     f"{inc_bound:.3e}), after {err_post:.3e} (bound {pro_bound:.3e}), "
+                     f"scores moved up to {moved:.3f} by the swap")
+    print(f"{name} promotion under {'mega()' if mega else 'full()'} ({len(records)} "
+          f"txns, swap before batch {swap} with batch {swap - 1} in flight, "
+          f"{time.perf_counter() - t0:.1f} s): every batch launched "
+          f"{'the megakernel once' if mega else json.dumps(chain)}; "
+          + "; ".join(lines) + "; a gate-rejected candidate left the card "
+          "scorer's fingerprint bit-identical", flush=True)
+    return launches
+
+
+def _preds_file(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def plane_breakdown(argv):
+    """``run-job`` through the command's entry point in this process, with
+    the feedback plane's four host entries timed (class-level wrappers):
+    returns the summary and the seconds in each."""
+    import contextlib
+    import io
+
+    from realtime_fraud_detection_tpu_torch.__main__ import main
+    from realtime_fraud_detection_tpu_torch.feedback.plane import FeedbackPlane
+
+    spent = {name: 0.0 for name in ("on_predictions", "on_labels", "check_trigger",
+                                    "react")}
+    saved = {name: getattr(FeedbackPlane, name) for name in spent}
+
+    def timed(name, fn):
+        def wrapper(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return wrapper
+
+    for name in spent:
+        setattr(FeedbackPlane, name, timed(name, saved[name]))
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+    finally:
+        for name, fn in saved.items():
+            setattr(FeedbackPlane, name, fn)
+    if rc != 0:
+        fail(f"run-job in process: exit {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), spent
+
+
+def run_feedback_job(ops, tmp):
+    """Part (c): ``run-job --feedback --mega --quant`` as a command on the
+    card, the same without ``--feedback``, the first once more through the
+    command's entry point in this process with the plane's host entries
+    timed, and the first with ``--device cpu`` (started last, finished by
+    ``finish``). Returns ``finish`` and the CPU process."""
+    from pathlib import Path
+
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.utils.config import Config, QuantSettings
+
+    base = ["run-job", "--count", str(FEEDBACK_JOB_TXNS), "--mega", "--quant"]
+    out = {k: str(Path(tmp) / f"{k}.jsonl") for k in ("card", "plain", "cpu")}
+    runs = {}
+    for key, args in (("card", base + ["--feedback"]), ("plain", base)):
+        t0 = time.perf_counter()
+        stdout, _, _ = _finish(f"run-job ({key})", _port_proc(
+            args + ["--predictions-out", out[key]]))
+        runs[key] = (json.loads(stdout.strip().splitlines()[-1]),
+                     time.perf_counter() - t0)
+    inproc, spent = plane_breakdown(base + ["--feedback"])
+    cpu = _port_proc(base + ["--feedback", "--device", "cpu",
+                             "--predictions-out", out["cpu"]], cpu=True)
+
+    # the drill's bound for the run-job scorer (seed 42, int8 TINY, the
+    # default blend) on the stream's first four batches
+    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                               seed=FEEDBACK_JOB_SEED, tps=1000.0)
+    scorer = TorchFraudScorer(Config(quant=QuantSettings.full()), seed=FEEDBACK_JOB_SEED,
+                              device="cuda")
+    scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+    recs = gen.generate_batch(4 * BATCH)
+    tokens = []
+    for i in range(0, len(recs), BATCH):
+        b = scorer.assemble(recs[i:i + BATCH])
+        tokens.append((b.token_ids, b.token_mask))
+    tol = noise_bound(scorer.models, TINY_CONFIG, tokens, scorer.ensemble_params.weights)
+
+    def finish():
+        t0 = time.perf_counter()
+        stdout, _, waited = _finish("run-job (cpu)", cpu)
+        ref = json.loads(stdout.strip().splitlines()[-1])
+        card, card_s = runs["card"]
+        plain, plain_s = runs["plain"]
+        fb, ref_fb = card["feedback"], ref["feedback"]
+        policy_keys = ("triggers", "gate_pass", "gate_fail", "promotions")
+        if (fb["labels_matched"], fb["buffer"]) != (ref_fb["labels_matched"],
+                                                    ref_fb["buffer"]) or \
+                any(fb["policy"][k] != ref_fb["policy"][k] for k in policy_keys) or \
+                card["scored"] != ref["scored"] or card["counters"]["errors"]:
+            fail(f"run-job --feedback: card {fb} vs CPU {ref_fb}")
+        disp = card["kernels"]["dispatch"]
+        if card["kernels"]["fallback"]["megakernel"] or not disp["megakernel"]:
+            fail(f"run-job --feedback: kernel snapshot {card['kernels']}")
+        err = compare_streams("run-job --feedback", _preds_file(out["card"]),
+                              _preds_file(out["cpu"]), tol, "the CPU command")
+        us = (1.0 / card["txn_per_s"] - 1.0 / plain["txn_per_s"]) * 1e6
+        n = inproc["scored"]
+        steady = sum(v for k, v in spent.items() if k != "react")
+        if inproc["feedback"]["policy"] != {**fb["policy"], "last_trigger_ts": inproc[
+                "feedback"]["policy"]["last_trigger_ts"]}:
+            fail(f"run-job in process: policy {inproc['feedback']['policy']} vs the "
+                 f"command's {fb['policy']}")
+        print(f"run-job --feedback in this process ({inproc['txn_per_s']} txn/s): the "
+              f"plane's host seconds " + json.dumps({k: round(v, 3) for k, v in
+                                                     spent.items()})
+              + f": {steady / n * 1e6:.2f} us a transaction without the retrain "
+              f"(react: retrain, gate and promotion, {spent['react']:.2f} s)",
+              flush=True)
+        print(f"run-job --feedback --mega --quant ({FEEDBACK_JOB_TXNS} txns): card "
+              f"{card['txn_per_s']} txn/s ({card_s:.1f} s command), without the plane "
+              f"{plain['txn_per_s']} txn/s ({plain_s:.1f} s): the plane's host cost "
+              f"{us:.2f} us a transaction; megakernel dispatches {disp['megakernel']}, "
+              f"fallbacks 0; labels matched {fb['labels_matched']}, buffer {fb['buffer']}, "
+              f"policy {json.dumps({k: fb['policy'][k] for k in policy_keys})} on the card "
+              f"and the CPU (CPU {ref['txn_per_s']} txn/s, waited {waited:.1f} s); "
+              f"retrain fired: {fb['policy']['triggers'] > 0}; sliding prequential "
+              f"AUC card {fb['prequential_sliding']['auc']}, CPU "
+              f"{ref_fb['prequential_sliding']['auc']}; fraud_score max err {err:.3e}",
+              flush=True)
+    return finish, cpu
+
+
+def run_feedback_serving(ops, chain, profiles, gen):
+    """Part (d): an in-process ``ServingApp`` at DistilBERT-base under
+    ``full()`` with the feedback plane on: 256 ``/predict`` from 64 clients
+    (each batch the chain), their label events on ``POST /labels``, ``GET
+    /quality/live``, the ``prequential_*`` / ``feedback_*`` families on
+    ``/metrics/prometheus``; ``/labels`` answers 409 with the plane off and
+    400 on a malformed body. Returns the load's launch counts."""
+    import http.client
+
+    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE
+    from realtime_fraud_detection_tpu_torch.utils.config import KernelSettings
+
+    load = gen.generate_batch(BATCH)
+    app = serving_app(seeded_models(DISTILBERT_BASE), DISTILBERT_BASE,
+                      KernelSettings.full(), "cuda", profiles, feedback=True)
+    batches = []
+    dispatch_spy(app.scorer, ops, batches)
+    t0 = time.perf_counter()
+    with AppThread(app) as srv:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        result = run_load_process(app.port, load)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        check_batches("feedback serving", batches, False, chain)
+        events = gen.label_events(load, delay_scale=1e-4)
+        status, out = srv.request("POST", "/labels", events)
+        if status != 200 or out["matched"] != BATCH or out["ingested"] != BATCH:
+            fail(f"feedback serving: POST /labels {status} {out}")
+        status, quality = srv.request("GET", "/quality/live")
+        pre = quality.get("prequential", {})
+        if status != 200 or pre.get("labeled_total") != BATCH or \
+                quality["buffer"]["size"] != BATCH or quality["enabled"] is not True:
+            fail(f"feedback serving: GET /quality/live {status} {str(quality)[:500]}")
+        status, prom = srv.request("GET", "/metrics/prometheus")
+        families = sorted({ln.split()[2] for ln in prom.splitlines()
+                           if ln.startswith("# TYPE ")
+                           and ln.split()[2].startswith(("prequential_", "feedback_"))})
+        if status != 200 or len(families) != 10 or prom_value(
+                prom, 'feedback_labels_total{outcome="matched"}') != BATCH:
+            fail(f"feedback serving: /metrics/prometheus families {families}")
+        app.config.feedback.enabled = False
+        status_off, _ = srv.request("POST", "/labels", events[:1])
+        app.config.feedback.enabled = True
+        conn = http.client.HTTPConnection("127.0.0.1", app.port, timeout=60)
+        conn.request("POST", "/labels", body="{not json",
+                     headers={"Content-Type": "application/json"})
+        status_bad = conn.getresponse().status
+        conn.close()
+        if (status_off, status_bad) != (409, 400):
+            fail(f"feedback serving: /labels answered {status_off} with the plane off "
+                 f"and {status_bad} on a malformed body")
+    summary = load_summary(result, batches)
+    print(f"feedback serving (DistilBERT-base full(), {time.perf_counter() - t0:.1f} s): "
+          f"{BATCH} /predict from {SERVE_CLIENTS} clients at {summary['txn_per_s']:.1f} "
+          f"txn/s, p50 / p99 {summary['p50_ms']:.1f} / {summary['p99_ms']:.1f} ms, "
+          f"{summary['batches']} batches each {json.dumps(chain)}; POST /labels matched "
+          f"{out['matched']}; /quality/live sliding "
+          f"{json.dumps(pre['sliding'])}; families {families}; /labels 409 off, 400 "
+          f"malformed", flush=True)
+    return launches
+
+
+def check_quant_drill(card, card_s, cpu, cpu_s):
+    """Part (e): the quantization drill at its defaults on the card (its own
+    replay is the second card run) beside the CPU port run."""
+    c = card["checks"]
+    div = card["divergence"]
+    if not (card["passed"] and c["divergence_below_noise"] and div["decision_flips"] == 0
+            and card["quality"]["auc_delta"] <= 2e-3 and c["gemm_leaves_identical"]
+            and card["param_bytes"]["ratio"] >= 3.5 and c["replay_bit_identical"]):
+        fail(f"quant drill (card): {json.dumps(card['checks'])}")
+    if not cpu["passed"]:
+        fail(f"quant drill (CPU): {json.dumps(cpu['checks'])}")
+
+    def line(s):
+        return (f"divergence {s['divergence']['max']:.3e} (bound "
+                f"{s['divergence']['noise_floor']['bound']:.3e}), flips "
+                f"{s['divergence']['decision_flips']}, AUC f32 / int8 "
+                f"{s['quality']['auc_f32']} / {s['quality']['auc_quant']} (delta "
+                f"{s['quality']['auc_delta']}), max GEMM logit delta "
+                f"{s['tree_oracle']['max_logit_delta']:.3e}, bytes ratio "
+                f"{s['param_bytes']['ratio']}, digest {s['digest'][:16]}"
+                + (f" (replay bit-identical: {s['replay']['bit_identical']})"
+                   if "replay" in s else ""))
+    print(f"quant drill (defaults): card {card_s:.1f} s: {line(card)}; CPU port run "
+          f"({cpu_s:.1f} s): {line(cpu)}", flush=True)
+
+
+def run_quant_leg(ops, profiles, gen):
+    """Part (e)'s DistilBERT-base leg: ``QUANT_LEG_TXNS`` seeded stream
+    transactions through an f32-BERT card scorer (``QuantSettings()``,
+    kernels off: the yardstick) and an int8-BERT one (``QuantSettings.full()``
+    with ``KernelSettings.full()``, 1 / 6 / 36 / 2 launches a batch). Prints
+    the divergence against the noise bound of that width and the decision
+    flips. Returns the int8 side's launch counts."""
+    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    records = gen.generate_batch(QUANT_LEG_TXNS)
+    n_batches = QUANT_LEG_TXNS // BATCH
+    t0 = time.perf_counter()
+    tokens = []
+    f32_job, f32_broker, f32_scorer, _ = drive_stream(
+        records, profiles, DISTILBERT_BASE, Config(quant=QuantSettings()), "cuda",
+        tokens=tokens)
+    f32 = check_stream_output("quant leg f32", f32_job, f32_broker, records)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    q_job, q_broker, _, _ = drive_stream(
+        records, profiles, DISTILBERT_BASE,
+        Config(quant=QuantSettings.full(), kernels=KernelSettings.full()), "cuda")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {"epilogue": 1, "flash_attention": DISTILBERT_BASE.num_layers,
+            "dequant_matmul": 6 * DISTILBERT_BASE.num_layers, "dequant_rows": 2,
+            "megakernel": 0}
+    if launches != {k: v * n_batches for k, v in want.items()}:
+        fail(f"quant leg: launches {launches}")
+    q = check_stream_output("quant leg int8", q_job, q_broker, records)
+    bound = noise_bound(f32_scorer.models, DISTILBERT_BASE, tokens,
+                        f32_scorer.ensemble_params.weights)
+    div = [abs(a["fraud_score"] - b["fraud_score"]) for a, b in zip(q, f32)]
+    flips = sum(a["decision"] != b["decision"] for a, b in zip(q, f32))
+    div.sort()
+    print(f"quant drill, DistilBERT-base leg ({QUANT_LEG_TXNS} txns, "
+          f"{time.perf_counter() - t0:.1f} s): int8 BERT under full() against f32 BERT "
+          f"kernels off: max divergence {div[-1]:.3e}, p99 "
+          f"{div[int(0.99 * (len(div) - 1))]:.3e} against the bf16 noise bound "
+          f"{bound:.3e} of this width ({'under' if div[-1] <= bound else 'over'} it), "
+          f"decision flips {flips}; int8 launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
+def run_feedback(ops):
+    """Phase 18: the feedback plane and the quantization drill on the card
+    (see the module docstring). Returns the launches of its in-process
+    streams by path."""
+    import tempfile
+    from pathlib import Path
+
+    from realtime_fraud_detection_tpu_torch.feedback import policy
+    from realtime_fraud_detection_tpu_torch.feedback.drill import (
+        FeedbackDrillConfig,
+        run_feedback_drill,
+    )
+    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE, TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.utils.config import KernelSettings
+
+    chain = {"epilogue": 1, "flash_attention": DISTILBERT_BASE.num_layers,
+             "dequant_matmul": 6 * DISTILBERT_BASE.num_layers, "dequant_rows": 2}
+    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                               seed=SEED + 41)
+    profiles = (gen.users.profiles(), gen.merchants.profiles())
+    procs, seconds, out = [], {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            # (a) the feedback drill at its defaults, the CPU beside the card
+            t0 = time.perf_counter()
+            saved = str(Path(tmp) / "cpu_drill.pt")
+            cpu_drill = _python_proc(FEEDBACK_DRILL_CPU, saved)
+            procs.append(cpu_drill)
+            retrain, retrain_s = policy.Retrainer.retrain, []
+
+            def timed_retrain(self, *args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return retrain(self, *args, **kwargs)
+                finally:
+                    retrain_s.append(round(time.perf_counter() - t, 3))
+
+            policy.Retrainer.retrain = timed_retrain
+            try:
+                card, plane, _, scorer = run_feedback_drill(
+                    FeedbackDrillConfig(device="cuda"), return_state=True)
+            finally:
+                policy.Retrainer.retrain = retrain
+            card_s = time.perf_counter() - t0
+            print(f"feedback drill (card): the retrains took {retrain_s} s on the host "
+                  f"(the permuted-label control, then the genuine candidate)", flush=True)
+            card["_events"] = list(plane.events)
+            weights = {n: mc.weight for n, mc in plane.config.models.items() if mc.enabled}
+            cand = {"trees": scorer.models.trees.to("cpu"),
+                    "iforest": scorer.models.iforest.to("cpu"),
+                    "weights": weights, "strategy": plane.config.ensemble.strategy}
+            card_leaves = _host_leaves(scorer.models)
+            seconds["a_card"] = round(card_s, 1)
+
+            # (b) the promoted candidate into live kernel scorers
+            t1 = time.perf_counter()
+            out["promote_tiny"] = run_promotion(
+                ops, "TINY", TINY_CONFIG, KernelSettings.mega(), chain, cand, profiles, gen)
+            out["promote_distilbert_base"] = run_promotion(
+                ops, "DistilBERT-base", DISTILBERT_BASE, KernelSettings.full(), chain,
+                cand, profiles, gen)
+            seconds["b"] = round(time.perf_counter() - t1, 1)
+
+            t_wait = time.perf_counter()
+            stdout, _, _ = _finish("feedback drill (cpu)", cpu_drill)
+            cpu_s = time.perf_counter() - t0
+            cpu_out = json.loads(stdout.strip().splitlines()[-1])
+            cpu = dict(cpu_out["summary"], _events=cpu_out["events"])
+            check_feedback_drills(card, card_s, cpu, cpu_s, card_leaves, torch.load(saved))
+            seconds["a_cpu_wait"] = round(time.perf_counter() - t_wait, 1)
+
+            # (c) run-job --feedback as a command; its CPU run and the CPU
+            # quant drill then run beside (d) and (e)
+            t2 = time.perf_counter()
+            finish_job, cpu_job = run_feedback_job(ops, tmp)
+            procs.append(cpu_job)
+            seconds["c_card"] = round(time.perf_counter() - t2, 1)
+            t_qcpu = time.perf_counter()
+            cpu_quant = _port_proc(["quant-drill", "--no-replay", "--device", "cpu"],
+                                   cpu=True)
+            procs.append(cpu_quant)
+
+            # (d) the serving app with the plane on
+            t3 = time.perf_counter()
+            out["feedback_serving"] = run_feedback_serving(ops, chain, profiles, gen)
+            seconds["d"] = round(time.perf_counter() - t3, 1)
+
+            # (e) the quantization drill at its defaults as a command on the
+            # card (its replay the second card run), then the DistilBERT leg
+            t4 = time.perf_counter()
+            stdout, _, _ = _finish("quant-drill (card)", _port_proc(["quant-drill"]))
+            card_q = json.loads(stdout.strip().splitlines()[-2])
+            card_q_s = time.perf_counter() - t4
+            out["quant_leg_distilbert_base"] = run_quant_leg(ops, profiles, gen)
+            stdout, _, _ = _finish("quant-drill (cpu)", cpu_quant)
+            check_quant_drill(card_q, card_q_s, json.loads(stdout.strip().splitlines()[-2]),
+                              time.perf_counter() - t_qcpu)
+            seconds["e"] = round(time.perf_counter() - t4, 1)
+            t5 = time.perf_counter()
+            finish_job()
+            seconds["c_cpu_wait"] = round(time.perf_counter() - t5, 1)
+        finally:
+            _kill(procs)
+    print(f"feedback phase seconds by part: {json.dumps(seconds)}", flush=True)
+    return out
+
+
 def run_drills() -> dict:
     """The port's kernel drill (``KernelDrillConfig.fast()``) on the card,
     once on the per-site chain and once on the megakernel; a verdict that is
@@ -4097,6 +4752,8 @@ def main() -> int:
     lap("16")
     stream.update(run_training(ops))
     lap("17")
+    stream.update(run_feedback(ops))
+    lap("18")
     print(f"seconds by phase: {json.dumps(seconds)}", flush=True)
     for e in entries:
         e["stream_launches"] = {k: v[e["name"]] for k, v in stream.items()}

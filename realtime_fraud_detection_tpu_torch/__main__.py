@@ -1,7 +1,9 @@
 """Command-line entry point of the port.
 
-    python -m realtime_fraud_detection_tpu_torch run-job --count 10000 --mega [--overlap-assembly] [--qos] [--trace] [--autotune]
+    python -m realtime_fraud_detection_tpu_torch run-job --count 10000 --mega [--overlap-assembly] [--qos] [--trace] [--autotune] [--feedback]
     python -m realtime_fraud_detection_tpu_torch kernel-drill --fast [--mega]
+    python -m realtime_fraud_detection_tpu_torch feedback-drill [--fast]
+    python -m realtime_fraud_detection_tpu_torch quant-drill [--fast] [--no-replay]
     python -m realtime_fraud_detection_tpu_torch qos-drill
     python -m realtime_fraud_detection_tpu_torch trace-drill [--fast]
     python -m realtime_fraud_detection_tpu_torch autotune-drill [--fast]
@@ -26,9 +28,14 @@ the degradation ladder) runs in the job; with ``--trace`` the tracing plane
 window, the trace counters); with ``--autotune`` the tuning plane, its
 deadline bound clamped to the QoS budget under ``--qos`` (the ``autotune``
 block: the controller's decisions, the tuned max-wait, the tuner's counters,
-the close reasons). It runs on the CUDA card unless ``--device cpu`` is
-given, and fails without a card. The last line of standard output is a JSON
-summary.
+the close reasons); with ``--feedback`` the feedback plane (the command
+also plays the label producer: each chunk's delayed label events, their
+delays scaled by ``--feedback-delay-scale``, go onto the labels topic; the
+``feedback`` block: the sliding prequential window, the labels matched, the
+buffer's size and the policy's counters); ``--predictions-out`` writes every
+prediction the job emitted as a JSON line. It runs on the CUDA card unless
+``--device cpu`` is given, and fails without a card. The last line of
+standard output is a JSON summary.
 
 ``kernel-drill`` is the port of the JAX package's ``rtfd kernel-drill``
 (``scoring/kernel_drill.py``): two seeded scorers on the quantized plane,
@@ -38,6 +45,16 @@ at every QoS rung, each kernel against its plain version, honest dispatch
 counts and a bit-identical replay. It prints the full summary, then the
 compact verdict as the last line, and exits 1 unless every check passed.
 It runs on the card (``--device cpu`` runs both sides' plain versions).
+
+``feedback-drill`` and ``quant-drill`` are the ports of the JAX package's
+drills of the same names (``feedback/drill.py``, ``scoring/quant_drill.py``):
+the closed continuous-learning loop on a virtual clock (drift, the
+prequential dip, the retrain trigger, the gate's negative control, the
+promotion, the recovery), and the f32 plane against the quantized one
+(divergence under the bf16 noise bound, no decision flip, the AUC, the
+GEMM-form leaves, the bytes, a replay digest). Each prints the full summary,
+then the compact verdict as the last line, and exits 1 unless it passed. They
+run on the card unless ``--device cpu``.
 
 ``qos-drill`` is the port of ``rtfd qos-drill`` (``qos/drill.py``): offered
 load at ``--multiplier`` x the sustainable rate through the port's stream
@@ -111,6 +128,7 @@ def cmd_run_job(args: argparse.Namespace) -> int:
     from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
     from realtime_fraud_detection_tpu_torch.utils.config import (
         Config,
+        FeedbackSettings,
         KernelSettings,
         QosSettings,
         QuantSettings,
@@ -141,23 +159,48 @@ def cmd_run_job(args: argparse.Namespace) -> int:
         # the QoS floor: with --qos the tuner's deadline search space is
         # clamped to the budget's assembly slice, then validated
         tuning.clamp_to_qos(qos)
+    feedback = None
+    if args.feedback:
+        from realtime_fraud_detection_tpu_torch.feedback import FeedbackPlane
+        from realtime_fraud_detection_tpu_torch.obs.drift import (
+            DriftConfig,
+            FeatureDriftMonitor,
+        )
+
+        feedback = FeedbackPlane(
+            FeedbackSettings(enabled=True,
+                             label_delay_scale=args.feedback_delay_scale),
+            scorer=scorer, config=scorer.config,
+            drift_monitor=FeatureDriftMonitor(
+                DriftConfig(num_features=scorer.sc.feature_dim)))
     job = StreamJob(broker, scorer, JobConfig(
         max_batch=args.batch, pipeline_depth=args.pipeline_depth,
         overlap_assembly=args.overlap_assembly, qos=qos, tracing=tracing,
-        autotune=tuning))
+        autotune=tuning, feedback=feedback))
 
     t0 = time.perf_counter()
     produced = scored = 0
     try:
         while produced < args.count:
             chunk = min(args.count - produced, 10_000)
-            broker.produce_batch(T.TRANSACTIONS, gen.generate_batch(chunk),
+            records = gen.generate_batch(chunk)
+            broker.produce_batch(T.TRANSACTIONS, records,
                                  key_fn=lambda r: str(r["user_id"]))
+            if feedback is not None:
+                # the label producer: the chunk's delayed ground truth
+                broker.produce_batch(
+                    T.LABELS, gen.label_events(
+                        records, delay_scale=args.feedback_delay_scale),
+                    key_fn=lambda e: str(e["transaction_id"]))
             produced += chunk
             scored += job.run_until_drained()
     finally:
         job.close()
     dt = time.perf_counter() - t0
+    if args.predictions_out:
+        with open(args.predictions_out, "w") as f:
+            for rec in broker.consumer([T.PREDICTIONS], "predictions-out").poll(1 << 30):
+                f.write(json.dumps(rec.value) + "\n")
     stages = {name: round(st["mean_ms"], 4)
               for name, st in scorer.host_stats()["stages"].items()}
     print(json.dumps({
@@ -170,8 +213,20 @@ def cmd_run_job(args: argparse.Namespace) -> int:
         "qos": job.qos.snapshot() if job.qos is not None else None,
         "tracing": _tracing_block(job),
         "autotune": _autotune_block(job),
+        "feedback": _feedback_block(feedback),
     }))
     return 0 if job.counters["errors"] == 0 else 1
+
+
+def _feedback_block(plane) -> Optional[dict]:
+    """The ``feedback`` block of the JAX ``rtfd run-job`` summary."""
+    if plane is None:
+        return None
+    snap = plane.snapshot()
+    return {"prequential_sliding": snap["prequential"]["sliding"],
+            "labels_matched": snap["label_join"]["matched"],
+            "buffer": snap["buffer"]["size"],
+            "policy": snap["policy"]}
 
 
 def _tracing_block(job) -> Optional[dict]:
@@ -211,6 +266,48 @@ def cmd_kernel_drill(args: argparse.Namespace) -> int:
     summary = run_kernel_drill(cfg)
     print(json.dumps(summary, default=str))
     print(json.dumps(compact_kernel_summary(summary), default=str))
+    return 0 if summary["passed"] else 1
+
+
+def cmd_feedback_drill(args: argparse.Namespace) -> int:
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.feedback.drill import (
+        FeedbackDrillConfig,
+        compact_drill_summary,
+        run_feedback_drill,
+    )
+
+    if _no_card("feedback-drill", args.device):
+        return 2
+    cfg = FeedbackDrillConfig.fast() if args.fast else FeedbackDrillConfig()
+    cfg = dataclasses.replace(cfg, seed=args.seed, drift_rate=args.drift_rate,
+                              device=args.device)
+    summary = run_feedback_drill(cfg)
+    print(json.dumps(summary), flush=True)
+    print(json.dumps(compact_drill_summary(summary), separators=(",", ":")),
+          flush=True)
+    return 0 if summary["passed"] else 1
+
+
+def cmd_quant_drill(args: argparse.Namespace) -> int:
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.scoring.quant_drill import (
+        QuantDrillConfig,
+        compact_quant_summary,
+        run_quant_drill,
+    )
+
+    if _no_card("quant-drill", args.device):
+        return 2
+    cfg = QuantDrillConfig.fast() if args.fast else QuantDrillConfig()
+    cfg = dataclasses.replace(cfg, seed=args.seed, replay=not args.no_replay,
+                              device=args.device)
+    summary = run_quant_drill(cfg)
+    print(json.dumps(summary), flush=True)
+    print(json.dumps(compact_quant_summary(summary), separators=(",", ":")),
+          flush=True)
     return 0 if summary["passed"] else 1
 
 
@@ -679,6 +776,15 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--autotune", action="store_true",
                     help="enable the tuning plane (the just-in-time batch "
                          "closer and the online tuner)")
+    sp.add_argument("--feedback", action="store_true",
+                    help="enable the feedback plane: delayed labels -> "
+                         "prequential metrics -> drift-gated retrain and "
+                         "promotion (feedback/)")
+    sp.add_argument("--feedback-delay-scale", type=float, default=1e-4,
+                    help="compresses the chargeback label-delay distribution "
+                         "(1.0 = realistic days)")
+    sp.add_argument("--predictions-out", default="",
+                    help="write the emitted predictions here, one JSON line each")
     sp.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
@@ -694,6 +800,31 @@ def build_parser() -> argparse.ArgumentParser:
     kd.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain versions)")
     kd.set_defaults(fn=cmd_kernel_drill)
+    fd = sub.add_parser("feedback-drill",
+                        help="deterministic closed-loop continuous-learning "
+                             "drill (virtual clock, real retraining)")
+    fd.add_argument("--fast", action="store_true",
+                    help="the CPU test sizes (FeedbackDrillConfig.fast())")
+    fd.add_argument("--seed", type=int, default=5)
+    fd.add_argument("--drift-rate", type=float, default=0.08,
+                    help="share of the stream turned into the drifted fraud "
+                         "pattern")
+    fd.add_argument("--device", default="cuda",
+                    help="torch device (default cuda)")
+    fd.set_defaults(fn=cmd_feedback_drill)
+    qz = sub.add_parser("quant-drill",
+                        help="deterministic quantization drill: int8 BERT + "
+                             "GEMM-form trees against the f32 plane under the "
+                             "bf16 noise bound, no decision flip, the AUC, "
+                             "a bit-identical replay")
+    qz.add_argument("--fast", action="store_true",
+                    help="the CPU test sizes (QuantDrillConfig.fast())")
+    qz.add_argument("--seed", type=int, default=11)
+    qz.add_argument("--no-replay", action="store_true",
+                    help="skip the second run (the replay gate is waived)")
+    qz.add_argument("--device", default="cuda",
+                    help="torch device (default cuda)")
+    qz.set_defaults(fn=cmd_quant_drill)
     qd = sub.add_parser("qos-drill",
                         help="deterministic QoS overload drill (virtual clock, "
                              "the port's stream path; the scorer is a "

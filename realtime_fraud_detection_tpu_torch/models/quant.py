@@ -91,3 +91,16 @@ def bert_param_bytes(params: Any) -> int:
         return sum(bert_param_bytes(v) for v in params)
     nbytes = getattr(params, "nbytes", None)      # a tensor or an array
     return int(nbytes if nbytes is not None else np.asarray(params).nbytes)
+
+
+def quant_error_bound(params: Dict[str, Any]) -> float:
+    """The largest absolute weight reconstruction error over the quantized
+    leaves: half a step of the widest per-channel scale (0.0 for f32
+    weights). A reported sanity number, not a gate."""
+    if not is_quantized_bert(params):
+        return 0.0
+    scales = [params["word_emb"]["scale"], params["pos_emb"]["scale"]]
+    for layer in params["layers"]:
+        scales.extend(layer[key]["scale"]
+                      for key in ("q", "k", "v", "o", "ffn1", "ffn2"))
+    return 0.5 * max(float(np.max(_host(s))) for s in scales)

@@ -12,12 +12,13 @@ Port of the JAX package's ``obs/metrics.py``: a small registry of its own
   caches and stage times (``sync_host_stats``), the tracing plane's
   ``trace_*`` (``sync_tracing``), the tuning plane's ``autotune_*``
   (``sync_autotune``), the quantized plane's ``quant_*`` (``sync_quant``),
-  the kernel plane (``sync_kernels``) and the entity graph (``sync_graph``), each
-  mirrored from a snapshot at exposition time as counter deltas against the
-  values last seen.
+  the kernel plane (``sync_kernels``), the entity graph (``sync_graph``) and
+  the feedback plane's ``prequential_*`` / ``feedback_*``
+  (``sync_feedback``), each mirrored from a snapshot at exposition time as
+  counter deltas against the values last seen.
 
-The families of planes the port does not have (feedback,
-chaos, mesh, device pool, cluster, autoscale, network faults, graph fetch)
+The families of planes the port does not have (chaos, mesh, device pool,
+cluster, autoscale, network faults, graph fetch)
 are not ported, nor ``kernel_interpret_active``: the port has no kernel
 interpreter (a CPU tensor runs the plain version).
 """
@@ -389,6 +390,46 @@ class MetricsCollector:
             "Host-side per-stage timing (assemble/pack/dispatch/"
             "device_wait)", ("stage", "stat"))
         self._host_cache_seen: Dict[Tuple[str, str], float] = {}
+        # the feedback plane (feedback/): prequential quality under live
+        # labels, label-join health, the retrain / gate / promotion audit
+        # counters, mirrored from FeedbackPlane.snapshot() by sync_feedback
+        # (registered where the JAX collector registers them: the
+        # exposition's order is JAX's)
+        self.preq_auc = r.gauge(
+            "prequential_auc",
+            "Streaming test-then-train AUC over matched labels",
+            ("window",))
+        self.preq_precision = r.gauge(
+            "prequential_precision",
+            "Prequential precision at the pinned operating threshold",
+            ("window",))
+        self.preq_recall = r.gauge(
+            "prequential_recall",
+            "Prequential recall at the pinned operating threshold",
+            ("window",))
+        self.preq_calibration = r.gauge(
+            "prequential_calibration_error",
+            "Expected calibration error over the sliding label window")
+        self.feedback_labels = r.counter(
+            "feedback_labels_total",
+            "Label-join outcomes (matched / expired_unlabeled / "
+            "orphan_labels / duplicate_labels)", ("outcome",))
+        self.feedback_label_lag = r.gauge(
+            "feedback_label_lag_seconds",
+            "Mean prediction-to-label delay over matched labels")
+        self.feedback_buffer = r.gauge(
+            "feedback_buffer_examples",
+            "Labeled-example buffer occupancy", ("klass",))
+        self.feedback_triggers = r.counter(
+            "feedback_retrain_triggers_total",
+            "Retrain triggers fired by the policy", ("reason",))
+        self.feedback_gate = r.counter(
+            "feedback_gate_verdicts_total",
+            "Promotion-gate verdicts on retrained candidates", ("verdict",))
+        self.feedback_promotions = r.counter(
+            "feedback_promotions_total",
+            "Candidates promoted into the serving blend")
+        self._feedback_seen: Dict[Tuple[str, str], float] = {}
         # tracing plane (obs/tracing.py): per-stage latency histograms
         # with exemplar trace_ids, trace terminal counters, and the SLO
         # burn-rate gauges — mirrored from Tracer.snapshot() by
@@ -707,6 +748,42 @@ class MetricsCollector:
                 float(sampler.get("entries", 0)))
 
     # -------------------------------------------------------------- events
+    def sync_feedback(self, snapshot: Mapping[str, Any]) -> None:
+        """Mirror ``FeedbackPlane.snapshot()``: prequential gauges per
+        window, the buffer's occupancy by class, and the join's outcomes
+        and the policy's counters as counter deltas."""
+        preq = snapshot.get("prequential") or {}
+        for window in ("sliding", "fading"):
+            w = preq.get(window) or {}
+            for key, gauge in (("auc", self.preq_auc),
+                               ("precision", self.preq_precision),
+                               ("recall", self.preq_recall)):
+                v = w.get(key)
+                if v is not None and math.isfinite(float(v)):
+                    gauge.set(float(v), window=window)
+        ce = (preq.get("sliding") or {}).get("calibration_error")
+        if ce is not None and math.isfinite(float(ce)):
+            self.preq_calibration.set(float(ce))
+        self.feedback_label_lag.set(float(preq.get("mean_label_lag_s", 0.0)))
+        buf = snapshot.get("buffer") or {}
+        self.feedback_buffer.set(float(buf.get("positives", 0)), klass="positive")
+        self.feedback_buffer.set(float(buf.get("negatives", 0)), klass="negative")
+        seen = self._feedback_seen
+        join = snapshot.get("label_join") or {}
+        for outcome in ("matched", "expired_unlabeled", "orphan_labels",
+                        "duplicate_labels"):
+            _mirror(self.feedback_labels, seen, ("join", outcome),
+                    join.get(outcome, 0), outcome=outcome)
+        policy = snapshot.get("policy") or {}
+        _mirror(self.feedback_gate, seen, ("gate", "pass"),
+                policy.get("gate_pass", 0), verdict="pass")
+        _mirror(self.feedback_gate, seen, ("gate", "fail"),
+                policy.get("gate_fail", 0), verdict="fail")
+        _mirror(self.feedback_promotions, seen, ("promotions", "total"),
+                policy.get("promotions", 0))
+        _mirror(self.feedback_triggers, seen, ("triggers", "total"),
+                policy.get("triggers", 0), reason="any")
+
     def record_prediction(self, decision: str, fraud_score: float,
                           duration_s: float,
                           model_predictions: Optional[Mapping[str, float]] = None,

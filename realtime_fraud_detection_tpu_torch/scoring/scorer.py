@@ -835,6 +835,9 @@ class TorchFraudScorer:
         t_fin = time.perf_counter()
         if pending.event is not None:
             pending.event.synchronize()
+        # the blend the batch was launched with reads its explanations and
+        # rung ladders, even when a promotion or reload swapped it since
+        launched = pending.launched_with
         pending.launched_with = None
         self.spans.record("device_wait", time.perf_counter() - t_fin)
         if pending.trace is not None:
@@ -844,7 +847,8 @@ class TorchFraudScorer:
         elapsed_ms = pending.dispatch_ms + (time.perf_counter() - t_fin) * 1000.0
         results = self._build_responses(
             pending.records, pending.out.numpy(), pending.n, elapsed_ms,
-            model_valid=pending.model_valid, rules_only=pending.rules_only)
+            model_valid=pending.model_valid, rules_only=pending.rules_only,
+            params=launched[1] if launched is not None else None)
         with (lock if lock is not None else contextlib.nullcontext()):
             self._write_back(pending.records, results, now)
             self.stats["scored"] += pending.n
@@ -884,11 +888,14 @@ class TorchFraudScorer:
             self._sampler.sync()
 
     def _build_responses(self, records, out, n, elapsed_ms, model_valid=None,
-                         rules_only=False) -> List[Dict[str, Any]]:
+                         rules_only=False, params=None) -> List[Dict[str, Any]]:
         """Response dicts from the packed matrix ``out`` ([B, 8+M] or, with
-        the epilogue extension, [B, 8+2M+2])."""
+        the epilogue extension, [B, 8+2M+2]); ``params`` is the batch's
+        ``EnsembleParams`` (default the current ones)."""
         if model_valid is None:
             model_valid = self.model_valid
+        if params is None:
+            params = self.ensemble_params
         mat = np.asarray(out)[:n]
         col = {name: mat[:, j] for j, name in enumerate(OUT_COLUMNS)}
         probs = col["fraud_probability"]
@@ -906,7 +913,7 @@ class TorchFraudScorer:
             decisions = mat[:, base_w + NUM_MODELS].astype(np.int32)
             risk = mat[:, base_w + NUM_MODELS + 1].astype(np.int32)
         elif rules_only:
-            p = self.ensemble_params
+            p = params
             probs = rule
             conf = np.ones_like(probs)
             decisions = np.where(
@@ -925,7 +932,7 @@ class TorchFraudScorer:
         with_explanation = self.config.ensemble.enable_explanation
         # the weights' host copy is cached: reading the card here would wait
         # on whatever another thread has queued on its stream
-        weights = (np.asarray(_host_vectors(self.ensemble_params)[0], np.float32)
+        weights = (np.asarray(_host_vectors(params)[0], np.float32)
                    if with_explanation and contrib_cols is None else None)
         for i, rec in enumerate(records):
             model_predictions = {

@@ -20,6 +20,9 @@ device (the CUDA card unless the caller passes ``device="cpu"``):
     GET  /latency/breakdown   the tracing plane's critical path
     GET  /slo                 SLO burn rates and the QoS gate
     GET  /autotune            the tuning plane's state
+    POST /labels              delayed label events into the feedback plane
+    GET  /quality/live        prequential quality, the join, the buffer and
+                              the retrain / gate / promotion audit
 
 Every concurrent ``/predict`` goes through ``RequestMicrobatcher`` into one
 scorer dispatch a batch; ``/batch-predict`` scores its list as one batch.
@@ -34,9 +37,18 @@ the models while batches are queued on the card; each pending batch holds
 what it was launched with until its event completes
 (``scoring/scorer.py PendingScore.launched_with``).
 
-Not ported: the feedback plane's ``/labels`` and ``/quality/live``, the
-shard router's ``/cluster`` and 421, the device pool and mesh executor, and
-the shared RESP state tier.
+The feedback plane (``feedback/``) is always built, so ``/labels`` and
+``/quality/live`` answer (``/labels`` with 409 while
+``config.feedback.enabled`` is off). Enabled, every fresh batch's served
+results and host feature rows go into its label join and drift monitor
+(which then is not fed a second time), its cheap trigger check runs after
+the batch, and a fired trigger's retrain runs on a ``feedback-retrain``
+worker thread from a buffer snapshot taken under the score lock; a
+candidate that passes the gate is promoted by ``promote_candidate`` under
+the score lock, the ``/reload-models`` recipe, while later batches queue.
+
+Not ported: the shard router's ``/cluster`` and 421, the device pool and
+mesh executor, and the shared RESP state tier.
 """
 
 from __future__ import annotations
@@ -50,6 +62,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from realtime_fraud_detection_tpu_torch import __version__
 from realtime_fraud_detection_tpu_torch.checkpoint import CheckpointManager
+from realtime_fraud_detection_tpu_torch.feedback.plane import (
+    FeedbackPlane,
+    promote_candidate,
+)
 from realtime_fraud_detection_tpu_torch.obs.drift import DriftConfig, FeatureDriftMonitor
 from realtime_fraud_detection_tpu_torch.obs.fleetmetrics import FleetMetrics
 from realtime_fraud_detection_tpu_torch.obs.metrics import MetricsCollector
@@ -172,6 +188,14 @@ class ServingApp:
         # max_concurrent_predictions a request gets an immediate 503
         # (one event loop: a plain counter)
         self._inflight_txns = 0
+        # the feedback plane: it shares this app's drift monitor and
+        # collector, and promotes through this app's score lock
+        self.feedback = FeedbackPlane(
+            self.config.feedback, scorer=self.scorer, config=self.config,
+            metrics=self.metrics, drift_monitor=self.drift,
+            promote_fn=lambda cand: promote_candidate(
+                self.scorer, self.config, cand, lock=self._score_lock))
+        self._feedback_reacting = False
         self._register_routes()
 
     # --------------------------------------------------------------- scoring
@@ -245,7 +269,9 @@ class ServingApp:
         # hit costs ~0 and is a retry of a transaction already counted)
         if fresh:
             self.metrics.record_batch(len(fresh), dt)
-        if self.config.monitoring.enable_drift_detection and pending is not None:
+        if (self.config.monitoring.enable_drift_detection and pending is not None
+                and not self.config.feedback.enabled):
+            # with the feedback plane on, on_predictions feeds this monitor
             with self._score_lock:
                 self.drift.update(pending.features)
         self._apply_experiments(to_score, fresh)
@@ -260,6 +286,15 @@ class ServingApp:
             with self._score_lock:
                 for r in fresh:
                     cache.put(r["transaction_id"], r)
+        if self.config.feedback.enabled and fresh:
+            # what this batch serves (after the experiments) with its host
+            # feature rows; the retrain runs on a worker thread
+            with self._score_lock:
+                self.feedback.on_predictions(
+                    to_score, fresh,
+                    features=pending.features if pending is not None else None)
+                self.feedback.check_trigger()
+            self._maybe_react()
         if trace is not None and self.tracer is not None:
             # closing the batch feeds the SLO window; the burn gate is a
             # hysteresis-guarded degradation signal on top of the ladder
@@ -308,6 +343,27 @@ class ServingApp:
                     res["fraud_score"] > ALERT_SCORE_THRESHOLD,
                     bool(actual) if actual is not None else None)
 
+    def _maybe_react(self) -> None:
+        """Start the plane's retrain -> gate -> promotion on a worker thread
+        when a trigger is pending, one at a time. The rows are snapshotted
+        under the score lock; sorting, stacking and training run without it,
+        and the promotion takes it inside ``promote_fn``."""
+        if self.feedback.pending_trigger is None or self._feedback_reacting:
+            return
+        self._feedback_reacting = True
+
+        def _run() -> None:
+            try:
+                with self._score_lock:
+                    rows = self.feedback.buffer.snapshot_rows()
+                arrays = self.feedback.buffer.arrays_from(
+                    rows, self.feedback.buffer.store_history)
+                self.feedback.react(arrays=arrays)
+            finally:
+                self._feedback_reacting = False
+
+        threading.Thread(target=_run, name="feedback-retrain", daemon=True).start()
+
     # ---------------------------------------------------------------- routes
     def _register_routes(self) -> None:
         r = self.http.route
@@ -324,6 +380,8 @@ class ServingApp:
         r("GET", "/experiments", self._experiment_results)
         r("GET", "/qos", self._qos_status)
         r("POST", "/qos", self._qos_configure)
+        r("POST", "/labels", self._ingest_labels)
+        r("GET", "/quality/live", self._quality_live)
         r("GET", "/latency/breakdown", self._latency_breakdown)
         r("GET", "/slo", self._slo_status)
         r("GET", "/autotune", self._autotune_status)
@@ -431,6 +489,10 @@ class ServingApp:
             self.metrics.sync_tracing(self.tracer.snapshot())
         if self.tuning is not None:
             self.metrics.sync_autotune(self.tuning.snapshot())
+        if self.config.feedback.enabled:
+            with self._score_lock:
+                snap = self.feedback.snapshot()
+            self.metrics.sync_feedback(snap)
         return 200, self.metrics.render_prometheus()
 
     async def _metrics_fleet(self, body, query) -> Tuple[int, Any]:
@@ -573,6 +635,38 @@ class ServingApp:
                 self.scorer.set_degradation(None)
         return 200, {"status": "configured", "applied": applied,
                      "qos": self.qos.snapshot()}
+
+    async def _ingest_labels(self, body, query) -> Tuple[int, Any]:
+        """Delayed ground-truth label events (the labels topic over HTTP):
+        one event dict or a list, each with ``transaction_id``, ``is_fraud``
+        and optionally ``label_ts`` (default now). They join the emitted
+        predictions, feed the prequential metrics and the buffer, and may
+        trigger a retrain."""
+        if not self.config.feedback.enabled:
+            raise HttpError(409, "feedback plane disabled "
+                                 "(config.feedback.enabled)")
+        events = body if isinstance(body, list) else [body]
+        cleaned = []
+        for ev in events:
+            if not isinstance(ev, dict) or not ev.get("transaction_id") \
+                    or "is_fraud" not in ev:
+                raise HttpError(422, "each label event needs transaction_id + is_fraud")
+            ev = dict(ev)
+            ev.setdefault("label_ts", time.time())
+            cleaned.append(ev)
+        with self._score_lock:
+            matched = self.feedback.on_labels(cleaned)
+            self.feedback.check_trigger()
+        self._maybe_react()
+        return 200, {"ingested": len(cleaned), "matched": matched,
+                     "join": self.feedback.join.stats()}
+
+    async def _quality_live(self, body, query) -> Tuple[int, Any]:
+        """Live quality under delayed ground truth: the prequential sliding
+        and fading windows, calibration, drop-one attribution, the join, the
+        buffer and the audit tail, snapshotted under the score lock."""
+        with self._score_lock:
+            return 200, self.feedback.snapshot()
 
     async def _latency_breakdown(self, body, query) -> Tuple[int, Any]:
         if self.tracer is None:

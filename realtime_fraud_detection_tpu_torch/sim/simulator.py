@@ -15,14 +15,20 @@ the same profiles as the JAX package's generator.
 - ``inject_fraud_ring(config)``: a coordinated ring (``FraudRing``) takes a
   ``config.rate`` share of the stream; the per-record draw happens only
   while a ring is set, so a stream without one is unchanged.
-
-Drift injection and label events are not ported.
+- ``inject_drift(rate)``: a ``rate`` share of the stream becomes the
+  drifted fraud pattern (``fraud_type 'drifted_pattern'``) through the
+  ``electronics`` merchants; its per-record draw happens only while the
+  rate is above 0 and comes before the ring's, as in the JAX generator.
+- ``label_events(txns, ...)``: delayed ground-truth label events for
+  generated transactions (``feedback/labels.py make_label_events``), drawn
+  from the generator's own ``rng``: calling it between ``generate_batch``
+  calls moves every later record, in both packages alike.
 """
 
 from __future__ import annotations
 
 from datetime import datetime, timedelta, timezone
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 
@@ -191,6 +197,10 @@ class TransactionGenerator:
         self.clock = start_time or datetime(2026, 1, 5, 8, 0, tzinfo=timezone.utc)
         self.tps = tps
         self._txn_counter = 0
+        # drifted fraud pattern (inject_drift): a novel modus operandi the
+        # incumbent models never trained on; 0.0 = off
+        self._drift_rate = 0.0
+        self._drift_merchants: np.ndarray | None = None
         # coordinated fraud ring (inject_fraud_ring); None = off
         self._ring: FraudRing | None = None
 
@@ -275,9 +285,61 @@ class TransactionGenerator:
         else:
             txn["fraud_score"] = float(rng.uniform(0.0, 0.3))
             self.patterns.record_location(txn["user_id"], geo)
+        if self._drift_rate > 0.0 and rng.random() < self._drift_rate:
+            txn = self._apply_drifted_pattern(txn)
         if self._ring is not None and rng.random() < self._ring.config.rate:
             txn = self._ring.apply(txn)
         return txn
+
+    # ------------------------------------------------------------ drift
+    def inject_drift(self, rate: float = 0.05) -> None:
+        """Turn on the drifted fraud pattern: a ``rate`` share of the
+        stream becomes a modus operandi an incumbent model has never seen
+        (benign-looking prior score, the user's ordinary amount, the
+        digital-wallet rail at one merchant category), so a pre-drift model
+        ranks it like legit traffic until a retrain on its labels."""
+        if not 0.0 <= rate <= 1.0:
+            raise ValueError(f"drift rate must be in [0, 1], got {rate}")
+        self._drift_rate = float(rate)
+        if self._drift_merchants is None:
+            # the complicit ring is one merchant category (electronics): a
+            # single categorical feature a retrained tree can split on
+            ring = self.merchants.ids[self.merchants.category == "electronics"]
+            if len(ring) == 0:
+                ring = self.merchants.ids[:max(1, self.merchants.n // 10)]
+            self._drift_merchants = ring
+
+    def clear_drift(self) -> None:
+        self._drift_rate = 0.0
+
+    def _apply_drifted_pattern(self, txn: Dict[str, Any]) -> Dict[str, Any]:
+        rng = self.rng
+        txn["is_fraud"] = True
+        txn["fraud_type"] = "drifted_pattern"
+        # in distribution feature by feature: the signal lives only in the
+        # conjunction (electronics merchant x digital-wallet rail)
+        txn["merchant_id"] = str(self._drift_merchants[int(rng.integers(
+            0, len(self._drift_merchants)))])
+        txn["payment_method"] = "digital_wallet"
+        txn["fraud_score"] = float(rng.uniform(0.0, 0.3))
+        txn["fraud_reason"] = "drifted pattern (novel MO, unseen in training)"
+        return txn
+
+    # ------------------------------------------------------------ labels
+    def label_events(self, txns: Sequence[Dict[str, Any]],
+                     event_ts: Sequence[float] | None = None,
+                     delay_scale: float = 1.0) -> List[Dict[str, Any]]:
+        """Delayed ground-truth label events for generated transactions
+        (the labels topic's producer role), chargeback-style delays drawn
+        from this generator's ``rng``, sorted by ``label_ts``."""
+        from realtime_fraud_detection_tpu_torch.feedback.labels import (
+            make_label_events,
+        )
+
+        return make_label_events(list(txns), self.rng,
+                                 event_ts=(list(event_ts)
+                                           if event_ts is not None else None),
+                                 delay_scale=delay_scale)
 
     # ------------------------------------------------------------ fraud ring
     def inject_fraud_ring(self, config: FraudRingConfig | None = None) -> FraudRing:

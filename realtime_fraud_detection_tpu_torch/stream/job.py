@@ -37,13 +37,21 @@ an invalid record and a duplicate each close a terminal trace. With
 ``TuningPlane``) the assembler's just-in-time closer replaces the fixed
 deadline, each completed batch feeds the plane its dispatch-to-completion
 time, its admitted latencies, the burn rate and the served rung, and the run
-loops re-read the tuner's in-flight depth every iteration. The feedback,
-analytics, enrichment and device-pool planes are not ported: ``JobConfig``
-has no fields for them, so passing one is an error.
+loops re-read the tuner's in-flight depth every iteration. With
+``JobConfig.feedback`` (a live ``feedback.FeedbackPlane``) the job reads
+the labels topic under a consumer group of its own; after every scored
+batch the plane gets exactly the emitted results with the batch's host
+feature rows (``PendingScore.features``, the retrain corpus), the due labels
+are drained into it and its cheap trigger check runs at the completion
+time. The retrain itself (``react``) runs between batches in both run
+loops: batches already in flight complete with the models they were
+launched with. The analytics, enrichment and device-pool planes are not
+ported: ``JobConfig`` has no fields for them, so passing one is an error.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -100,6 +108,11 @@ class JobConfig:
     # enabled) or a live TuningPlane; None or disabled = off, and batch
     # closes are bit-identical to the fixed-deadline path
     autotune: Optional[Any] = None
+    # the continuous-learning plane (feedback/): a live FeedbackPlane fed
+    # after every scored batch, its labels topic drained in the run loops;
+    # None = off
+    feedback: Optional[Any] = None
+    labels_topic: str = T.LABELS
     transactions_topic: str = T.TRANSACTIONS
     predictions_topic: str = T.PREDICTIONS
     alerts_topic: str = T.ALERTS
@@ -107,13 +120,15 @@ class JobConfig:
     features_topic: str = T.FEATURES
 
     def __post_init__(self) -> None:
+        from realtime_fraud_detection_tpu_torch.feedback.plane import FeedbackPlane
         from realtime_fraud_detection_tpu_torch.obs.tracing import Tracer
         from realtime_fraud_detection_tpu_torch.qos.plane import QosPlane
         from realtime_fraud_detection_tpu_torch.tuning.plane import TuningPlane
 
         for name, kinds in (("qos", (QosSettings, QosPlane)),
                             ("tracing", (TracingSettings, Tracer)),
-                            ("autotune", (TuningSettings, TuningPlane))):
+                            ("autotune", (TuningSettings, TuningPlane)),
+                            ("feedback", (FeedbackPlane,))):
             value = getattr(self, name)
             if value is not None and not isinstance(value, kinds):
                 raise TypeError(
@@ -207,6 +222,13 @@ class StreamJob:
             from realtime_fraud_detection_tpu_torch.obs.tracing import Tracer
 
             self.tracer = tr if isinstance(tr, Tracer) else Tracer(tr)
+        # the feedback plane: labels are a stream of their own, with their
+        # own offsets under a consumer group of their own
+        self.feedback = self.config.feedback
+        self._labels_consumer = None
+        if self.feedback is not None:
+            self._labels_consumer = broker.consumer(
+                [self.config.labels_topic], f"{self.config.group_id}-labels")
         self.counters: Dict[str, int] = {
             "scored": 0, "alerts": 0, "batches": 0, "duplicates_skipped": 0,
             "errors": 0, "shed": 0,
@@ -411,6 +433,17 @@ class StreamJob:
             out = invalid_results + self._fan_out(ctx, fresh, results, feats,
                                                   scored_ok)
             self._observe_planes(ctx, fresh, scored_ok, t_done)
+            if self.feedback is not None and scored_ok:
+                # exactly what was emitted, with the batch's feature rows
+                # (the retrain corpus); then the due labels and the cheap
+                # trigger check, on the completion clock. The retrain stays
+                # with the run loops (react)
+                self.feedback.on_predictions(
+                    [r.value for r in fresh], results,
+                    features=feats[:len(fresh)] if feats is not None else None,
+                    now=t_done)
+                self.drain_labels()
+                self.feedback.check_trigger(now=t_done)
             return out
         finally:
             # always release, even when fan-out raises: a leaked id would
@@ -556,6 +589,30 @@ class StreamJob:
             "timestamp": txn.get("timestamp"),
         }
 
+    def drain_labels(self, max_records: int = 10_000) -> int:
+        """Poll the labels topic into the feedback plane (no-op without
+        one); returns the newly matched pairs. Label offsets commit right
+        after ingestion: the join deduplicates a replayed label."""
+        if self._labels_consumer is None:
+            return 0
+        recs = self._labels_consumer.poll(max_records)
+        if not recs:
+            return 0
+        matched = self.feedback.on_labels(
+            [r.value for r in recs if isinstance(r.value, dict)])
+        self._labels_consumer.commit()
+        return matched
+
+    def _react(self, now: Optional[float] = None) -> None:
+        """Run a pending retrain -> gate -> promotion between batches. With
+        overlapped assembly the stage lock is held, so the promotion never
+        swaps the models under a batch the stage thread is dispatching."""
+        if self.feedback is None or self.feedback.pending_trigger is None:
+            return
+        with (self._stage.lock if self._stage is not None
+              else contextlib.nullcontext()):
+            self.feedback.react(now=now)
+
     # ------------------------------------------------------------------ run
     def run_until_drained(self, max_batches: int = 10_000,
                           now: Optional[float] = None) -> int:
@@ -576,8 +633,10 @@ class StreamJob:
             in_flight.append(self.dispatch_batch(batch, now=now))
             while len(in_flight) >= self._inflight_depth():
                 self.complete_batch(in_flight.popleft())
+            self._react(now)
         while in_flight:
             self.complete_batch(in_flight.popleft())
+        self.drain_labels()
         return self.counters["scored"] - start_scored
 
     def run_for(self, duration_s: float) -> int:
@@ -591,6 +650,8 @@ class StreamJob:
                 in_flight.append(self.dispatch_batch(batch))
             if in_flight and (len(in_flight) >= self._inflight_depth() or not batch):
                 self.complete_batch(in_flight.popleft())
+            self._react()
         while in_flight:
             self.complete_batch(in_flight.popleft())
+        self.drain_labels()
         return self.counters["scored"] - start

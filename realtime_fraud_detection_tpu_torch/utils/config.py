@@ -8,9 +8,9 @@ ensemble defaults ``EnsembleParams.from_config`` reads, the quant and kernel
 planes, the state stores' TTLs and list lengths, the scoring service
 (``ServingConfig``, with the prediction cache's TTL and size on
 ``EnsembleConfig``) and its monitoring switches (``MonitoringConfig``), and
-the QoS, tracing and tuning planes' knobs (``QosSettings``,
+the QoS, tracing, tuning and feedback planes' knobs (``QosSettings``,
 ``TracingSettings``, ``TuningSettings``, with the QoS floor on the tuner's
-deadline); plus the quality-artifact loaders that deploy a measured blend
+deadline, and ``FeedbackSettings``); plus the quality-artifact loaders that deploy a measured blend
 (``Config.apply_quality_artifact``). The environment part: the ensemble's
 (``RTFD_ENSEMBLE_STRATEGY`` or ``ENSEMBLE_STRATEGY``,
 ``CONFIDENCE_THRESHOLD``, ``FRAUD_THRESHOLD``), the service's address
@@ -18,7 +18,7 @@ deadline); plus the quality-artifact loaders that deploy a measured blend
 ``LOG_FILE``), each also under its ``RTFD_`` name, which wins. Values are
 copies of the JAX package's; the port keeps its own so it imports nothing
 of it. The blocks of planes the port does not have (mesh, stream, sim,
-feedback, chaos, cluster) are not ported.
+chaos, cluster) are not ported.
 """
 
 from __future__ import annotations
@@ -557,6 +557,72 @@ class TuningSettings:
 
 
 @dataclass
+class FeedbackSettings:
+    """Continuous-learning plane knobs (``feedback/``): label join,
+    prequential evaluation, retrain policy, promotion gate. Disabled by
+    default: the plane is opt-in per deployment (``serve`` /
+    ``run-job --feedback``, a JSON overlay). All knobs are host state."""
+
+    enabled: bool = False
+    # label-join windowing: how long an unlabeled prediction waits for its
+    # chargeback before expiring, and the per-stream out-of-orderness
+    label_horizon_s: float = 90 * 86_400.0
+    label_ooo_s: float = 60.0
+    pred_ooo_s: float = 5.0
+    # hard cap on predictions waiting for a label (the watermark horizon
+    # cannot evict while the labels topic is silent)
+    join_max_pending: int = 100_000
+    # synthetic label emission (sim): compresses the chargeback delay
+    # distribution (1.0 = realistic days; drills use tiny values)
+    label_delay_scale: float = 1.0
+    # labeled-example buffer (state/labeled.py)
+    buffer_size: int = 50_000
+    buffer_store_history: bool = False
+    # prequential evaluation
+    sliding_window: int = 2_000
+    fading_gamma: float = 0.999
+    operating_threshold: float = 0.5
+    # retrain policy
+    auc_drop: float = 0.08
+    auc_floor: float = 0.0
+    min_labels: int = 300
+    cooldown_s: float = 600.0
+    use_drift_trigger: bool = True
+    # candidate training
+    retrain_trees: int = 48
+    retrain_depth: int = 5
+    retrain_iforest_trees: int = 60
+    retrain_neural: bool = False
+    # promotion gate
+    gate_holdout_frac: float = 0.2
+    gate_select_frac: float = 0.2
+    gate_min_positives: int = 12
+    gate_auc_margin: float = 0.0
+    gate_recall_tolerance: float = 0.02
+
+    def validate(self) -> None:
+        if not 0.0 < self.fading_gamma < 1.0:
+            raise ValueError(
+                f"feedback.fading_gamma must be in (0, 1), got "
+                f"{self.fading_gamma}")
+        if self.sliding_window < 10 or self.buffer_size < 10:
+            raise ValueError(
+                "feedback.sliding_window and buffer_size must be >= 10")
+        if not (0.0 < self.gate_holdout_frac < 1.0
+                and 0.0 < self.gate_select_frac < 1.0
+                and self.gate_holdout_frac + self.gate_select_frac < 0.9):
+            # the gate must always keep a real training majority
+            raise ValueError(
+                f"feedback gate fractions must satisfy 0 < holdout, select "
+                f"and holdout + select < 0.9, got "
+                f"holdout={self.gate_holdout_frac} "
+                f"select={self.gate_select_frac}")
+        if self.label_horizon_s <= 0 or self.label_delay_scale <= 0:
+            raise ValueError(
+                "feedback.label_horizon_s and label_delay_scale must be > 0")
+
+
+@dataclass
 class Config:
     """The slice of the JAX package's root ``Config`` the port reads. A
     disabled model is left out of the blend and of the scorer's validity
@@ -572,6 +638,7 @@ class Config:
     serving: ServingConfig = field(default_factory=ServingConfig)
     monitoring: MonitoringConfig = field(default_factory=MonitoringConfig)
     qos: QosSettings = field(default_factory=QosSettings)
+    feedback: FeedbackSettings = field(default_factory=FeedbackSettings)
     tracing: TracingSettings = field(default_factory=TracingSettings)
     tuning: TuningSettings = field(default_factory=TuningSettings)
 
@@ -729,6 +796,7 @@ class Config:
         self.serving.validate()
         self.monitoring.validate()
         self.qos.validate()
+        self.feedback.validate()
         self.tracing.validate()
         self.tuning.validate(qos=self.qos)
         self.quant.validate()

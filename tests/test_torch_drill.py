@@ -321,6 +321,20 @@ def test_drill_and_ladder_import_with_jax_blocked():
         ids, mask, labels = build_text_dataset(TransactionGenerator(
             num_users=20, num_merchants=5, seed=1), 8, max_length=8)
         assert ids.shape == (8, 8) and labels.shape == (8,)
+        # the feedback drill and the quantization drill, at toy sizes
+        from realtime_fraud_detection_tpu_torch.feedback.drill import (
+            FeedbackDrillConfig, compact_drill_summary, run_feedback_drill)
+        from realtime_fraud_detection_tpu_torch.scoring.quant_drill import (
+            QuantDrillConfig, compact_quant_summary, run_quant_drill)
+        fb = run_feedback_drill(FeedbackDrillConfig(
+            num_users=80, num_merchants=40, batch=64, n_train=256, n_healthy=128,
+            n_drift=128, n_recovery=64, n_trees=3, sliding_window=64,
+            min_labels=32, device="cpu"))
+        assert compact_drill_summary(fb)["labels_matched"] > 0
+        qz = run_quant_drill(QuantDrillConfig(
+            num_users=60, num_merchants=20, batch=32, n_train=128, n_batches=1,
+            eval_batches=2, n_trees=3, replay=False, device="cpu"))
+        assert compact_quant_summary(qz)["checks"]["bert_is_quantized"]
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

@@ -420,6 +420,31 @@ def test_port_runs_with_jax_blocked():
 
         asyncio.run(serve())
         assert app.tracer.counters["completed"] == 1      # /predict is traced
+        # the feedback plane: the labeled buffer, the job's labels topic and
+        # the app's /labels and /quality/live
+        from realtime_fraud_detection_tpu_torch.feedback import FeedbackPlane
+        from realtime_fraud_detection_tpu_torch.state.labeled import (
+            LabeledExampleBuffer)
+        from realtime_fraud_detection_tpu_torch.utils.config import FeedbackSettings
+        buf = LabeledExampleBuffer(capacity=10)
+        buf.append(np.zeros(4, np.float32), True, 0.9, ts=1.0)
+        assert buf.arrays()["x"].shape == (1, 4)
+        plane = FeedbackPlane(FeedbackSettings(enabled=True), scorer=w,
+                              config=w.config)
+        broker = InMemoryBroker()
+        job = StreamJob(broker, w, JobConfig(max_batch=16, feedback=plane))
+        recs = gen.generate_batch(16)
+        broker.produce_batch(T.TRANSACTIONS, recs, key_fn=lambda r: str(r["user_id"]))
+        broker.produce_batch(T.LABELS, gen.label_events(recs, delay_scale=1e-5),
+                             key_fn=lambda e: str(e["transaction_id"]))
+        assert job.run_until_drained(now=4.0) == 16 and plane.join.matched == 16
+        cfg.feedback.enabled = True
+        fapp = ServingApp(cfg, scorer=w, host="127.0.0.1", port=0, device="cpu")
+        res = fapp._score_batch_sync(recs[:4])
+        ok, out = asyncio.run(fapp._ingest_labels(
+            [{"transaction_id": r["transaction_id"], "is_fraud": False} for r in res], {}))
+        assert ok == 200 and out["matched"] == 4
+        assert asyncio.run(fapp._quality_live(None, {}))[1]["buffer"]["size"] == 4
         # the training commands: train, then validate its checkpoint
         from realtime_fraud_detection_tpu_torch.__main__ import main
         with tempfile.TemporaryDirectory() as ck:

@@ -683,8 +683,9 @@ def test_metric_exposition_equals_jax_line_for_line():
     names = {ln.split(" ")[2] for ln in got if ln.startswith("# TYPE ")}
     want = _family_lines(ref.render_prometheus(), names)
     # 33 families, the tracing plane's 6 trace_* and the tuning plane's 7
-    # autotune_* ones, the serving queue's and the quant plane's 3 quant_*
-    assert len(names) == 50 and len(got) == len(want)
+    # autotune_* ones, the serving queue's, the quant plane's 3 quant_* and
+    # the feedback plane's 4 prequential_* and 6 feedback_* ones
+    assert len(names) == 60 and len(got) == len(want)
     # the JAX package's mode "pallas" is the port's "cuda", which sorts to
     # another place among the site-mode samples: compare those as sets
     want = [w.replace('mode="pallas"', 'mode="cuda"') for w in want]

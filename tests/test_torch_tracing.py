@@ -168,6 +168,11 @@ def test_carriers_equal_jax():
 
 
 def test_log_context_is_thread_local_as_in_jax():
+    # a test of another file run earlier on this worker may leave this
+    # thread's context set (tests/test_serving.py does, on the JAX side)
+    for pkg in (PORT, JAX):
+        pkg.tracing.clear_log_context()
+
     def scenario(pkg):
         t = pkg.tracing
         out = [t.current_log_context()]
