@@ -249,6 +249,40 @@ Phases, each of which raises (and exits non-zero) on failure:
    through f32 BERT (kernels off) and int8 BERT under ``full()`` (1 / 6 / 36
    / 2 launches a batch), the divergence printed against that width's noise
    bound.
+19. the job as deployed: (a) phase 8's two streams (4,096 TINY under
+   ``mega()``, 1,024 DistilBERT-base under ``full()``, int8 BERT, batches of
+   256, depth 2) through ``StreamJob`` on the card with the analytics and
+   enrichment planes off, then on (``JobConfig(enable_analytics=True,
+   enable_enrichment=True)``; launch counters reset just before, read just
+   after: one megakernel a TINY batch, 1 / 6 / 36 / 2 a DistilBERT-base
+   batch), then on through a CPU scorer: predictions within the drill's
+   bound and decisions equal off a rung; the enriched topic's blended
+   ``fraud_score`` and ``ensemble_score`` within the bound, enrichment
+   decisions equal but where the blend lies within the bound of 0.6 or 0.95
+   (counted and printed); every analytics record equal but for the
+   high-risk count of a window holding a row within the bound of 0.7
+   (counted); the summaries' fired windows equal the analytics topics.
+   Prints txn/s and batch p50 / p99 with the planes off and on, the
+   analytics plane's host us a transaction, the job's blend host ms and
+   ``blend_enrichment``'s device ms a batch (CUDA events behind a spin). (b)
+   each a process of its own: ``broker`` on a free port with a temporary
+   ``--log-dir``; ``simulate --broker --count 4096`` through the ingress
+   gateway (started before (a), finished after it; its standard error must
+   say the native queue was used, none dropped); ``run-job --broker ...
+   --count 0 --quant --mega --analytics --enrichment --checkpoint-dir
+   --metadata-db`` on the card, SIGTERM once its first batch is on the
+   predictions topic, then the same command until the group's lag is 0 and
+   SIGTERM again; ``alert-router --once``. Gates: both summaries say
+   ``stopped_by: SIGTERM``, the restart resumed from the first run's final
+   checkpoint and skipped no duplicate, the first run stopped mid-stream;
+   each of the 4,096 ids once on the predictions and on the enriched topic;
+   each enriched ``ensemble_score`` equal to its prediction's ``fraud_score``
+   and its ``fraud_score`` within 1e-6 of ``blend_enrichment``'s CPU version
+   on the features topic's vector; the routed alerts equal the alerts topic
+   and the predictions above 0.7; the summaries' fired windows equal the
+   analytics topics; the sqlite store holds the job FINISHED with its
+   checkpoints; every batch of both runs dispatched the megakernel, no
+   fallback.
 
 The last three lines of standard output are the kernel JSON line (all five
 kernels), the ``nvidia-smi`` name and power limit, and the result line
@@ -1376,14 +1410,16 @@ class StreamTimer:
 
 def drive_stream(records, profiles, bert_config, config, device, timed=False,
                  tokens=None, models=None, scorer_config=None, overlap=False,
-                 texts=None, tracing=None):
+                 texts=None, tracing=None, planes=False, hook=None):
     """The port's ``StreamJob`` over ``records`` on a fresh scorer (the
     width's seeded models unless ``models`` is given) and in-memory broker,
     at the fixed virtual clock; returns (job, broker, scorer, timer). With a
     ``tokens`` list, each batch's (ids, mask) is appended to it, with a
     ``texts`` list each batch's tokenizer input texts; with ``overlap`` the
     job runs the overlapped assembly stage (closed before this returns);
-    ``tracing`` is the job's ``JobConfig.tracing``."""
+    ``tracing`` is the job's ``JobConfig.tracing``; ``planes`` turns on
+    ``enable_analytics`` and ``enable_enrichment`` (the analytics flushed at
+    the end); ``hook(job)`` runs once the job is built, before it runs."""
     from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
     from realtime_fraud_detection_tpu_torch.stream import topics as T
     from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
@@ -1414,11 +1450,16 @@ def drive_stream(records, profiles, bert_config, config, device, timed=False,
     broker = InMemoryBroker()
     job = StreamJob(broker, scorer, JobConfig(max_batch=BATCH, pipeline_depth=2,
                                               overlap_assembly=overlap,
-                                              tracing=tracing))
+                                              tracing=tracing, enable_analytics=planes,
+                                              enable_enrichment=planes))
     broker.produce_batch(T.TRANSACTIONS, records, key_fn=lambda r: str(r["user_id"]))
+    if hook is not None:
+        hook(job)
     timer = StreamTimer(job, scorer) if timed else None
     try:
         job.run_until_drained(now=STREAM_NOW)
+        if planes:
+            job.analytics.flush()
     finally:
         job.close()
         if timer is not None:
@@ -4614,6 +4655,406 @@ def run_feedback(ops):
     return out
 
 
+# the job as deployed (phase 19): (a) phase 8's two streams with the
+# analytics and enrichment planes on, card against CPU; (b) broker, simulate
+# through the gateway, run-job stopped by SIGTERM and resumed, alert-router,
+# each a process of its own
+PLANE_DECISION_CUTS = (0.6, 0.95)        # the enrichment ladder's decision cuts
+PLANE_RISK_CUTS = (0.3, 0.6, 0.8, 0.95)
+HIGH_RISK_CUT = 0.7                      # stream/windows.py's high-risk count
+DEPLOY_COUNT = 16 * BATCH
+DEPLOY_SEED = SEED + 19
+BLEND_TOL = 1e-6                         # the blend against its CPU version
+
+
+def near_cut(values, cuts, tol):
+    v = torch.tensor(values, dtype=torch.float64)
+    return (v[:, None] - torch.tensor(cuts, dtype=torch.float64)[None, :]).abs().min(
+        dim=1).values <= tol
+
+
+def plane_topics():
+    from realtime_fraud_detection_tpu_torch.stream.windows import ANALYTICS_TOPIC
+
+    return sorted(set(ANALYTICS_TOPIC.values()))
+
+
+def analytics_keys():
+    """Each analytics topic's key field and key function (two operators
+    share velocity-checks, both keyed by user)."""
+    from realtime_fraud_detection_tpu_torch.stream import windows as W
+
+    def user(t):
+        return str(t.get("user_id"))
+
+    return {"velocity-checks": ("user_id", user),
+            "merchant-transactions": ("merchant_id", lambda t: str(t.get("merchant_id"))),
+            "user-sessions": ("user_id", user),
+            "geographic-analysis": ("geo_key", W.geo_grid_key),
+            "pattern-detection": ("pattern_key", W.fraud_pattern_key),
+            "transaction-metrics": ("amount_bucket", W.amount_cluster_key)}
+
+
+def compare_planes(name, card, ref, tol, label):
+    """The enriched topic and the analytics topics of a card run against a
+    reference run on the same records: ids in order, the blended
+    ``fraud_score`` and the ``ensemble_score`` within ``tol``, enrichment
+    decisions equal but where the reference's blend lies within ``tol`` of
+    0.6 or 0.95 (risk levels: of any cut), the other fields exact; every
+    analytics record equal but for the high-risk count of a window holding a
+    row within ``tol`` of 0.7. Returns the rows and windows skipped."""
+    from realtime_fraud_detection_tpu_torch.state.stores import _event_time_ms
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+
+    enr, ref_enr = card[T.ENRICHED], ref[T.ENRICHED]
+    if [e["transaction_id"] for e in enr] != [e["transaction_id"] for e in ref_enr]:
+        fail(f"{name} planes: enriched ids differ from {label}")
+    blend = [e["fraud_score"] for e in ref_enr]
+    err = max(abs(e["fraud_score"] - b) for e, b in zip(enr, blend))
+    ens_err = max(abs(e["ensemble_score"] - f["ensemble_score"])
+                  for e, f in zip(enr, ref_enr))
+    if not (err <= tol and ens_err <= tol):
+        fail(f"{name} planes: blended score err {err}, ensemble err {ens_err} vs {label}")
+    scored = ("fraud_score", "ensemble_score", "decision", "risk_level")
+    near_dec = near_cut(blend, PLANE_DECISION_CUTS, tol).tolist()
+    near_risk = near_cut(blend, PLANE_RISK_CUTS, tol).tolist()
+    for e, f, nd, nr in zip(enr, ref_enr, near_dec, near_risk):
+        if (not nd and e["decision"] != f["decision"]) or (
+                not nr and e["risk_level"] != f["risk_level"]) or {
+                k: v for k, v in e.items() if k not in scored} != {
+                k: v for k, v in f.items() if k not in scored}:
+            fail(f"{name} planes: enriched {e['transaction_id']} {e['decision']}/"
+                 f"{e['risk_level']} vs {label} {f['decision']}/{f['risk_level']}")
+    near_hr = [(e, _event_time_ms(e, None) / 1000.0) for e, b in zip(enr, blend)
+               if abs(b - HIGH_RISK_CUT) <= tol]
+    windows = differing = 0
+    keys = analytics_keys()
+    for topic in plane_topics():
+        recs, ref_recs = card[topic], ref[topic]
+        if len(recs) != len(ref_recs) or not recs:
+            fail(f"{name} planes: {topic} holds {len(recs)} records, {label} "
+                 f"{len(ref_recs)}")
+        field, key_fn = keys[topic]
+        windows += len(recs)
+        for r, q in zip(recs, ref_recs):
+            if r == q:
+                continue
+            if {k: v for k, v in r.items() if k != "high_risk_count"} != {
+                    k: v for k, v in q.items() if k != "high_risk_count"} or not any(
+                    key_fn(e) == r[field] and r["window_start"] <= ts < r["window_end"]
+                    for e, ts in near_hr):
+                fail(f"{name} planes: {topic} record differs from {label}: {r} vs {q}")
+            differing += 1
+    skipped = {"near_0.6_0.95": sum(near_dec), "near_any_cut": sum(near_risk),
+               "near_0.7": len(near_hr), "windows_differing": differing,
+               "windows": windows}
+    print(f"  {name} planes vs {label}: blended fraud_score max err {err:.3e}, "
+          f"ensemble_score {ens_err:.3e} (bound {tol:.3e}); enrichment decisions equal "
+          f"on {len(enr) - skipped['near_0.6_0.95']}/{len(enr)} rows "
+          f"({skipped['near_0.6_0.95']} within the bound of 0.6 / 0.95 skipped, risk "
+          f"levels {skipped['near_any_cut']} near a cut); analytics {windows} windows on "
+          f"{len(plane_topics())} topics, {differing} differing, each holding one of "
+          f"{len(near_hr)} rows within the bound of 0.7", flush=True)
+    return skipped
+
+
+def run_planes(ops, name, bert_config, kernels, count, expected):
+    """Phase 19(a) for one width: phase 8's stream through the card with
+    the planes off, then on (launch counters reset just before, read just
+    after; the analytics plane's calls and the job's blend timed), then on
+    through the CPU; the card against the CPU."""
+    from realtime_fraud_detection_tpu_torch.features.rules import blend_enrichment
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.utils.config import Config, QuantSettings
+
+    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                               seed=SEED)
+    profiles = (gen.users.profiles(), gen.merchants.profiles())
+    records = gen.generate_batch(count)
+    config = Config(quant=QuantSettings.full(), kernels=kernels)
+    n_batches = count // BATCH
+    _, _, off_scorer, off_timer = drive_stream(records, profiles, bert_config, config,
+                                               "cuda", timed=True)
+    off = off_timer.summary(off_scorer)
+    spent = {"analytics_s": 0.0, "enrich_ms": [], "last": None}
+
+    def hook(job):
+        process, enrich = job.analytics.process, job._enrich
+
+        def timed_process(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return process(*args, **kwargs)
+            finally:
+                spent["analytics_s"] += time.perf_counter() - t0
+
+        def timed_enrich(results, feats):
+            t0 = time.perf_counter()
+            try:
+                return enrich(results, feats)
+            finally:
+                spent["enrich_ms"].append((time.perf_counter() - t0) * 1e3)
+                spent["last"] = ([r["fraud_score"] for r in results], feats[:len(results)])
+
+        job.analytics.process, job._enrich = timed_process, timed_enrich
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    job, broker, scorer, timer = drive_stream(records, profiles, bert_config, config,
+                                              "cuda", timed=True, planes=True, hook=hook)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {k: v * n_batches for k, v in expected.items()}
+    per_batch = [b["launches"] for b in timer.batches]
+    if launches != want or per_batch != [sum(expected.values())] * n_batches:
+        fail(f"{name} planes: launch counts {launches} / {per_batch} (want {want})")
+    check_stream_output(f"{name} planes", job, broker, records)
+    card = {t: topic_values(broker, t) for t in (T.PREDICTIONS, T.ENRICHED,
+                                                 *plane_topics())}
+    fired = {k: v["fired"] for k, v in job.analytics.stats().items()}
+    if sum(fired.values()) != sum(len(card[t]) for t in plane_topics()):
+        fail(f"{name} planes: fired {fired} vs the analytics topics")
+    on = timer.summary(scorer)
+
+    prior, feats = spent["last"]
+    prior_d = torch.tensor(prior, dtype=torch.float32, device="cuda")
+    feats_d = torch.as_tensor(feats).cuda()
+    blend_ms = [spun_ms(lambda: blend_enrichment(prior_d, feats_d))[0] for _ in range(5)]
+
+    tokens = []
+    ref_job, ref_broker, _, _ = drive_stream(records, profiles, bert_config, config,
+                                             "cpu", tokens=tokens, planes=True)
+    check_stream_output(f"{name} planes (CPU)", ref_job, ref_broker, records)
+    ref = {t: topic_values(ref_broker, t) for t in (T.PREDICTIONS, T.ENRICHED,
+                                                    *plane_topics())}
+    tol = noise_bound(scorer.models, bert_config, tokens, scorer.ensemble_params.weights)
+    err = compare_streams(f"{name} planes", card[T.PREDICTIONS], ref[T.PREDICTIONS],
+                          tol, "a CPU scorer")
+    skipped = compare_planes(name, card, ref, tol, "a CPU scorer")
+    us = spent["analytics_s"] / count * 1e6
+    summary = {"txns": count, "launches": launches,
+               "txn_per_s": {"planes_on": on["txn_per_s"],
+                             "planes_off": off["txn_per_s"]},
+               "batch_ms_p50_p99": {"planes_on": [on["batch_ms_p50"], on["batch_ms_p99"]],
+                                    "planes_off": [off["batch_ms_p50"],
+                                                   off["batch_ms_p99"]]},
+               "fan_out_ms_per_batch": {
+                   "planes_on": on["smoke_ms_per_batch"]["_fan_out"],
+                   "planes_off": off["smoke_ms_per_batch"]["_fan_out"]},
+               "gc_ms": {"planes_on": on["gc_ms"], "planes_off": off["gc_ms"]},
+               "gc_collections": {"planes_on": on["gc_collections"],
+                                  "planes_off": off["gc_collections"]},
+               "analytics_host_us_per_txn": us,
+               # after the warm-up batch, whose copies initialise the f64 path
+               "enrich_host_ms_p50_per_batch": sorted(
+                   spent["enrich_ms"][STREAM_WARMUP_BATCHES:])[
+                       (len(spent["enrich_ms"]) - STREAM_WARMUP_BATCHES) // 2],
+               "blend_device_ms_per_batch": sorted(blend_ms)[len(blend_ms) // 2],
+               "fired": fired, "skipped": skipped, "max_err": err, "bound": tol}
+    print(f"{name} planes (batch {BATCH}, depth 2, {STREAM_USERS} users): "
+          + json.dumps(summary), flush=True)
+    return summary
+
+
+def _broker_client(port):
+    from realtime_fraud_detection_tpu_torch.stream.netbroker import NetBrokerClient
+
+    for _ in range(600):
+        try:
+            return NetBrokerClient(port=port, reconnect_attempts=0, timeout_s=30.0)
+        except OSError:
+            time.sleep(0.05)
+    fail(f"the broker on port {port} did not come up")
+
+
+def _job_until(args, stop_when, procs):
+    """``run-job`` with ``args`` in a process of its own, SIGTERM once
+    ``stop_when()`` holds (polled every 10 ms); returns its summary, its
+    standard error and its seconds."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc = _port_proc(args)
+    procs.append(proc)
+    while not stop_when():
+        if proc.poll() is not None:
+            fail(f"run-job exited early ({proc.returncode}): "
+                 f"{proc.stderr.read()[-3000:]}")
+        if time.perf_counter() - t0 > 600:
+            fail("run-job: the stop condition did not hold within 600 s")
+        time.sleep(0.01)
+    proc.send_signal(signal.SIGTERM)
+    out, err, _ = _finish("run-job --broker", proc, timeout=300)
+    return json.loads(out.strip().splitlines()[-1]), err, time.perf_counter() - t0
+
+
+def run_deployed(tmp, port, sim_args):
+    """Phase 19(b) after the broker is up and ``simulate --broker`` has
+    produced (the smoke started both before part (a)): ``run-job`` on the
+    card stopped by SIGTERM after its first batch, the same command again
+    until lag 0, ``alert-router --once``; the gates of the module
+    docstring."""
+    import re
+    import sqlite3
+    from collections import Counter
+    from pathlib import Path
+
+    from realtime_fraud_detection_tpu_torch.features.rules import blend_enrichment
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.stream.windows import ANALYTICS_TOPIC
+
+    addr = f"127.0.0.1:{port}"
+    client = _broker_client(port)
+    procs = []
+    try:
+        ck, db = str(Path(tmp) / "ck"), str(Path(tmp) / "meta.db")
+        args = ["run-job", "--broker", addr, "--count", "0", "--duration", "900",
+                "--quant", "--mega", "--analytics", "--enrichment", "--checkpoint-dir",
+                ck, "--metadata-db", db, *sim_args]
+        group = "fraud-detection-job"
+        first, err1, s1 = _job_until(
+            args, lambda: sum(client.end_offsets(T.PREDICTIONS)) >= BATCH, procs)
+        second, err2, s2 = _job_until(
+            args, lambda: client.lag(group, T.TRANSACTIONS) == 0, procs)
+        t0 = time.perf_counter()
+        _, router_err, _ = _finish("alert-router", _port_proc(
+            ["alert-router", "--broker", addr, "--once"]))
+        router_s = time.perf_counter() - t0
+
+        final = re.search(r"final checkpoint step (\d+)", err1)
+        resumed = re.search(r"resumed from checkpoint step (\d+)", err2)
+        if (first.get("stopped_by"), second.get("stopped_by")) != ("SIGTERM", "SIGTERM") \
+                or final is None or resumed is None \
+                or final.group(1) != resumed.group(1):
+            fail(f"deployed job: stop / resume: {first.get('stopped_by')}, "
+                 f"{second.get('stopped_by')}; {err1[-1500:]} / {err2[-1500:]}")
+        if not 0 < first["scored"] < DEPLOY_COUNT \
+                or first["scored"] + second["scored"] != DEPLOY_COUNT \
+                or second["counters"]["duplicates_skipped"] \
+                or first["counters"]["errors"] or second["counters"]["errors"] \
+                or second["lag"]:
+            fail(f"deployed job: scored {first['scored']} + {second['scored']}, "
+                 f"counters {first['counters']} / {second['counters']}")
+
+        def topic(name):
+            return [r.value for r in client.consumer([name], "smoke-check").poll(1 << 30)]
+
+        preds, enriched, feats = topic(T.PREDICTIONS), topic(T.ENRICHED), topic(T.FEATURES)
+        ids = Counter(p["transaction_id"] for p in preds)
+        if len(ids) != DEPLOY_COUNT or set(ids.values()) != {1} or Counter(
+                e["transaction_id"] for e in enriched) != ids:
+            fail(f"deployed job: {len(ids)} ids on the predictions topic, "
+                 f"{len(enriched)} enriched; not each once")
+        score = {p["transaction_id"]: p["fraud_score"] for p in preds}
+        vec = {f["transaction_id"]: f["features"] for f in feats}
+        if any(e["ensemble_score"] != score[e["transaction_id"]] for e in enriched):
+            fail("deployed job: an enriched ensemble_score differs from its prediction")
+        blended, dec, _ = blend_enrichment(
+            torch.tensor([e["ensemble_score"] for e in enriched], dtype=torch.float32),
+            torch.tensor([vec[e["transaction_id"]] for e in enriched],
+                         dtype=torch.float32))
+        blend_err = max(abs(e["fraud_score"] - b) for e, b in zip(enriched,
+                                                                   blended.tolist()))
+        if not blend_err <= BLEND_TOL:
+            fail(f"deployed job: enriched fraud_score vs the CPU blend err {blend_err}")
+        alerts = sum(client.end_offsets(T.ALERTS))
+        high = sum(p["fraud_score"] > HIGH_RISK_CUT for p in preds)
+        routed = re.search(r"routed (\d+) alerts", router_err)
+        if routed is None or int(routed.group(1)) != alerts or alerts != high:
+            fail(f"alert-router: {router_err[-500:]}; alerts topic {alerts}, "
+                 f"predictions above {HIGH_RISK_CUT}: {high}")
+        fired = Counter(first["analytics"]) + Counter(second["analytics"])
+        on_topics = {t: sum(client.end_offsets(t)) for t in plane_topics()}
+        want = {t: sum(fired[op] for op, tt in ANALYTICS_TOPIC.items() if tt == t)
+                for t in plane_topics()}
+        if on_topics != want:
+            fail(f"deployed job: analytics topics {on_topics}, summaries' fired {want}")
+        db_conn = sqlite3.connect(db)
+        jobs = db_conn.execute("select job_id, status from jobs").fetchall()
+        steps = [r[0] for r in db_conn.execute(
+            "select step from checkpoints order by step").fetchall()]
+        db_conn.close()
+        if [j[1] for j in jobs] != ["FINISHED"] or int(final.group(1)) not in steps \
+                or len(steps) < 3:
+            fail(f"deployed job: metadata jobs {jobs}, checkpoints {steps}")
+        mega = 0
+        for summary in (first, second):
+            k = summary["kernels"]
+            if k["fallback"]["megakernel"] or k["dispatch"]["megakernel"] != summary[
+                    "counters"]["batches"]:
+                fail(f"deployed job: kernel snapshot {k} over "
+                     f"{summary['counters']['batches']} batches")
+            mega += k["dispatch"]["megakernel"]
+        print(f"deployed job (broker, simulate --broker, run-job --broker --quant --mega "
+              f"--analytics --enrichment, each a process): first run scored "
+              f"{first['scored']} in {first['counters']['batches']} batches, stopped by "
+              f"SIGTERM ({s1:.1f} s command, {first['txn_per_s']} txn/s), final checkpoint "
+              f"step {final.group(1)}; the restart resumed from it and scored "
+              f"{second['scored']} in {second['counters']['batches']} batches ({s2:.1f} s, "
+              f"{second['txn_per_s']} txn/s), 0 duplicates; each of {DEPLOY_COUNT} ids once "
+              f"on the predictions and enriched topics; blend vs its CPU version max err "
+              f"{blend_err:.3e}; alert-router routed {alerts} = the alerts topic = "
+              f"predictions above 0.7 ({router_s:.1f} s); analytics "
+              f"{json.dumps(on_topics)}; metadata FINISHED, checkpoints {steps}; "
+              f"megakernel {mega} dispatches, 0 fallbacks", flush=True)
+        client.close()
+    finally:
+        _kill(procs)
+    return {"megakernel": mega, "epilogue": 0, "flash_attention": 0, "dequant_matmul": 0,
+            "dequant_rows": 0}
+
+
+def run_deployed_phase(ops):
+    """Phase 19: the job as deployed (see the module docstring). Returns the
+    launches by path."""
+    import tempfile
+    from pathlib import Path
+
+    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE, TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.utils.config import KernelSettings
+
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        sim_args = ["--users", str(STREAM_USERS), "--merchants", str(STREAM_MERCHANTS),
+                    "--seed", str(DEPLOY_SEED)]
+        procs = []
+        try:
+            t0 = time.perf_counter()
+            broker = _port_proc(["broker", "--host", "127.0.0.1", "--port", str(port),
+                                 "--log-dir", str(Path(tmp) / "wal")])
+            procs.append(broker)
+            _broker_client(port).close()
+            simulate = _port_proc(["simulate", "--broker", f"127.0.0.1:{port}",
+                                   "--count", str(DEPLOY_COUNT), "--tps", "1000000",
+                                   *sim_args])
+            procs.append(simulate)
+            t1 = time.perf_counter()
+            chain = {"epilogue": 1, "flash_attention": DISTILBERT_BASE.num_layers,
+                     "dequant_matmul": 6 * DISTILBERT_BASE.num_layers, "dequant_rows": 2,
+                     "megakernel": 0}
+            tiny = run_planes(ops, "TINY", TINY_CONFIG, KernelSettings.mega(), 16 * BATCH,
+                              {k: int(k == "megakernel") for k in chain})
+            base = run_planes(ops, "DistilBERT-base", DISTILBERT_BASE,
+                              KernelSettings.full(), 4 * BATCH, chain)
+            seconds["a"] = round(time.perf_counter() - t1, 1)
+            _, err, _ = _finish("simulate --broker", simulate)
+            if "native_queue=True" not in err or "dropped=0" not in err:
+                fail(f"simulate --broker: the gateway's native queue was not used or "
+                     f"records were dropped: {err[-1000:]}")
+            print(f"simulate --broker: {err.strip().splitlines()[-1]}", flush=True)
+            t2 = time.perf_counter()
+            deployed = run_deployed(tmp, port, sim_args)
+            seconds["b"] = round(time.perf_counter() - t2, 1)
+            seconds["broker_and_simulate_start"] = round(t1 - t0, 1)
+        finally:
+            _kill(procs)
+    print(f"deployed-job phase seconds by part: {json.dumps(seconds)}", flush=True)
+    return {"tiny_planes": tiny["launches"], "distilbert_base_planes": base["launches"],
+            "deployed_job": deployed}
+
+
 def run_drills() -> dict:
     """The port's kernel drill (``KernelDrillConfig.fast()``) on the card,
     once on the per-site chain and once on the megakernel; a verdict that is
@@ -4754,6 +5195,8 @@ def main() -> int:
     lap("17")
     stream.update(run_feedback(ops))
     lap("18")
+    stream.update(run_deployed_phase(ops))
+    lap("19")
     print(f"seconds by phase: {json.dumps(seconds)}", flush=True)
     for e in entries:
         e["stream_launches"] = {k: v[e["name"]] for k, v in stream.items()}

@@ -19,7 +19,13 @@ hot reload, drift, A/B experiments) is the other: ``python -m
 realtime_fraud_detection_tpu_torch serve``. The training plane
 (``training``: the GBDT and isolation-forest trainers, the neural trainers
 on ``torch.optim``, Platt calibration, the blend-selection protocol) backs
-the ``train``, ``validate`` and ``quality-eval`` commands.
+the ``train``, ``validate`` and ``quality-eval`` commands. Deployed, the job
+runs over the TCP log broker (``stream.netbroker``, the ``broker`` command),
+fed by ``simulate --broker`` through the ingress gateway (``stream.gateway``
+and its C++ queue, ``native``), with the windowed analytics
+(``stream.windows``) and the enrichment blend on, a graceful drain on
+SIGTERM and a resume from its checkpoint; ``alert-router`` consumes its
+alerts.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,10 @@
 """Command-line entry point of the port.
 
-    python -m realtime_fraud_detection_tpu_torch run-job --count 10000 --mega [--overlap-assembly] [--qos] [--trace] [--autotune] [--feedback]
+    python -m realtime_fraud_detection_tpu_torch run-job --count 10000 --mega [--overlap-assembly] [--qos] [--trace] [--autotune] [--feedback] [--analytics] [--enrichment]
+    python -m realtime_fraud_detection_tpu_torch run-job --broker 127.0.0.1:9092 --count 0 [--duration S] --checkpoint-dir D [--metadata-db F]
+    python -m realtime_fraud_detection_tpu_torch broker --port 9092 [--log-dir D] [--role replica] [--min-isr N] [--replica H:P]
+    python -m realtime_fraud_detection_tpu_torch topics [--broker 127.0.0.1:9092 --create]
+    python -m realtime_fraud_detection_tpu_torch alert-router --broker 127.0.0.1:9092 [--webhook URL] [--once]
     python -m realtime_fraud_detection_tpu_torch kernel-drill --fast [--mega]
     python -m realtime_fraud_detection_tpu_torch feedback-drill [--fast]
     python -m realtime_fraud_detection_tpu_torch quant-drill [--fast] [--no-replay]
@@ -10,16 +14,26 @@
     python -m realtime_fraud_detection_tpu_torch trace-export --count 2048 --out trace.json
     python -m realtime_fraud_detection_tpu_torch serve --port 8080 [--quant] [--kernels|--mega] [--trace] [--qos] [--autotune] [--overlap-assembly]
     python -m realtime_fraud_detection_tpu_torch health-check --url http://127.0.0.1:8080
-    python -m realtime_fraud_detection_tpu_torch simulate --count 1000
+    python -m realtime_fraud_detection_tpu_torch simulate --count 1000 [--broker 127.0.0.1:9092]
     python -m realtime_fraud_detection_tpu_torch train --rows 10000 [--neural] --out ./checkpoints
     python -m realtime_fraud_detection_tpu_torch validate --checkpoint-dir ./checkpoints [--min-auc 0.8]
     python -m realtime_fraud_detection_tpu_torch quality-eval [--checkpoint-dir D] [--output Q.json]
 
-``run-job`` is the in-memory path of the JAX package's ``rtfd run-job``
-(``cli.py cmd_run_job``): the seeded simulator produces transactions into
-an in-memory broker, keyed by user; the port's ``StreamJob`` scores them
-in microbatches through ``TorchFraudScorer`` and fans the results out to
-the predictions, alerts, enriched and features topics; with
+``run-job`` is the port of the JAX package's ``rtfd run-job`` (``cli.py
+cmd_run_job``): the seeded simulator produces transactions into an
+in-memory broker (or, with ``--broker``, a running ``broker`` process;
+``--count 0`` then only consumes, in checkpointed slices, until
+``--duration`` or a signal), keyed by user; the port's ``StreamJob`` scores
+them in microbatches through ``TorchFraudScorer`` and fans the results out
+to the predictions, alerts, enriched and features topics; with
+``--enrichment`` the enriched topic carries the 60/40 feature-score blend,
+with ``--analytics`` the seven window operators feed the stream-processing
+topics (the summary's ``analytics`` block: the windows each fired);
+``--checkpoint-dir`` saves the models, the host state and the read
+positions after every chunk or slice and resumes from the latest at start;
+``--metadata-db`` records the job and its checkpoints in a SQLite store;
+SIGTERM or SIGINT drains the batches in flight, commits, writes a final
+checkpoint and ends with ``stopped_by`` in the summary; with
 ``--overlap-assembly`` the scorer's host assembly runs on a background
 thread, overlapped with the card; with ``--qos`` the deadline-aware QoS
 plane (admission at ``--qos-rate`` txn/s, the ``--qos-budget-ms`` budget and
@@ -81,11 +95,20 @@ exits 2. The CUDA kernels are
 built before the service listens. ``health-check`` probes a running
 service's ``/health`` and prints the JSON verdict (exit 1 unless healthy).
 
+``broker``, ``topics`` and ``alert-router`` are the ports of the JAX
+commands: the durable TCP log broker (``stream/netbroker.py``; its frames
+are the JAX broker's, so either package's client talks to either server),
+the topic contract (created on a broker with ``--create``), and the alert
+router (a consumer on the alerts topic that posts each batch to a webhook,
+or prints JSON lines, and commits after; ``--once`` drains and exits).
+
 ``simulate``, ``train``, ``validate`` and ``quality-eval`` are the ports of
 the JAX commands of the same names, with their arguments, defaults, printed
 JSON and exit codes. ``simulate`` writes the seeded simulator's transactions
-as JSON lines (producing into a broker, ``--broker``, needs the network tier
-and is not offered). ``train`` fits the GBDT (on the host) and the isolation
+as JSON lines, or with ``--broker`` produces them at ~``--tps`` through the
+ingress gateway (``stream/gateway.py``: the C++ queue of ``native/``, built
+with g++ on first use, or a deque without g++), and says on standard error
+which queue it used. ``train`` fits the GBDT (on the host) and the isolation
 forest on simulated rows, with ``--neural`` also the LSTM, GNN and TINY BERT
 branches (on the card unless ``--device cpu``), and saves a port checkpoint
 whose manifest carries the trees' feature importances; per-branch step times
@@ -120,9 +143,38 @@ def _no_card(command: str, device: str) -> bool:
     return False
 
 
+def _addr(spec: str, default_port: int) -> tuple[str, int]:
+    host, _, port = spec.partition(":")
+    return host or "127.0.0.1", int(port or default_port)
+
+
+def _broker_client(spec: str, default_port: int = 9092):
+    """Broker client from an address spec: a comma-separated list (the
+    replicated cluster, primary first) gives an ``HaBrokerClient``, a single
+    address the plain ``NetBrokerClient``."""
+    from realtime_fraud_detection_tpu_torch.stream.netbroker import (
+        HaBrokerClient,
+        NetBrokerClient,
+    )
+
+    addrs = [_addr(a, default_port) for a in spec.split(",") if a.strip()]
+    if not addrs:
+        raise ValueError(f"no broker address in {spec!r}")
+    if len(addrs) > 1:
+        return HaBrokerClient(addrs)
+    return NetBrokerClient(host=addrs[0][0], port=addrs[0][1])
+
+
 def cmd_run_job(args: argparse.Namespace) -> int:
+    import signal
+
+    from realtime_fraud_detection_tpu_torch.checkpoint import (
+        CheckpointManager,
+        snapshot_scorer_host_state,
+    )
     from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
     from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.state.metadata import MetadataStore
     from realtime_fraud_detection_tpu_torch.stream import topics as T
     from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
     from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
@@ -147,7 +199,7 @@ def cmd_run_job(args: argparse.Namespace) -> int:
         config.kernels = KernelSettings.full()
     gen = TransactionGenerator(num_users=args.users, num_merchants=args.merchants,
                                seed=args.seed, tps=args.tps)
-    broker = InMemoryBroker()
+    broker = _broker_client(args.broker) if args.broker else InMemoryBroker()
     scorer = TorchFraudScorer(config, seed=args.seed, device=args.device)
     scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
     qos = (QosSettings(enabled=True, budget_ms=args.qos_budget_ms,
@@ -175,13 +227,72 @@ def cmd_run_job(args: argparse.Namespace) -> int:
                 DriftConfig(num_features=scorer.sc.feature_dim)))
     job = StreamJob(broker, scorer, JobConfig(
         max_batch=args.batch, pipeline_depth=args.pipeline_depth,
+        enable_analytics=args.analytics, enable_enrichment=args.enrichment,
         overlap_assembly=args.overlap_assembly, qos=qos, tracing=tracing,
         autotune=tuning, feedback=feedback))
 
-    t0 = time.perf_counter()
-    produced = scored = 0
+    metadata = ckpt = None
+    job_id = f"job-{args.seed}"
+    if args.metadata_db:
+        metadata = MetadataStore(args.metadata_db)
+        metadata.register_job(job_id, "fraud-detection-job", parallelism=1)
+        metadata.put_profiles(gen.users.profiles(), gen.merchants.profiles())
+    if args.checkpoint_dir:
+        ckpt = CheckpointManager(args.checkpoint_dir)
+
+    def checkpoint(step: int) -> None:
+        if ckpt is None:
+            return
+        t_ck = time.perf_counter()
+        path = ckpt.save(step, params=scorer.models,
+                         host_state=snapshot_scorer_host_state(scorer),
+                         offsets=job.consumer.positions())
+        if metadata is not None:
+            metadata.record_checkpoint(
+                job_id, step, str(path),
+                duration_ms=(time.perf_counter() - t_ck) * 1e3)
+
+    # SIGTERM / SIGINT drain: the run loops stop polling, complete and
+    # commit every batch in flight, and a final checkpoint pins (state,
+    # offsets) at the drained point, so a restart replays nothing (only
+    # SIGKILL replays the uncommitted tail)
+    stop = {"name": None}
+
+    def graceful(signum, frame):
+        stop["name"] = signal.Signals(signum).name
+        job.request_stop()
+
     try:
-        while produced < args.count:
+        signal.signal(signal.SIGTERM, graceful)
+        signal.signal(signal.SIGINT, graceful)
+    except ValueError:
+        pass                      # not the main thread (embedded use)
+
+    t0 = time.perf_counter()
+    produced = scored = step = 0
+    if ckpt is not None and ckpt.latest_step() is not None:
+        # resume models, host state and transport positions from the latest
+        # checkpoint; step numbering continues so retention never collides
+        ck = ckpt.restore_into_scorer(scorer)
+        if ck.offsets:
+            job.consumer.seek_to_positions(ck.offsets)
+        step = ck.step
+        print(f"resumed from checkpoint step {ck.step} ({args.checkpoint_dir})",
+              file=sys.stderr, flush=True)
+    try:
+        if args.count == 0:
+            # consume only: an external producer feeds the broker; run in
+            # checkpointed slices of at most 10 s until --duration (0 =
+            # until stopped)
+            while (args.duration <= 0
+                   or time.perf_counter() - t0 < args.duration) \
+                    and not job.stop_requested:
+                scored += job.run_for(
+                    min(10.0, args.duration - (time.perf_counter() - t0))
+                    if args.duration > 0 else 10.0)
+                step += 1
+                checkpoint(step)
+        while produced < args.count and not job.stop_requested:
             chunk = min(args.count - produced, 10_000)
             records = gen.generate_batch(chunk)
             broker.produce_batch(T.TRANSACTIONS, records,
@@ -194,16 +305,35 @@ def cmd_run_job(args: argparse.Namespace) -> int:
                     key_fn=lambda e: str(e["transaction_id"]))
             produced += chunk
             scored += job.run_until_drained()
+            step += 1
+            checkpoint(step)
+    except BaseException:
+        if metadata is not None:
+            metadata.set_job_status(job_id, "FAILED")
+            metadata.close()
+        raise
     finally:
         job.close()
+    if job.analytics is not None:
+        job.analytics.flush()
+    if stop["name"] is not None:
+        # the run loops drained and committed before returning
+        step += 1
+        checkpoint(step)
+        print(f"graceful shutdown on {stop['name']}: in-flight drained, offsets "
+              f"committed" + (f", final checkpoint step {step}" if ckpt is not None
+                              else ""), file=sys.stderr, flush=True)
     dt = time.perf_counter() - t0
+    if metadata is not None:
+        metadata.set_job_status(job_id, "FINISHED")
+        metadata.close()
     if args.predictions_out:
         with open(args.predictions_out, "w") as f:
             for rec in broker.consumer([T.PREDICTIONS], "predictions-out").poll(1 << 30):
                 f.write(json.dumps(rec.value) + "\n")
     stages = {name: round(st["mean_ms"], 4)
               for name, st in scorer.host_stats()["stages"].items()}
-    print(json.dumps({
+    summary = {
         "scored": scored, "wall_s": round(dt, 3),
         "txn_per_s": round(scored / dt, 1) if dt > 0 else 0.0,
         "counters": job.counters,
@@ -214,7 +344,14 @@ def cmd_run_job(args: argparse.Namespace) -> int:
         "tracing": _tracing_block(job),
         "autotune": _autotune_block(job),
         "feedback": _feedback_block(feedback),
-    }))
+        "analytics": ({k: v["fired"] for k, v in job.analytics.stats().items()}
+                      if job.analytics is not None else None),
+    }
+    if stop["name"] is not None:
+        summary["stopped_by"] = stop["name"]
+    if args.broker:
+        broker.close()
+    print(json.dumps(summary), flush=True)
     return 0 if job.counters["errors"] == 0 else 1
 
 
@@ -490,8 +627,37 @@ def _sim_generator(args: argparse.Namespace, seed: int):
 
 
 def cmd_simulate(args: argparse.Namespace) -> int:
-    """Generate transactions as JSON lines (event time is synthesised)."""
+    """Generate transactions as JSON lines (event time is synthesised), or
+    with ``--broker`` produce them into a broker at ~``--tps`` through the
+    ingress gateway (its C++ queue and sender thread overlap the network
+    produce with generation)."""
     gen = _sim_generator(args, args.seed)
+    if args.broker:
+        from realtime_fraud_detection_tpu_torch.stream import topics as T
+        from realtime_fraud_detection_tpu_torch.stream.gateway import IngressGateway
+
+        client = _broker_client(args.broker)
+        gateway = IngressGateway(client, T.TRANSACTIONS)
+        n_fraud = produced = 0
+        try:
+            while produced < args.count:
+                chunk = min(1000, args.count - produced, max(1, int(args.tps)))
+                t0 = time.perf_counter()
+                for txn in gen.generate_batch(chunk):
+                    n_fraud += bool(txn.get("is_fraud"))
+                    while not gateway.submit(txn):     # backpressure: spin
+                        time.sleep(0.001)
+                produced += chunk
+                budget = chunk / args.tps - (time.perf_counter() - t0)
+                if budget > 0:
+                    time.sleep(budget)
+        finally:
+            gateway.close()
+            client.close()
+        print(f"produced {produced} txns ({n_fraud} fraud, "
+              f"native_queue={gateway.native}, dropped={gateway.dropped}) "
+              f"to {args.broker}", file=sys.stderr)
+        return 0 if gateway.dropped == 0 else 1
     out = sys.stdout if args.output == "-" else open(args.output, "w")
     try:
         n_fraud = 0
@@ -505,6 +671,159 @@ def cmd_simulate(args: argparse.Namespace) -> int:
         if out is not sys.stdout:
             out.close()
     print(f"generated {args.count} txns ({n_fraud} fraud)", file=sys.stderr)
+    return 0
+
+
+def _wait_forever() -> None:  # pragma: no cover - blocks until a signal
+    import threading
+
+    threading.Event().wait()
+
+
+def cmd_broker(args: argparse.Namespace) -> int:
+    """Run the standalone durable log broker (``stream/netbroker.py``), the
+    Kafka-role process of a multi-process deployment, until SIGINT /
+    SIGTERM."""
+    import signal
+
+    from realtime_fraud_detection_tpu_torch.stream.netbroker import BrokerServer
+
+    server = BrokerServer(host=args.host, port=args.port,
+                          log_dir=args.log_dir or None, role=args.role,
+                          min_isr=args.min_isr).start()
+    for addr in args.replica:
+        rhost, _, rport = addr.rpartition(":")
+        # a cluster starting in parallel may bring the primary up first:
+        # retry the attachment until the replica answers
+        for attempt in range(60):
+            try:
+                server.add_replica(rhost or "127.0.0.1", int(rport))
+                break
+            except OSError as e:
+                if attempt == 59:
+                    raise
+                print(f"replica {addr} not reachable yet ({e}); retrying",
+                      file=sys.stderr)
+                time.sleep(2.0)
+        print(f"replica {addr} caught up and in sync", file=sys.stderr)
+    print(f"broker listening on {args.host}:{server.port}"
+          + (f" (log_dir={args.log_dir})" if args.log_dir else "")
+          + f" role={server.role} min_isr={server.min_isr}",
+          file=sys.stderr, flush=True)
+
+    def stop(signum, frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, stop)
+    try:
+        _wait_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+    return 0
+
+
+def cmd_topics(args: argparse.Namespace) -> int:
+    """Print the topic contract; with ``--broker --create``, create it on a
+    running broker."""
+    from realtime_fraud_detection_tpu_torch.stream.topics import TOPIC_SPECS
+
+    broker = None
+    if args.create:
+        if not args.broker:
+            print("--create requires --broker host:port", file=sys.stderr)
+            return 2
+        from realtime_fraud_detection_tpu_torch.stream.netbroker import NetBrokerClient
+
+        host, _, port = args.broker.rpartition(":")
+        broker = NetBrokerClient(host=host or "127.0.0.1", port=int(port))
+    try:
+        for t in TOPIC_SPECS:
+            flag = " compacted" if t.compacted else ""
+            if broker is not None:
+                broker.create_topic(t.name, t.partitions)
+                print(f"created {t.name:28s} partitions={t.partitions}{flag}")
+            else:
+                print(f"{t.name:28s} partitions={t.partitions}{flag}")
+    finally:
+        if broker is not None:
+            broker.close()
+    return 0
+
+
+def cmd_alert_router(args: argparse.Namespace) -> int:
+    """Fan fraud alerts out to notification receivers: a consumer on the
+    alerts topic that POSTs each polled batch to an Alertmanager-compatible
+    webhook, or prints JSON lines without one. Offsets commit only after the
+    receiver took the batch (at-least-once; receivers dedupe on the
+    transaction id). ``--once`` drains the topic and exits; otherwise it
+    follows the topic until interrupted."""
+    import urllib.request
+
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+
+    broker = _broker_client(args.broker)
+    consumer = broker.consumer([T.ALERTS], args.group)
+    routed = 0
+    backoff = 1.0
+    try:
+        while True:
+            recs = consumer.poll(500)
+            if not recs:
+                if args.once:
+                    break
+                time.sleep(args.poll_interval)
+                continue
+            payload = []
+            for r in recs:
+                a = r.value if isinstance(r.value, dict) else {}
+                payload.append({
+                    "labels": {
+                        "alertname": str(a.get("alert_type", "FRAUD_DETECTED")),
+                        "severity": ("critical" if str(a.get("decision")) == "DECLINE"
+                                     else "warning"),
+                        "risk_level": str(a.get("risk_level", "UNKNOWN")),
+                        "merchant_id": str(a.get("merchant_id", "")),
+                        "service": "rtfd",
+                    },
+                    "annotations": {
+                        "transaction_id": str(a.get("transaction_id", "")),
+                        "user_id": str(a.get("user_id", "")),
+                        "amount": str(a.get("amount", "")),
+                        "fraud_score": str(a.get("fraud_score", "")),
+                    },
+                })
+            if args.webhook:
+                req = urllib.request.Request(
+                    args.webhook, data=json.dumps(payload).encode(),
+                    headers={"Content-Type": "application/json"}, method="POST")
+                try:
+                    with urllib.request.urlopen(req, timeout=10) as resp:
+                        resp.read()
+                except OSError as e:
+                    # a receiver blip must not crash-loop the router: rewind
+                    # to the committed offsets (the batch is delivered again)
+                    # and back off; --once fails loudly instead
+                    if args.once:
+                        raise
+                    print(f"webhook unreachable ({e}); retrying in {backoff:.0f}s",
+                          file=sys.stderr)
+                    time.sleep(backoff)
+                    backoff = min(backoff * 2, 60.0)
+                    consumer.seek_to_committed()
+                    continue
+            else:
+                for item in payload:
+                    print(json.dumps(item), flush=True)
+            backoff = 1.0
+            consumer.commit()
+            routed += len(payload)
+    except KeyboardInterrupt:  # pragma: no cover - operator stop
+        pass
+    finally:
+        broker.close()
+    print(f"routed {routed} alerts", file=sys.stderr)
     return 0
 
 
@@ -748,7 +1067,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="simulated event-time rate")
     sp.add_argument("--seed", type=int, default=42)
     sp.add_argument("--count", type=int, default=10_000,
-                    help="transactions to generate and score")
+                    help="transactions to generate and score; 0 = consume "
+                         "only, from --broker")
+    sp.add_argument("--duration", type=float, default=0.0,
+                    help="consume-only runtime seconds (0 = until stopped)")
+    sp.add_argument("--broker", default="",
+                    help="external broker host:port, or a comma list for the "
+                         "replicated cluster (default: in-memory)")
     sp.add_argument("--batch", type=int, default=256, help="microbatch size")
     sp.add_argument("--pipeline-depth", type=int, default=2,
                     help="microbatches in flight")
@@ -783,6 +1108,16 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--feedback-delay-scale", type=float, default=1e-4,
                     help="compresses the chargeback label-delay distribution "
                          "(1.0 = realistic days)")
+    sp.add_argument("--analytics", action="store_true",
+                    help="attach the windowed-analytics stage")
+    sp.add_argument("--enrichment", action="store_true",
+                    help="blend the six-category feature score into the "
+                         "enriched output (FeatureEnrichmentProcessor)")
+    sp.add_argument("--checkpoint-dir", default="",
+                    help="checkpoint models, host state and offsets here after "
+                         "each chunk or slice; resume from the latest at start")
+    sp.add_argument("--metadata-db", default="",
+                    help="SQLite path for the durable job / checkpoint records")
     sp.add_argument("--predictions-out", default="",
                     help="write the emitted predictions here, one JSON line each")
     sp.add_argument("--device", default="cuda",
@@ -925,7 +1260,43 @@ def build_parser() -> argparse.ArgumentParser:
     _add_sim_args(sm)
     sm.add_argument("--count", type=int, default=1000)
     sm.add_argument("--output", default="-")
+    sm.add_argument("--broker", default="",
+                    help="produce to a broker (host:port, or a comma list) at "
+                         "~tps through the ingress gateway instead of writing "
+                         "JSON lines")
     sm.set_defaults(fn=cmd_simulate)
+    bk = sub.add_parser("broker", help="run the durable log broker (TCP)")
+    bk.add_argument("--host", default="0.0.0.0")
+    bk.add_argument("--port", type=int, default=9092)
+    bk.add_argument("--log-dir", default="",
+                    help="write-ahead segment directory (empty = in memory only)")
+    bk.add_argument("--role", choices=("primary", "replica"), default="primary",
+                    help="replica = read-only standby until promoted")
+    bk.add_argument("--min-isr", type=int, default=1,
+                    help="in-sync copies (self included) a produce must reach "
+                         "before its ack")
+    bk.add_argument("--replica", action="append", default=[], metavar="HOST:PORT",
+                    help="attach a running replica server (repeatable)")
+    bk.set_defaults(fn=cmd_broker)
+    tp = sub.add_parser("topics", help="print the topic contract")
+    tp.add_argument("--broker", default="",
+                    help="broker host:port to create the topics on")
+    tp.add_argument("--create", action="store_true",
+                    help="create the contract's topics on --broker")
+    tp.set_defaults(fn=cmd_topics)
+    ar = sub.add_parser("alert-router",
+                        help="fan fraud alerts out to notification receivers")
+    ar.add_argument("--broker", default="127.0.0.1:9092",
+                    help="broker host:port to consume fraud-alerts from")
+    ar.add_argument("--webhook", default="",
+                    help="Alertmanager /api/v2/alerts URL (empty = JSON lines "
+                         "on stdout)")
+    ar.add_argument("--group", default="alert-router",
+                    help="consumer group (offset checkpointing)")
+    ar.add_argument("--once", action="store_true",
+                    help="drain the topic and exit")
+    ar.add_argument("--poll-interval", type=float, default=1.0)
+    ar.set_defaults(fn=cmd_alert_router)
     tr = sub.add_parser("train", help="train tree models on synthetic data")
     _add_sim_args(tr)
     tr.add_argument("--rows", type=int, default=10_000,

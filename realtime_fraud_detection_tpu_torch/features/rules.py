@@ -4,7 +4,10 @@ Port of the JAX package's ``features/rules.py`` (``rule_score``,
 ``risk_level_code``, the constants and the host-side scalar twins the
 serving A/B path recombines with), itself a vectorised
 ``TransactionProcessor.applyFraudDetectionRules``
-(TransactionProcessor.java:327-439).
+(TransactionProcessor.java:327-439), and of its enrichment pair
+``enrichment_score`` / ``blend_enrichment`` (FeatureEnrichmentProcessor,
+the stream job's ``JobConfig.enable_enrichment``). Every function runs on
+the device of the tensors it is given.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from realtime_fraud_detection_tpu_torch.features.extract import FEATURE_NAMES
 from realtime_fraud_detection_tpu_torch.features.schema import TransactionBatch
 from realtime_fraud_detection_tpu_torch.utils.config import (
     DECLINE_THRESHOLD_DEFAULT,
@@ -123,3 +127,85 @@ def model_confidence_value(prob: float, multiplier: float) -> float:
     """Host-side scalar twin of one branch's confidence
     (ensemble_predictor.py:325-342)."""
     return min(1.0, abs(prob - 0.5) * 2.0 * multiplier)
+
+
+# ---------------------------------------------------------------- enrichment
+def _fma(x: torch.Tensor, weight: float, acc: torch.Tensor) -> torch.Tensor:
+    """f32 ``x * weight + acc`` rounded once, as a fused multiply-add: the
+    product of two f32 values is exact in f64, so the f64 sum rounded to f32
+    is the fused result. The reference's compiled weighted sums fuse each
+    product into the running sum this way; rounding the product first would
+    move a score by an ulp, enough to flip a ladder rung at a cut."""
+    w = float(torch.tensor(weight, dtype=torch.float32))
+    return (x.to(torch.float64) * w + acc.to(torch.float64)).to(torch.float32)
+
+
+def enrichment_score(features: torch.Tensor) -> torch.Tensor:
+    """Category-weighted feature score over the 64-wide feature matrix
+    (FeatureEnrichmentProcessor.calculateFeatureBasedFraudScore,
+    FeatureEnrichmentProcessor.java:122-344): six category sub-scores
+    weighted .2/.1/.25/.2/.15/.1; only the weighted sum is clipped to
+    [0, 1]. The terms are added in the JAX function's order, in f32, the
+    weighted category sum with fused multiply-adds (``_fma``)."""
+    f = features.to(torch.float32)
+
+    def col(name: str) -> torch.Tensor:
+        return f[:, FEATURE_NAMES.index(name)]
+
+    def on(cond: torch.Tensor) -> torch.Tensor:
+        return cond.to(torch.float32)
+
+    def pick(cond: torch.Tensor, a: float, b) -> torch.Tensor:
+        return torch.where(cond, torch.full_like(cond, a, dtype=torch.float32), b)
+
+    # amount (x0.2, :157-179): very large / micro amount categories
+    amount_cat = col("amount_category")
+    zero = torch.zeros_like(amount_cat)
+    amount = (0.3 * on(col("is_large_for_user") > 0)
+              + 0.1 * on(col("is_round_100") > 0)
+              + pick(amount_cat >= 4, 0.2, pick(amount_cat < 1, 0.1, zero)))
+    # temporal (x0.1, :184-206)
+    temporal = (0.2 * on(col("is_night_time") > 0)
+                + 0.15 * on(col("in_user_preferred_time") <= 0)
+                + 0.1 * on((col("is_weekend") > 0)
+                           & (col("weekend_activity_factor") < 0.3)))
+    # user behaviour (x0.25, :211-238)
+    user = (pick(col("is_very_new_account") > 0, 0.4,
+                 pick(col("is_new_account") > 0, 0.2, zero))
+            + 0.3 * on(col("is_kyc_verified") <= 0)
+            + col("user_risk_score") * 0.5)
+    # merchant risk (x0.2, :243-277)
+    merchant = (0.8 * on(col("is_blacklisted_merchant") > 0)
+                + 0.3 * on(col("is_high_risk_category") > 0)
+                + col("merchant_fraud_rate") * 2.0
+                + 0.2 * on(col("suspicious_merchant_name") > 0)
+                + 0.15 * on(col("within_merchant_hours") <= 0))
+    # velocity (x0.15, :282-307)
+    velocity = (0.6 * on(col("high_velocity_5min") > 0)
+                + 0.4 * on(col("high_velocity_1hour") > 0)
+                + 0.2 * on(col("velocity_5min_count") > 3)
+                + 0.15 * on(col("velocity_1hour_count") > 10))
+    # device / network (x0.1, :312-334)
+    device = (0.3 * on(col("is_new_device") > 0)
+              + col("ip_risk_score")
+              + 0.2 * on(col("suspicious_user_agent") > 0))
+    score = _fma(temporal, 0.1, amount * 0.2)
+    for term, weight in ((user, 0.25), (merchant, 0.2), (velocity, 0.15),
+                         (device, 0.1)):
+        score = _fma(term, weight, score)
+    return torch.clamp(score, 0.0, 1.0)
+
+
+def blend_enrichment(prior_score: torch.Tensor, features: torch.Tensor):
+    """60/40 blend of the prior score with ``enrichment_score``, then the
+    enrichment ladder (FeatureEnrichmentProcessor.java:84-90, 341-367):
+    >=0.95 DECLINE/CRITICAL, >=0.8 REVIEW/HIGH, >=0.6 REVIEW/MEDIUM, >=0.3
+    APPROVE/LOW, else APPROVE/VERY_LOW. Returns (blended f32[B], decision
+    i32[B], risk_level i32[B]) on the inputs' device."""
+    blended = torch.clamp(
+        _fma(prior_score.to(torch.float32), 0.6, enrichment_score(features) * 0.4),
+        0.0, 1.0)
+    decision = torch.where(
+        blended >= 0.95, DECLINE,
+        torch.where(blended >= 0.6, REVIEW, APPROVE)).to(torch.int32)
+    return blended, decision, risk_level_code(blended)

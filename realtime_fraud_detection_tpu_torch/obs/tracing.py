@@ -483,6 +483,17 @@ class Tracer:
             ingest, pr, broker_transit_s=transit, redirect_s=redirect,
             hops=hops, origin=origin, parent=parent, fault=fault)
 
+    def root_carrier(self, produced_ts: Optional[float] = None,
+                     priority: str = "") -> Optional[Dict[str, Any]]:
+        """Mint a wire carrier for a record this process produces but will
+        never score (the ingress gateway -> broker): a fresh trace id plus
+        the producer's wall stamp, which the consumer turns into
+        ``broker_transit``. None when the tracer is disabled."""
+        if not self.enabled:
+            return None
+        return make_carrier(self._next_id(), origin=self.origin,
+                            produced_ts=produced_ts, priority=priority)
+
     def batch(self, contexts: Sequence[Optional[TraceContext]],
               **meta: Any) -> Optional[TraceBatch]:
         """Bind admitted contexts into one microbatch carrier. Publishes

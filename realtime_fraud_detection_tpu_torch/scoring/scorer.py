@@ -33,6 +33,8 @@ in-process state tier:
   apply_degradation``) as a branch mask anded with the deployment's
   validity (the enabled models of ``Config.models``); a megakernel batch
   passes it as ``mega_valid`` (all false at ``rules_only``);
+- handoff seam: ``replay_state`` re-applies the state updates of records
+  scored elsewhere, with REVIEW markers in the transaction cache;
 - explanations: ``set_feature_importances`` attaches a trainer's gain
   importances as the top-10 ``top_feature_importances`` of every
   explanation; ``set_models`` clears them (they describe the old trees);
@@ -860,6 +862,29 @@ class TorchFraudScorer:
                     now: Optional[float] = None) -> List[Dict[str, Any]]:
         """Score transaction dicts -> prediction dicts (one batch, waited)."""
         return self.finalize(self.dispatch(records, now), now)
+
+    def replay_state(self, records: Sequence[Mapping[str, Any]],
+                     now: Optional[float] = None) -> None:
+        """State-only replay (JAX ``FraudScorer.replay_state``): re-apply
+        the state updates of records already scored, emitted and committed
+        elsewhere, with no scoring on the card and nothing emitted.
+        ``assemble`` rebuilds the history ring and the profile / velocity
+        read path as the scoring pass did; the write-back caches each
+        transaction with a REVIEW marker (its served score is not known
+        here), so a later duplicate re-emits the marker rather than an
+        invented score."""
+        if not records:
+            return
+        self.assemble(records, now=now)
+        markers = [{
+            "transaction_id": str(r.get("transaction_id", "")),
+            "fraud_score": 0.5,
+            "decision": "REVIEW",
+            "risk_level": "UNKNOWN",
+            "confidence": 0.0,
+            "explanation": {"replay_restored": True},
+        } for r in records]
+        self._write_back(records, markers, now)
 
     def _write_back(self, records, results, now: Optional[float]) -> None:
         """Post-scoring state updates (RedisTransactionSink.java:53-135):

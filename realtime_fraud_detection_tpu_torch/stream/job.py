@@ -45,8 +45,22 @@ feature rows (``PendingScore.features``, the retrain corpus), the due labels
 are drained into it and its cheap trigger check runs at the completion
 time. The retrain itself (``react``) runs between batches in both run
 loops: batches already in flight complete with the models they were
-launched with. The analytics, enrichment and device-pool planes are not
-ported: ``JobConfig`` has no fields for them, so passing one is an error.
+launched with.
+
+With ``JobConfig.enable_enrichment`` every scored batch's ensemble scores
+are blended 60/40 with the six-category feature score
+(``features/rules.py blend_enrichment``, on the scorer's device) and the
+enriched topic carries the blended score, its enrichment decision and risk
+level, and the ensemble's score as ``ensemble_score``. With
+``JobConfig.enable_analytics`` every enriched record also passes, at its
+event time, through the seven window operators of ``stream/windows.py
+WindowedAnalytics``, whose fired windows go to the stream-processing topics.
+
+``request_stop`` (signal-handler safe) makes both run loops stop polling,
+dispatch the assembler's polled-but-unbatched tail, complete every batch in
+flight (with overlapped assembly: through the ``AssemblerStage``) and
+commit, so a stopped job leaves nothing to replay. The device-pool plane is
+not ported.
 """
 
 from __future__ import annotations
@@ -59,8 +73,10 @@ from typing import Any, Dict, List, Optional
 
 from realtime_fraud_detection_tpu_torch.obs.tracing import CARRIER_KEY
 from realtime_fraud_detection_tpu_torch.serving.validation import sanitize_for_stream
+from realtime_fraud_detection_tpu_torch.state.stores import _event_time_ms
 from realtime_fraud_detection_tpu_torch.stream import topics as T
 from realtime_fraud_detection_tpu_torch.stream.microbatch import MicrobatchAssembler
+from realtime_fraud_detection_tpu_torch.stream.windows import WindowedAnalytics
 from realtime_fraud_detection_tpu_torch.stream.transport import (
     FaultInjector,
     InMemoryBroker,
@@ -83,6 +99,12 @@ class JobConfig:
     alert_threshold: float = 0.7      # FraudDetectionJob.java:66
     emit_features: bool = True
     emit_enriched: bool = True
+    # the windowed-analytics stage (stream/windows.py) over the enriched
+    # records, fired windows onto the stream-processing topics
+    enable_analytics: bool = False
+    # blend the six-category feature score 60/40 into the enriched output
+    # (FeatureEnrichmentProcessor.java:84-150)
+    enable_enrichment: bool = False
     # microbatches in flight before the oldest is completed: 2 overlaps the
     # host work of batch N+1 with the device time of batch N. Completion
     # stays in dispatch order. State write-back happens at completion, so
@@ -222,6 +244,8 @@ class StreamJob:
             from realtime_fraud_detection_tpu_torch.obs.tracing import Tracer
 
             self.tracer = tr if isinstance(tr, Tracer) else Tracer(tr)
+        self.analytics = (WindowedAnalytics(broker)
+                          if self.config.enable_analytics else None)
         # the feedback plane: labels are a stream of their own, with their
         # own offsets under a consumer group of their own
         self.feedback = self.config.feedback
@@ -244,6 +268,14 @@ class StreamJob:
 
             self._stage = AssemblerStage(
                 scorer, depth=max(1, self.config.pipeline_depth))
+        # the graceful-stop seam (run-job's SIGTERM / SIGINT handlers set it)
+        self.stop_requested = False
+
+    def request_stop(self) -> None:
+        """Ask the run loops to drain: stop polling, complete every batch in
+        flight and commit, then return (one attribute write, so safe in a
+        signal handler)."""
+        self.stop_requested = True
 
     def close(self) -> None:
         """Stop the background assembler stage (no-op without overlap)."""
@@ -259,6 +291,13 @@ class StreamJob:
         return max(1, self.config.pipeline_depth)
 
     # ----------------------------------------------------------------- steps
+    def process_batch(self, records: List[Record],
+                      now: Optional[float] = None) -> List[Dict[str, Any]]:
+        """Score one microbatch and fan its results out (dispatch, then
+        complete)."""
+        ctx = self.dispatch_batch(records, now=now)
+        return self.complete_batch(ctx) if ctx is not None else []
+
     def dispatch_batch(self, records: List[Record],
                        now: Optional[float] = None) -> Optional[_BatchCtx]:
         """Stage 1: sanitize, dedupe and launch on the device without
@@ -431,7 +470,7 @@ class StreamJob:
             self._emit_shed(ctx)
             self._emit_cached_dups(ctx)
             out = invalid_results + self._fan_out(ctx, fresh, results, feats,
-                                                  scored_ok)
+                                                  scored_ok, now)
             self._observe_planes(ctx, fresh, scored_ok, t_done)
             if self.feedback is not None and scored_ok:
                 # exactly what was emitted, with the batch's feature rows
@@ -534,12 +573,38 @@ class StreamJob:
             self.broker.produce_batch_keyed(self.config.predictions_topic,
                                             items)
 
+    def _enrich(self, results: List[Dict[str, Any]], feats):
+        """The batch's blended scores, enrichment decisions and risk levels
+        (``blend_enrichment`` on the scorer's device; no padding, so no pad
+        row can reach the output)."""
+        import torch
+
+        from realtime_fraud_detection_tpu_torch.features.rules import (
+            DECISIONS,
+            RISK_LEVEL_NAMES,
+            blend_enrichment,
+        )
+
+        n = len(results)
+        device = getattr(self.scorer, "device", "cpu")
+        prior = torch.tensor([r["fraud_score"] for r in results],
+                             dtype=torch.float32).to(device)
+        blended, dec, risk = blend_enrichment(
+            prior, torch.as_tensor(feats[:n]).to(device))
+        return (blended.cpu().tolist(),
+                [DECISIONS[i] for i in dec.cpu().tolist()],
+                [RISK_LEVEL_NAMES[i] for i in risk.cpu().tolist()])
+
     def _fan_out(self, ctx: _BatchCtx, fresh: List[Record],
                  results: List[Dict[str, Any]], feats,
-                 scored_ok: bool) -> List[Dict[str, Any]]:
-        """Produce to the output topics, one batched produce per topic, then
-        commit."""
+                 scored_ok: bool, now: Optional[float]) -> List[Dict[str, Any]]:
+        """Enrich, produce to the output topics (one batched produce per
+        topic), feed the analytics stage, then commit."""
         cfg = self.config
+        wants_enriched = cfg.emit_enriched or self.analytics is not None
+        enriched_scores = None
+        if cfg.enable_enrichment and scored_ok and wants_enriched:
+            enriched_scores = self._enrich(results, feats)
         out_preds: List[tuple] = []
         out_alerts: List[tuple] = []
         out_enriched: List[tuple] = []
@@ -550,12 +615,21 @@ class StreamJob:
             if res["fraud_score"] > cfg.alert_threshold:
                 out_alerts.append((uid, self._to_alert(rec.value, res)))
                 self.counters["alerts"] += 1
-            if cfg.emit_enriched:
+            if wants_enriched:
                 enriched = dict(rec.value)
                 enriched.update(fraud_score=res["fraud_score"],
                                 risk_level=res["risk_level"],
                                 decision=res["decision"])
-                out_enriched.append((uid, enriched))
+                if enriched_scores is not None:
+                    blended, decisions, risks = enriched_scores
+                    enriched.update(fraud_score=blended[i], risk_level=risks[i],
+                                    decision=decisions[i],
+                                    ensemble_score=res["fraud_score"])
+                if cfg.emit_enriched:
+                    out_enriched.append((uid, enriched))
+                if self.analytics is not None:
+                    self.analytics.process(
+                        enriched, _event_time_ms(enriched, now) / 1000.0)
             # feature rows exist only when scoring succeeded
             if cfg.emit_features and scored_ok:
                 out_features.append((uid, {
@@ -614,12 +688,26 @@ class StreamJob:
             self.feedback.react(now=now)
 
     # ------------------------------------------------------------------ run
+    def _dispatch_tail(self, in_flight: deque,
+                       now: Optional[float] = None) -> None:
+        """The drain after ``request_stop``: dispatch the assembler's
+        polled-but-unbatched records too (their offsets are past the last
+        commit snapshot, so leaving them would replay them on a restart)."""
+        tail = self.assembler.flush()
+        while tail:
+            in_flight.append(self.dispatch_batch(tail, now=now))
+            tail = self.assembler.flush()
+
     def run_until_drained(self, max_batches: int = 10_000,
                           now: Optional[float] = None) -> int:
-        """Process until the input topic is fully consumed. Returns #scored."""
+        """Process until the input topic is fully consumed, or until
+        ``request_stop`` (then drain). Returns #scored."""
         start_scored = self.counters["scored"]
         in_flight: deque = deque()
         for _ in range(max_batches):
+            if self.stop_requested:
+                self._dispatch_tail(in_flight, now)
+                break
             batch = self.assembler.next_batch(block=False)
             if not batch:
                 batch = self.assembler.flush()
@@ -640,17 +728,20 @@ class StreamJob:
         return self.counters["scored"] - start_scored
 
     def run_for(self, duration_s: float) -> int:
-        """Process the stream for a wall-clock window (soak entry)."""
+        """Process the stream for a wall-clock window, or until
+        ``request_stop`` (then drain). Returns #scored."""
         t_end = time.monotonic() + duration_s
         start = self.counters["scored"]
         in_flight: deque = deque()
-        while time.monotonic() < t_end:
+        while time.monotonic() < t_end and not self.stop_requested:
             batch = self.assembler.next_batch(block=True, timeout_s=0.05)
             if batch:
                 in_flight.append(self.dispatch_batch(batch))
             if in_flight and (len(in_flight) >= self._inflight_depth() or not batch):
                 self.complete_batch(in_flight.popleft())
             self._react()
+        if self.stop_requested:
+            self._dispatch_tail(in_flight)
         while in_flight:
             self.complete_batch(in_flight.popleft())
         self.drain_labels()

@@ -8,7 +8,9 @@ crc32, so routing is the same in every process and agrees with the Kafka
 partitioner. Consumers read from their group's committed offset; the job
 commits only after write-back and fan-out, so a crash replays the tail and
 the scorer's transaction cache deduplicates it. The producer generation
-fences come along as they are. The Kafka and network transports are not
+fences come along as they are. The network transport
+(``stream/netbroker.py``) serves an ``InMemoryBroker`` over TCP, and
+``Consumer`` runs over its client unchanged. The Kafka transport is not
 ported.
 """
 
@@ -254,8 +256,11 @@ class Consumer:
     ``poll`` returns up to max_records across the assigned partitions from
     the *position* (not yet committed); ``commit`` advances the group
     offset; ``seek_to_committed`` rewinds to the last commit (the
-    crash-recovery path). With an explicit ``partitions`` assignment the
-    consumer reads only those partitions.
+    crash-recovery path); ``positions`` / ``seek_to_positions`` carry the
+    read positions through a checkpoint. With an explicit ``partitions``
+    assignment the consumer reads only those partitions. Over a networked
+    broker client that exposes ``reconnect_epoch`` the consumer rewinds to
+    the committed offsets after every reconnect it observes.
     """
 
     def __init__(self, broker: InMemoryBroker, topics: List[str],
@@ -270,6 +275,11 @@ class Consumer:
              for t, parts in partitions.items()}
             if partitions is not None else None)
         self._position: Dict[tuple, int] = {}
+        # a networked client's monotonic reconnect epoch; each consumer
+        # keeps its own last-seen value, so every consumer sharing one
+        # client observes every reconnect (see poll)
+        self._epoch_fn = getattr(broker, "reconnect_epoch", None)
+        self._seen_epoch = self._epoch_fn() if self._epoch_fn else 0
         self.seek_to_committed()
 
     def _assigned(self, topic: str) -> Sequence[int]:
@@ -285,6 +295,15 @@ class Consumer:
         }
 
     def poll(self, max_records: int = 256) -> List[Record]:
+        # after a reconnect (possibly a broker restart) the cursor may sit
+        # past records polled but never committed: continuing from it would
+        # let the next commit advance past them, so rewind to the committed
+        # offsets; the re-delivered records dedupe downstream
+        if self._epoch_fn is not None:
+            epoch = self._epoch_fn()
+            if epoch != self._seen_epoch:
+                self._seen_epoch = epoch
+                self.seek_to_committed()
         out: List[Record] = []
         for (t, p), pos in self._position.items():
             if len(out) >= max_records:
@@ -316,6 +335,19 @@ class Consumer:
     def snapshot_positions(self) -> Dict[tuple, int]:
         """Copy of current read positions keyed (topic, partition)."""
         return dict(self._position)
+
+    def positions(self) -> Dict[str, int]:
+        """JSON-safe read positions ("topic:partition" -> next offset), for
+        a checkpoint's manifest."""
+        return {f"{t}:{p}": pos for (t, p), pos in self._position.items()}
+
+    def seek_to_positions(self, offsets: Mapping[str, int]) -> None:
+        """Inverse of ``positions()``: restore the read positions of a
+        checkpoint, so scorer state and transport positions resume from the
+        same point even against a broker whose group offsets were lost."""
+        for key, off in offsets.items():
+            t, _, p = key.rpartition(":")
+            self._position[(t, int(p))] = int(off)
 
     def lag(self) -> int:
         """Uncommitted lag over this consumer's assigned partitions."""

@@ -10,15 +10,16 @@ planes, the state stores' TTLs and list lengths, the scoring service
 ``EnsembleConfig``) and its monitoring switches (``MonitoringConfig``), and
 the QoS, tracing, tuning and feedback planes' knobs (``QosSettings``,
 ``TracingSettings``, ``TuningSettings``, with the QoS floor on the tuner's
-deadline, and ``FeedbackSettings``); plus the quality-artifact loaders that deploy a measured blend
-(``Config.apply_quality_artifact``). The environment part: the ensemble's
-(``RTFD_ENSEMBLE_STRATEGY`` or ``ENSEMBLE_STRATEGY``,
-``CONFIDENCE_THRESHOLD``, ``FRAUD_THRESHOLD``), the service's address
-(``ML_SERVICE_HOST``, ``ML_SERVICE_PORT``) and logging (``LOG_LEVEL``,
-``LOG_FILE``), each also under its ``RTFD_`` name, which wins. Values are
-copies of the JAX package's; the port keeps its own so it imports nothing
-of it. The blocks of planes the port does not have (mesh, stream, sim,
-chaos, cluster) are not ported.
+deadline, and ``FeedbackSettings``), the load generator's settings
+(``SimConfig``) and the models' base path; plus the quality-artifact
+loaders that deploy a measured blend (``Config.apply_quality_artifact``).
+The environment part: the ensemble's (``RTFD_ENSEMBLE_STRATEGY`` or
+``ENSEMBLE_STRATEGY``, ``CONFIDENCE_THRESHOLD``, ``FRAUD_THRESHOLD``), the
+service's address (``ML_SERVICE_HOST``, ``ML_SERVICE_PORT``), logging
+(``LOG_LEVEL``, ``LOG_FILE``) and ``MODELS_PATH``, each also under its
+``RTFD_`` name, which wins. Values are copies of the JAX package's; the
+port keeps its own so it imports nothing of it. The blocks of planes the
+port does not have (mesh, stream, chaos, cluster) are not ported.
 """
 
 from __future__ import annotations
@@ -623,6 +624,16 @@ class FeedbackSettings:
 
 
 @dataclass
+class SimConfig:
+    """Load-generator settings (reference simulator.py:480-489)."""
+
+    tps: int = 100
+    num_users: int = 10_000
+    num_merchants: int = 5_000
+    seed: int = 42
+
+
+@dataclass
 class Config:
     """The slice of the JAX package's root ``Config`` the port reads. A
     disabled model is left out of the blend and of the scorer's validity
@@ -630,6 +641,8 @@ class Config:
 
     service_name: str = "rtfd-tpu"
     environment: str = "development"
+    models_base_path: str = "artifacts/models"
+    sim: SimConfig = field(default_factory=SimConfig)
     models: Dict[str, ModelConfig] = field(default_factory=_default_models)
     ensemble: EnsembleConfig = field(default_factory=EnsembleConfig)
     quant: QuantSettings = field(default_factory=QuantSettings)
@@ -648,10 +661,12 @@ class Config:
 
     def _apply_env(self) -> None:
         """The JAX ``Config._apply_env`` for the blocks the port has:
-        the service's address, the ensemble's strategy and thresholds, the
-        log level and file, from ``RTFD_``-prefixed or plain environment
+        the models' base path, the service's address, the ensemble's
+        strategy and thresholds, the log level and file, from
+        ``RTFD_``-prefixed or plain environment
         variables. (Its Redis variables configure a tier the port does not
         have.)"""
+        self.models_base_path = _env("MODELS_PATH", self.models_base_path)
         self.serving.port = int(_env("ML_SERVICE_PORT", str(self.serving.port)))
         self.serving.host = _env("ML_SERVICE_HOST", self.serving.host)
         self.monitoring.log_level = _env("LOG_LEVEL", self.monitoring.log_level)

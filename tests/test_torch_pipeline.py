@@ -452,6 +452,59 @@ def test_port_runs_with_jax_blocked():
             assert main(["train", "--rows", "400", "--trees", "2", "--out", ck] + sim) == 0
             assert main(["validate", "--checkpoint-dir", ck, "--rows", "64",
                          "--min-auc", "0.0"] + sim) == 0
+        # the deployed job: enrichment and analytics over the TCP broker fed
+        # through the ingress gateway, a stop, a resume from the positions,
+        # the joins, replay_state, the metadata store, the serving features
+        from realtime_fraud_detection_tpu_torch.features.serving import (
+            ServingFeatureProcessor)
+        from realtime_fraud_detection_tpu_torch.state.metadata import MetadataStore
+        from realtime_fraud_detection_tpu_torch.stream import (
+            BrokerServer, IngressGateway, MultiStreamCorrelator, NetBrokerClient)
+        from realtime_fraud_detection_tpu_torch.stream.joins import (
+            txn_user_behavior_join)
+        from realtime_fraud_detection_tpu_torch.utils.config import SimConfig
+        server = BrokerServer(port=0).start()
+        client = NetBrokerClient(port=server.port)
+        gw = IngressGateway(client, T.TRANSACTIONS)
+        for r in gen.generate_batch(48):
+            assert gw.submit(r)
+        gw.close()
+        assert gw.native and gw.sent == 48
+        job = StreamJob(client, w, JobConfig(max_batch=16, enable_analytics=True,
+                                             enable_enrichment=True))
+        done = job.complete_batch
+        def stop_after_first(ctx, *a, **k):
+            out = done(ctx, *a, **k)
+            job.request_stop()
+            return out
+        job.complete_batch = stop_after_first
+        assert job.run_until_drained(now=5.0) == 32
+        resumed = StreamJob(client, w, JobConfig(max_batch=16, enable_analytics=True,
+                                                 enable_enrichment=True))
+        resumed.consumer.seek_to_positions(job.consumer.positions())
+        assert resumed.run_until_drained(now=6.0) == 16
+        enriched = [r.value for r in client.consumer([T.ENRICHED], "c").poll(1000)]
+        assert len(enriched) == 48 and all("ensemble_score" in e for e in enriched)
+        resumed.analytics.flush()
+        assert sum(v["fired"] for v in resumed.analytics.stats().values()) > 0
+        client.close()
+        server.stop()
+        j = txn_user_behavior_join()
+        j.process_left(dict(enriched[0]), 10.0)
+        j.process_right({"user_id": enriched[0]["user_id"], "short_session": True}, 11.0)
+        assert len(j.flush()) == 1
+        corr = MultiStreamCorrelator()
+        corr.on_device({"user_id": "u", "is_new_device": True}, 1.0)
+        assert corr.on_transaction({"user_id": "u", "amount": 9000.0}, 2.0)
+        w.replay_state(gen.generate_batch(4), now=7.0)
+        with tempfile.TemporaryDirectory() as d:
+            meta = MetadataStore(d + "/m.db")
+            meta.register_job("j", "fraud-detection-job")
+            meta.set_job_status("j", "FINISHED")
+            assert meta.get_job("j")["status"] == "FINISHED"
+            meta.close()
+        assert ServingFeatureProcessor().process_features({"amount": 5.0})["amount"] == 5.0
+        assert SimConfig().tps == 100 and Config().models_base_path
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
