@@ -283,6 +283,60 @@ Phases, each of which raises (and exits non-zero) on failure:
    analytics topics; the sqlite store holds the job FINISHED with its
    checkpoints; every batch of both runs dispatched the megakernel, no
    fallback.
+20. shared state and Kafka: (a) a ``state-server`` process on a free port
+   (the port's ``MiniRedisServer``); phase 8's two streams (4,096 TINY under
+   ``mega()``, 1,024 DistilBERT-base under ``full()``, int8 BERT, batches of
+   256, depth 2) each three ways, the server flushed before each shared
+   run: on the card with ``TorchFraudScorer(state_client=RespClient(...))``
+   (launch counters reset just before, read just after: one megakernel a
+   TINY batch, 1 / 6 / 36 / 2 a DistilBERT-base batch; the client's commands
+   counted by a spy on its ``execute``), on the card with in-process stores,
+   and the first two batches' records on the CPU through the shared tier
+   (untimed, after (c)). The shared run against the other two within the
+   drill's bound, decisions equal off a rung, and whether it
+   is identical to the in-process run; the server's keyspace against the
+   in-process stores: every ``velocity:{user}:{window}`` count and amount,
+   a ``transaction:{id}`` for every id, every ``user_transactions:{user}``
+   list. Prints txn/s and batch p50 / p99 shared and local, the assembly's
+   and the write-back's host ms a batch (and the slowest write-back), the
+   garbage collector's ms in each run (garbage is collected before each),
+   the RESP commands a batch, and first the microseconds of a RESP ``PING``
+   round trip and of a one-byte TCP echo on this host's loopback. The parts
+   run one after another: (a) on the card, (b), (c), (a)'s CPU runs, (d).
+   (b) the TINY
+   stream produced by user through ``KafkaBroker(idempotent=True,
+   compression="gzip")`` into the port's ``FakeKafkaServer``; two
+   ``StreamJob``s on two threads, each with its own ``mega()`` scorer,
+   ``RespClient`` and Kafka client, group-managed consumers in one group
+   (session 1.5 s), sharing a ``state-server --aof`` process; replica A
+   dies after three completed batches (its next completion raises; its
+   sockets close, no LeaveGroup) and B takes its partitions after the
+   coordinator evicts it. Gates: each of the 4,096 ids on the predictions
+   topic, scored once; the group's lag 0; every user's ``24hour`` count on
+   the server equals the stream's; every repeat on the predictions topic a
+   re-emission from the shared cache (B's other skipped duplicates were
+   re-polled after the rebalance while their batch was in flight, and that
+   batch emits them once: printed, with whether B's duplicates equal the
+   repeats); every batch of two or more rows of both replicas one
+   megakernel launch of its own scorer, a one-row batch the counted
+   fallback; the server killed (SIGKILL) and restarted from its AOF with
+   the same keyspace digest. Then the first 1,024 transactions through one
+   replica over a fresh fake on the card, on the CPU and on the in-memory
+   broker: the same batches on the card and the CPU, the predictions within
+   the bound, whether the batches equal the in-memory broker's. Prints the
+   rebalance seconds, the duplicates and the replicas' batches. (c) each a
+   process of its own, the refused command started beside the job and the
+   service after it: ``state-server --aof``, ``run-job --state --count
+   4096 --quant --mega --predictions-out`` on the card (every user's
+   ``24hour`` count equals the stream's), ``serve --quant --mega`` with
+   ``RTFD_STATE_ADDR`` and no ``--state`` (256 ``/predict`` from 64
+   clients for users of the stream: each count rises by that user's
+   requests; its standard error names the state tier), ``kill -9`` of the
+   server and its restart from the AOF (the counts hold), and ``run-job
+   --state ... --checkpoint-dir`` exits 2 with its reason. (d) the native
+   tree scorer built from ``native/trees.cpp`` with g++ on this machine:
+   its logits on (a)'s in-process TINY run's 4,096 feature rows within 1e-5
+   of the plain tree path on the card.
 
 The last three lines of standard output are the kernel JSON line (all five
 kernels), the ``nvidia-smi`` name and power limit, and the result line
@@ -1410,7 +1464,8 @@ class StreamTimer:
 
 def drive_stream(records, profiles, bert_config, config, device, timed=False,
                  tokens=None, models=None, scorer_config=None, overlap=False,
-                 texts=None, tracing=None, planes=False, hook=None):
+                 texts=None, tracing=None, planes=False, hook=None, state_client=None,
+                 broker=None):
     """The port's ``StreamJob`` over ``records`` on a fresh scorer (the
     width's seeded models unless ``models`` is given) and in-memory broker,
     at the fixed virtual clock; returns (job, broker, scorer, timer). With a
@@ -1419,7 +1474,9 @@ def drive_stream(records, profiles, bert_config, config, device, timed=False,
     job runs the overlapped assembly stage (closed before this returns);
     ``tracing`` is the job's ``JobConfig.tracing``; ``planes`` turns on
     ``enable_analytics`` and ``enable_enrichment`` (the analytics flushed at
-    the end); ``hook(job)`` runs once the job is built, before it runs."""
+    the end); ``hook(job)`` runs once the job is built, before it runs;
+    ``state_client`` puts the scorer on the shared RESP tier; ``broker``
+    replaces the in-memory broker."""
     from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
     from realtime_fraud_detection_tpu_torch.stream import topics as T
     from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
@@ -1427,7 +1484,8 @@ def drive_stream(records, profiles, bert_config, config, device, timed=False,
 
     scorer = TorchFraudScorer(config, models=models or seeded_models(bert_config),
                               scorer_config=scorer_config,
-                              bert_config=bert_config, device=device)
+                              bert_config=bert_config, device=device,
+                              state_client=state_client)
     scorer.seed_profiles(*profiles)
     if tokens is not None:
         assemble = scorer.assemble
@@ -1447,7 +1505,7 @@ def drive_stream(records, profiles, bert_config, config, device, timed=False,
             return out
 
         scorer._texts_for = keep_texts
-    broker = InMemoryBroker()
+    broker = broker if broker is not None else InMemoryBroker()
     job = StreamJob(broker, scorer, JobConfig(max_batch=BATCH, pipeline_depth=2,
                                               overlap_assembly=overlap,
                                               tracing=tracing, enable_analytics=planes,
@@ -5055,6 +5113,800 @@ def run_deployed_phase(ops):
             "deployed_job": deployed}
 
 
+# the shared state and Kafka phase: the RESP tier beside the in-process
+# stores, two replicas in one consumer group over the Kafka wire protocol
+# sharing one state server, the commands across processes, the native tree
+# scorer
+KAFKA_SESSION_MS = 1_500                 # a dead replica is evicted after this
+KAFKA_HEARTBEAT_S = 0.2
+KAFKA_KILL_AFTER = 3                     # batches replica A completes, then dies
+KAFKA_SINGLE = 4 * BATCH                 # the single-replica card / CPU comparison
+SHARED_CPU_BATCHES = 2                   # (a)'s CPU run: the stream's first batches
+SERVE_STATE_PREDICTS = BATCH
+NATIVE_TREE_TOL = 1e-5
+
+
+def resp_spy(client):
+    """Count the commands a ``RespClient`` sends by wrapping its ``execute``
+    on the instance, as ``dispatch_spy`` wraps a scorer's dispatch."""
+    count = {"n": 0}
+    execute = client.execute
+
+    def spy(*args):
+        count["n"] += 1
+        return execute(*args)
+
+    client.execute = spy
+    return count
+
+
+def shared_keyspace(client, records):
+    """The server's velocity windows ({(user, window): (count, amount)}),
+    the ids without a ``transaction:{id}`` and each user's id list."""
+    users = sorted({str(r["user_id"]) for r in records})
+    windows = {}
+    for key in client.keys("velocity:*"):
+        _, user, window = key.decode().split(":")
+        h = client.hgetall(key.decode())
+        windows[(user, window)] = (int(h["count"]), float(h["amount"]))
+    cached = {k.decode().split(":", 1)[1] for k in client.keys("transaction:*")}
+    missing = [r["transaction_id"] for r in records if r["transaction_id"] not in cached]
+    lists = {u: [b.decode() for b in client.lrange(f"user_transactions:{u}", 0, -1)]
+             for u in users}
+    return windows, missing, lists
+
+
+def keyspace_digest(client):
+    """sha256 over the sorted live keyspace (key, value), each key read by
+    the command of its kind in the shared tier's schema; the key count."""
+    import hashlib
+
+    h = hashlib.sha256()
+    keys = sorted(client.keys("*"))
+    for key in keys:
+        prefix = key.split(b":", 1)[0]
+        if prefix == b"transaction":
+            value = client.execute("GET", key)
+        elif prefix.endswith(b"_transactions"):
+            value = client.execute("LRANGE", key, 0, -1)
+        else:
+            value = client.execute("HGETALL", key)
+        h.update(repr((key, value)).encode())
+    return h.hexdigest(), len(keys)
+
+
+def start_state_server(port, procs, aof=None):
+    """``state-server`` on ``port`` in a process of its own (appended to
+    ``procs``), with ``aof`` as its append-only file; returns the process
+    once a client connects."""
+    from realtime_fraud_detection_tpu_torch.state.resp import RespClient
+
+    proc = _port_proc(["state-server", "--host", "127.0.0.1", "--port", str(port)]
+                      + (["--aof", aof] if aof else []))
+    procs.append(proc)
+    for _ in range(600):
+        try:
+            RespClient(port=port).close()
+            return proc
+        except OSError:
+            if proc.poll() is not None:
+                fail(f"state-server exited {proc.returncode}: {proc.stderr.read()}")
+            time.sleep(0.05)
+    fail("state-server did not come up")
+
+
+def round_trips_us(port, n=5_000):
+    """Microseconds a round trip on this host's loopback: a RESP ``PING`` to
+    the state server on ``port``, and a one-byte TCP echo on a thread of
+    this process (the floor under any request-response protocol here)."""
+    import socket
+    import threading
+
+    from realtime_fraud_detection_tpu_torch.state.resp import RespClient
+
+    client = RespClient(port=port)
+    try:
+        for _ in range(200):
+            client.ping()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            client.ping()
+        ping = (time.perf_counter() - t0) / n * 1e6
+    finally:
+        client.close()
+    listener = socket.create_server(("127.0.0.1", 0))
+
+    def echo():
+        conn, _ = listener.accept()
+        with conn:
+            while data := conn.recv(64):
+                conn.sendall(data)
+
+    thread = threading.Thread(target=echo, daemon=True)
+    thread.start()
+    with socket.create_connection(listener.getsockname()) as sock:
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            sock.sendall(b"x")
+            sock.recv(64)
+        echo_us = (time.perf_counter() - t0) / n * 1e6
+    thread.join(timeout=10)
+    listener.close()
+    return {"resp_ping_us": ping, "tcp_echo_us": echo_us}
+
+
+def strip_timing(preds):
+    return [{k: v for k, v in p.items() if k != "processing_time_ms"} for p in preds]
+
+
+def stream_profiles(gen, records):
+    """The profiles of the stream's users and merchants: all a scorer reads,
+    and each seeded profile costs the shared tier one round trip."""
+    users = {str(r["user_id"]) for r in records}
+    merchants = {str(r["merchant_id"]) for r in records}
+    return ({u: p for u, p in gen.users.profiles().items() if u in users},
+            {m: p for m, p in gen.merchants.profiles().items() if m in merchants})
+
+
+def run_shared_stream(ops, port, name, bert_config, kernels, count, expected):
+    """Phase 20(a) for one width: phase 8's stream on the card through the
+    shared tier (launch counters reset just before, read just after, the
+    client's commands counted) and on the card with in-process stores, the
+    server flushed before the shared run. Returns the launches, the timing,
+    run 2's scorer and features, and ``cpu_check``, which runs the stream's
+    first ``SHARED_CPU_BATCHES`` batches on the CPU through the shared tier
+    (flushed first) and holds them against run 1's. The interpreter's
+    garbage is collected before each timed run, and the time its collector
+    ran inside each run is printed."""
+    import gc
+
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.state.resp import RespClient
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.utils.config import Config, QuantSettings
+
+    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                               seed=SEED)
+    records = gen.generate_batch(count)
+    profiles = stream_profiles(gen, records)
+    config = Config(quant=QuantSettings.full(), kernels=kernels)
+    n_batches = count // BATCH
+    client, check = RespClient(port=port), RespClient(port=port)
+    try:
+        client.flushdb()
+        spy = resp_spy(client)
+
+        def reset_spy(job):
+            spy["n"] = 0            # after the profiles were seeded
+
+        gc.collect()        # earlier phases' garbage is not this run's
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        job, broker, scorer, timer = drive_stream(
+            records, profiles, bert_config, config, "cuda", timed=True,
+            state_client=client, hook=reset_spy)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        commands = spy["n"]
+        want = {k: v * n_batches for k, v in expected.items()}
+        per_batch = [b["launches"] for b in timer.batches]
+        if launches != want or per_batch != [sum(expected.values())] * n_batches:
+            fail(f"{name} shared tier: launch counts {launches} / {per_batch} "
+                 f"(want {want})")
+        preds = check_stream_output(f"{name} shared tier", job, broker, records)
+        shared = timer.summary(scorer)
+        windows, missing, lists = shared_keyspace(check, records)
+
+        tokens = []
+        gc.collect()
+        _, local_broker, local, local_timer = drive_stream(
+            records, profiles, bert_config, config, "cuda", timed=True, tokens=tokens)
+        local_preds = topic_values(local_broker, T.PREDICTIONS)
+        local_sum = local_timer.summary(local)
+        want_windows = {(u, w): (int(c), a) for u, w, c, a, _ in local.velocity.entries()}
+        if windows != want_windows:
+            diff = sorted(set(windows.items()) ^ set(want_windows.items()))[:4]
+            fail(f"{name} shared tier: {len(windows)} velocity windows on the server, "
+                 f"{len(want_windows)} in process; e.g. {diff}")
+        if missing:
+            fail(f"{name} shared tier: {len(missing)} ids without transaction:{{id}}, "
+                 f"e.g. {missing[:3]}")
+        bad = [u for u, ids in lists.items()
+               if ids != local.txn_cache.get_user_transactions(u)]
+        if bad:
+            fail(f"{name} shared tier: user_transactions lists differ for {len(bad)} "
+                 f"users, e.g. {bad[0]}")
+
+        tol = noise_bound(scorer.models, bert_config, tokens,
+                          scorer.ensemble_params.weights)
+        err_local = compare_streams(f"{name} shared tier", preds, local_preds, tol,
+                                    "in-process stores on the card")
+        identical = strip_timing(preds) == strip_timing(local_preds)
+    finally:
+        client.close()
+        check.close()
+
+    def cpu_check():
+        """Run 3, the CPU through the shared tier (untimed), on the records
+        of run 1's first batches: they are a prefix of each partition, so a
+        fresh consumer polls the same batches, and each batch's predictions
+        depend only on the batches before it. Returns its largest difference
+        from run 1."""
+        n = SHARED_CPU_BATCHES * BATCH
+        ids = {p["transaction_id"] for p in preds[:n]}
+        first = [r for r in records if r["transaction_id"] in ids]
+        cpu_client = RespClient(port=port)
+        try:
+            cpu_client.flushdb()
+            cpu_job, cpu_broker, _, _ = drive_stream(first, profiles, bert_config,
+                                                     config, "cpu",
+                                                     state_client=cpu_client)
+            cpu_preds = check_stream_output(f"{name} shared tier (CPU)", cpu_job,
+                                            cpu_broker, first)
+        finally:
+            cpu_client.close()
+        return compare_streams(f"{name} shared tier, first {n}", preds[:n], cpu_preds,
+                               tol, "the CPU on the shared tier")
+
+    summary = {
+        "txns": count, "launches": launches, "bound": tol,
+        "max_err": {"in_process_card": err_local},
+        "identical_to_in_process": identical,
+        "txn_per_s": {"shared": shared["txn_per_s"], "local": local_sum["txn_per_s"]},
+        "batch_ms_p50_p99": {
+            "shared": [shared["batch_ms_p50"], shared["batch_ms_p99"]],
+            "local": [local_sum["batch_ms_p50"], local_sum["batch_ms_p99"]]},
+        "assemble_host_ms_per_batch": {
+            "shared": shared["host_ms_per_batch"]["assemble"],
+            "local": local_sum["host_ms_per_batch"]["assemble"]},
+        "write_back_host_ms_per_batch": {
+            "shared": shared["smoke_ms_per_batch"]["_write_back"],
+            "local": local_sum["smoke_ms_per_batch"]["_write_back"]},
+        "gc_ms": {"shared": shared["gc_ms"], "local": local_sum["gc_ms"]},
+        "write_back_ms_max": {"shared": max(timer.parts["_write_back"]),
+                              "local": max(local_timer.parts["_write_back"])},
+        "resp_commands_per_batch": commands / n_batches,
+        "resp_commands_per_txn": commands / count,
+        "velocity_windows": len(windows), "users": len(lists)}
+    print(f"{name} shared tier (batch {BATCH}, depth 2, {STREAM_USERS} users; the "
+          f"keyspace equals the in-process stores: {len(windows)} velocity windows, "
+          f"{count} cached ids, {len(lists)} user lists): " + json.dumps(summary),
+          flush=True)
+    features = [f["features"] for f in topic_values(local_broker, T.FEATURES)]
+    return dict(launches=launches, summary=summary, scorer=local, features=features,
+                cpu_check=cpu_check)
+
+
+class GroupBroker:
+    """A ``KafkaBroker`` whose ``consumer`` is a group-managed member with a
+    short session (``StreamJob`` asks its broker for a consumer)."""
+
+    def __init__(self, broker):
+        self.broker = broker
+
+    def __getattr__(self, name):
+        return getattr(self.broker, name)
+
+    def consumer(self, topics, group_id, faults=None):
+        from realtime_fraud_detection_tpu_torch.stream.kafka_group import (
+            KafkaGroupConsumer,
+        )
+
+        return KafkaGroupConsumer(self.broker, list(topics), group_id,
+                                  session_timeout_ms=KAFKA_SESSION_MS,
+                                  heartbeat_interval_s=KAFKA_HEARTBEAT_S)
+
+
+class ReplicaDied(Exception):
+    pass
+
+
+def mega_spy(scorer, batches):
+    """Per batch: the rows, and the growth of this scorer's own megakernel
+    dispatch / fallback counts (two scorers share the launch counters)."""
+    dispatch = scorer.dispatch
+
+    def spy(records, now=None, **kw):
+        snap0 = scorer.kernel_snapshot()
+        out = dispatch(records, now=now, **kw)
+        snap = scorer.kernel_snapshot()
+        batches.append(dict(
+            rows=len(records), ids=[r["transaction_id"] for r in records],
+            mega=snap["dispatch"]["megakernel"] - snap0["dispatch"]["megakernel"],
+            fallback=snap["fallback"]["megakernel"] - snap0["fallback"]["megakernel"]))
+        return out
+
+    scorer.dispatch = spy
+
+
+def replica_thread(rep, kafka_port, redis_port, config, models, done, kill_after=None):
+    """One replica: its own ``mega()`` scorer, ``RespClient``, Kafka client
+    and group member; runs the job until ``done`` is set. With
+    ``kill_after`` it dies once that many batches completed: its next
+    completion raises, then its connections close without a LeaveGroup."""
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.state.resp import RespClient
+    from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
+    from realtime_fraud_detection_tpu_torch.stream.kafka import KafkaBroker
+
+    broker = client = job = None
+    try:
+        broker = KafkaBroker(bootstrap=f"127.0.0.1:{kafka_port}")
+        client = RespClient(port=redis_port)
+        scorer = TorchFraudScorer(config, models=models, bert_config=TINY_CONFIG,
+                                  device="cuda", state_client=client)
+        rep["batches"], rep["cached_reemits"] = [], 0
+        mega_spy(scorer, rep["batches"])
+        job = StreamJob(GroupBroker(broker), scorer,
+                        JobConfig(max_batch=BATCH, pipeline_depth=2))
+        rep["scorer"], rep["job"] = scorer, job
+        complete, emit = job.complete_batch, job._emit_cached_dups
+        completed = [0]
+
+        def complete_batch(ctx, *args, **kwargs):
+            if kill_after is not None and completed[0] == kill_after:
+                raise ReplicaDied
+            out = complete(ctx, *args, **kwargs)
+            completed[0] += 1
+            return out
+
+        def emit_cached(ctx):
+            rep["cached_reemits"] += len(ctx.cached_dups)
+            return emit(ctx)
+
+        job.complete_batch, job._emit_cached_dups = complete_batch, emit_cached
+        rep["ready"].set()
+        while not done.is_set():
+            job.run_until_drained(now=STREAM_NOW)
+            time.sleep(0.02)
+    except ReplicaDied:
+        # process death: heartbeats stop, sockets close, no LeaveGroup
+        rep["died_at"] = time.perf_counter()
+        rep["completed"] = completed[0]
+        job.consumer._closed.set()
+        broker.close()
+        client.close()
+        broker = client = None
+    except Exception as e:              # reported by the main thread
+        rep["error"] = e
+    finally:
+        rep["ready"].set()
+        if job is not None and kill_after is None:
+            job.consumer.close()
+        for c in (broker, client):
+            if c is not None:
+                c.close()
+
+
+def run_two_replicas(ops, tmp, records, profiles, config, models):
+    """Phase 20(b) 1-4: the stream produced idempotently with gzip, two
+    replicas on two threads in one group sharing one state server, replica A
+    killed after ``KAFKA_KILL_AFTER`` batches; the gates of the module
+    docstring. Returns the launches and the printed summary."""
+    import threading
+    from collections import Counter
+    from pathlib import Path
+
+    from realtime_fraud_detection_tpu_torch.state.resp import RespClient
+    from realtime_fraud_detection_tpu_torch.state.shared import SharedProfileStore
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.stream.kafka import KafkaBroker
+    from realtime_fraud_detection_tpu_torch.stream.kafka_fake import FakeKafkaServer
+
+    fake = FakeKafkaServer(port=free_port()).start()
+    aof, redis_port, procs = str(Path(tmp) / "state.aof"), free_port(), []
+    producer = checker = client = None
+    done = threading.Event()
+    reps = {name: {"ready": threading.Event()} for name in ("A", "B")}
+    threads = []
+    try:
+        redis = start_state_server(redis_port, procs, aof)
+        client = RespClient(port=redis_port)
+        SharedProfileStore(client).seed(*profiles)
+        producer = KafkaBroker(bootstrap=f"127.0.0.1:{fake.port}", idempotent=True,
+                               compression="gzip")
+        t0 = time.perf_counter()
+        producer.produce_batch(T.TRANSACTIONS, records, key_fn=lambda r: str(r["user_id"]))
+        produce_s = time.perf_counter() - t0
+        checker = KafkaBroker(bootstrap=f"127.0.0.1:{fake.port}")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t_run = time.perf_counter()
+        for name, kill in (("A", KAFKA_KILL_AFTER), ("B", None)):
+            t = threading.Thread(target=replica_thread, name=f"replica-{name}", args=(
+                reps[name], fake.port, redis_port, config, models, done, kill))
+            t.start()
+            threads.append(t)
+            if not reps[name]["ready"].wait(120) or "error" in reps[name]:
+                fail(f"replica {name} did not start: {reps[name].get('error')}")
+        n_parts = checker.partitions(T.TRANSACTIONS)
+        group = reps["B"]["job"].config.group_id
+        want_ids = Counter(r["transaction_id"] for r in records)
+        rebalance_s = None
+        deadline = time.perf_counter() + 300
+        while time.perf_counter() < deadline:
+            for rep in reps.values():
+                if "error" in rep:
+                    fail(f"a replica failed: {rep['error']!r}")
+            if "died_at" in reps["A"] and rebalance_s is None:
+                m = reps["B"]["job"].consumer.membership
+                if m.generation >= 0 and sorted(m.assignment.get(
+                        T.TRANSACTIONS, [])) == list(range(n_parts)):
+                    rebalance_s = time.perf_counter() - reps["A"]["died_at"]
+            if rebalance_s is not None and checker.lag(group, T.TRANSACTIONS) == 0:
+                break
+            time.sleep(0.05)
+        else:
+            fail("two replicas: the group did not drain within 300 s")
+        done.set()
+        for t in threads:
+            t.join(timeout=60)
+            if t.is_alive():
+                fail(f"{t.name} did not stop")
+        run_s = time.perf_counter() - t_run
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+
+        preds = topic_values(checker, T.PREDICTIONS)
+        ids = Counter(p["transaction_id"] for p in preds)
+        repeats = len(preds) - len(ids)
+        replays = sum(bool(p["explanation"].get("replayed_from_cache")) for p in preds)
+        scored_once = Counter(p["transaction_id"] for p in preds
+                              if not p["explanation"].get("replayed_from_cache"))
+        if set(ids) != set(want_ids) or len(ids) != len(records) \
+                or set(scored_once.values()) != {1} or len(scored_once) != len(records):
+            fail(f"two replicas: {len(ids)} distinct ids on the predictions topic, "
+                 f"{len(scored_once)} scored, not each once")
+        lag = checker.lag(group, T.TRANSACTIONS)
+        if lag:
+            fail(f"two replicas: the group's lag is {lag}")
+        counts = Counter(str(r["user_id"]) for r in records)
+        wrong = {u: (int(client.hget(f"velocity:{u}:24hour", "count") or 0), n)
+                 for u, n in counts.items()
+                 if int(client.hget(f"velocity:{u}:24hour", "count") or 0) != n}
+        if wrong:
+            fail(f"two replicas: {len(wrong)} users' 24hour counts differ from the "
+                 f"stream, e.g. {list(wrong.items())[:3]}")
+        # a skipped duplicate is either re-emitted from the shared cache (a
+        # repeat on the topic) or was re-polled after a rebalance while its
+        # batch was still in flight (that batch emits it once)
+        a, b = reps["A"], reps["B"]
+        b_dup = b["job"].counters["duplicates_skipped"]
+        a_dup = a["job"].counters["duplicates_skipped"]
+        inflight_skips = {"A": a_dup - a["cached_reemits"],
+                          "B": b_dup - b["cached_reemits"]}
+        if repeats != replays or repeats != a["cached_reemits"] + b["cached_reemits"] \
+                or min(inflight_skips.values()) < 0:
+            fail(f"two replicas: {repeats} repeats on the predictions topic, {replays} "
+                 f"cache re-emissions; A skipped {a_dup} ({a['cached_reemits']} "
+                 f"re-emitted), B skipped {b_dup} ({b['cached_reemits']} re-emitted)")
+        mega_batches = one_row = 0
+        for name, rep in reps.items():
+            for batch in rep["batches"]:
+                if batch["rows"] >= 2 and (batch["mega"], batch["fallback"]) != (1, 0):
+                    fail(f"two replicas: a {batch['rows']}-row batch of replica {name} "
+                         f"did not dispatch the megakernel ({batch})")
+                if batch["rows"] == 1 and (batch["mega"], batch["fallback"]) != (1, 1):
+                    fail(f"two replicas: a one-row batch of replica {name}: {batch}")
+                mega_batches += batch["rows"] >= 2
+                one_row += batch["rows"] == 1
+        if launches["megakernel"] != mega_batches:
+            fail(f"two replicas: {launches['megakernel']} megakernel launches, "
+                 f"{mega_batches} batches of two or more rows")
+        digest, n_keys = keyspace_digest(client)
+        client.close()
+        client = None
+        redis.kill()                    # kill -9: nothing flushed beyond the log
+        redis.wait()
+        t_restart = time.perf_counter()
+        start_state_server(redis_port, procs, aof)
+        restart_s = time.perf_counter() - t_restart
+        client = RespClient(port=redis_port)
+        digest2, n_keys2 = keyspace_digest(client)
+        if (digest2, n_keys2) != (digest, n_keys):
+            fail(f"two replicas: the keyspace after the AOF restart ({n_keys2} keys) "
+                 f"differs from before the kill ({n_keys})")
+        summary = {
+            "txns": len(records), "partitions": n_parts,
+            "produce_idempotent_gzip_s": produce_s, "run_s": run_s,
+            "replica_a": {"completed_batches": a["completed"],
+                          "dispatched_batches": len(a["batches"]),
+                          "scored": a["job"].counters["scored"],
+                          "duplicates_skipped": a_dup,
+                          "cached_reemits": a["cached_reemits"],
+                          "inflight_skips": inflight_skips["A"]},
+            "replica_b": {"batches": len(b["batches"]),
+                          "scored": b["job"].counters["scored"],
+                          "duplicates_skipped": b_dup,
+                          "cached_reemits": b["cached_reemits"],
+                          "inflight_skips": inflight_skips["B"],
+                          "rebalances": b["job"].consumer.membership.rebalances},
+            "rebalance_s": rebalance_s, "repeats_on_predictions": repeats,
+            "b_duplicates_equal_repeats": b_dup == repeats,
+            "megakernel_batches": mega_batches, "one_row_batches": one_row,
+            "launches": launches, "aof_keys": n_keys, "aof_restart_s": restart_s,
+            "aof_bytes": Path(aof).stat().st_size}
+        print("two replicas over Kafka on one state server (session "
+              f"{KAFKA_SESSION_MS} ms; A killed after {KAFKA_KILL_AFTER} batches, no "
+              f"LeaveGroup): each of {len(records)} ids on the predictions topic, "
+              f"scored once; lag 0; every user's 24hour count equals the stream's; "
+              f"repeats {repeats} = cache re-emissions, each other skip a record "
+              f"re-polled while its batch was in flight; the keyspace digest survives "
+              f"the AOF restart: " + json.dumps(summary), flush=True)
+    finally:
+        done.set()
+        for t in threads:
+            t.join(timeout=60)
+        for c in (producer, checker, client):
+            if c is not None:
+                c.close()
+        _kill(procs)
+        fake.stop()
+    return launches, summary
+
+
+def run_single_replica(records, profiles, config, models):
+    """Phase 20(b) 5: one replica over a fresh fake on the card, the same on
+    the CPU, and on the in-memory broker: the batch sequences and the
+    predictions."""
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.stream.kafka import KafkaBroker
+    from realtime_fraud_detection_tpu_torch.stream.kafka_fake import FakeKafkaServer
+
+    runs = {}
+    for label, device, kafka in (("card", "cuda", True), ("cpu", "cpu", True),
+                                 ("memory", "cuda", False)):
+        fake = FakeKafkaServer(port=free_port()).start() if kafka else None
+        broker = KafkaBroker(bootstrap=f"127.0.0.1:{fake.port}") if kafka else None
+        batches, tokens = [], []
+        try:
+            job, broker, scorer, _ = drive_stream(
+                records, profiles, TINY_CONFIG, config, device, models=models,
+                broker=broker, tokens=tokens,
+                hook=lambda job: mega_spy(job.scorer, batches))
+            preds = check_stream_output(f"single replica ({label})", job, broker, records)
+            runs[label] = dict(batches=[b["ids"] for b in batches], preds=preds,
+                               tokens=tokens, scorer=scorer)
+        finally:
+            if kafka:
+                broker.close()
+                fake.stop()
+    if runs["card"]["batches"] != runs["cpu"]["batches"]:
+        fail("single replica over Kafka: the card and the CPU closed different batches")
+    tol = noise_bound(runs["card"]["scorer"].models, TINY_CONFIG, runs["cpu"]["tokens"],
+                      runs["card"]["scorer"].ensemble_params.weights)
+    err = compare_streams("TINY over Kafka", runs["card"]["preds"], runs["cpu"]["preds"],
+                          tol, "the CPU over Kafka")
+    same = runs["card"]["batches"] == runs["memory"]["batches"]
+    print(f"single replica over Kafka ({len(records)} txns): the card and the CPU closed "
+          f"the same {len(runs['card']['batches'])} batches (sizes "
+          f"{[len(b) for b in runs['card']['batches']]}); max err {err:.3e} (bound "
+          f"{tol:.3e}); batch sequence equal to the in-memory broker's: {same}",
+          flush=True)
+    return {"batches": len(runs["card"]["batches"]), "max_err": err, "bound": tol,
+            "same_batches_as_memory": same}
+
+
+def run_state_commands(tmp):
+    """Phase 20(c): ``state-server``, ``run-job --state`` and ``serve`` with
+    ``RTFD_STATE_ADDR``, each a process of its own, then ``kill -9`` of the
+    server and its restart from the AOF; the refusal. The refused
+    ``run-job`` starts beside ``run-job --state`` (it exits before it builds
+    a scorer); ``serve`` starts after the job, so that nothing else runs
+    beside the job's timed run."""
+    import os
+    import signal
+    import urllib.request
+    from collections import Counter
+    from pathlib import Path
+
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.state.resp import RespClient
+
+    port, http = free_port(), free_port()
+    aof = str(Path(tmp) / "cmd_state.aof")
+    procs, client, serve_log = [], None, None
+    out = {}
+
+    def counts():
+        return {u: int(client.hget(f"velocity:{u}:24hour", "count") or 0) for u in want}
+
+    try:
+        t0 = time.perf_counter()
+        server = start_state_server(port, procs, aof)
+        client = RespClient(port=port)
+        refused = _port_proc(["run-job", "--state", f"127.0.0.1:{port}", "--count", "8",
+                              "--checkpoint-dir", str(Path(tmp) / "ck")])
+        procs.append(refused)
+        preds_path = str(Path(tmp) / "preds.jsonl")
+        job_out, job_err, job_s = _finish("run-job --state", _port_proc(
+            ["run-job", "--state", f"127.0.0.1:{port}", "--count", str(16 * BATCH),
+             "--quant", "--mega", "--predictions-out", preds_path]), timeout=600)
+        summary = json.loads(job_out.strip().splitlines()[-1])
+        gen = TransactionGenerator(num_users=10_000, num_merchants=5_000, seed=42,
+                                   tps=1000.0)
+        records = gen.generate_batch(16 * BATCH)
+        with open(preds_path) as f:
+            pred_ids = [json.loads(line)["transaction_id"] for line in f]
+        if sorted(pred_ids) != sorted(r["transaction_id"] for r in records) \
+                or summary["counters"]["errors"] or summary["lag"]:
+            fail(f"run-job --state: {len(pred_ids)} predictions, summary {summary}")
+        k = summary["kernels"]
+        if k["fallback"]["megakernel"] or \
+                k["dispatch"]["megakernel"] != summary["counters"]["batches"]:
+            fail(f"run-job --state: kernel snapshot {k}")
+        want = Counter(str(r["user_id"]) for r in records)
+        got = counts()
+        if got != want:
+            fail(f"run-job --state: {sum(got[u] != want[u] for u in want)} users' 24hour "
+                 f"counts differ from the stream")
+        out["run_job"] = {"command_s": job_s, "txn_per_s": summary["txn_per_s"],
+                          "host_stage_mean_ms": summary["host_stage_mean_ms"],
+                          "batches": summary["counters"]["batches"]}
+        _, refusal, _ = _finish("run-job --state --checkpoint-dir", refused, want_rc=2,
+                                timeout=120)
+        if "--checkpoint-dir refused" not in refusal or "--aof" not in refusal:
+            fail(f"run-job --state --checkpoint-dir: {refusal[-1000:]}")
+
+        config_path = str(Path(tmp) / "serve.json")
+        with open(config_path, "w") as f:
+            json.dump({"monitoring": {"prometheus_port": 0}}, f)
+        serve_log = open(Path(tmp) / "serve.err", "w+")
+        serve = subprocess.Popen(
+            [sys.executable, "-m", "realtime_fraud_detection_tpu_torch", "serve",
+             "--host", "127.0.0.1", "--port", str(http), "--config", config_path,
+             "--quant", "--mega"], cwd=Path(__file__).resolve().parent,
+            env={**os.environ, "RTFD_STATE_ADDR": f"127.0.0.1:{port}"},
+            stdout=subprocess.DEVNULL, stderr=serve_log, text=True)
+        procs.append(serve)
+        users = sorted(want)
+        extra = TransactionGenerator(num_users=10_000, num_merchants=5_000,
+                                     seed=SEED + 20).generate_batch(SERVE_STATE_PREDICTS)
+        for i, txn in enumerate(extra):
+            txn["user_id"] = users[(i * 37) % len(users)]
+        for _ in range(1200):
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{http}/health", timeout=2).read()
+                break
+            except OSError:
+                if serve.poll() is not None:
+                    serve_log.seek(0)
+                    fail(f"serve exited {serve.returncode}: {serve_log.read()[-2000:]}")
+                time.sleep(0.1)
+        result = run_load_process(http, extra)
+        for txn in extra:
+            want[txn["user_id"]] += 1
+        got = counts()
+        if got != want:
+            fail(f"serve with RTFD_STATE_ADDR: {sum(got[u] != want[u] for u in want)} "
+                 f"users' 24hour counts are not the stream's plus their requests")
+        serve.send_signal(signal.SIGTERM)
+        if serve.wait(timeout=120) != 0:
+            fail(f"serve: exit {serve.returncode} after SIGTERM")
+        serve_log.seek(0)
+        serve_err = serve_log.read()
+        if f"using shared state tier at 127.0.0.1:{port}" not in serve_err:
+            fail(f"serve: standard error does not name the state tier: {serve_err[-1500:]}")
+        lat = sorted((a["t1"] - a["t0"]) * 1e3 for a in result["answers"])
+        out["serve"] = {"requests": len(lat), "clients": SERVE_CLIENTS,
+                        "p50_ms": lat[len(lat) // 2], "p99_ms": lat[int(len(lat) * 0.99)],
+                        "txn_per_s": len(lat) / result["wall_s"]}
+
+        client.close()
+        client = None
+        server.kill()                       # kill -9: nothing flushed beyond the log
+        server.wait()
+        t_restart = time.perf_counter()
+        start_state_server(port, procs, aof)
+        client = RespClient(port=port)
+        out["aof_restart_s"] = time.perf_counter() - t_restart
+        if counts() != want:
+            fail("state-server restarted from its AOF: the 24hour counts changed")
+        out["users"] = len(want)
+        out["seconds"] = time.perf_counter() - t0
+        print("state-server + run-job --state + serve (RTFD_STATE_ADDR), each a "
+              "process: every user's 24hour count equals the stream's, then the stream's "
+              "plus its requests, and again after kill -9 and the AOF restart; serve "
+              "names the state tier; --state with --checkpoint-dir exits 2: "
+              + json.dumps(out), flush=True)
+    finally:
+        if client is not None:
+            client.close()
+        _kill(procs)
+        if serve_log is not None:
+            serve_log.close()
+    return {"megakernel": summary["counters"]["batches"], "epilogue": 0,
+            "flash_attention": 0, "dequant_matmul": 0, "dequant_rows": 0}
+
+
+def check_native_trees(scorer, features):
+    """Phase 20(d): the C++ tree scorer built from the repository's source,
+    on run 2's TINY feature rows, against the port's plain tree path."""
+    from realtime_fraud_detection_tpu_torch import native
+    from realtime_fraud_detection_tpu_torch.models.trees import tree_ensemble_logits
+
+    t0 = time.perf_counter()
+    if not native.native_trees_available():
+        fail(f"the native tree scorer did not build: {native._trees_error}")
+    build_s = time.perf_counter() - t0
+    x = torch.tensor(features, dtype=torch.float32)
+    trees = scorer.models.trees
+    got = torch.from_numpy(native.NativeTreeScorer(trees).logits(x.numpy()))
+    want = tree_ensemble_logits(trees, x.cuda()).cpu()
+    err = float((got - want).abs().max())
+    if not err <= NATIVE_TREE_TOL:
+        fail(f"native tree scorer: max abs err {err} vs the plain tree path")
+    print(f"native tree scorer ({native.native_trees_library_path()}, built / loaded in "
+          f"{build_s:.2f} s): {x.shape[0]} TINY feature rows, {trees.feature.shape[0]} "
+          f"trees; logits max abs err {err:.3e} vs the plain tree path on the card "
+          f"(tolerance {NATIVE_TREE_TOL})", flush=True)
+    return err
+
+
+def run_state_phase(ops):
+    """Phase 20: the shared state tier and the Kafka wire tier (see the
+    module docstring). Returns the launches by path."""
+    import tempfile
+
+    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE, TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    seconds = {}
+    t0 = time.perf_counter()
+    chain = {"epilogue": 1, "flash_attention": DISTILBERT_BASE.num_layers,
+             "dequant_matmul": 6 * DISTILBERT_BASE.num_layers, "dequant_rows": 2,
+             "megakernel": 0}
+    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                               seed=SEED)
+    records = gen.generate_batch(16 * BATCH)
+    profiles = stream_profiles(gen, records)
+    config = Config(quant=QuantSettings.full(), kernels=KernelSettings.mega())
+    models = seeded_models(TINY_CONFIG)
+    port, procs = free_port(), []
+    try:
+        start_state_server(port, procs)
+        rtt = round_trips_us(port)
+        print(f"loopback round trips on this host: {json.dumps(rtt)}", flush=True)
+        tiny = run_shared_stream(ops, port, "TINY", TINY_CONFIG, KernelSettings.mega(),
+                                 16 * BATCH, {k: int(k == "megakernel") for k in chain})
+        base = run_shared_stream(ops, port, "DistilBERT-base", DISTILBERT_BASE,
+                                 KernelSettings.full(), 4 * BATCH, chain)
+        seconds["a_card"] = round(time.perf_counter() - t0, 1)
+        # (b), (c) and (a)'s CPU runs one after another, so that nothing
+        # runs beside a timed part
+        with tempfile.TemporaryDirectory() as tmp:
+            t1 = time.perf_counter()
+            replicas, _ = run_two_replicas(ops, tmp, records, profiles, config, models)
+            run_single_replica(records[:KAFKA_SINGLE], profiles, config, models)
+            seconds["b"] = round(time.perf_counter() - t1, 1)
+            t2 = time.perf_counter()
+            run_job_state = run_state_commands(tmp)
+            seconds["c"] = round(time.perf_counter() - t2, 1)
+        t3 = time.perf_counter()
+        cpu_errs = [tiny["cpu_check"](), base["cpu_check"]()]
+        seconds["a_cpu"] = round(time.perf_counter() - t3, 1)
+    finally:
+        _kill(procs)
+    t4 = time.perf_counter()
+    check_native_trees(tiny["scorer"], tiny["features"])
+    seconds["d"] = round(time.perf_counter() - t4, 1)
+    seconds["total"] = round(time.perf_counter() - t0, 1)
+    print(f"shared state and Kafka phase seconds by part: {json.dumps(seconds)}; "
+          f"the CPU runs' max err TINY / DistilBERT-base {json.dumps(cpu_errs)}",
+          flush=True)
+    return {"tiny_shared_state": tiny["launches"],
+            "distilbert_base_shared_state": base["launches"],
+            "tiny_kafka_two_replicas": replicas, "run_job_state": run_job_state}
+
+
 def run_drills() -> dict:
     """The port's kernel drill (``KernelDrillConfig.fast()``) on the card,
     once on the per-site chain and once on the megakernel; a verdict that is
@@ -5197,6 +6049,8 @@ def main() -> int:
     lap("18")
     stream.update(run_deployed_phase(ops))
     lap("19")
+    stream.update(run_state_phase(ops))
+    lap("20")
     print(f"seconds by phase: {json.dumps(seconds)}", flush=True)
     for e in entries:
         e["stream_launches"] = {k: v[e["name"]] for k, v in stream.items()}

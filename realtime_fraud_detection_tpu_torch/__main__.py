@@ -2,6 +2,8 @@
 
     python -m realtime_fraud_detection_tpu_torch run-job --count 10000 --mega [--overlap-assembly] [--qos] [--trace] [--autotune] [--feedback] [--analytics] [--enrichment]
     python -m realtime_fraud_detection_tpu_torch run-job --broker 127.0.0.1:9092 --count 0 [--duration S] --checkpoint-dir D [--metadata-db F]
+    python -m realtime_fraud_detection_tpu_torch run-job --state 127.0.0.1:6379 --count 4096 --quant --mega
+    python -m realtime_fraud_detection_tpu_torch state-server --port 6379 [--aof F] [--maxmemory B] [--policy P] [--replica-of H:P]
     python -m realtime_fraud_detection_tpu_torch broker --port 9092 [--log-dir D] [--role replica] [--min-isr N] [--replica H:P]
     python -m realtime_fraud_detection_tpu_torch topics [--broker 127.0.0.1:9092 --create]
     python -m realtime_fraud_detection_tpu_torch alert-router --broker 127.0.0.1:9092 [--webhook URL] [--once]
@@ -12,7 +14,7 @@
     python -m realtime_fraud_detection_tpu_torch trace-drill [--fast]
     python -m realtime_fraud_detection_tpu_torch autotune-drill [--fast]
     python -m realtime_fraud_detection_tpu_torch trace-export --count 2048 --out trace.json
-    python -m realtime_fraud_detection_tpu_torch serve --port 8080 [--quant] [--kernels|--mega] [--trace] [--qos] [--autotune] [--overlap-assembly]
+    python -m realtime_fraud_detection_tpu_torch serve --port 8080 [--state H:P] [--quant] [--kernels|--mega] [--trace] [--qos] [--autotune] [--overlap-assembly]
     python -m realtime_fraud_detection_tpu_torch health-check --url http://127.0.0.1:8080
     python -m realtime_fraud_detection_tpu_torch simulate --count 1000 [--broker 127.0.0.1:9092]
     python -m realtime_fraud_detection_tpu_torch train --rows 10000 [--neural] --out ./checkpoints
@@ -23,7 +25,12 @@
 cmd_run_job``): the seeded simulator produces transactions into an
 in-memory broker (or, with ``--broker``, a running ``broker`` process;
 ``--count 0`` then only consumes, in checkpointed slices, until
-``--duration`` or a signal), keyed by user; the port's ``StreamJob`` scores
+``--duration`` or a signal), keyed by user; with ``--state host:port`` the
+scorer's profiles, velocity and transaction cache live on a shared state
+server (``state-server``), which replicas share; ``--state`` together with
+``--checkpoint-dir`` exits 2 before the scorer is built, because that state
+lives on the server (persisted by its ``--aof``) and a scorer checkpoint
+cannot hold it; the port's ``StreamJob`` scores
 them in microbatches through ``TorchFraudScorer`` and fans the results out
 to the predictions, alerts, enriched and features topics; with
 ``--enrichment`` the enriched topic carries the 60/40 feature-score blend,
@@ -85,8 +92,9 @@ verdict as the last line, and exits 1 unless every check passed.
 ``serve`` is the port of ``rtfd serve`` (``cli.py cmd_serve``): the
 scoring HTTP service (``serving/app.py ServingApp``) on the card, or on the
 CPU with ``--device cpu``; it fails without a card. It takes the JAX
-command's flags except ``--state``, ``--device-pool`` and
-``--inflight-depth``. With ``--quality-artifact`` it serves the artifact's
+command's flags except ``--device-pool`` and ``--inflight-depth``; with
+``--state host:port``, or else ``RTFD_STATE_ADDR``, the scorer reads and
+writes the shared state server, and standard error names it. With ``--quality-artifact`` it serves the artifact's
 blend and builds the scorer at the text model, text length and tokenizer
 the artifact records; ``--checkpoint-dir`` restores a port checkpoint
 (``checkpoint.py``) before it listens, and a missing checkpoint or a
@@ -94,6 +102,14 @@ refused restore (a crossed quantization or graph mode, or other widths)
 exits 2. The CUDA kernels are
 built before the service listens. ``health-check`` probes a running
 service's ``/health`` and prints the JSON verdict (exit 1 unless healthy).
+
+``state-server`` is the port of ``rtfd state-server``: the shared state
+node (``state/resp.py MiniRedisServer``, the Redis protocol; its replies and
+append-only file are the JAX server's, so either package's scorers share
+it), with ``--maxmemory`` / ``--policy`` eviction, ``--aof`` persistence and
+``--replica-of`` replication, until SIGINT or SIGTERM. The Kafka transport
+has no command-line flag, as in the JAX package: it is a library transport,
+``StreamJob(broker=KafkaTransport("host:9092"))``.
 
 ``broker``, ``topics`` and ``alert-router`` are the ports of the JAX
 commands: the durable TCP log broker (``stream/netbroker.py``; its frames
@@ -128,6 +144,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from typing import List, Optional
@@ -169,12 +186,14 @@ def cmd_run_job(args: argparse.Namespace) -> int:
     import signal
 
     from realtime_fraud_detection_tpu_torch.checkpoint import (
+        SHARED_TIER_REFUSAL,
         CheckpointManager,
         snapshot_scorer_host_state,
     )
     from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
     from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
     from realtime_fraud_detection_tpu_torch.state.metadata import MetadataStore
+    from realtime_fraud_detection_tpu_torch.state.resp import RespClient
     from realtime_fraud_detection_tpu_torch.stream import topics as T
     from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
     from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
@@ -190,6 +209,10 @@ def cmd_run_job(args: argparse.Namespace) -> int:
 
     if _no_card("run-job", args.device):
         return 2
+    if args.state and args.checkpoint_dir:
+        print(f"run-job: --state with --checkpoint-dir refused: {SHARED_TIER_REFUSAL}",
+              file=sys.stderr)
+        return 2
     config = Config()
     if args.quant:
         config.quant = QuantSettings.full()
@@ -200,7 +223,11 @@ def cmd_run_job(args: argparse.Namespace) -> int:
     gen = TransactionGenerator(num_users=args.users, num_merchants=args.merchants,
                                seed=args.seed, tps=args.tps)
     broker = _broker_client(args.broker) if args.broker else InMemoryBroker()
-    scorer = TorchFraudScorer(config, seed=args.seed, device=args.device)
+    state_client = None
+    if args.state:
+        state_client = RespClient(*_addr(args.state, 6379))
+    scorer = TorchFraudScorer(config, seed=args.seed, device=args.device,
+                              state_client=state_client)
     scorer.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
     qos = (QosSettings(enabled=True, budget_ms=args.qos_budget_ms,
                        admission_rate=args.qos_rate) if args.qos else None)
@@ -351,6 +378,8 @@ def cmd_run_job(args: argparse.Namespace) -> int:
         summary["stopped_by"] = stop["name"]
     if args.broker:
         broker.close()
+    if state_client is not None:
+        state_client.close()
     print(json.dumps(summary), flush=True)
     return 0 if job.counters["errors"] == 0 else 1
 
@@ -588,6 +617,12 @@ def cmd_serve(args: argparse.Namespace) -> int:
             scorer_kwargs["scorer_config"] = ScorerConfig(
                 text_len=int(proto.get("text_len", 32)),
                 tokenizer=proto.get("tokenizer", "word"))
+    state_addr = args.state or os.environ.get("RTFD_STATE_ADDR", "")
+    if state_addr:
+        from realtime_fraud_detection_tpu_torch.state.resp import RespClient
+
+        scorer_kwargs["state_client"] = RespClient(*_addr(state_addr, 6379))
+        print(f"using shared state tier at {state_addr}", file=sys.stderr)
     scorer = TorchFraudScorer(config, device=args.device, **scorer_kwargs)
     app = ServingApp(config=config, scorer=scorer)
     if args.checkpoint_dir:
@@ -709,6 +744,39 @@ def cmd_broker(args: argparse.Namespace) -> int:
     print(f"broker listening on {args.host}:{server.port}"
           + (f" (log_dir={args.log_dir})" if args.log_dir else "")
           + f" role={server.role} min_isr={server.min_isr}",
+          file=sys.stderr, flush=True)
+
+    def stop(signum, frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, stop)
+    try:
+        _wait_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+    return 0
+
+
+def cmd_state_server(args: argparse.Namespace) -> int:
+    """Run the shared state node (``state/resp.py MiniRedisServer``, the
+    Redis protocol), the RedisService-role process N scorer replicas share,
+    until SIGINT / SIGTERM."""
+    import signal
+
+    from realtime_fraud_detection_tpu_torch.state.resp import MiniRedisServer
+
+    replica_of = None
+    if args.replica_of:
+        host, _, port = args.replica_of.rpartition(":")
+        replica_of = (host, int(port))
+    server = MiniRedisServer(
+        host=args.host, port=args.port, maxmemory=args.maxmemory,
+        policy=args.policy, aof_path=args.aof or None,
+        replica_of=replica_of).start()
+    role = "replica" if server.is_replica else "master"
+    print(f"state server (RESP, {role}) listening on {args.host}:{server.port}",
           file=sys.stderr, flush=True)
 
     def stop(signum, frame):
@@ -1074,6 +1142,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--broker", default="",
                     help="external broker host:port, or a comma list for the "
                          "replicated cluster (default: in-memory)")
+    sp.add_argument("--state", default="",
+                    help="shared state server host:port (RESP)")
     sp.add_argument("--batch", type=int, default=256, help="microbatch size")
     sp.add_argument("--pipeline-depth", type=int, default=2,
                     help="microbatches in flight")
@@ -1213,6 +1283,9 @@ def build_parser() -> argparse.ArgumentParser:
     sv = sub.add_parser("serve", help="run the scoring HTTP service")
     sv.add_argument("--host", default="")
     sv.add_argument("--port", type=int, default=None)
+    sv.add_argument("--state", default="",
+                    help="shared state server host:port (RESP); also honours "
+                         "RTFD_STATE_ADDR")
     sv.add_argument("--config", default="", help="JSON config file")
     sv.add_argument("--checkpoint-dir", default="",
                     help="restore a port checkpoint's params (and host state) "
@@ -1278,6 +1351,21 @@ def build_parser() -> argparse.ArgumentParser:
     bk.add_argument("--replica", action="append", default=[], metavar="HOST:PORT",
                     help="attach a running replica server (repeatable)")
     bk.set_defaults(fn=cmd_broker)
+    ss = sub.add_parser("state-server",
+                        help="run the shared state server (Redis protocol)")
+    ss.add_argument("--host", default="0.0.0.0")
+    ss.add_argument("--port", type=int, default=6379)
+    ss.add_argument("--maxmemory", type=int, default=1 << 30,
+                    help="eviction threshold in bytes (0 = unlimited; default "
+                         "1 GiB like the reference redis-master.conf)")
+    ss.add_argument("--policy", default="allkeys-lru",
+                    choices=["allkeys-lru", "noeviction"])
+    ss.add_argument("--aof", default="",
+                    help="append-only persistence file (empty = volatile)")
+    ss.add_argument("--replica-of", default="",
+                    help="host:port of the primary to replicate from "
+                         "(read-only replica; promote by restarting without)")
+    ss.set_defaults(fn=cmd_state_server)
     tp = sub.add_parser("topics", help="print the topic contract")
     tp.add_argument("--broker", default="",
                     help="broker host:port to create the topics on")

@@ -24,6 +24,13 @@ state when the checkpoint has one, else from the manifest's
 warning when they do not fit the feature contract. The JAX package writes
 its parameters with orbax, which cannot be read without JAX: a port
 checkpoint and a JAX checkpoint are not interchangeable.
+
+A scorer on the shared RESP tier keeps its profiles, velocity and
+transaction cache on the state server (persisted by the server's own
+append-only file), and those stores hold the client's socket:
+``snapshot_scorer_host_state`` refuses such a scorer with a ``ValueError``
+(the JAX snapshot fails on it with pickle's ``TypeError``), and
+``restore_scorer_host_state`` leaves its shared stores in place.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from realtime_fraud_detection_tpu_torch.bridge import models_from_numpy
 from realtime_fraud_detection_tpu_torch.features.schema import EntityRowCache
 from realtime_fraud_detection_tpu_torch.models.gnn import is_typed_gnn
 from realtime_fraud_detection_tpu_torch.models.quant import is_quantized_bert
+from realtime_fraud_detection_tpu_torch.state.shared import SharedVelocityStore
 
 __all__ = [
     "Checkpoint",
@@ -309,8 +317,21 @@ class CheckpointManager:
 # the scorer's host state (the reference's Redis / RocksDB state)
 # --------------------------------------------------------------------------
 
+SHARED_TIER_REFUSAL = (
+    "the scorer's profiles, velocity and transaction cache live on the shared "
+    "state server (persisted by its --aof); a scorer checkpoint cannot hold them")
+
+
+def _on_shared_tier(scorer) -> bool:
+    """Whether the scorer's stores are the shared RESP tier's."""
+    return isinstance(scorer.velocity, SharedVelocityStore)
+
+
 def snapshot_scorer_host_state(scorer) -> Dict[str, Any]:
-    """A picklable snapshot of a ``TorchFraudScorer``'s streaming state."""
+    """A picklable snapshot of a ``TorchFraudScorer``'s streaming state;
+    refused (``ValueError``) for a scorer on the shared tier."""
+    if _on_shared_tier(scorer):
+        raise ValueError(SHARED_TIER_REFUSAL)
     return {
         "profiles": scorer.profiles,
         "velocity": scorer.velocity,
@@ -326,11 +347,13 @@ def snapshot_scorer_host_state(scorer) -> Dict[str, Any]:
 
 
 def restore_scorer_host_state(scorer, state: Mapping[str, Any]) -> None:
-    scorer.profiles = state["profiles"]
-    scorer.velocity = state["velocity"]
+    if not _on_shared_tier(scorer):
+        # a shared-tier scorer keeps reading the server's stores
+        scorer.profiles = state["profiles"]
+        scorer.velocity = state["velocity"]
+        scorer.txn_cache = state["txn_cache"]
     scorer.history = state["history"]
     scorer.graph = state["graph"]
-    scorer.txn_cache = state["txn_cache"]
     scorer._users = state["users_index"]
     scorer._merchants = state["merchants_index"]
     # the join cache is stamped with the old profile store's generation,

@@ -1,7 +1,6 @@
 """The streaming scorer: host assembly, the device program, write-back.
 
-Port of the JAX package's ``scoring/scorer.py FraudScorer`` on the
-in-process state tier:
+Port of the JAX package's ``scoring/scorer.py FraudScorer``:
 
 - host half: ``assemble`` joins the profile, velocity and history state of
   a microbatch of transaction dicts and encodes one dense ``ScoreBatch``
@@ -53,7 +52,15 @@ in-process state tier:
   ``finalize`` once the copy's event has completed), so ``device_wait``
   is the card's time as the batch sees it, not the launch's return.
 
-The shared RESP state tier, cross-partition graph fetch, pools and the
+- state tier: in-process single-writer stores by default; with
+  ``state_client`` (a ``state.resp.RespClient``), or with
+  ``Config.state.backend == "redis"`` (then the scorer connects to
+  ``redis_host:redis_port`` itself, owns that client and ``close()``
+  releases it), profiles, velocity and the transaction cache live on the
+  shared RESP server (``state/shared.py``), so N replicas share one state
+  plane; the history ring stays local, as in the JAX scorer.
+
+Partitioned state (``stores=``), cross-partition graph fetch, pools and the
 mesh are not ported.
 """
 
@@ -127,6 +134,12 @@ from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
 from realtime_fraud_detection_tpu_torch.state.history import (
     EntityGraphStore,
     UserHistoryStore,
+)
+from realtime_fraud_detection_tpu_torch.state.resp import RespClient
+from realtime_fraud_detection_tpu_torch.state.shared import (
+    SharedProfileStore,
+    SharedTransactionCache,
+    SharedVelocityStore,
 )
 from realtime_fraud_detection_tpu_torch.state.stores import (
     ProfileStore,
@@ -292,7 +305,8 @@ class TorchFraudScorer:
                  scorer_config: Optional[ScorerConfig] = None,
                  bert_config: BertConfig = TINY_CONFIG, seed: int = 0,
                  device: str = "cuda",
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 state_client: Any = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchFraudScorer: no CUDA device available")
@@ -327,15 +341,28 @@ class TorchFraudScorer:
             seed, bert_config, feature_dim=self.sc.feature_dim,
             node_dim=self.sc.node_dim))
 
-        # streaming state: in-process single-writer stores (the reference's
-        # Redis plane), read at assembly and written back at finalize
+        # streaming state (the reference's Redis plane), read at assembly and
+        # written back at finalize: in-process single-writer stores, or with
+        # a state client the shared RESP tier, so replicas share one plane
         st = self.config.state
-        self.profiles = ProfileStore()
-        self.velocity = VelocityStore()
-        self.txn_cache = TransactionCache(
+        cache_kwargs = dict(
             txn_ttl_s=st.transaction_ttl_s, features_ttl_s=st.features_ttl_s,
             user_list_len=st.user_history_len,
             merchant_list_len=st.merchant_history_len)
+        self._owned_state_client = None
+        if state_client is None and st.backend == "redis":
+            # a connection the config asked for: this scorer owns it and
+            # close() releases it (a client passed in stays the caller's)
+            state_client = RespClient(host=st.redis_host, port=st.redis_port)
+            self._owned_state_client = state_client
+        if state_client is not None:
+            self.profiles = SharedProfileStore(state_client)
+            self.velocity = SharedVelocityStore(state_client)
+            self.txn_cache = SharedTransactionCache(state_client, **cache_kwargs)
+        else:
+            self.profiles = ProfileStore()
+            self.velocity = VelocityStore()
+            self.txn_cache = TransactionCache(**cache_kwargs)
         self.history = UserHistoryStore(self.sc.seq_len, self.sc.feature_dim)
         self.graph = EntityGraphStore(self.sc.fanout)
         if self.sc.graph_mode not in ("bipartite", "typed"):
@@ -382,6 +409,15 @@ class TorchFraudScorer:
     def seed_profiles(self, users: Mapping[str, Mapping[str, Any]],
                       merchants: Mapping[str, Mapping[str, Any]]) -> None:
         self.profiles.seed(users, merchants)
+
+    def close(self) -> None:
+        """Release what this scorer owns: the state-tier connection it made
+        itself for ``Config.state.backend == "redis"``."""
+        if self._owned_state_client is not None:
+            try:
+                self._owned_state_client.close()
+            finally:
+                self._owned_state_client = None
 
     # ----------------------------------------------------------------- models
     def set_models(self, models: ScoringModels) -> None:

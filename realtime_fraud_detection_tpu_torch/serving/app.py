@@ -93,12 +93,6 @@ from realtime_fraud_detection_tpu_torch.utils.config import Config, TuningSettin
 
 __all__ = ["ServingApp"]
 
-# a prediction counts as flagged in an experiment's arm above this score
-# (the JAX package's StreamConfig.alert_score_threshold,
-# FraudDetectionJob.java:66)
-ALERT_SCORE_THRESHOLD = 0.7
-
-
 class ServingApp:
     """Scorer, microbatcher, observability and experiments behind HTTP."""
 
@@ -319,6 +313,7 @@ class ServingApp:
         predictions (and recomputes decision and risk level), and every arm
         records the prediction, with the producer's ``is_fraud`` label when
         there is one."""
+        alert_t = self.config.stream.alert_score_threshold
         base = self.config.normalized_weights()
         for txn, res in zip(txns, results):
             uid = str(txn.get("user_id", ""))
@@ -340,7 +335,7 @@ class ServingApp:
                 actual = txn.get("is_fraud")
                 self.ab.record_prediction(
                     name, variant.name, res["fraud_score"],
-                    res["fraud_score"] > ALERT_SCORE_THRESHOLD,
+                    res["fraud_score"] > alert_t,
                     bool(actual) if actual is not None else None)
 
     def _maybe_react(self) -> None:

@@ -1,17 +1,21 @@
 """Windowed state stores, in process: the Redis data plane of the reference.
 
-Port of the memory tier of the JAX package's ``state/stores.py``: the
-reference's Redis key schema (RedisService.java:36-49) as plain dicts, with
-the sink's update logic (RedisTransactionSink.java:87-135). Every mutation
-happens on the one thread that assembles and writes back (single writer per
-key), and each velocity window resets on its own period (the reference gave
-all three a one-hour key TTL). Callers on a virtual clock pass ``now``.
+Port of the JAX package's ``state/stores.py``: the reference's Redis key
+schema (RedisService.java:36-49) as plain dicts, with the sink's update
+logic (RedisTransactionSink.java:87-262: velocity, the transaction cache,
+the rolling aggregations). Every mutation happens on the one thread that
+assembles and writes back (single writer per key), and each velocity window
+resets on its own period (the reference gave all three a one-hour key TTL).
+Callers on a virtual clock pass ``now``. The shared RESP tier
+(``state/shared.py``) keeps the same store APIs over a Redis-protocol
+server. (The JAX module's ``StateBackend`` protocol is not ported: nothing is
+typed against it, and its own in-process backend does not match it.)
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
 VELOCITY_WINDOWS: dict[str, float] = {"5min": 300.0, "1hour": 3600.0, "24hour": 86400.0}
 
@@ -87,6 +91,11 @@ class VelocityStore:
             else:
                 cur[0] += 1
                 cur[1] += amount
+
+    def update_batch(self, user_ids: Iterable[str], amounts: Iterable[float],
+                     now: float) -> None:
+        for uid, amt in zip(user_ids, amounts):
+            self.update(uid, float(amt), now)
 
     def get(self, user_id: str, window: str, now: float | None = None) -> Dict[str, float]:
         """Velocity metrics dict (RedisService.getVelocityMetrics shape),
@@ -203,3 +212,42 @@ class TransactionCache:
 
     def get_merchant_transactions(self, merchant_id: str, limit: int = 500) -> List[str]:
         return self._merchant_lists.get(merchant_id, [])[:limit]
+
+
+class AggregationStore:
+    """Hourly / daily / per-merchant rolling aggregations
+    (RedisTransactionSink.java:140-262): total_count, total_amount,
+    fraud_count, high_risk_count, fraud_rate, avg_amount per bucket.
+    """
+
+    def __init__(self, ttl_s: float = 1800.0) -> None:
+        self._backend = _MemoryBackend()
+        self.ttl_s = ttl_s
+
+    def record(self, txn: Mapping[str, Any], now: float | None = None) -> None:
+        ts_ms = _event_time_ms(txn, now)
+        hour_key = int(ts_ms // 3_600_000)
+        day_key = int(ts_ms // 86_400_000)
+        amount = float(txn.get("amount", 0.0))
+        is_fraud = bool(txn.get("is_fraud", False))
+        high_risk = float(txn.get("fraud_score", 0.0)) > 0.7
+        for key in (f"hourly:{hour_key}", f"daily:{day_key}",
+                    f"merchant:{txn.get('merchant_id')}:{hour_key}"):
+            self._update(key, amount, is_fraud, high_risk, now)
+
+    def _update(self, key: str, amount: float, is_fraud: bool, high_risk: bool,
+                now: float | None) -> None:
+        agg = self._backend.get(f"agg:{key}", now) or {
+            "total_count": 0, "total_amount": 0.0, "fraud_count": 0,
+            "high_risk_count": 0,
+        }
+        agg["total_count"] += 1
+        agg["total_amount"] += amount
+        agg["fraud_count"] += int(is_fraud)
+        agg["high_risk_count"] += int(high_risk)
+        agg["fraud_rate"] = agg["fraud_count"] / agg["total_count"]
+        agg["avg_amount"] = agg["total_amount"] / agg["total_count"]
+        self._backend.put(f"agg:{key}", agg, self.ttl_s, now)
+
+    def get(self, key: str, now: float | None = None) -> Dict[str, Any]:
+        return self._backend.get(f"agg:{key}", now) or {}

@@ -1,9 +1,9 @@
 """Streaming layer: transport, microbatch assembly, the scoring job, the
-windowed analytics and joins, the TCP log broker and the ingress gateway.
+windowed analytics and joins, the Kafka wire-protocol client, the TCP log
+broker and the ingress gateway.
 
-The names the JAX package's ``stream/__init__.py`` exports, less its Kafka
-transport (``KafkaTransport``, ``KafkaBroker``) and ``DoubleBufferedScorer``,
-which the port does not have.
+The names the JAX package's ``stream/__init__.py`` exports, less
+``DoubleBufferedScorer``, which the port does not have.
 """
 
 from realtime_fraud_detection_tpu_torch.stream.topics import (  # noqa: F401
@@ -19,8 +19,10 @@ from realtime_fraud_detection_tpu_torch.stream.transport import (  # noqa: F401
     Consumer,
     FaultInjector,
     InMemoryBroker,
+    KafkaTransport,
     Record,
 )
+from realtime_fraud_detection_tpu_torch.stream.kafka import KafkaBroker  # noqa: F401
 from realtime_fraud_detection_tpu_torch.stream.netbroker import (  # noqa: F401
     BrokerServer,
     HaBrokerClient,

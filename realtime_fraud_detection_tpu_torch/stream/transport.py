@@ -10,8 +10,9 @@ commits only after write-back and fan-out, so a crash replays the tail and
 the scorer's transaction cache deduplicates it. The producer generation
 fences come along as they are. The network transport
 (``stream/netbroker.py``) serves an ``InMemoryBroker`` over TCP, and
-``Consumer`` runs over its client unchanged. The Kafka transport is not
-ported.
+``Consumer`` runs over its client unchanged; ``KafkaTransport`` returns
+the Kafka wire-protocol client (``stream/kafka.py``), which implements the
+same broker interface.
 """
 
 from __future__ import annotations
@@ -358,3 +359,14 @@ class Consumer:
                 total += max(0, ends[p] - self.broker.committed(
                     self.group_id, t, p))
         return total
+
+
+def KafkaTransport(bootstrap_servers: str = "localhost:9092", **kwargs):
+    """The Kafka adapter: the port's own wire-protocol client
+    (``stream/kafka.py``, no client library). Returns a ``KafkaBroker``
+    implementing this module's broker interface, so
+    ``StreamJob(broker=KafkaTransport(...))`` runs unchanged against a
+    cluster."""
+    from realtime_fraud_detection_tpu_torch.stream.kafka import KafkaBroker
+
+    return KafkaBroker(bootstrap=bootstrap_servers, **kwargs)

@@ -5,7 +5,9 @@
 as in the JAX package's ``utils/config.py``. The blocks the port has: the
 five-model registry (``ModelConfig``, enable / disable, weights), the
 ensemble defaults ``EnsembleParams.from_config`` reads, the quant and kernel
-planes, the state stores' TTLs and list lengths, the scoring service
+planes, the state tier (``StateConfig``: the backend, in process or the
+shared RESP server, its address, the stores' TTLs and list lengths), the
+alert threshold (``StreamConfig``), the scoring service
 (``ServingConfig``, with the prediction cache's TTL and size on
 ``EnsembleConfig``) and its monitoring switches (``MonitoringConfig``), and
 the QoS, tracing, tuning and feedback planes' knobs (``QosSettings``,
@@ -16,10 +18,13 @@ loaders that deploy a measured blend (``Config.apply_quality_artifact``).
 The environment part: the ensemble's (``RTFD_ENSEMBLE_STRATEGY`` or
 ``ENSEMBLE_STRATEGY``, ``CONFIDENCE_THRESHOLD``, ``FRAUD_THRESHOLD``), the
 service's address (``ML_SERVICE_HOST``, ``ML_SERVICE_PORT``), logging
-(``LOG_LEVEL``, ``LOG_FILE``) and ``MODELS_PATH``, each also under its
-``RTFD_`` name, which wins. Values are copies of the JAX package's; the
-port keeps its own so it imports nothing of it. The blocks of planes the
-port does not have (mesh, stream, chaos, cluster) are not ported.
+(``LOG_LEVEL``, ``LOG_FILE``), ``MODELS_PATH`` and the state tier's
+(``RTFD_STATE_BACKEND``, ``REDIS_HOST``, ``REDIS_PORT``), each also under
+its ``RTFD_`` name, which wins (the backend's is looked up as JAX looks it
+up: ``RTFD_RTFD_STATE_BACKEND``, then ``RTFD_STATE_BACKEND``). ``StreamConfig`` reads no environment variable,
+as in the JAX package. Values are copies of the JAX package's; the port keeps
+its own so it imports nothing of it. The blocks of planes the port does not
+have (mesh, chaos, cluster) are not ported.
 """
 
 from __future__ import annotations
@@ -324,10 +329,16 @@ class KernelSettings:
 
 @dataclass
 class StateConfig:
-    """In-process state store settings (RedisService.java key TTLs). Only
-    the memory tier is ported; velocity windows expire on their own
-    periods, so there is no velocity TTL."""
+    """State store settings (RedisService.java key TTLs). ``backend``
+    "memory" keeps the stores in process; "redis" makes a scorer built
+    without a ``state_client`` connect to the shared RESP server at
+    ``redis_host:redis_port`` (the reference's REDIS_HOST / REDIS_PORT).
+    Velocity windows expire on their own periods, so there is no velocity
+    TTL."""
 
+    backend: str = "memory"  # memory | redis
+    redis_host: str = "localhost"
+    redis_port: int = 6379
     transaction_ttl_s: int = 24 * 3600
     features_ttl_s: int = 2 * 3600
     user_history_len: int = 100  # RedisService.java:296-306 last-100 list
@@ -624,6 +635,19 @@ class FeedbackSettings:
 
 
 @dataclass
+class StreamConfig:
+    """Transport settings (reference JobConfig.java:20-38 semantics). Of the
+    JAX block's fields only the alert threshold is read by any code (the
+    serving app's experiments flag a prediction above it); its transport
+    fields (backend, bootstrap servers, topic names, partitions, checkpoint
+    interval) are read by nothing in either package, so the port leaves
+    them out and a config file that sets them gets the unknown-key
+    warning."""
+
+    alert_score_threshold: float = 0.7  # FraudDetectionJob.java:66
+
+
+@dataclass
 class SimConfig:
     """Load-generator settings (reference simulator.py:480-489)."""
 
@@ -648,6 +672,7 @@ class Config:
     quant: QuantSettings = field(default_factory=QuantSettings)
     kernels: KernelSettings = field(default_factory=KernelSettings)
     state: StateConfig = field(default_factory=StateConfig)
+    stream: StreamConfig = field(default_factory=StreamConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
     monitoring: MonitoringConfig = field(default_factory=MonitoringConfig)
     qos: QosSettings = field(default_factory=QosSettings)
@@ -662,10 +687,9 @@ class Config:
     def _apply_env(self) -> None:
         """The JAX ``Config._apply_env`` for the blocks the port has:
         the models' base path, the service's address, the ensemble's
-        strategy and thresholds, the log level and file, from
-        ``RTFD_``-prefixed or plain environment
-        variables. (Its Redis variables configure a tier the port does not
-        have.)"""
+        strategy and thresholds, the log level and file and the state
+        tier's backend and Redis address, from ``RTFD_``-prefixed or plain
+        environment variables."""
         self.models_base_path = _env("MODELS_PATH", self.models_base_path)
         self.serving.port = int(_env("ML_SERVICE_PORT", str(self.serving.port)))
         self.serving.host = _env("ML_SERVICE_HOST", self.serving.host)
@@ -676,6 +700,11 @@ class Config:
         e.confidence_threshold = float(
             _env("CONFIDENCE_THRESHOLD", str(e.confidence_threshold)))
         e.fraud_threshold = float(_env("FRAUD_THRESHOLD", str(e.fraud_threshold)))
+        # the reference's Redis contract (REDIS_HOST / REDIS_PORT): with
+        # state.backend "redis" they select the shared state tier
+        self.state.backend = _env("RTFD_STATE_BACKEND", self.state.backend)
+        self.state.redis_host = _env("REDIS_HOST", self.state.redis_host)
+        self.state.redis_port = int(_env("REDIS_PORT", str(self.state.redis_port)))
 
     # -- registry helpers (reference config.py:201-224) --------------------
     def get_model_config(self, model_name: str) -> ModelConfig:

@@ -505,6 +505,45 @@ def test_port_runs_with_jax_blocked():
             meta.close()
         assert ServingFeatureProcessor().process_features({"amount": 5.0})["amount"] == 5.0
         assert SimConfig().tps == 100 and Config().models_base_path
+        # the shared state tier and the Kafka wire tier: a scorer on the RESP
+        # server, its job over the Kafka fake, a group member, the stores, the
+        # native tree scorer
+        from realtime_fraud_detection_tpu_torch.models.trees import tree_ensemble_logits
+        from realtime_fraud_detection_tpu_torch.native import NativeTreeScorer
+        from realtime_fraud_detection_tpu_torch.state import (
+            AggregationStore, FeatureStore, MiniRedisServer, RespClient)
+        from realtime_fraud_detection_tpu_torch.stream import KafkaTransport
+        from realtime_fraud_detection_tpu_torch.stream.kafka_fake import FakeKafkaServer
+        from realtime_fraud_detection_tpu_torch.stream.kafka_group import (
+            KafkaGroupConsumer)
+        redis, fake = MiniRedisServer().start(), FakeKafkaServer().start()
+        rc = RespClient(port=redis.port)
+        kb = KafkaTransport(f"127.0.0.1:{fake.port}", idempotent=True, compression="gzip")
+        models = init_scoring_models(1, n_trees=4, tree_depth=3)
+        shared = TorchFraudScorer(models=models, scorer_config=ScorerConfig(text_len=16),
+                                  device="cpu", state_client=rc)
+        shared.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+        job = StreamJob(kb, shared, JobConfig(max_batch=16))
+        recs = gen.generate_batch(16)
+        kb.produce_batch(T.TRANSACTIONS, recs, key_fn=lambda r: str(r["user_id"]))
+        assert job.run_until_drained(now=8.0) == 16
+        assert kb.lag(job.config.group_id, T.TRANSACTIONS) == 0
+        assert len(rc.keys("transaction:*")) == 16 and rc.keys("velocity:*")
+        member = KafkaGroupConsumer(kb, [T.TRANSACTIONS], "g", session_timeout_ms=1000,
+                                    heartbeat_interval_s=0.1)
+        assert len(member.poll(100)) == 16 and member.lag() == 16
+        member.commit()
+        assert member.lag() == 0
+        member.close()
+        kb.close(); rc.close(); fake.stop(); redis.stop()
+        agg, fs = AggregationStore(), FeatureStore()
+        for r in recs:
+            agg.record(r, now=8.0)
+            fs.store_feature_values(r["user_id"], "user", {"amount": r["amount"]}, now=8.0)
+        assert fs.get_feature_statistics("amount")["count"] == 16
+        x = torch.from_numpy(np.random.default_rng(0).normal(size=(8, 64)).astype(np.float32))
+        got = NativeTreeScorer(models.trees).logits(x.numpy())
+        assert np.allclose(got, tree_ensemble_logits(models.trees, x).numpy(), atol=1e-5)
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
