@@ -338,6 +338,44 @@ Phases, each of which raises (and exits non-zero) on failure:
    its logits on (a)'s in-process TINY run's 4,096 feature rows within 1e-5
    of the plain tree path on the card.
 
+21. the device pool and the partition-parallel fleet: (a) ``pool-drill
+   --devices 4`` as a command on the card (its replicas share the card, each
+   on its own stream; every check must pass); phase 8's TINY ``mega()``
+   stream (4,096, int8 BERT, batches of 256) through ``StreamJob`` with the
+   device pool three ways: every visible card (a pool of one), 2 and 4
+   replicas on the one card (launch counters reset just before, read just
+   after: one megakernel launch a batch), each run in turns with the
+   unpooled job at the same in-flight window (pooled, unpooled, unpooled,
+   pooled, garbage collected before each): every prediction bit-equal, in
+   the same order; txn/s and batch p50 / p99 of each run printed, and the
+   replicas' dispatches and queue wait; the DistilBERT-base ``full()`` leg:
+   4 batches of 256 through 2 replicas, all in flight, in turns with the
+   unpooled scorer, bit-equal, 1 / 6 / 36 / 2 launches a batch. (b) on 2 replicas, each against
+   the same pool without the fault: ``DeviceReplicaDeath`` on replica 0 for
+   dispatched batches 6-10 with the job's window pinned at 2 (each id once,
+   the predictions bit-equal in order, one retry, one failure, the replica
+   revived, one extra megakernel launch), ``SlowDevice`` (50 ms on two
+   fetches of replica 0: the predictions bit-equal in order, no retry); a
+   ``set_models`` swap at batch 8 of 16 on 4 replicas with 8 batches in
+   flight: each batch wholly equal to the unpooled scorer on the old models
+   or on the new ones. (c) ``WorkerFleet`` of 4 ``TorchFraudScorer`` workers
+   over their ``PartitionedStore``s on the card (``mega()``, int8 BERT, the
+   GNN branch off in the blend: the bipartite graph is scorer-local in both
+   packages), on the shard drill's timeline (``cluster/drill.py
+   run_fleet``: 4,096 transactions, 12 partitions, batches closed at 128 or
+   25 virtual ms, ``WorkerKill`` at 45%): each id scored once, the committed
+   offsets gap free, every batch only its worker's partitions, every batch
+   of 2+ rows one megakernel launch; an unsharded scorer replaying the
+   fleet's batches (its cuts) in the fleet's order: fraud_score within the
+   drill's 1e-4 floor, decisions equal off the cuts; handoffs and replay
+   depth printed. (d) ``serve --quant --mega --device-pool`` with
+   ``cluster.enabled`` as worker w0 of two, beside a plain ``serve --quant
+   --mega``, each a process on the card: 256 ``/predict`` for distinct users
+   w0 owns, one at a time, answered alike by both; foreign users' 421 with
+   the owner, its address and the partition; ``/cluster``; the ``cluster_*``
+   and ``device_pool_*`` series (256 dispatches on ``cuda:0#0``); SIGTERM,
+   both exit 0.
+
 The last three lines of standard output are the kernel JSON line (all five
 kernels), the ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
@@ -5907,6 +5945,621 @@ def run_state_phase(ops):
             "tiny_kafka_two_replicas": replicas, "run_job_state": run_job_state}
 
 
+# the pool and fleet phase (21): phase 8's TINY mega() stream and models
+# through the device pool on the one card (a pool of every visible card,
+# then 2 and 4 replicas sharing it, each on its own stream), the faults on
+# the pool, a fleet of real scorers and the serving router
+POOL_REPLICAS = ("all", 2, 4)
+POOL_BASE_BATCHES = 4                    # the DistilBERT-base leg's batches
+POOL_FAULT_WINDOW = (6.0, 10.0)          # dispatched batches: replica 0 dead
+POOL_SLOW_WINDOW = (4.0, 5.0)            # dispatched batches: replica 0 slowed
+POOL_SLOW_S = 0.05
+POOL_SWAP_BATCHES = 8                    # the hot swap: 16 batches, swap at 8
+FLEET_TXNS = 16 * BATCH
+FLEET_WORKERS = 4
+FLEET_TOL = 1e-4                         # the shard drill's bf16 floor
+ROUTER_PREDICTS = BATCH
+
+
+def drive_pool_stream(records, profiles, config, devices=None, depth=2, window=None,
+                      make_plan=None):
+    """Phase 8's TINY stream through ``StreamJob`` on a fresh scorer at the
+    fixed virtual clock. With ``devices`` ("all": every visible card, or a
+    list) its batches run on a ``DevicePool`` of those replicas (the job's
+    window is the pool's capacity), else unpooled at pipeline ``depth``.
+    ``window`` pins the job's in-flight window; ``make_plan(pool)`` gives a
+    ``ChaosPlan`` on a clock that counts dispatched batches, polled before
+    each dispatch. Returns (job, broker, scorer, timer, pool)."""
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.scoring.device_pool import DevicePool
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+    from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
+    from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
+
+    scorer = TorchFraudScorer(config, models=seeded_models(TINY_CONFIG),
+                              bert_config=TINY_CONFIG, device="cuda")
+    scorer.seed_profiles(*profiles)
+    pool = None
+    if devices is not None:
+        pool = DevicePool(scorer, devices=None if devices == "all" else devices)
+    broker = InMemoryBroker()
+    job = StreamJob(broker, scorer, JobConfig(max_batch=BATCH, pipeline_depth=depth,
+                                              device_pool=pool is not None))
+    if window is not None:
+        job._inflight_depth = lambda: window
+    if make_plan is not None:
+        plan, dispatch, clock = make_plan(pool), job.dispatch_batch, [0]
+
+        def polled(batch, now=None):
+            plan.poll(float(clock[0]))
+            clock[0] += 1
+            return dispatch(batch, now=now)
+
+        job.dispatch_batch = polled
+    broker.produce_batch(T.TRANSACTIONS, records, key_fn=lambda r: str(r["user_id"]))
+    timer = StreamTimer(job, scorer)
+    try:
+        job.run_until_drained(now=STREAM_NOW)
+    finally:
+        job.close()
+        timer.close()
+    return job, broker, scorer, timer, pool
+
+
+def pool_rows(name, job, broker, records):
+    """The predictions topic as (id, fraud_score, confidence, decision, risk
+    level) rows in emitted order, after ``check_stream_output``'s gates."""
+    from realtime_fraud_detection_tpu_torch.stream import topics as T
+
+    check_stream_output(name, job, broker, records)
+    return [(p["transaction_id"], p["fraud_score"], p["confidence"], p["decision"],
+             p["risk_level"]) for p in topic_values(broker, T.PREDICTIONS)]
+
+
+def run_pool_streams(ops, records, profiles, config):
+    """Phase 21(a), the TINY stream: at each replica count, pooled and the
+    unpooled job at the pool's window in turns (pooled, unpooled, unpooled,
+    pooled), every run's predictions bit-equal to the first's; launches a
+    batch (counters reset just before each pooled run, read just after);
+    txn/s and batch p50 / p99 of each run."""
+    import gc
+
+    launches, out = {}, {}
+    for reps in POOL_REPLICAS:
+        devices = "all" if reps == "all" else ["cuda:0"] * reps
+        name = f"TINY pool {reps}"
+        runs, first, window = [], None, None
+        for pooled in (True, False, False, True):
+            gc.collect()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            job, broker, scorer, timer, pool = drive_pool_stream(
+                records, profiles, config, devices=devices if pooled else None,
+                depth=window or 2)
+            torch.cuda.synchronize()
+            got = ops.launch_counts()
+            label = name if pooled else f"{name} (unpooled, window {window})"
+            rows = pool_rows(label, job, broker, records)
+            if pooled:
+                window = pool.total_slots()
+                n_batches = len(timer.batches)
+                per_batch = sorted({b["launches"] for b in timer.batches})
+                if got != {k: n_batches * int(k == "megakernel") for k in got} \
+                        or per_batch != [1]:
+                    fail(f"{name}: launches {got}, per batch {per_batch}")
+                launches[f"tiny_pool_{reps}"] = got
+                st = pool.stats()
+            if first is None:
+                first = rows
+            elif rows != first:
+                fail(f"{label}: {sum(a != b for a, b in zip(rows, first))} of "
+                     f"{len(rows)} rows differ from the first pooled run")
+            timing = timer.summary(scorer)
+            runs.append(dict(pooled=pooled, txn_per_s=timing["txn_per_s"],
+                             batch_ms_p50=timing["batch_ms_p50"],
+                             batch_ms_p99=timing["batch_ms_p99"], gc_ms=timing["gc_ms"]))
+        out[str(reps)] = dict(replicas=len(pool), window=window, runs=runs,
+                              dispatched=[d["dispatched"] for d in st["devices"]],
+                              queue_wait_ms=[d["queue_wait_ms"] for d in st["devices"]])
+        print(f"{name}: {len(records)} txns in {n_batches} batches on {len(pool)} "
+              f"replica(s), window {window}, launches {launches[f'tiny_pool_{reps}']} "
+              f"(hand-written launches a batch [1]); pooled and unpooled at window "
+              f"{window} in turns, every row bit-equal: " + json.dumps(out[str(reps)]),
+              flush=True)
+    return launches, out
+
+
+def run_pool_distilbert(ops, records, profiles):
+    """Phase 21(a), the DistilBERT-base ``full()`` leg: 4 batches of 256
+    through 2 replicas on the card against the unpooled scorer, all four in
+    flight on both sides; the chain's launches a batch."""
+    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE
+    from realtime_fraud_detection_tpu_torch.scoring.device_pool import DevicePool
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    chain = {"epilogue": 1, "flash_attention": DISTILBERT_BASE.num_layers,
+             "dequant_matmul": 6 * DISTILBERT_BASE.num_layers, "dequant_rows": 2,
+             "megakernel": 0}
+    batches = [records[i * BATCH:(i + 1) * BATCH] for i in range(POOL_BASE_BATCHES)]
+    runs = []
+    # in turns: unpooled, pooled, pooled, unpooled (the first run warms the
+    # DistilBERT-base path)
+    for pooled in (False, True, True, False):
+        scorer = TorchFraudScorer(Config(quant=QuantSettings.full(),
+                                         kernels=KernelSettings.full()),
+                                  models=seeded_models(DISTILBERT_BASE),
+                                  bert_config=DISTILBERT_BASE, device="cuda")
+        scorer.seed_profiles(*profiles)
+        if pooled:
+            DevicePool(scorer, devices=["cuda:0"] * 2)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        pend = [scorer.dispatch(b, now=STREAM_NOW) for b in batches]
+        res = [scorer.finalize(p, now=STREAM_NOW) for p in pend]
+        torch.cuda.synchronize()
+        runs.append(dict(pooled=pooled, launches=ops.launch_counts(),
+                            per_batch=[p.kernel_launches for p in pend],
+                            ms=(time.perf_counter() - t0) * 1e3,
+                            rows=[(r["transaction_id"], r["fraud_score"], r["confidence"],
+                                   r["decision"], r["risk_level"]) for b in res for r in b],
+                         replicas=[p.pool_token.replica_idx for p in pend]
+                         if pooled else None))
+    want = {k: v * POOL_BASE_BATCHES for k, v in chain.items()}
+    for run in runs:
+        if run["launches"] != want or run["per_batch"] != [sum(chain.values())] * 4:
+            fail(f"DistilBERT-base pool ({run['pooled']}): launches {run['launches']} / "
+                 f"{run['per_batch']}")
+        if run["rows"] != runs[0]["rows"]:
+            fail(f"DistilBERT-base pool ({run['pooled']}): rows differ from the first "
+                 f"unpooled run")
+    print(f"DistilBERT-base pool: {POOL_BASE_BATCHES} batches of {BATCH} on replicas "
+          f"{runs[1]['replicas']}, launches {runs[1]['launches']} ({runs[1]['per_batch']} "
+          f"a batch), every row of every run bit-equal; host ms for the four, unpooled / "
+          f"pooled / pooled / unpooled: "
+          + " / ".join(f"{r['ms']:.1f}" for r in runs), flush=True)
+    return runs[1]["launches"]
+
+
+def run_pool_faults(ops, records, profiles, config):
+    """Phase 21(b): the faults on a pool of 2 replicas on the card, each run
+    against the same pool without the fault; the hot swap."""
+    from realtime_fraud_detection_tpu_torch.chaos.faults import (
+        ChaosPlan,
+        DeviceReplicaDeath,
+        FaultWindow,
+        SlowDevice,
+    )
+
+    pair = ["cuda:0"] * 2
+    # replica 0 dies mid-stream: the window pinned at 2, so the interleaving
+    # does not follow the healthy count and the outputs are comparable
+    base_job, base_broker, *_ = drive_pool_stream(records, profiles, config,
+                                                  devices=pair, window=2)
+    base = pool_rows("TINY pool 2 (fault-free, window 2)", base_job, base_broker, records)
+
+    def death(pool):
+        plan = ChaosPlan([FaultWindow("replica_death", "device", *POOL_FAULT_WINDOW)])
+        plan.bind("replica_death", DeviceReplicaDeath(pool, 0))
+        return plan
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    job, broker, scorer, timer, pool = drive_pool_stream(
+        records, profiles, config, devices=pair, window=2, make_plan=death)
+    torch.cuda.synchronize()
+    death_launches = ops.launch_counts()
+    rows = pool_rows("TINY pool 2 (replica 0 dies)", job, broker, records)
+    st = pool.stats()
+    n_batches = len(timer.batches)
+    if rows != base:
+        fail(f"replica death: {sum(a != b for a, b in zip(rows, base))} rows differ "
+             f"from the fault-free run")
+    if (st["retries"] != 1 or st["devices"][0]["failures"] != 1 or st["healthy"] != 2
+            or death_launches["megakernel"] != n_batches + 1):
+        fail(f"replica death: stats {st}, launches {death_launches}")
+    print(f"replica death (batches {POOL_FAULT_WINDOW}): each of {len(rows)} ids once, "
+          f"rows bit-equal to the fault-free run in its order, retries {st['retries']}, "
+          f"failures {[d['failures'] for d in st['devices']]}, revived: healthy "
+          f"{st['healthy']}; megakernel launches {death_launches['megakernel']} for "
+          f"{n_batches} batches (one rescue relaunch)", flush=True)
+
+    slow_base_job, slow_base_broker, *_ = drive_pool_stream(records, profiles, config,
+                                                            devices=pair)
+    slow_base = pool_rows("TINY pool 2 (fault-free)", slow_base_job, slow_base_broker,
+                          records)
+    def slow(pool):
+        plan = ChaosPlan([FaultWindow("slow_device", "device", *POOL_SLOW_WINDOW)])
+        plan.bind("slow_device", SlowDevice(pool, 0, POOL_SLOW_S, n=2))
+        return plan
+
+    t0 = time.perf_counter()
+    job, broker, scorer, timer, pool = drive_pool_stream(
+        records, profiles, config, devices=pair, make_plan=slow)
+    slow_s = time.perf_counter() - t0
+    rows = pool_rows("TINY pool 2 (replica 0 slowed)", job, broker, records)
+    st = pool.stats()
+    if rows != slow_base or st["retries"] or st["healthy"] != 2 \
+            or pool.replicas[0].slow_next:
+        fail(f"slow device: rows equal {rows == slow_base}, stats {st}")
+    print(f"slow device ({POOL_SLOW_S * 1e3:.0f} ms on 2 fetches of replica 0): rows "
+          f"bit-equal to the fault-free run in its order (FIFO), no retry, run "
+          f"{slow_s:.2f} s", flush=True)
+    swap = run_pool_swap(records)
+    return {"tiny_pool_replica_death": death_launches}, swap
+
+
+def run_pool_swap(records):
+    """Phase 21(b), the hot swap: 4 replicas on the card, ``set_models`` at
+    batch 8 of 16 with 8 batches in flight; each batch equals, wholly, the
+    unpooled scorer on the old models or on the new ones."""
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.scoring.device_pool import DevicePool
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import init_scoring_models
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                               seed=SEED)
+    profiles = (gen.users.profiles(), gen.merchants.profiles())
+    batches = [records[i * BATCH:(i + 1) * BATCH] for i in range(2 * POOL_SWAP_BATCHES)]
+    new_models = init_scoring_models(SEED + 1, TINY_CONFIG)
+
+    def run(models, pooled, swap):
+        scorer = TorchFraudScorer(Config(quant=QuantSettings.full(),
+                                         kernels=KernelSettings.mega()),
+                                  models=models, bert_config=TINY_CONFIG, device="cuda")
+        scorer.seed_profiles(*profiles)
+        window = DevicePool(scorer, devices=["cuda:0"] * 4).total_slots() if pooled \
+            else 8
+        out, inflight = [], []
+        for i, b in enumerate(batches):
+            if swap and i == POOL_SWAP_BATCHES:
+                scorer.set_models(new_models)
+            inflight.append(scorer.dispatch(b, now=STREAM_NOW))
+            while len(inflight) >= window:
+                out.append(scorer.finalize(inflight.pop(0), now=STREAM_NOW))
+        while inflight:
+            out.append(scorer.finalize(inflight.pop(0), now=STREAM_NOW))
+        return [[(r["transaction_id"], r["fraud_score"], r["decision"]) for r in b]
+                for b in out]
+
+    old_ref = run(seeded_models(TINY_CONFIG), False, False)
+    new_ref = run(new_models, False, False)
+    got = run(seeded_models(TINY_CONFIG), True, True)
+    old = sum(g == o for g, o in zip(got, old_ref))
+    new = sum(g == n and g != o for g, n, o in zip(got, new_ref, old_ref))
+    mixed = len(got) - old - new
+    if mixed or not old or not new:
+        fail(f"hot swap on the pool: {old} old, {new} new, {mixed} mixed batches")
+    print(f"hot swap on 4 replicas (set_models before batch {POOL_SWAP_BATCHES} of "
+          f"{len(got)}, 8 in flight): {old} batches wholly on the old models, {new} "
+          f"wholly on the new ones, 0 mixed", flush=True)
+    return dict(old=old, new=new, mixed=mixed)
+
+
+def run_real_fleet(ops, profiles, config):
+    """Phase 21(c): ``WorkerFleet`` of ``FLEET_WORKERS`` ``TorchFraudScorer``
+    workers, each over its ``PartitionedStore``, on the card, on the shard
+    drill's timeline (``cluster/drill.py run_fleet``) with ``WorkerKill`` at
+    45%; the oracle is one unsharded scorer replaying the fleet's batches (its
+    cuts) in the fleet's dispatch / completion order, the dead worker's lost
+    batch left out. A handoff's state replay re-assembles the committed gap
+    as one batch, so its history rows carry the velocity of that moment, not
+    of the original scoring (both packages): after the kill, a replayed
+    user's later rows may differ from the oracle's. Every other row is held
+    to the drill's floor with its decision off the cuts, and every row
+    beyond the floor must belong to a replayed user."""
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.cluster import drill
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+
+    cfg = dataclasses.replace(drill.ShardDrillConfig(), seed=SEED, num_users=STREAM_USERS,
+                              num_merchants=STREAM_MERCHANTS, n_txns=FLEET_TXNS,
+                              replay_check=False)
+    sched = drill.build_schedule(cfg)
+    models = seeded_models(TINY_CONFIG)
+    log, batches, replayed = [], [], set()
+
+    def factory(worker_id, store):
+        scorer = TorchFraudScorer(config, models=models, bert_config=TINY_CONFIG,
+                                  device="cuda", stores=store)
+        dispatch, finalize = scorer.dispatch, scorer.finalize
+
+        def logged_dispatch(records, now=None, trace=None):
+            snap0 = scorer.kernel_snapshot()
+            pending = dispatch(records, now=now, trace=trace)
+            snap = scorer.kernel_snapshot()
+            log.append(("dispatch", id(pending), list(records), now))
+            batches.append(dict(
+                worker=worker_id, rows=len(records), launches=pending.kernel_launches,
+                mega=snap["dispatch"]["megakernel"] - snap0["dispatch"]["megakernel"],
+                fallback=snap["fallback"]["megakernel"] - snap0["fallback"]["megakernel"]))
+            return pending
+
+        def logged_finalize(pending, now=None, lock=None):
+            log.append(("finalize", id(pending), None, now))
+            return finalize(pending, now=now, lock=lock)
+
+        replay = scorer.replay_state
+
+        def logged_replay(records, now=None):
+            replayed.update(str(r["user_id"]) for r in records)
+            log.append(("replay", None, None, now))
+            return replay(records, now=now)
+
+        scorer.dispatch, scorer.finalize = logged_dispatch, logged_finalize
+        scorer.replay_state = logged_replay
+        return scorer
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = drill.run_fleet(cfg, sched, FLEET_WORKERS, kill=True, scorer_factory=factory,
+                          store_kwargs={"seq_len": 10, "feature_dim": 64},
+                          profiles=profiles)
+    torch.cuda.synchronize()
+    fleet_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    scored = [p for p in out["preds"] if p[3] == "scored"]
+    ids = [p[0] for p in scored]
+    if sorted(ids) != sorted(t["transaction_id"] for _, t in sched) or len(set(ids)) != len(ids):
+        fail(f"fleet: {len(ids)} scored rows, {len(set(ids))} ids, not each of "
+             f"{len(sched)} once")
+    fl = out["fleet"]
+    if out["committed"] != out["tx_ends"] or out["affinity_violations"] or fl["kills"] != 1:
+        fail(f"fleet: committed {out['committed']} of {out['tx_ends']}, affinity "
+             f"violations {out['affinity_violations']}, kills {fl['kills']}")
+    multi = [b for b in batches if b["rows"] >= 2]
+    if any(b["launches"] != 1 or b["mega"] != 1 or b["fallback"] for b in multi):
+        fail(f"fleet: a batch of 2+ rows did not run one megakernel launch: "
+             f"{[b for b in multi if b['launches'] != 1][:3]}")
+    done = {key for kind, key, _, _ in log if kind == "finalize"}
+    lost = sum(1 for kind, key, _, _ in log if kind == "dispatch" and key not in done)
+    oracle = TorchFraudScorer(config, models=models, bert_config=TINY_CONFIG, device="cuda")
+    oracle.seed_profiles(*profiles)
+    t1 = time.perf_counter()
+    pending, want = {}, {}
+    for kind, key, records, now in log:
+        if kind == "dispatch" and key in done:
+            pending[key] = oracle.dispatch(records, now=now)
+        elif kind == "finalize":
+            for r in oracle.finalize(pending.pop(key), now=now):
+                want[r["transaction_id"]] = r
+    oracle_s = time.perf_counter() - t1
+    # rows a handoff's replay can reach: a replayed user's, dispatched after it
+    first_replay = next(i for i, e in enumerate(log) if e[0] == "replay")
+    reached = {str(r["transaction_id"]) for kind, _, records, _ in log[first_replay:]
+               if kind == "dispatch" for r in records if str(r["user_id"]) in replayed}
+    exact = [p for p in scored if p[0] not in reached]
+    err = max(abs(score - want[tid]["fraud_score"]) for tid, score, _, _ in exact)
+    prob = torch.tensor([want[tid]["fraud_probability"] for tid, *_ in exact],
+                        dtype=torch.float64)
+    conf = torch.tensor([want[tid]["confidence"] for tid, *_ in exact], dtype=torch.float64)
+    far = ~(near_rung(prob, RUNGS, FLEET_TOL) | near_rung(conf, RUNGS, FLEET_TOL))
+    for (tid, _, decision, _), ok in zip(exact, far.tolist()):
+        if ok and decision != want[tid]["decision"]:
+            fail(f"fleet: {tid} {decision} vs the oracle's {want[tid]['decision']}")
+    if not err <= FLEET_TOL:
+        fail(f"fleet: fraud_score err {err} vs the cut-replay oracle")
+    rebuilt = [(abs(score - want[tid]["fraud_score"]), decision == want[tid]["decision"])
+               for tid, score, decision, _ in scored if tid in reached]
+    beyond = sum(e > FLEET_TOL for e, _ in rebuilt)
+    per_worker = {}
+    for b in batches:
+        per_worker[b["worker"]] = per_worker.get(b["worker"], 0) + 1
+    one_row = len(batches) - len(multi)
+    print(f"fleet of {FLEET_WORKERS} TorchFraudScorer workers ({cfg.n_partitions} "
+          f"partitions, {len(sched)} txns, {out['kill_target']} killed at "
+          f"{cfg.kill_frac:.0%}): each id scored once, offsets gap free, affinity clean; "
+          f"{len(batches)} batches ({json.dumps(per_worker)}; {lost} lost with the dead "
+          f"worker), every batch of 2+ rows one megakernel launch ({one_row} one-row "
+          f"batches: the counted fallback), launches {launches}; handoffs "
+          f"{fl['handoffs_total']} partitions {out['moved_partitions']}, replay depth "
+          f"{fl['replayed_total']} records, checkpoints {fl['checkpoints_total']}, "
+          f"takeover {out['handoff_pause_s']} virtual s; against the oracle replaying "
+          f"the fleet's cuts: {len(exact)} rows no replay reaches, fraud_score max err "
+          f"{err:.3e}, decisions equal on {int(far.sum())} of them off the cuts; "
+          f"{len(rebuilt)} rows of {len(replayed)} replayed users after the kill: "
+          f"{beyond} beyond the floor (max err "
+          f"{max((e for e, _ in rebuilt), default=0.0):.3e}), decisions equal on "
+          f"{sum(ok for _, ok in rebuilt)}; fleet {fleet_s:.1f} s, oracle "
+          f"{oracle_s:.1f} s", flush=True)
+    return launches
+
+
+def serve_proc(port, config_path, extra, log):
+    """``serve --quant --mega`` on the card in a process of its own."""
+    from pathlib import Path
+
+    return subprocess.Popen(
+        [sys.executable, "-m", "realtime_fraud_detection_tpu_torch", "serve", "--quant",
+         "--mega", "--host", "127.0.0.1", "--port", str(port), "--config", config_path,
+         *extra], cwd=Path(__file__).resolve().parent, stdout=log, stderr=subprocess.STDOUT)
+
+
+def run_router(gen):
+    """Phase 21(d): ``serve --device-pool`` with ``cluster.enabled`` as worker
+    w0 of two, beside a plain ``serve``, both on the card: ``ROUTER_PREDICTS``
+    ``/predict`` for distinct users w0 owns, one at a time to each, answer
+    for answer equal; a foreign user's 421; ``/cluster``; the ``cluster_*``
+    and ``device_pool_*`` series; SIGTERM, both exit 0."""
+    import http.client
+    import os
+    import signal
+    import tempfile
+
+    from realtime_fraud_detection_tpu_torch.cluster.hashring import (
+        ShardRouter,
+        partition_for_key,
+    )
+
+    def call(port, method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            conn.request(method, path, body=json.dumps(body) if body is not None else None,
+                         headers={"Content-Type": "application/json"} if body else {})
+            resp = conn.getresponse()
+            raw = resp.read().decode()
+        finally:
+            conn.close()
+        return resp.status, raw
+
+    ports = {"clustered": free_port(), "plain": free_port()}
+    workers = {"w0": f"http://127.0.0.1:{ports['clustered']}",
+               "w1": f"http://127.0.0.1:{free_port()}"}
+    router = ShardRouter(12, sorted(workers))
+    owned, foreign, seen = [], [], set()
+    while len(owned) < ROUTER_PREDICTS or len(foreign) < 4:
+        for t in gen.generate_batch(BATCH):
+            uid = str(t["user_id"])
+            if uid in seen:
+                continue
+            seen.add(uid)
+            (owned if router.route(uid) == "w0" else foreign).append(t)
+    owned, foreign = owned[:ROUTER_PREDICTS], foreign[:4]
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        configs = {
+            "clustered": {"monitoring": {"prometheus_port": 0},
+                          "cluster": {"enabled": True, "worker_id": "w0",
+                                      "workers": workers}},
+            "plain": {"monitoring": {"prometheus_port": 0}}}
+        logs = {}
+        t0 = time.perf_counter()
+        try:
+            for name, cfg in configs.items():
+                path = os.path.join(tmp, f"{name}.json")
+                with open(path, "w") as f:
+                    json.dump(cfg, f)
+                logs[name] = open(os.path.join(tmp, f"{name}.log"), "w")
+                procs.append(serve_proc(ports[name], path,
+                                        ["--device-pool"] if name == "clustered" else [],
+                                        logs[name]))
+            for name, proc in zip(configs, procs):
+                while True:
+                    try:
+                        call(ports[name], "GET", "/health")
+                        break
+                    except OSError:
+                        if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                            logs[name].flush()
+                            fail(f"serve ({name}) did not come up (exit {proc.poll()}): "
+                                 f"{open(logs[name].name).read()[-2000:]}")
+                        time.sleep(0.25)
+            t_up = time.perf_counter() - t0
+            answers = {name: [] for name in configs}
+            for name in configs:
+                t1 = time.perf_counter()
+                for t in owned:
+                    status, raw = call(ports[name], "POST", "/predict", t)
+                    if status != 200:
+                        fail(f"serve ({name}): /predict {status} {raw[:300]}")
+                    answers[name].append({k: v for k, v in json.loads(raw).items()
+                                          if k != "processing_time_ms"})
+                answers[name + "_s"] = time.perf_counter() - t1
+            misdirected = [call(ports["clustered"], "POST", "/predict", t) for t in foreign]
+            c_status, c_raw = call(ports["clustered"], "GET", "/cluster")
+            m_status, m_text = call(ports["clustered"], "GET", "/metrics/prometheus")
+            for proc in procs:
+                proc.send_signal(signal.SIGTERM)
+            rcs = [proc.wait(timeout=60) for proc in procs]
+        finally:
+            _kill(procs)
+            for log in logs.values():
+                log.close()
+    if answers["clustered"] != answers["plain"]:
+        bad = sum(a != b for a, b in zip(answers["clustered"], answers["plain"]))
+        fail(f"serve --device-pool (clustered): {bad} of {len(owned)} answers differ "
+             f"from the plain service")
+    for t, (status, raw) in zip(foreign, misdirected):
+        body = json.loads(raw)
+        uid = str(t["user_id"])
+        want = {"error": "wrong_shard", "owner": "w1", "location": workers["w1"],
+                "partition": partition_for_key(uid, 12)}
+        if status != 421 or body != want:
+            fail(f"router: a foreign user's /predict gave {status} {body}, want 421 {want}")
+    cluster = json.loads(c_raw)
+    if c_status != 200 or cluster.get("worker_id") != "w0" \
+            or cluster.get("members") != ["w0", "w1"]:
+        fail(f"router: /cluster {c_status} {c_raw[:300]}")
+    dispatched = [float(ln.split()[-1]) for ln in m_text.splitlines()
+                  if ln.startswith('device_pool_dispatched_total{device="cuda:0#0"}')]
+    if (m_status != 200 or "cluster_workers_alive 2" not in m_text
+            or 'cluster_partitions_owned{worker="w0"}' not in m_text
+            or dispatched != [float(ROUTER_PREDICTS)] or any(rcs)):
+        fail(f"router: metrics {m_status}, device_pool dispatched {dispatched}, "
+             f"exits {rcs}")
+    print(f"router (serve --quant --mega --device-pool as w0 of 2, beside a plain serve; "
+          f"up in {t_up:.1f} s): {len(owned)} /predict for w0's users answered alike by "
+          f"both ({answers['clustered_s']:.2f} s / {answers['plain_s']:.2f} s one at a "
+          f"time), {len(foreign)} foreign users 421 with owner, location and partition, "
+          f"/cluster {cluster['assignment']}, cluster_* and device_pool_* series "
+          f"present, SIGTERM exits {rcs}", flush=True)
+
+
+def run_pool_phase(ops):
+    """Phase 21: the device pool and the partition-parallel fleet (see the
+    module docstring). Returns the launches by path."""
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    seconds = {}
+    t0 = time.perf_counter()
+    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                               seed=SEED)
+    profiles = (gen.users.profiles(), gen.merchants.profiles())
+    records = gen.generate_batch(16 * BATCH)
+    config = Config(quant=QuantSettings.full(), kernels=KernelSettings.mega())
+    drill = _port_proc(["pool-drill", "--devices", "4"])
+    out, _, drill_s = _finish("pool-drill --devices 4", drill, timeout=600)
+    verdict = json.loads(out.strip().splitlines()[-1])
+    if not verdict["passed"]:
+        fail(f"pool-drill --devices 4: {verdict}")
+    print(f"pool-drill --devices 4 on the card ({drill_s:.1f} s): "
+          + json.dumps(verdict), flush=True)
+    launches, streams = run_pool_streams(ops, records, profiles, config)
+    launches["distilbert_base_pool_2"] = run_pool_distilbert(ops, records, profiles)
+    seconds["a"] = round(time.perf_counter() - t0, 1)
+    t1 = time.perf_counter()
+    faults, swap = run_pool_faults(ops, records, profiles, config)
+    launches.update(faults)
+    seconds["b"] = round(time.perf_counter() - t1, 1)
+    t2 = time.perf_counter()
+    fleet_config = Config(quant=QuantSettings.full(), kernels=KernelSettings.mega())
+    # the bipartite entity graph is scorer-local in both packages (only the
+    # typed graph is partitioned): a worker's GNN sees only its own users'
+    # edges and cannot equal one scorer's, so the fleet's blend leaves it out
+    fleet_config.disable_model("graph_neural")
+    launches["tiny_fleet"] = run_real_fleet(ops, profiles, fleet_config)
+    seconds["c"] = round(time.perf_counter() - t2, 1)
+    t3 = time.perf_counter()
+    run_router(TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                                    seed=SEED + 21))
+    seconds["d"] = round(time.perf_counter() - t3, 1)
+    seconds["total"] = round(time.perf_counter() - t0, 1)
+    print(f"pool and fleet phase seconds by part: {json.dumps(seconds)}; TINY pooled "
+          f"streams: {json.dumps(streams)}; hot swap {json.dumps(swap)}", flush=True)
+    return launches
+
+
 def run_drills() -> dict:
     """The port's kernel drill (``KernelDrillConfig.fast()``) on the card,
     once on the per-site chain and once on the megakernel; a verdict that is
@@ -6051,6 +6704,8 @@ def main() -> int:
     lap("19")
     stream.update(run_state_phase(ops))
     lap("20")
+    stream.update(run_pool_phase(ops))
+    lap("21")
     print(f"seconds by phase: {json.dumps(seconds)}", flush=True)
     for e in entries:
         e["stream_launches"] = {k: v[e["name"]] for k, v in stream.items()}

@@ -1,6 +1,6 @@
 """Command-line entry point of the port.
 
-    python -m realtime_fraud_detection_tpu_torch run-job --count 10000 --mega [--overlap-assembly] [--qos] [--trace] [--autotune] [--feedback] [--analytics] [--enrichment]
+    python -m realtime_fraud_detection_tpu_torch run-job --count 10000 --mega [--overlap-assembly] [--device-pool [--inflight-depth N]] [--qos] [--trace] [--autotune] [--feedback] [--analytics] [--enrichment]
     python -m realtime_fraud_detection_tpu_torch run-job --broker 127.0.0.1:9092 --count 0 [--duration S] --checkpoint-dir D [--metadata-db F]
     python -m realtime_fraud_detection_tpu_torch run-job --state 127.0.0.1:6379 --count 4096 --quant --mega
     python -m realtime_fraud_detection_tpu_torch state-server --port 6379 [--aof F] [--maxmemory B] [--policy P] [--replica-of H:P]
@@ -10,11 +10,13 @@
     python -m realtime_fraud_detection_tpu_torch kernel-drill --fast [--mega]
     python -m realtime_fraud_detection_tpu_torch feedback-drill [--fast]
     python -m realtime_fraud_detection_tpu_torch quant-drill [--fast] [--no-replay]
+    python -m realtime_fraud_detection_tpu_torch pool-drill [--fast] [--devices N] [--inflight-depth D]
+    python -m realtime_fraud_detection_tpu_torch shard-drill [--fast] [--workers N] [--no-replay]
     python -m realtime_fraud_detection_tpu_torch qos-drill
     python -m realtime_fraud_detection_tpu_torch trace-drill [--fast]
     python -m realtime_fraud_detection_tpu_torch autotune-drill [--fast]
     python -m realtime_fraud_detection_tpu_torch trace-export --count 2048 --out trace.json
-    python -m realtime_fraud_detection_tpu_torch serve --port 8080 [--state H:P] [--quant] [--kernels|--mega] [--trace] [--qos] [--autotune] [--overlap-assembly]
+    python -m realtime_fraud_detection_tpu_torch serve --port 8080 [--state H:P] [--quant] [--kernels|--mega] [--trace] [--qos] [--autotune] [--overlap-assembly] [--device-pool [--inflight-depth N]]
     python -m realtime_fraud_detection_tpu_torch health-check --url http://127.0.0.1:8080
     python -m realtime_fraud_detection_tpu_torch simulate --count 1000 [--broker 127.0.0.1:9092]
     python -m realtime_fraud_detection_tpu_torch train --rows 10000 [--neural] --out ./checkpoints
@@ -42,7 +44,10 @@ positions after every chunk or slice and resumes from the latest at start;
 SIGTERM or SIGINT drains the batches in flight, commits, writes a final
 checkpoint and ends with ``stopped_by`` in the summary; with
 ``--overlap-assembly`` the scorer's host assembly runs on a background
-thread, overlapped with the card; with ``--qos`` the deadline-aware QoS
+thread, overlapped with the card; with ``--device-pool`` the batches run on
+the device pool (``scoring/device_pool.py``: a replica of the models on each
+visible card, each with its own CUDA stream and ``--inflight-depth`` batches
+in flight); with ``--qos`` the deadline-aware QoS
 plane (admission at ``--qos-rate`` txn/s, the ``--qos-budget-ms`` budget and
 the degradation ladder) runs in the job; with ``--trace`` the tracing plane
 (the summary's ``tracing`` block: the p99 stage breakdown, the fast SLO
@@ -77,6 +82,20 @@ GEMM-form leaves, the bytes, a replay digest). Each prints the full summary,
 then the compact verdict as the last line, and exits 1 unless it passed. They
 run on the card unless ``--device cpu``.
 
+``pool-drill`` is the port of ``rtfd pool-drill`` (``scoring/pool_drill.py``):
+the real pooled scoring path, ``--devices`` replicas placed round-robin over
+the visible cards (several on one card, each on its own stream), or all on
+the CPU with ``--device cpu`` (the JAX command re-execs onto virtual CPU
+devices; this one does not); bit-equality with unpooled scoring, FIFO,
+utilization, hot-swap purity and the schedule's virtual-time scaling of at
+least 3x. ``shard-drill`` is the port of ``rtfd shard-drill``
+(``cluster/drill.py``): a fleet of partition-scoped workers over one broker
+log on a virtual clock, a worker killed mid-stream and recovered by
+checkpointed handoff, held against a single-worker oracle; its scorer is a
+host stand-in, so it runs on the CPU and needs no card. Each prints the full
+summary, then the compact verdict as the last line, and exits 1 unless every
+check passed.
+
 ``qos-drill`` is the port of ``rtfd qos-drill`` (``qos/drill.py``): offered
 load at ``--multiplier`` x the sustainable rate through the port's stream
 path on a virtual clock, the scorer a deterministic stand-in that touches
@@ -92,7 +111,9 @@ verdict as the last line, and exits 1 unless every check passed.
 ``serve`` is the port of ``rtfd serve`` (``cli.py cmd_serve``): the
 scoring HTTP service (``serving/app.py ServingApp``) on the card, or on the
 CPU with ``--device cpu``; it fails without a card. It takes the JAX
-command's flags except ``--device-pool`` and ``--inflight-depth``; with
+command's flags (``--device-pool``: the device pool, with the two-phase
+microbatcher at its capacity; a config file's ``cluster`` block turns on
+the shard router, its 421 and ``/cluster``); with
 ``--state host:port``, or else ``RTFD_STATE_ADDR``, the scorer reads and
 writes the shared state server, and standard error names it. With ``--quality-artifact`` it serves the artifact's
 blend and builds the scorer at the text model, text length and tokenizer
@@ -255,7 +276,8 @@ def cmd_run_job(args: argparse.Namespace) -> int:
     job = StreamJob(broker, scorer, JobConfig(
         max_batch=args.batch, pipeline_depth=args.pipeline_depth,
         enable_analytics=args.analytics, enable_enrichment=args.enrichment,
-        overlap_assembly=args.overlap_assembly, qos=qos, tracing=tracing,
+        overlap_assembly=args.overlap_assembly, device_pool=args.device_pool,
+        inflight_depth=args.inflight_depth, qos=qos, tracing=tracing,
         autotune=tuning, feedback=feedback))
 
     metadata = ckpt = None
@@ -435,6 +457,44 @@ def cmd_kernel_drill(args: argparse.Namespace) -> int:
     return 0 if summary["passed"] else 1
 
 
+def cmd_pool_drill(args: argparse.Namespace) -> int:
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.scoring.pool_drill import (
+        PoolDrillConfig,
+        compact_pool_summary,
+        run_pool_drill,
+    )
+
+    if _no_card("pool-drill", args.device):
+        return 2
+    cfg = PoolDrillConfig.fast() if args.fast else PoolDrillConfig()
+    cfg = dataclasses.replace(cfg, n_devices=args.devices,
+                              inflight_depth=args.inflight_depth, seed=args.seed)
+    summary = run_pool_drill(cfg, device=args.device)
+    print(json.dumps(summary), flush=True)
+    print(json.dumps(compact_pool_summary(summary), separators=(",", ":")), flush=True)
+    return 0 if summary["passed"] else 1
+
+
+def cmd_shard_drill(args: argparse.Namespace) -> int:
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.cluster.drill import (
+        ShardDrillConfig,
+        compact_shard_summary,
+        run_shard_drill,
+    )
+
+    cfg = ShardDrillConfig.fast() if args.fast else ShardDrillConfig()
+    cfg = dataclasses.replace(cfg, seed=args.seed, replay_check=not args.no_replay,
+                              **({"n_workers": args.workers} if args.workers else {}))
+    summary = run_shard_drill(cfg)
+    print(json.dumps(summary), flush=True)
+    print(json.dumps(compact_shard_summary(summary), separators=(",", ":")), flush=True)
+    return 0 if summary["passed"] else 1
+
+
 def cmd_feedback_drill(args: argparse.Namespace) -> int:
     import dataclasses
 
@@ -603,6 +663,10 @@ def cmd_serve(args: argparse.Namespace) -> int:
         config.tuning.clamp_to_qos(config.qos)
     if args.overlap_assembly:
         config.serving.overlap_assembly = True
+    if args.device_pool:
+        config.serving.device_pool = True
+    if args.inflight_depth:
+        config.serving.inflight_depth = args.inflight_depth
     scorer_kwargs = {}
     if args.quality_artifact:
         applied = config.apply_quality_artifact(args.quality_artifact)
@@ -1158,6 +1222,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="assemble + dispatch on a background thread while "
                          "the card runs the previous batch "
                          "(JobConfig.overlap_assembly)")
+    sp.add_argument("--device-pool", action="store_true",
+                    help="replicate the models onto every visible card and "
+                         "dispatch microbatches round-robin across per-replica "
+                         "in-flight queues (scoring/device_pool.py)")
+    sp.add_argument("--inflight-depth", type=int, default=2,
+                    help="per-replica in-flight batches for --device-pool")
     sp.add_argument("--qos", action="store_true",
                     help="enable the deadline-aware QoS plane (admission + "
                          "degradation ladder + latency budgets)")
@@ -1205,6 +1275,33 @@ def build_parser() -> argparse.ArgumentParser:
     kd.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain versions)")
     kd.set_defaults(fn=cmd_kernel_drill)
+    pd = sub.add_parser("pool-drill",
+                        help="deterministic device-pool drill: the real pooled "
+                             "scoring path, bit-equality, FIFO, hot swap, "
+                             "virtual-time scaling")
+    pd.add_argument("--fast", action="store_true",
+                    help="the test sizes (PoolDrillConfig.fast())")
+    pd.add_argument("--devices", type=int, default=8,
+                    help="replicas, placed round-robin over the visible cards")
+    pd.add_argument("--inflight-depth", type=int, default=2,
+                    help="per-replica in-flight batches")
+    pd.add_argument("--seed", type=int, default=7)
+    pd.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu: where the replicas run")
+    pd.set_defaults(fn=cmd_pool_drill)
+    sd = sub.add_parser("shard-drill",
+                        help="deterministic partition-parallel worker drill: "
+                             "key-sharded state across >= 4 workers, a "
+                             "mid-stream worker kill, checkpointed handoff, "
+                             "oracle state equality")
+    sd.add_argument("--fast", action="store_true",
+                    help="the test sizes (ShardDrillConfig.fast())")
+    sd.add_argument("--workers", type=int, default=0,
+                    help="fleet size (0 = the config default, 4)")
+    sd.add_argument("--seed", type=int, default=7)
+    sd.add_argument("--no-replay", action="store_true",
+                    help="skip the second bit-identical replay run")
+    sd.set_defaults(fn=cmd_shard_drill)
     fd = sub.add_parser("feedback-drill",
                         help="deterministic closed-loop continuous-learning "
                              "drill (virtual clock, real retraining)")
@@ -1303,6 +1400,12 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--overlap-assembly", action="store_true",
                     help="two-phase microbatcher: dispatch batch N+1 while "
                          "batch N waits on the card (serving.overlap_assembly)")
+    sv.add_argument("--device-pool", action="store_true",
+                    help="the device pool (serving.device_pool; implies the "
+                         "two-phase microbatcher)")
+    sv.add_argument("--inflight-depth", type=int, default=None,
+                    help="per-replica in-flight batches for --device-pool "
+                         "(default: serving.inflight_depth, 2)")
     sv.add_argument("--allow-arch-mismatch", action="store_true",
                     help="combine a checkpoint and a quality artifact whose "
                          "text encoders differ, and restore a checkpoint whose "

@@ -12,15 +12,16 @@ Port of the JAX package's ``obs/metrics.py``: a small registry of its own
   caches and stage times (``sync_host_stats``), the tracing plane's
   ``trace_*`` (``sync_tracing``), the tuning plane's ``autotune_*``
   (``sync_autotune``), the quantized plane's ``quant_*`` (``sync_quant``),
-  the kernel plane (``sync_kernels``), the entity graph (``sync_graph``) and
+  the kernel plane (``sync_kernels``), the entity graph (``sync_graph``),
   the feedback plane's ``prequential_*`` / ``feedback_*``
-  (``sync_feedback``), each mirrored from a snapshot at exposition time as
+  (``sync_feedback``), the device pool's ``device_pool_*``
+  (``sync_device_pool``) and the partition-parallel plane's ``cluster_*``
+  (``sync_cluster``), each mirrored from a snapshot at exposition time as
   counter deltas against the values last seen.
 
-The families of planes the port does not have (chaos, mesh, device pool,
-cluster, autoscale, network faults, graph fetch)
-are not ported, nor ``kernel_interpret_active``: the port has no kernel
-interpreter (a CPU tensor runs the plain version).
+The families of planes the port does not have yet (chaos, mesh, autoscale,
+network faults, graph fetch) are not ported, nor ``kernel_interpret_active``:
+the port has no kernel interpreter (a CPU tensor runs the plain version).
 """
 
 from __future__ import annotations
@@ -390,6 +391,30 @@ class MetricsCollector:
             "Host-side per-stage timing (assemble/pack/dispatch/"
             "device_wait)", ("stage", "stat"))
         self._host_cache_seen: Dict[Tuple[str, str], float] = {}
+        # the device pool (scoring/device_pool.py): per-replica dispatch,
+        # completion and retry counters, live depth and cumulative queue
+        # wait, mirrored from DevicePool.stats() by sync_device_pool
+        self.pool_dispatched = r.counter(
+            "device_pool_dispatched_total",
+            "Microbatches dispatched to each pool replica", ("device",))
+        self.pool_completed = r.counter(
+            "device_pool_completed_total",
+            "Microbatches completed by each pool replica", ("device",))
+        self.pool_retries = r.counter(
+            "device_pool_retries_total",
+            "Batches rescued ONTO this replica after another replica "
+            "failed mid-flight", ("device",))
+        self.pool_inflight = r.gauge(
+            "device_pool_inflight",
+            "Batches currently in flight on each pool replica", ("device",))
+        self.pool_healthy = r.gauge(
+            "device_pool_healthy_replicas",
+            "Replicas currently in the dispatch rotation")
+        self.pool_queue_wait = r.counter(
+            "device_pool_queue_wait_ms_total",
+            "Cumulative milliseconds dispatch spent blocked on a replica "
+            "at full in-flight depth", ("device",))
+        self._pool_seen: Dict[Tuple[str, str], float] = {}
         # the feedback plane (feedback/): prequential quality under live
         # labels, label-join health, the retrain / gate / promotion audit
         # counters, mirrored from FeedbackPlane.snapshot() by sync_feedback
@@ -552,6 +577,31 @@ class MetricsCollector:
             "microbatch (1 when the megakernel served it; the per-site "
             "chain length otherwise)")
         self._mega_seen: Dict[str, float] = {}
+        # the partition-parallel plane (cluster/): fleet membership,
+        # partition ownership, the handoff ledger and the serving router's
+        # key movement, mirrored from WorkerFleet.snapshot() or the serving
+        # app's router snapshot by sync_cluster
+        self.cluster_workers_alive = r.gauge(
+            "cluster_workers_alive",
+            "Fleet workers currently alive (in the hash ring)")
+        self.cluster_partitions_owned = r.gauge(
+            "cluster_partitions_owned",
+            "Transaction-topic partitions each worker currently owns "
+            "(state ownership == consumption ownership)", ("worker",))
+        self.cluster_handoff = r.counter(
+            "cluster_handoff_total",
+            "Partitions handed off to a surviving worker after a worker "
+            "loss (restore + committed-gap state replay)")
+        self.cluster_handoff_replay_depth = r.gauge(
+            "cluster_handoff_replay_depth",
+            "Records state-replayed during the most recent handoff "
+            "(committed offset minus snapshot offset, summed over the "
+            "moved partitions)")
+        self.cluster_router_moved_keys = r.counter(
+            "cluster_router_moved_keys_total",
+            "Keys (partition moves x key density) the consistent-hash "
+            "serving router re-routed across membership changes")
+        self._cluster_seen: Dict[str, float] = {}
         # entity graph (graph/): typed-store occupancy and the sampler's
         # cache, mirrored from TorchFraudScorer.graph_snapshot() by
         # sync_graph
@@ -746,6 +796,39 @@ class MetricsCollector:
                 _mirror(counter, self._graph_seen, key, sampler.get(key, 0))
             self.graph_sampler_entries.set(
                 float(sampler.get("entries", 0)))
+
+    def sync_device_pool(self, stats: Mapping[str, Any]) -> None:
+        """Mirror ``DevicePool.stats()``: per-replica totals as counter
+        deltas, depth and the healthy count as gauges."""
+        for dev in stats.get("devices") or ():
+            name = str(dev.get("device", dev.get("index", "?")))
+            for kind, counter in (("dispatched", self.pool_dispatched),
+                                  ("completed", self.pool_completed),
+                                  ("retries", self.pool_retries),
+                                  ("queue_wait_ms", self.pool_queue_wait)):
+                _mirror(counter, self._pool_seen, (name, kind), dev.get(kind, 0),
+                        device=name)
+            self.pool_inflight.set(float(dev.get("inflight", 0)), device=name)
+        self.pool_healthy.set(float(stats.get("healthy", 0)))
+
+    def sync_cluster(self, snapshot: Mapping[str, Any]) -> None:
+        """Mirror ``WorkerFleet.snapshot()`` (stream side) or the serving
+        app's router snapshot: gauges set, cumulative totals as counter
+        deltas. A router-only snapshot lacks the handoff ledger, whose
+        series keep their last mirrored values."""
+        self.cluster_workers_alive.set(float(snapshot.get("workers_alive", 0)))
+        for wid, w in (snapshot.get("workers") or {}).items():
+            self.cluster_partitions_owned.set(
+                float(w.get("partitions_owned", 0)), worker=str(wid))
+        if "handoffs_total" in snapshot:
+            _mirror(self.cluster_handoff, self._cluster_seen, "handoffs",
+                    snapshot.get("handoffs_total", 0))
+            self.cluster_handoff_replay_depth.set(
+                float(snapshot.get("last_replay_depth", 0)))
+        router = snapshot.get("router") or {}
+        if "moved_keys_total" in router:
+            _mirror(self.cluster_router_moved_keys, self._cluster_seen,
+                    "router_moved", router.get("moved_keys_total", 0))
 
     # -------------------------------------------------------------- events
     def sync_feedback(self, snapshot: Mapping[str, Any]) -> None:

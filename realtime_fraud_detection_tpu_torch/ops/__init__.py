@@ -2,13 +2,17 @@
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version for CPU tensors; ``.launches`` on the wrapper counts kernel
-launches, read and reset through ``launch_counts`` / ``reset_launch_counts``.
+launches, read and reset through ``launch_counts`` / ``reset_launch_counts``;
+``thread_launches`` is the calling thread's own running total of launches
+of every wrapper (never reset), which the scorer reads before and after a
+batch, so a count is exact with other threads launching at the same time.
 """
 
 from realtime_fraud_detection_tpu_torch.ops.attention import (
     attention_reference,
     flash_attention,
 )
+from realtime_fraud_detection_tpu_torch.ops.build import thread_launches
 from realtime_fraud_detection_tpu_torch.ops.dequant_matmul import (
     dequant_matmul,
     dequant_matmul_reference,
@@ -57,5 +61,5 @@ __all__ = [
     "flash_attention", "fused_epilogue", "fused_megakernel",
     "fused_megakernel_packed",
     "launch_counts", "mega_launch_accounting", "mega_plan",
-    "megakernel_reference", "reset_launch_counts",
+    "megakernel_reference", "reset_launch_counts", "thread_launches",
 ]

@@ -16,7 +16,11 @@ import math
 
 import torch
 
-from realtime_fraud_detection_tpu_torch.ops.build import check_launch, kernel_library
+from realtime_fraud_detection_tpu_torch.ops.build import (
+    check_launch,
+    count_launch,
+    kernel_library,
+)
 
 NEG_INF = -1e30
 HEAD_DIM = 64           # the kernel's head width
@@ -80,7 +84,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention", code)
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out.permute(0, 2, 1, 3)
 
 

@@ -153,3 +153,24 @@ def check_launch(name: str, code: int) -> None:
     """Raise when a kernel's C entry point reports a CUDA error."""
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+# launches are counted twice: on the wrapper (``fn.launches``, process-wide,
+# read through ``ops.launch_counts``) and per thread (``thread_launches``),
+# so a caller that reads its own thread's count before and after a batch
+# sees only that batch's launches, whatever other threads launch meanwhile
+_count_lock = threading.Lock()
+_per_thread = threading.local()
+
+
+def count_launch(fn) -> None:
+    """Count one kernel launch of wrapper ``fn``: its process-wide
+    ``launches`` and the calling thread's total."""
+    with _count_lock:
+        fn.launches += 1
+    _per_thread.n = getattr(_per_thread, "n", 0) + 1
+
+
+def thread_launches() -> int:
+    """Kernel launches made on the calling thread so far (all wrappers)."""
+    return getattr(_per_thread, "n", 0)

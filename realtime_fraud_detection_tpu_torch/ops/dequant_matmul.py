@@ -19,7 +19,11 @@ from __future__ import annotations
 import torch
 
 from realtime_fraud_detection_tpu_torch.core.precision import matmul_cd, round_bf16
-from realtime_fraud_detection_tpu_torch.ops.build import check_launch, kernel_library
+from realtime_fraud_detection_tpu_torch.ops.build import (
+    check_launch,
+    count_launch,
+    kernel_library,
+)
 
 
 def matmul_supported(m: int, k: int, n: int) -> bool:
@@ -86,7 +90,7 @@ def dequant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
         y.data_ptr(), m, n, k, int(compute_dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     check_launch("dequant_matmul", code)
-    dequant_matmul.launches += 1
+    count_launch(dequant_matmul)
     return y
 
 
@@ -140,7 +144,7 @@ def dequant_rows(table: torch.Tensor, scale: torch.Tensor,
         idx.data_ptr() if idx is not None else None, out.data_ptr(),
         rows, table_rows, h, torch.cuda.current_stream(table.device).cuda_stream)
     check_launch("dequant_rows", code)
-    dequant_rows.launches += 1
+    count_launch(dequant_rows)
     return out
 
 

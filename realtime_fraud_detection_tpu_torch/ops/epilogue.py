@@ -36,7 +36,11 @@ from realtime_fraud_detection_tpu_torch.features.rules import (
     REVIEW,
     RISK_LEVEL_THRESHOLDS,
 )
-from realtime_fraud_detection_tpu_torch.ops.build import check_launch, kernel_library
+from realtime_fraud_detection_tpu_torch.ops.build import (
+    check_launch,
+    count_launch,
+    kernel_library,
+)
 
 MAX_EPILOGUE_ROWS = 1 << 16
 # models the kernel's argument struct carries (csrc/epilogue.cu EPI_MAX_M)
@@ -294,7 +298,7 @@ def epilogue_packed(preds: torch.Tensor, rule: torch.Tensor, params,
     code = kernel_library().rtfd_epilogue_packed(
         ctypes.addressof(a), torch.cuda.current_stream(preds.device).cuda_stream)
     check_launch("epilogue_packed", code)
-    epilogue_packed.launches += 1
+    count_launch(epilogue_packed)
     return out
 
 

@@ -46,7 +46,11 @@ from realtime_fraud_detection_tpu_torch.core.packing import (
     unpack_tree,
     widen_bf16,
 )
-from realtime_fraud_detection_tpu_torch.ops.build import check_launch, kernel_library
+from realtime_fraud_detection_tpu_torch.ops.build import (
+    check_launch,
+    count_launch,
+    kernel_library,
+)
 from realtime_fraud_detection_tpu_torch.ops.epilogue import _statics, combine_matrix
 
 # NOTE: the branch modules (models/*, scoring/pipeline) are imported inside
@@ -629,7 +633,7 @@ def _launch(entry: MegaParamArgs, inputs, b: int, dev: torch.device, params,
     code = kernel_library().rtfd_megakernel(
         ctypes.addressof(a), _sm_count(dev), torch.cuda.current_stream(dev).cuda_stream)
     check_launch("fused_megakernel", code)
-    fused_megakernel.launches += 1
+    count_launch(fused_megakernel)
     return out
 
 

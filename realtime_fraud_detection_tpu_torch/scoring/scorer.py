@@ -58,10 +58,22 @@ Port of the JAX package's ``scoring/scorer.py FraudScorer``:
   ``redis_host:redis_port`` itself, owns that client and ``close()``
   releases it), profiles, velocity and the transaction cache live on the
   shared RESP server (``state/shared.py``), so N replicas share one state
-  plane; the history ring stays local, as in the JAX scorer.
+  plane; the history ring stays local, as in the JAX scorer. With
+  ``stores`` (``cluster/partition.py PartitionedStore``, or any bundle with
+  the same four store attributes, and ``graph`` in typed mode) the stores
+  are injected: the partition-parallel fleet hands each worker a scorer
+  whose state is sliced to its owned partitions. ``stores`` together with a
+  state client is refused: both decide where state lives;
+- device pool: ``attach_pool`` (called by ``scoring/device_pool.py
+  DevicePool``) routes ``dispatch_assembled`` through the pool, which runs
+  the same launches on a replica's own CUDA stream; ``finalize`` resolves
+  the batch through ``DevicePool.wait`` (which relaunches it on a healthy
+  replica when its fetch fails) and ``set_models`` fans the swap out to
+  the replicas. A batch's hand-written launches are counted on the thread
+  that launches them (``ops.thread_launches``), so ``kernel_snapshot`` stays
+  exact with batches dispatched from several threads.
 
-Partitioned state (``stores=``), cross-partition graph fetch, pools and the
-mesh are not ported.
+Cross-partition graph fetch and the mesh are not ported.
 """
 
 from __future__ import annotations
@@ -110,9 +122,9 @@ from realtime_fraud_detection_tpu_torch.models.tokenizer import FraudTokenizer
 from realtime_fraud_detection_tpu_torch.models.wordpiece import WordPieceTokenizer
 from realtime_fraud_detection_tpu_torch.obs.profiling import SpanTimer
 from realtime_fraud_detection_tpu_torch.ops import (
-    launch_counts,
     mega_launch_accounting,
     mega_plan,
+    thread_launches,
 )
 from realtime_fraud_detection_tpu_torch.ops.attention import attention_supported
 from realtime_fraud_detection_tpu_torch.ops.epilogue import _host_vectors
@@ -175,6 +187,13 @@ class PendingScore:
     # nothing a queued kernel still reads, whichever stream a later
     # allocation runs on
     launched_with: Optional[tuple] = None
+    # pooled dispatch (scoring/device_pool.py): the pool's token, resolved
+    # by DevicePool.wait in finalize (which holds what a replica's launch
+    # reads until its event has completed)
+    pool_token: Optional[Any] = None
+    # the hand-written kernel launches of this batch, a rescue relaunch
+    # included
+    kernel_launches: int = 0
 
 
 class _EntityIndex:
@@ -306,7 +325,7 @@ class TorchFraudScorer:
                  bert_config: BertConfig = TINY_CONFIG, seed: int = 0,
                  device: str = "cuda",
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 state_client: Any = None):
+                 state_client: Any = None, stores: Any = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchFraudScorer: no CUDA device available")
@@ -337,6 +356,8 @@ class TorchFraudScorer:
         # the top-10 global feature importances attached to every
         # explanation (set_feature_importances; cleared by set_models)
         self._top_importances: Optional[Dict[str, float]] = None
+        # the device pool (scoring/device_pool.py), attached by DevicePool
+        self._pool = None
         self.set_models(models if models is not None else init_scoring_models(
             seed, bert_config, feature_dim=self.sc.feature_dim,
             node_dim=self.sc.node_dim))
@@ -355,15 +376,35 @@ class TorchFraudScorer:
             # close() releases it (a client passed in stays the caller's)
             state_client = RespClient(host=st.redis_host, port=st.redis_port)
             self._owned_state_client = state_client
-        if state_client is not None:
+        if stores is not None:
+            # an injected bundle (cluster/partition.py PartitionedStore): the
+            # partition-parallel fleet's worker scorer, its state sliced to
+            # the owned partitions; the scorer itself is shard-oblivious
+            if state_client is not None:
+                raise ValueError(
+                    "pass either stores= (partitioned state) or "
+                    "state_client= (shared RESP tier), not both")
+            self.profiles = stores.profiles
+            self.velocity = stores.velocity
+            self.txn_cache = stores.txn_cache
+            self.history = stores.history
+            hist_seq = getattr(self.history, "seq_len", self.sc.seq_len)
+            hist_dim = getattr(self.history, "feature_dim", self.sc.feature_dim)
+            if hist_seq != self.sc.seq_len or hist_dim != self.sc.feature_dim:
+                # a mismatched table would gather wrong-shaped LSTM inputs
+                raise ValueError(
+                    f"injected history store is ({hist_seq}, {hist_dim}), "
+                    f"scorer expects ({self.sc.seq_len}, {self.sc.feature_dim})")
+        elif state_client is not None:
             self.profiles = SharedProfileStore(state_client)
             self.velocity = SharedVelocityStore(state_client)
             self.txn_cache = SharedTransactionCache(state_client, **cache_kwargs)
+            self.history = UserHistoryStore(self.sc.seq_len, self.sc.feature_dim)
         else:
             self.profiles = ProfileStore()
             self.velocity = VelocityStore()
             self.txn_cache = TransactionCache(**cache_kwargs)
-        self.history = UserHistoryStore(self.sc.seq_len, self.sc.feature_dim)
+            self.history = UserHistoryStore(self.sc.seq_len, self.sc.feature_dim)
         self.graph = EntityGraphStore(self.sc.fanout)
         if self.sc.graph_mode not in ("bipartite", "typed"):
             raise ValueError(
@@ -372,7 +413,10 @@ class TorchFraudScorer:
         self.typed_graph: Optional[TypedEntityGraph] = None
         self._sampler: Optional[NeighborSampler] = None
         if self.sc.graph_mode == "typed":
-            self.typed_graph = TypedEntityGraph(self.sc.fanout)
+            # the typed graph rides an injected partition bundle (its
+            # ``graph`` facade) when there is one
+            tg = getattr(stores, "graph", None) if stores is not None else None
+            self.typed_graph = tg if tg is not None else TypedEntityGraph(self.sc.fanout)
             self._sampler = NeighborSampler(
                 self.typed_graph, self.sc.node_dim, self.sc.fanout,
                 self.sc.graph_fanout2,
@@ -437,6 +481,21 @@ class TorchFraudScorer:
         # the importances described the old trees; the caller re-attaches
         # them for the new set
         self._top_importances = None
+        if self._pool is not None:
+            # replica by replica; a batch in flight keeps what it launched
+            # with
+            self._pool.set_models(self.models)
+
+    # ---------------------------------------------------------------- pooling
+    def attach_pool(self, pool) -> None:
+        """Adopt a ``DevicePool``: later dispatches route through it. Called
+        by ``DevicePool.__init__``: build the scorer first, then the pool
+        around it."""
+        self._pool = pool
+
+    @property
+    def pool(self):
+        return self._pool
 
     def set_feature_importances(self, importances) -> None:
         """Attach global gain importances (e.g. ``GBDTTrainer.
@@ -564,11 +623,18 @@ class TorchFraudScorer:
         and passed with every later one. A typed-mode scorer never builds
         them: its plan declines every batch it assembles."""
         if self._mega_args is None:
-            widths = (self.sc.text_len, self.sc.feature_dim, self.sc.seq_len,
-                      self.sc.fanout)
-            self._mega_args = MegaParamArgs(self.models, self.bert_config,
-                                            self.compute_dtype, widths, self.device)
+            self._mega_args = self.mega_param_args_for(self.models, self.device)
         return self._mega_args
+
+    def mega_param_args_for(self, models: ScoringModels,
+                            device: torch.device) -> MegaParamArgs:
+        """The megakernel's parameter arguments for ``models`` on
+        ``device`` at this scorer's widths and compute dtype (a device
+        pool's replica on another card builds its own)."""
+        widths = (self.sc.text_len, self.sc.feature_dim, self.sc.seq_len,
+                  self.sc.fanout)
+        return MegaParamArgs(models, self.bert_config, self.compute_dtype, widths,
+                             device)
 
     def _record_kernel_dispatch(self, size: int, model_valid,
                                 mega_served: bool) -> None:
@@ -777,16 +843,45 @@ class TorchFraudScorer:
         return snap
 
     # ---------------------------------------------------------------- scoring
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+    @staticmethod
+    def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
         host = torch.from_numpy(arr)
-        if self.device.type != "cuda":
-            return host.to(self.device)
+        if device.type != "cuda":
+            return host.to(device)
         # a fresh pinned buffer per blob and batch: with two batches in
         # flight a reused one could be rewritten while the earlier batch's
         # non-blocking copy still reads it
         pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
         pinned.copy_(host)
-        return pinned.to(self.device, non_blocking=True)
+        return pinned.to(device, non_blocking=True)
+
+    def launch_packed(self, blobs: Dict[str, np.ndarray], spec, mv: np.ndarray,
+                      static: Dict[str, Any], device: torch.device,
+                      models: ScoringModels, params: EnsembleParams,
+                      mega_args: Optional[MegaParamArgs]) -> tuple:
+        """Copy the packed host blobs to ``device`` from pinned memory, run
+        the fused scorer (the kernel selection ``static``, the rung ``mv``)
+        and start the copy of its result into pinned host memory behind a
+        CUDA event, all on the calling thread's current stream of
+        ``device``. Returns (host result, event or None on the CPU, the
+        hand-written kernels launched). The device pool calls this under a
+        replica's stream with the replica's models."""
+        dev_blobs = {name: self._to_device(arr, device) for name, arr in blobs.items()}
+        before = thread_launches()
+        out = score_fused_packed(
+            models, dev_blobs, spec, params, torch.from_numpy(mv),
+            bert_config=self.bert_config, compute_dtype=self.compute_dtype,
+            param_args=mega_args, **self.quant.static(), **static)
+        launches = thread_launches() - before
+        if device.type != "cuda":
+            return out, None, launches
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        # on the stream that ran the batch: this thread's current one (with
+        # overlapped assembly the stage thread's, in a pool the replica's)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        return host, event, launches
 
     def dispatch(self, records: Sequence[Mapping[str, Any]],
                  now: Optional[float] = None,
@@ -827,30 +922,30 @@ class TorchFraudScorer:
         if trace is not None:
             trace.mark("dispatch")
         t_disp = time.perf_counter()
-        dev_blobs = {name: self._to_device(arr) for name, arr in blobs.items()}
         mv = self.effective_model_valid()
         static = self.kernel_static(size, mv,
                                     has_two_hop=batch.user_neigh2_feat is not None)
         self._record_kernel_dispatch(size, mv,
                                      mega_served=static["mega_valid"] is not None)
-        before = sum(launch_counts().values())
-        mega_args = self._mega_param_args() if static["mega_valid"] is not None else None
-        out = score_fused_packed(
-            self.models, dev_blobs, spec, self.ensemble_params,
-            torch.from_numpy(mv), bert_config=self.bert_config,
-            compute_dtype=self.compute_dtype, param_args=mega_args,
-            **self.quant.static(), **static)
-        self._last_kernel_launches = sum(launch_counts().values()) - before
-        event = None
-        if self.device.type == "cuda":
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            # on the stream that ran the batch: this thread's current one
-            # (with overlapped assembly, the stage thread's)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
+        token = event = launched_with = None
+        if self._pool is not None:
+            # the whole microbatch runs on one replica, picked round-robin
+            # by the pool; in-flight depth and the rescue live there
+            token = self._pool.dispatch_packed(blobs, spec, self.ensemble_params,
+                                               mv, static)
+            host, launches = None, token.launches
+            if trace is not None:
+                # which replica took the batch and how deep its queue was
+                trace.annotate(replica=token.replica_idx,
+                               inflight_depth=token.inflight_at_dispatch)
         else:
-            host = out
+            mega_args = (self._mega_param_args() if static["mega_valid"] is not None
+                         else None)
+            host, event, launches = self.launch_packed(
+                blobs, spec, mv, static, self.device, self.models,
+                self.ensemble_params, mega_args)
+            launched_with = (self.models, self.ensemble_params, mega_args)
+        self._last_kernel_launches = launches
         self.spans.record("dispatch", time.perf_counter() - t_disp)
         if trace is not None:
             # the launches and the D2H copy are queued: from the batch's
@@ -861,7 +956,8 @@ class TorchFraudScorer:
             dispatch_ms=(time.perf_counter() - t0) * 1000.0,
             model_valid=mv, rules_only=self._qos_rules_only,
             features=np.asarray(batch.features), trace=trace,
-            launched_with=(self.models, self.ensemble_params, mega_args))
+            launched_with=launched_with, pool_token=token,
+            kernel_launches=launches)
 
     def finalize(self, pending: PendingScore, now: Optional[float] = None,
                  lock=None) -> List[Dict[str, Any]]:
@@ -871,11 +967,22 @@ class TorchFraudScorer:
         if pending.n == 0:
             return []
         t_fin = time.perf_counter()
-        if pending.event is not None:
-            pending.event.synchronize()
         # the blend the batch was launched with reads its explanations and
         # rung ladders, even when a promotion or reload swapped it since
-        launched = pending.launched_with
+        if pending.pool_token is not None:
+            # pooled completion: DevicePool.wait relaunches the batch on a
+            # healthy replica when this one's fetch fails
+            token = pending.pool_token
+            pending.out = self._pool.wait(token)
+            params = token.params
+            if token.launches != pending.kernel_launches:
+                # a rescue relaunch counts toward its batch
+                pending.kernel_launches = token.launches
+                self._last_kernel_launches = token.launches
+        else:
+            if pending.event is not None:
+                pending.event.synchronize()
+            params = pending.launched_with[1] if pending.launched_with else None
         pending.launched_with = None
         self.spans.record("device_wait", time.perf_counter() - t_fin)
         if pending.trace is not None:
@@ -886,7 +993,7 @@ class TorchFraudScorer:
         results = self._build_responses(
             pending.records, pending.out.numpy(), pending.n, elapsed_ms,
             model_valid=pending.model_valid, rules_only=pending.rules_only,
-            params=launched[1] if launched is not None else None)
+            params=params)
         with (lock if lock is not None else contextlib.nullcontext()):
             self._write_back(pending.records, results, now)
             self.stats["scored"] += pending.n

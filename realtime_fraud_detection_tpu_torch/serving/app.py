@@ -23,6 +23,8 @@ device (the CUDA card unless the caller passes ``device="cpu"``):
     POST /labels              delayed label events into the feedback plane
     GET  /quality/live        prequential quality, the join, the buffer and
                               the retrain / gate / promotion audit
+    GET  /cluster             the shard router: this worker's id, the
+                              membership, the partition assignment
 
 Every concurrent ``/predict`` goes through ``RequestMicrobatcher`` into one
 scorer dispatch a batch; ``/batch-predict`` scores its list as one batch.
@@ -47,8 +49,19 @@ worker thread from a buffer snapshot taken under the score lock; a
 candidate that passes the gate is promoted by ``promote_candidate`` under
 the score lock, the ``/reload-models`` recipe, while later batches queue.
 
-Not ported: the shard router's ``/cluster`` and 421, the device pool and
-mesh executor, and the shared RESP state tier.
+With ``serving.device_pool`` the scorer's batches run on a
+``scoring/device_pool.py DevicePool`` (replicas with their own CUDA
+streams), which implies the two-phase microbatcher with its depth raised to
+the pool's capacity; the ``device_pool_*`` series and ``/metrics``'s
+``device_pool`` block mirror its counters. With ``cluster.enabled`` the
+consistent-hash ``ShardRouter`` (``cluster/hashring.py``) answers
+``/predict`` for a user whose partition another worker owns with 421, the
+owner, its address (``location``) and the partition, ahead of admission;
+``/cluster`` shows the router and the ``cluster_*`` series mirror it. With
+``state.backend == "redis"`` the scorer keeps its state on the shared RESP
+tier (``scoring/scorer.py``).
+
+Not ported: the mesh executor.
 """
 
 from __future__ import annotations
@@ -62,6 +75,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from realtime_fraud_detection_tpu_torch import __version__
 from realtime_fraud_detection_tpu_torch.checkpoint import CheckpointManager
+from realtime_fraud_detection_tpu_torch.cluster.hashring import ShardRouter
 from realtime_fraud_detection_tpu_torch.feedback.plane import (
     FeedbackPlane,
     promote_candidate,
@@ -69,8 +83,13 @@ from realtime_fraud_detection_tpu_torch.feedback.plane import (
 from realtime_fraud_detection_tpu_torch.obs.drift import DriftConfig, FeatureDriftMonitor
 from realtime_fraud_detection_tpu_torch.obs.fleetmetrics import FleetMetrics
 from realtime_fraud_detection_tpu_torch.obs.metrics import MetricsCollector
-from realtime_fraud_detection_tpu_torch.obs.tracing import Tracer
+from realtime_fraud_detection_tpu_torch.obs.tracing import (
+    Tracer,
+    make_carrier,
+    parse_carrier,
+)
 from realtime_fraud_detection_tpu_torch.qos.plane import QosPlane
+from realtime_fraud_detection_tpu_torch.scoring.device_pool import DevicePool
 from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
     MODEL_NAMES,
     init_scoring_models,
@@ -118,7 +137,14 @@ class ServingApp:
         # GET /metrics/fleet: this process's tracer counters fold in under
         # its worker id at render time
         self.fleet_metrics = FleetMetrics()
-        two_phase = sc.overlap_assembly
+        # the device pool: replicas of the models, each on its own stream;
+        # it needs several batches in flight, so it implies the two-phase
+        # microbatcher at the pool's capacity. A pool the caller attached
+        # to the scorer is kept.
+        self.pool = getattr(self.scorer, "pool", None)
+        if sc.device_pool and self.pool is None:
+            self.pool = DevicePool(self.scorer, inflight_depth=sc.inflight_depth)
+        two_phase = sc.overlap_assembly or self.pool is not None
         # the tuning plane: the microbatcher's close decisions move from the
         # fixed deadline to the just-in-time controller; the tuner reads the
         # SLO burn and the QoS level through signals_fn and freezes while
@@ -126,11 +152,13 @@ class ServingApp:
         self.tuning = None
         if sc.autotune or self.config.tuning.enabled:
             fields = {**dataclasses.asdict(self.config.tuning), "enabled": True}
-            if not two_phase:
-                # single-phase serving has no pipeline depth: pin the tuner's
-                # in-flight dimension, or it would trial a change that does
-                # nothing and keep measurement noise as a gain
-                fields["inflight_min"] = fields["inflight_max"] = 1
+            if not two_phase or self.pool is not None:
+                # single-phase serving has no pipeline depth, and with a pool
+                # the depth is the pool's capacity: pin the tuner's in-flight
+                # dimension, or it would trial a change that does nothing and
+                # keep measurement noise as a gain
+                depth = self.pool.total_slots() if self.pool is not None else 1
+                fields["inflight_min"] = fields["inflight_max"] = depth
             tset = TuningSettings(**fields)
             tset.validate(qos=self.config.qos)
             self.tuning = TuningPlane(tset)
@@ -138,6 +166,16 @@ class ServingApp:
                 (self.tracer.slo.burn_rate(self.config.tracing.slo_fast_window_s)
                  if self.tracer is not None else 0.0),
                 (self.qos.effective_level() if self.qos.enabled else 0))
+        # the consistent-hash shard router: with cluster.enabled, /predict
+        # serves only users whose partition the ring gives this worker_id;
+        # placement is a pure function of (workers, n_partitions,
+        # virtual_nodes), the same in every worker and ingress
+        self.cluster_router = None
+        cl = self.config.cluster
+        if cl.enabled:
+            self.cluster_router = ShardRouter(
+                cl.n_partitions, sorted(cl.workers),
+                virtual_nodes=cl.virtual_nodes, addresses=dict(cl.workers))
         self.batcher = RequestMicrobatcher(
             self._score_batch_sync,
             max_batch=sc.microbatch_max_size,
@@ -150,7 +188,7 @@ class ServingApp:
             classify_fn=lambda t: (self.qos.classify(t) if self.qos.enabled else ""),
             dispatch_fn=(self._dispatch_batch_sync if two_phase else None),
             finalize_fn=(self._finalize_batch_sync if two_phase else None),
-            pipeline_depth=2,
+            pipeline_depth=(self.pool.total_slots() if self.pool is not None else 2),
         )
         self.http = HttpServer(host if host is not None else sc.host,
                                port if port is not None else sc.port)
@@ -380,6 +418,7 @@ class ServingApp:
         r("GET", "/latency/breakdown", self._latency_breakdown)
         r("GET", "/slo", self._slo_status)
         r("GET", "/autotune", self._autotune_status)
+        r("GET", "/cluster", self._cluster_status)
 
     def _admit(self, n: int) -> None:
         limit = self.config.serving.max_concurrent_predictions
@@ -403,6 +442,10 @@ class ServingApp:
         txn, errors = validate_transaction(body)
         if errors:
             raise HttpError(422, errors)
+        if self.cluster_router is not None and self.config.cluster.worker_id:
+            misdirected = self._misdirected(txn)
+            if misdirected is not None:
+                return 421, misdirected
         if self.qos.enabled:
             # admission ahead of the concurrency gate: a shed is an explicit
             # score-with-reason (200, REVIEW, risk level SHED); the ladder
@@ -434,6 +477,32 @@ class ServingApp:
             self.qos.record_completion(t_enq, time.monotonic())
         self.metrics.queue_depth.set(self.batcher.queue_depth)
         return 200, result
+
+    def _misdirected(self, txn) -> Optional[Dict[str, Any]]:
+        """The 421 body for a user another worker owns (None when this
+        worker owns it): ahead of admission, so a wrong-shard request burns
+        none of this worker's QoS tokens or slots. It names the owner, its
+        address and the partition, so the caller re-issues once; a trace
+        carrier comes back with its redirect hop counted."""
+        uid = str(txn.get("user_id", ""))
+        owner = self.cluster_router.route(uid)
+        if owner == self.config.cluster.worker_id:
+            return None
+        resp = {
+            "error": "wrong_shard",
+            "owner": owner,
+            "location": self.cluster_router.address_of(owner),
+            "partition": self.cluster_router.partition_of(uid),
+        }
+        carrier = txn.get("trace_carrier")
+        c = parse_carrier(carrier) if carrier is not None else None
+        if c is not None:
+            resp["trace_carrier"] = make_carrier(
+                c["tid"], origin=c["org"], produced_ts=c.get("ts"),
+                priority=c["pr"], fault=c["flt"], parent=c["sp"],
+                hops=int(c.get("rh", 0)) + 1,
+                redirect_s=float(c.get("rs", 0.0)))
+        return resp
 
     async def _batch_predict(self, body, query) -> Tuple[int, Any]:
         txns, errors = validate_batch(body, self.config.serving.batch_size_limit)
@@ -472,6 +541,8 @@ class ServingApp:
     async def _metrics(self, body, query) -> Tuple[int, Any]:
         payload = self.metrics.summary()
         payload["host_assembly"] = self.scorer.host_stats()
+        if self.pool is not None:
+            payload["device_pool"] = self.pool.stats()
         return 200, payload
 
     async def _metrics_prometheus(self, body, query) -> Tuple[int, Any]:
@@ -480,6 +551,8 @@ class ServingApp:
         self.metrics.sync_kernels(self.scorer.kernel_snapshot())
         self.metrics.sync_graph(self.scorer.graph_snapshot())
         self.metrics.sync_microbatch(self.batcher.close_reasons)
+        if self.pool is not None:
+            self.metrics.sync_device_pool(self.pool.stats())
         if self.tracer is not None:
             self.metrics.sync_tracing(self.tracer.snapshot())
         if self.tuning is not None:
@@ -488,18 +561,39 @@ class ServingApp:
             with self._score_lock:
                 snap = self.feedback.snapshot()
             self.metrics.sync_feedback(snap)
+        if self.cluster_router is not None:
+            self.metrics.sync_cluster(self._cluster_snapshot())
         return 200, self.metrics.render_prometheus()
 
     async def _metrics_fleet(self, body, query) -> Tuple[int, Any]:
         """The fleet exposition: this process is a one-worker fleet whose
         tracing counters fold in at render time."""
-        local_id = "serving"
+        local_id = self.config.cluster.worker_id or "serving"
         if self.tracer is not None:
             self.fleet_metrics.ingest_cumulative(
                 local_id, {f"trace_{k}": v for k, v in self.tracer.counters.items()})
             self.fleet_metrics.set_worker_info(local_id, pid=os.getpid(),
                                                version=__version__)
         return 200, self.fleet_metrics.render(version=__version__)
+
+    def _cluster_snapshot(self) -> Dict[str, Any]:
+        """The router's view in the shape ``sync_cluster`` reads (no handoff
+        ledger: that is the stream fleet's)."""
+        snap = self.cluster_router.snapshot()
+        return {
+            "workers_alive": len(snap["members"]),
+            "workers": {m: {"partitions_owned": len(snap["assignment"].get(m, ()))}
+                        for m in snap["members"]},
+            "router": snap,
+        }
+
+    async def _cluster_status(self, body, query) -> Tuple[int, Any]:
+        """This worker's id, the membership, the partition assignment and
+        the router's movement ledger."""
+        if self.cluster_router is None:
+            return 200, {"enabled": False}
+        return 200, {"enabled": True, "worker_id": self.config.cluster.worker_id,
+                     **self.cluster_router.snapshot()}
 
     async def _model_info(self, body, query) -> Tuple[int, Any]:
         return 200, self.scorer.model_info()

@@ -45,6 +45,17 @@ class UserHistoryStore:
         self._table = np.zeros((cap, seq_len, feature_dim), np.float32)
         self._counts = np.zeros((cap,), np.int64)
 
+    def __getstate__(self) -> Dict:
+        """Pickle the used slot rows only: a checkpoint or a partition's
+        handoff snapshot (``cluster/partition.py``) is sized by occupancy,
+        not by the preallocated capacity (``_grow`` doubles from the trimmed
+        size after a restore)."""
+        used = max(len(self._slots), 1)
+        state = dict(self.__dict__)
+        state["_table"] = self._table[:used].copy()
+        state["_counts"] = self._counts[:used].copy()
+        return state
+
     def _grow(self, need: int) -> None:
         cap = self._table.shape[0]
         if need <= cap:
@@ -85,6 +96,14 @@ class UserHistoryStore:
         self._table[slots, pos] = features
         np.add.at(self._counts, slots, 1)
 
+    def append_batch(self, user_ids: Sequence[str], features: np.ndarray) -> None:
+        """Append one feature row per user (features: [B, F]), in order."""
+        if not len(user_ids):
+            return
+        slots = self._slot_ids(user_ids, create=True)
+        occ = _occurrence_index(slots)
+        self._scatter_append(slots, np.asarray(features, np.float32), occ)
+
     def _gather_slots(self, slots: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Dense (B, T, F) oldest-first readout for resolved slots
         (slot -1 = never seen -> zero rows, length 0)."""
@@ -123,6 +142,19 @@ class UserHistoryStore:
                                  np.zeros((len(rows),), np.int64))
             out[rows], lengths[rows] = self._gather_slots(rs)
         return out, lengths
+
+    def gather(self, user_ids: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+        """Dense (B, T, F) history, oldest first and zero-padded in front,
+        plus the lengths (B,); a user never seen reads zero rows."""
+        if not len(user_ids):
+            return (np.zeros((0, self.seq_len, self.feature_dim), np.float32),
+                    np.zeros((0,), np.int32))
+        return self._gather_slots(self._slot_ids(user_ids, create=False))
+
+    def user_ids(self) -> List[str]:
+        """Users with any history, in first-seen order (the state digests'
+        iteration seam)."""
+        return list(self._slots)
 
     def __len__(self) -> int:
         return len(self._slots)

@@ -59,8 +59,15 @@ WindowedAnalytics``, whose fired windows go to the stream-processing topics.
 ``request_stop`` (signal-handler safe) makes both run loops stop polling,
 dispatch the assembler's polled-but-unbatched tail, complete every batch in
 flight (with overlapped assembly: through the ``AssemblerStage``) and
-commit, so a stopped job leaves nothing to replay. The device-pool plane is
-not ported.
+commit, so a stopped job leaves nothing to replay.
+
+With ``JobConfig.device_pool`` the scorer's batches run on a
+``scoring/device_pool.py DevicePool`` (every visible card, or the
+scorer's device alone; a pool the caller attached first is kept), each
+whole microbatch on one replica with its own CUDA stream, and the run loops'
+in-flight window is the pool's capacity (replicas x ``inflight_depth``), so
+every replica gets work; scores stay bit-identical to unpooled ones and
+completion stays FIFO.
 """
 
 from __future__ import annotations
@@ -118,6 +125,14 @@ class JobConfig:
     # timing, so decisions are not bit-reproducible: off where replays must
     # match, on for throughput
     overlap_assembly: bool = False
+    # the device pool (scoring/device_pool.py): whole microbatches round-
+    # robin over replicas of the models, each with its own CUDA stream and
+    # in-flight queue; the run loops' window rises to the pool's capacity
+    # (replicas x inflight_depth), and the velocity-staleness tradeoff of
+    # pipeline_depth scales with it
+    device_pool: bool = False
+    # per-replica batches in flight (2 keeps a replica's work back to back)
+    inflight_depth: int = 2
     # the deadline-aware QoS plane (qos/): a QosSettings (the plane is built
     # when enabled) or a live QosPlane; None or enabled=False = off, and the
     # job behaves as without it
@@ -260,6 +275,13 @@ class StreamJob:
         # transaction ids dispatched but not yet written back: batch N+1 is
         # deduplicated against them before batch N lands in the txn cache
         self._inflight_ids: set = set()
+        # the device pool: an already-attached one (the caller's) is kept;
+        # getattr: the drills drive this job with stand-in scorers
+        self.pool = getattr(scorer, "pool", None)
+        if self.config.device_pool and self.pool is None:
+            from realtime_fraud_detection_tpu_torch.scoring.device_pool import DevicePool
+
+            self.pool = DevicePool(scorer, inflight_depth=self.config.inflight_depth)
         self._stage = None
         if self.config.overlap_assembly:
             from realtime_fraud_detection_tpu_torch.scoring.host_pipeline import (
@@ -285,7 +307,12 @@ class StreamJob:
     def _inflight_depth(self) -> int:
         """The run loops' in-flight window: the configured pipeline depth,
         or with the tuning plane its online-tuned depth (re-read every loop
-        iteration, so a tuner move takes effect one batch later)."""
+        iteration, so a tuner move takes effect one batch later). An
+        attached pool's capacity overrides both: a smaller window starves
+        replicas, a larger one deadlocks this loop (a dispatch would wait
+        for a slot only this loop's own completion frees)."""
+        if self.pool is not None:
+            return self.pool.total_slots()
         if self.tuning is not None:
             return max(1, self.tuning.recommended_inflight_depth())
         return max(1, self.config.pipeline_depth)

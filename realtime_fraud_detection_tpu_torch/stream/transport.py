@@ -288,6 +288,24 @@ class Consumer:
             return self._assignment.get(topic, ())
         return range(self.broker.partitions(topic))
 
+    def set_assignment(self, partitions: Mapping[str, Sequence[int]]) -> None:
+        """Adopt a new explicit assignment (a rebalance): partitions kept
+        across the change keep their read positions (rewinding would
+        re-poll records already batched or in flight), newly acquired ones
+        start from their committed offsets (where a handoff restored state
+        to), released ones drop out."""
+        self._assignment = {t: sorted(int(p) for p in parts)
+                            for t, parts in partitions.items()}
+        old = self._position
+        self._position = {
+            (t, p): old.get((t, p), self.broker.committed(self.group_id, t, p))
+            for t, parts in self._assignment.items()
+            for p in parts
+        }
+
+    def assigned_partitions(self) -> Dict[str, List[int]]:
+        return {t: list(self._assigned(t)) for t in self.topics}
+
     def seek_to_committed(self) -> None:
         self._position = {
             (t, p): self.broker.committed(self.group_id, t, p)

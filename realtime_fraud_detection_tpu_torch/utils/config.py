@@ -13,8 +13,10 @@ alert threshold (``StreamConfig``), the scoring service
 the QoS, tracing, tuning and feedback planes' knobs (``QosSettings``,
 ``TracingSettings``, ``TuningSettings``, with the QoS floor on the tuner's
 deadline, and ``FeedbackSettings``), the load generator's settings
-(``SimConfig``) and the models' base path; plus the quality-artifact
-loaders that deploy a measured blend (``Config.apply_quality_artifact``).
+(``SimConfig``), the partition-parallel plane's knobs (``ClusterSettings``:
+the serving router, the handoff cadence) and the models' base path; plus the
+quality-artifact loaders that deploy a measured blend
+(``Config.apply_quality_artifact``).
 The environment part: the ensemble's (``RTFD_ENSEMBLE_STRATEGY`` or
 ``ENSEMBLE_STRATEGY``, ``CONFIDENCE_THRESHOLD``, ``FRAUD_THRESHOLD``), the
 service's address (``ML_SERVICE_HOST``, ``ML_SERVICE_PORT``), logging
@@ -24,7 +26,9 @@ its ``RTFD_`` name, which wins (the backend's is looked up as JAX looks it
 up: ``RTFD_RTFD_STATE_BACKEND``, then ``RTFD_STATE_BACKEND``). ``StreamConfig`` reads no environment variable,
 as in the JAX package. Values are copies of the JAX package's; the port keeps
 its own so it imports nothing of it. The blocks of planes the port does not
-have (mesh, chaos, cluster) are not ported.
+have yet (mesh, chaos) are not ported, nor ``ClusterSettings``'s autoscale
+fields, which come with the elastic fleet: a config file that sets them gets
+the unknown-key warning.
 """
 
 from __future__ import annotations
@@ -176,6 +180,13 @@ class ServingConfig:
     # card. A retry arriving while its first copy is between dispatch and
     # finalize misses the cache and is scored (and written back) again
     overlap_assembly: bool = False
+    # the device pool (scoring/device_pool.py): whole microbatches round-
+    # robin over replicas of the models, each with its own CUDA stream;
+    # implies the two-phase microbatcher with its depth raised to the
+    # pool's capacity (replicas x inflight_depth), so the retry window
+    # above widens to the pool's in-flight window
+    device_pool: bool = False
+    inflight_depth: int = 2
     # the tuning plane's just-in-time closer drives the microbatcher's
     # close decisions (knobs on Config.tuning)
     autotune: bool = False
@@ -648,6 +659,47 @@ class StreamConfig:
 
 
 @dataclass
+class ClusterSettings:
+    """The partition-parallel plane's knobs (``cluster/``), the fields this
+    port's code reads. ``enabled`` turns on the serving router: this process
+    serves ``/predict`` only for users whose partition the ring assigns to
+    ``worker_id``; other keys get a 421 naming the owner's address
+    (``workers``). Placement is a pure function of (workers, n_partitions,
+    virtual_nodes), the same in every process. The stream-side fleet
+    (``cluster/fleet.py WorkerFleet``) reads ``checkpoint_every``."""
+
+    enabled: bool = False
+    # must match the transactions topic's partition count (the key ->
+    # partition hash is the transport's; stream/topics.py: 12)
+    n_partitions: int = 12
+    virtual_nodes: int = 256
+    # completed batches between per-partition handoff snapshots
+    checkpoint_every: int = 8
+    # this process's id in the ring ("" = not a fleet member)
+    worker_id: str = ""
+    # worker_id -> base URL: the router's redirect targets; the ring is
+    # built over these ids
+    workers: Dict[str, str] = field(default_factory=dict)
+
+    def validate(self) -> None:
+        if self.n_partitions < 1:
+            raise ValueError(
+                f"cluster.n_partitions must be >= 1, got {self.n_partitions}")
+        if self.virtual_nodes < 1 or self.checkpoint_every < 1:
+            raise ValueError(
+                "cluster.virtual_nodes and cluster.checkpoint_every must be >= 1")
+        if self.enabled:
+            if not self.workers:
+                raise ValueError(
+                    "cluster.enabled requires a non-empty cluster.workers "
+                    "map (worker_id -> base URL)")
+            if self.worker_id and self.worker_id not in self.workers:
+                raise ValueError(
+                    f"cluster.worker_id {self.worker_id!r} missing from "
+                    f"cluster.workers {sorted(self.workers)}")
+
+
+@dataclass
 class SimConfig:
     """Load-generator settings (reference simulator.py:480-489)."""
 
@@ -679,6 +731,7 @@ class Config:
     feedback: FeedbackSettings = field(default_factory=FeedbackSettings)
     tracing: TracingSettings = field(default_factory=TracingSettings)
     tuning: TuningSettings = field(default_factory=TuningSettings)
+    cluster: ClusterSettings = field(default_factory=ClusterSettings)
 
     def __post_init__(self) -> None:
         self._apply_env()
@@ -845,6 +898,7 @@ class Config:
         self.tuning.validate(qos=self.qos)
         self.quant.validate()
         self.kernels.validate()
+        self.cluster.validate()
 
 
 def _merge_dataclass(obj: Any, data: Dict[str, Any]) -> None:

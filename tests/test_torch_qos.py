@@ -658,6 +658,20 @@ def _observe(m, kernel_mode):
                             "isolation_forest": "gather"},
                   "param_bytes": {"bert_text": 4445168}, "gate": {"pass": 2, "fail": 0}})
     m.sync_quant({"modes": {"bert_text": "f32"}, "gate": {"pass": 3, "fail": 1}})
+    pool = {"healthy": 1, "devices": [
+        {"device": "r0", "dispatched": 4, "completed": 3, "retries": 0,
+         "queue_wait_ms": 1.5, "inflight": 1},
+        {"device": "r1", "dispatched": 2, "completed": 2, "retries": 1,
+         "queue_wait_ms": 0.0, "inflight": 0}]}
+    m.sync_device_pool(pool)
+    m.sync_device_pool(dict(pool, devices=[dict(pool["devices"][0], dispatched=6),
+                                           pool["devices"][1]]))
+    m.sync_cluster({"workers_alive": 3, "workers": {"w0": {"partitions_owned": 5},
+                                                    "w1": {"partitions_owned": 7}},
+                    "handoffs_total": 4, "last_replay_depth": 17,
+                    "router": {"moved_keys_total": 4}})
+    m.sync_cluster({"workers_alive": 3, "workers": {"w0": {"partitions_owned": 6}},
+                    "router": {"moved_keys_total": 6}})
 
 
 def _family_lines(text, names):
@@ -683,9 +697,10 @@ def test_metric_exposition_equals_jax_line_for_line():
     names = {ln.split(" ")[2] for ln in got if ln.startswith("# TYPE ")}
     want = _family_lines(ref.render_prometheus(), names)
     # 33 families, the tracing plane's 6 trace_* and the tuning plane's 7
-    # autotune_* ones, the serving queue's, the quant plane's 3 quant_* and
-    # the feedback plane's 4 prequential_* and 6 feedback_* ones
-    assert len(names) == 60 and len(got) == len(want)
+    # autotune_* ones, the serving queue's, the quant plane's 3 quant_*, the
+    # feedback plane's 4 prequential_* and 6 feedback_* ones, the device
+    # pool's 6 device_pool_* and the cluster plane's 5 cluster_* ones
+    assert len(names) == 71 and len(got) == len(want)
     # the JAX package's mode "pallas" is the port's "cuda", which sorts to
     # another place among the site-mode samples: compare those as sets
     want = [w.replace('mode="pallas"', 'mode="cuda"') for w in want]

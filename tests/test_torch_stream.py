@@ -282,10 +282,12 @@ def test_job_config_refuses_unported_planes():
     with pytest.raises(TypeError):
         JobConfig(qos=object())
     with pytest.raises(TypeError):
-        JobConfig(device_pool=True)
-    # the overlapped assembly stage and the QoS plane are ported now
+        JobConfig(expect_carrier=True)      # the process fleet's, not ported
+    # the overlapped assembly stage, the QoS plane and the device pool are
+    # ported now
     assert JobConfig(overlap_assembly=True).overlap_assembly
     assert JobConfig(qos=QosSettings(enabled=True)).qos.enabled
+    assert JobConfig(device_pool=True, inflight_depth=3).inflight_depth == 3
 
 
 def test_dispatch_error_is_counted_not_hidden():
