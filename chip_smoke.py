@@ -249,8 +249,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    through f32 BERT (kernels off) and int8 BERT under ``full()`` (1 / 6 / 36
    / 2 launches a batch), the divergence printed against that width's noise
    bound.
-19. the job as deployed: (a) phase 8's two streams (4,096 TINY under
-   ``mega()``, 1,024 DistilBERT-base under ``full()``, int8 BERT, batches of
+19. the job as deployed: (a) phase 8's two streams (2,048 TINY under
+   ``mega()``, 512 DistilBERT-base under ``full()``, int8 BERT, batches of
    256, depth 2) through ``StreamJob`` on the card with the analytics and
    enrichment planes off, then on (``JobConfig(enable_analytics=True,
    enable_enrichment=True)``; launch counters reset just before, read just
@@ -284,14 +284,15 @@ Phases, each of which raises (and exits non-zero) on failure:
    checkpoints; every batch of both runs dispatched the megakernel, no
    fallback.
 20. shared state and Kafka: (a) a ``state-server`` process on a free port
-   (the port's ``MiniRedisServer``); phase 8's two streams (4,096 TINY under
-   ``mega()``, 1,024 DistilBERT-base under ``full()``, int8 BERT, batches of
+   (the port's ``MiniRedisServer``); phase 8's two streams (the first 2,048
+   TINY under ``mega()``, 1,024 DistilBERT-base under ``full()``, int8 BERT,
+   batches of
    256, depth 2) each three ways, the server flushed before each shared
    run: on the card with ``TorchFraudScorer(state_client=RespClient(...))``
    (launch counters reset just before, read just after: one megakernel a
    TINY batch, 1 / 6 / 36 / 2 a DistilBERT-base batch; the client's commands
    counted by a spy on its ``execute``), on the card with in-process stores,
-   and the first two batches' records on the CPU through the shared tier
+   and the first batch's records on the CPU through the shared tier
    (untimed, after (c)). The shared run against the other two within the
    drill's bound, decisions equal off a rung, and whether it
    is identical to the in-process run; the server's keyspace against the
@@ -311,7 +312,7 @@ Phases, each of which raises (and exits non-zero) on failure:
    (session 1.5 s), sharing a ``state-server --aof`` process; replica A
    dies after three completed batches (its next completion raises; its
    sockets close, no LeaveGroup) and B takes its partitions after the
-   coordinator evicts it. Gates: each of the 4,096 ids on the predictions
+   coordinator evicts it. Gates: each of the 2,048 ids on the predictions
    topic, scored once; the group's lag 0; every user's ``24hour`` count on
    the server equals the stream's; every repeat on the predictions topic a
    re-emission from the shared cache (B's other skipped duplicates were
@@ -327,7 +328,7 @@ Phases, each of which raises (and exits non-zero) on failure:
    rebalance seconds, the duplicates and the replicas' batches. (c) each a
    process of its own, the refused command started beside the job and the
    service after it: ``state-server --aof``, ``run-job --state --count
-   4096 --quant --mega --predictions-out`` on the card (every user's
+   2048 --quant --mega --predictions-out`` on the card (every user's
    ``24hour`` count equals the stream's), ``serve --quant --mega`` with
    ``RTFD_STATE_ADDR`` and no ``--state`` (256 ``/predict`` from 64
    clients for users of the stream: each count rises by that user's
@@ -374,7 +375,31 @@ Phases, each of which raises (and exits non-zero) on failure:
    w0 owns, one at a time, answered alike by both; foreign users' 421 with
    the owner, its address and the partition; ``/cluster``; the ``cluster_*``
    and ``device_pool_*`` series (256 dispatches on ``cuda:0#0``); SIGTERM,
-   both exit 0.
+   all exit 0.
+
+22. the process fleet and the chaos plane: (a) ``chaos-drill --fast`` as a
+   command, 2 replicas on the card (every check, the second run
+   bit-identical), and the same fast timeline twice in process on 2 replicas
+   (``run_chaos_drill``), kernels off and then with ``KernelSettings(enabled=
+   True, megakernel="cuda", epilogue="cuda")`` (launch counters reset just
+   before, read just after): every check passes in both; with the kernels
+   on, each batch the megakernel's plan takes (every batch of 2+ rows) one
+   megakernel launch on the launching thread and nothing else, each batch
+   it declines one epilogue launch, one more for each rescue; decisions
+   equal to the kernels-off run on every id scored before the first
+   promotion (the flips and the largest score gap after it printed). (b)
+   once (a) has ended, ``elastic-drill --fast`` and then ``partition-drill
+   --fast`` as commands, each with nothing else running (their checks read
+   the wall clock): every check passes (``processes_enough``,
+   ``sigkill_real`` among them), and no ``cluster-worker`` process (from
+   /proc) is ever among ``nvidia-smi --query-compute-apps=pid``, sampled
+   every 0.5 s, each worker's environment hides the card
+   (``CUDA_VISIBLE_DEVICES`` empty), and the card never lists more than
+   this process. (c) in phase 21(d)'s processes, with worker w1 a clustered
+   ``serve`` too: ``ShardIngressClient`` with both workers' URLs sends 256
+   ``/predict`` for fresh users of both, each answer equal to the plain
+   service's, the 421s followed printed; a second pass for the same users
+   follows none.
 
 The last three lines of standard output are the kernel JSON line (all five
 kernels), the ``nvidia-smi`` name and power limit, and the result line
@@ -4758,6 +4783,9 @@ def run_feedback(ops):
 PLANE_DECISION_CUTS = (0.6, 0.95)        # the enrichment ladder's decision cuts
 PLANE_RISK_CUTS = (0.3, 0.6, 0.8, 0.95)
 HIGH_RISK_CUT = 0.7                      # stream/windows.py's high-risk count
+# (a)'s streams, cut to half phase 8's depth (16 and 4 batches) for the
+# command's time limit
+PLANES_COUNT = {"TINY": 8 * BATCH, "DistilBERT-base": 2 * BATCH}
 DEPLOY_COUNT = 16 * BATCH
 DEPLOY_SEED = SEED + 19
 BLEND_TOL = 1e-6                         # the blend against its CPU version
@@ -5130,10 +5158,11 @@ def run_deployed_phase(ops):
             chain = {"epilogue": 1, "flash_attention": DISTILBERT_BASE.num_layers,
                      "dequant_matmul": 6 * DISTILBERT_BASE.num_layers, "dequant_rows": 2,
                      "megakernel": 0}
-            tiny = run_planes(ops, "TINY", TINY_CONFIG, KernelSettings.mega(), 16 * BATCH,
+            tiny = run_planes(ops, "TINY", TINY_CONFIG, KernelSettings.mega(),
+                              PLANES_COUNT["TINY"],
                               {k: int(k == "megakernel") for k in chain})
             base = run_planes(ops, "DistilBERT-base", DISTILBERT_BASE,
-                              KernelSettings.full(), 4 * BATCH, chain)
+                              KernelSettings.full(), PLANES_COUNT["DistilBERT-base"], chain)
             seconds["a"] = round(time.perf_counter() - t1, 1)
             _, err, _ = _finish("simulate --broker", simulate)
             if "native_queue=True" not in err or "dropped=0" not in err:
@@ -5159,7 +5188,11 @@ KAFKA_SESSION_MS = 1_500                 # a dead replica is evicted after this
 KAFKA_HEARTBEAT_S = 0.2
 KAFKA_KILL_AFTER = 3                     # batches replica A completes, then dies
 KAFKA_SINGLE = 4 * BATCH                 # the single-replica card / CPU comparison
-SHARED_CPU_BATCHES = 2                   # (a)'s CPU run: the stream's first batches
+# the TINY transactions of (a), (b) and (c), cut from 16 batches to 8: the
+# phase is round-trip bound, and took 327 s of a 1,138 s command on a slow
+# host
+STATE_COUNT = 8 * BATCH
+SHARED_CPU_BATCHES = 1                   # (a)'s CPU run: the stream's first batch (cut from 2)
 SERVE_STATE_PREDICTS = BATCH
 NATIVE_TREE_TOL = 1e-5
 
@@ -5761,12 +5794,12 @@ def run_state_commands(tmp):
         procs.append(refused)
         preds_path = str(Path(tmp) / "preds.jsonl")
         job_out, job_err, job_s = _finish("run-job --state", _port_proc(
-            ["run-job", "--state", f"127.0.0.1:{port}", "--count", str(16 * BATCH),
+            ["run-job", "--state", f"127.0.0.1:{port}", "--count", str(STATE_COUNT),
              "--quant", "--mega", "--predictions-out", preds_path]), timeout=600)
         summary = json.loads(job_out.strip().splitlines()[-1])
         gen = TransactionGenerator(num_users=10_000, num_merchants=5_000, seed=42,
                                    tps=1000.0)
-        records = gen.generate_batch(16 * BATCH)
+        records = gen.generate_batch(STATE_COUNT)
         with open(preds_path) as f:
             pred_ids = [json.loads(line)["transaction_id"] for line in f]
         if sorted(pred_ids) != sorted(r["transaction_id"] for r in records) \
@@ -5904,7 +5937,7 @@ def run_state_phase(ops):
              "megakernel": 0}
     gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
                                seed=SEED)
-    records = gen.generate_batch(16 * BATCH)
+    records = gen.generate_batch(STATE_COUNT)
     profiles = stream_profiles(gen, records)
     config = Config(quant=QuantSettings.full(), kernels=KernelSettings.mega())
     models = seeded_models(TINY_CONFIG)
@@ -5914,7 +5947,7 @@ def run_state_phase(ops):
         rtt = round_trips_us(port)
         print(f"loopback round trips on this host: {json.dumps(rtt)}", flush=True)
         tiny = run_shared_stream(ops, port, "TINY", TINY_CONFIG, KernelSettings.mega(),
-                                 16 * BATCH, {k: int(k == "megakernel") for k in chain})
+                                 STATE_COUNT, {k: int(k == "megakernel") for k in chain})
         base = run_shared_stream(ops, port, "DistilBERT-base", DISTILBERT_BASE,
                                  KernelSettings.full(), 4 * BATCH, chain)
         seconds["a_card"] = round(time.perf_counter() - t0, 1)
@@ -6396,15 +6429,24 @@ def run_router(gen):
     w0 of two, beside a plain ``serve``, both on the card: ``ROUTER_PREDICTS``
     ``/predict`` for distinct users w0 owns, one at a time to each, answer
     for answer equal; a foreign user's 421; ``/cluster``; the ``cluster_*``
-    and ``device_pool_*`` series; SIGTERM, both exit 0."""
+    and ``device_pool_*`` series. Phase 22(c) on the same processes and
+    worker w1 (a clustered ``serve`` too): ``ShardIngressClient`` with both
+    workers' URLs sends ``ROUTER_PREDICTS`` ``/predict`` for fresh users of
+    both workers, each answer equal to the plain service's, the 421s it
+    followed printed; a second pass for the same users follows none (the
+    learned affinity). SIGTERM, all exit 0."""
     import http.client
     import os
     import signal
     import tempfile
+    import threading
 
     from realtime_fraud_detection_tpu_torch.cluster.hashring import (
         ShardRouter,
         partition_for_key,
+    )
+    from realtime_fraud_detection_tpu_torch.serving.ingress_client import (
+        ShardIngressClient,
     )
 
     def call(port, method, path, body=None):
@@ -6418,26 +6460,36 @@ def run_router(gen):
             conn.close()
         return resp.status, raw
 
-    ports = {"clustered": free_port(), "plain": free_port()}
+    ports = {"clustered": free_port(), "plain": free_port(), "w1": free_port()}
     workers = {"w0": f"http://127.0.0.1:{ports['clustered']}",
-               "w1": f"http://127.0.0.1:{free_port()}"}
+               "w1": f"http://127.0.0.1:{ports['w1']}"}
     router = ShardRouter(12, sorted(workers))
-    owned, foreign, seen = [], [], set()
-    while len(owned) < ROUTER_PREDICTS or len(foreign) < 4:
+    owned, foreign, fresh, seen = [], [], [], set()
+    while len(owned) < ROUTER_PREDICTS or len(foreign) < 4 \
+            or len(fresh) < ROUTER_PREDICTS:
         for t in gen.generate_batch(BATCH):
             uid = str(t["user_id"])
             if uid in seen:
                 continue
             seen.add(uid)
-            (owned if router.route(uid) == "w0" else foreign).append(t)
-    owned, foreign = owned[:ROUTER_PREDICTS], foreign[:4]
+            if router.route(uid) == "w0" and len(owned) < ROUTER_PREDICTS:
+                owned.append(t)
+            elif len(foreign) < 4 and router.route(uid) == "w1":
+                foreign.append(t)
+            else:
+                fresh.append(t)
+    owned, foreign, fresh = (owned[:ROUTER_PREDICTS], foreign[:4],
+                             fresh[:ROUTER_PREDICTS])
     procs = []
     with tempfile.TemporaryDirectory() as tmp:
         configs = {
             "clustered": {"monitoring": {"prometheus_port": 0},
                           "cluster": {"enabled": True, "worker_id": "w0",
                                       "workers": workers}},
-            "plain": {"monitoring": {"prometheus_port": 0}}}
+            "plain": {"monitoring": {"prometheus_port": 0}},
+            "w1": {"monitoring": {"prometheus_port": 0},
+                   "cluster": {"enabled": True, "worker_id": "w1",
+                               "workers": workers}}}
         logs = {}
         t0 = time.perf_counter()
         try:
@@ -6461,8 +6513,8 @@ def run_router(gen):
                                  f"{open(logs[name].name).read()[-2000:]}")
                         time.sleep(0.25)
             t_up = time.perf_counter() - t0
-            answers = {name: [] for name in configs}
-            for name in configs:
+            answers = {name: [] for name in ("clustered", "plain")}
+            for name in ("clustered", "plain"):
                 t1 = time.perf_counter()
                 for t in owned:
                     status, raw = call(ports[name], "POST", "/predict", t)
@@ -6474,6 +6526,49 @@ def run_router(gen):
             misdirected = [call(ports["clustered"], "POST", "/predict", t) for t in foreign]
             c_status, c_raw = call(ports["clustered"], "GET", "/cluster")
             m_status, m_text = call(ports["clustered"], "GET", "/metrics/prometheus")
+            # the client waits as long as call() does: a request it re-sent
+            # after a timeout would be scored twice, and the second answer
+            # would see the first one's velocity and history
+            ingress = ShardIngressClient([workers["w0"], workers["w1"]], timeout_s=60.0)
+            passes = []
+            for n_pass in range(2):
+                t1 = time.perf_counter()
+                txns = [dict(t, transaction_id=f"{t['transaction_id']}-p{n_pass}")
+                        for t in fresh]
+                got, want, hops, errors = [], [], [], []
+
+                def plain_answers(batch):
+                    try:
+                        for txn in batch:
+                            status, raw = call(ports["plain"], "POST", "/predict", txn)
+                            if status != 200:
+                                raise RuntimeError(f"/predict {status} {raw[:300]}")
+                            want.append({k: v for k, v in json.loads(raw).items()
+                                         if k != "processing_time_ms"})
+                    except Exception as e:  # noqa: BLE001 -- failed below
+                        errors.append(repr(e))
+
+                # the first pass one request to each side in turn, the second
+                # with the plain service's calls on a thread of their own:
+                # the answers must not depend on how the two sides interleave
+                plain = None
+                if n_pass:
+                    plain = threading.Thread(target=plain_answers, args=(txns,))
+                    plain.start()
+                for txn in txns:
+                    res = ingress.predict(txn)
+                    hops.append(res.pop("_ingress")["redirects"])
+                    res.pop("processing_time_ms", None)
+                    got.append(res)
+                    if plain is None:
+                        plain_answers([txn])
+                if plain is not None:
+                    plain.join(timeout=600)
+                if errors or len(want) != len(txns):
+                    fail(f"serve (plain): {errors[:1]}, {len(want)} of {len(txns)} answers")
+                passes.append(dict(got=got, want=want, hops=hops,
+                                   snapshot=ingress.snapshot(),
+                                   s=time.perf_counter() - t1))
             for proc in procs:
                 proc.send_signal(signal.SIGTERM)
             rcs = [proc.wait(timeout=60) for proc in procs]
@@ -6503,6 +6598,33 @@ def run_router(gen):
             or dispatched != [float(ROUTER_PREDICTS)] or any(rcs)):
         fail(f"router: metrics {m_status}, device_pool dispatched {dispatched}, "
              f"exits {rcs}")
+    for n_pass, ps in enumerate(passes):
+        if ps["got"] != ps["want"]:
+            bad = [(a, b) for a, b in zip(ps["got"], ps["want"]) if a != b]
+            a, b = bad[0]
+            diff = {k: (a.get(k), b.get(k)) for k in set(a) | set(b) if a.get(k) != b.get(k)}
+            fail(f"ingress client pass {n_pass}: {len(bad)} of {len(fresh)} answers "
+                 f"differ from the plain service; the first: {json.dumps(diff)[:1500]}")
+    if passes[1]["snapshot"]["retried"]:
+        fail(f"ingress client: {passes[1]['snapshot']['retried']} requests re-sent; an "
+             f"answer may be a second scoring")
+    followed = passes[0]["snapshot"]["redirects_followed"]
+    if sum(passes[0]["hops"]) != followed or followed < 1:
+        fail(f"ingress client: {sum(passes[0]['hops'])} hops, {followed} followed")
+    if any(passes[1]["hops"]) \
+            or passes[1]["snapshot"]["redirects_followed"] != followed:
+        fail(f"ingress client: the second pass followed "
+             f"{passes[1]['snapshot']['redirects_followed'] - followed} 421s")
+    owners = {w: sum(router.route(str(t["user_id"])) == w for t in fresh)
+              for w in sorted(workers)}
+    print(f"ingress client (phase 22c; ShardIngressClient over w0 and w1): "
+          f"{len(fresh)} /predict for fresh users ({json.dumps(owners)} by owner), "
+          f"each answer equal to the plain service's, {followed} 421s followed "
+          f"({passes[0]['s']:.2f} s, one request to each side in turn); second pass on "
+          f"the learned affinity, the plain service's calls on a thread of their own: 0 "
+          f"followed, answers equal ({passes[1]['s']:.2f} s); none re-sent; client "
+          f"{json.dumps(passes[1]['snapshot'])}",
+          flush=True)
     print(f"router (serve --quant --mega --device-pool as w0 of 2, beside a plain serve; "
           f"up in {t_up:.1f} s): {len(owned)} /predict for w0's users answered alike by "
           f"both ({answers['clustered_s']:.2f} s / {answers['plain_s']:.2f} s one at a "
@@ -6558,6 +6680,251 @@ def run_pool_phase(ops):
     print(f"pool and fleet phase seconds by part: {json.dumps(seconds)}; TINY pooled "
           f"streams: {json.dumps(streams)}; hot swap {json.dumps(swap)}", flush=True)
     return launches
+
+
+# the process fleet and chaos phase (22): the chaos drill's fast timeline on
+# two pool replicas of the card, as a command and twice in process (kernels
+# off, then the megakernel and the epilogue on); then, with nothing else
+# running, the elastic and partition drills' fast timelines, whose worker
+# processes score on the card's host; part (c), the shard ingress client,
+# runs inside phase 21(d)'s serve processes (run_router)
+
+
+def drill_on_host(name, args, out):
+    """``args`` as a command while ``nvidia-smi`` lists the card's compute
+    processes every 0.5 s and /proc names the drill's worker processes;
+    ``out[name]`` gets the verdict, the full summary, the worker pids seen,
+    the compute-app pids seen and the seconds."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    # output to files: a pipe nobody reads while the drill runs could fill
+    # and stall it
+    stdout_f, stderr_f = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "realtime_fraud_detection_tpu_torch", *args],
+        cwd=Path(__file__).resolve().parent, stdout=stdout_f, stderr=stderr_f, text=True)
+    workers, on_card, card_visible = set(), set(), set()
+    most_apps = 0
+    t0 = time.perf_counter()
+    while proc.poll() is None:
+        for pid in os.listdir("/proc"):
+            if not pid.isdigit():
+                continue
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmd = f.read()
+            except OSError:
+                continue
+            if b"cluster-worker" in cmd:
+                workers.add(int(pid))
+                try:
+                    with open(f"/proc/{pid}/environ", "rb") as f:
+                        env = f.read().split(b"\0")
+                except OSError:
+                    continue
+                if b"CUDA_VISIBLE_DEVICES=" not in env:
+                    card_visible.add(int(pid))
+        smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                              "--format=csv,noheader"], capture_output=True, text=True)
+        if smi.returncode != 0:
+            out[name] = {"error": f"nvidia-smi exit {smi.returncode}: {smi.stderr}"}
+            proc.kill()
+            proc.wait()
+            return
+        apps = [int(x) for x in smi.stdout.split() if x.strip().isdigit()]
+        on_card.update(apps)
+        most_apps = max(most_apps, len(apps))
+        if time.perf_counter() - t0 > 420:
+            proc.kill()
+            proc.wait()
+            out[name] = {"error": "still running after 420 s"}
+            return
+        time.sleep(0.5)
+    stdout_f.seek(0)
+    stderr_f.seek(0)
+    stdout, stderr = stdout_f.read(), stderr_f.read()
+    stdout_f.close()
+    stderr_f.close()
+    lines = [ln for ln in stdout.splitlines() if ln.strip()]
+    out[name] = {"rc": proc.returncode, "stderr": stderr[-3000:],
+                 "verdict": json.loads(lines[-1]) if lines else None,
+                 "full": json.loads(lines[-2]) if len(lines) > 1 else None,
+                 "workers": workers, "on_card": on_card, "most_apps": most_apps,
+                 "card_visible": card_visible,
+                 "s": time.perf_counter() - t0}
+
+
+def check_host_drill(name, res, must):
+    """The drill passed with every check (``must`` among them) and no worker
+    pid was ever a compute process on the card."""
+    if "error" in res:
+        fail(f"{name}: {res['error']}")
+    full = res["full"] or {}
+    checks = full.get("checks") or {}
+    if res["rc"] != 0 or not full.get("passed") or not all(checks.values()) \
+            or not all(checks.get(k) for k in must):
+        fail(f"{name}: exit {res['rc']}, checks {checks}: {res['stderr']}")
+    if not res["workers"]:
+        fail(f"{name}: no cluster-worker process seen while it ran")
+    # the card's host may report every compute process under one pid, so the
+    # count of processes at once is checked too: this process alone (a worker
+    # imports torch, so the CUDA driver library is mapped in it: that says
+    # nothing)
+    if res["workers"] & res["on_card"] or res["card_visible"] \
+            or res["most_apps"] > 1:
+        fail(f"{name}: worker pids {sorted(res['workers'] & res['on_card'])} among the "
+             f"card's compute processes, {sorted(res['card_visible'])} not spawned with "
+             f"CUDA_VISIBLE_DEVICES empty, at most {res['most_apps']} compute processes "
+             f"at once")
+    print(f"{name} ({res['s']:.1f} s, its worker processes on the card's host): "
+          f"every check passes ({len(checks)}); {len(res['workers'])} worker pids seen, "
+          f"none among the card's compute processes (pids seen {sorted(res['on_card'])}, "
+          f"at most {res['most_apps']} at once), each spawned with "
+          f"CUDA_VISIBLE_DEVICES empty; "
+          + json.dumps(res["verdict"]), flush=True)
+
+
+def chaos_spy(batches):
+    """Wrap ``TorchFraudScorer.dispatch_assembled`` (the drill builds its
+    scorer inside): per batch its rows, whether the megakernel's plan took
+    it (the scorer's dispatch minus fallback counts), the megakernel and
+    epilogue launches, and the launching thread's total. The drill
+    dispatches from one thread. Returns the function that undoes it."""
+    from realtime_fraud_detection_tpu_torch import ops
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+
+    orig = TorchFraudScorer.dispatch_assembled
+
+    def spy(self, batch, records, *args, **kw):
+        snap0, counts0, t0 = self.kernel_snapshot(), ops.launch_counts(), ops.thread_launches()
+        out = orig(self, batch, records, *args, **kw)
+        snap, counts = self.kernel_snapshot(), ops.launch_counts()
+        batches.append(dict(
+            rows=len(records),
+            served=(snap["dispatch"]["megakernel"] - snap0["dispatch"]["megakernel"])
+            - (snap["fallback"]["megakernel"] - snap0["fallback"]["megakernel"]),
+            launches=ops.thread_launches() - t0,
+            megakernel=counts["megakernel"] - counts0["megakernel"],
+            epilogue=counts["epilogue"] - counts0["epilogue"]))
+        return out
+
+    TorchFraudScorer.dispatch_assembled = spy
+    return lambda: setattr(TorchFraudScorer, "dispatch_assembled", orig)
+
+
+def run_chaos_phase(ops):
+    """Phase 22 (a), then (b) once (a) has ended; see the module docstring.
+    Returns the launches of the kernels-on chaos run."""
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.chaos.drill import (
+        ChaosDrillConfig,
+        compact_chaos_summary,
+        run_chaos_drill,
+    )
+    from realtime_fraud_detection_tpu_torch.utils.config import KernelSettings
+
+    t0 = time.perf_counter()
+    command = _port_proc(["chaos-drill", "--fast"])
+    cfg = dataclasses.replace(ChaosDrillConfig.fast(), replay_check=False)
+    runs = {}
+    for name, kernels in (("off", None),
+                          ("on", KernelSettings(enabled=True, megakernel="cuda",
+                                                epilogue="cuda"))):
+        batches = []
+        undo = chaos_spy(batches)
+        t1 = time.perf_counter()
+        ops.reset_launch_counts()
+        try:
+            summary = run_chaos_drill(cfg, kernels=kernels)
+        finally:
+            launches = ops.launch_counts()
+            undo()
+        runs[name] = dict(summary=summary, batches=batches, launches=launches,
+                          s=time.perf_counter() - t1)
+        if not summary["passed"]:
+            fail(f"chaos drill in process (kernels {name}): "
+                 f"{compact_chaos_summary(summary)}")
+    out, err, cmd_s = _finish("chaos-drill --fast", command, timeout=600)
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    full = json.loads(lines[-2])
+    if not full["passed"] or full["replay_identical"] is not True:
+        fail(f"chaos-drill --fast on the card: {lines[-1]}")
+    print(f"chaos-drill --fast as a command (2 replicas on the card; {cmd_s:.1f} s "
+          f"waited after the in-process runs): every check passes, the second run "
+          f"bit-identical; " + lines[-1], flush=True)
+
+    # the kernels-on run: one megakernel launch a batch of 2+ rows, one
+    # epilogue launch a batch the plan declines, nothing else
+    on, off = runs["on"], runs["off"]
+    for b in on["batches"]:
+        want = (dict(megakernel=1, epilogue=0) if b["served"]
+                else dict(megakernel=0, epilogue=1))
+        if b["rows"] >= 2 and not b["served"] or b["launches"] != 1 \
+                or {k: b[k] for k in want} != want:
+            fail(f"chaos drill (kernels on): batch {b} launched other than one "
+                 f"megakernel (2+ rows) or one epilogue (declined)")
+    pool = on["summary"]["pool"]
+    n_served = sum(b["served"] for b in on["batches"])
+    n_declined = len(on["batches"]) - n_served
+    if on["launches"]["megakernel"] + on["launches"]["epilogue"] \
+            != len(on["batches"]) + pool["retries"] or on["launches"]["flash_attention"] \
+            or on["launches"]["dequant_matmul"] or on["launches"]["dequant_rows"]:
+        fail(f"chaos drill (kernels on): launches {on['launches']} for "
+             f"{len(on['batches'])} batches and {pool['retries']} rescues")
+    if any(b["launches"] for b in off["batches"]):
+        fail("chaos drill (kernels off) launched a hand-written kernel")
+
+    # decisions equal on every id scored before the first promotion
+    cut = min(t for t in (on["summary"]["first_promotion_ts"],
+                          off["summary"]["first_promotion_ts"], float("inf"))
+              if t is not None)
+
+    def scored(summary):
+        rows = {}
+        for tid, score, decision, kind, at in summary["ledger"]:
+            if kind == "scored" and tid not in rows:
+                rows[tid] = (score, decision, at)
+        return rows
+
+    got, want = scored(on["summary"]), scored(off["summary"])
+    if set(got) != set(want):
+        fail(f"chaos drill: kernels on scored {len(got)} ids, off {len(want)}")
+    before = [t for t in want if want[t][2] is not None and want[t][2] < cut
+              and got[t][2] is not None and got[t][2] < cut]
+    flips = [t for t in before if got[t][1] != want[t][1]]
+    if flips or not before:
+        fail(f"chaos drill: {len(flips)} decisions of {len(before)} ids scored before "
+             f"the first promotion differ with the kernels on")
+    after = [t for t in want if t not in set(before)]
+    gap_before = max(abs(got[t][0] - want[t][0]) for t in before)
+    gap_after = max((abs(got[t][0] - want[t][0]) for t in after), default=0.0)
+    flips_after = sum(got[t][1] != want[t][1] for t in after)
+    a_s = time.perf_counter() - t0
+    print(f"chaos drill in process, 2 replicas on the card, kernels off ({off['s']:.1f} s) "
+          f"and on ({on['s']:.1f} s): every check passes in both; kernels on "
+          f"{len(on['batches'])} batches of {min(b['rows'] for b in on['batches'])}-"
+          f"{max(b['rows'] for b in on['batches'])} rows, {n_served} one megakernel "
+          f"launch each "
+          f"(every batch of 2+ rows), {n_declined} declined one epilogue launch each, "
+          f"{pool['retries']} rescue relaunch; launches {json.dumps(on['launches'])}; "
+          f"{len(before)} ids scored before the first promotion (t={cut:.3f} virtual s): "
+          f"decisions equal, largest score gap {gap_before:.3e}; after it (not gated): "
+          f"{flips_after} decision flips of {len(after)}, largest score gap "
+          f"{gap_after:.3e}; phase 22 (a) {a_s:.1f} s", flush=True)
+
+    # (b) each host drill alone: its wall-clock checks (processes_enough, the
+    # session timeouts) are held with nothing else running
+    results = {}
+    for name, must in (("elastic-drill", ("processes_enough", "sigkill_real")),
+                       ("partition-drill", ("processes_real", "zombie_fenced_produce"))):
+        drill_on_host(f"{name} --fast", [name, "--fast"], results)
+        check_host_drill(f"{name} --fast", results[f"{name} --fast"], must)
+    print(f"phase 22 (b) {time.perf_counter() - t0 - a_s:.1f} s", flush=True)
+    return {"tiny_chaos_kernels_on": {k: on["launches"].get(k, 0) for k in (
+        "epilogue", "flash_attention", "dequant_matmul", "dequant_rows", "megakernel")}}
 
 
 def run_drills() -> dict:
@@ -6706,6 +7073,8 @@ def main() -> int:
     lap("20")
     stream.update(run_pool_phase(ops))
     lap("21")
+    stream.update(run_chaos_phase(ops))
+    lap("22")
     print(f"seconds by phase: {json.dumps(seconds)}", flush=True)
     for e in entries:
         e["stream_launches"] = {k: v[e["name"]] for k, v in stream.items()}

@@ -25,7 +25,12 @@ fed by ``simulate --broker`` through the ingress gateway (``stream.gateway``
 and its C++ queue, ``native``), with the windowed analytics
 (``stream.windows``) and the enrichment blend on, a graceful drain on
 SIGTERM and a resume from its checkpoint; ``alert-router`` consumes its
-alerts.
+alerts. Across processes, ``cluster.procfleet`` runs partition-scoped
+workers (``cluster-worker``) over that broker with the network handoff store
+(``cluster.handoff``) and the autoscaler (``cluster.autoscale``), proved by
+``elastic-drill`` and, under the link faults of ``chaos.netfaults``, by
+``partition-drill``; ``chaos-drill`` runs every plane through one
+correlated-failure timeline on the device pool.
 """
 
 __version__ = "0.1.0"

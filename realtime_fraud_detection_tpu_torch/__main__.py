@@ -12,6 +12,10 @@
     python -m realtime_fraud_detection_tpu_torch quant-drill [--fast] [--no-replay]
     python -m realtime_fraud_detection_tpu_torch pool-drill [--fast] [--devices N] [--inflight-depth D]
     python -m realtime_fraud_detection_tpu_torch shard-drill [--fast] [--workers N] [--no-replay]
+    python -m realtime_fraud_detection_tpu_torch elastic-drill [--fast] [--no-replay]
+    python -m realtime_fraud_detection_tpu_torch partition-drill [--fast] [--workers N] [--no-replay]
+    python -m realtime_fraud_detection_tpu_torch chaos-drill [--fast] [--devices N] [--config F] [--no-replay]
+    python -m realtime_fraud_detection_tpu_torch cluster-worker --spec JSON
     python -m realtime_fraud_detection_tpu_torch qos-drill
     python -m realtime_fraud_detection_tpu_torch trace-drill [--fast]
     python -m realtime_fraud_detection_tpu_torch autotune-drill [--fast]
@@ -95,6 +99,24 @@ checkpointed handoff, held against a single-worker oracle; its scorer is a
 host stand-in, so it runs on the CPU and needs no card. Each prints the full
 summary, then the compact verdict as the last line, and exits 1 unless every
 check passed.
+
+``elastic-drill`` and ``partition-drill`` are the ports of the JAX
+commands of the same names (``cluster/elastic_drill.py``,
+``chaos/partition_drill.py``): a fleet of real worker processes
+(``cluster/procfleet.py``) over the TCP netbroker and the network handoff
+store, held against a single-process oracle; the elastic drill grows the
+fleet ahead of a diurnal ramp, SIGKILLs the busiest worker mid-peak and
+drains after the peak, the partition drill cuts, slows and heals links
+(``chaos/netfaults.py``). Their workers are ``cluster-worker`` processes,
+spawned by the coordinator with a JSON spec; they score with the shard
+drill's host stand-in and never see the card. ``chaos-drill`` is the port
+of ``rtfd chaos-drill`` (``chaos/drill.py``): one virtual-clock timeline of
+a flash crowd, a broker replica outage, device-pool faults, a label stall
+and a fraud ring, through the real scorer on ``--devices`` pool replicas
+(on the card; the JAX command re-execs onto virtual CPU devices, this one
+does not), with a bit-identical second run unless ``--no-replay``. Each
+prints the full summary, then the compact verdict as the last line, and
+exits 1 unless every check passed.
 
 ``qos-drill`` is the port of ``rtfd qos-drill`` (``qos/drill.py``): offered
 load at ``--multiplier`` x the sustainable rate through the port's stream
@@ -493,6 +515,79 @@ def cmd_shard_drill(args: argparse.Namespace) -> int:
     print(json.dumps(summary), flush=True)
     print(json.dumps(compact_shard_summary(summary), separators=(",", ":")), flush=True)
     return 0 if summary["passed"] else 1
+
+
+def cmd_elastic_drill(args: argparse.Namespace) -> int:
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.cluster.elastic_drill import (
+        ElasticDrillConfig,
+        compact_elastic_summary,
+        run_elastic_drill,
+    )
+
+    cfg = ElasticDrillConfig.fast() if args.fast else ElasticDrillConfig()
+    cfg = dataclasses.replace(cfg, seed=args.seed, replay_check=not args.no_replay)
+    summary = run_elastic_drill(cfg)
+    print(json.dumps(summary), flush=True)
+    print(json.dumps(compact_elastic_summary(summary), separators=(",", ":")),
+          flush=True)
+    return 0 if summary["passed"] else 1
+
+
+def cmd_partition_drill(args: argparse.Namespace) -> int:
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.chaos.partition_drill import (
+        PartitionDrillConfig,
+        compact_partition_summary,
+        run_partition_drill,
+    )
+
+    cfg = PartitionDrillConfig.fast() if args.fast else PartitionDrillConfig()
+    cfg = dataclasses.replace(cfg, seed=args.seed, replay_check=not args.no_replay,
+                              **({"n_workers": args.workers} if args.workers else {}))
+    summary = run_partition_drill(cfg)
+    print(json.dumps(summary), flush=True)
+    print(json.dumps(compact_partition_summary(summary), separators=(",", ":")),
+          flush=True)
+    return 0 if summary["passed"] else 1
+
+
+def cmd_chaos_drill(args: argparse.Namespace) -> int:
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.chaos.drill import (
+        ChaosDrillConfig,
+        apply_chaos_settings,
+        compact_chaos_summary,
+        run_chaos_drill,
+    )
+
+    if _no_card("chaos-drill", args.device):
+        return 2
+    cfg = ChaosDrillConfig.fast() if args.fast else ChaosDrillConfig()
+    if args.config:
+        from realtime_fraud_detection_tpu_torch.utils.config import Config
+
+        cfg = apply_chaos_settings(cfg, Config.from_file(args.config).chaos)
+    cfg = dataclasses.replace(cfg, replay_check=not args.no_replay, device=args.device,
+                              **({"seed": args.seed} if args.seed is not None else {}),
+                              **({"n_devices": args.devices} if args.devices else {}))
+    summary = run_chaos_drill(cfg)
+    summary.pop("ledger", None)
+    print(json.dumps(summary), flush=True)
+    print(json.dumps(compact_chaos_summary(summary), separators=(",", ":")), flush=True)
+    return 0 if summary["passed"] else 1
+
+
+def cmd_cluster_worker(args: argparse.Namespace) -> int:
+    """One partition-scoped fleet worker process, spawned by the process
+    fleet's coordinator (``cluster/procfleet.py ProcessFleet``) with a JSON
+    spec; it scores on the host and never touches the card."""
+    from realtime_fraud_detection_tpu_torch.cluster.procfleet import worker_main
+
+    return worker_main(json.loads(args.spec))
 
 
 def cmd_feedback_drill(args: argparse.Namespace) -> int:
@@ -1302,6 +1397,58 @@ def build_parser() -> argparse.ArgumentParser:
     sd.add_argument("--no-replay", action="store_true",
                     help="skip the second bit-identical replay run")
     sd.set_defaults(fn=cmd_shard_drill)
+    ed = sub.add_parser("elastic-drill",
+                        help="elastic-cluster drill: real OS worker processes "
+                             "over the TCP netbroker, network handoff, "
+                             "autoscale ahead of a diurnal peak, a real "
+                             "SIGKILL mid-peak, oracle state equality")
+    ed.add_argument("--fast", action="store_true",
+                    help="the test sizes (ElasticDrillConfig.fast())")
+    ed.add_argument("--seed", type=int, default=7)
+    ed.add_argument("--no-replay", action="store_true",
+                    help="skip the second fresh determinism run")
+    ed.set_defaults(fn=cmd_elastic_drill)
+    pt = sub.add_parser("partition-drill",
+                        help="split-brain partition drill: real OS worker "
+                             "processes under link faults (asymmetric, slow, "
+                             "full partitions), generation fencing, session "
+                             "eviction and rejoin, oracle state equality")
+    pt.add_argument("--fast", action="store_true",
+                    help="the test sizes (PartitionDrillConfig.fast())")
+    pt.add_argument("--workers", type=int, default=0,
+                    help="fleet size (0 = the config default)")
+    pt.add_argument("--seed", type=int, default=7)
+    pt.add_argument("--no-replay", action="store_true",
+                    help="skip the second fresh determinism run")
+    pt.set_defaults(fn=cmd_partition_drill)
+    cd = sub.add_parser("chaos-drill",
+                        help="combined recovery drill: flash crowd, broker "
+                             "outage, device faults and a fraud ring on one "
+                             "virtual-clock timeline")
+    cd.add_argument("--fast", action="store_true",
+                    help="the test sizes (ChaosDrillConfig.fast())")
+    cd.add_argument("--devices", type=int, default=0,
+                    help="pool replicas (0 = the config's default: 4 full, "
+                         "2 fast)")
+    cd.add_argument("--seed", type=int, default=None,
+                    help="timeline seed (default: chaos.seed from --config "
+                         "if given, else 11)")
+    cd.add_argument("--config", default="",
+                    help="JSON config file; its chaos block reshapes the "
+                         "fault timeline")
+    cd.add_argument("--no-replay", action="store_true",
+                    help="skip the second bit-identical replay run")
+    cd.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu: where the pool replicas run")
+    cd.set_defaults(fn=cmd_chaos_drill)
+    cw = sub.add_parser("cluster-worker",
+                        help="one partition-scoped fleet worker process "
+                             "(spawned by the process fleet's coordinator)")
+    cw.add_argument("--spec", required=True,
+                    help="JSON worker spec from the coordinator (broker and "
+                         "handoff addresses, worker id, group, partitions, "
+                         "batch and cost knobs)")
+    cw.set_defaults(fn=cmd_cluster_worker)
     fd = sub.add_parser("feedback-drill",
                         help="deterministic closed-loop continuous-learning "
                              "drill (virtual clock, real retraining)")

@@ -26,9 +26,9 @@ Each injector wraps one layer's real failure seam of the port:
 - :class:`LabelStall`: a gate the feedback plane's label-release loop
   consults; while active the label stream is withheld.
 
-The plan keeps a bounded event ledger and a ``snapshot`` in the shape the
-JAX ``MetricsCollector.sync_chaos`` reads; the ``chaos_*`` metrics family
-and the chaos drill are not ported yet.
+The plan keeps a bounded event ledger and a ``snapshot`` in the shape
+``MetricsCollector.sync_chaos`` reads (the ``chaos_*`` family); the chaos
+drill (``chaos/drill.py``) composes the injectors on one timeline.
 """
 
 from __future__ import annotations
@@ -252,8 +252,8 @@ class WorkerKill:
 
     - ``cluster.fleet.WorkerFleet`` — the in-process fleet (shard-drill):
       a SIMULATED death (the thread's state is dropped cooperatively);
-    - the JAX package's process fleet (``cluster.procfleet``, not ported
-      yet) takes the same injector and sends a real ``SIGKILL``;
+    - ``cluster.procfleet.ProcessFleet``, the process fleet (elastic-
+      drill), takes the same injector and sends a real ``SIGKILL``;
     - or a stub in tests.
 
     ``last_result`` keeps the target's kill report (returncode, replay

@@ -10,10 +10,18 @@ the unit of consumption and of state ownership.
 - ``cluster.fleet``: N partition-scoped ``StreamJob`` workers in one
   consumer group with checkpointed handoff on a worker's loss
   (``WorkerFleet`` / ``HandoffStore``);
-- ``cluster.drill``: ``shard-drill``, the deterministic acceptance drill.
-
-The JAX package's network handoff store, process fleet, autoscaler and
-elastic drill are not ported yet.
+- ``cluster.drill``: ``shard-drill``, the deterministic acceptance drill;
+- ``cluster.handoff``: the network-served handoff store (a TCP server and
+  client, crash-safe blobs, sha256-verified restore, epoch fencing) that
+  outlives any worker process;
+- ``cluster.autoscale``: the autoscale controller, the tuning plane's
+  arrival forecast turned into a worker count (lead horizon, asymmetric
+  hysteresis, a deterministic decision ledger);
+- ``cluster.procfleet``: the fleet across the process boundary (workers as
+  OS processes over the TCP netbroker, two-phase rebalances, graceful
+  drain, recovery from a real SIGKILL);
+- ``cluster.elastic_drill``: ``elastic-drill``, the process fleet's
+  acceptance drill.
 """
 
 from realtime_fraud_detection_tpu_torch.cluster.hashring import (
@@ -31,6 +39,14 @@ from realtime_fraud_detection_tpu_torch.cluster.fleet import (
     HandoffStore,
     WorkerFleet,
 )
+from realtime_fraud_detection_tpu_torch.cluster.handoff import (
+    FencedEpochError,
+    HandoffClient,
+    HandoffServer,
+)
+from realtime_fraud_detection_tpu_torch.cluster.autoscale import (
+    AutoscaleController,
+)
 
 __all__ = [
     "HashRing",
@@ -42,4 +58,8 @@ __all__ = [
     "ClusterWorker",
     "HandoffStore",
     "WorkerFleet",
+    "HandoffServer",
+    "HandoffClient",
+    "FencedEpochError",
+    "AutoscaleController",
 ]

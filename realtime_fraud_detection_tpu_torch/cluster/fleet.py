@@ -20,9 +20,10 @@ state-replays the committed gap ``[O_s, O_c)`` through the scorer's
 predictions already reached the output topics), and resumes consumption at
 ``O_c``, so the uncommitted tail is scored exactly once.
 
-The acceptance drill is ``shard-drill`` (``cluster/drill.py``). The JAX
-package's process fleet (its network handoff store, fencing and
-``ClusterWorker.abandon``) is not ported yet.
+The acceptance drill is ``shard-drill`` (``cluster/drill.py``). The same
+worker runs in an OS process under ``cluster/procfleet.py``, with the
+network handoff store of ``cluster/handoff.py`` and ``abandon`` as the
+fenced writer's recovery.
 """
 
 from __future__ import annotations
@@ -51,7 +52,11 @@ class HandoffStore:
     """Shared snapshot ledger: partition → (committed offset, state blob).
 
     The rendezvous between a dying worker's past checkpoints and its
-    partitions' inheritors: a locked dict, in process."""
+    partitions' inheritors: a locked dict, in process. The network form,
+    with the same ``put`` / ``get`` surface plus crash-safe blobs,
+    sha256-verified restore and epoch fencing, is
+    ``cluster/handoff.py HandoffServer`` / ``HandoffClient``; a
+    ``ClusterWorker`` takes either."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -81,7 +86,7 @@ class ClusterWorker:
                  clock: Optional[Callable[[], float]] = None,
                  max_batch: int = 128, max_delay_ms: float = 20.0,
                  checkpoint_every: int = 8, autotune: Any = None,
-                 tracing: Any = None):
+                 tracing: Any = None, expect_carrier: bool = False):
         self.worker_id = worker_id
         self.broker = broker
         self.scorer = scorer
@@ -95,7 +100,8 @@ class ClusterWorker:
             group_id=group_id, max_batch=max_batch,
             max_delay_ms=max_delay_ms, emit_features=False,
             emit_enriched=False, transactions_topic=topic,
-            autotune=autotune, tracing=tracing))
+            autotune=autotune, tracing=tracing,
+            expect_carrier=expect_carrier))
         # a partition-scoped consumer and a (virtual-clock capable)
         # assembler replace the job's defaults; the job's tuning plane, if
         # any, stays the new assembler's close controller
@@ -192,6 +198,29 @@ class ClusterWorker:
             self._checkpoint_partition(p)
         self.checkpoints += 1
         return len(self.store.owned())
+
+    def abandon(self) -> int:
+        """Fenced-writer recovery: drop every owned partition without a
+        checkpoint. This worker lost its partitions in a rebalance it never
+        saw (an asymmetric partition, a session expiry); the inheritors
+        restored the last good checkpoint and replayed the committed gap,
+        so their state is the truth, and a checkpoint from here would carry
+        a stale epoch the handoff fence refuses. Pending assembler records
+        are discarded too: nothing of a lost partition may be dispatched.
+        Returns the number of partitions dropped; the worker re-enters the
+        fleet as a fresh member (hello, rebalance, restore)."""
+        while True:
+            batch = self.assembler.next_batch(block=False) \
+                or self.assembler.flush()
+            if not batch:
+                break
+        dropped = 0
+        for p in list(self.store.owned()):
+            self.store.release(p)
+            dropped += 1
+        self.consumer.set_assignment({self.topic: []})
+        self.in_flight.clear()
+        return dropped
 
     def on_batch_complete(self) -> None:
         """Drive-loop hook after each ``complete_batch``: every

@@ -8,17 +8,22 @@ fold into one exposition: every series once per worker under a
 ``ingest_delta`` (a worker's delta event with a per-worker monotonic
 ``seq``; a stale or redelivered seq is dropped, so every count applies once)
 and ``ingest_cumulative`` (an absolute snapshot, last one wins: the serving
-process folds its own tracer counters in this way at render time). The
-trace-stitching half of the JAX module (``FleetTraceStore``,
-``merge_chrome_traces``) is not ported.
+process folds its own tracer counters in this way at render time). 
+``FleetTraceStore`` is the coordinator's flight recorder over stitched
+traces: ``cluster/procfleet.py ProcessFleet`` folds each worker's ring dump
+(shipped in its bye frame) into it, for the fleet critical path and one
+merged Chrome trace. The JAX module's ``merge_chrome_traces`` (behind
+``trace-export --merge``) is not ported yet.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
-__all__ = ["FleetMetrics"]
+from realtime_fraud_detection_tpu_torch.obs.tracing import TRACE_STAGES
+
+__all__ = ["FleetMetrics", "FleetTraceStore"]
 
 
 def _num(v: Any) -> float:
@@ -229,4 +234,242 @@ class FleetMetrics:
             "seq": seq,
             "events_applied": applied,
             "events_stale": stale,
+        }
+
+
+# ---------------------------------------------------------------------------
+# cross-process trace stitching
+# ---------------------------------------------------------------------------
+
+class FleetTraceStore:
+    """Coordinator-side flight recorder over STITCHED traces.
+
+    Ingests workers' ring dumps (``CompletedTrace.to_dict`` rows, wall-
+    clock ``t_start`` base) tagged with the consuming worker id. A trace
+    whose ``origin`` differs from its consuming worker crossed a process
+    boundary — the stitching signal the obs-drill pins.
+    """
+
+    def __init__(self, ring_size: int = 16384, slowest_n: int = 32):
+        self._lock = threading.Lock()
+        self._ring_size = max(16, int(ring_size))
+        self._rows: List[Dict[str, Any]] = []
+        self._pids: Dict[str, int] = {}
+        self._slowest_n = max(1, int(slowest_n))
+
+    # -------------------------------------------------------------- ingest
+    def ingest(self, worker: str, traces: Sequence[Mapping[str, Any]],
+               pid: int = 0) -> int:
+        """Fold one worker's ring dump in; rows are kept verbatim plus a
+        ``worker`` tag. Returns rows accepted."""
+        worker = str(worker)
+        rows = []
+        for t in traces:
+            if not isinstance(t, Mapping) or "trace_id" not in t:
+                continue
+            row = dict(t)
+            row["worker"] = worker
+            rows.append(row)
+        with self._lock:
+            if pid:
+                self._pids[worker] = int(pid)
+            self._rows.extend(rows)
+            if len(self._rows) > self._ring_size:
+                self._rows = self._rows[-self._ring_size:]
+        return len(rows)
+
+    def rows(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return list(self._rows)
+
+    # ------------------------------------------------------------ analysis
+    def stitch_stats(self) -> Dict[str, Any]:
+        """How well did the carrier plane stitch: of all ingested traces,
+        how many crossed a process boundary (carrier adopted from another
+        origin), how many carry a remote graph-fetch child span, and the
+        broker-transit distribution. ``fresh_roots`` are traces minted
+        locally (no origin) — carrier loss and un-stamped producers land
+        here."""
+        from realtime_fraud_detection_tpu_torch.obs.profiling import (
+            interpolated_percentile,
+        )
+
+        rows = self.rows()
+        crossed = with_remote = fresh = 0
+        transit: List[float] = []
+        for r in rows:
+            origin = str(r.get("origin", "") or "")
+            worker = str(r.get("worker", "") or "")
+            if origin and origin != worker:
+                crossed += 1
+            elif not origin:
+                fresh += 1
+            bt = _num((r.get("stages") or {}).get("broker_transit", 0.0))
+            if bt > 0.0:
+                transit.append(bt)
+            spans = (r.get("meta") or {}).get("spans") or []
+            if any(s.get("name") == "remote_fetch" for s in spans
+                   if isinstance(s, Mapping)):
+                with_remote += 1
+        out: Dict[str, Any] = {
+            "total": len(rows),
+            "crossed_process": crossed,
+            "with_remote_span": with_remote,
+            "fresh_roots": fresh,
+            "stitch_rate": round(crossed / len(rows), 4) if rows else 0.0,
+        }
+        if transit:
+            st = sorted(transit)
+            out["broker_transit_ms"] = {
+                "p50": round(interpolated_percentile(st, 0.50), 4),
+                "p99": round(interpolated_percentile(st, 0.99), 4),
+                "max": round(st[-1], 4),
+                "n": len(st),
+            }
+        return out
+
+    def breakdown(self) -> Dict[str, Any]:
+        """Fleet critical path: the Tracer.breakdown contract (additive
+        per-stage contributions over the tail at each quantile, dominant
+        stage flagged) computed over ALL workers' scored traces, plus
+        per-worker dominant stages and the dominant WORKER of each tail
+        (the worker contributing the most summed e2e among tail traces —
+        the slow-worker attribution the obs-drill pins)."""
+        from realtime_fraud_detection_tpu_torch.obs.profiling import (
+            interpolated_percentile,
+        )
+
+        rows = [r for r in self.rows() if r.get("terminal") == "scored"]
+        if not rows:
+            return {"n": 0, "quantiles": {}, "per_worker": {},
+                    "exemplars": []}
+        e2e = sorted(_num(r.get("e2e_ms")) for r in rows)
+        quantiles: Dict[str, Any] = {}
+        for name, q in (("p50", 0.50), ("p95", 0.95), ("p99", 0.99)):
+            thresh = interpolated_percentile(e2e, q)
+            tail = [r for r in rows if _num(r.get("e2e_ms")) >= thresh] \
+                or rows[-1:]
+            contrib: Dict[str, float] = {}
+            by_worker: Dict[str, float] = {}
+            for r in tail:
+                for stage, ms in (r.get("stages") or {}).items():
+                    contrib[stage] = contrib.get(stage, 0.0) + _num(ms)
+                w = str(r.get("worker", "") or "?")
+                by_worker[w] = by_worker.get(w, 0.0) + _num(r.get("e2e_ms"))
+            n = len(tail)
+            contrib = {s: round(v / n, 4) for s, v in contrib.items()}
+            dominant = max(contrib, key=contrib.get)
+            dom_worker = max(by_worker, key=by_worker.get)
+            quantiles[name] = {
+                "e2e_ms": round(thresh, 4),
+                "tail_n": n,
+                "stage_ms": contrib,
+                "dominant_stage": dominant,
+                "dominant_frac": round(
+                    contrib[dominant] / max(sum(contrib.values()), 1e-9), 4),
+                "dominant_worker": dom_worker,
+                "worker_e2e_share": {
+                    w: round(v / max(sum(by_worker.values()), 1e-9), 4)
+                    for w, v in sorted(by_worker.items())},
+            }
+        per_worker: Dict[str, Any] = {}
+        for w in sorted({str(r.get("worker", "") or "?") for r in rows}):
+            wrows = [r for r in rows if str(r.get("worker", "") or "?") == w]
+            sums: Dict[str, float] = {}
+            for r in wrows:
+                for stage, ms in (r.get("stages") or {}).items():
+                    sums[stage] = sums.get(stage, 0.0) + _num(ms)
+            dom = max(sums, key=sums.get) if sums else None
+            per_worker[w] = {
+                "n": len(wrows),
+                "dominant_stage": dom,
+                "mean_e2e_ms": round(
+                    sum(_num(r.get("e2e_ms")) for r in wrows) / len(wrows),
+                    4),
+            }
+        slowest = sorted(rows, key=lambda r: _num(r.get("e2e_ms")),
+                         reverse=True)[: self._slowest_n]
+        return {
+            "n": len(rows),
+            "quantiles": quantiles,
+            "per_worker": per_worker,
+            "stitch": self.stitch_stats(),
+            # slowest-N exemplars verbatim — the whole row, not a summary
+            "exemplars": slowest,
+        }
+
+    # -------------------------------------------------------------- export
+    def export_chrome_trace(self) -> Dict[str, Any]:
+        """One merged Chrome/Perfetto trace for the whole fleet: a named
+        process track per worker (``worker <id> (pid N)``) plus one
+        ``ingress`` track per producing origin; a stitched trace's
+        ``ingest`` + ``broker_transit`` slices draw on its ORIGIN track
+        and the remaining stages on the consuming worker's track, joined
+        by a flow arrow (``ph:"s"``/``ph:"f"``) across the broker hop —
+        the cross-process handoff is a visible edge, not an inference.
+        Requires the workers' tracers to share one wall-clock base."""
+        rows = sorted(self.rows(), key=lambda r: _num(r.get("t_start")))
+        with self._lock:
+            pids = dict(self._pids)
+        # stable integer pid per track: workers first, then origins
+        track_pid: Dict[str, int] = {}
+        events: List[Dict[str, Any]] = []
+
+        def pid_for(track: str, kind: str) -> int:
+            p = track_pid.get(track)
+            if p is not None:
+                return p
+            p = len(track_pid) + 1
+            track_pid[track] = p
+            real = pids.get(track)
+            name = f"worker {track}" + (f" (pid {real})" if real else "") \
+                if kind == "worker" else f"ingress {track}"
+            events.append({"name": "process_name", "ph": "M", "pid": p,
+                           "args": {"name": name}})
+            return p
+
+        flow_id = 0
+        for tid, r in enumerate(rows):
+            worker = str(r.get("worker", "") or "?")
+            origin = str(r.get("origin", "") or "")
+            stages = r.get("stages") or {}
+            wpid = pid_for(worker, "worker")
+            opid = pid_for(origin, "origin") if origin and origin != worker \
+                else wpid
+            args = {"trace_id": r.get("trace_id"),
+                    "txn_id": r.get("txn_id"),
+                    "terminal": r.get("terminal"),
+                    "worker": worker}
+            t = _num(r.get("t_start"))
+            crossed = opid != wpid
+            for stage in TRACE_STAGES:
+                ms = stages.get(stage)
+                if ms is None:
+                    continue
+                ms = _num(ms)
+                on_origin = crossed and stage in ("ingest", "broker_transit")
+                pid = opid if on_origin else wpid
+                ts = round(t * 1e6, 3)
+                events.append({"name": stage, "ph": "X", "pid": pid,
+                               "tid": tid, "ts": ts,
+                               "dur": round(ms * 1e3, 3), "args": args})
+                if crossed and stage == "broker_transit":
+                    # flow arrow: start on the producer's transit slice,
+                    # finish at the head of the consumer's first slice
+                    flow_id += 1
+                    events.append({"name": "broker_hop", "ph": "s",
+                                   "id": flow_id, "pid": opid, "tid": tid,
+                                   "ts": ts, "cat": "broker"})
+                    events.append({"name": "broker_hop", "ph": "f",
+                                   "bp": "e", "id": flow_id, "pid": wpid,
+                                   "tid": tid,
+                                   "ts": round((t + ms / 1e3) * 1e6, 3),
+                                   "cat": "broker"})
+                t += ms / 1e3
+        return {
+            "traceEvents": events,
+            "displayTimeUnit": "ms",
+            "metadata": {"tool": "rtfd trace-export --merge",
+                         "n_traces": len(rows),
+                         "tracks": {t: p for t, p in track_pid.items()}},
         }

@@ -15,12 +15,16 @@ Port of the JAX package's ``obs/metrics.py``: a small registry of its own
   the kernel plane (``sync_kernels``), the entity graph (``sync_graph``),
   the feedback plane's ``prequential_*`` / ``feedback_*``
   (``sync_feedback``), the device pool's ``device_pool_*``
-  (``sync_device_pool``) and the partition-parallel plane's ``cluster_*``
-  (``sync_cluster``), each mirrored from a snapshot at exposition time as
-  counter deltas against the values last seen.
+  (``sync_device_pool``), the partition-parallel plane's ``cluster_*``
+  (``sync_cluster``), the chaos plane's ``chaos_*`` (``sync_chaos``), the
+  elastic fleet's ``autoscale_*`` and ``handoff_server_*``
+  (``sync_autoscale``) and the network fault plane's ``netfault_*`` and the
+  broker fence's ``fenced_*`` (``sync_netfaults``), each mirrored from a
+  snapshot at exposition time as counter deltas against the values last
+  seen.
 
-The families of planes the port does not have yet (chaos, mesh, autoscale,
-network faults, graph fetch) are not ported, nor ``kernel_interpret_active``:
+The families of planes the port does not have yet (mesh, graph fetch) are
+not ported, nor ``kernel_interpret_active``:
 the port has no kernel interpreter (a CPU tensor runs the plain version).
 """
 
@@ -523,6 +527,21 @@ class MetricsCollector:
             "autotune_frozen",
             "1 while the tuner is frozen by the QoS ladder / SLO burn")
         self._autotune_seen: Dict[Tuple[str, str], float] = {}
+        # chaos plane (chaos/): scheduled fault windows and recovery
+        # accounting — mirrored from ChaosPlan.snapshot() by sync_chaos at
+        # exposition time (honest counter deltas, same discipline as every
+        # sync_* mirror above)
+        self.chaos_fault_windows = r.counter(
+            "chaos_fault_windows_total",
+            "Fault windows opened by the chaos plane", ("fault",))
+        self.chaos_fault_active = r.gauge(
+            "chaos_fault_active",
+            "1 while the named fault window is open", ("fault",))
+        self.chaos_recovery_seconds = r.gauge(
+            "chaos_recovery_seconds",
+            "Virtual seconds from a fault window's end to observed plane "
+            "recovery", ("fault",))
+        self._chaos_seen: Dict[str, float] = {}
         # quantized plane (the JAX package's help texts): the mode each
         # quantizable branch serves (read from the live parameters), its
         # parameter bytes and the divergence gate's verdicts, mirrored from
@@ -602,6 +621,81 @@ class MetricsCollector:
             "Keys (partition moves x key density) the consistent-hash "
             "serving router re-routed across membership changes")
         self._cluster_seen: Dict[str, float] = {}
+        # elastic process fleet (cluster/autoscale.py + handoff.py):
+        # forecast-driven target worker count, scale events, and the
+        # network handoff server's checkpoint/restore/torn-blob ledger —
+        # mirrored from AutoscaleController.snapshot() (+ the fleet's
+        # HandoffClient.stats()) by sync_autoscale at exposition time
+        # (honest counter deltas, same discipline as every sync_* mirror)
+        self.autoscale_target_workers = r.gauge(
+            "autoscale_target_workers",
+            "Worker-count target the autoscale controller currently "
+            "wants (forecast lead x headroom / per-worker capacity)")
+        self.autoscale_forecast_rate = r.gauge(
+            "autoscale_forecast_rate",
+            "Arrival-rate estimate (txn/s) behind the current target")
+        self.autoscale_events = r.counter(
+            "autoscale_events_total",
+            "Autoscale target changes by direction (up = spawn + restore "
+            "+ replay, down = graceful drain)", ("direction",))
+        self.handoff_server_checkpoints = r.counter(
+            "handoff_server_checkpoints_total",
+            "Partition snapshots committed to the network handoff store "
+            "(temp->fsync->rename, sha256-stamped)")
+        self.handoff_server_restores = r.counter(
+            "handoff_server_restores_total",
+            "Verified snapshot restores served to partition inheritors")
+        self.handoff_server_torn_blobs = r.counter(
+            "handoff_server_torn_blobs_total",
+            "Checkpoint blobs that failed sha256 verification on restore "
+            "(the previous checkpoint was served instead)")
+        self._autoscale_seen: Dict[str, float] = {}
+        # network fault plane (chaos/netfaults.py) + broker producer-
+        # generation fencing (stream/netbroker.py): per-link injected
+        # fault effects and the broker's refused-write counters —
+        # mirrored from LinkFaultPlane.snapshot() (optionally carrying a
+        # broker fencing block) by sync_netfaults at exposition time
+        # (honest counter deltas, same discipline as every sync_* mirror
+        # above)
+        self.netfault_link_active = r.gauge(
+            "netfault_link_active",
+            "1 while any fault (partition/degrade) is armed on the named "
+            "link", ("link",))
+        self.netfault_windows = r.counter(
+            "netfault_windows_total",
+            "Fault windows begun on the named link", ("link",))
+        self.netfault_delayed_sends = r.counter(
+            "netfault_delayed_sends_total",
+            "Frames delayed by injected latency on the named link",
+            ("link",))
+        self.netfault_dropped_sends = r.counter(
+            "netfault_dropped_sends_total",
+            "Frames dropped (bounded drop-then-reconnect) on the named "
+            "link", ("link",))
+        self.netfault_partitioned_sends = r.counter(
+            "netfault_partitioned_sends_total",
+            "Frames refused at send by a full partition on the named "
+            "link", ("link",))
+        self.netfault_lost_responses = r.counter(
+            "netfault_lost_responses_total",
+            "Responses lost to a one-way partition on the named link "
+            "(the op was APPLIED peer-side; retries may duplicate)",
+            ("link",))
+        self.netfault_throttled_bytes = r.counter(
+            "netfault_throttled_bytes_total",
+            "Bytes paced by slow-link throttling on the named link",
+            ("link",))
+        self.fenced_produce = r.counter(
+            "fenced_produce_total",
+            "Stamped produces the broker refused because the target "
+            "partition was fenced at a newer assignment generation "
+            "(StaleGenerationError — the zombie-writer fence)")
+        self.fenced_commit = r.counter(
+            "fenced_commit_total",
+            "Stamped offset commits the broker refused at the "
+            "generation fence (a zombie's commit must not advance the "
+            "group past refused predictions)")
+        self._netfault_seen: Dict[Tuple[str, str], float] = {}
         # entity graph (graph/): typed-store occupancy and the sampler's
         # cache, mirrored from TorchFraudScorer.graph_snapshot() by
         # sync_graph
@@ -829,6 +923,100 @@ class MetricsCollector:
         if "moved_keys_total" in router:
             _mirror(self.cluster_router_moved_keys, self._cluster_seen,
                     "router_moved", router.get("moved_keys_total", 0))
+
+    def sync_chaos(self, snapshot: Mapping[str, Any]) -> None:
+        """Mirror a ``chaos.ChaosPlan.snapshot()`` into the chaos_*
+        series. Called at exposition time (the plan's poll path never
+        touches the metrics lock); window-open counts mirror as deltas
+        against last-seen values — the same honest-counter scheme as
+        every other sync_* mirror."""
+        for w in snapshot.get("windows") or ():
+            fault = str(w.get("fault", "?"))
+            opened = 1.0 if w.get("begun") else 0.0
+            delta = opened - self._chaos_seen.get(fault, 0.0)
+            if delta > 0:
+                self.chaos_fault_windows.inc(delta, fault=fault)
+            self._chaos_seen[fault] = opened
+            self.chaos_fault_active.set(
+                1.0 if w.get("active") else 0.0, fault=fault)
+        for fault, rec_s in (snapshot.get("recovery_s") or {}).items():
+            self.chaos_recovery_seconds.set(float(rec_s), fault=str(fault))
+
+    def sync_autoscale(self, snapshot: Mapping[str, Any]) -> None:
+        """Mirror an ``cluster.autoscale.AutoscaleController.snapshot()``
+        — optionally carrying a ``handoff_server`` stats block
+        (``HandoffServer.stats()`` / ``HandoffClient.stats()``) — into
+        the autoscale_* / handoff_server_* series. Called at exposition
+        time; cumulative quantities mirror as counter DELTAS against
+        last-seen values (never a negative increment), so a stream-side
+        coordinator and a serving app syncing the same snapshot render
+        IDENTICAL series."""
+        self.autoscale_target_workers.set(
+            float(snapshot.get("target_workers", 0)))
+        self.autoscale_forecast_rate.set(
+            float(snapshot.get("forecast_rate", 0.0)))
+        for direction in ("up", "down"):
+            total = float((snapshot.get("events") or {}).get(direction, 0))
+            key = f"events:{direction}"
+            delta = total - self._autoscale_seen.get(key, 0.0)
+            if delta > 0:
+                self.autoscale_events.inc(delta, direction=direction)
+            self._autoscale_seen[key] = total
+        hs = snapshot.get("handoff_server") or {}
+        for field, counter in (
+                ("checkpoints_total", self.handoff_server_checkpoints),
+                ("restores_total", self.handoff_server_restores),
+                ("torn_blobs_total", self.handoff_server_torn_blobs)):
+            if field not in hs:
+                continue
+            total = float(hs.get(field, 0))
+            delta = total - self._autoscale_seen.get(field, 0.0)
+            if delta > 0:
+                counter.inc(delta)
+            self._autoscale_seen[field] = total
+
+    def sync_netfaults(self, snapshot: Mapping[str, Any]) -> None:
+        """Mirror a ``chaos.netfaults.LinkFaultPlane.snapshot()`` —
+        optionally carrying a broker ``fencing`` block (the
+        ``fenced_*_total`` counters from ``NetBrokerClient.status()`` /
+        ``InMemoryBroker.producer_fence_stats()``) — into the
+        netfault_* / fenced_* series. Called at exposition time; the
+        links' cumulative effect counts mirror as counter DELTAS against
+        last-seen values (never a negative increment), so a stream-job
+        and a serving app syncing the same snapshot render IDENTICAL
+        series."""
+        for link, entry in (snapshot.get("links") or {}).items():
+            link = str(link)
+            self.netfault_link_active.set(
+                1.0 if entry.get("active") else 0.0, link=link)
+            for field, counter in (
+                    ("windows_begun", self.netfault_windows),
+                    ("delayed_sends_total", self.netfault_delayed_sends),
+                    ("dropped_sends_total", self.netfault_dropped_sends),
+                    ("partitioned_sends_total",
+                     self.netfault_partitioned_sends),
+                    ("lost_responses_total",
+                     self.netfault_lost_responses),
+                    ("throttled_bytes_total",
+                     self.netfault_throttled_bytes)):
+                total = float(entry.get(field, 0))
+                key = (link, field)
+                delta = total - self._netfault_seen.get(key, 0.0)
+                if delta > 0:
+                    counter.inc(delta, link=link)
+                self._netfault_seen[key] = total
+        fencing = snapshot.get("fencing") or {}
+        for field, counter in (
+                ("fenced_produces_total", self.fenced_produce),
+                ("fenced_commits_total", self.fenced_commit)):
+            if field not in fencing:
+                continue
+            total = float(fencing.get(field, 0))
+            key = ("fencing", field)
+            delta = total - self._netfault_seen.get(key, 0.0)
+            if delta > 0:
+                counter.inc(delta)
+            self._netfault_seen[key] = total
 
     # -------------------------------------------------------------- events
     def sync_feedback(self, snapshot: Mapping[str, Any]) -> None:

@@ -1,7 +1,8 @@
 """Per-transaction tracing plane: flight recorder, tail attribution, SLO burn.
 
-Port of the JAX package's ``obs/tracing.py`` (plain Python; the fleet
-merge of ``obs/fleetmetrics.py`` is not ported). Every admitted
+Port of the JAX package's ``obs/tracing.py`` (plain Python; the process
+fleet's coordinator stitches its workers' rings with ``obs/fleetmetrics.py
+FleetTraceStore``, whose merged export command is not ported). Every admitted
 transaction gets a trace context that rides the batch through the port's
 stream job —
 
@@ -415,6 +416,10 @@ class Tracer:
             "started": 0, "completed": 0, "shed": 0, "errors": 0,
             "cached": 0, "carrier_adopted": 0, "carrier_lost": 0,
         }
+        # the chaos plane's fault-window attribution: while set, every trace
+        # closed (scored, shed, errored, terminal) carries meta["fault"], so
+        # the flight recorder separates in-fault tails from steady state
+        self.fault_context: str = ""
         self.slo = SloTracker(
             objective_ms=s.slo_objective_ms,
             objective_frac=s.slo_objective_frac,
@@ -492,7 +497,8 @@ class Tracer:
         if not self.enabled:
             return None
         return make_carrier(self._next_id(), origin=self.origin,
-                            produced_ts=produced_ts, priority=priority)
+                            produced_ts=produced_ts, priority=priority,
+                            fault=self.fault_context)
 
     def batch(self, contexts: Sequence[Optional[TraceContext]],
               **meta: Any) -> Optional[TraceBatch]:
@@ -504,6 +510,12 @@ class Tracer:
             return None
         set_log_context(ctxs[0].trace_id, self.origin)
         return TraceBatch(self, ctxs, meta)
+
+    def set_fault_context(self, name: str) -> None:
+        """Chaos-plane attribution: set (or clear, with "") the active
+        fault-window name(s); later trace completions, terminal sheds and
+        errors included, carry it as ``meta["fault"]``."""
+        self.fault_context = str(name or "")
 
     def finish_batch(self, trace: Optional[TraceBatch],
                      terminal: str = "scored") -> None:
@@ -518,6 +530,9 @@ class Tracer:
             return
         now = self._clock()
         clear_log_context()
+        if self.fault_context:
+            trace.meta = dict(trace.meta)
+            trace.meta["fault"] = self.fault_context
         if trace.spans:
             trace.meta = dict(trace.meta)
             trace.meta["spans"] = [
@@ -582,6 +597,8 @@ class Tracer:
         if ctx.hops or ctx.redirect_s > 0.0:
             stages["redirect_hops"] = ctx.redirect_s * 1e3
         meta = dict(meta)
+        if self.fault_context:
+            meta.setdefault("fault", self.fault_context)
         if ctx.fault:
             meta.setdefault("fault", ctx.fault)
         ct = CompletedTrace(ctx.trace_id, ctx.txn_id,

@@ -57,7 +57,9 @@ the pool's capacity; the ``device_pool_*`` series and ``/metrics``'s
 consistent-hash ``ShardRouter`` (``cluster/hashring.py``) answers
 ``/predict`` for a user whose partition another worker owns with 421, the
 owner, its address (``location``) and the partition, ahead of admission;
-``/cluster`` shows the router and the ``cluster_*`` series mirror it. With
+``/cluster`` shows the router and the ``cluster_*`` series mirror it; the
+client side of the 421 is ``serving/ingress_client.py ShardIngressClient``.
+With
 ``state.backend == "redis"`` the scorer keeps its state on the shared RESP
 tier (``scoring/scorer.py``).
 
@@ -166,6 +168,11 @@ class ServingApp:
                 (self.tracer.slo.burn_rate(self.config.tracing.slo_fast_window_s)
                  if self.tracer is not None else 0.0),
                 (self.qos.effective_level() if self.qos.enabled else 0))
+        # an optional network-fault snapshot source (anything with
+        # .snapshot(), e.g. chaos/netfaults.py LinkFaultPlane) that a
+        # harness degrading this app's links attaches; the exposition
+        # mirrors it through sync_netfaults as a stream job would
+        self.netfaults = None
         # the consistent-hash shard router: with cluster.enabled, /predict
         # serves only users whose partition the ring gives this worker_id;
         # placement is a pure function of (workers, n_partitions,
@@ -563,6 +570,8 @@ class ServingApp:
             self.metrics.sync_feedback(snap)
         if self.cluster_router is not None:
             self.metrics.sync_cluster(self._cluster_snapshot())
+        if self.netfaults is not None:
+            self.metrics.sync_netfaults(self.netfaults.snapshot())
         return 200, self.metrics.render_prometheus()
 
     async def _metrics_fleet(self, body, query) -> Tuple[int, Any]:

@@ -141,6 +141,12 @@ class JobConfig:
     # built when enabled) or a live Tracer (the drills pass one on a
     # virtual clock); None or disabled = off, one ``is None`` branch a batch
     tracing: Optional[Any] = None
+    # distributed tracing: True means every consumed record is expected to
+    # carry a producer-stamped carrier (obs.tracing.CARRIER_KEY in the raw
+    # value), and a record without a parseable one opens a fresh root trace
+    # counted in the tracer's carrier_lost (a frame a link fault dropped);
+    # False adopts a carrier when present and never counts one as lost
+    expect_carrier: bool = False
     # the tuning plane (tuning/): a TuningSettings (the plane is built when
     # enabled) or a live TuningPlane; None or disabled = off, and batch
     # closes are bit-identical to the fixed-deadline path
@@ -360,7 +366,8 @@ class StreamJob:
                        if isinstance(rec.value, dict) else None)
             return tracer.begin(txn_id, ingest_lag_s=ingest_lag(rec),
                                 priority=priority, carrier=carrier,
-                                now_wall=t_adm)
+                                now_wall=t_adm,
+                                expect_carrier=self.config.expect_carrier)
 
         for r in records:
             txn, errors = sanitize_for_stream(r.value)

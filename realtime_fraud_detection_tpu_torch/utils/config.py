@@ -14,7 +14,9 @@ the QoS, tracing, tuning and feedback planes' knobs (``QosSettings``,
 ``TracingSettings``, ``TuningSettings``, with the QoS floor on the tuner's
 deadline, and ``FeedbackSettings``), the load generator's settings
 (``SimConfig``), the partition-parallel plane's knobs (``ClusterSettings``:
-the serving router, the handoff cadence) and the models' base path; plus the
+the serving router, the handoff cadence, the elastic fleet's autoscale
+bounds), the chaos plane's knobs (``ChaosSettings``) and the models' base
+path; plus the
 quality-artifact loaders that deploy a measured blend
 (``Config.apply_quality_artifact``).
 The environment part: the ensemble's (``RTFD_ENSEMBLE_STRATEGY`` or
@@ -25,10 +27,9 @@ service's address (``ML_SERVICE_HOST``, ``ML_SERVICE_PORT``), logging
 its ``RTFD_`` name, which wins (the backend's is looked up as JAX looks it
 up: ``RTFD_RTFD_STATE_BACKEND``, then ``RTFD_STATE_BACKEND``). ``StreamConfig`` reads no environment variable,
 as in the JAX package. Values are copies of the JAX package's; the port keeps
-its own so it imports nothing of it. The blocks of planes the port does not
-have yet (mesh, chaos) are not ported, nor ``ClusterSettings``'s autoscale
-fields, which come with the elastic fleet: a config file that sets them gets
-the unknown-key warning.
+its own so it imports nothing of it. The block of the plane the port does not
+have yet (mesh) is not ported: a config file that sets it gets the
+unknown-key warning.
 """
 
 from __future__ import annotations
@@ -659,14 +660,66 @@ class StreamConfig:
 
 
 @dataclass
+class ChaosSettings:
+    """The chaos plane's knobs (``chaos/``): deterministic fault injection
+    and the adversarial fraud ring, composed by ``chaos-drill``. Off by
+    default: injectors are explicit objects a harness builds, and no hot
+    path has a chaos branch. The knobs reach the drill through
+    ``chaos-drill --config file.json`` (``chaos/drill.py
+    apply_chaos_settings`` overlays them onto the drill's config); all are
+    virtual-clock quantities, so a change reshapes the replayed timeline
+    deterministically. ``enabled`` gates nothing yet, as in the JAX
+    package."""
+
+    enabled: bool = False
+    seed: int = 11
+    # fault windows (virtual seconds, relative to their phase starts)
+    broker_outage_s: float = 1.5       # replica down -> NotEnoughReplicas
+    label_stall_s: float = 4.0         # label stream held back
+    flash_crowd_mult: float = 2.5      # peak offered load / capacity
+    flash_burst_mult: float = 1.6      # short bursts on top of the peak
+    # adversarial fraud ring (sim/fraud_patterns.FraudRingConfig)
+    ring_rate: float = 0.10
+    ring_members: int = 24
+    ring_merchants: int = 6
+    ring_devices: int = 4
+    ring_ips: int = 3
+    # device-pool faults: how many in-flight fetches the dead replica
+    # fails before revival, and the slow-device injected delay
+    replica_faults: int = 1
+    slow_device_ms: float = 40.0
+
+    def validate(self) -> None:
+        if self.broker_outage_s <= 0 or self.label_stall_s < 0:
+            raise ValueError(
+                "chaos.broker_outage_s must be > 0 and label_stall_s >= 0")
+        if self.flash_crowd_mult < 1.0 or self.flash_burst_mult < 1.0:
+            raise ValueError(
+                f"chaos flash-crowd multipliers must be >= 1, got "
+                f"crowd={self.flash_crowd_mult} "
+                f"burst={self.flash_burst_mult}")
+        if not 0.0 < self.ring_rate <= 1.0:
+            raise ValueError(
+                f"chaos.ring_rate must be in (0, 1], got {self.ring_rate}")
+        if min(self.ring_members, self.ring_merchants, self.ring_devices,
+               self.ring_ips) < 1:
+            raise ValueError("chaos ring needs >= 1 of each entity kind")
+        if self.replica_faults < 1 or self.slow_device_ms < 0:
+            raise ValueError(
+                "chaos.replica_faults must be >= 1 and slow_device_ms >= 0")
+
+
+@dataclass
 class ClusterSettings:
     """The partition-parallel plane's knobs (``cluster/``), the fields this
     port's code reads. ``enabled`` turns on the serving router: this process
     serves ``/predict`` only for users whose partition the ring assigns to
     ``worker_id``; other keys get a 421 naming the owner's address
     (``workers``). Placement is a pure function of (workers, n_partitions,
-    virtual_nodes), the same in every process. The stream-side fleet
-    (``cluster/fleet.py WorkerFleet``) reads ``checkpoint_every``."""
+    virtual_nodes), the same in every process. The stream-side fleets
+    (``cluster/fleet.py WorkerFleet``, ``cluster/procfleet.py``) read
+    ``checkpoint_every``; the elastic fleet's autoscaler reads the
+    worker bounds and the capacity model."""
 
     enabled: bool = False
     # must match the transactions topic's partition count (the key ->
@@ -680,6 +733,17 @@ class ClusterSettings:
     # worker_id -> base URL: the router's redirect targets; the ring is
     # built over these ids
     workers: Dict[str, str] = field(default_factory=dict)
+    # the elastic process fleet (cluster/procfleet.py, cluster/autoscale.py):
+    # the worker-count bounds the autoscaler moves between, the capacity it
+    # divides the forecast by, and the forecast lead that grows the fleet
+    # before a peak (spawn latency is paid inside the lead)
+    min_workers: int = 1
+    max_workers: int = 8
+    per_worker_tps: float = 200.0
+    autoscale_headroom: float = 1.25
+    autoscale_lead_s: float = 2.0
+    autoscale_interval_s: float = 0.5
+    autoscale_down_patience: int = 3
 
     def validate(self) -> None:
         if self.n_partitions < 1:
@@ -688,6 +752,18 @@ class ClusterSettings:
         if self.virtual_nodes < 1 or self.checkpoint_every < 1:
             raise ValueError(
                 "cluster.virtual_nodes and cluster.checkpoint_every must be >= 1")
+        if not 1 <= self.min_workers <= self.max_workers:
+            raise ValueError(
+                f"cluster autoscale needs 1 <= min_workers <= "
+                f"max_workers, got {self.min_workers}..{self.max_workers}")
+        if (self.per_worker_tps <= 0 or self.autoscale_headroom < 1.0
+                or self.autoscale_lead_s < 0
+                or self.autoscale_interval_s <= 0
+                or self.autoscale_down_patience < 1):
+            raise ValueError(
+                "cluster autoscale requires per_worker_tps > 0, "
+                "headroom >= 1, lead_s >= 0, interval_s > 0 and "
+                "down_patience >= 1")
         if self.enabled:
             if not self.workers:
                 raise ValueError(
@@ -732,6 +808,7 @@ class Config:
     tracing: TracingSettings = field(default_factory=TracingSettings)
     tuning: TuningSettings = field(default_factory=TuningSettings)
     cluster: ClusterSettings = field(default_factory=ClusterSettings)
+    chaos: ChaosSettings = field(default_factory=ChaosSettings)
 
     def __post_init__(self) -> None:
         self._apply_env()
@@ -899,6 +976,7 @@ class Config:
         self.quant.validate()
         self.kernels.validate()
         self.cluster.validate()
+        self.chaos.validate()
 
 
 def _merge_dataclass(obj: Any, data: Dict[str, Any]) -> None:

@@ -13,6 +13,7 @@ once, equal to JAX's, in both packages) and the polled-tail drain;
 ``MODELS_PATH``, ``ServingFeatureProcessor`` and ``MetadataStore``.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import dataclasses
 import math
 from collections import Counter

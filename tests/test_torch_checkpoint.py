@@ -13,6 +13,7 @@ the scorer's host state: a scorer restored from a snapshot scores the next
 batch exactly as the scorer it was taken from.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import dataclasses
 import pickle
 from types import SimpleNamespace

@@ -24,6 +24,7 @@ package's, on the CPU.
   blocked.
 """
 
+import torch_threads  # first: torch held to one CPU thread
 import dataclasses
 import json
 import logging
@@ -443,6 +444,10 @@ def test_serving_device_pool_answers_like_the_unpooled_service():
 @pytest.mark.parametrize("bad", [
     {"n_partitions": 0}, {"virtual_nodes": 0}, {"checkpoint_every": 0},
     {"enabled": True}, {"enabled": True, "workers": {"a": "u"}, "worker_id": "b"},
+    {"min_workers": 0}, {"min_workers": 5, "max_workers": 4},
+    {"per_worker_tps": 0.0}, {"autoscale_headroom": 0.9},
+    {"autoscale_lead_s": -1.0}, {"autoscale_interval_s": 0.0},
+    {"autoscale_down_patience": 0},
 ])
 def test_cluster_settings_validate_like_jax(bad):
     with pytest.raises(ValueError) as got:
@@ -453,14 +458,18 @@ def test_cluster_settings_validate_like_jax(bad):
 
 
 def test_cluster_block_loads_and_autoscale_keys_warn(caplog):
+    """The autoscale fields are ported: a config that sets them loads them
+    with no unknown-key warning, and the block's fields are JAX's."""
+    block = dict(CLUSTER, max_workers=6, min_workers=2, per_worker_tps=150.0,
+                 autoscale_lead_s=1.5)
     with caplog.at_level(logging.WARNING):
-        config = Config.from_dict({"cluster": dict(CLUSTER, max_workers=6)})
+        config = Config.from_dict({"cluster": block})
     assert config.cluster.workers == CLUSTER["workers"] and config.cluster.enabled
-    assert any("max_workers" in rec.getMessage() for rec in caplog.records)
+    assert not any("max_workers" in rec.getMessage() for rec in caplog.records)
+    want = JaxConfig.from_dict({"cluster": block}).cluster
+    assert dataclasses.asdict(config.cluster) == dataclasses.asdict(want)
     fields = {f.name for f in dataclasses.fields(ClusterSettings)}
-    assert fields == {"enabled", "n_partitions", "virtual_nodes", "checkpoint_every",
-                      "worker_id", "workers"}
-    assert fields < {f.name for f in dataclasses.fields(JaxClusterSettings)}
+    assert fields == {f.name for f in dataclasses.fields(JaxClusterSettings)}
 
 
 # ------------------------------------------------------------ JAX blocked
@@ -485,6 +494,6 @@ def test_cluster_modules_import_with_jax_blocked():
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300)
+                         text=True, timeout=300, env=torch_threads.spawn_env())
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")

@@ -5,6 +5,7 @@ the prefixed name first. Compared field by field with the JAX ``Config``
 under the same monkeypatched environment, and through ``EnsembleParams``.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import dataclasses
 
 import numpy as np

@@ -11,6 +11,7 @@ The ladder's rung table equals the JAX one field by field, and the drill
 and ladder modules import with JAX blocked.
 """
 
+import torch_threads  # first: torch held to one CPU thread
 import contextlib
 import dataclasses
 import io
@@ -338,6 +339,7 @@ def test_drill_and_ladder_import_with_jax_blocked():
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=120,
+                         env=torch_threads.spawn_env())
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"

@@ -27,6 +27,7 @@ the port's:
   names equal to the JAX app's.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import asyncio
 import dataclasses
 import json

@@ -9,6 +9,7 @@ JAX command (the labels matched and the buffer equal), and the refusals
 without a card.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import contextlib
 import io
 import json

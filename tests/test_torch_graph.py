@@ -16,6 +16,7 @@ farther than it from a rung (the one row skipped is asserted),
 ``rules_only`` bit-exact.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import dataclasses
 import pickle
 from functools import partial

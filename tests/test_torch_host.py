@@ -11,6 +11,7 @@ feature columns (log, sqrt, haversine), which the two frameworks compute to
 within 1e-5 (``tests/test_torch_models.py test_features_match_jax``).
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import copy
 import dataclasses
 

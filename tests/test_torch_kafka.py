@@ -23,6 +23,7 @@
   user's 24hour velocity count on the server equals the stream's.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import re
 import struct
 import threading

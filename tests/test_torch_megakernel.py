@@ -17,6 +17,7 @@ The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py``.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import ctypes
 import dataclasses
 import re

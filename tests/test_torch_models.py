@@ -12,6 +12,7 @@ different places; ``torch_bounds.py``); features
 combine <= 1e-6 with exact ladders; int8 quantization bit for bit.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 from functools import partial
 
 import jax

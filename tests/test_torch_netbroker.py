@@ -11,8 +11,8 @@ with g++ into ``build/native/``, against its deque fallback; the
 restarted from its checkpoint, then ``alert-router --once``, at a toy size.
 """
 
+import torch_threads  # first: torch held to one CPU thread
 import json
-import os
 import signal
 import subprocess
 import sys
@@ -283,7 +283,7 @@ def test_native_disabled_by_environment():
             "from realtime_fraud_detection_tpu_torch import native as n; "
             "print(n.native_available(), n.native_build_error())")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                         text=True, timeout=60)
+                         text=True, timeout=60, env=torch_threads.spawn_env())
     assert out.stdout.strip() == "False disabled via RTFD_DISABLE_NATIVE"
 
 
@@ -343,7 +343,7 @@ def test_gateway_delivers_each_record_once_in_key_order(native_queue, monkeypatc
 
 # ------------------------------------------------------------- commands
 def _port(*args, **kw):
-    env = dict(os.environ, OMP_NUM_THREADS="2", MKL_NUM_THREADS="2")
+    env = torch_threads.spawn_env()
     return subprocess.Popen([sys.executable, "-m", "realtime_fraud_detection_tpu_torch",
                              *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, **kw)

@@ -1,0 +1,798 @@
+"""The port's network fault plane against the JAX package's: link faults
+(partitions full and one-way, scoped matches, latency, jitter, throttle,
+bounded drops) and their schedule on an injected clock, the producer
+generation fence, session eviction and rejoin of a stopped worker process,
+the ``netfault_*`` / ``fenced_*`` mirrors, a carrier lost in a fault
+window, the partition drill's oracle, schedule and targets equal to JAX's,
+and ``partition-drill --fast`` as a command. Modelled on the JAX package's
+``tests/test_netfaults.py``; the JAX cases of its lint and lockwatch
+registries have no port counterpart yet.
+"""
+
+
+import torch_threads  # first: torch held to one CPU thread
+import dataclasses
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import pytest
+
+from realtime_fraud_detection_tpu_torch.chaos.faults import ChaosPlan, FaultWindow
+from realtime_fraud_detection_tpu_torch.chaos.netfaults import (
+    LinkDegrade,
+    LinkFaultPlane,
+    LinkState,
+    NetworkPartition,
+    ScheduledLink,
+    scheduled_link_from_spec,
+)
+from realtime_fraud_detection_tpu_torch.stream.netbroker import (
+    BrokerServer,
+    NetBrokerClient,
+    StaleGenerationError,
+)
+from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+# ---------------------------------------------------------------------------
+# link state + injectors
+# ---------------------------------------------------------------------------
+
+
+class TestLinkState:
+    def test_full_partition_refuses_at_send(self):
+        link = LinkState("w", "broker", sleep=lambda s: None)
+        link.set_partition("full")
+        with pytest.raises(ConnectionResetError):
+            link.before_send({"op": "produce", "topic": "t"})
+        assert link.partitioned_sends == 1
+        link.clear_partition()
+        link.before_send({"op": "produce", "topic": "t"})  # heals
+
+    def test_one_way_partition_loses_the_response(self):
+        link = LinkState("w", "broker", sleep=lambda s: None)
+        link.set_partition("one_way")
+        link.before_send({"op": "produce"})          # request goes through
+        with pytest.raises(ConnectionError):
+            link.after_recv({"op": "produce"})       # ack lost
+        assert link.lost_responses == 1
+
+    def test_match_scopes_the_fault(self):
+        """A control-plane-matched partition is the asymmetric scenario:
+        matched frames bounce, data frames flow."""
+        link = LinkState("w", "broker", sleep=lambda s: None)
+        link.set_partition("full", match={"topics": ["cluster-control",
+                                                     "cluster-events"]})
+        with pytest.raises(ConnectionResetError):
+            link.before_send({"op": "fetch", "topic": "cluster-control"})
+        link.before_send({"op": "produce",
+                          "topic": "payment-transactions"})   # data flows
+        link.before_send({"op": "ping"})              # topicless op flows
+        # ops match too (and create_topic's "name" field counts as topic)
+        link2 = LinkState("w", "broker", sleep=lambda s: None)
+        link2.set_partition("full", match={"ops": ["commit"]})
+        with pytest.raises(ConnectionResetError):
+            link2.before_send({"op": "commit"})
+        link2.before_send({"op": "fetch", "topic": "x"})
+
+    def test_latency_and_jitter_sleep_through_the_seam(self):
+        slept = []
+        link = LinkState("w", "broker", sleep=slept.append, seed=3)
+        link.set_degrade(latency_s=0.02, jitter_s=0.01)
+        link.before_send({"op": "fetch"})
+        link.before_send({"op": "fetch"})
+        assert len(slept) == 2 and all(0.02 <= s <= 0.03 for s in slept)
+        assert link.delayed_sends == 2
+        # seeded jitter replays identically on a fresh link
+        slept2 = []
+        link2 = LinkState("w", "broker", sleep=slept2.append, seed=3)
+        link2.set_degrade(latency_s=0.02, jitter_s=0.01)
+        link2.before_send({"op": "fetch"})
+        link2.before_send({"op": "fetch"})
+        assert slept2 == slept
+
+    def test_throttle_scales_with_frame_size(self):
+        slept = []
+        link = LinkState("w", "broker", sleep=slept.append)
+        link.set_degrade(throttle_bytes_per_s=1000.0)
+        link.before_send({"op": "produce"}, nbytes=500)
+        assert slept == [0.5]
+        assert link.throttled_bytes == 500
+
+    def test_bounded_drop_then_heals(self):
+        link = LinkState("w", "broker", sleep=lambda s: None)
+        link.set_degrade(drop_next=2)
+        for _ in range(2):
+            with pytest.raises(ConnectionResetError):
+                link.before_send({"op": "fetch"})
+        link.before_send({"op": "fetch"})             # drops exhausted
+        assert link.dropped_sends == 2
+
+    def test_validation(self):
+        link = LinkState("w", "broker", sleep=lambda s: None)
+        with pytest.raises(ValueError):
+            link.set_partition("sideways")
+        with pytest.raises(ValueError):
+            link.set_degrade(latency_s=-1)
+        with pytest.raises(ValueError):
+            NetworkPartition([])
+        with pytest.raises(ValueError):
+            LinkDegrade([link])          # no effect
+
+
+class TestInjectorsAndSchedule:
+    def test_network_partition_injector_arms_and_clears(self):
+        link = LinkState("w", "broker", sleep=lambda s: None)
+        inj = NetworkPartition([link], mode="full")
+        inj.begin(1.0)
+        assert link.partition_mode == "full" and link.active()
+        inj.end(2.0)
+        assert link.partition_mode is None and not link.active()
+
+    def test_scheduled_link_drives_plan_on_injected_clock(self):
+        link = LinkState("w", "broker", sleep=lambda s: None)
+        plan = ChaosPlan([FaultWindow("p", "netfault", 1.0, 2.0)])
+        plan.bind("p", NetworkPartition([link], mode="full"))
+        clock = {"t": 0.0}
+        sched = ScheduledLink(link, plan, lambda: clock["t"])
+        sched.before_send({"op": "fetch"})            # pre-window: clean
+        clock["t"] = 1.5
+        with pytest.raises(ConnectionResetError):
+            sched.before_send({"op": "fetch"})
+        clock["t"] = 2.5
+        sched.before_send({"op": "fetch"})            # window closed
+        # -inf epoch (worker before the epoch announcement): never fires
+        link2 = LinkState("w", "broker", sleep=lambda s: None)
+        plan2 = ChaosPlan([FaultWindow("p", "netfault", 0.0, 9.0)])
+        plan2.bind("p", NetworkPartition([link2], mode="full"))
+        sched2 = ScheduledLink(link2, plan2, lambda: float("-inf"))
+        sched2.before_send({"op": "fetch"})
+        assert link2.partition_mode is None
+
+    def test_scheduled_link_from_spec_wire_form(self):
+        """The JSON-able window dicts that ride a worker spec across the
+        process boundary rebuild the same schedule."""
+        windows = [
+            {"name": "asym", "kind": "partition", "t_start": 1.0,
+             "t_end": 2.0, "mode": "full",
+             "match": {"topics": ["cluster-control"]}},
+            {"name": "slow", "kind": "degrade", "t_start": 3.0,
+             "t_end": 4.0, "latency_s": 0.01},
+        ]
+        clock = {"t": 0.0}
+        slept = []
+        sched = scheduled_link_from_spec(
+            windows, role="worker-w1", peer="broker",
+            clock=lambda: clock["t"], sleep=slept.append, seed=7)
+        clock["t"] = 1.5
+        with pytest.raises(ConnectionResetError):
+            sched.before_send({"op": "fetch", "topic": "cluster-control"})
+        sched.before_send({"op": "fetch", "topic": "payment-transactions"})
+        clock["t"] = 3.5
+        sched.before_send({"op": "fetch", "topic": "payment-transactions"})
+        assert slept and abs(slept[0] - 0.01) < 1e-9
+        with pytest.raises(ValueError):
+            scheduled_link_from_spec(
+                [{"name": "x", "kind": "meteor", "t_start": 0,
+                  "t_end": 1}], role="w", peer="b",
+                clock=lambda: 0.0)
+
+    def test_plane_registry_and_snapshot(self):
+        plane = LinkFaultPlane(sleep=lambda s: None, seed=1)
+        a = plane.link("worker-w0", "broker")
+        assert plane.link("worker-w0", "broker") is a
+        a.set_partition("full")
+        with pytest.raises(ConnectionResetError):
+            a.before_send({"op": "ping"})
+        snap = plane.snapshot(fencing={"fenced_produces": 3,
+                                       "fenced_commits": 1})
+        entry = snap["links"]["worker-w0->broker"]
+        assert entry["active"] and entry["partitioned_sends_total"] == 1
+        assert snap["fencing"] == {"fenced_produces_total": 3,
+                                   "fenced_commits_total": 1}
+
+
+# ---------------------------------------------------------------------------
+# producer generation fencing
+# ---------------------------------------------------------------------------
+
+
+class TestGenerationFencing:
+    def test_unstamped_passes_stale_refused_current_passes(self):
+        b = InMemoryBroker()
+        t = "fraud-predictions"
+        b.produce(t, {"v": 1}, key="u1")              # unstamped: free
+        p = b.select_partition(t, "u1")
+        b.fence_producers(t, [p], 5)
+        b.produce(t, {"v": 2}, key="u1")              # still unstamped
+        with pytest.raises(StaleGenerationError):
+            b.produce(t, {"v": 3}, key="u1", generation=4)
+        b.produce(t, {"v": 4}, key="u1", generation=5)
+        b.produce(t, {"v": 5}, key="u1", generation=6)
+        stats = b.producer_fence_stats()
+        assert stats["fenced_produces"] == 1
+        assert b.producer_fence(t, p) == 5
+
+    def test_fence_is_monotonic(self):
+        b = InMemoryBroker()
+        b.fence_producers("t", [0], 5)
+        b.fence_producers("t", [0], 3)                # never moves back
+        assert b.producer_fence("t", 0) == 5
+
+    def test_stale_commit_refused_before_any_offset_applies(self):
+        b = InMemoryBroker()
+        t = "payment-transactions"
+        b.fence_producers(t, [2], 5)
+        with pytest.raises(StaleGenerationError):
+            b.commit("g", {(t, 0): 7, (t, 2): 9}, generation=4)
+        # all-or-nothing: the unfenced partition's offset did NOT move
+        assert b.committed("g", t, 0) == 0
+        assert b.producer_fence_stats()["fenced_commits"] == 1
+        b.commit("g", {(t, 0): 7, (t, 2): 9}, generation=5)
+        assert b.committed("g", t, 2) == 9
+
+    def test_refused_batch_is_whole_frame_over_tcp(self):
+        """A zombie's fan-out bounces atomically: no partial batch, no
+        above-watermark residue, and the client raises the TYPED error."""
+        srv = BrokerServer(port=0).start()
+        try:
+            cli = NetBrokerClient(port=srv.port, timeout_s=5.0,
+                                  reconnect_attempts=1,
+                                  retry_sleep=lambda s: None)
+            t = "fraud-predictions"
+            parts = {cli_partition(srv, t, f"u{i}") for i in range(8)}
+            cli.fence_producers(t, sorted(parts), 3)
+            ends_before = cli.end_offsets(t)
+            cli.generation = 2
+            with pytest.raises(StaleGenerationError):
+                cli.produce_batch_keyed(
+                    t, [(f"u{i}", {"v": i}) for i in range(8)])
+            assert cli.end_offsets(t) == ends_before
+            cli.generation = 3
+            assert cli.produce_batch_keyed(
+                t, [(f"u{i}", {"v": i}) for i in range(8)]) == 8
+            status = cli.status()
+            assert status["fenced_produces"] == 1
+            cli.close()
+        finally:
+            srv.stop()
+
+    def test_fence_forwards_to_replica_for_promotion(self):
+        """A promoted replica keeps refusing the same zombies."""
+        primary = BrokerServer(port=0, min_isr=2).start()
+        replica = BrokerServer(port=0, role="replica").start()
+        try:
+            primary.add_replica("127.0.0.1", replica.port)
+            cli = NetBrokerClient(port=primary.port, timeout_s=5.0,
+                                  retry_sleep=lambda s: None)
+            t = "payment-transactions"
+            p = primary.broker.select_partition(t, "u1")
+            cli.fence_producers(t, [p], 4)
+            replica.promote()
+            rcli = NetBrokerClient(port=replica.port, timeout_s=5.0,
+                                   retry_sleep=lambda s: None)
+            rcli.generation = 3
+            with pytest.raises(StaleGenerationError):
+                rcli.produce(t, {"v": 1}, key="u1")
+            rcli.generation = 4
+            rcli.produce(t, {"v": 2}, key="u1")
+            cli.close()
+            rcli.close()
+        finally:
+            replica.stop()
+            primary.stop()
+
+
+def cli_partition(srv: BrokerServer, topic: str, key: str) -> int:
+    return srv.broker.select_partition(topic, key)
+
+
+# ---------------------------------------------------------------------------
+# real-seam one-way partition: applied op, lost ack, duplicate on retry
+# ---------------------------------------------------------------------------
+
+
+class TestClientPathFaults:
+    def test_throttle_paces_by_real_frame_bytes(self):
+        """Slow-link throttling must act from the REAL client request
+        path (regression: before_send used to be called without the
+        frame size, making throttle a silent no-op)."""
+        srv = BrokerServer(port=0).start()
+        try:
+            slept = []
+            link = LinkState("w", "broker", sleep=slept.append)
+            cli = NetBrokerClient(port=srv.port, timeout_s=5.0,
+                                  retry_sleep=lambda s: None, link=link)
+            link.set_degrade(throttle_bytes_per_s=1e6)
+            cli.produce("payment-transactions", {"v": "x" * 200}, key="k")
+            assert link.throttled_bytes > 200
+            assert slept and slept[0] == pytest.approx(
+                link.throttled_bytes / 1e6)
+            cli.close()
+        finally:
+            srv.stop()
+
+    def test_socket_timeout_restored_after_deadline_read(self):
+        """The whole-frame deadline shrinks the socket timeout to the
+        residual budget mid-read; it must be restored afterwards so the
+        next op's send never runs under a near-zero leftover."""
+        srv = BrokerServer(port=0).start()
+        try:
+            cli = NetBrokerClient(port=srv.port, timeout_s=7.5,
+                                  retry_sleep=lambda s: None)
+            cli.ping()
+            assert cli._sock.gettimeout() == pytest.approx(7.5)
+            cli.produce("payment-transactions", {"v": 1}, key="k")
+            assert cli._sock.gettimeout() == pytest.approx(7.5)
+            cli.close()
+        finally:
+            srv.stop()
+
+
+class TestOneWayOverRealTcp:
+    def test_ack_loss_duplicates_then_heals(self):
+        srv = BrokerServer(port=0).start()
+        try:
+            link = LinkState("w", "broker", sleep=lambda s: None)
+            cli = NetBrokerClient(port=srv.port, timeout_s=5.0,
+                                  reconnect_attempts=2,
+                                  retry_sleep=lambda s: None, link=link)
+            link.set_partition("one_way", {"ops": ["produce"]})
+            with pytest.raises(ConnectionError):
+                cli.produce("payment-transactions", {"v": 1}, key="k")
+            # every retry APPLIED the op broker-side (at-least-once ack
+            # loss): 1 + reconnect_attempts copies on the log
+            assert sum(cli.end_offsets("payment-transactions")) == 3
+            assert link.lost_responses == 3
+            link.clear_partition()
+            cli.produce("payment-transactions", {"v": 2}, key="k")
+            assert sum(cli.end_offsets("payment-transactions")) == 4
+            cli.close()
+        finally:
+            srv.stop()
+
+
+# ---------------------------------------------------------------------------
+# sync_netfaults mirror (the stream-vs-serving parity pin)
+# ---------------------------------------------------------------------------
+
+
+def _netfault_render(mc) -> str:
+    return "\n".join(
+        line for line in mc.render_prometheus().splitlines()
+        if "netfault" in line or "fenced_" in line)
+
+
+class TestSyncNetfaults:
+    def _snapshot(self, partitioned=5, fenced=2):
+        return {
+            "links": {"worker-w0->broker": {
+                "active": True, "partition_mode": "full",
+                "windows_begun": 1, "delayed_sends_total": 7,
+                "dropped_sends_total": 1,
+                "partitioned_sends_total": partitioned,
+                "lost_responses_total": 0,
+                "throttled_bytes_total": 2048,
+            }},
+            "fencing": {"fenced_produces_total": fenced,
+                        "fenced_commits_total": 1},
+        }
+
+    def test_honest_counter_deltas(self):
+        from realtime_fraud_detection_tpu_torch.obs.metrics import (
+            MetricsCollector,
+        )
+
+        mc = MetricsCollector()
+        mc.sync_netfaults(self._snapshot(partitioned=5, fenced=2))
+        mc.sync_netfaults(self._snapshot(partitioned=5, fenced=2))
+        assert mc.netfault_partitioned_sends.value(
+            link="worker-w0->broker") == 5          # idempotent re-sync
+        mc.sync_netfaults(self._snapshot(partitioned=9, fenced=3))
+        assert mc.netfault_partitioned_sends.value(
+            link="worker-w0->broker") == 9
+        assert mc.fenced_produce.value() == 3
+        assert mc.fenced_commit.value() == 1
+        assert mc.netfault_link_active.value(
+            link="worker-w0->broker") == 1.0
+
+    def test_stream_vs_serving_render_identical(self):
+        """The pin every sync_* mirror carries: a stream job's collector
+        and a serving app's collector fed the same snapshots render
+        byte-identical netfault_*/fenced_* series."""
+        from realtime_fraud_detection_tpu_torch.obs.metrics import (
+            MetricsCollector,
+        )
+
+        stream_mc, serving_mc = MetricsCollector(), MetricsCollector()
+        for snap in (self._snapshot(5, 2), self._snapshot(9, 4)):
+            stream_mc.sync_netfaults(snap)
+            serving_mc.sync_netfaults(snap)
+        assert _netfault_render(stream_mc) == _netfault_render(serving_mc)
+        assert "fenced_produce_total 4" in _netfault_render(stream_mc)
+
+    def test_live_plane_snapshot_feeds_the_mirror(self):
+        from realtime_fraud_detection_tpu_torch.obs.metrics import (
+            MetricsCollector,
+        )
+
+        plane = LinkFaultPlane(sleep=lambda s: None)
+        link = plane.link("worker-w1", "broker")
+        link.set_partition("full")
+        for _ in range(3):
+            with pytest.raises(ConnectionResetError):
+                link.before_send({"op": "ping"})
+        mc = MetricsCollector()
+        mc.sync_netfaults(plane.snapshot(
+            fencing={"fenced_produces": 1, "fenced_commits": 0}))
+        assert mc.netfault_partitioned_sends.value(
+            link="worker-w1->broker") == 3
+        assert mc.fenced_produce.value() == 1
+
+
+# ---------------------------------------------------------------------------
+# session eviction + fenced rejoin against a REAL stopped worker process
+# ---------------------------------------------------------------------------
+
+
+class TestSessionEvictionRejoin:
+    def test_sigstop_worker_evicted_then_rejoins_on_sigcont(self, tmp_path):
+        """SIGSTOP a real worker: heartbeats stop → session expiry evicts
+        it and moves its partitions; SIGCONT → it discovers the fence,
+        abandons, and rejoins as a fresh member."""
+        from realtime_fraud_detection_tpu_torch.cluster.handoff import (
+            HandoffServer,
+        )
+        from realtime_fraud_detection_tpu_torch.cluster.procfleet import (
+            ProcessFleet,
+        )
+
+        srv = BrokerServer(port=0).start()
+        handoff = HandoffServer(blob_dir=str(tmp_path / "blobs")).start()
+        fleet = None
+        try:
+            fleet = ProcessFleet(
+                f"127.0.0.1:{srv.port}", f"127.0.0.1:{handoff.port}",
+                n_partitions=8, session_timeout_s=1.5,
+                spawn_env=torch_threads.spawn_env(),
+                worker_spec={"batch": 32, "max_delay_ms": 10.0,
+                             "checkpoint_every": 4, "seq_len": 4,
+                             "feature_dim": 4, "heartbeat_s": 0.3})
+            fleet.start(2, now=0.0)
+            victim = fleet.ready_ids()[0]
+            pid = fleet.workers[victim]["pid"]
+            os.kill(pid, signal.SIGSTOP)
+            deadline = time.monotonic() + 20
+            while time.monotonic() < deadline:
+                fleet.tick()
+                if fleet.workers[victim].get("evicted"):
+                    break
+                time.sleep(0.05)
+            assert fleet.workers[victim].get("evicted"), \
+                "silent worker never evicted"
+            assert victim not in fleet.ring.members()
+            # its partitions moved to the survivor
+            assign = fleet.assignment()
+            assert victim not in assign
+            os.kill(pid, signal.SIGCONT)
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                fleet.tick()
+                if not fleet.workers[victim].get("evicted") \
+                        and victim in fleet.ring.members():
+                    break
+                time.sleep(0.05)
+            assert victim in fleet.ring.members(), \
+                "healed worker never rejoined"
+            assert fleet.evictions >= 1 and fleet.rejoins >= 1
+            byes = fleet.shutdown_all()
+            assert set(byes) == set(fleet.workers)
+        finally:
+            if fleet is not None:
+                fleet.terminate()
+            handoff.stop()
+            srv.stop()
+
+
+# ---------------------------------------------------------------------------
+# compact summary + tenth-drill registration
+# ---------------------------------------------------------------------------
+
+
+class TestRegistrationAndSummary:
+    def test_config_validation(self):
+        from realtime_fraud_detection_tpu_torch.chaos.partition_drill import (
+            PartitionDrillConfig,
+        )
+
+        PartitionDrillConfig().validate()
+        PartitionDrillConfig.fast().validate()
+        with pytest.raises(ValueError):
+            dataclasses.replace(PartitionDrillConfig(),
+                                n_workers=3).validate()
+        with pytest.raises(ValueError):
+            # overlapping windows: a rejoin rebalance could wait on a
+            # partitioned releaser
+            dataclasses.replace(PartitionDrillConfig(),
+                                slow_start=5.0).validate()
+
+    def test_targets_are_deterministic_and_distinct(self):
+        from realtime_fraud_detection_tpu_torch.chaos.partition_drill import (
+            PartitionDrillConfig,
+            drill_targets,
+        )
+
+        cfg = PartitionDrillConfig.fast()
+        t1, t2 = drill_targets(cfg), drill_targets(cfg)
+        assert t1 == t2
+        assert len({t1["zombie"], t1["slow"], t1["full"]}) == 3
+
+    def test_compact_summary_under_2kb_even_when_bloated(self):
+        from realtime_fraud_detection_tpu_torch.chaos.partition_drill import (
+            compact_partition_summary,
+        )
+
+        summary = {"metric": "partition_drill", "passed": False,
+                   "detection_s": {f"w{i}": 1.0 for i in range(40)},
+                   "checks": {f"very_long_check_name_{i}" * 4: False
+                              for i in range(64)}}
+        compact = compact_partition_summary(summary)
+        assert len(json.dumps(compact,
+                              separators=(",", ":")).encode()) < 2048
+        assert compact["metric"] == "partition_drill"
+
+
+# ---------------------------------------------------------------------------
+# tier-1 smoke: the full drill through the CLI
+# ---------------------------------------------------------------------------
+
+
+class TestPartitionDrillSmoke:
+    def test_partition_drill_fast_cli(self):
+        """`partition-drill --fast` as a command: >= 4 real
+        OS worker processes under link chaos, the zombie fenced at the
+        broker's write seam (counted, nonzero), both evicted workers
+        rejoining fresh, oracle equality, and the fresh-run determinism
+        digest — passes end to end, final stdout line a parseable <2KB
+        verdict."""
+        env = torch_threads.spawn_env()
+        proc = subprocess.run(
+            [sys.executable, "-m", "realtime_fraud_detection_tpu_torch",
+             "partition-drill", "--fast"],
+            cwd=ROOT, capture_output=True, text=True, timeout=400, env=env)
+        assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+        lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+        compact = json.loads(lines[-1])
+        assert len(lines[-1].encode()) < 2048
+        assert compact["metric"] == "partition_drill"
+        assert compact["passed"] is True
+        assert compact["fenced_produces"] >= 1
+        assert compact["lost"] == 0 and compact["conflicting_scored"] == 0
+        assert compact["evictions"] >= 2 and compact["rejoins"] >= 2
+        full = json.loads(lines[-2])
+        assert full["checks"]["replay_deterministic"] is True
+        assert full["checks"]["zombie_fenced_produce"] is True
+        assert full["checks"]["state_equals_oracle"] is True
+        assert full["checks"]["no_double_ownership"] is True
+
+
+# ---------------------------------------------------------------------------
+# trace-carrier loss inside a netfault window
+# ---------------------------------------------------------------------------
+
+
+class TestCarrierLossUnderNetfault:
+    def test_stripped_carriers_count_exactly_and_never_wedge(self):
+        """A degrade/partition window that strips producer carriers must
+        degrade every affected consume to a fresh LOCAL root: counted in
+        ``trace_carrier_lost_total`` exactly once per stripped record,
+        with zero cross-worker trace-id attachment and every started
+        trace reaching a terminal (the no-wedge ledger)."""
+        from realtime_fraud_detection_tpu_torch.obs.tracing import (
+            Tracer,
+            make_carrier,
+        )
+        from realtime_fraud_detection_tpu_torch.utils.config import (
+            TracingSettings,
+        )
+
+        window = FaultWindow("carrier_strip", "netfault", 2.0, 4.0)
+        clock = {"w0": [0.0], "w1": [0.0]}
+        tracers = {w: Tracer(TracingSettings(enabled=True, ring_size=512,
+                                             origin=w),
+                             clock=lambda w=w: clock[w][0])
+                   for w in ("w0", "w1")}
+        stripped = {"w0": 0, "w1": 0}
+        for i in range(60):
+            wid = "w0" if i % 2 == 0 else "w1"
+            tracer = tracers[wid]
+            produced_ts = i * 0.1
+            in_window = window.t_start <= produced_ts < window.t_end
+            carrier = None if in_window else make_carrier(
+                f"ting-{i:04x}", origin="ingress",
+                produced_ts=produced_ts)
+            if in_window:
+                stripped[wid] += 1
+            ctx = tracer.begin(f"tx{i}", carrier=carrier,
+                               now_wall=produced_ts + 0.01,
+                               expect_carrier=True)
+            assert ctx is not None            # loss is never a wedge
+            tb = tracer.batch([ctx])
+            tb.mark("device_wait")
+            clock[wid][0] += 0.002
+            tracer.finish_batch(tb)
+        for wid, tracer in tracers.items():
+            c = tracer.counters
+            assert c["carrier_lost"] == stripped[wid]
+            assert c["carrier_adopted"] == 30 - stripped[wid]
+            # no-wedge ledger: started == sum of terminals
+            assert c["started"] == (c["completed"] + c["shed"]
+                                    + c["errors"] + c["cached"])
+        # zero cross-attachment: a trace id lands in exactly one
+        # worker's ring, and fresh roots carry the minting worker's id
+        ids = {w: {t.trace_id for t in tr.traces()}
+               for w, tr in tracers.items()}
+        assert not (ids["w0"] & ids["w1"])
+        for w, tr in tracers.items():
+            fresh = [t for t in tr.traces() if not t.origin]
+            assert len(fresh) == stripped[w]
+            assert all(t.trace_id.startswith(f"t{w}-") for t in fresh)
+
+
+# ---------------------------------------------------------------------------
+# parity with the JAX package
+# ---------------------------------------------------------------------------
+
+
+def _drive_link(mod, seed=5):
+    """The same faults through one package's link layer: the sleeps it
+    asked for, the errors it raised and its snapshot."""
+    slept, errors = [], []
+    plane = mod.LinkFaultPlane(sleep=slept.append, seed=seed)
+    a = plane.link("worker-w0", "broker")
+    b = plane.link("worker-w1", "broker")
+    a.set_degrade(latency_s=0.01, jitter_s=0.02, throttle_bytes_per_s=5e4)
+    b.set_partition("full", match={"topics": ["cluster-control"]})
+    for i in range(6):
+        a.before_send({"op": "fetch", "topic": "t"}, nbytes=100 * i)
+        for frame in ({"op": "fetch", "topic": "cluster-control"},
+                      {"op": "produce", "topic": "payment-transactions"}):
+            try:
+                b.before_send(frame)
+            except ConnectionError as e:
+                errors.append(type(e).__name__)
+    a.set_degrade(drop_next=2)
+    for _ in range(3):
+        try:
+            a.before_send({"op": "ping"})
+        except ConnectionError as e:
+            errors.append(type(e).__name__)
+    return slept, errors, plane.snapshot(fencing={"fenced_produces": 2,
+                                                  "fenced_commits": 1})
+
+
+def test_link_faults_equal_jax():
+    from realtime_fraud_detection_tpu.chaos import netfaults as jnetfaults
+    from realtime_fraud_detection_tpu_torch.chaos import netfaults as pnetfaults
+
+    assert _drive_link(pnetfaults) == _drive_link(jnetfaults)
+
+
+def test_link_schedule_on_an_injected_clock_equals_jax():
+    """The wire form of a worker's fault windows rebuilds the same
+    schedule in both packages: the same frames refused, the same seeded
+    sleeps, at the same instants of the injected clock."""
+    from realtime_fraud_detection_tpu.chaos import netfaults as jnetfaults
+    from realtime_fraud_detection_tpu.chaos import partition_drill as jpd
+    from realtime_fraud_detection_tpu_torch.chaos import netfaults as pnetfaults
+    from realtime_fraud_detection_tpu_torch.chaos import partition_drill as ppd
+
+    cfg, jcfg = ppd.PartitionDrillConfig.fast(), jpd.PartitionDrillConfig.fast()
+    targets = ppd.drill_targets(cfg)
+    assert targets == jpd.drill_targets(jcfg)
+    specs = ppd._worker_netfault_specs(cfg, targets)
+    assert specs == jpd._worker_netfault_specs(jcfg, targets)
+
+    def run(mod):
+        out = {}
+        for wid, spec in sorted(specs.items()):
+            clock = {"t": 0.0}
+            slept, seen = [], []
+            link = mod.scheduled_link_from_spec(
+                spec["netfaults"]["windows"], role=f"worker-{wid}", peer="broker",
+                clock=lambda: clock["t"], sleep=slept.append,
+                seed=int(spec["netfaults"].get("seed", 0)))
+            for step in range(int(cfg.duration_s * 4)):
+                clock["t"] = step * 0.25
+                for frame in ({"op": "fetch", "topic": "cluster-control"},
+                              {"op": "produce", "topic": "payment-transactions"}):
+                    try:
+                        link.before_send(frame)
+                        seen.append("ok")
+                    except ConnectionError as e:
+                        seen.append(type(e).__name__)
+            out[wid] = (seen, slept)
+        return out
+
+    got, want = run(pnetfaults), run(jnetfaults)
+    assert got == want
+    assert any("ConnectionResetError" in seen for seen, _ in got.values())
+    assert any(slept for _, slept in got.values())
+
+
+def test_sync_netfaults_renders_the_jax_series():
+    from realtime_fraud_detection_tpu.obs.metrics import (
+        MetricsCollector as JaxMetricsCollector,
+    )
+    from realtime_fraud_detection_tpu_torch.obs.metrics import MetricsCollector
+
+    got, want = MetricsCollector(), JaxMetricsCollector()
+    snaps = TestSyncNetfaults()
+    for snap in (snaps._snapshot(5, 2), snaps._snapshot(5, 2), snaps._snapshot(9, 4)):
+        got.sync_netfaults(snap)
+        want.sync_netfaults(snap)
+        assert _family_lines(got) == _family_lines(want)
+    assert "fenced_produce_total 4" in _family_lines(got)
+
+
+def _family_lines(mc):
+    fams = ("netfault_", "fenced_")
+    return [ln for ln in mc.render_prometheus().splitlines()
+            if ln.startswith(fams) or ln.startswith(tuple(
+                f"# {k} {f}" for k in ("HELP", "TYPE") for f in fams))]
+
+
+def test_partition_schedule_and_oracle_equal_jax():
+    from realtime_fraud_detection_tpu.chaos import partition_drill as jpd
+    from realtime_fraud_detection_tpu_torch.chaos import partition_drill as ppd
+
+    cfg, jcfg = ppd.PartitionDrillConfig.fast(), jpd.PartitionDrillConfig.fast()
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    sched = ppd.build_partition_schedule(cfg)
+    assert sched == jpd.build_partition_schedule(jcfg)
+    got = ppd.run_partition_oracle(cfg, sched)
+    want = jpd.run_partition_oracle(jcfg, sched)
+    assert got["digests"] == want["digests"] and got["scores"] == want["scores"]
+    summary = {"metric": "partition_drill", "passed": False,
+               "detection_s": {f"w{i}": 1.0 for i in range(40)},
+               "checks": {f"check_{i}" * 8: False for i in range(64)}}
+    assert ppd.compact_partition_summary(summary) == \
+        jpd.compact_partition_summary(summary)
+
+
+def test_serving_app_mirrors_an_attached_link_plane():
+    """A link plane attached to the port's app renders the netfault_* and
+    fenced_* series at /metrics/prometheus, as JAX's app does."""
+    import asyncio
+
+    from realtime_fraud_detection_tpu_torch.obs.metrics import MetricsCollector
+    from realtime_fraud_detection_tpu_torch.serving.app import ServingApp
+    from realtime_fraud_detection_tpu_torch.utils.config import Config
+
+    config = Config()
+    config.monitoring.prometheus_port = 0
+    app = ServingApp(config, host="127.0.0.1", port=0, device="cpu")
+    plane = LinkFaultPlane(sleep=lambda s: None)
+    link = plane.link("ingress", "w1")
+    link.set_partition("full")
+    for _ in range(2):
+        with pytest.raises(ConnectionResetError):
+            link.before_send({"op": "ping"})
+    app.netfaults = plane
+    status, text = asyncio.run(app._metrics_prometheus(None, {}))
+    want = MetricsCollector()
+    want.sync_netfaults(plane.snapshot())
+    assert status == 200
+    assert _family_lines_text(text) == _family_lines_text(want.render_prometheus())
+    assert 'netfault_partitioned_sends_total{link="ingress->w1"} 2' in text
+
+
+def _family_lines_text(text):
+    return [ln for ln in text.splitlines() if ln.startswith(("netfault_", "fenced_"))]

@@ -9,6 +9,7 @@ f32 dequant-matmul <= 1e-5 relative, bf16 within one bf16 ulp of the output
 scale, dequant_rows bit-exact.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import re
 from pathlib import Path
 

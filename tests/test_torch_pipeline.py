@@ -14,6 +14,7 @@ side, both floored at 1e-4 (``torch_bounds.py``), the rule score exact;
 <= 1e-5 at f32 compute.
 """
 
+import torch_threads  # first: torch held to one CPU thread
 import dataclasses
 import re
 import subprocess
@@ -547,6 +548,7 @@ def test_port_runs_with_jax_blocked():
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=120,
+                         env=torch_threads.spawn_env())
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")

@@ -21,6 +21,7 @@
 - The modules import with JAX blocked.
 """
 
+import torch_threads  # first: torch held to one CPU thread
 import json
 import subprocess
 import sys
@@ -574,6 +575,6 @@ def test_pool_modules_import_with_jax_blocked():
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300)
+                         text=True, timeout=300, env=torch_threads.spawn_env())
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")

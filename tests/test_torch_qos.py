@@ -14,6 +14,7 @@ config layer (file and environment layering, refusals, the quality
 artifact) gives JAX's model table.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import dataclasses
 import json
 from types import SimpleNamespace
@@ -672,6 +673,18 @@ def _observe(m, kernel_mode):
                     "router": {"moved_keys_total": 4}})
     m.sync_cluster({"workers_alive": 3, "workers": {"w0": {"partitions_owned": 6}},
                     "router": {"moved_keys_total": 6}})
+    m.sync_chaos({"windows": [{"fault": "broker_outage", "begun": True, "active": True},
+                              {"fault": "label_stall", "begun": False}],
+                  "recovery_s": {"flash_crowd": 0.75}})
+    m.sync_autoscale({"target_workers": 6, "forecast_rate": 512.3,
+                      "events": {"up": 2, "down": 1},
+                      "handoff_server": {"checkpoints_total": 10, "restores_total": 3,
+                                         "torn_blobs_total": 1}})
+    m.sync_netfaults({"links": {"worker-w0->broker": {
+        "active": True, "windows_begun": 1, "delayed_sends_total": 7,
+        "dropped_sends_total": 1, "partitioned_sends_total": 5,
+        "lost_responses_total": 0, "throttled_bytes_total": 2048}},
+        "fencing": {"fenced_produces_total": 2, "fenced_commits_total": 1}})
 
 
 def _family_lines(text, names):
@@ -699,8 +712,11 @@ def test_metric_exposition_equals_jax_line_for_line():
     # 33 families, the tracing plane's 6 trace_* and the tuning plane's 7
     # autotune_* ones, the serving queue's, the quant plane's 3 quant_*, the
     # feedback plane's 4 prequential_* and 6 feedback_* ones, the device
-    # pool's 6 device_pool_* and the cluster plane's 5 cluster_* ones
-    assert len(names) == 71 and len(got) == len(want)
+    # pool's 6 device_pool_* and the cluster plane's 5 cluster_* ones, the
+    # chaos plane's 3 chaos_*, the elastic fleet's 3 autoscale_* and 3
+    # handoff_server_* ones, the network fault plane's 7 netfault_* and the
+    # broker fence's 2 fenced_* ones
+    assert len(names) == 89 and len(got) == len(want)
     # the JAX package's mode "pallas" is the port's "cuda", which sorts to
     # another place among the site-mode samples: compare those as sets
     want = [w.replace('mode="pallas"', 'mode="cuda"') for w in want]

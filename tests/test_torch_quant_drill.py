@@ -8,6 +8,7 @@ decision flips are equal, the f32 and int8 AUCs agree within
 under their own noise bounds, and two port runs give the same digest.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import dataclasses
 import io
 import contextlib

@@ -23,6 +23,7 @@
   and ``serve`` refusing to start without a card.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import asyncio
 import http.client
 import json

@@ -29,8 +29,8 @@
   the port's plain tree path.
 """
 
+import torch_threads  # first: torch held to one CPU thread
 import json
-import os
 import pickle
 import shutil
 import subprocess
@@ -652,7 +652,7 @@ def test_state_config_follows_the_environment_like_jax(monkeypatch, setting):
 def _proc(args, env=None):
     return subprocess.Popen(
         [sys.executable, "-m", "realtime_fraud_detection_tpu_torch", *args],
-        cwd=ROOT, env={**os.environ, **(env or {})}, stdout=subprocess.PIPE,
+        cwd=ROOT, env=torch_threads.spawn_env(**(env or {})), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
 
 
@@ -684,7 +684,7 @@ def test_state_server_run_job_and_serve_share_state(tmp_path):
             [sys.executable, "-m", "realtime_fraud_detection_tpu_torch", "run-job",
              "--state", f"127.0.0.1:{port}", "--count", "48", "--batch", "16",
              "--device", "cpu", *sim], cwd=ROOT, capture_output=True, text=True,
-            timeout=120)
+            timeout=120, env=torch_threads.spawn_env())
         assert job.returncode == 0, job.stderr
         summary = json.loads(job.stdout.strip().splitlines()[-1])
         assert summary["scored"] == 48 and summary["counters"]["errors"] == 0

@@ -19,6 +19,7 @@ one batch at each lower rung: decisions equal there too, and at
 ``rules_only`` every score bit-exact.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import time
 from collections import Counter
 
@@ -44,11 +45,14 @@ from realtime_fraud_detection_tpu.sim.simulator import (
 from realtime_fraud_detection_tpu.stream import InMemoryBroker as JaxInMemoryBroker
 from realtime_fraud_detection_tpu.stream import JobConfig as JaxJobConfig
 from realtime_fraud_detection_tpu.stream import StreamJob as JaxStreamJob
+from realtime_fraud_detection_tpu.obs.tracing import make_carrier as jax_make_carrier
 from realtime_fraud_detection_tpu.utils.config import Config as JaxConfig
+from realtime_fraud_detection_tpu.utils.config import TracingSettings as JaxTracingSettings
 from realtime_fraud_detection_tpu_torch.__main__ import main as port_main
 from realtime_fraud_detection_tpu_torch.bridge import models_from_numpy
 from realtime_fraud_detection_tpu_torch.features.extract import FEATURE_NAMES
 from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+from realtime_fraud_detection_tpu_torch.obs.tracing import CARRIER_KEY, make_carrier
 from realtime_fraud_detection_tpu_torch.qos.ladder import LADDER_LEVELS
 from realtime_fraud_detection_tpu_torch.scoring.pipeline import MODEL_NAMES, ScorerConfig
 from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
@@ -56,7 +60,7 @@ from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerato
 from realtime_fraud_detection_tpu_torch.stream import topics as T
 from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob
 from realtime_fraud_detection_tpu_torch.stream.transport import InMemoryBroker
-from realtime_fraud_detection_tpu_torch.utils.config import QosSettings
+from realtime_fraud_detection_tpu_torch.utils.config import QosSettings, TracingSettings
 from torch_bounds import near_rung, noise_bound
 
 ALERT_THRESHOLD = 0.7
@@ -279,15 +283,40 @@ def test_stream_replay_dedupe_matches_jax(runs):
 
 
 def test_job_config_refuses_unported_planes():
+    """``JobConfig`` still type-checks its planes; ``expect_carrier`` (the
+    process fleet's) is ported: records without a producer carrier count
+    as carrier_lost, those with one as adopted, exactly as in JAX."""
     with pytest.raises(TypeError):
         JobConfig(qos=object())
-    with pytest.raises(TypeError):
-        JobConfig(expect_carrier=True)      # the process fleet's, not ported
+    assert JobConfig(expect_carrier=True).expect_carrier
+    assert not JobConfig().expect_carrier
     # the overlapped assembly stage, the QoS plane and the device pool are
-    # ported now
+    # ported too
     assert JobConfig(overlap_assembly=True).overlap_assembly
     assert JobConfig(qos=QosSettings(enabled=True)).qos.enabled
     assert JobConfig(device_pool=True, inflight_depth=3).inflight_depth == 3
+    _, (jax_gen, jax_scorer), (gen, scorer) = _stage_scorers(17)
+    counts = {}
+    for name, g, sc, broker, job_cls, cfg_cls, tr_cls, carrier_fn in (
+            ("jax", jax_gen, jax_scorer, JaxInMemoryBroker(), JaxStreamJob,
+             JaxJobConfig, JaxTracingSettings, jax_make_carrier),
+            ("port", gen, scorer, InMemoryBroker(), StreamJob, JobConfig,
+             TracingSettings, make_carrier)):
+        records = g.generate_batch(24)
+        for i, rec in enumerate(records):
+            if i % 2:
+                rec[CARRIER_KEY] = carrier_fn(f"tingress-{i:04x}", origin="ingress",
+                                              produced_ts=999.0)
+        job = job_cls(broker, sc, cfg_cls(max_batch=8, max_delay_ms=1.0,
+                                          tracing=tr_cls(enabled=True),
+                                          expect_carrier=True))
+        broker.produce_batch(T.TRANSACTIONS, records,
+                             key_fn=lambda r: str(r["user_id"]))
+        job.run_until_drained(now=1000.0)
+        counts[name] = {k: job.tracer.counters[k]
+                        for k in ("started", "carrier_lost", "carrier_adopted")}
+    assert counts["port"] == counts["jax"]
+    assert counts["port"] == {"started": 24, "carrier_lost": 12, "carrier_adopted": 12}
 
 
 def test_dispatch_error_is_counted_not_hidden():

@@ -13,6 +13,7 @@ the JAX ``StreamJob`` on the same stream and virtual clock. Tracing on
 against off in the port gives the same outputs.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import dataclasses
 import json
 import threading

@@ -28,6 +28,7 @@
   its FFN limit takes the protocol's encoder (FFN 512).
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import dataclasses
 import json
 import logging

@@ -12,6 +12,7 @@ controller branch, the job's in-flight depth, and the whole
 ``autotune-drill --fast`` summary.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import dataclasses
 import json
 from types import SimpleNamespace

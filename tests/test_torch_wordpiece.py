@@ -11,6 +11,7 @@ blended columns within the kernel drill's noise bound (``torch_bounds.py``),
 both floored at 1e-4.
 """
 
+import torch_threads  # noqa: F401  (first: torch held to one CPU thread)
 import jax
 import numpy as np
 import pytest
