@@ -200,7 +200,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    AUC and importances equal, each neural branch's held-out AUC (4,096
    rows of a fresh stream) within ``TRAIN_AUC_BAND``; prints the card's ms
    per optimizer step for each branch and the GBDT's host seconds. (b)
-   ``validate`` on the card's checkpoint on the card and on the CPU: the
+   ``validate`` on the card's checkpoint on the card and on the CPU (started
+   once the card's ``train`` ends, beside the CPU's): the
    same report keys, AUCs within ``VALIDATE_AUC_TOL``; ``--min-auc 0.99``
    exits 1 unless the AUC reaches it; the textfile written; a card and a
    CPU scorer restored from it answer with the trainer's
@@ -212,8 +213,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    typed parameters from ``train_typed_gnn`` (2,048 fraud-ring
    transactions, one epoch) on a one-hop 256-row batch of a typed scorer,
    against its plain version. (d) ``quality-eval --checkpoint-dir`` at
-   ``BlendEvalConfig()`` defaults on the card (started when the card's
-   ``train`` ends, so it runs beside the rest of the phase): the per-branch
+   ``BlendEvalConfig()`` defaults on the card (started with the two
+   ``train`` commands, so it runs beside the whole phase): the per-branch
    AUC, the admission, the strategy, the seconds per stage
    (``chiprun_out/quality_eval_card.json``), printed beside the earlier JAX
    artifact ``QUALITY_r05.json`` for context; then the artifact and its
@@ -235,11 +236,11 @@ Phases, each of which raises (and exits non-zero) on failure:
    after it of one holding the promoted set (decisions off a rung), one
    megakernel launch or 1 / 6 / 36 / 2 a batch throughout, the promotion's
    host ms; a gate-rejected candidate leaves the scorer's fingerprint
-   bit-identical. (c) ``run-job --feedback --mega --quant`` (20,000
+   bit-identical. (c) ``run-job --feedback --mega --quant`` (15,000
    transactions at the ``run-job`` defaults) as a command on the card, the
    same without ``--feedback``, the first with ``--device cpu``: the
-   feedback blocks' labels, buffer and policy counts equal, decisions off a
-   rung equal; txn/s with and without the plane. (d) a DistilBERT-base
+   feedback blocks' labels, buffer and policy counts equal, a retrain
+   promoted, decisions off a rung equal; txn/s with and without the plane. (d) a DistilBERT-base
    ``full()`` ``ServingApp`` with the plane on: 256 ``/predict`` from 64
    clients (the chain a batch), their labels on ``POST /labels``, ``GET
    /quality/live``, the ``prequential_*`` / ``feedback_*`` families, 409
@@ -266,7 +267,7 @@ Phases, each of which raises (and exits non-zero) on failure:
    analytics plane's host us a transaction, the job's blend host ms and
    ``blend_enrichment``'s device ms a batch (CUDA events behind a spin). (b)
    each a process of its own: ``broker`` on a free port with a temporary
-   ``--log-dir``; ``simulate --broker --count 4096`` through the ingress
+   ``--log-dir``; ``simulate --broker --count 1024`` through the ingress
    gateway (started before (a), finished after it; its standard error must
    say the native queue was used, none dropped); ``run-job --broker ...
    --count 0 --quant --mega --analytics --enrichment --checkpoint-dir
@@ -275,7 +276,7 @@ Phases, each of which raises (and exits non-zero) on failure:
    SIGTERM again; ``alert-router --once``. Gates: both summaries say
    ``stopped_by: SIGTERM``, the restart resumed from the first run's final
    checkpoint and skipped no duplicate, the first run stopped mid-stream;
-   each of the 4,096 ids once on the predictions and on the enriched topic;
+   each of the 1,024 ids once on the predictions and on the enriched topic;
    each enriched ``ensemble_score`` equal to its prediction's ``fraud_score``
    and its ``fraud_score`` within 1e-6 of ``blend_enrichment``'s CPU version
    on the features topic's vector; the routed alerts equal the alerts topic
@@ -284,8 +285,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    checkpoints; every batch of both runs dispatched the megakernel, no
    fallback.
 20. shared state and Kafka: (a) a ``state-server`` process on a free port
-   (the port's ``MiniRedisServer``); phase 8's two streams (the first 2,048
-   TINY under ``mega()``, 1,024 DistilBERT-base under ``full()``, int8 BERT,
+   (the port's ``MiniRedisServer``); phase 8's two streams (the first 1,024
+   TINY under ``mega()``, 512 DistilBERT-base under ``full()``, int8 BERT,
    batches of
    256, depth 2) each three ways, the server flushed before each shared
    run: on the card with ``TorchFraudScorer(state_client=RespClient(...))``
@@ -321,14 +322,14 @@ Phases, each of which raises (and exits non-zero) on failure:
    repeats); every batch of two or more rows of both replicas one
    megakernel launch of its own scorer, a one-row batch the counted
    fallback; the server killed (SIGKILL) and restarted from its AOF with
-   the same keyspace digest. Then the first 1,024 transactions through one
+   the same keyspace digest. Then the first 512 transactions through one
    replica over a fresh fake on the card, on the CPU and on the in-memory
    broker: the same batches on the card and the CPU, the predictions within
    the bound, whether the batches equal the in-memory broker's. Prints the
    rebalance seconds, the duplicates and the replicas' batches. (c) each a
    process of its own, the refused command started beside the job and the
    service after it: ``state-server --aof``, ``run-job --state --count
-   2048 --quant --mega --predictions-out`` on the card (every user's
+   512 --quant --mega --predictions-out`` on the card (every user's
    ``24hour`` count equals the stream's), ``serve --quant --mega`` with
    ``RTFD_STATE_ADDR`` and no ``--state`` (256 ``/predict`` from 64
    clients for users of the stream: each count rises by that user's
@@ -336,13 +337,13 @@ Phases, each of which raises (and exits non-zero) on failure:
    server and its restart from the AOF (the counts hold), and ``run-job
    --state ... --checkpoint-dir`` exits 2 with its reason. (d) the native
    tree scorer built from ``native/trees.cpp`` with g++ on this machine:
-   its logits on (a)'s in-process TINY run's 4,096 feature rows within 1e-5
+   its logits on (a)'s in-process TINY run's 1,024 feature rows within 1e-5
    of the plain tree path on the card.
 
 21. the device pool and the partition-parallel fleet: (a) ``pool-drill
    --devices 4`` as a command on the card (its replicas share the card, each
    on its own stream; every check must pass); phase 8's TINY ``mega()``
-   stream (4,096, int8 BERT, batches of 256) through ``StreamJob`` with the
+   stream (its first 2,048, int8 BERT, batches of 256) through ``StreamJob`` with the
    device pool three ways: every visible card (a pool of one), 2 and 4
    replicas on the one card (launch counters reset just before, read just
    after: one megakernel launch a batch), each run in turns with the
@@ -371,24 +372,26 @@ Phases, each of which raises (and exits non-zero) on failure:
    drill's 1e-4 floor, decisions equal off the cuts; handoffs and replay
    depth printed. (d) ``serve --quant --mega --device-pool`` with
    ``cluster.enabled`` as worker w0 of two, beside a plain ``serve --quant
-   --mega``, each a process on the card: 256 ``/predict`` for distinct users
+   --mega``, each a process on the card: 64 ``/predict`` for distinct users
    w0 owns, one at a time, answered alike by both; foreign users' 421 with
    the owner, its address and the partition; ``/cluster``; the ``cluster_*``
-   and ``device_pool_*`` series (256 dispatches on ``cuda:0#0``); SIGTERM,
+   and ``device_pool_*`` series (64 dispatches on ``cuda:0#0``); SIGTERM,
    all exit 0.
 
-22. the process fleet and the chaos plane: (a) ``chaos-drill --fast`` as a
-   command, 2 replicas on the card (every check, the second run
-   bit-identical), and the same fast timeline twice in process on 2 replicas
-   (``run_chaos_drill``), kernels off and then with ``KernelSettings(enabled=
-   True, megakernel="cuda", epilogue="cuda")`` (launch counters reset just
-   before, read just after): every check passes in both; with the kernels
+22. the process fleet and the chaos plane: (a) three runs of the fast
+   timeline at once, each on 2 replicas on the card: ``chaos-drill --fast
+   --no-replay`` as a command (every check), ``run_chaos_drill`` with the
+   kernels off in a process of its own, and ``run_chaos_drill`` in this
+   process with ``KernelSettings(enabled=True, megakernel="cuda",
+   epilogue="cuda")`` (launch counters reset just before, read just after;
+   the kernels-off process launches none): every check passes in all; with the kernels
    on, each batch the megakernel's plan takes (every batch of 2+ rows) one
    megakernel launch on the launching thread and nothing else, each batch
    it declines one epilogue launch, one more for each rescue; decisions
    equal to the kernels-off run on every id scored before the first
-   promotion (the flips and the largest score gap after it printed). (b)
-   once (a) has ended, ``elastic-drill --fast`` and then ``partition-drill
+   promotion (the flips and the largest score gap after it printed); the
+   command's digest equal to the kernels-off run's (the replay, a second
+   fully fresh run, bit-identical). (b) once (a) has ended, ``elastic-drill --fast`` and then ``partition-drill
    --fast`` as commands, each with nothing else running (their checks read
    the wall clock): every check passes (``processes_enough``,
    ``sigkill_real`` among them), and no ``cluster-worker`` process (from
@@ -396,10 +399,35 @@ Phases, each of which raises (and exits non-zero) on failure:
    every 0.5 s, each worker's environment hides the card
    (``CUDA_VISIBLE_DEVICES`` empty), and the card never lists more than
    this process. (c) in phase 21(d)'s processes, with worker w1 a clustered
-   ``serve`` too: ``ShardIngressClient`` with both workers' URLs sends 256
+   ``serve`` too: ``ShardIngressClient`` with both workers' URLs sends 64
    ``/predict`` for fresh users of both, each answer equal to the plain
    service's, the 421s followed printed; a second pass for the same users
    follows none.
+
+23. the entity-graph plane and the distributed obs drill: (a) ``graph-drill
+   --fast`` as a command on the card, started with (b) and finished after
+   it (so it runs beside (b)'s in-process runs): every check
+   against the port's CPU verdict (``GRAPH_CPU_CHECKS``, which
+   ``tests/test_torch_graph_drill.py`` pins: every check true), the replay
+   bit-identical on the card; the ring lift, the remote fetches and nodes,
+   the degraded batches in and before the netfault window, the makespan and
+   the command's seconds printed. (b) the drill's models trained on the card
+   (``_train_models``), then the fast timeline's ``_run_fleet`` in process
+   twice, kernels off and then with ``KernelSettings(enabled=True,
+   epilogue="cuda", megakernel="cuda")`` (launch counters reset just
+   before, read just after, the launching thread's own count too): each
+   batch one epilogue launch and nothing else, the megakernel's plan asked
+   and declined once a batch (every typed batch carries a two-hop
+   frontier); decisions equal to the kernels-off run on every id farther
+   than the drill's 1e-4 floor from a rung (the rows near one printed), the
+   largest score gap within the floor; both runs fetch remotely and degrade
+   only inside the window. (c) once (a) and (b) have ended, with nothing
+   else running, ``obs-drill --fast --no-replay --rings-out D`` as a
+   command: every check passes (one retry allowed when only its wall-clock
+   checks failed, as JAX's test allows; printed), no ``cluster-worker`` on
+   the card as in 22(b); then ``trace-export --merge D/*``: one named track
+   a worker process plus ``ingress``, and as many flow starts as the
+   drill's ``flow_arrows``.
 
 The last three lines of standard output are the kernel JSON line (all five
 kernels), the ``nvidia-smi`` name and power limit, and the result line
@@ -4030,18 +4058,28 @@ def run_training(ops):
         artifact = out_dir / "quality_eval_card.json"
         t0 = time.perf_counter()
         try:
-            # (a) train --neural on the card and on the CPU, side by side
+            # (a) train --neural on the card and on the CPU, side by side, and
+            # (d) quality-eval on the card at BlendEvalConfig() defaults
+            # beside the whole phase (it reads no checkpoint of (a))
             card = _port_proc(["train", "--neural", "--out", card_ck])
             cpu = _port_proc(["train", "--neural", "--device", "cpu", "--out", cpu_ck],
                              cpu=True)
-            procs += [card, cpu]
-            out_c, err_c, _ = _finish("train (card)", card)
-            t_card = time.perf_counter() - t0
-            # (d) quality-eval on the card at BlendEvalConfig() defaults, from
-            # here on beside the rest of the phase
             quality = _port_proc(["quality-eval", "--checkpoint-dir", q_ck,
                                   "--output", str(artifact)])
-            procs.append(quality)
+            procs += [card, cpu, quality]
+            out_c, err_c, _ = _finish("train (card)", card)
+            t_card = time.perf_counter() - t0
+            # (b)'s commands read only the card's checkpoint: they start now,
+            # beside the CPU's train
+            t1 = time.perf_counter()
+            prom = str(Path(tmp) / "validate.prom")
+            v_card = _port_proc(["validate", "--checkpoint-dir", card_ck,
+                                 "--metrics-out", prom])
+            v_cpu = _port_proc(["validate", "--checkpoint-dir", card_ck, "--device", "cpu"],
+                               cpu=True)
+            v_gate = _port_proc(["validate", "--checkpoint-dir", card_ck,
+                                 "--min-auc", "0.99"])
+            procs += [v_card, v_cpu, v_gate]
             out_p, err_p, _ = _finish("train (cpu)", cpu)
             t_cpu = time.perf_counter() - t0
             rep = {"card": json.loads(out_c.strip().splitlines()[-1]),
@@ -4074,16 +4112,8 @@ def run_training(ops):
                 {k: {b: round(v, 4) for b, v in a.items()} for k, a in aucs.items()})
                 + f", |card - CPU| <= {TRAIN_AUC_BAND}", flush=True)
 
-            # (b) validate on the card and on the CPU; --min-auc 0.99 gates
-            t1 = time.perf_counter()
-            prom = str(Path(tmp) / "validate.prom")
-            v_card = _port_proc(["validate", "--checkpoint-dir", card_ck,
-                                 "--metrics-out", prom])
-            v_cpu = _port_proc(["validate", "--checkpoint-dir", card_ck, "--device", "cpu"],
-                               cpu=True)
-            v_gate = _port_proc(["validate", "--checkpoint-dir", card_ck,
-                                 "--min-auc", "0.99"])
-            procs += [v_card, v_cpu, v_gate]
+            # (b) validate on the card and on the CPU (started with the card's
+            # checkpoint, above); --min-auc 0.99 gates
             vr = {}
             for name, p in (("card", v_card), ("cpu", v_cpu)):
                 vr[name] = json.loads(_finish(f"validate ({name})", p)[0].strip().splitlines()[-1])
@@ -4161,8 +4191,10 @@ FEEDBACK_AUC_TOL = 1e-3
 # (4 batches, the swap before batch 2)
 PROMOTE_TXNS = {"TINY": 8 * BATCH, "DistilBERT-base": 4 * BATCH}
 PROMOTE_SWAP = {"TINY": 4, "DistilBERT-base": 2}
-# part (c): run-job --feedback --mega --quant at the run-job defaults
-FEEDBACK_JOB_TXNS = 20_000
+# part (c): run-job --feedback --mega --quant at the run-job defaults, cut
+# from 20,000 transactions for the command's time limit (the drift trigger
+# fires by 12,500 on the CPU, not by 10,000; the retrain is gated)
+FEEDBACK_JOB_TXNS = 15_000
 FEEDBACK_JOB_SEED = 42
 # part (e): the DistilBERT-base leg of the quantization drill
 QUANT_LEG_TXNS = 4 * BATCH
@@ -4496,6 +4528,7 @@ def run_feedback_job(ops, tmp):
         if (fb["labels_matched"], fb["buffer"]) != (ref_fb["labels_matched"],
                                                     ref_fb["buffer"]) or \
                 any(fb["policy"][k] != ref_fb["policy"][k] for k in policy_keys) or \
+                not fb["policy"]["promotions"] or \
                 card["scored"] != ref["scored"] or card["counters"]["errors"]:
             fail(f"run-job --feedback: card {fb} vs CPU {ref_fb}")
         disp = card["kernels"]["dispatch"]
@@ -4783,10 +4816,13 @@ def run_feedback(ops):
 PLANE_DECISION_CUTS = (0.6, 0.95)        # the enrichment ladder's decision cuts
 PLANE_RISK_CUTS = (0.3, 0.6, 0.8, 0.95)
 HIGH_RISK_CUT = 0.7                      # stream/windows.py's high-risk count
-# (a)'s streams, cut to half phase 8's depth (16 and 4 batches) for the
-# command's time limit
-PLANES_COUNT = {"TINY": 8 * BATCH, "DistilBERT-base": 2 * BATCH}
-DEPLOY_COUNT = 16 * BATCH
+# (a)'s streams, cut from phase 8's depth (16 and 4 batches) for the
+# command's time limit: TINY to 8 batches, then to 4; DistilBERT-base to 2
+PLANES_COUNT = {"TINY": 4 * BATCH, "DistilBERT-base": 2 * BATCH}
+# (b)'s transactions, cut from 16 batches to 4 for the command's time limit
+# (the analytics plane holds the deployed job at 36-84 txn/s on the card's
+# hosts): the first run still stops after its first batch
+DEPLOY_COUNT = 4 * BATCH
 DEPLOY_SEED = SEED + 19
 BLEND_TOL = 1e-6                         # the blend against its CPU version
 
@@ -5187,11 +5223,19 @@ def run_deployed_phase(ops):
 KAFKA_SESSION_MS = 1_500                 # a dead replica is evicted after this
 KAFKA_HEARTBEAT_S = 0.2
 KAFKA_KILL_AFTER = 3                     # batches replica A completes, then dies
-KAFKA_SINGLE = 4 * BATCH                 # the single-replica card / CPU comparison
+# the single-replica card / CPU comparison, cut from 4 batches to 2 for the
+# command's time limit
+KAFKA_SINGLE = 2 * BATCH
 # the TINY transactions of (a), (b) and (c), cut from 16 batches to 8: the
 # phase is round-trip bound, and took 327 s of a 1,138 s command on a slow
 # host
 STATE_COUNT = 8 * BATCH
+# (a)'s shared-tier streams and (c)'s run-job --state, cut again to half
+# (4 and 2 batches; the TINY one was 16, then 8): round-trip bound at 62-86
+# txn/s on the card's host; (b)'s two Kafka replicas keep STATE_COUNT, so
+# the survivor still scores batches after the kill
+SHARED_COUNT = {"TINY": 4 * BATCH, "DistilBERT-base": 2 * BATCH}
+STATE_JOB_COUNT = 2 * BATCH
 SHARED_CPU_BATCHES = 1                   # (a)'s CPU run: the stream's first batch (cut from 2)
 SERVE_STATE_PREDICTS = BATCH
 NATIVE_TREE_TOL = 1e-5
@@ -5794,12 +5838,12 @@ def run_state_commands(tmp):
         procs.append(refused)
         preds_path = str(Path(tmp) / "preds.jsonl")
         job_out, job_err, job_s = _finish("run-job --state", _port_proc(
-            ["run-job", "--state", f"127.0.0.1:{port}", "--count", str(STATE_COUNT),
+            ["run-job", "--state", f"127.0.0.1:{port}", "--count", str(STATE_JOB_COUNT),
              "--quant", "--mega", "--predictions-out", preds_path]), timeout=600)
         summary = json.loads(job_out.strip().splitlines()[-1])
         gen = TransactionGenerator(num_users=10_000, num_merchants=5_000, seed=42,
                                    tps=1000.0)
-        records = gen.generate_batch(STATE_COUNT)
+        records = gen.generate_batch(STATE_JOB_COUNT)
         with open(preds_path) as f:
             pred_ids = [json.loads(line)["transaction_id"] for line in f]
         if sorted(pred_ids) != sorted(r["transaction_id"] for r in records) \
@@ -5947,9 +5991,11 @@ def run_state_phase(ops):
         rtt = round_trips_us(port)
         print(f"loopback round trips on this host: {json.dumps(rtt)}", flush=True)
         tiny = run_shared_stream(ops, port, "TINY", TINY_CONFIG, KernelSettings.mega(),
-                                 STATE_COUNT, {k: int(k == "megakernel") for k in chain})
+                                 SHARED_COUNT["TINY"],
+                                 {k: int(k == "megakernel") for k in chain})
         base = run_shared_stream(ops, port, "DistilBERT-base", DISTILBERT_BASE,
-                                 KernelSettings.full(), 4 * BATCH, chain)
+                                 KernelSettings.full(), SHARED_COUNT["DistilBERT-base"],
+                                 chain)
         seconds["a_card"] = round(time.perf_counter() - t0, 1)
         # (b), (c) and (a)'s CPU runs one after another, so that nothing
         # runs beside a timed part
@@ -5988,10 +6034,16 @@ POOL_FAULT_WINDOW = (6.0, 10.0)          # dispatched batches: replica 0 dead
 POOL_SLOW_WINDOW = (4.0, 5.0)            # dispatched batches: replica 0 slowed
 POOL_SLOW_S = 0.05
 POOL_SWAP_BATCHES = 8                    # the hot swap: 16 batches, swap at 8
+# the pooled / unpooled streams of (a), 4 runs at each replica count: cut
+# from 16 batches to 8 for the command's time limit (the faults and the
+# swap keep 16)
+POOL_STREAM_TXNS = 8 * BATCH
 FLEET_TXNS = 16 * BATCH
 FLEET_WORKERS = 4
 FLEET_TOL = 1e-4                         # the shard drill's bf16 floor
-ROUTER_PREDICTS = BATCH
+# the router's and the ingress client's /predict, one at a time: cut from
+# 256 to 64 for the command's time limit
+ROUTER_PREDICTS = BATCH // 4
 
 
 def drive_pool_stream(records, profiles, config, devices=None, depth=2, window=None,
@@ -6657,7 +6709,7 @@ def run_pool_phase(ops):
         fail(f"pool-drill --devices 4: {verdict}")
     print(f"pool-drill --devices 4 on the card ({drill_s:.1f} s): "
           + json.dumps(verdict), flush=True)
-    launches, streams = run_pool_streams(ops, records, profiles, config)
+    launches, streams = run_pool_streams(ops, records[:POOL_STREAM_TXNS], profiles, config)
     launches["distilbert_base_pool_2"] = run_pool_distilbert(ops, records, profiles)
     seconds["a"] = round(time.perf_counter() - t0, 1)
     t1 = time.perf_counter()
@@ -6787,11 +6839,12 @@ def check_host_drill(name, res, must):
 
 
 def chaos_spy(batches):
-    """Wrap ``TorchFraudScorer.dispatch_assembled`` (the drill builds its
-    scorer inside): per batch its rows, whether the megakernel's plan took
-    it (the scorer's dispatch minus fallback counts), the megakernel and
-    epilogue launches, and the launching thread's total. The drill
-    dispatches from one thread. Returns the function that undoes it."""
+    """Wrap ``TorchFraudScorer.dispatch_assembled`` (the chaos and graph
+    drills build their scorers inside): per batch its rows, whether the
+    megakernel's plan took it (the scorer's dispatch minus fallback counts)
+    or declined it, the megakernel and epilogue launches, and the launching
+    thread's total. The drills dispatch from one thread. Returns the
+    function that undoes it."""
     from realtime_fraud_detection_tpu_torch import ops
     from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
 
@@ -6801,10 +6854,11 @@ def chaos_spy(batches):
         snap0, counts0, t0 = self.kernel_snapshot(), ops.launch_counts(), ops.thread_launches()
         out = orig(self, batch, records, *args, **kw)
         snap, counts = self.kernel_snapshot(), ops.launch_counts()
+        declined = snap["fallback"]["megakernel"] - snap0["fallback"]["megakernel"]
         batches.append(dict(
             rows=len(records),
             served=(snap["dispatch"]["megakernel"] - snap0["dispatch"]["megakernel"])
-            - (snap["fallback"]["megakernel"] - snap0["fallback"]["megakernel"]),
+            - declined, declined=declined,
             launches=ops.thread_launches() - t0,
             megakernel=counts["megakernel"] - counts0["megakernel"],
             epilogue=counts["epilogue"] - counts0["epilogue"]))
@@ -6812,6 +6866,24 @@ def chaos_spy(batches):
 
     TorchFraudScorer.dispatch_assembled = spy
     return lambda: setattr(TorchFraudScorer, "dispatch_assembled", orig)
+
+
+# phase 22(a)'s kernels-off run of the chaos drill's fast timeline, in a
+# process of its own beside the command and the in-process kernels-on run:
+# its summary (ledger included) and that process's hand-written launches go
+# to the file named by the first argument
+CHAOS_OFF_RUN = """
+import dataclasses, json, sys, time
+from realtime_fraud_detection_tpu_torch import ops
+from realtime_fraud_detection_tpu_torch.chaos.drill import (
+    ChaosDrillConfig, run_chaos_drill)
+t0 = time.perf_counter()
+summary = run_chaos_drill(dataclasses.replace(ChaosDrillConfig.fast(),
+                                              replay_check=False))
+with open(sys.argv[1], "w") as f:
+    json.dump({"summary": summary, "launches": ops.launch_counts(),
+               "s": time.perf_counter() - t0}, f)
+"""
 
 
 def run_chaos_phase(ops):
@@ -6826,39 +6898,50 @@ def run_chaos_phase(ops):
     )
     from realtime_fraud_detection_tpu_torch.utils.config import KernelSettings
 
+    import tempfile
+
     t0 = time.perf_counter()
-    command = _port_proc(["chaos-drill", "--fast"])
-    cfg = dataclasses.replace(ChaosDrillConfig.fast(), replay_check=False)
-    runs = {}
-    for name, kernels in (("off", None),
-                          ("on", KernelSettings(enabled=True, megakernel="cuda",
-                                                epilogue="cuda"))):
+    # three runs of the fast timeline at once: the command (once), the
+    # kernels-off run in a process of its own (the command's replay, a
+    # second fully fresh run held to the same digest, and the reference of
+    # the decisions) and the kernels-on run in this process
+    command = _port_proc(["chaos-drill", "--fast", "--no-replay"])
+    with tempfile.TemporaryDirectory() as tmp:
+        off_path = f"{tmp}/off.json"
+        off_proc = _python_proc(CHAOS_OFF_RUN, off_path, cpu=False)
+        cfg = dataclasses.replace(ChaosDrillConfig.fast(), replay_check=False)
         batches = []
         undo = chaos_spy(batches)
         t1 = time.perf_counter()
         ops.reset_launch_counts()
         try:
-            summary = run_chaos_drill(cfg, kernels=kernels)
+            summary = run_chaos_drill(cfg, kernels=KernelSettings(
+                enabled=True, megakernel="cuda", epilogue="cuda"))
         finally:
             launches = ops.launch_counts()
             undo()
-        runs[name] = dict(summary=summary, batches=batches, launches=launches,
-                          s=time.perf_counter() - t1)
-        if not summary["passed"]:
-            fail(f"chaos drill in process (kernels {name}): "
-                 f"{compact_chaos_summary(summary)}")
-    out, err, cmd_s = _finish("chaos-drill --fast", command, timeout=600)
+        on = dict(summary=summary, batches=batches, launches=launches,
+                  s=time.perf_counter() - t1)
+        _, _, off_wait = _finish("chaos drill (kernels off, its own process)", off_proc,
+                                 timeout=600)
+        with open(off_path) as f:
+            off = json.load(f)
+    for name, run in (("off", off), ("on", on)):
+        if not run["summary"]["passed"]:
+            fail(f"chaos drill (kernels {name}): {compact_chaos_summary(run['summary'])}")
+    out, err, cmd_s = _finish("chaos-drill --fast --no-replay", command, timeout=600)
     lines = [ln for ln in out.splitlines() if ln.strip()]
     full = json.loads(lines[-2])
-    if not full["passed"] or full["replay_identical"] is not True:
-        fail(f"chaos-drill --fast on the card: {lines[-1]}")
-    print(f"chaos-drill --fast as a command (2 replicas on the card; {cmd_s:.1f} s "
-          f"waited after the in-process runs): every check passes, the second run "
-          f"bit-identical; " + lines[-1], flush=True)
+    if not full["passed"] or full["digest"] != off["summary"]["digest"]:
+        fail(f"chaos-drill --fast on the card: digest {full['digest']} against the "
+             f"kernels-off replay's {off['summary']['digest']}; {lines[-1]}")
+    print(f"chaos-drill --fast --no-replay as a command (2 replicas on the card; "
+          f"{cmd_s:.1f} s waited after the in-process run): every check passes, its "
+          f"digest bit-identical to the kernels-off run's (the replay); "
+          + lines[-1], flush=True)
 
     # the kernels-on run: one megakernel launch a batch of 2+ rows, one
     # epilogue launch a batch the plan declines, nothing else
-    on, off = runs["on"], runs["off"]
     for b in on["batches"]:
         want = (dict(megakernel=1, epilogue=0) if b["served"]
                 else dict(megakernel=0, epilogue=1))
@@ -6874,8 +6957,8 @@ def run_chaos_phase(ops):
             or on["launches"]["dequant_matmul"] or on["launches"]["dequant_rows"]:
         fail(f"chaos drill (kernels on): launches {on['launches']} for "
              f"{len(on['batches'])} batches and {pool['retries']} rescues")
-    if any(b["launches"] for b in off["batches"]):
-        fail("chaos drill (kernels off) launched a hand-written kernel")
+    if any(off["launches"].values()):
+        fail(f"chaos drill (kernels off) launched {off['launches']}")
 
     # decisions equal on every id scored before the first promotion
     cut = min(t for t in (on["summary"]["first_promotion_ts"],
@@ -6903,8 +6986,9 @@ def run_chaos_phase(ops):
     gap_after = max((abs(got[t][0] - want[t][0]) for t in after), default=0.0)
     flips_after = sum(got[t][1] != want[t][1] for t in after)
     a_s = time.perf_counter() - t0
-    print(f"chaos drill in process, 2 replicas on the card, kernels off ({off['s']:.1f} s) "
-          f"and on ({on['s']:.1f} s): every check passes in both; kernels on "
+    print(f"chaos drill, 2 replicas on the card, kernels off (its own process, "
+          f"{off['s']:.1f} s, {off_wait:.1f} s waited after the kernels-on run) and on "
+          f"(in process, {on['s']:.1f} s): every check passes in both; kernels on "
           f"{len(on['batches'])} batches of {min(b['rows'] for b in on['batches'])}-"
           f"{max(b['rows'] for b in on['batches'])} rows, {n_served} one megakernel "
           f"launch each "
@@ -6924,6 +7008,209 @@ def run_chaos_phase(ops):
         check_host_drill(f"{name} --fast", results[f"{name} --fast"], must)
     print(f"phase 22 (b) {time.perf_counter() - t0 - a_s:.1f} s", flush=True)
     return {"tiny_chaos_kernels_on": {k: on["launches"].get(k, 0) for k in (
+        "epilogue", "flash_attention", "dequant_matmul", "dequant_rows", "megakernel")}}
+
+
+# the graph phase (23): the port's own CPU verdict of `graph-drill --fast
+# --device cpu`, which tests/test_torch_graph_drill.py pins with this dict:
+# every check true, healthy_not_regressed included (JAX's drill, from other
+# initial GNN weights, fails that one; ROADMAP C.1)
+GRAPH_CPU_CHECKS = {
+    "workers_enough": True, "ring_straddles_shards": True, "zero_lost": True,
+    "every_txn_scored_once": True, "zero_errors": True, "offsets_gap_free": True,
+    "remote_fetch_exercised": True, "degrade_exercised_in_window": True,
+    "no_degrade_before_window": True, "partition_refusals_counted": True,
+    "ring_auc_lift": True, "healthy_not_regressed": True,
+    "columnar_serial_bitexact": True, "replay_bit_identical": True,
+}
+GRAPH_TOL = 1e-4                         # the drill's bf16 floor
+# the obs drill's checks that read the wall clock: the one retry JAX's test
+# allows is taken only when nothing else failed
+OBS_WALL_CLOCK_CHECKS = {"overhead_bounded", "slow_worker_attributed"}
+
+
+def graph_fleet_facts(out):
+    """Remote fetches, nodes fetched and degraded batches in and before the
+    netfault window of one ``_run_fleet`` result."""
+    return dict(fetches=sum(s["remote_fetch_total"] for s in out["fetch"].values()),
+                nodes=sum(s["fetched_nodes_total"] for s in out["fetch"].values()),
+                in_window=out["degraded_in_window"],
+                before=out["degraded_pre_window"] or 0)
+
+
+def run_graph_fleets(ops):
+    """Phase 23 (b): the drill's models trained on the card, then its fleet
+    in process with the kernels off and on. Returns the kernels-on run's
+    launches."""
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.graph import drill as gdrill
+    from realtime_fraud_detection_tpu_torch.utils.config import KernelSettings
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(gdrill.GraphDrillConfig.fast(), replay_check=False)
+    models, bert_config = gdrill._train_models(cfg)
+    train_s = time.perf_counter() - t0
+    sched, _truth, _ring, profiles = gdrill._build_schedule(cfg)
+    runs = {}
+    for name, kernels in (("off", None),
+                          ("on", KernelSettings(enabled=True, epilogue="cuda",
+                                                megakernel="cuda"))):
+        batches = []
+        undo = chaos_spy(batches)
+        t1 = time.perf_counter()
+        ops.reset_launch_counts()
+        thread0 = ops.thread_launches()
+        try:
+            out = gdrill._run_fleet(cfg, sched, profiles, models, bert_config,
+                                    kernels=kernels)
+        finally:
+            launches = ops.launch_counts()
+            thread = ops.thread_launches() - thread0
+            undo()
+        runs[name] = dict(out=out, batches=batches, launches=launches, thread=thread,
+                          s=time.perf_counter() - t1)
+        facts = graph_fleet_facts(out)
+        if not (facts["fetches"] > 0 and facts["nodes"] > 0 and facts["in_window"] > 0
+                and facts["before"] == 0) or out["counters"]["errors"] \
+                or out["committed"] != out["tx_ends"]:
+            fail(f"graph drill fleet (kernels {name}): {json.dumps(facts)}, counters "
+                 f"{out['counters']}")
+    on, off = runs["on"], runs["off"]
+    n = len(on["batches"])
+    for b in on["batches"]:
+        if b["launches"] != 1 or b["epilogue"] != 1 or b["megakernel"] != 0 \
+                or b["served"] or b["declined"] != 1:
+            fail(f"graph drill fleet (kernels on): batch {b} launched other than one "
+                 f"epilogue with the megakernel declined once")
+    if on["launches"]["epilogue"] != n or on["thread"] != n or any(
+            on["launches"][k] for k in ("megakernel", "flash_attention",
+                                        "dequant_matmul", "dequant_rows")):
+        fail(f"graph drill fleet (kernels on): launches {on['launches']} (thread "
+             f"{on['thread']}) for {n} batches")
+    if off["thread"] or any(off["launches"].values()):
+        fail(f"graph drill fleet (kernels off) launched {off['launches']}")
+
+    def scored(out):
+        return {t: s for t, s, _tr, _g, k in out["preds"] if k == "scored"}
+
+    got, want = scored(on["out"]), scored(off["out"])
+    if set(got) != set(want) or set(on["out"]["decisions"]) != set(want):
+        fail(f"graph drill fleet: kernels on scored {len(got)} ids, off {len(want)}")
+    ids = sorted(want)
+    ref = torch.tensor([want[t] for t in ids], dtype=torch.float64)
+    gaps = (torch.tensor([got[t] for t in ids], dtype=torch.float64) - ref).abs()
+    near = near_rung(ref, RUNGS, GRAPH_TOL)
+    flips = [t for t, nr in zip(ids, near.tolist()) if not nr
+             and on["out"]["decisions"][t] != off["out"]["decisions"][t]]
+    if flips or float(gaps.max()) > GRAPH_TOL:
+        fail(f"graph drill fleet: {len(flips)} decisions flip off a rung, largest score "
+             f"gap {float(gaps.max()):.3e} (bound {GRAPH_TOL})")
+    near_rows = [(t, want[t], got[t], off["out"]["decisions"][t],
+                  on["out"]["decisions"][t]) for t, nr in zip(ids, near.tolist()) if nr]
+    print(f"graph drill fleet in process (models trained on the card in {train_s:.1f} s), "
+          f"kernels off ({off['s']:.1f} s) and on ({on['s']:.1f} s): {len(ids)} ids, "
+          f"{n} batches of {min(b['rows'] for b in on['batches'])}-"
+          f"{max(b['rows'] for b in on['batches'])} rows, each one epilogue launch and "
+          f"the megakernel declined once; launches {json.dumps(on['launches'])} "
+          f"(thread {on['thread']}); decisions equal on {len(ids) - len(near_rows)} ids "
+          f"off a rung, largest score gap {float(gaps.max()):.3e}; rows near a rung "
+          f"(id, off, on, decisions): {json.dumps(near_rows)}; fetch and degrade off "
+          f"{json.dumps(graph_fleet_facts(off['out']))}, on "
+          f"{json.dumps(graph_fleet_facts(on['out']))}", flush=True)
+    return on["launches"]
+
+
+def check_graph_command(command):
+    """Phase 23 (a): the ``graph-drill --fast`` command's verdict against the
+    port's CPU verdict."""
+    stdout, err, cmd_s = _finish("graph-drill --fast", command, timeout=600)
+    lines = [ln for ln in stdout.splitlines() if ln.strip()]
+    full = json.loads(lines[-2])
+    if full["checks"] != GRAPH_CPU_CHECKS or not full["passed"] \
+            or full["replay_identical"] is not True:
+        fail(f"graph-drill --fast on the card: checks {full['checks']} against the CPU's "
+             f"{GRAPH_CPU_CHECKS}; {lines[-1]}")
+    auc = full["auc"]
+    print(f"graph-drill --fast as a command on the card (beside (b); {cmd_s:.1f} s "
+          f"waited after it): "
+          f"every check as on the CPU, the replay bit-identical; ring lift "
+          f"{auc['ring_phase_lift']} (graph on {auc['ring']['graph_on']}, trees "
+          f"{auc['ring']['incumbent_trees']}); healthy graph on "
+          f"{auc['healthy']['graph_on']} against trees {auc['healthy']['incumbent_trees']}; "
+          f"{full['remote_fetches']} remote fetches of {full['remote_nodes']} nodes; "
+          f"degraded {full['degraded_in_window']} in the window, "
+          f"{full['degraded_pre_window']} before it; makespan {full['makespan_s']} "
+          f"virtual s; " + lines[-1], flush=True)
+
+
+def run_graph_phase(ops):
+    """Phase 23 (a) beside (b), then (c) alone; see the module docstring.
+    Returns the launches of the kernels-on fleet run."""
+    import glob
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    command = _port_proc(["graph-drill", "--fast"])
+    try:
+        launches = run_graph_fleets(ops)
+        check_graph_command(command)
+    finally:
+        _kill([command])
+    ab_s = time.perf_counter() - t0
+
+    # (c) the obs drill alone: its overhead ratio and p99 attribution read
+    # the wall clock
+    with tempfile.TemporaryDirectory() as rings:
+        name = "obs-drill --fast --no-replay"
+        args = ["obs-drill", "--fast", "--no-replay", "--rings-out", rings]
+        results = {}
+        drill_on_host(name, args, results)
+        res = results[name]
+        failed = sorted(k for k, v in ((res.get("full") or {}).get("checks") or {}).items()
+                        if not v)
+        retried = None
+        if "error" not in res and res["rc"] != 0 and failed \
+                and set(failed) <= OBS_WALL_CLOCK_CHECKS:
+            retried = failed
+            print(f"{name}: retried once after the wall-clock checks {failed} failed "
+                  f"({res['s']:.1f} s): {json.dumps(res['verdict'])}", flush=True)
+            drill_on_host(name, args, results)
+            res = results[name]
+        check_host_drill(name, res, ("processes_real", "remote_fetch_spans",
+                                     "export_tracks_and_flows"))
+        full = res["full"]
+        print(f"{name}: retried {retried}; overhead ratio "
+              f"{full['wall']['overhead_ratio']} (traced {full['wall']['makespan_traced_s']}"
+              f" s, untraced {full['wall']['makespan_untraced_s']} s); p99 dominant "
+              f"{json.dumps(full['breakdown_p99'].get('dominant_worker'))} / "
+              f"{json.dumps(full['breakdown_p99'].get('dominant_stage'))}", flush=True)
+        merged = os.path.join(rings, "merged.json")
+        t2 = time.perf_counter()
+        merge = subprocess.run(
+            [sys.executable, "-m", "realtime_fraud_detection_tpu_torch", "trace-export",
+             "--merge", *sorted(glob.glob(os.path.join(rings, "ring_*.json"))),
+             "--out", merged], capture_output=True, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        if merge.returncode != 0:
+            fail(f"trace-export --merge: exit {merge.returncode}: {merge.stderr[-2000:]}")
+        with open(merged) as f:
+            events = json.load(f)["traceEvents"]
+        tracks = [e["args"]["name"] for e in events if e.get("ph") == "M"]
+        flows = sum(e.get("ph") == "s" for e in events)
+        workers = [t for t in tracks if t.startswith("worker ")]
+        if len(workers) != full["n_workers"] or len(tracks) != full["n_workers"] + 1 \
+                or "ingress ingress" not in tracks or flows != full["flow_arrows"] \
+                or not flows:
+            fail(f"trace-export --merge: tracks {tracks}, {flows} flow starts against the "
+                 f"drill's {full['flow_arrows']}")
+        print(f"trace-export --merge of the drill's rings ({time.perf_counter() - t2:.1f} "
+              f"s): tracks {json.dumps(tracks)}, {flows} flow starts as the drill's "
+              f"flow_arrows; " + merge.stdout.strip(), flush=True)
+    print(f"phase 23 (a) and (b) {ab_s:.1f} s, (c) {time.perf_counter() - t0 - ab_s:.1f} s",
+          flush=True)
+    return {"graph_drill_kernels_on": {k: launches.get(k, 0) for k in (
         "epilogue", "flash_attention", "dequant_matmul", "dequant_rows", "megakernel")}}
 
 
@@ -7075,6 +7362,8 @@ def main() -> int:
     lap("21")
     stream.update(run_chaos_phase(ops))
     lap("22")
+    stream.update(run_graph_phase(ops))
+    lap("23")
     print(f"seconds by phase: {json.dumps(seconds)}", flush=True)
     for e in entries:
         e["stream_launches"] = {k: v[e["name"]] for k, v in stream.items()}

@@ -15,11 +15,14 @@
     python -m realtime_fraud_detection_tpu_torch elastic-drill [--fast] [--no-replay]
     python -m realtime_fraud_detection_tpu_torch partition-drill [--fast] [--workers N] [--no-replay]
     python -m realtime_fraud_detection_tpu_torch chaos-drill [--fast] [--devices N] [--config F] [--no-replay]
+    python -m realtime_fraud_detection_tpu_torch graph-drill [--fast] [--workers N] [--no-replay]
+    python -m realtime_fraud_detection_tpu_torch obs-drill [--fast] [--workers N] [--rings-out D] [--no-replay]
     python -m realtime_fraud_detection_tpu_torch cluster-worker --spec JSON
     python -m realtime_fraud_detection_tpu_torch qos-drill
     python -m realtime_fraud_detection_tpu_torch trace-drill [--fast]
     python -m realtime_fraud_detection_tpu_torch autotune-drill [--fast]
     python -m realtime_fraud_detection_tpu_torch trace-export --count 2048 --out trace.json
+    python -m realtime_fraud_detection_tpu_torch trace-export --merge ring_w0.json ring_w1.json --out fleet.json
     python -m realtime_fraud_detection_tpu_torch serve --port 8080 [--state H:P] [--quant] [--kernels|--mega] [--trace] [--qos] [--autotune] [--overlap-assembly] [--device-pool [--inflight-depth N]]
     python -m realtime_fraud_detection_tpu_torch health-check --url http://127.0.0.1:8080
     python -m realtime_fraud_detection_tpu_torch simulate --count 1000 [--broker 127.0.0.1:9092]
@@ -118,6 +121,16 @@ does not), with a bit-identical second run unless ``--no-replay``. Each
 prints the full summary, then the compact verdict as the last line, and
 exits 1 unless every check passed.
 
+``graph-drill`` and ``obs-drill`` are the ports of the JAX commands of the
+same names (``graph/drill.py``, ``obs/obs_drill.py``). The graph drill
+drives typed-graph scorers (on the card unless ``--device cpu``) across
+partition workers in one process, with cross-partition neighbour fetch over
+TCP (``graph/fetch.py``) and a netfault window on the fetch links. The obs
+drill drives ``cluster-worker`` processes with the fetch plane and the
+tracing plane on; its workers score on the host and never see the card.
+Each prints the full summary, then the compact verdict as the last line,
+and exits 1 unless every check passed.
+
 ``qos-drill`` is the port of ``rtfd qos-drill`` (``qos/drill.py``): offered
 load at ``--multiplier`` x the sustainable rate through the port's stream
 path on a virtual clock, the scorer a deterministic stand-in that touches
@@ -181,6 +194,8 @@ writes its evidence JSON; the seconds of each stage go to standard error.
 ``trace-export`` runs a traced ``run-job`` stream (on the card unless
 ``--device cpu``) and writes the flight recorder's window as Chrome-trace /
 Perfetto JSON to ``--out``; a one-line capture summary goes to stdout.
+With ``--merge RING...`` it runs nothing and needs no card: it folds the
+workers' ring dumps (``obs-drill --rings-out``) into one fleet trace.
 """
 
 from __future__ import annotations
@@ -581,6 +596,63 @@ def cmd_chaos_drill(args: argparse.Namespace) -> int:
     return 0 if summary["passed"] else 1
 
 
+def cmd_graph_drill(args: argparse.Namespace) -> int:
+    """The entity-graph drill (``graph/drill.py``): typed-graph scorers on
+    the card (or the CPU) across 2+ partition workers with cross-partition
+    fetch over TCP, a netfault window, the ring-phase AUC lift over the
+    trees alone, columnar == serial and a bit-identical replay. Full
+    summary, then the compact verdict last; exit 1 unless every check
+    passed."""
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.graph.drill import (
+        GraphDrillConfig,
+        compact_graph_summary,
+        run_graph_drill,
+    )
+
+    if _no_card("graph-drill", args.device):
+        return 2
+    cfg = GraphDrillConfig.fast() if args.fast else GraphDrillConfig()
+    cfg = dataclasses.replace(cfg, seed=args.seed, replay_check=not args.no_replay,
+                              device=args.device,
+                              **({"n_workers": args.workers} if args.workers else {}))
+    summary = run_graph_drill(cfg)
+    print(json.dumps(summary), flush=True)
+    print(json.dumps(compact_graph_summary(summary), separators=(",", ":")),
+          flush=True)
+    return 0 if summary["passed"] else 1
+
+
+def cmd_obs_drill(args: argparse.Namespace) -> int:
+    """The distributed observability drill (``obs/obs_drill.py``): 2+
+    ``cluster-worker`` processes on the host with trace carriers, fleet
+    metrics pinned exact, the slow worker's p99 attribution, carrier loss
+    counted under a netfault window, and the merged Chrome trace. Its
+    workers never see the card; like every entry point it asks for one
+    unless ``--device cpu``. Full summary, then the compact verdict last;
+    exit 1 unless every check passed."""
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.obs.obs_drill import (
+        ObsDrillConfig,
+        compact_obs_summary,
+        run_obs_drill,
+    )
+
+    if _no_card("obs-drill", args.device):
+        return 2
+    cfg = ObsDrillConfig.fast() if args.fast else ObsDrillConfig()
+    cfg = dataclasses.replace(cfg, seed=args.seed, replay_check=not args.no_replay,
+                              rings_out=args.rings_out,
+                              **({"n_workers": args.workers} if args.workers else {}))
+    summary = run_obs_drill(cfg)
+    print(json.dumps(summary), flush=True)
+    print(json.dumps(compact_obs_summary(summary), separators=(",", ":")),
+          flush=True)
+    return 0 if summary["passed"] else 1
+
+
 def cmd_cluster_worker(args: argparse.Namespace) -> int:
     """One partition-scoped fleet worker process, spawned by the process
     fleet's coordinator (``cluster/procfleet.py ProcessFleet``) with a JSON
@@ -684,6 +756,29 @@ def cmd_autotune_drill(args: argparse.Namespace) -> int:
 
 
 def cmd_trace_export(args: argparse.Namespace) -> int:
+    """Run a traced stream and write the flight recorder as a Chrome trace.
+    With ``--merge RING...`` no stream runs: the per-worker ring dumps
+    (``{worker, pid, traces}``, as ``obs-drill --rings-out`` writes them)
+    fold into one fleet trace, a named track a process and the broker hop
+    as a flow arrow; nothing touches a device, so no card is asked for."""
+    if args.merge:
+        from realtime_fraud_detection_tpu_torch.obs.fleetmetrics import (
+            merge_chrome_traces,
+        )
+
+        dumps = []
+        for path in args.merge:
+            with open(path) as f:
+                dumps.append(json.load(f))
+        payload = merge_chrome_traces(dumps)
+        with open(args.out, "w") as f:
+            json.dump(payload, f)
+        print(json.dumps({"merged_rings": len(dumps),
+                          "traces": payload["metadata"]["n_traces"],
+                          "tracks": payload["metadata"]["tracks"],
+                          "events": len(payload["traceEvents"]),
+                          "out": args.out}))
+        return 0
     from realtime_fraud_detection_tpu_torch.obs.tracing import Tracer
     from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
     from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
@@ -1240,9 +1335,11 @@ def cmd_quality_eval(args: argparse.Namespace) -> int:
     def log(m: str) -> None:
         print(f"[quality-eval] {m}", file=sys.stderr, flush=True)
 
-    cfg = dataclasses.replace(
-        BlendEvalConfig(), seed=args.seed, train_batches=args.train_batches,
-        val_batches=args.val_batches, test_batches=args.test_batches)
+    # an argument left out takes BlendEvalConfig's default, so the command and
+    # the Python entry make identical admission decisions
+    cfg = dataclasses.replace(BlendEvalConfig(), seed=args.seed, **{
+        k: getattr(args, k) for k in ("train_batches", "val_batches", "test_batches")
+        if getattr(args, k) is not None})
     stages = {}
     result = run_blend_eval(cfg, log=log, checkpoint_dir=args.checkpoint_dir or None,
                             device=args.device, stage_seconds=stages)
@@ -1441,6 +1538,43 @@ def build_parser() -> argparse.ArgumentParser:
     cd.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu: where the pool replicas run")
     cd.set_defaults(fn=cmd_chaos_drill)
+    gd = sub.add_parser("graph-drill",
+                        help="entity-graph drill: typed graph and two-hop "
+                             "sampling feeding the GNN across 2+ partition "
+                             "workers, cross-partition fetch over TCP, a "
+                             "netfault degrade window, the ring-phase AUC "
+                             "lift over the trees alone")
+    gd.add_argument("--fast", action="store_true",
+                    help="the test sizes (GraphDrillConfig.fast())")
+    gd.add_argument("--workers", type=int, default=0,
+                    help="fleet size (0 = the config default)")
+    gd.add_argument("--seed", type=int, default=7)
+    gd.add_argument("--no-replay", action="store_true",
+                    help="skip the second fresh determinism run")
+    gd.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu: where the scorers and the GNN "
+                         "trainer run")
+    gd.set_defaults(fn=cmd_graph_drill)
+    od = sub.add_parser("obs-drill",
+                        help="distributed observability drill: 2+ worker "
+                             "processes with cross-process trace carriers, "
+                             "fleet metrics pinned exact, slow-worker p99 "
+                             "attribution, carrier loss under a netfault "
+                             "window, the merged Chrome trace")
+    od.add_argument("--fast", action="store_true",
+                    help="the test sizes (ObsDrillConfig.fast())")
+    od.add_argument("--workers", type=int, default=0,
+                    help="fleet size (0 = the config default)")
+    od.add_argument("--seed", type=int, default=7)
+    od.add_argument("--rings-out", default="",
+                    help="directory for the workers' flight-recorder ring dumps "
+                         "(the `trace-export --merge` input)")
+    od.add_argument("--no-replay", action="store_true",
+                    help="skip the second fresh determinism run")
+    od.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; the drill's workers score on "
+                         "the host either way")
+    od.set_defaults(fn=cmd_obs_drill)
     cw = sub.add_parser("cluster-worker",
                         help="one partition-scoped fleet worker process "
                              "(spawned by the process fleet's coordinator)")
@@ -1523,6 +1657,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Chrome-trace JSON output path (open in ui.perfetto.dev)")
     te.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain versions)")
+    te.add_argument("--merge", nargs="+", default=None, metavar="RING",
+                    help="merge per-worker ring dumps ({worker, pid, traces} "
+                         "JSON, e.g. from `obs-drill --rings-out`) into one "
+                         "fleet trace instead of running a stream")
     te.set_defaults(fn=cmd_trace_export)
     sv = sub.add_parser("serve", help="run the scoring HTTP service")
     sv.add_argument("--host", default="")
@@ -1657,18 +1795,15 @@ def build_parser() -> argparse.ArgumentParser:
     va.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain versions)")
     va.set_defaults(fn=cmd_validate)
-    from realtime_fraud_detection_tpu_torch.training.blend_eval import BlendEvalConfig
-
-    blend = BlendEvalConfig()
     qe = sub.add_parser("quality-eval", help="run the blend-selection quality protocol")
     qe.add_argument("--output", default="",
                     help="write the evidence JSON here (default stdout)")
     qe.add_argument("--seed", type=int, default=3)
-    # the defaults are BlendEvalConfig's: the command and the Python entry
-    # make identical admission decisions
-    qe.add_argument("--train-batches", type=int, default=blend.train_batches)
-    qe.add_argument("--val-batches", type=int, default=blend.val_batches)
-    qe.add_argument("--test-batches", type=int, default=blend.test_batches)
+    # the batch counts default to BlendEvalConfig's (read when the command
+    # runs: building the parser imports no torch)
+    qe.add_argument("--train-batches", type=int, default=None)
+    qe.add_argument("--val-batches", type=int, default=None)
+    qe.add_argument("--test-batches", type=int, default=None)
     qe.add_argument("--checkpoint-dir", default="",
                     help="also save the trained+calibrated branches as a "
                          "serving checkpoint (deploy with serve "

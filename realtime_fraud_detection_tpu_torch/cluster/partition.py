@@ -337,7 +337,8 @@ class _GraphFacade:
     (``device->user`` etc.) merge the OWNED partitions' rings (a device
     shared by users of several owned partitions has its adjacency spread
     across them); non-owned shares are the fetch plane's job
-    (the JAX package's graph/fetch.py, not ported yet), not this facade's."""
+    (``graph/fetch.py``, through the sampler's attached client), not this
+    facade's."""
 
     def __init__(self, store: "PartitionedStore"):
         self._store = store

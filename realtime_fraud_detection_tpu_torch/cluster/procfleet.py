@@ -34,8 +34,12 @@ A worker scores with the shard drill's ``ShardScorer`` (``cluster/
 drill.py``), a host stand-in with event-time state updates and an optional
 wall-time cost model in place of device compute. A worker never touches
 ``torch.cuda``: the fleet runs on the card's host and leaves the card to
-the scoring process. The JAX worker's serve-time graph fetch (``fetch`` in
-the spec) is not ported yet, and a spec that asks for it is refused.
+the scoring process. With ``fetch`` in its spec a worker serves its local
+graph view (``graph/fetch.py GraphFetchServer``, announced as a
+``fetch_addr`` event) and, once the coordinator broadcasts the ``peers``
+map, resolves remote neighbour shares each batch with a
+``GraphFetchClient``, recording a ``remote_fetch`` child span on the
+batch's trace.
 """
 
 from __future__ import annotations
@@ -133,6 +137,9 @@ class ProcessFleet:
         self.ring = HashRing([], virtual_nodes=virtual_nodes)
         self.generation = 0
         self.worker_spec = dict(worker_spec or {})
+        # worker id -> "host:port" of its graph-fetch server (``fetch_addr``
+        # events); broadcast_peers hands the map to every worker
+        self.fetch_addrs: Dict[str, str] = {}
         # per-worker overlays on top of worker_spec (keyed by worker id):
         # the partition drill stamps each target's scheduled link-fault
         # windows + phase windows into exactly that worker's spec
@@ -253,7 +260,7 @@ class ProcessFleet:
             wid = str(ev.get("worker", ""))
             st = self.workers.get(wid)
             if st is not None and kind in ("hello", "hb", "ack", "bye",
-                                           "metrics"):
+                                           "metrics", "fetch_addr"):
                 # ANY event is proof of life on the control plane
                 st["last_hb"] = _mono()
             if kind == "hello" and st is not None:
@@ -274,6 +281,8 @@ class ProcessFleet:
             elif kind == "metrics":
                 # counter-delta snapshot: seq-deduped, exactly-once fold
                 self.fleet_metrics.ingest_delta(ev)
+            elif kind == "fetch_addr":
+                self.fetch_addrs[wid] = str(ev.get("addr", ""))
             elif kind == "bye":
                 self._byes[wid] = ev
                 if st is not None:
@@ -618,6 +627,27 @@ class ProcessFleet:
         self.workers[wid]["proc"].wait(timeout=30)
         return self._byes[wid]
 
+    def wait_fetch_addrs(self, ids: Sequence[str],
+                         timeout_s: Optional[float] = None) -> Dict[str, str]:
+        """Block until every worker in ``ids`` has published its graph-fetch
+        server's address (``fetch_addr`` event)."""
+        deadline = _mono() + (timeout_s or self.ack_timeout_s)
+        while not all(w in self.fetch_addrs for w in ids):
+            self.poll_events()
+            self._note_deaths()
+            if _mono() > deadline:
+                raise RuntimeError(
+                    f"no fetch_addr from "
+                    f"{[w for w in ids if w not in self.fetch_addrs]}")
+            time.sleep(0.02)
+        return {w: self.fetch_addrs[w] for w in ids}
+
+    def broadcast_peers(self) -> None:
+        """Publish the fleet's graph-fetch peer map over the control topic:
+        every worker builds its ``GraphFetchClient`` against every other
+        worker's address."""
+        self._publish({"type": "peers", "addrs": dict(self.fetch_addrs)})
+
     def announce_epoch(self, t0: float) -> None:
         """Publish the shared fault-window epoch over the control topic:
         workers anchor their scheduled link faults (and latency phase
@@ -738,10 +768,6 @@ def worker_main(spec: Dict[str, Any]) -> int:
         instance_seed,
     )
 
-    if spec.get("fetch"):
-        raise ValueError(
-            "cluster-worker: the serve-time graph fetch (spec 'fetch') is "
-            "not ported yet")
     wid = str(spec["worker_id"])
     bh, _, bp = str(spec["broker"]).rpartition(":")
     hh, _, hp = str(spec["handoff"]).rpartition(":")
@@ -820,6 +846,39 @@ def worker_main(spec: Dict[str, Any]) -> int:
         expect_carrier=bool(spec.get("expect_carrier")))
     job = worker.job
 
+    # serve-time cross-partition graph fetch (spec["fetch"]): serve this
+    # worker's local graph view to its peers and, once the coordinator
+    # broadcasts the peer map, resolve remote neighbour shares each batch;
+    # every call records a remote_fetch child span on the batch's trace
+    fetch_srv = None
+    fetch_client_box: Dict[str, Any] = {"client": None}
+    fetch_cfg = spec.get("fetch") if isinstance(spec.get("fetch"), dict) \
+        else ({} if spec.get("fetch") else None)
+    if fetch_cfg is not None:
+        from realtime_fraud_detection_tpu_torch.graph.fetch import (
+            GraphFetchServer,
+        )
+
+        fetch_srv = GraphFetchServer(
+            lambda: store.graph, worker_id=wid,
+            host="127.0.0.1", port=0).start()
+
+    def _remote_fetch(ctx, batch) -> None:
+        """Resolve remote adjacency for this batch's users, inside the
+        client's budget and deadline (local only on any failure)."""
+        fc = fetch_client_box["client"]
+        if fc is None:
+            return
+        trace = getattr(ctx, "trace", None) if ctx is not None else None
+        fc.begin_batch(trace=trace)
+        ids = sorted({str(r.value.get("user_id", ""))
+                      for r in batch if isinstance(r.value, dict)})
+        ids = [i for i in ids if i][: int(fetch_cfg.get("ids", 16))]
+        if ids:
+            fc.fetch(str(fetch_cfg.get("edge", "user->device")), ids,
+                     fanout=int(fetch_cfg.get("k", 4)))
+        fc.end_batch()
+
     stop = {"reason": None}
 
     def _on_signal(signum, frame):  # noqa: ANN001 - signal contract
@@ -836,6 +895,10 @@ def worker_main(spec: Dict[str, Any]) -> int:
     client.produce(EVENTS_TOPIC, {"type": "hello", "worker": wid,
                                   "pid": os.getpid(),
                                   "version": __version__}, key=wid)
+    if fetch_srv is not None:
+        client.produce(EVENTS_TOPIC, {
+            "type": "fetch_addr", "worker": wid,
+            "addr": f"127.0.0.1:{fetch_srv.port}"}, key=wid)
 
     in_flight: deque = deque()        # (ctx, done_at_wall, depth)
     busy_until = 0.0
@@ -897,6 +960,7 @@ def worker_main(spec: Dict[str, Any]) -> int:
             if not batch:
                 break
             ctx = job.dispatch_batch(batch, now=_wall())
+            _remote_fetch(ctx, batch)
             _complete(ctx, _wall() + scorer.cost_s(len(batch)),
                       job._inflight_depth())
 
@@ -927,6 +991,24 @@ def worker_main(spec: Dict[str, Any]) -> int:
             # the drill coordinator's shared window epoch (netfault
             # schedules + phase classification are relative to it)
             epoch["t0"] = float(msg["t0"])
+        elif kind == "peers" and fetch_cfg is not None:
+            from realtime_fraud_detection_tpu_torch.graph.fetch import (
+                GraphFetchClient,
+            )
+
+            addrs = {str(p): a for p, a in (msg.get("addrs") or {}).items()
+                     if str(p) != wid and a}
+            peers = {}
+            for p, a in addrs.items():
+                h, _, prt = str(a).rpartition(":")
+                peers[p] = (h or "127.0.0.1", int(prt))
+            old = fetch_client_box["client"]
+            if old is not None:
+                old.close()
+            fetch_client_box["client"] = GraphFetchClient(
+                peers,
+                deadline_ms=float(fetch_cfg.get("deadline_ms", 25.0)),
+                node_budget=int(fetch_cfg.get("node_budget", 64)))
         elif kind == "assign":
             gen = int(msg.get("generation", 0))
             assignment = msg.get("assignment") or {}
@@ -961,6 +1043,8 @@ def worker_main(spec: Dict[str, Any]) -> int:
                 # rebalance fences our partitions (StaleGenerationError
                 # -> _abandon), closing the zombie-writer window
                 client.generation = gen
+                if fetch_client_box["client"] is not None:
+                    fetch_client_box["client"].set_generation(gen)
                 counts = worker.set_assignment(mine)
                 client.produce(EVENTS_TOPIC, {
                     "type": "ack", "worker": wid, "generation": gen,
@@ -983,6 +1067,10 @@ def worker_main(spec: Dict[str, Any]) -> int:
         if tracer is not None:
             for k, v in tracer.counters.items():
                 cur[f"trace_{k}"] = float(v)
+        fc = fetch_client_box["client"]
+        if fc is not None:
+            cur["remote_fetch"] = float(fc.remote_fetch_total)
+            cur["remote_fetch_errors"] = float(fc.fetch_error_total)
         return cur
 
     def _publish_metrics() -> None:
@@ -1058,6 +1146,11 @@ def worker_main(spec: Dict[str, Any]) -> int:
             # stitches every worker's ring into the fleet trace store
             bye["trace_ring"] = [ct.to_dict() for ct in tracer.traces()]
             bye["tracer_counters"] = dict(tracer.counters)
+        fc = fetch_client_box["client"]
+        if fc is not None:
+            bye["fetch"] = fc.stats()
+        if fetch_srv is not None:
+            bye["fetch_served"] = fetch_srv.requests_total
         client.produce(EVENTS_TOPIC, bye, key=wid)
 
     hb_s = float(spec.get("heartbeat_s", 1.0))
@@ -1136,6 +1229,7 @@ def worker_main(spec: Dict[str, Any]) -> int:
                     if batch:
                         now = _wall()
                         ctx = job.dispatch_batch(batch, now=now)
+                        _remote_fetch(ctx, batch)
                         start = max(now, busy_until)
                         done = start + scorer.cost_s(len(batch))
                         busy_until = done
@@ -1162,5 +1256,10 @@ def worker_main(spec: Dict[str, Any]) -> int:
                 conn_backoff.sleep(min(conn_attempt, 8))
                 conn_attempt += 1
     finally:
+        fc = fetch_client_box["client"]
+        if fc is not None:
+            fc.close()
+        if fetch_srv is not None:
+            fetch_srv.stop()
         client.close()
         handoff.close()

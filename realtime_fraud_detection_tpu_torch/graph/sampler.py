@@ -19,24 +19,35 @@ out after ``max_entry_age`` syncs (a counter of syncs, not a clock), an
 ownership-epoch change clears the cache, and a full cache is cleared
 before a batch's probes.
 
-Determinism: a pure function of the graph's state; every iteration is over
-insertion-ordered dicts or sorted lists. Cross-partition resolution
-(``attach_fetch`` and the JAX package's ``graph/fetch.py``) is not ported:
-every ring is read from the local store.
+The entity-keyed two-hop rings (``device->user``, ``ip->user``,
+``merchant->user``) are the rings a fraud ring spreads across partitions, so
+those, and only those, are resolved across partitions through an attached
+``graph/fetch.py GraphFetchClient`` (``fetch=`` or ``attach_fetch``): one
+fetch window a batch, at most one fetch an edge type, budgeted, deadlined,
+degraded to the local subgraph on any failure.
+
+Determinism: a pure function of (graph state, fetch responses); every
+iteration is over insertion-ordered dicts or sorted lists.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from realtime_fraud_detection_tpu_torch.graph.store import merge_neighbor_lists
 from realtime_fraud_detection_tpu_torch.models.gnn import (
     MERCHANT_TAG_SLOT,
     typed_entity_features,
 )
 
 __all__ = ["NeighborSampler"]
+
+# the entity-keyed rings resolved across partitions (a ring's shared devices,
+# IPs and merchants gather user edges in every partition its members hash
+# to); user-keyed rings are local by ownership
+REMOTE_EDGE_TYPES = ("device->user", "ip->user", "merchant->user")
 
 _KIND_TO_USER_EDGE = {"device": "device->user", "ip": "ip->user",
                       "merchant": "merchant->user"}
@@ -70,13 +81,15 @@ class NeighborSampler:
                  fanout2: int,
                  user_rows: Callable[[Sequence[str]], np.ndarray],
                  merchant_rows: Callable[[Sequence[str]], np.ndarray],
-                 max_entries: int = 65_536, max_entry_age: int = 64):
+                 max_entries: int = 65_536, max_entry_age: int = 64,
+                 fetch: Optional[Any] = None):
         self.graph = graph
         self.node_dim = int(node_dim)
         self.fanout = int(fanout)
         self.fanout2 = int(fanout2)
         self._user_rows = user_rows
         self._merchant_rows = merchant_rows
+        self.fetch = fetch
         self.max_entries = max(1, int(max_entries))
         self.max_entry_age = max(1, int(max_entry_age))
         self._cache: Dict[str, _Entry] = {}
@@ -86,6 +99,9 @@ class NeighborSampler:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+
+    def attach_fetch(self, client: Any) -> None:
+        self.fetch = client
 
     # ------------------------------------------------------------ coherence
     def sync(self) -> None:
@@ -138,7 +154,11 @@ class NeighborSampler:
     # ------------------------------------------------------------- sampling
     def sample(self, user_ids: Sequence[str], merchant_ids: Sequence[str],
                ) -> Dict[str, np.ndarray]:
-        """One microbatch's neighbour tensors (``ScoreBatch`` fields)."""
+        """One microbatch's neighbour tensors (``ScoreBatch`` fields).
+
+        One fetch window (budget and deadline) covers the whole batch; the
+        remote rings every missed centre needs go out as at most one fetch
+        an entity-keyed edge type."""
         b = len(user_ids)
         k, k2, d = self.fanout, self.fanout2, self.node_dim
         out = {
@@ -153,6 +173,8 @@ class NeighborSampler:
         }
         if b == 0:
             return out
+        if self.fetch is not None:
+            self.fetch.begin_batch()
         if len(self._cache) >= self.max_entries:
             # cleared BEFORE the probes: within one call entries only grow,
             # so every probed or built centre is resident at the scatter
@@ -177,11 +199,26 @@ class NeighborSampler:
                 continue
             m_missing[mid] = None
 
+        # one batched remote resolution an entity-keyed edge type
+        remote: Dict[str, List[Dict[str, List[str]]]] = {
+            et: [] for et in REMOTE_EDGE_TYPES}
+        if self.fetch is not None and (u_missing or m_missing):
+            need: Dict[str, List[str]] = {et: [] for et in REMOTE_EDGE_TYPES}
+            for frontier in u_missing.values():
+                for kind, eid in frontier:
+                    need[_KIND_TO_USER_EDGE[kind]].append(eid)
+            need["merchant->user"].extend(m_missing)
+            for et in REMOTE_EDGE_TYPES:
+                ids = sorted(dict.fromkeys(need[et]))
+                if ids:
+                    maps, _degraded = self.fetch.fetch(et, ids, k)
+                    remote[et] = maps
+
         for uid, frontier in u_missing.items():
-            self._store(f"u:{uid}", self._build_user(uid, frontier))
+            self._store(f"u:{uid}", self._build_user(uid, frontier, remote))
             self.misses += 1
         for mid in m_missing:
-            self._store(f"m:{mid}", self._build_merchant(mid))
+            self._store(f"m:{mid}", self._build_merchant(mid, remote))
             self.misses += 1
 
         # scatter the (now fully cached) rows
@@ -197,6 +234,8 @@ class NeighborSampler:
             out["merch_neigh_mask"][i] = e.mask
             out["merch_neigh2_feat"][i] = e.feat2
             out["merch_neigh2_mask"][i] = e.mask2
+        if self.fetch is not None:
+            self.fetch.end_batch()
         return out
 
     # ----------------------------------------------------------- internals
@@ -222,11 +261,16 @@ class NeighborSampler:
             i += 1
         return frontier
 
-    def _users_of(self, kind: str, eid: str) -> List[str]:
-        return self.graph.neighbors(_KIND_TO_USER_EDGE[kind], [eid],
-                                    self.fanout)[0]
+    def _users_of(self, kind: str, eid: str,
+                  remote: Dict[str, List[Dict[str, List[str]]]]) -> List[str]:
+        """The local ring of ``eid`` merged with its fetched remote shares."""
+        et = _KIND_TO_USER_EDGE[kind]
+        local = {eid: self.graph.neighbors(et, [eid], self.fanout)[0]}
+        return merge_neighbor_lists(local, remote.get(et, ()), [eid],
+                                    self.fanout)[eid]
 
-    def _build_user(self, uid: str, frontier: List[Tuple[str, str]]) -> _Entry:
+    def _build_user(self, uid: str, frontier: List[Tuple[str, str]],
+                    remote: Dict[str, List[Dict[str, List[str]]]]) -> _Entry:
         k, k2, d = self.fanout, self.fanout2, self.node_dim
         feat = np.zeros((k, d), np.float32)
         mask = np.zeros((k,), bool)
@@ -235,7 +279,8 @@ class NeighborSampler:
         deps = {uid}
         for j, (kind, eid) in enumerate(frontier):
             deps.add(eid)
-            users = [u for u in self._users_of(kind, eid) if u != uid][-k2:]
+            users = [u for u in self._users_of(kind, eid, remote)
+                     if u != uid][-k2:]
             if kind == "merchant":
                 feat[j] = self._merchant_row(eid)
             else:
@@ -247,18 +292,21 @@ class NeighborSampler:
                 mask2[j, : len(users)] = True
         return _Entry(feat, mask, feat2, mask2, deps, self._syncs)
 
-    def _build_merchant(self, mid: str) -> _Entry:
+    def _build_merchant(self, mid: str,
+                        remote: Dict[str, List[Dict[str, List[str]]]]) -> _Entry:
         k, k2, d = self.fanout, self.fanout2, self.node_dim
         feat = np.zeros((k, d), np.float32)
         mask = np.zeros((k,), bool)
         feat2 = np.zeros((k, k2, d), np.float32)
         mask2 = np.zeros((k, k2), bool)
-        users = self._users_of("merchant", mid)[-k:]
+        users = self._users_of("merchant", mid, remote)[-k:]
         deps = {mid, *users}
         if users:
             feat[: len(users)] = self._user_rows(users)
             mask[: len(users)] = True
             # each frontier user's merchant ring, this merchant excluded
+            # (local by ownership: a user this worker does not own has an
+            # empty ring here)
             rings = self.graph.neighbors("user->merchant", users, k2)
             for j, ring in enumerate(rings):
                 ring = [m for m in ring if m != mid][-k2:]

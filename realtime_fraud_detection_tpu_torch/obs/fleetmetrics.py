@@ -12,8 +12,8 @@ process folds its own tracer counters in this way at render time).
 ``FleetTraceStore`` is the coordinator's flight recorder over stitched
 traces: ``cluster/procfleet.py ProcessFleet`` folds each worker's ring dump
 (shipped in its bye frame) into it, for the fleet critical path and one
-merged Chrome trace. The JAX module's ``merge_chrome_traces`` (behind
-``trace-export --merge``) is not ported yet.
+merged Chrome trace. ``merge_chrome_traces`` (behind ``trace-export
+--merge``) folds ring dumps written to disk the same way.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 from realtime_fraud_detection_tpu_torch.obs.tracing import TRACE_STAGES
 
-__all__ = ["FleetMetrics", "FleetTraceStore"]
+__all__ = ["FleetMetrics", "FleetTraceStore", "merge_chrome_traces"]
 
 
 def _num(v: Any) -> float:
@@ -473,3 +473,16 @@ class FleetTraceStore:
                          "n_traces": len(rows),
                          "tracks": {t: p for t, p in track_pid.items()}},
         }
+
+
+def merge_chrome_traces(dumps: Sequence[Mapping[str, Any]],
+                        ring_size: int = 65536) -> Dict[str, Any]:
+    """Fold N per-worker ring dumps, ``{"worker": id, "pid": N, "traces":
+    [CompletedTrace.to_dict(), ...]}`` (the shape of ``obs-drill
+    --rings-out`` and of a worker's bye frame), into one fleet Chrome
+    trace."""
+    store = FleetTraceStore(ring_size=ring_size)
+    for d in dumps:
+        store.ingest(str(d.get("worker", "") or "?"),
+                     d.get("traces") or [], pid=int(d.get("pid", 0) or 0))
+    return store.export_chrome_trace()

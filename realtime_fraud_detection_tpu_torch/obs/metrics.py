@@ -23,8 +23,8 @@ Port of the JAX package's ``obs/metrics.py``: a small registry of its own
   snapshot at exposition time as counter deltas against the values last
   seen.
 
-The families of planes the port does not have yet (mesh, graph fetch) are
-not ported, nor ``kernel_interpret_active``:
+The mesh families are not ported (the port has no mesh yet), nor
+``kernel_interpret_active``:
 the port has no kernel interpreter (a CPU tensor runs the plain version).
 """
 
@@ -730,6 +730,36 @@ class MetricsCollector:
         self.graph_sampler_entries = r.gauge(
             "graph_sampler_entries",
             "Center samples currently resident in the sampler cache")
+        # cross-partition resolution (graph/fetch.py GraphFetchClient)
+        self.graph_remote_fetch = r.counter(
+            "graph_remote_fetch_total",
+            "Cross-partition neighbor-fetch requests sent to peer "
+            "workers")
+        self.graph_remote_nodes = r.counter(
+            "graph_remote_nodes_total",
+            "Node adjacency entries received from peer workers")
+        self.graph_fetch_deadline = r.counter(
+            "graph_fetch_deadline_total",
+            "Microbatches whose remote resolution hit the per-batch "
+            "deadline (degraded to the local subgraph)")
+        self.graph_fetch_errors = r.counter(
+            "graph_fetch_errors_total",
+            "Failed/refused peer fetch calls (connection errors, "
+            "netfault windows, backoff-gated skips)")
+        self.graph_fetch_budget_exhausted = r.counter(
+            "graph_fetch_budget_exhausted_total",
+            "Microbatches whose remote resolution hit the per-batch "
+            "node budget (partial remote view, counted as degraded)")
+        self.graph_fetch_stale_generation = r.counter(
+            "graph_fetch_stale_generation_total",
+            "Peer fetches refused at the server's assignment-generation "
+            "fence (stale requester — degraded, refreshed on rebalance "
+            "adoption)")
+        self.graph_degraded_batches = r.counter(
+            "graph_degraded_batches_total",
+            "Microbatches scored with a degraded (partial or local-only) "
+            "neighbor view for ANY reason — deadline, budget, netfault, "
+            "fenced generation")
         self._graph_seen: Dict[str, float] = {}
 
     # ------------------------------------------------------------- mirrors
@@ -890,6 +920,23 @@ class MetricsCollector:
                 _mirror(counter, self._graph_seen, key, sampler.get(key, 0))
             self.graph_sampler_entries.set(
                 float(sampler.get("entries", 0)))
+        fetch = snapshot.get("fetch") or {}
+        if fetch:
+            for key, total, counter in (
+                    ("remote_fetch", "remote_fetch_total",
+                     self.graph_remote_fetch),
+                    ("remote_nodes", "fetched_nodes_total",
+                     self.graph_remote_nodes),
+                    ("deadline", "fetch_deadline_total",
+                     self.graph_fetch_deadline),
+                    ("errors", "fetch_error_total", self.graph_fetch_errors),
+                    ("budget", "budget_exhausted_total",
+                     self.graph_fetch_budget_exhausted),
+                    ("stale", "stale_generation_total",
+                     self.graph_fetch_stale_generation),
+                    ("degraded", "degraded_batches_total",
+                     self.graph_degraded_batches)):
+                _mirror(counter, self._graph_seen, key, fetch.get(total, 0))
 
     def sync_device_pool(self, stats: Mapping[str, Any]) -> None:
         """Mirror ``DevicePool.stats()``: per-replica totals as counter

@@ -73,7 +73,12 @@ Port of the JAX package's ``scoring/scorer.py FraudScorer``:
   that launches them (``ops.thread_launches``), so ``kernel_snapshot`` stays
   exact with batches dispatched from several threads.
 
-Cross-partition graph fetch and the mesh are not ported.
+- graph fetch: ``attach_graph_fetch`` (typed mode only) gives the sampler a
+  ``graph/fetch.py GraphFetchClient``, which resolves the remote shares of
+  a batch's two-hop rings from the other partition workers, budgeted and
+  deadlined, degraded to the local subgraph on any failure.
+
+The mesh is not ported.
 """
 
 from __future__ import annotations
@@ -832,14 +837,24 @@ class TorchFraudScorer:
                 "caches": {"entity_rows": self._join_cache.stats(),
                            "tokens": self.tokenizer.cache_stats()}}
 
+    def attach_graph_fetch(self, client) -> None:
+        """Adopt a ``graph/fetch.py GraphFetchClient``: the typed sampler
+        resolves non-owned neighbour nodes through it. Typed mode only."""
+        if self._sampler is None:
+            raise ValueError(
+                "attach_graph_fetch needs ScorerConfig.graph_mode='typed'")
+        self._sampler.attach_fetch(client)
+
     def graph_snapshot(self) -> Dict[str, Any]:
         """The graph mode and, in typed mode, the typed store's node and
-        edge counts by type and the sampler's cache hits, misses and
-        evictions."""
+        edge counts by type, the sampler's cache hits, misses and
+        evictions, and with a fetch client attached its counters."""
         snap: Dict[str, Any] = {"mode": self.sc.graph_mode}
         if self.typed_graph is not None:
             snap["store"] = self.typed_graph.stats()
             snap["sampler"] = self._sampler.stats()
+            if self._sampler.fetch is not None:
+                snap["fetch"] = self._sampler.fetch.stats()
         return snap
 
     # ---------------------------------------------------------------- scoring

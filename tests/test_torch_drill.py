@@ -336,6 +336,24 @@ def test_drill_and_ladder_import_with_jax_blocked():
             num_users=60, num_merchants=20, batch=32, n_train=128, n_batches=1,
             eval_batches=2, n_trees=3, replay=False, device="cpu"))
         assert compact_quant_summary(qz)["checks"]["bert_is_quantized"]
+        # the graph drill and the distributed obs drill, with the fetch plane
+        from realtime_fraud_detection_tpu_torch.graph.drill import (
+            GraphDrillConfig, compact_graph_summary)
+        from realtime_fraud_detection_tpu_torch.graph.fetch import (
+            GraphFetchClient, GraphFetchServer, StaleGraphGenerationError)
+        from realtime_fraud_detection_tpu_torch.obs.obs_drill import (
+            ObsDrillConfig, _carrier_plan, build_obs_schedule)
+        from realtime_fraud_detection_tpu_torch.obs.fleetmetrics import (
+            merge_chrome_traces)
+        assert GraphDrillConfig.fast().n_workers == 2
+        assert compact_graph_summary({"passed": True})["passed"] is True
+        ocfg = ObsDrillConfig.fast()
+        ocfg.validate()
+        plan = _carrier_plan(ocfg, build_obs_schedule(ocfg))
+        assert list(plan.values()).count("stripped") == 156
+        assert merge_chrome_traces([])["metadata"]["n_traces"] == 0
+        assert issubclass(StaleGraphGenerationError, RuntimeError)
+        assert GraphFetchClient({}).fetch("device->user", ["d"]) == ([], False)
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

@@ -545,6 +545,17 @@ def test_port_runs_with_jax_blocked():
         x = torch.from_numpy(np.random.default_rng(0).normal(size=(8, 64)).astype(np.float32))
         got = NativeTreeScorer(models.trees).logits(x.numpy())
         assert np.allclose(got, tree_ensemble_logits(models.trees, x).numpy(), atol=1e-5)
+        # cross-partition graph fetch into a typed scorer's sampler
+        from realtime_fraud_detection_tpu_torch.graph import (
+            GraphFetchClient, GraphFetchServer, TypedEntityGraph)
+        peer = TypedEntityGraph(fanout=8)
+        peer.add_batch(["x1", "x2"], ["m", "m"], ["d", "d"], ["i", "j"])
+        srv = GraphFetchServer(lambda: peer, worker_id="peer").start()
+        client = GraphFetchClient({"peer": ("127.0.0.1", srv.port)})
+        t.attach_graph_fetch(client)
+        t.assemble(gen.generate_batch(8), now=9.0)
+        assert t.graph_snapshot()["fetch"]["remote_fetch_total"] > 0
+        client.close(); srv.stop()
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

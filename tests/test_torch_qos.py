@@ -652,7 +652,11 @@ def _observe(m, kernel_mode):
     m.sync_graph({"mode": "typed",
                   "store": {"nodes": {"user": 5, "ip": 2},
                             "edges": {"user->ip": 4}, "edges_added": 6},
-                  "sampler": {"hits": 2, "misses": 8, "evictions": 1, "entries": 7}})
+                  "sampler": {"hits": 2, "misses": 8, "evictions": 1, "entries": 7},
+                  "fetch": {"remote_fetch_total": 9, "fetched_nodes_total": 40,
+                            "fetch_deadline_total": 1, "fetch_error_total": 2,
+                            "budget_exhausted_total": 3, "stale_generation_total": 1,
+                            "degraded_batches_total": 4}})
     m.sync_graph({"mode": "bipartite"})
     m.queue_depth.set(3)
     m.sync_quant({"modes": {"bert_text": "int8", "xgboost_primary": "gemm",
@@ -715,8 +719,8 @@ def test_metric_exposition_equals_jax_line_for_line():
     # pool's 6 device_pool_* and the cluster plane's 5 cluster_* ones, the
     # chaos plane's 3 chaos_*, the elastic fleet's 3 autoscale_* and 3
     # handoff_server_* ones, the network fault plane's 7 netfault_* and the
-    # broker fence's 2 fenced_* ones
-    assert len(names) == 89 and len(got) == len(want)
+    # broker fence's 2 fenced_* ones, the graph fetch plane's 7 graph_* ones
+    assert len(names) == 96 and len(got) == len(want)
     # the JAX package's mode "pallas" is the port's "cuda", which sorts to
     # another place among the site-mode samples: compare those as sets
     want = [w.replace('mode="pallas"', 'mode="cuda"') for w in want]
