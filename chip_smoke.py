@@ -176,7 +176,7 @@ Phases, each of which raises (and exits non-zero) on failure:
    one megakernel launch, each one-row batch the chain (1 / 2 / 12 / 2) and
    one counted fallback; then 16 ``/predict`` one at a time, 16 one-row
    batches on the chain, the exposition's fallback total equal to the
-   snapshot's; then the hot swap: a fresh app takes 2,048 ``/predict`` and,
+   snapshot's; then the hot swap: a fresh app takes 1,024 ``/predict`` and,
    a quarter of them answered, ``/reload-models`` restores a port checkpoint
    of the second seed's models while the rest are in flight: every
    transaction answered once with a 200, the app's batches replayed in order
@@ -343,7 +343,7 @@ Phases, each of which raises (and exits non-zero) on failure:
 21. the device pool and the partition-parallel fleet: (a) ``pool-drill
    --devices 4`` as a command on the card (its replicas share the card, each
    on its own stream; every check must pass); phase 8's TINY ``mega()``
-   stream (its first 2,048, int8 BERT, batches of 256) through ``StreamJob`` with the
+   stream (its first 1,024, int8 BERT, batches of 256) through ``StreamJob`` with the
    device pool three ways: every visible card (a pool of one), 2 and 4
    replicas on the one card (launch counters reset just before, read just
    after: one megakernel launch a batch), each run in turns with the
@@ -428,6 +428,47 @@ Phases, each of which raises (and exits non-zero) on failure:
    the card as in 22(b); then ``trace-export --merge D/*``: one named track
    a worker process plus ``ingress``, and as many flow starts as the
    drill's ``flow_arrows``.
+
+24. the mesh plane on 8 positions of the card (``["cuda:0"] * 8``, each
+   with its own stream; data 4 x model 2). (a), (b) and (c) run in a
+   process of their own (``MESH_CHILD``) that turns cuBLAS's
+   split-K off before its first product (``core/precision.py
+   batch_invariant_blas``, as ``mesh-drill`` and a meshed ``serve`` do; a
+   ``MeshExecutor`` on the card refuses to start without it; this process
+   keeps cuBLAS's defaults). It runs (a) and (c), started with (d) just
+   before phase 17 and run beside it (no check of theirs or of phase 17
+   reads a clock, but phase 17's seconds are taken with the card shared),
+   then, once phase 17 and (d) have ended and this process waits, (b)
+   alone on the card; its launch counts (reset just before each path, read
+   just after) come back then, with a bf16 cuBLAS product's time at
+   M=16384 with split-K off beside this process's time for it with the
+   defaults. (a)
+   ``run_mesh_drill`` (``MeshDrillConfig.fast()`` at batch 256, so 64-row
+   data shards against the 256-row single-position reference) with the
+   kernels off, on ``full()`` and on ``mega()`` (with its bit-identical
+   replay): every check of every run (bit-equality of all six placements,
+   every rung, the hot swap, FIFO, the BERT bytes a position stores at most
+   60% of the replicated branch), each combo's launches a mesh batch equal
+   to its data axis times the single position's, only the run's kernels
+   launched; then one seeded bucket-256 TINY int8 batch on a mesh storing
+   every neural branch split, with ``full()`` and ``mega()``: within the
+   drill's noise bound of the kernels-off mesh, no decision flip off a
+   rung, bit-equal to one position, launches 4 x one position's. (c) at
+   TINY width, against the single-position versions: ``ring_attention`` at
+   seq 4 (2e-5), ``moe_ffn`` (2e-5), ``bert_pipeline_encode`` through the
+   flash kernel (2e-3; 40 launches: 8 positions x 5 ticks), the DP + TP
+   train step's loss (rtol 2e-4). (d) ``parallel/train.py
+   run_two_process_step`` (two ``gloo`` processes, 2 positions each on the
+   card): each process's loss within 1e-4 of one process's on the same
+   global batch, its packed fused scores within 2e-5 / 2e-6, its global
+   batch its own blocks. (b) DistilBERT-base ``full()`` through
+   ``ServingApp`` unmeshed and with ``mesh.enabled`` (data 4 x model 2,
+   ``shard_branches=["bert_text"]``) in turns after an untimed warm-up
+   batch through each, 4 ``/batch-predict`` of 256 each, both sides with
+   split-K off: decisions equal on every id, scores
+   equal (gap 0: the 64-row shards' rows are the 256-row batch's), each
+   meshed batch 4 x the 45-launch chain, ``/model-info``'s geometry; txn/s
+   and batch p50 / p99 at the client for each run.
 
 The last three lines of standard output are the kernel JSON line (all five
 kernels), the ``nvidia-smi`` name and power limit, and the result line
@@ -3116,7 +3157,8 @@ def run_quality_artifact(ops, models):
 # under it), the prediction timeout to 60 s, no dedicated metrics listener
 SERVE_CLIENTS = 64
 SERVE_PREDICTS = 4 * BATCH
-SERVE_SWAP_PREDICTS = 8 * BATCH
+# cut from 8 batches to 4 for the command's time limit
+SERVE_SWAP_PREDICTS = 4 * BATCH
 SERVE_SEQUENTIAL = 64
 RUNGS = (0.3, 0.6, 0.8, 0.95, 0.7)      # risk and decision rungs, confidence
 
@@ -6035,9 +6077,9 @@ POOL_SLOW_WINDOW = (4.0, 5.0)            # dispatched batches: replica 0 slowed
 POOL_SLOW_S = 0.05
 POOL_SWAP_BATCHES = 8                    # the hot swap: 16 batches, swap at 8
 # the pooled / unpooled streams of (a), 4 runs at each replica count: cut
-# from 16 batches to 8 for the command's time limit (the faults and the
-# swap keep 16)
-POOL_STREAM_TXNS = 8 * BATCH
+# from 16 batches to 8, then to 4, for the command's time limit
+# (the faults and the swap keep 16)
+POOL_STREAM_TXNS = 4 * BATCH
 FLEET_TXNS = 16 * BATCH
 FLEET_WORKERS = 4
 FLEET_TOL = 1e-4                         # the shard drill's bf16 floor
@@ -6773,10 +6815,13 @@ def drill_on_host(name, args, out):
                 workers.add(int(pid))
                 try:
                     with open(f"/proc/{pid}/environ", "rb") as f:
-                        env = f.read().split(b"\0")
+                        env = f.read()
                 except OSError:
                     continue
-                if b"CUDA_VISIBLE_DEVICES=" not in env:
+                # a process that exits between the two reads (a killed
+                # worker) has no memory left and its environ reads empty:
+                # that says nothing of how it was spawned
+                if env and b"CUDA_VISIBLE_DEVICES=" not in env.split(b"\0"):
                     card_visible.add(int(pid))
         smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
                               "--format=csv,noheader"], capture_output=True, text=True)
@@ -7214,6 +7259,446 @@ def run_graph_phase(ops):
         "epilogue", "flash_attention", "dequant_matmul", "dequant_rows", "megakernel")}}
 
 
+MESH_DEVICES = ["cuda:0"] * 8            # 8 positions on the card: data 4 x model 2
+# (kernels, batch, replay): bucket 256 over data 4, 64-row shards against the
+# 256-row reference
+MESH_DRILL_RUNS = (("off", 256, False), ("full", 256, False), ("mega", 256, True))
+MESH_SERVE_BATCHES = 4
+MESH_USERS, MESH_MERCHANTS = 10_000, 5_000
+ENCODER_TOL = 2e-3                       # a bf16 step of a TINY hidden state
+
+
+def run_mesh_drills(ops):
+    """Phase 24(a): the mesh drill in process on ``MESH_DEVICES``, every
+    check of every run, the BERT bytes a position stores, each combo's
+    launches a mesh batch against its data axis times the single-position
+    reference's; launch counters reset just before each run, read just
+    after."""
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.scoring.mesh_drill import (
+        MeshDrillConfig,
+        compact_mesh_summary,
+        run_mesh_drill,
+    )
+
+    want_kernels = {"off": set(), "full": {"epilogue", "flash_attention", "dequant_matmul",
+                                           "dequant_rows"}, "mega": {"megakernel"}}
+    launches = {}
+    for kernels, batch, replay in MESH_DRILL_RUNS:
+        name = f"mesh-drill --kernels {kernels} --batch {batch}"
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = run_mesh_drill(dataclasses.replace(
+            MeshDrillConfig.fast(), device="cuda", kernels=kernels, batch=batch,
+            replay_check=replay))
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        secs = time.perf_counter() - t0
+        bad = sorted(k for k, v in summary["checks"].items() if not v)
+        if bad or not summary["passed"]:
+            diffs = {n: p.get("first_difference") for n, p in summary["placements"].items()
+                     if p.get("rows_differing")}
+            fail(f"{name}: checks {bad} failed; rows differing "
+                 f"{ {n: p.get('rows_differing') for n, p in summary['placements'].items()} }, "
+                 f"first differences {json.dumps(diffs)}")
+        per_batch = {}
+        for combo, p in summary["placements"].items():
+            data = len(MESH_DEVICES) // 2 // p["replicas"]
+            mesh, single = p["launches_per_batch"]["mesh"], p["launches_per_batch"]["single"]
+            if any(mesh[k] != data * single[k] for k in single):
+                fail(f"{name} {combo}: launches a mesh batch {mesh}, not {data} x the "
+                     f"single position's {single}")
+            per_batch[combo] = {k: v for k, v in mesh.items() if v}
+        ran = {k for k, v in got.items() if v}
+        if ran != want_kernels[kernels]:
+            fail(f"{name}: kernels launched {got}, expected {sorted(want_kernels[kernels])}")
+        if kernels != "off":
+            launches[f"mesh_drill_{kernels}"] = got
+        print(f"{name} ({secs:.1f} s): {json.dumps(compact_mesh_summary(summary))}; "
+              f"launches a mesh batch {json.dumps(per_batch)}; megakernel shards "
+              f"{json.dumps({c: p['mega_shards'] for c, p in summary['placements'].items()})}",
+              flush=True)
+    return launches
+
+
+def mesh_kernel_parity(ops):
+    """Phase 24(a): each kernel against its plain version on the mesh path:
+    one seeded bucket-256 TINY int8 batch through a mesh-attached scorer
+    with the kernels (``full()``, then ``mega()``) and with none; the
+    scores within the drill's noise bound, decisions equal off a rung, the
+    kernels' mesh output bit-equal to one position's, and the launches 4 x
+    one position's."""
+    import numpy as np
+
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.scoring.mesh_executor import MeshExecutor
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
+        ScorerConfig,
+        make_example_batch,
+    )
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    batch = make_example_batch(BATCH, ScorerConfig(), rng=np.random.default_rng(SEED))
+
+    def run(kernels, mesh):
+        scorer = TorchFraudScorer(Config(quant=QuantSettings.full(), kernels=kernels),
+                                  models=seeded_models(TINY_CONFIG),
+                                  bert_config=TINY_CONFIG, device="cuda")
+        if mesh:
+            MeshExecutor(scorer, devices=MESH_DEVICES, model_axis=2,
+                         shard_branches=("bert_text", "graph_neural", "lstm_sequential"))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        pending = scorer.dispatch_assembled(batch, [{}] * BATCH)
+        scorer.finalize(pending)
+        torch.cuda.synchronize()
+        return scorer, pending.out.clone(), ops.launch_counts()
+
+    plain_scorer, plain, none = run(KernelSettings(), True)
+    if any(none.values()):
+        fail(f"mesh path, kernels off: launches {none}")
+    tol = noise_bound(plain_scorer.models, TINY_CONFIG, [(batch.token_ids, batch.token_mask)],
+                      plain_scorer.ensemble_params.weights)
+    cols = [0, 1, 4] + list(range(8, 13))     # probability, confidence, rule, branches
+    out = {}
+    for label, kernels in (("full", KernelSettings.full()), ("mega", KernelSettings.mega())):
+        _, meshed, mesh_l = run(kernels, True)
+        _, single, single_l = run(kernels, False)
+        err = float((meshed[:, cols] - plain[:, cols]).abs().max())
+        near = near_rung(plain[:, 0], RUNGS, tol) | near_rung(plain[:, 1], RUNGS, tol)
+        flips = int(((meshed[:, 2] != plain[:, 2]) & ~near).sum())
+        if err > tol or flips:
+            fail(f"mesh path {label}: max err {err:.3e} against the plain version "
+                 f"(bound {tol:.3e}), {flips} decision flips off a rung")
+        if not torch.equal(meshed, single):
+            fail(f"mesh path {label}: the mesh's output is not one position's bit for bit")
+        if {k: 4 * v for k, v in single_l.items()} != mesh_l or not any(mesh_l.values()):
+            fail(f"mesh path {label}: launches {mesh_l}, one position {single_l}")
+        out[label] = dict(max_abs_err=err, bound=tol, skipped_near_rung=int(near.sum()),
+                          launches=mesh_l, single=single_l)
+    print(f"mesh path against the plain version (TINY int8, bucket {BATCH}, 8 positions "
+          f"data 4 x model 2, every neural branch stored split): " + json.dumps(out),
+          flush=True)
+
+
+def mesh_app(meshed, profiles):
+    """A DistilBERT-base ``ServingApp`` (int8 BERT, ``full()``), with
+    ``mesh.enabled`` over ``MESH_DEVICES`` (data 4 x model 2, BERT stored
+    split) when ``meshed``."""
+    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.serving.app import ServingApp
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    config = Config(quant=QuantSettings.full(), kernels=KernelSettings.full())
+    config.serving.max_concurrent_predictions = BATCH
+    config.serving.prediction_timeout_seconds = 60.0
+    config.monitoring.prometheus_port = 0
+    if meshed:
+        config.mesh.enabled = True
+        config.mesh.data, config.mesh.model = 4, 2
+        config.mesh.shard_branches = ["bert_text"]
+    scorer = TorchFraudScorer(config, models=seeded_models(DISTILBERT_BASE),
+                              bert_config=DISTILBERT_BASE, device="cuda")
+    scorer.seed_profiles(*profiles)
+    return ServingApp(config, scorer=scorer, host="127.0.0.1", port=0, device="cuda")
+
+
+def run_mesh_serving(ops, gen):
+    """Phase 24(b), in ``MESH_CHILD`` (split-K off for both sides): after
+    an untimed warm-up batch through each kind of app,
+    ``MESH_SERVE_BATCHES`` ``/batch-predict`` of 256 through the
+    DistilBERT-base service, unmeshed and meshed in turns (unmeshed, meshed,
+    meshed, unmeshed): the meshed answers' decisions and scores equal to the
+    unmeshed ones', the launches a batch 4 x the unmeshed chain's; txn/s and
+    batch p50 / p99 at the client."""
+    import numpy as np
+
+    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE
+
+    profiles = (gen.users.profiles(), gen.merchants.profiles())
+    bodies = [gen.generate_batch(BATCH) for _ in range(MESH_SERVE_BATCHES)]
+    chain = {"epilogue": 1, "flash_attention": DISTILBERT_BASE.num_layers,
+             "dequant_matmul": 6 * DISTILBERT_BASE.num_layers, "dequant_rows": 2}
+    # one untimed batch through each kind of app first (its answers unused):
+    # this process's first products and kernel loads
+    warm = gen.generate_batch(BATCH)
+    for meshed in (False, True):
+        with AppThread(mesh_app(meshed, profiles)) as srv:
+            if srv.request("POST", "/batch-predict", warm)[0] != 200:
+                fail(f"mesh serving ({meshed}): the warm-up batch failed")
+    runs, launches = [], None
+    for meshed in (False, True, True, False):
+        app = mesh_app(meshed, profiles)
+        batches = []
+        dispatch_spy(app.scorer, ops, batches)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        lat, answers = [], {}
+        with AppThread(app) as srv:
+            t0 = time.perf_counter()
+            for body in bodies:
+                t = time.perf_counter()
+                status, data = srv.request("POST", "/batch-predict", body)
+                lat.append((time.perf_counter() - t) * 1e3)
+                if status != 200 or len(data["results"]) != BATCH:
+                    fail(f"mesh serving ({meshed}): /batch-predict {status}")
+                answers.update({r["transaction_id"]: r for r in data["results"]})
+            wall = time.perf_counter() - t0
+            _, info = srv.request("GET", "/model-info")
+            _, prom = srv.request("GET", "/metrics/prometheus")
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        factor = 4 if meshed else 1
+        want = {k: factor * v for k, v in chain.items()}
+        if any(b["launches"] != want for b in batches) or len(batches) != MESH_SERVE_BATCHES:
+            fail(f"mesh serving ({meshed}): launches a batch "
+                 f"{[b['launches'] for b in batches]}, expected {want}")
+        geometry = {"data": 4, "model": 2, "seq": 1} if meshed else \
+            {"data": 1, "model": 1, "seq": 1}
+        if info["mesh"] != geometry or meshed != ("mesh_model_axis_size 2" in prom):
+            fail(f"mesh serving ({meshed}): /model-info mesh {info['mesh']}")
+        if meshed:
+            launches = got
+        runs.append(dict(meshed=meshed, answers=answers, txn_per_s=len(answers) / wall,
+                         p50=float(np.percentile(lat, 50)), p99=float(np.percentile(lat, 99))))
+    ref = runs[0]["answers"]
+    gaps = []
+    for run in runs[1:]:
+        if run["answers"].keys() != ref.keys():
+            fail("mesh serving: the runs answered different transactions")
+        for tid, r in run["answers"].items():
+            q = ref[tid]
+            if (r["decision"], r["risk_level"]) != (q["decision"], q["risk_level"]):
+                fail(f"mesh serving: {tid} {r['decision']} against {q['decision']}")
+            gaps.append(abs(r["fraud_score"] - q["fraud_score"]))
+    if max(gaps) != 0.0:
+        fail(f"mesh serving: largest score gap {max(gaps):.3e}, not 0 (the 64-row "
+             f"shards' rows differ from the {BATCH}-row batch's with split-K off)")
+    print(f"mesh serving (DistilBERT-base full(), {MESH_SERVE_BATCHES} /batch-predict of "
+          f"{BATCH}, unmeshed / meshed / meshed / unmeshed, split-K off): decisions equal on all "
+          f"{len(ref)} ids, largest score gap {max(gaps):.3e}; launches a meshed batch "
+          f"4 x {chain}; txn/s " + " / ".join(f"{r['txn_per_s']:.1f}" for r in runs)
+          + "; batch p50 / p99 ms " + " / ".join(f"{r['p50']:.1f}/{r['p99']:.1f}"
+                                                  for r in runs), flush=True)
+    return launches
+
+
+def run_mesh_parallel(ops):
+    """Phase 24(c): the parallel layer at TINY width on ``MESH_DEVICES``
+    against its single-position versions: ring attention at seq=4, the MoE
+    FFN, ``bert_pipeline_encode`` with the flash-attention kernel (launch
+    counters reset just before, read just after), the DP + TP train step's
+    loss."""
+    import numpy as np
+
+    from realtime_fraud_detection_tpu_torch.core.mesh import MeshConfig, build_mesh, tree_map
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG, bert_encode
+    from realtime_fraud_detection_tpu_torch.ops.attention import attention_reference
+    from realtime_fraud_detection_tpu_torch.parallel import (
+        MoEConfig,
+        bert_pipeline_encode,
+        init_moe_params,
+        init_train_state,
+        joint_loss,
+        make_train_step,
+        moe_ffn,
+        moe_ffn_reference,
+        ring_attention,
+    )
+    from realtime_fraud_detection_tpu_torch.parallel.train import tiny_train_setup
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    res = {}
+    q, k, v = (torch.randn(8, 2, 64, TINY_CONFIG.head_dim, device="cuda", generator=g)
+               for _ in range(3))
+    mask = torch.ones(8, 64, dtype=torch.bool, device="cuda")
+    mask[:, 50:] = False
+    res["ring_attention"] = float((ring_attention(build_mesh(MeshConfig(seq=4), MESH_DEVICES),
+                                                  q, k, v, mask)
+                                   - attention_reference(q, k, v, mask)).abs().max())
+    cfg = MoEConfig(8, 16, 32, 8.0)
+    mp = {key: t.cuda() for key, t in init_moe_params(SEED, cfg).items()}
+    x = torch.randn(64, 16, device="cuda", generator=g)
+    res["moe_ffn"] = float((moe_ffn(build_mesh(MeshConfig(model=4), MESH_DEVICES), mp, x, cfg)
+                            - moe_ffn_reference(mp, x)).abs().max())
+    models = seeded_models(TINY_CONFIG)
+    bert = tree_map(lambda t: t.cuda(), models.bert)
+    ids = torch.randint(0, TINY_CONFIG.vocab_size, (8, 64), device="cuda", generator=g)
+    ids = ids.to(torch.int32)
+    mask = torch.rand(8, 64, device="cuda", generator=g) > 0.3
+    mask[:, 0] = True
+    mesh2 = build_mesh(MeshConfig(model=2), MESH_DEVICES)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    piped = bert_pipeline_encode(mesh2, bert, ids, mask, TINY_CONFIG, n_micro=4,
+                                 use_flash=True)
+    torch.cuda.synchronize()
+    pipe_launches = ops.launch_counts()
+    res["bert_pipeline_encode"] = float(
+        (piped - bert_encode(bert, ids, mask, TINY_CONFIG, use_flash=True)).abs().max())
+    params, batch = tiny_train_setup(16)
+    state = init_train_state(mesh2, params, lambda ps: torch.optim.SGD(ps, lr=0.1))
+    _, metrics = make_train_step(bert_config=TINY_CONFIG)(state, batch)
+    single = float(joint_loss(tree_map(lambda t: torch.as_tensor(t).cuda(), params),
+                              tree_map(lambda a: torch.from_numpy(np.ascontiguousarray(a))
+                                       .cuda(), batch), TINY_CONFIG)[0])
+    res["train_step_loss"] = [metrics["loss"], single]
+    if res["ring_attention"] > 2e-5 or res["moe_ffn"] > 2e-5 \
+            or res["bert_pipeline_encode"] > ENCODER_TOL \
+            or abs(metrics["loss"] - single) > 2e-4 * abs(single):
+        fail(f"parallel layer on the card: {json.dumps(res)}")
+    # 8 positions x (4 microbatches + 1 stage of fill) ticks, one layer a tick
+    if pipe_launches != {**{k: 0 for k in pipe_launches}, "flash_attention": 40}:
+        fail(f"bert_pipeline_encode: launches {pipe_launches}")
+    print(f"parallel layer at TINY on 8 positions of the card: {json.dumps(res)} "
+          f"(bounds 2e-5, 2e-5, {ENCODER_TOL}, rtol 2e-4); bert_pipeline_encode launches "
+          f"{pipe_launches}", flush=True)
+    return pipe_launches
+
+
+def cublas_bf16_ms() -> float:
+    """A bf16 product at M=16384 (``dequant_matmul``'s cuBLAS yardstick),
+    mean ms over one DistilBERT-base layer's six sites by CUDA events, 20
+    launches after 3 of warm-up: what split-K off costs cuBLAS, timed once in
+    each process."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    times = []
+    for k, n in [(768, 768)] * 4 + [(768, 3072), (3072, 768)]:
+        x = torch.randn(16384, k, device="cuda", generator=g).to(torch.bfloat16)
+        w = torch.randn(k, n, device="cuda", generator=g).to(torch.bfloat16)
+        for _ in range(3):
+            torch.matmul(x, w)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            torch.matmul(x, w)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 20)
+    return sum(times) / len(times)
+
+
+def run_mesh_child(ops):
+    """Phase 24 in the process ``MESH_CHILD`` starts: (a) and (c) at once,
+    then (b) once a line on standard input says that this process is alone
+    on the card, and the split-K-off cuBLAS time. Returns the launches of
+    their kernel paths and their seconds."""
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+
+    t0 = time.perf_counter()
+    launches = run_mesh_drills(ops)
+    mesh_kernel_parity(ops)
+    t_a = time.perf_counter() - t0
+    launches["mesh_pipeline_flash"] = run_mesh_parallel(ops)
+    res = {"a_s": round(t_a, 1), "c_s": round(time.perf_counter() - t0 - t_a, 1)}
+    sys.stdin.readline()
+    t1 = time.perf_counter()
+    launches["mesh_serving_distilbert_base"] = run_mesh_serving(ops, TransactionGenerator(
+        num_users=MESH_USERS, num_merchants=MESH_MERCHANTS, seed=SEED + 24))
+    res["b_s"] = round(time.perf_counter() - t1, 1)
+    res["cublas_bf16_ms"] = cublas_bf16_ms()
+    return {"launches": launches, **res}
+
+
+# phase 24's process: cuBLAS's split-K is turned off before its first product
+# (the mesh's contract, as ``mesh-drill`` and a meshed ``serve`` turn it
+# off), while this process keeps cuBLAS's defaults for every other phase
+MESH_CHILD = """
+import json
+from realtime_fraud_detection_tpu_torch.core.precision import batch_invariant_blas
+batch_invariant_blas()
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as cs
+from realtime_fraud_detection_tpu_torch import ops
+from realtime_fraud_detection_tpu_torch.ops.build import kernel_library
+kernel_library()
+print(json.dumps(cs.run_mesh_child(ops)), flush=True)
+"""
+
+
+def start_mesh_phase():
+    """Phase 24 starts: ``MESH_CHILD`` ((a) and (c), then (b) when told) and
+    the two-process step (d), each of their own, beside phase 17 (whose
+    checks read no clock). ``finish_mesh_phase`` collects them. The child
+    writes to files, so it never waits on a full pipe."""
+    import os
+    import tempfile
+    import threading
+
+    from realtime_fraud_detection_tpu_torch.parallel.train import run_two_process_step
+
+    two_proc = {}
+    worker = threading.Thread(target=lambda: two_proc.update(
+        run_two_process_step(2, 2, "cuda")), name="two-process-step")
+    worker.start()
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    child = subprocess.Popen([sys.executable, "-c", MESH_CHILD], stdin=subprocess.PIPE,
+                             stdout=out, stderr=err, text=True,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+    return dict(t0=time.perf_counter(), child=child, out=out, err=err, worker=worker,
+                two_proc=two_proc)
+
+
+def finish_mesh_phase(started):
+    """Once this process has nothing else on the card: waits for (d), tells
+    ``MESH_CHILD`` to run (b) alone, waits for it, prints what they found
+    and the bf16 cuBLAS product's time here (cuBLAS's defaults) beside its
+    time there (split-K off). Returns the launches of their kernel paths."""
+    started["worker"].join(600)
+    two_proc = started["two_proc"]
+    child = started["child"]
+    if started["worker"].is_alive() or not two_proc.get("passed"):
+        child.kill()
+        fail(f"two-process gloo step on the card: {json.dumps(two_proc)}")
+    print(f"two-process gloo step on the card ({two_proc['seconds']} s): "
+          + json.dumps(two_proc["processes"]), flush=True)
+    t_go = time.perf_counter()
+    try:
+        child.communicate("go\n", timeout=900)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+    started["out"].seek(0)
+    started["err"].seek(0)
+    lines = started["out"].read().strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if child.returncode != 0 or not lines:
+        fail(f"phase 24's process: exit {child.returncode}: "
+             f"{started['err'].read()[-4000:]}")
+    res = json.loads(lines[-1])
+    defaults = cublas_bf16_ms()
+    print(f"phase 24 (a) {res['a_s']} s and (c) {res['c_s']} s in their process, beside "
+          f"phase 17; (b) {res['b_s']} s there alone, {time.perf_counter() - t_go:.1f} s "
+          f"after phase 17 ended; cuBLAS bf16 product at M=16384 (one DistilBERT-base "
+          f"layer's six sites, CUDA events): {defaults:.4f} ms with cuBLAS's defaults (this "
+          f"process), {res['cublas_bf16_ms']:.4f} ms with split-K off (phase 24's process)",
+          flush=True)
+    return res["launches"]
+
+
+def run_mesh_phase(ops):
+    """Phase 24 alone: (a), (c), (d) and (b). Returns the launches of its
+    kernel paths."""
+    return finish_mesh_phase(start_mesh_phase())
+
+
 def run_drills() -> dict:
     """The port's kernel drill (``KernelDrillConfig.fast()``) on the card,
     once on the per-site chain and once on the megakernel; a verdict that is
@@ -7350,8 +7835,11 @@ def main() -> int:
     lap("15")
     stream.update(run_serving(ops))
     lap("16")
+    mesh_started = start_mesh_phase()
     stream.update(run_training(ops))
     lap("17")
+    stream.update(finish_mesh_phase(mesh_started))
+    lap("24: (b), and the wait for (a), (c) and (d), after 17")
     stream.update(run_feedback(ops))
     lap("18")
     stream.update(run_deployed_phase(ops))

@@ -30,7 +30,10 @@ workers (``cluster-worker``) over that broker with the network handoff store
 (``cluster.handoff``) and the autoscaler (``cluster.autoscale``), proved by
 ``elastic-drill`` and, under the link faults of ``chaos.netfaults``, by
 ``partition-drill``; ``chaos-drill`` runs every plane through one
-correlated-failure timeline on the device pool.
+correlated-failure timeline on the device pool. The mesh plane
+(``core.mesh``, ``scoring.mesh_executor``, ``parallel``) splits a batch over
+the ``data`` positions of a mesh and stores branches split over ``model``,
+proved by ``mesh-drill``.
 """
 
 __version__ = "0.1.0"

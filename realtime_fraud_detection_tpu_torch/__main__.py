@@ -11,6 +11,7 @@
     python -m realtime_fraud_detection_tpu_torch feedback-drill [--fast]
     python -m realtime_fraud_detection_tpu_torch quant-drill [--fast] [--no-replay]
     python -m realtime_fraud_detection_tpu_torch pool-drill [--fast] [--devices N] [--inflight-depth D]
+    python -m realtime_fraud_detection_tpu_torch mesh-drill [--fast] [--devices N] [--model-axis M] [--no-replay] [--device cpu]
     python -m realtime_fraud_detection_tpu_torch shard-drill [--fast] [--workers N] [--no-replay]
     python -m realtime_fraud_detection_tpu_torch elastic-drill [--fast] [--no-replay]
     python -m realtime_fraud_detection_tpu_torch partition-drill [--fast] [--workers N] [--no-replay]
@@ -121,6 +122,17 @@ does not), with a bit-identical second run unless ``--no-replay``. Each
 prints the full summary, then the compact verdict as the last line, and
 exits 1 unless every check passed.
 
+``mesh-drill`` is the port of ``rtfd mesh-drill`` (``scoring/mesh_drill.py``):
+the real mesh-sharded scoring path (``scoring/mesh_executor.py``) on
+``--devices`` positions over the visible cards, cycled (several on one card,
+each on its own stream), or all on the CPU with ``--device cpu`` (the JAX
+command re-execs onto virtual CPU devices; this one does not), a
+``--model-axis`` split: bit-equality with a single-position scorer for six
+branch placements, every QoS rung and a hot swap, the BERT bytes a position
+stores, a bit-identical second pass unless ``--no-replay``. It prints the
+full summary, then the compact verdict as the last line, and exits 1 unless
+every check passed.
+
 ``graph-drill`` and ``obs-drill`` are the ports of the JAX commands of the
 same names (``graph/drill.py``, ``obs/obs_drill.py``). The graph drill
 drives typed-graph scorers (on the card unless ``--device cpu``) across
@@ -206,6 +218,14 @@ import os
 import sys
 import time
 from typing import List, Optional
+
+
+# the port's deterministic drill commands (the JAX package's
+# ``analysis/lockwatch.py LOCKWATCH_DRILLS``, and the port's quant drill)
+DRILL_COMMANDS = ("qos-drill", "trace-drill", "autotune-drill", "feedback-drill",
+                  "pool-drill", "chaos-drill", "shard-drill", "mesh-drill",
+                  "elastic-drill", "partition-drill", "graph-drill", "kernel-drill",
+                  "obs-drill", "quant-drill")
 
 
 def _no_card(command: str, device: str) -> bool:
@@ -511,6 +531,33 @@ def cmd_pool_drill(args: argparse.Namespace) -> int:
     summary = run_pool_drill(cfg, device=args.device)
     print(json.dumps(summary), flush=True)
     print(json.dumps(compact_pool_summary(summary), separators=(",", ":")), flush=True)
+    return 0 if summary["passed"] else 1
+
+
+def cmd_mesh_drill(args: argparse.Namespace) -> int:
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.scoring.mesh_drill import (
+        MeshDrillConfig,
+        compact_mesh_summary,
+        run_mesh_drill,
+    )
+
+    if _no_card("mesh-drill", args.device):
+        return 2
+    # before the first product on the card: the mesh's scores equal one
+    # position's with cuBLAS's split-K off
+    from realtime_fraud_detection_tpu_torch.core.precision import batch_invariant_blas
+
+    batch_invariant_blas()
+    cfg = MeshDrillConfig.fast() if args.fast else MeshDrillConfig()
+    cfg = dataclasses.replace(
+        cfg, n_devices=args.devices, model_axis=args.model_axis,
+        inflight_depth=args.inflight_depth, seed=args.seed,
+        replay_check=not args.no_replay, device=args.device)
+    summary = run_mesh_drill(cfg)
+    print(json.dumps(summary), flush=True)
+    print(json.dumps(compact_mesh_summary(summary), separators=(",", ":")), flush=True)
     return 0 if summary["passed"] else 1
 
 
@@ -857,6 +904,12 @@ def cmd_serve(args: argparse.Namespace) -> int:
         config.serving.device_pool = True
     if args.inflight_depth:
         config.serving.inflight_depth = args.inflight_depth
+    if config.mesh.enabled:
+        # before the first product on the card: the mesh's scores equal one
+        # position's with cuBLAS's split-K off
+        from realtime_fraud_detection_tpu_torch.core.precision import batch_invariant_blas
+
+        batch_invariant_blas()
     scorer_kwargs = {}
     if args.quality_artifact:
         applied = config.apply_quality_artifact(args.quality_artifact)
@@ -1481,6 +1534,25 @@ def build_parser() -> argparse.ArgumentParser:
     pd.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu: where the replicas run")
     pd.set_defaults(fn=cmd_pool_drill)
+    md = sub.add_parser("mesh-drill",
+                        help="deterministic mesh-sharding drill: the real data x "
+                             "model serving path, bit-equality per branch "
+                             "placement, every QoS rung, hot swap, the BERT "
+                             "bytes a position stores")
+    md.add_argument("--fast", action="store_true",
+                    help="the test sizes (MeshDrillConfig.fast())")
+    md.add_argument("--devices", type=int, default=8,
+                    help="mesh positions, placed round-robin over the visible cards")
+    md.add_argument("--model-axis", type=int, default=2,
+                    help="model-parallel axis size per mesh replica")
+    md.add_argument("--inflight-depth", type=int, default=2,
+                    help="in-flight batches per mesh replica")
+    md.add_argument("--seed", type=int, default=7)
+    md.add_argument("--no-replay", action="store_true",
+                    help="skip the second bit-identical pass")
+    md.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu: where the positions are")
+    md.set_defaults(fn=cmd_mesh_drill)
     sd = sub.add_parser("shard-drill",
                         help="deterministic partition-parallel worker drill: "
                              "key-sharded state across >= 4 workers, a "

@@ -267,7 +267,10 @@ class CheckpointManager:
         refused unless ``allow_arch_mismatch`` (then the scorer serves the
         checkpoint's form: ``set_models`` quantizes an f32 restore into an
         int8 scorer, an int8 restore into an f32 scorer serves int8). Old
-        checkpoints without the stamps restore leniently."""
+        checkpoints without the stamps restore leniently. A scorer with a
+        device pool or a mesh executor attached gets the restored models
+        placed through it (``set_models`` fans them out: a mesh re-splits
+        its sharded branches under the same placement)."""
         step = self._resolve(step)
         manifest = self.manifest(step)
         ck_mode = (manifest.get("quant_mode") or {}).get("bert_weights")

@@ -6,11 +6,47 @@ accumulation, the product rounded once to bf16. ``matmul_cd`` states that
 rounding explicitly (bf16-valued operands multiply exactly in f32, so an f32
 product of the rounded operands, rounded once at the end, is the same
 arithmetic) so the port rounds at the same places on every device.
+
+``batch_invariant_blas`` turns cuBLAS's split-K off for the process, so a
+product's rows do not depend on how many rows it has (from 64 rows up; the
+mesh executor's data shards, ``scoring/mesh_executor.py ROW_BLOCK``).
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+
+# cuBLAS and cuBLASLt with no workspace: no split-K
+BATCH_INVARIANT_BLAS = {"CUBLAS_WORKSPACE_CONFIG": ":0:0", "CUBLASLT_WORKSPACE_SIZE": "0"}
+
+
+def batch_invariant_blas() -> None:
+    """Turn cuBLAS's split-K off for this process, or raise if that is too
+    late. A split-K product sums its K range in parallel chunks, and cuBLAS
+    picks it by the number of rows, so a row of a small batch would round
+    otherwise than the same row in a large one. No workspace turns it off.
+    PyTorch reads the workspace sizes when it first creates its cuBLAS
+    handle, so this sets them only while CUDA is not yet initialised in the
+    process, and raises if CUDA is initialised and they are not already in
+    the environment. ``MeshExecutor`` calls it for a mesh on the card, so
+    ``mesh-drill``, ``serve`` with ``mesh.enabled`` and any script driving
+    the mesh call it (or set ``BATCH_INVARIANT_BLAS`` in the environment)
+    before their first work on the card. It costs cuBLAS speed elsewhere
+    (``chip_smoke.py`` phase 24 times a bf16 product both ways), so nothing
+    else turns it on."""
+    if all(os.environ.get(k) == v for k, v in BATCH_INVARIANT_BLAS.items()):
+        return
+    if torch.cuda.is_initialized():
+        raise RuntimeError(
+            "cuBLAS's split-K may already be on in this process: CUDA was "
+            "initialised before batch_invariant_blas(), so a mesh's data shards "
+            "could round otherwise than the whole batch; call it (or set "
+            + " ".join(f"{k}={v}" for k, v in BATCH_INVARIANT_BLAS.items())
+            + ") before the process first uses the card")
+    os.environ.update(BATCH_INVARIANT_BLAS)
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,9 @@ the weight-only int8 ``{"qw", "scale", "b"}`` / ``{"qe", "scale"}`` of
 product rounded to bf16, f32 accumulation, bias added in f32), f32 for
 tests. Kernel selection: ``dequant_kernel="cuda"`` routes the int8 dense
 layers and embedding rows through ``ops/dequant_matmul.py``, and
-``use_flash`` the attention through ``ops/attention.py``.
+``use_flash`` the attention through ``ops/attention.py``;
+``attention_fn(q, k, v, key_mask) -> ctx`` replaces the attention outright
+(``parallel/context.py`` passes ring attention over a mesh).
 """
 
 from __future__ import annotations
@@ -144,7 +146,7 @@ def bert_embed(params: Dict, input_ids: torch.Tensor, config: BertConfig,
 def bert_layer(layer: Dict, x: torch.Tensor, attention_mask: torch.Tensor,
                config: BertConfig, use_flash: bool = False,
                compute_dtype: torch.dtype = torch.bfloat16,
-               dequant_kernel: str = "off") -> torch.Tensor:
+               dequant_kernel: str = "off", attention_fn=None) -> torch.Tensor:
     """One post-LN transformer block. x f32[B, S, H]."""
     b, s = x.shape[:2]
     q = _dense(x, layer["q"], compute_dtype, dequant_kernel)
@@ -154,7 +156,7 @@ def bert_layer(layer: Dict, x: torch.Tensor, attention_mask: torch.Tensor,
     def split(t):
         return t.reshape(b, s, config.num_heads, config.head_dim).permute(0, 2, 1, 3)
 
-    attend = flash_attention if use_flash else attention_reference
+    attend = attention_fn or (flash_attention if use_flash else attention_reference)
     ctx = attend(split(q), split(k), split(v), attention_mask)
     ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, config.hidden_size)
     attn_out = _dense(ctx, layer["o"], compute_dtype, dequant_kernel)
@@ -165,17 +167,29 @@ def bert_layer(layer: Dict, x: torch.Tensor, attention_mask: torch.Tensor,
     return _layer_norm(x + ffn, layer["ffn_ln"], config.layer_norm_eps)
 
 
-def bert_logits(params: Dict, input_ids: torch.Tensor,
+def bert_encode(params: Dict, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor, config: BertConfig,
                 use_flash: bool = False,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                dequant_kernel: str = "off") -> torch.Tensor:
-    """Sequence-classification logits f32[B, num_labels] from [CLS]."""
+                dequant_kernel: str = "off", attention_fn=None) -> torch.Tensor:
+    """Hidden states f32[B, S, H]: the embeddings through every layer."""
     x = bert_embed(params, input_ids, config, dequant_kernel=dequant_kernel)
     for layer in params["layers"]:
         x = bert_layer(layer, x, attention_mask, config, use_flash=use_flash,
                        compute_dtype=compute_dtype,
-                       dequant_kernel=dequant_kernel)
+                       dequant_kernel=dequant_kernel, attention_fn=attention_fn)
+    return x
+
+
+def bert_logits(params: Dict, input_ids: torch.Tensor,
+                attention_mask: torch.Tensor, config: BertConfig,
+                use_flash: bool = False,
+                compute_dtype: torch.dtype = torch.bfloat16,
+                dequant_kernel: str = "off", attention_fn=None) -> torch.Tensor:
+    """Sequence-classification logits f32[B, num_labels] from [CLS]."""
+    x = bert_encode(params, input_ids, attention_mask, config, use_flash=use_flash,
+                    compute_dtype=compute_dtype, dequant_kernel=dequant_kernel,
+                    attention_fn=attention_fn)
     cls = x[:, 0, :]
     z = torch.relu(cls @ params["pre_classifier"]["w"]
                    + params["pre_classifier"]["b"])
@@ -186,9 +200,9 @@ def bert_predict(params: Dict, input_ids: torch.Tensor,
                  attention_mask: torch.Tensor, config: BertConfig,
                  use_flash: bool = False,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 dequant_kernel: str = "off") -> torch.Tensor:
+                 dequant_kernel: str = "off", attention_fn=None) -> torch.Tensor:
     """Fraud probability f32[B] = softmax(logits)[:, 1]."""
     logits = bert_logits(params, input_ids, attention_mask, config,
                          use_flash=use_flash, compute_dtype=compute_dtype,
-                         dequant_kernel=dequant_kernel)
+                         dequant_kernel=dequant_kernel, attention_fn=attention_fn)
     return torch.softmax(logits, dim=-1)[:, 1]

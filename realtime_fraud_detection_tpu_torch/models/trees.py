@@ -134,7 +134,10 @@ def gemm_leaf_contract(feature: torch.Tensor, threshold: torch.Tensor,
     """One-hot leaf selection contracted with per-leaf ``values`` [T, L]
     -> f32[B, T]."""
     onehot = gemm_leaf_onehot(feature, threshold, x)
-    return torch.einsum("btl,tl->bt", onehot, values)
+    # contiguous [B, T], as the gather path's: the einsum may return the
+    # transposed layout, whose reduction over trees sums in an order that
+    # depends on B on the card
+    return torch.einsum("btl,tl->bt", onehot, values).contiguous()
 
 
 def tree_ensemble_logits(ensemble: TreeEnsemble, x: torch.Tensor,

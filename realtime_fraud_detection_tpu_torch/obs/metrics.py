@@ -19,13 +19,12 @@ Port of the JAX package's ``obs/metrics.py``: a small registry of its own
   (``sync_cluster``), the chaos plane's ``chaos_*`` (``sync_chaos``), the
   elastic fleet's ``autoscale_*`` and ``handoff_server_*``
   (``sync_autoscale``) and the network fault plane's ``netfault_*`` and the
-  broker fence's ``fenced_*`` (``sync_netfaults``), each mirrored from a
-  snapshot at exposition time as counter deltas against the values last
-  seen.
+  broker fence's ``fenced_*`` (``sync_netfaults``) and the mesh executor's
+  ``mesh_*`` (``sync_mesh``), each mirrored from a snapshot at exposition
+  time as counter deltas against the values last seen.
 
-The mesh families are not ported (the port has no mesh yet), nor
-``kernel_interpret_active``:
-the port has no kernel interpreter (a CPU tensor runs the plain version).
+``kernel_interpret_active`` is not ported: the port has no kernel
+interpreter (a CPU tensor runs the plain version).
 """
 
 from __future__ import annotations
@@ -650,6 +649,42 @@ class MetricsCollector:
             "Checkpoint blobs that failed sha256 verification on restore "
             "(the previous checkpoint was served instead)")
         self._autoscale_seen: Dict[str, float] = {}
+        # the mesh executor (scoring/mesh_executor.py): geometry, per-branch
+        # placement as exhaustive 0/1 gauges, per-position against
+        # replicated parameter bytes, per-replica dispatch counters,
+        # mirrored from MeshExecutor.mesh_snapshot() by sync_mesh
+        self.mesh_data_axis = r.gauge(
+            "mesh_data_axis_size",
+            "Data-parallel axis size of each serving mesh replica")
+        self.mesh_model_axis = r.gauge(
+            "mesh_model_axis_size",
+            "Model-parallel axis size of each serving mesh replica")
+        self.mesh_replica_count = r.gauge(
+            "mesh_replica_count",
+            "Mesh replicas in the executor's round-robin rotation "
+            "(pool x mesh: replicate the mesh, not the chip)")
+        self.mesh_branch_sharded = r.gauge(
+            "mesh_branch_sharded",
+            "1 when the branch's params store sharded over the model "
+            "axis, 0 when replicated (exhaustive over the registry)",
+            ("branch",))
+        self.mesh_param_bytes = r.gauge(
+            "mesh_param_bytes_per_chip",
+            "Max per-chip resident param bytes for each branch as "
+            "committed on mesh replica 0 (the HBM the placement actually "
+            "buys)", ("branch",))
+        self.mesh_param_bytes_replicated = r.gauge(
+            "mesh_param_bytes_replicated",
+            "Replicated-equivalent param bytes per branch (what a pure "
+            "DevicePool replica would hold) — the denominator of the "
+            "sharding win", ("branch",))
+        self.mesh_dispatched = r.counter(
+            "mesh_dispatched_total",
+            "Microbatches dispatched to each mesh replica", ("replica",))
+        self.mesh_completed = r.counter(
+            "mesh_completed_total",
+            "Microbatches completed by each mesh replica", ("replica",))
+        self._mesh_seen: Dict[Tuple[str, str], float] = {}
         # network fault plane (chaos/netfaults.py) + broker producer-
         # generation fencing (stream/netbroker.py): per-link injected
         # fault effects and the broker's refused-write counters —
@@ -1021,6 +1056,26 @@ class MetricsCollector:
             if delta > 0:
                 counter.inc(delta)
             self._autoscale_seen[field] = total
+
+    def sync_mesh(self, snapshot: Mapping[str, Any]) -> None:
+        """Mirror ``MeshExecutor.mesh_snapshot()``: geometry and bytes as
+        gauges, the per-replica dispatch and completion totals as counter
+        deltas against the values last seen."""
+        self.mesh_data_axis.set(float(snapshot.get("data_axis", 0)))
+        self.mesh_model_axis.set(float(snapshot.get("model_axis", 0)))
+        self.mesh_replica_count.set(float(snapshot.get("replicas", 0)))
+        for branch, placement in (snapshot.get("placement") or {}).items():
+            self.mesh_branch_sharded.set(
+                1.0 if placement == "sharded" else 0.0, branch=str(branch))
+        for branch, pb in (snapshot.get("param_bytes") or {}).items():
+            self.mesh_param_bytes.set(float(pb.get("per_chip", 0)), branch=str(branch))
+            self.mesh_param_bytes_replicated.set(float(pb.get("replicated", 0)),
+                                                 branch=str(branch))
+        for kind, counter in (("dispatched", self.mesh_dispatched),
+                              ("completed", self.mesh_completed)):
+            for replica, total in (snapshot.get(kind) or {}).items():
+                _mirror(counter, self._mesh_seen, (kind, str(replica)), total,
+                        replica=str(replica))
 
     def sync_netfaults(self, snapshot: Mapping[str, Any]) -> None:
         """Mirror a ``chaos.netfaults.LinkFaultPlane.snapshot()`` —

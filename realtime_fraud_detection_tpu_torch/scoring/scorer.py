@@ -78,7 +78,11 @@ Port of the JAX package's ``scoring/scorer.py FraudScorer``:
   a batch's two-hop rings from the other partition workers, budgeted and
   deadlined, degraded to the local subgraph on any failure.
 
-The mesh is not ported.
+- mesh: a ``scoring/mesh_executor.py MeshExecutor`` attaches through the
+  same seam as the pool. ``dispatch_assembled`` pads each batch to a
+  multiple of the executor's ``batch_multiple`` (its data axis times 64
+  rows), the executor scores each data row's share on its own position,
+  and ``model_info`` reports the executor's ``data x model`` geometry.
 """
 
 from __future__ import annotations
@@ -493,9 +497,9 @@ class TorchFraudScorer:
 
     # ---------------------------------------------------------------- pooling
     def attach_pool(self, pool) -> None:
-        """Adopt a ``DevicePool``: later dispatches route through it. Called
-        by ``DevicePool.__init__``: build the scorer first, then the pool
-        around it."""
+        """Adopt a ``DevicePool`` or a ``MeshExecutor``: later dispatches
+        route through it. Called by their ``__init__``: build the scorer
+        first, then the pool around it."""
         self._pool = pool
 
     @property
@@ -560,7 +564,8 @@ class TorchFraudScorer:
     def model_info(self) -> Dict[str, Any]:
         """The branches (enabled, normalised blend weight), the strategy,
         the branch count and the device layout in the JAX scorer's mesh
-        axes (one device: every axis 1)."""
+        axes: an attached mesh executor's ``data x model`` geometry, else
+        every axis 1."""
         norm = self.config.normalized_weights()
         return {
             "models": {
@@ -570,7 +575,8 @@ class TorchFraudScorer:
             },
             "strategy": self.config.ensemble.strategy,
             "num_models": NUM_MODELS,
-            "mesh": {"data": 1, "model": 1, "seq": 1},
+            "mesh": {"data": int(getattr(self._pool, "data_axis", 1)),
+                     "model": int(getattr(self._pool, "model_axis", 1)), "seq": 1},
         }
 
     def set_degradation(self, mask: Optional[np.ndarray],
@@ -928,7 +934,10 @@ class TorchFraudScorer:
             trace.mark("pack")
         t_pack = time.perf_counter()
         n = len(records)
-        padded, mask, size = pad_to_bucket(batch, n)
+        # an attached mesh executor splits the batch over its data axis in
+        # whole row blocks: pad to its multiple
+        padded, mask, size = pad_to_bucket(
+            batch, n, multiple_of=getattr(self._pool, "batch_multiple", 1))
         padded = dataclasses.replace(padded, valid=mask)
         if self.sc.transfer_bf16:
             padded = _stage_bf16(padded)

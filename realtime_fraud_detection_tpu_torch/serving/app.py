@@ -61,9 +61,16 @@ owner, its address (``location``) and the partition, ahead of admission;
 client side of the 421 is ``serving/ingress_client.py ShardIngressClient``.
 With
 ``state.backend == "redis"`` the scorer keeps its state on the shared RESP
-tier (``scoring/scorer.py``).
-
-Not ported: the mesh executor.
+tier (``scoring/scorer.py``). With ``mesh.enabled`` (and no pool) the batches
+run on a ``scoring/mesh_executor.py MeshExecutor`` (``mesh.replicas`` data x
+``mesh.model`` meshes over every visible card, or with ``mesh.data`` set over
+``replicas x data x model`` positions cycled over the cards, storing
+``mesh.shard_branches`` split over ``model``), behind the same
+seam and the same two-phase microbatcher; the ``mesh_*`` series and
+``/metrics``'s ``mesh`` block mirror it, and ``/model-info`` reports its
+geometry. A mesh on the card needs cuBLAS's split-K off from the process's
+start (``core/precision.py batch_invariant_blas``, which ``serve`` calls
+first): building the app raises where the card was used without it.
 """
 
 from __future__ import annotations
@@ -92,6 +99,10 @@ from realtime_fraud_detection_tpu_torch.obs.tracing import (
 )
 from realtime_fraud_detection_tpu_torch.qos.plane import QosPlane
 from realtime_fraud_detection_tpu_torch.scoring.device_pool import DevicePool
+from realtime_fraud_detection_tpu_torch.scoring.mesh_executor import (
+    MeshExecutor,
+    mesh_positions,
+)
 from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
     MODEL_NAMES,
     init_scoring_models,
@@ -146,6 +157,18 @@ class ServingApp:
         self.pool = getattr(self.scorer, "pool", None)
         if sc.device_pool and self.pool is None:
             self.pool = DevicePool(self.scorer, inflight_depth=sc.inflight_depth)
+        elif self.config.mesh.enabled and self.pool is None:
+            # mesh-sharded scoring behind the pool's seam: each rotation slot
+            # is a data x model mesh storing the configured branches split.
+            # ``mesh.data`` None: every visible card; set, replicas x data x
+            # model positions over the cards, cycled (on the CPU, all there)
+            mcfg = self.config.mesh
+            devices = (None if mcfg.data is None else mesh_positions(
+                mcfg.replicas * mcfg.data * mcfg.model, self.scorer.device))
+            self.pool = MeshExecutor(self.scorer, devices=devices, model_axis=mcfg.model,
+                                     replicas=mcfg.replicas,
+                                     inflight_depth=mcfg.inflight_depth,
+                                     shard_branches=tuple(mcfg.shard_branches))
         two_phase = sc.overlap_assembly or self.pool is not None
         # the tuning plane: the microbatcher's close decisions move from the
         # fixed deadline to the just-in-time controller; the tuner reads the
@@ -549,7 +572,8 @@ class ServingApp:
         payload = self.metrics.summary()
         payload["host_assembly"] = self.scorer.host_stats()
         if self.pool is not None:
-            payload["device_pool"] = self.pool.stats()
+            key = "mesh" if isinstance(self.pool, MeshExecutor) else "device_pool"
+            payload[key] = self.pool.stats()
         return 200, payload
 
     async def _metrics_prometheus(self, body, query) -> Tuple[int, Any]:
@@ -558,7 +582,11 @@ class ServingApp:
         self.metrics.sync_kernels(self.scorer.kernel_snapshot())
         self.metrics.sync_graph(self.scorer.graph_snapshot())
         self.metrics.sync_microbatch(self.batcher.close_reasons)
-        if self.pool is not None:
+        if isinstance(self.pool, MeshExecutor):
+            # the mesh's own series (geometry, placement, per-position bytes);
+            # the device_pool_* family stays the replicated pool's
+            self.metrics.sync_mesh(self.pool.mesh_snapshot())
+        elif self.pool is not None:
             self.metrics.sync_device_pool(self.pool.stats())
         if self.tracer is not None:
             self.metrics.sync_tracing(self.tracer.snapshot())

@@ -15,8 +15,9 @@ the QoS, tracing, tuning and feedback planes' knobs (``QosSettings``,
 deadline, and ``FeedbackSettings``), the load generator's settings
 (``SimConfig``), the partition-parallel plane's knobs (``ClusterSettings``:
 the serving router, the handoff cadence, the elastic fleet's autoscale
-bounds), the chaos plane's knobs (``ChaosSettings``) and the models' base
-path; plus the
+bounds), the chaos plane's knobs (``ChaosSettings``), the mesh geometry and
+the mesh executor's knobs (``MeshSettings``) and the models' base path; plus
+the
 quality-artifact loaders that deploy a measured blend
 (``Config.apply_quality_artifact``).
 The environment part: the ensemble's (``RTFD_ENSEMBLE_STRATEGY`` or
@@ -27,9 +28,7 @@ service's address (``ML_SERVICE_HOST``, ``ML_SERVICE_PORT``), logging
 its ``RTFD_`` name, which wins (the backend's is looked up as JAX looks it
 up: ``RTFD_RTFD_STATE_BACKEND``, then ``RTFD_STATE_BACKEND``). ``StreamConfig`` reads no environment variable,
 as in the JAX package. Values are copies of the JAX package's; the port keeps
-its own so it imports nothing of it. The block of the plane the port does not
-have yet (mesh) is not ported: a config file that sets it gets the
-unknown-key warning.
+its own so it imports nothing of it.
 """
 
 from __future__ import annotations
@@ -785,6 +784,53 @@ class SimConfig:
     seed: int = 42
 
 
+# Branches whose params may take the sharded placement on the serving mesh
+# (scoring/mesh_executor.py; parallel/layouts.SHARDABLE_BRANCHES maps these
+# onto ScoringModels fields, a test pins the two in sync). Trees / iforest /
+# rules are replicated by design.
+MESH_SHARDABLE_BRANCHES = ("bert_text", "lstm_sequential", "graph_neural")
+
+
+@dataclass
+class MeshSettings:
+    """Mesh geometry: the (data, model, seq) axes of ``core/mesh.py`` and
+    the serving executor's knobs (``scoring/mesh_executor.py``).
+
+    ``enabled`` opts a serving deployment into mesh-sharded scoring:
+    ``replicas`` ``data x model`` meshes in round-robin rotation, each
+    storing the ``shard_branches`` params split over ``model`` while the
+    microbatch splits over ``data``. ``data=None`` takes every visible card
+    (as JAX takes every device); a ``data`` size places ``replicas x data x
+    model`` positions over the cards, cycled, several on one card each with
+    its own stream (on the CPU, all there). Off by default: the replicated
+    ``DevicePool`` stays the baseline plane; ``mesh-drill`` gates the
+    sharded path's bit-equality contract."""
+
+    data: int | None = None
+    model: int = 1
+    seq: int = 1
+    enabled: bool = False
+    replicas: int = 1
+    inflight_depth: int = 2
+    shard_branches: List[str] = field(default_factory=lambda: ["bert_text"])
+
+    def validate(self) -> None:
+        if self.model < 1 or self.seq < 1:
+            raise ValueError(
+                f"mesh axes must be >= 1, got model={self.model} "
+                f"seq={self.seq}")
+        if self.replicas < 1 or self.inflight_depth < 1:
+            raise ValueError(
+                "mesh.replicas and mesh.inflight_depth must be >= 1")
+        bad = [b for b in self.shard_branches
+               if b not in MESH_SHARDABLE_BRANCHES]
+        if bad:
+            raise ValueError(
+                f"mesh.shard_branches {bad} not shardable; valid: "
+                f"{list(MESH_SHARDABLE_BRANCHES)} (trees/iforest/rules "
+                f"are replicated by design)")
+
+
 @dataclass
 class Config:
     """The slice of the JAX package's root ``Config`` the port reads. A
@@ -809,6 +855,7 @@ class Config:
     tuning: TuningSettings = field(default_factory=TuningSettings)
     cluster: ClusterSettings = field(default_factory=ClusterSettings)
     chaos: ChaosSettings = field(default_factory=ChaosSettings)
+    mesh: MeshSettings = field(default_factory=MeshSettings)
 
     def __post_init__(self) -> None:
         self._apply_env()
@@ -977,6 +1024,7 @@ class Config:
         self.kernels.validate()
         self.cluster.validate()
         self.chaos.validate()
+        self.mesh.validate()
 
 
 def _merge_dataclass(obj: Any, data: Dict[str, Any]) -> None:

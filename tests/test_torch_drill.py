@@ -354,6 +354,41 @@ def test_drill_and_ladder_import_with_jax_blocked():
         assert merge_chrome_traces([])["metadata"]["n_traces"] == 0
         assert issubclass(StaleGraphGenerationError, RuntimeError)
         assert GraphFetchClient({}).fetch("device->user", ["d"]) == ([], False)
+        # the mesh plane: the executor, its drill's verdict, the parallel layer
+        import torch
+        from realtime_fraud_detection_tpu_torch.__main__ import DRILL_COMMANDS
+        from realtime_fraud_detection_tpu_torch.core.mesh import MeshConfig, build_mesh
+        from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+        from realtime_fraud_detection_tpu_torch.parallel import (
+            MoEConfig, init_moe_params, init_train_state, make_train_step, moe_ffn,
+            moe_ffn_reference, pipeline_forward, ring_attention, stack_stage_params)
+        from realtime_fraud_detection_tpu_torch.parallel.train import tiny_train_setup
+        from realtime_fraud_detection_tpu_torch.scoring.mesh_drill import (
+            MeshDrillConfig, compact_mesh_summary)
+        from realtime_fraud_detection_tpu_torch.scoring.mesh_executor import MeshExecutor
+        assert "mesh-drill" in DRILL_COMMANDS and MeshDrillConfig.fast().batch == 256
+        assert compact_mesh_summary({"passed": True})["passed"] is True
+        gen = TransactionGenerator(num_users=30, num_merchants=10, seed=2)
+        ms = TorchFraudScorer(device="cpu", seed=1)
+        ms.seed_profiles(gen.users.profiles(), gen.merchants.profiles())
+        ex = MeshExecutor(ms, devices=["cpu"] * 4, model_axis=2)
+        assert len(ms.score_batch(gen.generate_batch(3))) == 3
+        assert ex.stats()["completed"] == 1 and ms.model_info()["mesh"]["data"] == 2
+        mesh = build_mesh(MeshConfig(seq=2), ["cpu"] * 4)
+        q = torch.randn(2, 2, 8, 8)
+        assert ring_attention(mesh, q, q, q).shape == q.shape
+        mesh2 = build_mesh(MeshConfig(model=2), ["cpu"] * 4)
+        moe = MoEConfig(4, 8, 16, 8.0)
+        mp, xm = init_moe_params(0, moe), torch.randn(8, 8)
+        assert torch.allclose(moe_ffn(mesh2, mp, xm, moe), moe_ffn_reference(mp, xm),
+                              atol=1e-5)
+        stages = stack_stage_params([{"w": torch.eye(4)}, {"w": 2 * torch.eye(4)}])
+        out = pipeline_forward(mesh2, lambda p, h: h @ p["w"], stages, torch.ones(2, 3, 4))
+        assert torch.equal(out, 2 * torch.ones(2, 3, 4))
+        tp, tb = tiny_train_setup(4)
+        st = init_train_state(mesh2, tp, lambda ps: torch.optim.SGD(ps, lr=0.1))
+        st, met = make_train_step(bert_config=TINY_CONFIG)(st, tb)
+        assert st.step == 1 and np.isfinite(met["loss"])
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

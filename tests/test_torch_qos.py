@@ -689,6 +689,15 @@ def _observe(m, kernel_mode):
         "dropped_sends_total": 1, "partitioned_sends_total": 5,
         "lost_responses_total": 0, "throttled_bytes_total": 2048}},
         "fencing": {"fenced_produces_total": 2, "fenced_commits_total": 1}})
+    mesh = {"data_axis": 4, "model_axis": 2, "replicas": 2,
+            "placement": {n: ("sharded" if n == "bert_text" else "replicated")
+                          for n in ("xgboost_primary", "lstm_sequential", "bert_text",
+                                    "graph_neural", "isolation_forest")},
+            "param_bytes": {"bert_text": {"per_chip": 8545800, "replicated": 17017352},
+                            "graph_neural": {"per_chip": 26372, "replicated": 26372}},
+            "dispatched": {"0": 3, "1": 2}, "completed": {"0": 3, "1": 1}}
+    m.sync_mesh(mesh)
+    m.sync_mesh(dict(mesh, dispatched={"0": 5, "1": 2}))
 
 
 def _family_lines(text, names):
@@ -719,8 +728,9 @@ def test_metric_exposition_equals_jax_line_for_line():
     # pool's 6 device_pool_* and the cluster plane's 5 cluster_* ones, the
     # chaos plane's 3 chaos_*, the elastic fleet's 3 autoscale_* and 3
     # handoff_server_* ones, the network fault plane's 7 netfault_* and the
-    # broker fence's 2 fenced_* ones, the graph fetch plane's 7 graph_* ones
-    assert len(names) == 96 and len(got) == len(want)
+    # broker fence's 2 fenced_* ones, the graph fetch plane's 7 graph_* ones,
+    # the mesh executor's 8 mesh_* ones
+    assert len(names) == 104 and len(got) == len(want)
     # the JAX package's mode "pallas" is the port's "cuda", which sorts to
     # another place among the site-mode samples: compare those as sets
     want = [w.replace('mode="pallas"', 'mode="cuda"') for w in want]
