@@ -476,10 +476,21 @@ Phases, each of which raises (and exits non-zero) on failure:
    seq 4 (2e-5), ``moe_ffn`` (2e-5), ``bert_pipeline_encode`` through the
    flash kernel (2e-3; 40 launches: 8 positions x 5 ticks), the DP + TP
    train step's loss (rtol 2e-4). (d) ``parallel/train.py
-   run_two_process_step`` (two ``gloo`` processes, 2 positions each on the
-   card): each process's loss within 1e-4 of one process's on the same
-   global batch, its packed fused scores within 2e-5 / 2e-6, its global
-   batch its own blocks. (b) DistilBERT-base ``full()`` through
+   run_two_process_step`` (two ``gloo`` processes, 4 positions each on the
+   card: one global mesh of data 4 x model 2, each process data 2 x model
+   2; each child turns split-K off first): each process's loss within 1e-4
+   of one process's on the same global batch, its packed fused scores
+   within 2e-5 / 2e-6, its global batch its own blocks; then the mesh
+   executor's multi-process ``mesh=`` mode at DistilBERT-base width (text
+   64, BERT stored split over ``model``), one batch of 256 rows (64 a data
+   row) with the kernels off and one with ``QuantSettings.full()`` +
+   ``KernelSettings.full()``: each process returns its own 128 rows, bit
+   for bit the same rows of a one-process ``score_fused_packed`` of the
+   whole batch in that process, finite, the BERT bytes a position stores at
+   most 60% of the replicated branch; launches (counted in each child, reset
+   just before its mesh batch, read just after) none with the kernels off,
+   and on ``full()`` 2 x the 45-launch chain in each process (one chain a
+   data row). (b) DistilBERT-base ``full()`` through
    ``ServingApp`` unmeshed and with ``mesh.enabled`` (data 4 x model 2,
    ``shard_branches=["bert_text"]``) in turns after an untimed warm-up
    batch through each, 4 ``/batch-predict`` of 256 each, both sides with
@@ -7889,7 +7900,8 @@ def start_mesh_phase():
 
     two_proc = {}
     worker = threading.Thread(target=lambda: two_proc.update(
-        run_two_process_step(2, 2, "cuda")), name="two-process-step")
+        run_two_process_step(2, 4, "cuda", timeout_s=600.0,
+                             mesh_width="distilbert-base")), name="two-process-step")
     worker.start()
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
     child = subprocess.Popen([sys.executable, "-c", MESH_CHILD], stdin=subprocess.PIPE,
@@ -7904,12 +7916,17 @@ def finish_mesh_phase(started):
     ``MESH_CHILD`` to run (b) alone, waits for it, prints what they found
     and the bf16 cuBLAS product's time here (cuBLAS's defaults) beside its
     time there (split-K off). Returns the launches of their kernel paths."""
-    started["worker"].join(600)
+    started["worker"].join(660)
     two_proc = started["two_proc"]
     child = started["child"]
     if started["worker"].is_alive() or not two_proc.get("passed"):
         child.kill()
         fail(f"two-process gloo step on the card: {json.dumps(two_proc)}")
+    try:
+        two_proc_launches = check_two_process_mesh(two_proc)
+    except BaseException:
+        child.kill()
+        raise
     print(f"two-process gloo step on the card ({two_proc['seconds']} s): "
           + json.dumps(two_proc["processes"]), flush=True)
     t_go = time.perf_counter()
@@ -7934,7 +7951,47 @@ def finish_mesh_phase(started):
           f"layer's six sites, CUDA events): {defaults:.4f} ms with cuBLAS's defaults (this "
           f"process), {res['cublas_bf16_ms']:.4f} ms with split-K off (phase 24's process)",
           flush=True)
-    return res["launches"]
+    return {**res["launches"], **two_proc_launches}
+
+
+def check_two_process_mesh(two_proc) -> dict:
+    """Phase 24(d)'s multi-process mesh stage, read from each process's
+    line (``run_two_process_step`` already gated rows, bit-equality, BERT
+    bytes and finiteness): both kernel modes ran at DistilBERT-base width
+    on the global data 4 x model 2 mesh, no launch with the kernels off,
+    and on ``full()`` each process launched the 45-launch chain once a
+    local data row and nothing else. Returns the two processes' ``full()``
+    launches summed."""
+    from realtime_fraud_detection_tpu_torch.models.bert import DISTILBERT_BASE
+
+    chain = {"epilogue": 1, "flash_attention": DISTILBERT_BASE.num_layers,
+             "dequant_matmul": 6 * DISTILBERT_BASE.num_layers, "dequant_rows": 2,
+             "megakernel": 0}
+    total = dict.fromkeys(chain, 0)
+    for line in two_proc["processes"]:
+        runs = line.get("mesh_runs", {})
+        if (line.get("mesh_geometry") != {"data": 4, "model": 2, "seq": 1}
+                or line.get("mesh_width") != "distilbert-base" or set(runs) != {"off", "full"}):
+            fail(f"two-process mesh: process {line.get('process')} ran "
+                 f"{line.get('mesh_geometry')} {line.get('mesh_width')} {sorted(runs)}")
+        local_rows = line["mesh_geometry"]["data"] // len(two_proc["processes"])
+        if any(runs["off"]["launches"].values()):
+            fail(f"two-process mesh, kernels off: launches {runs['off']['launches']}")
+        want = {k: local_rows * v for k, v in chain.items()}
+        if runs["full"]["launches"] != want:
+            fail(f"two-process mesh, full(): process {line['process']} launched "
+                 f"{runs['full']['launches']}, expected {want}")
+        for k in total:
+            total[k] += runs["full"]["launches"][k]
+    print("two-process mesh (DistilBERT-base, data 4 x model 2 over 2 processes, "
+          "BERT stored split): " + "; ".join(
+              f"process {line['process']} {mode}: {r['rows']} of {r['batch']} rows, "
+              f"bit-equal {r['bit_equal']}, BERT bytes a position {r['bert_per_chip']} "
+              f"of {r['bert_replicated']} ({r['bert_per_chip'] / r['bert_replicated']:.3f}), "
+              f"{r['seconds']} s"
+              for line in two_proc["processes"] for mode, r in line["mesh_runs"].items())
+          + f"; full() launches over both processes {total}", flush=True)
+    return {"mesh_two_process_distilbert_base": total}
 
 
 def run_mesh_phase(ops):

@@ -52,7 +52,7 @@ __all__ = [
     "NamedSharding", "P", "PartitionSpec", "ShardedTensor", "batch_sharding",
     "build_mesh", "build_multihost_mesh", "device_put", "init_distributed",
     "local_mesh_size", "make_global_batch", "pad_batch_to_mesh",
-    "replicated_sharding", "shard_batch", "tree_leaves", "tree_map",
+    "process_row_span", "replicated_sharding", "shard_batch", "tree_leaves", "tree_map",
 ]
 
 
@@ -199,6 +199,14 @@ class Mesh:
     def local_positions(self) -> List[Tuple[int, ...]]:
         return [idx for idx in self.positions() if self.is_local(idx)]
 
+    def local_data_rows(self) -> List[int]:
+        """The indices along ``data`` of the rows that hold a position of
+        this process, in order. ``build_multihost_mesh`` keeps every
+        ``model`` x ``seq`` tile inside one process, so such a row is this
+        process's whole."""
+        a = self.axis(DATA_AXIS)
+        return sorted({idx[a] for idx in self.local_positions()})
+
     def device(self, idx: Tuple[int, ...]) -> torch.device:
         return self.devices[idx]
 
@@ -322,6 +330,20 @@ def pad_batch_to_mesh(n: int, mesh: Mesh) -> int:
     """Smallest batch >= max(n, 1) divisible by the data axis size."""
     d = local_mesh_size(mesh)
     return int(math.ceil(max(n, 1) / d) * d)
+
+
+def process_row_span(mesh: Mesh, n: int) -> slice:
+    """The rows of an ``n``-row global batch that this process's data rows
+    hold: one contiguous span on the process-major data axis
+    ``build_multihost_mesh`` lays out (the whole batch in one process)."""
+    d = mesh.shape[DATA_AXIS]
+    if n % d:
+        raise ValueError(f"a {n}-row batch does not split over the data axis {d}")
+    rows = mesh.local_data_rows()
+    if rows != list(range(rows[0], rows[-1] + 1)):
+        raise ValueError(f"this process's data rows {rows} are not contiguous")
+    per = n // d
+    return slice(rows[0] * per, (rows[-1] + 1) * per)
 
 
 def block_slices(shape: Sequence[int], spec: PartitionSpec, mesh: Mesh,

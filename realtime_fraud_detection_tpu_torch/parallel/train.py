@@ -20,7 +20,10 @@ elementwise: the same update as over the blocks).
 
 Across processes (``run_two_process_step``): each process runs the step on
 its own positions and rows, and the gradients and losses of the processes
-meet over ``torch.distributed`` (``gloo``), added in rank order.
+meet over ``torch.distributed`` (``gloo``), added in rank order. The same
+processes then score through the packed fused scorer on their rows, and
+through ``MeshExecutor`` on one ``data x model`` mesh spanning them (BERT
+stored split over ``model``), each returning its own rows.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ from realtime_fraud_detection_tpu_torch.core.mesh import (
 )
 from realtime_fraud_detection_tpu_torch.core.precision import matmul_cd
 from realtime_fraud_detection_tpu_torch.models.bert import (
+    DISTILBERT_BASE,
+    TINY_CONFIG,
     BertConfig,
     _layer_norm,
     bert_embed,
@@ -293,7 +298,7 @@ def shard_train_batch(mesh: Mesh, batch: TrainBatch) -> Any:
 def tiny_train_setup(b: int, seed: int = 0, param_seed: int = 0):
     """(params, host TrainBatch) for the joint step at small shapes (TINY
     BERT, LSTM hidden 32, GNN hidden 16), from numpy seeds."""
-    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG, init_bert_params
+    from realtime_fraud_detection_tpu_torch.models.bert import init_bert_params
     from realtime_fraud_detection_tpu_torch.models.gnn import init_gnn_params
     from realtime_fraud_detection_tpu_torch.models.lstm import init_lstm_params
 
@@ -322,12 +327,105 @@ def tiny_train_setup(b: int, seed: int = 0, param_seed: int = 0):
     return params, batch
 
 
+# the multi-process mesh stage's widths: BERT configuration and text length
+MESH_WIDTHS = {"tiny": (TINY_CONFIG, 16), "distilbert-base": (DISTILBERT_BASE, 64)}
+
+
+def _multihost_mesh_stage(device: str, positions: int, width: str) -> Dict[str, Any]:
+    """The third stage of ``_two_process_child``: a ``TorchFraudScorer`` on
+    this process's device behind ``MeshExecutor(mesh=...)`` on one global
+    ``data x model`` mesh (model 2, ``positions`` of it in each process),
+    BERT stored split over ``model``; one ``dispatch_packed`` / ``wait`` of
+    ``ROW_BLOCK * data_axis`` rows from ``make_example_batch`` (seed 13),
+    with the kernels off and then on ``full`` (int8 BERT with
+    ``KernelSettings.full()``). Each run returns this process's rows, which
+    must equal bit for bit the same rows of a one-process
+    ``score_fused_packed`` of the whole batch (same process, so the same
+    split-K setting); the hand-written launches are counted around the mesh
+    batch alone."""
+    from realtime_fraud_detection_tpu_torch import ops
+    from realtime_fraud_detection_tpu_torch.core.mesh import (
+        build_multihost_mesh,
+        process_row_span,
+    )
+    from realtime_fraud_detection_tpu_torch.core.packing import pack_tree
+    from realtime_fraud_detection_tpu_torch.scoring.mesh_executor import (
+        ROW_BLOCK,
+        MeshExecutor,
+    )
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import (
+        MODEL_NAMES,
+        ScorerConfig,
+        init_scoring_models,
+        make_example_batch,
+        score_fused_packed,
+    )
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    bert_config, text_len = MESH_WIDTHS[width]
+    sc = ScorerConfig(text_len=text_len)
+    models = init_scoring_models(3, bert_config, feature_dim=sc.feature_dim,
+                                 node_dim=sc.node_dim)
+    mesh = build_multihost_mesh(MeshConfig(model=2), devices=[device] * positions)
+    on_card = torch.device(device).type == "cuda"
+    mv = np.ones(len(MODEL_NAMES), bool)
+    runs = {}
+    for mode in ("off", "full"):
+        t0 = time.perf_counter()
+        config = (Config(quant=QuantSettings.full(), kernels=KernelSettings.full())
+                  if mode == "full" else Config())
+        scorer = TorchFraudScorer(config, models=models, scorer_config=sc,
+                                  bert_config=bert_config, device=device)
+        ex = MeshExecutor(scorer, mesh=mesh, inflight_depth=1,
+                          shard_branches=("bert_text",))
+        n = ROW_BLOCK * ex.data_axis
+        blobs, spec = pack_tree(make_example_batch(
+            n, sc, rng=np.random.default_rng(13), vocab_size=bert_config.vocab_size))
+        if on_card:
+            torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        mine = ex.wait(ex.dispatch_packed(blobs, spec, scorer.ensemble_params, mv)).numpy()
+        launches = ops.launch_counts()
+        dev_blobs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                     for k, v in blobs.items() if v is not None}
+        ref = score_fused_packed(
+            scorer.models, dev_blobs, spec, scorer.ensemble_params, torch.from_numpy(mv),
+            bert_config=bert_config, compute_dtype=scorer.compute_dtype,
+            **scorer.quant.static(), **scorer.kernel_static(n, mv)).cpu().numpy()
+        want = ref[process_row_span(mesh, n)]
+        pb = ex.param_bytes()["bert_text"]
+        runs[mode] = {
+            "multihost": ex.multihost, "batch": n, "rows": int(mine.shape[0]),
+            "bit_equal": bool(mine.shape == want.shape
+                              and mine.tobytes() == want.tobytes()),
+            "max_abs": (float(np.max(np.abs(mine - want))) if mine.shape == want.shape
+                        else None),
+            "finite": bool(np.isfinite(mine).all()),
+            "bert_per_chip": pb["per_chip"], "bert_replicated": pb["replicated"],
+            "launches": launches, "seconds": round(time.perf_counter() - t0, 2)}
+    first = runs["off"]
+    return {
+        "mesh_geometry": mesh.shape, "mesh_width": width,
+        "mesh_multihost": all(r["multihost"] for r in runs.values()),
+        "mesh_rows": first["rows"], "mesh_batch": first["batch"],
+        "mesh_bit_equal": all(r["bit_equal"] for r in runs.values()),
+        "bert_per_chip": first["bert_per_chip"],
+        "bert_replicated": first["bert_replicated"],
+        "mesh_runs": runs}
+
+
 def _two_process_child(coordinator: str, n_processes: int, process_id: int,
-                       positions: int, device: str) -> None:
+                       positions: int, device: str, mesh_width: str = "tiny") -> None:
     """One process of ``run_two_process_step``: joins the group, runs the
-    joint step on its rows and the packed fused scorer on its rows, and
-    prints one JSON line with both against a one-process run of the whole
-    batch."""
+    joint step on its rows, the packed fused scorer on its rows and, with
+    an even ``positions``, the multi-process mesh executor
+    (``_multihost_mesh_stage``), and prints one JSON line with each against
+    a one-process run of the whole batch."""
     import torch.distributed as dist
 
     from realtime_fraud_detection_tpu_torch.core.mesh import (
@@ -335,8 +433,11 @@ def _two_process_child(coordinator: str, n_processes: int, process_id: int,
         init_distributed,
         make_global_batch,
     )
-    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.core.precision import batch_invariant_blas
 
+    if torch.device(device).type == "cuda":
+        # before the first product on the card: the mesh stage's contract
+        batch_invariant_blas()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     init_distributed(coordinator, n_processes, process_id)
@@ -397,6 +498,8 @@ def _two_process_child(coordinator: str, n_processes: int, process_id: int,
 
     mine = score({k: (v[sl] if v is not None else None) for k, v in blobs.items()})
     ref = score(blobs)[sl]
+    mesh_stage = (_multihost_mesh_stage(device, positions, mesh_width)
+                  if model_axis > 1 else {})
     print(json.dumps({
         "process": process_id, "loss": metrics["loss"], "ref_loss": ref_loss,
         "tiles_local": tiles_local, "global_batch": global_ok, "mesh": mesh.shape,
@@ -405,22 +508,40 @@ def _two_process_child(coordinator: str, n_processes: int, process_id: int,
         "score_max_abs": float(np.max(np.abs(mine - ref))),
         "scores_close": bool(np.allclose(mine, ref, rtol=2e-5, atol=2e-6)),
         "finite": bool(np.isfinite(mine).all() and np.isfinite(metrics["loss"])),
+        **mesh_stage,
     }), flush=True)
     dist.barrier()
     dist.destroy_process_group()
 
 
+def _mesh_stage_passed(line: Dict[str, Any], n_processes: int) -> bool:
+    """The multi-process mesh stage's checks on one process's line."""
+    return bool(line.get("mesh_runs")) and all(
+        r["multihost"] and r["bit_equal"] and r["finite"]
+        and r["rows"] * n_processes == r["batch"]
+        and r["bert_per_chip"] <= 0.6 * r["bert_replicated"]
+        for r in line["mesh_runs"].values())
+
+
 def run_two_process_step(n_processes: int = 2, positions: int = 2, device: str = "cuda",
-                         timeout_s: float = 300.0, env: Optional[Dict[str, str]] = None
-                         ) -> Dict[str, Any]:
-    """The joint DP + TP step and the packed fused scorer across
-    ``n_processes`` OS processes (``gloo`` over ``tcp://127.0.0.1:<free
-    port>``), each with ``positions`` mesh positions on ``device``. Returns
-    each process's line and ``passed``: every loss within 1e-4 of the
-    one-process loss of the same global batch, every process's scores
-    within 2e-5 / 2e-6 of the one-process scores, every tile local, and
-    ``make_global_batch`` placing each process's rows as its blocks of the
-    whole batch."""
+                         timeout_s: float = 300.0, env: Optional[Dict[str, str]] = None,
+                         mesh_width: str = "tiny") -> Dict[str, Any]:
+    """The joint DP + TP step, the packed fused scorer and (with an even
+    ``positions``) the multi-process ``MeshExecutor`` across ``n_processes``
+    OS processes (``gloo`` over ``tcp://127.0.0.1:<free port>``), each with
+    ``positions`` mesh positions on ``device``; the mesh stage at
+    ``mesh_width`` (a key of ``MESH_WIDTHS``), kernels off and on
+    ``full()``. Returns each process's line and ``passed``: every loss
+    within 1e-4 of the one-process loss of the same global batch, every
+    process's scores within 2e-5 / 2e-6 of the one-process scores, every
+    tile local, ``make_global_batch`` placing each process's rows as its
+    blocks of the whole batch, and in every mesh run a multi-process
+    executor returning its 1 / ``n_processes`` of the rows bit-equal to the
+    one-process scores, finite, with the BERT bytes a position stores at
+    most 0.6 of the replicated branch."""
+    if mesh_width not in MESH_WIDTHS:
+        raise ValueError(f"mesh stage: width {mesh_width!r}, not one of "
+                         f"{sorted(MESH_WIDTHS)}")
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -431,7 +552,7 @@ def run_two_process_step(n_processes: int = 2, positions: int = 2, device: str =
     for pid in range(n_processes):
         code = ("from realtime_fraud_detection_tpu_torch.parallel.train import "
                 f"_two_process_child as c; c({coord!r}, {n_processes}, {pid}, "
-                f"{positions}, {device!r})")
+                f"{positions}, {device!r}, {mesh_width!r})")
         procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=root,
                                       env=env, stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True))
@@ -450,6 +571,7 @@ def run_two_process_step(n_processes: int = 2, positions: int = 2, device: str =
     passed = (not errors and len(lines) == n_processes
               and all(abs(r["loss"] - r["ref_loss"]) < 1e-4 and r["scores_close"]
                       and r["tiles_local"] and r["global_batch"] and r["finite"]
+                      and (positions % 2 or _mesh_stage_passed(r, n_processes))
                       for r in lines))
     return {"processes": lines, "errors": errors, "passed": bool(passed),
             "seconds": round(time.perf_counter() - t0, 2)}

@@ -47,9 +47,20 @@ parameters. There is no rescue: a mesh batch lives across a whole replica, so ``
 marks a failed replica unhealthy and raises (``inject_fault`` arms such a
 failure at the fetch, on the host).
 
+A pre-built ``mesh=`` (``core/mesh.py build_multihost_mesh``, a
+process-major data axis over ``gloo`` processes) is one spanning replica,
+and this executor is one process's participant in it. Every process holds
+the same models and the same global packed batch (both from seeds or a
+checkpoint); each stores blocks only on its own positions, launches only
+its own data rows, and ``wait`` returns its own rows in row order. Every
+``model`` tile lies inside one process (the mesh refuses one that would
+straddle), so the gather at use stays local: no batch or parameter bytes
+cross processes, and ``gloo`` carries only the mesh's exchange of device
+names.
+
 Left out, as the pool left them out: ``donate`` and ``donation_lowering``
 (an XLA buffer-aliasing switch) and ``complete_no_fetch`` (a hook for the
-JAX benchmark), and the pre-built multi-process ``mesh=`` mode.
+JAX benchmark).
 """
 
 from __future__ import annotations
@@ -66,6 +77,7 @@ import torch
 
 from realtime_fraud_detection_tpu_torch.core import sync
 from realtime_fraud_detection_tpu_torch.core.mesh import (
+    DATA_AXIS,
     MODEL_AXIS,
     Mesh,
     MeshConfig,
@@ -198,13 +210,23 @@ class MeshExecutor:
     stream of its own) split into ``replicas`` equal subsets; each becomes a
     ``(data=per/model_axis) x model_axis`` mesh holding one copy of the
     models, placed per branch (``shard_branches`` store split over
-    ``model``; the rest replicate)."""
+    ``model``; the rest replicate). Or ``mesh``, built by the caller: one
+    replica with the mesh's axes, of which this process owns its positions
+    (``multihost`` when they span processes)."""
 
     def __init__(self, scorer, devices: Optional[Sequence] = None,
                  model_axis: int = 1, replicas: int = 1,
                  inflight_depth: int = 2,
-                 shard_branches: Sequence[str] = ("bert_text",)):
-        if devices is None:
+                 shard_branches: Sequence[str] = ("bert_text",),
+                 mesh: Optional[Mesh] = None):
+        if mesh is not None:
+            if replicas != 1 or devices is not None:
+                raise ValueError(
+                    "pass either a pre-built mesh= (one spanning replica) "
+                    "or devices/replicas, not both")
+            devs = [mesh.device(pos) for pos in mesh.local_positions()]
+            model_axis = mesh.shape[MODEL_AXIS]
+        elif devices is None:
             if scorer.device.type == "cuda":
                 devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
             else:
@@ -215,15 +237,20 @@ class MeshExecutor:
             raise ValueError("mesh executor needs at least one device")
         if any(d.type == "cuda" for d in devs):
             batch_invariant_blas()
-        replicas = max(1, int(replicas))
-        if len(devs) % replicas:
-            raise ValueError(f"{len(devs)} devices do not split into {replicas} "
-                             f"equal mesh replicas")
-        per = len(devs) // replicas
-        model_axis = max(1, int(model_axis))
-        if per % model_axis:
-            raise ValueError(f"model_axis={model_axis} does not divide the {per} "
-                             f"devices of each mesh replica")
+        if mesh is None:
+            replicas = max(1, int(replicas))
+            if len(devs) % replicas:
+                raise ValueError(f"{len(devs)} devices do not split into {replicas} "
+                                 f"equal mesh replicas")
+            per = len(devs) // replicas
+            model_axis = max(1, int(model_axis))
+            if per % model_axis:
+                raise ValueError(f"model_axis={model_axis} does not divide the {per} "
+                                 f"devices of each mesh replica")
+            meshes = [build_mesh(MeshConfig(model=model_axis), devs[i * per:(i + 1) * per])
+                      for i in range(replicas)]
+        else:
+            meshes = [mesh]
         bad = [b for b in shard_branches if b not in SHARDABLE_BRANCHES]
         if bad:
             raise ValueError(
@@ -232,7 +259,10 @@ class MeshExecutor:
                 f"replicated by design)")
         self.scorer = scorer
         self.model_axis = model_axis
-        self.data_axis = per // model_axis
+        self.data_axis = meshes[0].shape[DATA_AXIS]
+        # more than one process: this one feeds, scores and returns only the
+        # rows of its own data rows
+        self.multihost = len({int(r) for r in meshes[0].ranks.flat}) > 1
         # the scorer pads every microbatch to a multiple of this: each data
         # shard a whole number of ROW_BLOCK-row blocks
         self.batch_multiple = self.data_axis * ROW_BLOCK
@@ -242,10 +272,8 @@ class MeshExecutor:
         self._gather_fields: Tuple[str, ...] = tuple(
             sorted(SHARDABLE_BRANCHES[b] for b in self.shard_branches))
         self._cv = threading.Condition()
-        self.replicas: List[_MeshReplica] = [
-            _MeshReplica(i, build_mesh(MeshConfig(model=model_axis),
-                                       devs[i * per:(i + 1) * per]))
-            for i in range(replicas)]
+        self.replicas: List[_MeshReplica] = [_MeshReplica(i, m)
+                                             for i, m in enumerate(meshes)]
         home = scorer.device
         if home.type == "cuda" and home.index is None:
             home = torch.device("cuda", torch.cuda.current_device())
@@ -258,8 +286,8 @@ class MeshExecutor:
     # ------------------------------------------------------------ placement
     def _place(self, models) -> None:
         """Store ``models`` (on the scorer's device) on every replica per the
-        placement: replicated fields once a device, sharded fields one block
-        a (device, model index)."""
+        placement, on this process's positions: replicated fields once a
+        device, sharded fields one block a (device, model index)."""
         specs = branch_serving_specs(models, self.model_axis, self.shard_branches)
         n = self.model_axis
         for rep in self.replicas:
@@ -268,7 +296,7 @@ class MeshExecutor:
             # same tensors share one object
             objs: Dict[Tuple[torch.device, int], Any] = {}
             stored = {}
-            for pos in rep.mesh.positions():
+            for pos in rep.mesh.local_positions():
                 dev, m = rep.mesh.device(pos), pos[1]
                 if dev not in shared:
                     shared[dev] = {f: _move(getattr(models, f), dev) for f in _FIELDS
@@ -337,8 +365,10 @@ class MeshExecutor:
                         static: Optional[Dict[str, Any]] = None) -> MeshToken:
         """Split one packed microbatch over the next replica's data rows and
         launch each row's share on its position's stream, without waiting.
-        ``static`` (the whole batch's kernel selection) is not used: each
-        shard takes the plan for its own size."""
+        On a multi-process mesh ``blobs`` is the global batch every process
+        holds, and only this process's data rows are launched. ``static``
+        (the whole batch's kernel selection) is not used: each shard takes
+        the plan for its own size."""
         rep, depth = self._pick_replica()
         # rtfd-lint: allow[d2h] host bool[M] validity mask, never a device array
         token = MeshToken(rep.idx, depth, params, np.array(model_valid, bool))
@@ -363,7 +393,8 @@ class MeshExecutor:
         mv = token.model_valid
         two_hop = _has_two_hop(spec)
         kept = []
-        for d in range(self.data_axis):
+        data_rows = rep.mesh.local_data_rows()
+        for d in data_rows:
             lead = (d, 0, 0)
             dev, stream = rep.mesh.device(lead), rep.mesh.stream(lead)
             rows = {k: v[d * per:(d + 1) * per] for k, v in blobs.items()}
@@ -396,7 +427,7 @@ class MeshExecutor:
         token.launched_with = kept
         with self._cv:
             rep.mega_served += token.mega_shards
-            rep.mega_declined += self.data_axis - token.mega_shards
+            rep.mega_declined += len(data_rows) - token.mega_shards
 
     # ------------------------------------------------------------ completion
     def _mark_failed(self, rep: _MeshReplica) -> None:
@@ -414,8 +445,9 @@ class MeshExecutor:
 
     def wait(self, token: MeshToken) -> torch.Tensor:
         """Block on a mesh batch's host result (its data rows joined in row
-        order). A failure marks the replica unhealthy, releases its slot and
-        raises: a sharded batch has no single-position rescue copy."""
+        order: on a multi-process mesh this process's rows). A failure marks
+        the replica unhealthy, releases its slot and raises: a sharded batch
+        has no single-position rescue copy."""
         rep = self.replicas[token.replica_idx]
         try:
             with self._cv:
@@ -435,8 +467,9 @@ class MeshExecutor:
     # -------------------------------------------------------------- control
     def set_models(self, models) -> None:
         """Re-place a model swap replica by replica under the same placement
-        (``models`` on the scorer's device; callers hold the score lock). A
-        batch in flight keeps what it launched with."""
+        on this process's positions (``models`` on the scorer's device;
+        callers hold the score lock). A batch in flight keeps what it
+        launched with."""
         self._place(models)
 
     def inject_fault(self, replica_idx: int, n: int = 1) -> None:
@@ -446,10 +479,11 @@ class MeshExecutor:
 
     # ---------------------------------------------------------------- stats
     def param_bytes(self) -> Dict[str, Dict[str, int]]:
-        """Per-branch parameter bytes on mesh replica 0: the most any one
-        position stores (``per_chip``, the JAX key; its replicated tensors
-        and its blocks) against the replicated equivalent (the full branch,
-        what a pool replica holds), read from the stored tensors."""
+        """Per-branch parameter bytes on mesh replica 0: the most any one of
+        this process's positions stores (``per_chip``, the JAX key; its
+        replicated tensors and its blocks) against the replicated equivalent
+        (the full branch, what a pool replica holds), read from the stored
+        tensors."""
         rep = self.replicas[0]
         with self._cv:
             stored = dict(rep.stored)
