@@ -508,7 +508,27 @@ Phases, each of which raises (and exits non-zero) on failure:
    23 and run beside it (the pool drill reads virtual time only): exit 0,
    the drill passed and the watcher's report ok, the designated wait taken,
    its acquisitions, edges and the pool condition's max hold and wait
-   printed.
+   printed;
+26. the text analyzer and the last entry points: (a) ``TextAnalyzer`` at
+   DistilBERT-base with seeded weights on 256 seeded simulator transactions
+   (their merchant name, a description and the combined text: 768 texts, S
+   = 128, bucket 768) with ``use_flash`` on and off, launch counters reset
+   just before each call and read just after (the flash kernel 6 times a
+   call, nothing else; nothing with ``use_flash`` off), every field risk
+   held to the bound the phase measures (BERT's bf16-vs-f32 gap on the same
+   tokens, floored at 1e-4), the call's ms by CUDA events for both;
+   (b) ``DoubleBufferedScorer`` over a TINY scorer with the per-site
+   kernels, 8 batches of 256, under the lock watcher (scorer built inside
+   it): the pairs it hands back bit-equal to a serial run on a second
+   scorer, one designated wait a batch, no wait under a lock; (c) a TINY
+   ``ServingApp`` built under the lock watcher: the blend refreshed from a
+   changed config under its score lock, then one batch dispatched and
+   finalized as the app does: no device wait under the score lock, the
+   epilogue's packed columns equal to the plain combine under the new
+   weights, and the weights' host copy equal to the tensor; (d) one flash
+   call of (a) inside ``obs/profiling.py device_trace`` and ``annotate``:
+   the written trace names the attention kernel and the annotation, and
+   the call's device ms is read from the profiler.
 
 The last three lines of standard output are the kernel JSON line (all five
 kernels), the ``nvidia-smi`` name and power limit, and the result line
@@ -718,8 +738,12 @@ def check_epilogue(params, gen):
     params.strategy = 0
     # the element-by-element store path: an even M (its row width is no
     # multiple of 4), and the packed columns inside a wider matrix
-    four = EnsembleParams(weights=params.weights[:4] / params.weights[:4].sum(),
-                          confidence_multipliers=params.confidence_multipliers[:4])
+    # built on the host, as from_config builds them: the epilogue reads the
+    # blend's host copy and never pulls it from the card
+    w4 = params.host_vectors()[0][:4]
+    four = EnsembleParams(
+        weights=torch.tensor(w4) / sum(w4),
+        confidence_multipliers=torch.tensor(params.host_vectors()[1][:4])).to(dev)
     wide = torch.zeros((b, 2 * m + 14), device=dev)
     for got, ref in ((epilogue_packed(preds[:, :4].contiguous(), rule, four,
                                       row_valid=row_valid),
@@ -8102,6 +8126,260 @@ def run_guard_phase(static_lint: Beside, guard_watch: Beside) -> None:
     check_lockwatch("pool-drill --fast (lint --lockwatch-run)", lw)
 
 
+TEXT_TXNS = BATCH
+
+
+def text_records(gen, n: int) -> list:
+    """``n`` seeded simulator transactions of ``gen`` as the text analyzer's
+    records: the merchant's name and category, a description and the
+    merchant's location (the recipe of ``tests/test_torch_text_analyzer.py``)."""
+    merchants = gen.merchants.profiles()
+    out = []
+    for r in gen.generate_batch(n):
+        m, geo = merchants[r["merchant_id"]], r["merchant_location"]
+        out.append({"merchant_name": m["name"], "category": m["category"],
+                    "description": r.get("fraud_reason") or (
+                        f"{r['transaction_type']} by {r['payment_method']} of "
+                        f"{r['amount']} {r['currency']}"),
+                    "location": f"{geo['lat']:.2f} {geo['lon']:.2f}"})
+    return out
+
+
+def run_text_analyzer(ops, gen) -> dict:
+    """Phase 26 (a) and (d): the text analyzer at DistilBERT-base, flash on
+    against flash off, the launch counts, the bound, the times, the trace."""
+    import tempfile
+
+    import numpy as np
+
+    from realtime_fraud_detection_tpu_torch.core.batching import bucket_for
+    from realtime_fraud_detection_tpu_torch.models.bert import (
+        DISTILBERT_BASE,
+        bert_predict,
+        init_bert_params,
+    )
+    from realtime_fraud_detection_tpu_torch.models.text import (
+        TextAnalyzer,
+        combined_text,
+    )
+    from realtime_fraud_detection_tpu_torch.obs import annotate, device_trace
+
+    cfg = DISTILBERT_BASE
+    flash = TextAnalyzer(cfg, init_bert_params(np.random.default_rng(SEED), cfg),
+                         use_flash=True, device="cuda")
+    plain = TextAnalyzer(cfg, flash.params, use_flash=False, device="cuda")
+    records = text_records(gen, TEXT_TXNS)
+    texts = [t for r in records for t in (r["merchant_name"], r["description"],
+                                           combined_text(r))]
+    n_texts, bucket = len(texts), bucket_for(len(texts))
+    flash.analyze_transaction_text(records[:8])          # warm-up
+    plain.analyze_transaction_text(records[:8])
+
+    def counted(analyzer):
+        """One call, its launches (counters reset just before, read just
+        after) and its ms by CUDA events (the call ends in its pull)."""
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        before = ops.thread_launches()
+        start.record()
+        rows = analyzer.analyze_transaction_text(records)
+        end.record()
+        end.synchronize()
+        return (rows, ops.launch_counts(), ops.thread_launches() - before,
+                start.elapsed_time(end))
+
+    got, launches, own, flash_ms = counted(flash)
+    want, plain_launches, plain_own, plain_ms = counted(plain)
+    expected = {k: cfg.num_layers if k == "flash_attention" else 0 for k in launches}
+    print(f"  text analyzer: {TEXT_TXNS} transactions, {n_texts} texts (bucket {bucket}, "
+          f"S = {flash.tokenizer.max_length}); launches with use_flash {launches} "
+          f"({own} on this thread), without {plain_launches}", flush=True)
+    if launches != expected or own != cfg.num_layers:
+        fail(f"text analyzer launches {launches} ({own} on the thread) != {expected}")
+    if any(plain_launches.values()) or plain_own:
+        fail(f"text analyzer without use_flash launched {plain_launches}")
+
+    ids, mask = plain.tokenizer.encode_batch(texts + [""] * (bucket - n_texts))
+    with torch.inference_mode():
+        ids_d, mask_d = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+        gap = float((bert_predict(plain.params, ids_d, mask_d, cfg)
+                     - bert_predict(plain.params, ids_d, mask_d, cfg,
+                                    compute_dtype=torch.float32))[:n_texts].abs().max())
+    tol = max(gap, 1e-4)
+    if [list(r) for r in got] != [list(r) for r in want]:
+        fail("text analyzer: the field keys differ between flash and plain")
+    err = max(abs(g[k] - w[k]) for g, w in zip(got, want) for k in w)
+    finite = all(np.isfinite(v) and 0.0 <= v <= 1.0 for r in got for v in r.values())
+    print(f"  text analyzer flash vs plain: max field-risk err {err:.3e}, bound "
+          f"{tol:.3e} (BERT bf16 vs f32 gap {gap:.3e} on the same tokens, floor "
+          f"1e-4); all risks finite in [0, 1]: {finite}", flush=True)
+    if not (err <= tol and finite):
+        fail(f"text analyzer flash vs plain: err {err} > bound {tol} or not finite")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with device_trace(tmp) as prof:
+            with annotate("text_analyzer"):
+                flash.analyze_transaction_text(records)
+            torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+    # device busy time from the trace's device records (kernels, copies, sets)
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    dev_ms = sum(e.get("dur", 0) for e in device) / 1e3
+    attn = [e for e in device if "flash_attention_kernel" in e.get("name", "")]
+    attn_ms = sum(e.get("dur", 0) for e in attn) / 1e3
+    named = {"kernel": bool(attn),
+             "annotation": any(e.get("name") == "text_analyzer" for e in events)}
+    print(f"  text analyzer call: {flash_ms:.2f} ms by events with use_flash, "
+          f"{plain_ms:.2f} ms without; the traced call {traced_ms:.2f} ms on the host "
+          f"clock, device busy {dev_ms:.2f} ms in {len(device)} device records, "
+          f"{attn_ms:.2f} ms of it the attention kernel ({len(attn)} launches); the "
+          f"device_trace trace names {named}", flush=True)
+    if not all(named.values()):
+        fail(f"device_trace: the trace does not name {named}")
+    return {"launches": launches, "err": err, "bound": tol, "ms": flash_ms,
+            "plain_ms": plain_ms, "device_ms": dev_ms, "attention_ms": attn_ms}
+
+
+def run_double_buffered(ops, gen) -> dict:
+    """Phase 26 (b): ``DoubleBufferedScorer`` over a TINY scorer on the card
+    against a serial run on a second scorer, under the lock watcher."""
+    import dataclasses
+
+    from realtime_fraud_detection_tpu_torch.analysis.lockwatch import SEAM, watch_locks
+    from realtime_fraud_detection_tpu_torch.core.batching import pad_to_bucket
+    from realtime_fraud_detection_tpu_torch.core.packing import pack_tree
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.scoring.pipeline import score_fused_packed
+    from realtime_fraud_detection_tpu_torch.scoring.scorer import TorchFraudScorer
+    from realtime_fraud_detection_tpu_torch.stream import DoubleBufferedScorer
+    from realtime_fraud_detection_tpu_torch.utils.config import (
+        Config,
+        KernelSettings,
+        QuantSettings,
+    )
+
+    profiles = (gen.users.profiles(), gen.merchants.profiles())
+    batches = [gen.generate_batch(BATCH) for _ in range(8)]
+
+    def scorer():
+        s = TorchFraudScorer(Config(quant=QuantSettings.full(), kernels=KernelSettings.full()),
+                             models=seeded_models(TINY_CONFIG), bert_config=TINY_CONFIG,
+                             device="cuda")
+        s.seed_profiles(*profiles)
+        return s
+
+    def score_fn(s):
+        """Assemble (which moves the scorer's history and graph state), pad,
+        pack, copy to the card and launch; the result stays on the card."""
+        def score(records):
+            padded, mask, size = pad_to_bucket(s.assemble(records), len(records))
+            blobs, spec = pack_tree(dataclasses.replace(padded, valid=mask))
+            mv = s.effective_model_valid()
+            return score_fused_packed(
+                s.models, {k: torch.from_numpy(v).cuda() for k, v in blobs.items()}, spec,
+                s.ensemble_params, torch.from_numpy(mv), bert_config=TINY_CONFIG,
+                compute_dtype=s.compute_dtype, **s.quant_static(),
+                **s.kernel_static(size, mv))
+        return score
+
+    serial_fn = score_fn(scorer())
+    serial = [serial_fn(b).cpu() for b in batches]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with watch_locks() as w:
+        dbs = DoubleBufferedScorer(score_fn(scorer()))
+        first = dbs.submit(batches[0])
+        done = [dbs.submit(b) for b in batches[1:]] + [dbs.drain()]
+    launches = ops.launch_counts()
+    rep = w.report()
+    check_lockwatch("26(b) DoubleBufferedScorer", rep, len(batches))
+    equal = (first is None and [b for b, _ in done] == batches
+             and all(torch.equal(r.cpu(), want) for (_, r), want in zip(done, serial)))
+    waits = rep["device_waits"].get(SEAM, 0)
+    print(f"  DoubleBufferedScorer: {len(batches)} batches of {BATCH} at TINY, pairs "
+          f"bit-equal to the serial run: {equal}; designated waits {waits}; "
+          f"launches {launches}", flush=True)
+    if not equal or waits != len(batches):
+        fail(f"DoubleBufferedScorer: equal {equal}, designated waits {waits} for "
+             f"{len(batches)} batches")
+    if launches["epilogue"] != len(batches):
+        fail(f"DoubleBufferedScorer: epilogue launches {launches['epilogue']}")
+    return launches
+
+
+def run_blend_refresh(ops, gen) -> dict:
+    """Phase 26 (c): a blend refresh under a ``ServingApp``'s score lock and
+    one batch after it, under the lock watcher (ROADMAP C.1)."""
+    from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+    from realtime_fraud_detection_tpu_torch.ops.epilogue import (
+        epilogue_packed_reference,
+        packed_columns,
+    )
+    from realtime_fraud_detection_tpu_torch.utils.config import KernelSettings
+
+    profiles = (gen.users.profiles(), gen.merchants.profiles())
+    records = gen.generate_batch(BATCH)
+    with watched("26(c) blend refresh and a batch under the score lock"):
+        app = serving_app(seeded_models(TINY_CONFIG), TINY_CONFIG, KernelSettings.full(),
+                          "cuda", profiles)
+        old = list(app.scorer.ensemble_params.host_vectors()[0])
+        with app._score_lock:
+            app.config.models["bert_text"].weight = 0.6
+            app.config.models["xgboost_primary"].weight = 0.1
+            app.scorer.refresh_blend_from_config()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        ctx = app._dispatch_batch_sync(records)
+        results = app._finalize_batch_sync(ctx)
+        launches = ops.launch_counts()
+    pending, params = ctx[4], app.scorer.ensemble_params
+    host_w = list(params.host_vectors()[0])
+    tensor_w = params.weights.cpu().tolist()
+    m, n = 5, len(records)
+    cols = packed_columns(m)
+    out = pending.out[:n].cuda()
+    ref = epilogue_packed_reference(out[:, cols["model_predictions"]].contiguous(),
+                                    out[:, 4].contiguous(), params,
+                                    model_valid=pending.model_valid)
+    check = [0, 1, *range(cols["model_contributions"].start, cols["rule_ladder"].stop)]
+    exact = [2, 3, *range(cols["rule_ladder"].start, cols["rule_ladder"].stop)]
+    err = float((out[:, check] - ref[:, check]).abs().max())
+    same = torch.equal(out[:, exact], ref[:, exact])
+    print(f"  blend refresh: weights {old} -> {host_w} (host copy equal to the tensor: "
+          f"{host_w == tensor_w}); a batch of {n} after it: {len(results)} results, "
+          f"epilogue launches {launches['epilogue']}, packed columns against the plain "
+          f"combine under the new weights: max err {err:.3e}, ladders exact {same}",
+          flush=True)
+    if (host_w == old or host_w != tensor_w or len(results) != n
+            or launches["epilogue"] != 1 or not err <= EPILOGUE_TOL or not same):
+        fail(f"blend refresh: weights {host_w} (tensor {tensor_w}, before {old}), "
+             f"launches {launches}, err {err}, ladders exact {same}")
+    return launches
+
+
+def run_text_phase(ops) -> dict:
+    """Phase 26: the text analyzer on the card (with its trace), the
+    double-buffered scorer, the blend refresh; the launch map of each."""
+    from realtime_fraud_detection_tpu_torch.sim.simulator import TransactionGenerator
+
+    t0 = time.perf_counter()
+    gen = TransactionGenerator(num_users=STREAM_USERS, num_merchants=STREAM_MERCHANTS,
+                               seed=SEED + 26)
+    out = {"text_analyzer": run_text_analyzer(ops, gen)["launches"]}
+    t1 = time.perf_counter()
+    out["tiny_double_buffered"] = run_double_buffered(ops, gen)
+    t2 = time.perf_counter()
+    out["tiny_blend_refresh"] = run_blend_refresh(ops, gen)
+    print(f"  phase 26 parts: (a) and (d) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+          f"{time.perf_counter() - t2:.1f} s", flush=True)
+    return out
+
+
 def profile_slice(scorer, batch, records, n_batches: int = 5):
     """Device time by kernel over a few batches (torch.profiler, CUPTI)."""
     from torch.autograd import DeviceType
@@ -8240,6 +8518,8 @@ def main() -> int:
         guard_watch.wait()
     run_guard_phase(static_lint, guard_watch)
     lap("25")
+    stream.update(run_text_phase(ops))
+    lap("26")
     print(f"seconds by phase: {json.dumps(seconds)}", flush=True)
     for e in entries:
         e["stream_launches"] = {k: v[e["name"]] for k, v in stream.items()}

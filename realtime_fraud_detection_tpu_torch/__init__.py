@@ -37,3 +37,5 @@ proved by ``mesh-drill``.
 """
 
 __version__ = "0.1.0"
+
+from realtime_fraud_detection_tpu_torch.utils.config import Config  # noqa: F401

@@ -137,6 +137,8 @@ D2H_MODULES = frozenset({
 # pull-free (finalize is the designated pull point).
 D2H_FUNCTIONS: Dict[str, frozenset] = {
     "scoring/scorer.py": frozenset({"dispatch", "dispatch_assembled"}),
+    # the text analyzer's encoder call on the card: one designated pull
+    "models/text.py": frozenset({"score_texts"}),
 }
 
 # Modules under the determinism contract beyond the sim/ + *drill*

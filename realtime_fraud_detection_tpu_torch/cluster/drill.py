@@ -26,8 +26,10 @@ Scoring is a deterministic host stand-in (:class:`ShardScorer`) with a
 virtual service-cost model, so the drill runs on the CPU in seconds and
 never touches a card; every state update is keyed to the record's event
 time, which makes per-partition state independent of batch boundaries. The
-summary, then a compact (< 2 KB) verdict as the last stdout line. The JAX
-benchmark's ``shard_scaling`` stage (``run_shard_scaling``) is not ported.
+summary, then a compact (< 2 KB) verdict as the last stdout line.
+``run_shard_scaling`` is the benchmark's ``shard_scaling`` hook: the same
+virtual-clock fleet at 1 / 2 / 4 workers over one saturating schedule, host
+work only.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from realtime_fraud_detection_tpu_torch.cluster.partition import PartitionedStor
 from realtime_fraud_detection_tpu_torch.stream import topics as T
 
 __all__ = ["ShardDrillConfig", "ShardScorer", "run_shard_drill", "run_fleet",
-           "build_schedule", "compact_shard_summary"]
+           "build_schedule", "compact_shard_summary", "run_shard_scaling"]
 
 
 @dataclasses.dataclass
@@ -92,6 +94,10 @@ class ShardDrillConfig:
 
     def cost_s(self, n: int) -> float:
         return (self.base_ms + n * self.per_txn_ms) / 1e3
+
+    def capacity_tps(self) -> float:
+        """One worker's sustainable rate at the configured batch size."""
+        return self.batch / self.cost_s(self.batch)
 
 
 # --------------------------------------------------------------- scorer
@@ -601,3 +607,47 @@ def compact_shard_summary(summary: Dict[str, Any]) -> Dict[str, Any]:
                        "passed": summary.get("passed")}
         line = json.dumps(compact, separators=(",", ":"))
     return compact
+
+
+# ------------------------------------------------------------- bench hook
+
+
+def run_shard_scaling(seed: int = 7,
+                      workers: Tuple[int, ...] = (1, 2, 4),
+                      ) -> Dict[str, Any]:
+    """The benchmark's ``shard_scaling`` stage: aggregate virtual txn/s at
+    each worker count over one saturating schedule (offered load at 1.5x
+    the largest fleet's capacity, so every fleet is compute-bound and the
+    makespan ratio is the scaling), plus the kill run's handoff pause."""
+    base = ShardDrillConfig.fast()
+    cfg = dataclasses.replace(
+        base, seed=seed, replay_check=False,
+        tps=max(workers) * 1.5 * base.capacity_tps())
+    sched = build_schedule(cfg)
+    per_w: Dict[int, Dict[str, Any]] = {}
+    for w in sorted(workers):
+        out = run_fleet(dataclasses.replace(cfg, n_workers=w), sched, w,
+                        kill=False)
+        per_w[w] = {
+            "makespan_s": out["makespan_s"],
+            "txn_per_s": round(len(sched) / max(out["makespan_s"], 1e-9), 1),
+        }
+    kill_out = run_fleet(cfg, sched, max(workers), kill=True)
+    w1 = per_w[min(workers)]["txn_per_s"]
+    wmax = max(workers)
+    return {
+        "n_txns": len(sched),
+        "n_partitions": cfg.n_partitions,
+        "workers": {str(w): v for w, v in per_w.items()},
+        "single_worker_txn_per_s": w1,
+        "aggregate_txn_per_s": per_w[wmax]["txn_per_s"],
+        "scaling_vs_single": round(per_w[wmax]["txn_per_s"]
+                                   / max(w1, 1e-9), 3),
+        "scaling_efficiency": round(
+            per_w[wmax]["txn_per_s"] / max(w1, 1e-9) / wmax, 3),
+        "handoff": {
+            "pause_s": kill_out["handoff_pause_s"],
+            "replayed": kill_out["fleet"]["replayed_total"],
+            "moved_partitions": len(kill_out["moved_partitions"]),
+        },
+    }

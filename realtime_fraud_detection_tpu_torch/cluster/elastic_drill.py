@@ -57,8 +57,9 @@ the full space, schema-complete for the stream sanitizer, O(1) memory.
 (``TransactionGenerator`` at 10M users materializes ~3.6 GB of profiles
 the drill's state-coupled stand-in scorer never reads.)
 
-The JAX module's benchmark stage ``run_elastic_scaling`` (``bench.py
-elastic_scaling``) is not ported: the port has no benchmark yet.
+``run_elastic_scaling`` is the benchmark's ``elastic_scaling`` hook: the
+process fleet pinned at each worker count over the TCP broker, host work
+only (its workers never open a CUDA context).
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import tempfile
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -88,7 +90,8 @@ from realtime_fraud_detection_tpu_torch.sim.arrivals import (
 from realtime_fraud_detection_tpu_torch.stream import topics as T
 
 __all__ = ["ElasticDrillConfig", "run_elastic_drill",
-           "compact_elastic_summary", "build_elastic_schedule"]
+           "compact_elastic_summary", "build_elastic_schedule",
+           "run_elastic_scaling"]
 
 
 def _wall() -> float:
@@ -669,3 +672,94 @@ def compact_elastic_summary(summary: Dict[str, Any]) -> Dict[str, Any]:
                        "passed": summary.get("passed")}
         line = json.dumps(compact, separators=(",", ":"))
     return compact
+
+
+# ------------------------------------------------------------- bench hook
+
+
+def run_elastic_scaling(seed: int = 7,
+                        workers: Tuple[int, ...] = (2, 4, 8),
+                        n_txns: int = 3_000) -> Dict[str, Any]:
+    """The benchmark's ``elastic_scaling`` stage: real aggregate txn/s of
+    the process fleet pinned at each worker count over the TCP broker
+    (autoscale off), plus a SIGKILL run's rebalance pause and replay
+    depth. The per-batch service-cost model is fixed, so the ratio measures
+    the orchestration overhead (TCP round trips, partition-scoped
+    consumption, commit traffic) on top of perfectly parallel modelled
+    compute: the process-plane analog of ``run_shard_scaling``'s virtual
+    clock. The workers are ``cluster-worker`` processes with the card
+    hidden (``ProcessFleet`` sets ``CUDA_VISIBLE_DEVICES=""``)."""
+    from realtime_fraud_detection_tpu_torch.cluster.handoff import HandoffServer
+    from realtime_fraud_detection_tpu_torch.stream.netbroker import BrokerServer
+
+    spec = {"batch": 64, "max_delay_ms": 10.0, "checkpoint_every": 6,
+            "seq_len": 4, "feature_dim": 4, "base_ms": 6.0,
+            "per_txn_ms": 1.2, "autotune": False}
+    cfg = dataclasses.replace(ElasticDrillConfig.fast(), seed=seed)
+    sched = build_elastic_schedule(cfg)[:n_txns]
+
+    def _one(n_workers: int, kill: bool) -> Dict[str, Any]:
+        broker_srv = BrokerServer(port=0).start()
+        tmp = tempfile.mkdtemp(prefix="rtfd-escale-")
+        handoff_srv = HandoffServer(
+            blob_dir=os.path.join(tmp, "blobs")).start()
+        fleet = ProcessFleet(
+            f"127.0.0.1:{broker_srv.port}",
+            f"127.0.0.1:{handoff_srv.port}",
+            n_partitions=cfg.n_partitions, worker_spec=spec)
+        try:
+            fleet.start(n_workers)
+            t0 = _wall()
+            items = [(txn["user_id"], txn, t + t0) for t, txn in sched]
+            fleet.client.produce_batch_stamped(T.TRANSACTIONS, items)
+            killed = None
+            deadline = _wall() + 240
+            while _wall() < deadline:
+                fleet.tick()
+                lag = fleet.client.lag(fleet.group_id, T.TRANSACTIONS)
+                if kill and killed is None and lag < len(sched) // 2:
+                    killed = fleet.kill_worker("busiest")
+                if lag == 0:
+                    break
+                time.sleep(0.02)
+            else:
+                raise RuntimeError("elastic_scaling drain timeout")
+            wall = _wall() - t0
+            snap = fleet.snapshot()
+            return {
+                "wall_s": round(wall, 3),
+                "txn_per_s": round(len(sched) / max(wall, 1e-9), 1),
+                "kill": killed,
+                "replayed": snap["replayed_total"],
+                "rebalance_pauses_s": snap["rebalance_pauses_s"],
+            }
+        finally:
+            fleet.terminate()
+            handoff_srv.stop()
+            broker_srv.stop()
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    per_w = {w: _one(w, kill=False) for w in sorted(workers)}
+    kill_out = _one(max(workers), kill=True)
+    w_min, w_max = min(workers), max(workers)
+    base = per_w[w_min]["txn_per_s"]
+    return {
+        "n_txns": len(sched),
+        "n_partitions": cfg.n_partitions,
+        "workers": {str(w): {k: v for k, v in r.items()
+                             if k in ("wall_s", "txn_per_s")}
+                    for w, r in per_w.items()},
+        "aggregate_txn_per_s": per_w[w_max]["txn_per_s"],
+        "scaling_vs_min": round(per_w[w_max]["txn_per_s"]
+                                / max(base, 1e-9), 3),
+        "scaling_efficiency": round(
+            per_w[w_max]["txn_per_s"] / max(base, 1e-9)
+            / (w_max / w_min), 3),
+        "kill_run": {
+            "returncode": (kill_out["kill"] or {}).get("returncode"),
+            "replayed": kill_out["replayed"],
+            "rebalance_pause_s": (max(kill_out["rebalance_pauses_s"][1:])
+                                  if len(kill_out["rebalance_pauses_s"]) > 1
+                                  else None),
+        },
+    }

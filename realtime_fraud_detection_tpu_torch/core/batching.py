@@ -2,7 +2,9 @@
 
 Port of the JAX package's ``core/batching.py``. Rounding every microbatch up
 to a bucket keeps the device program to a few shapes and carries a validity
-mask for the padding rows.
+mask for the padding rows; ``unpad`` cuts the padding off again. A tree is
+nested dicts, lists, tuples and dataclasses of arrays (None fields stay
+None), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -11,7 +13,12 @@ from typing import Any, Tuple
 
 import numpy as np
 
-from realtime_fraud_detection_tpu_torch.core.packing import tree_map
+from realtime_fraud_detection_tpu_torch.core.mesh import tree_map as _tree_map
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """``fn`` over the array leaves of ``tree``; None stays None."""
+    return _tree_map(lambda x: None if x is None else fn(x), tree)
 
 BATCH_BUCKETS: tuple[int, ...] = (1, 8, 32, 128, 256)
 
@@ -55,3 +62,22 @@ def pad_to_bucket(tree: Any, n: int, buckets: tuple[int, ...] = BATCH_BUCKETS,
     mask = np.zeros((size,), dtype=bool)
     mask[:n] = True
     return tree_map(_pad, tree), mask, size
+
+
+def unpad(tree: Any, n: int, padded_size: int | None = None) -> Any:
+    """Strip bucket padding back to the true batch size.
+
+    When ``padded_size`` (the size returned by ``pad_to_bucket``) is given,
+    only leaves whose leading dim equals it are cut; auxiliary leaves that
+    were never padded pass through untouched. Leaves come back as numpy
+    arrays (a CPU tensor's view; a card's tensor is the caller's to pull).
+    """
+    def _cut(x):
+        arr = np.asarray(x)
+        if arr.ndim == 0:
+            return arr
+        if padded_size is not None and arr.shape[0] != padded_size:
+            return arr
+        return arr[:n]
+
+    return tree_map(_cut, tree)

@@ -7,6 +7,13 @@ rounding explicitly (bf16-valued operands multiply exactly in f32, so an f32
 product of the rounded operands, rounded once at the end, is the same
 arithmetic) so the port rounds at the same places on every device.
 
+``Policy`` is the JAX package's precision policy with torch dtypes: f32
+parameters, bf16 compute, f32 outputs (``FULL_PRECISION`` computes in f32).
+Its casts map over a tree of tensors and leave non-float leaves alone;
+``matmul_precision`` names the f32 product precision the policy needs and
+sets nothing: no global setting of torch changes here (``chip_smoke.py``
+pins TF32 off and the mesh needs ``batch_invariant_blas``).
+
 ``batch_invariant_blas`` turns cuBLAS's split-K off for the process, so a
 product's rows do not depend on how many rows it has (from 64 rows up; the
 mesh executor's data shards, ``scoring/mesh_executor.py ROW_BLOCK``).
@@ -14,9 +21,43 @@ mesh executor's data shards, ``scoring/mesh_executor.py ROW_BLOCK``).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import torch
+
+from realtime_fraud_detection_tpu_torch.core.mesh import tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    output_dtype: torch.dtype = torch.float32
+
+    @staticmethod
+    def _cast(tree, dtype: torch.dtype):
+        return tree_map(
+            lambda x: x.to(dtype)
+            if isinstance(x, torch.Tensor) and x.is_floating_point() else x,
+            tree)
+
+    def cast_to_compute(self, tree):
+        return self._cast(tree, self.compute_dtype)
+
+    def cast_to_output(self, tree):
+        return self._cast(tree, self.output_dtype)
+
+    def matmul_precision(self) -> str:
+        """The ``torch.set_float32_matmul_precision`` name of the f32 products
+        this policy's arithmetic needs: ``"highest"`` (no TF32), since
+        ``matmul_cd`` rounds bf16 operands itself and wants exact f32
+        products of them. Returned only; the caller decides."""
+        return "highest"
+
+
+DEFAULT_POLICY = Policy()
+FULL_PRECISION = Policy(compute_dtype=torch.float32)
 
 
 # cuBLAS and cuBLASLt with no workspace: no split-K

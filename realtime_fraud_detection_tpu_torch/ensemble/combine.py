@@ -11,13 +11,23 @@ validity mask for failed or shed branches.
 Per-model confidence: min(1, 2*|p-0.5| * multiplier). Decision ladder: low
 confidence -> REVIEW; p>=decline DECLINE; >=review REVIEW; >=monitor
 APPROVE_WITH_MONITORING; else APPROVE.
+
+``EnsembleParams`` carries its weights and multipliers twice: as tensors on
+the scoring device and as host floats (``host_vectors``), which the fused
+epilogue's by-value arguments and the explanations read, so no launch pulls
+them from the card. The host copy is made where the values are known (from
+the config, or from tensors on the CPU) and carried across ``to``; it
+records the tensors it belongs to and their in-place version counters. On
+the CPU a stale copy is read again; on the card ``host_vectors`` raises
+rather than pull the tensors or hand back stale weights.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Sequence
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from realtime_fraud_detection_tpu_torch.features.rules import (
@@ -41,10 +51,19 @@ STRATEGIES: tuple[str, ...] = VALID_STRATEGIES
 WEIGHTED_AVERAGE, VOTING, STACKING = range(3)
 
 
+def _host_record(weights: torch.Tensor, multipliers: torch.Tensor,
+                 values: Tuple[List[float], List[float]]) -> tuple:
+    """A host copy of (weights, multipliers) bound to the tensors it
+    describes and their version counters at this moment."""
+    return (weights, weights._version, multipliers, multipliers._version,
+            values[0], values[1])
+
+
 @dataclass
 class EnsembleParams:
     """Ensemble parameters: tensors over the model axis plus the strategy
-    and ladder thresholds."""
+    and ladder thresholds, with the host copy of the tensors (``host``,
+    see ``host_vectors``)."""
 
     weights: torch.Tensor                 # f32[M], normalised over enabled
     confidence_multipliers: torch.Tensor  # f32[M]
@@ -54,32 +73,67 @@ class EnsembleParams:
     decline_threshold: float = DECLINE_THRESHOLD_DEFAULT
     review_threshold: float = REVIEW_THRESHOLD_DEFAULT
     monitor_threshold: float = MONITOR_THRESHOLD_DEFAULT
+    host: Optional[tuple] = field(default=None, repr=False, compare=False)
+
+    def _host_current(self) -> bool:
+        h, w, cm = self.host, self.weights, self.confidence_multipliers
+        return (h is not None and h[0] is w and h[1] == w._version
+                and h[2] is cm and h[3] == cm._version)
+
+    def host_vectors(self) -> Tuple[List[float], List[float]]:
+        """The weights and multipliers as host floats, never read from the
+        card. The host copy is read afresh from tensors on the CPU when it
+        is missing or stale; for tensors elsewhere a missing copy (tensors
+        built there) or a stale one (the tensors replaced or written in
+        place since it was made) raises rather than pull them or hand back
+        old weights: a path that changes the blend builds new parameters
+        (``from_config``, then ``to``)."""
+        if not self._host_current():
+            w, cm = self.weights, self.confidence_multipliers
+            if w.device.type != "cpu" or cm.device.type != "cpu":
+                raise ValueError(
+                    "no current host copy of the blend weights and confidence "
+                    f"multipliers on {w.device}: they were built there, replaced or "
+                    "written in place; build new EnsembleParams (from_config, then "
+                    ".to(device)) instead")
+            self.host = _host_record(w, cm, (w.reshape(-1).tolist(),
+                                             cm.reshape(-1).tolist()))
+        return self.host[4], self.host[5]
 
     @classmethod
     def from_config(cls, config: Config,
                     model_names: Sequence[str]) -> "EnsembleParams":
         norm = config.normalized_weights()
         e = config.ensemble
+        # the f32 values the tensors hold, known here without a device
+        weights = np.float32([norm.get(n, 0.0) for n in model_names]).tolist()
+        multipliers = np.float32([
+            MODEL_CONFIDENCE_MULTIPLIER.get(n, DEFAULT_CONFIDENCE_MULTIPLIER)
+            for n in model_names]).tolist()
+        w = torch.tensor(weights, dtype=torch.float32)
+        cm = torch.tensor(multipliers, dtype=torch.float32)
         return cls(
-            weights=torch.tensor([norm.get(n, 0.0) for n in model_names],
-                                 dtype=torch.float32),
-            confidence_multipliers=torch.tensor(
-                [MODEL_CONFIDENCE_MULTIPLIER.get(n, DEFAULT_CONFIDENCE_MULTIPLIER)
-                 for n in model_names], dtype=torch.float32),
+            weights=w, confidence_multipliers=cm,
             strategy=STRATEGIES.index(e.strategy),
             fraud_threshold=e.fraud_threshold,
             confidence_threshold=e.confidence_threshold,
             decline_threshold=e.decline_threshold,
             review_threshold=e.review_threshold,
             monitor_threshold=e.monitor_threshold,
+            host=_host_record(w, cm, (weights, multipliers)),
         )
 
     def to(self, device) -> "EnsembleParams":
+        on_cpu = (self.weights.device.type == "cpu"
+                  and self.confidence_multipliers.device.type == "cpu")
+        values = self.host_vectors() if on_cpu or self._host_current() else None
+        w = self.weights.to(device)
+        cm = self.confidence_multipliers.to(device)
+        host = _host_record(w, cm, values) if values is not None else None
         return EnsembleParams(
-            self.weights.to(device), self.confidence_multipliers.to(device),
-            self.strategy, self.fraud_threshold, self.confidence_threshold,
-            self.decline_threshold, self.review_threshold,
-            self.monitor_threshold)
+            w, cm, self.strategy, self.fraud_threshold,
+            self.confidence_threshold, self.decline_threshold,
+            self.review_threshold, self.monitor_threshold, host=host)
 
 
 def model_confidence(preds: torch.Tensor, multipliers: torch.Tensor) -> torch.Tensor:

@@ -52,6 +52,12 @@ FEATURE_NAMES: tuple[str, ...] = (
 )
 NUM_FEATURES = len(FEATURE_NAMES)
 
+_INDEX = {name: i for i, name in enumerate(FEATURE_NAMES)}
+
+
+def feature_index(name: str) -> int:
+    return _INDEX[name]
+
 
 def top_feature_importances(importances, k: int = 10):
     """Top-k {feature name: score} from a per-feature importance vector

@@ -1,8 +1,9 @@
 """Rule-based fraud score and the decision / risk ladders, on tensors.
 
-Port of the JAX package's ``features/rules.py`` (``rule_score``,
-``risk_level_code``, the constants and the host-side scalar twins the
-serving A/B path recombines with), itself a vectorised
+Port of the JAX package's ``features/rules.py`` (``rule_score``, the
+Flink job's ``make_decision`` ladder, ``risk_level_code``, the constants
+and the host-side scalar twins the serving A/B path recombines with),
+itself a vectorised
 ``TransactionProcessor.applyFraudDetectionRules``
 (TransactionProcessor.java:327-439), and of its enrichment pair
 ``enrichment_score`` / ``blend_enrichment`` (FeatureEnrichmentProcessor,
@@ -31,6 +32,7 @@ APPROVE, APPROVE_WITH_MONITORING, REVIEW, DECLINE = range(4)
 RISK_LEVEL_NAMES: tuple[str, ...] = (
     "VERY_LOW", "LOW", "MEDIUM", "HIGH", "CRITICAL",
 )
+VERY_LOW, LOW, MEDIUM, HIGH, CRITICAL = range(5)
 
 # ensemble risk-band rungs (ensemble_predictor.py:358-369)
 RISK_LEVEL_THRESHOLDS: tuple[float, ...] = (0.3, 0.6, 0.8, 0.95)
@@ -80,6 +82,29 @@ def rule_score(b: TransactionBatch) -> torch.Tensor:
              + 0.05 * f32(unusual_hour)
              + 0.1 * f32(outside_hours))
     return torch.clamp(score, 0.0, 1.0)
+
+
+def make_decision(score: torch.Tensor, blacklisted: torch.Tensor,
+                  fraud_threshold: float = 0.7
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decision + risk-level codes (TransactionProcessor.java:444-473).
+
+    Ladder: >=0.9 DECLINE/CRITICAL, >=threshold REVIEW/HIGH, >=0.5
+    APPROVE/MEDIUM, else APPROVE/LOW; blacklisted merchants override to
+    DECLINE/CRITICAL. Returns (decision i32[B], risk_level i32[B]) on the
+    device of ``score``.
+    """
+    def code(c):
+        return torch.full_like(score, c, dtype=torch.int32)
+
+    decision = torch.where(score >= 0.9, code(DECLINE), torch.where(
+        score >= fraud_threshold, code(REVIEW), code(APPROVE)))
+    risk = torch.where(score >= 0.9, code(CRITICAL), torch.where(
+        score >= fraud_threshold, code(HIGH),
+        torch.where(score >= 0.5, code(MEDIUM), code(LOW))))
+    blacklisted = blacklisted.to(torch.bool)
+    return (torch.where(blacklisted, code(DECLINE), decision),
+            torch.where(blacklisted, code(CRITICAL), risk))
 
 
 def risk_level_code(prob: torch.Tensor) -> torch.Tensor:

@@ -83,6 +83,13 @@ def is_private_ip(ip: str | None) -> bool:
     )
 
 
+def ip_risk_score(ip: str | None) -> float:
+    # FeatureExtractor.java:440-445
+    if not ip:
+        return 0.3
+    return 0.1 if is_private_ip(ip) else 0.3
+
+
 def is_suspicious_user_agent(ua: str | None) -> bool:
     # FeatureExtractor.java:447-451
     if ua is None:
@@ -163,6 +170,10 @@ class TransactionBatch:
     velocity_1hour_amount: Any
     velocity_24hour_count: Any
     velocity_24hour_amount: Any
+
+    @property
+    def batch_size(self) -> int:
+        return self.amount.shape[0]
 
 
 BOOL_FIELDS = frozenset({

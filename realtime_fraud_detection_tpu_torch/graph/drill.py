@@ -38,6 +38,10 @@ be compared id by id.
 
 Convention: the full summary JSON, then a compact (<2 KB) verdict as the
 last stdout line.
+
+``run_graph_sampling_bench`` is the benchmark's ``graph_sampling`` hook:
+the sampler's cost cold and cached, and the fetch client's per-node against
+batched requests to a live local server, host work only.
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ import numpy as np
 
 from realtime_fraud_detection_tpu_torch.stream import topics as T
 
-__all__ = ["GraphDrillConfig", "run_graph_drill", "compact_graph_summary"]
+__all__ = ["GraphDrillConfig", "run_graph_drill", "compact_graph_summary",
+           "run_graph_sampling_bench"]
 
 
 @dataclasses.dataclass
@@ -748,3 +753,79 @@ def compact_graph_summary(summary: Dict[str, Any]) -> Dict[str, Any]:
                        "passed": summary.get("passed")}
         line = json.dumps(compact, separators=(",", ":"))
     return compact
+
+
+# ------------------------------------------------------------- bench hook
+
+
+def run_graph_sampling_bench(seed: int = 7) -> Dict[str, Any]:
+    """The benchmark's ``graph_sampling`` micro half: per-txn sampler cost
+    cold against cached on a seeded synthetic graph, and remote-fetch
+    amortisation (one node a request against one batched request) against
+    a live local fetch server. Host work only; no device is touched."""
+    import time
+
+    from realtime_fraud_detection_tpu_torch.graph.fetch import (
+        GraphFetchClient,
+        GraphFetchServer,
+    )
+    from realtime_fraud_detection_tpu_torch.graph.sampler import NeighborSampler
+    from realtime_fraud_detection_tpu_torch.graph.store import TypedEntityGraph
+
+    rng = np.random.default_rng(seed)
+    node_dim, fanout = 16, 8
+    n_users, n_devices, n_merchants = 4_096, 1_024, 256
+    graph = TypedEntityGraph(fanout=fanout)
+    users = [f"u{i}" for i in range(n_users)]
+    for start in range(0, n_users, 512):
+        chunk = users[start:start + 512]
+        graph.add_batch(
+            chunk,
+            [f"m{int(i)}" for i in rng.integers(0, n_merchants, len(chunk))],
+            [f"d{int(i)}" for i in rng.integers(0, n_devices, len(chunk))],
+            [f"ip{int(i)}" for i in rng.integers(0, 2_048, len(chunk))])
+
+    def zeros(ids):
+        return np.zeros((len(ids), node_dim), np.float32)
+
+    sampler = NeighborSampler(graph, node_dim, fanout, fanout,
+                              user_rows=zeros, merchant_rows=zeros)
+    batch_u = [f"u{int(i)}" for i in rng.integers(0, n_users, 256)]
+    batch_m = [f"m{int(i)}" for i in rng.integers(0, n_merchants, 256)]
+    t0 = time.perf_counter()  # rtfd-lint: allow[wall-clock] bench timing: real host microseconds
+    sampler.sample(batch_u, batch_m)
+    cold_us = (time.perf_counter() - t0) / len(batch_u) * 1e6  # rtfd-lint: allow[wall-clock] bench timing: real host microseconds
+    t0 = time.perf_counter()  # rtfd-lint: allow[wall-clock] bench timing: real host microseconds
+    sampler.sample(batch_u, batch_m)
+    cached_us = (time.perf_counter() - t0) / len(batch_u) * 1e6  # rtfd-lint: allow[wall-clock] bench timing: real host microseconds
+
+    server = GraphFetchServer(lambda: graph, worker_id="bench").start()
+    try:
+        client = GraphFetchClient({"peer": ("127.0.0.1", server.port)},
+                                  deadline_ms=5_000.0, node_budget=10_000)
+        dev_ids = [f"d{int(i)}" for i in rng.integers(0, n_devices, 128)]
+        client.begin_batch()
+        t0 = time.perf_counter()  # rtfd-lint: allow[wall-clock] bench timing: real host microseconds
+        for d in dev_ids:
+            client.fetch("device->user", [d], fanout)
+        per_node_us = (time.perf_counter() - t0) / len(dev_ids) * 1e6  # rtfd-lint: allow[wall-clock] bench timing: real host microseconds
+        client.end_batch()
+        client.begin_batch()
+        t0 = time.perf_counter()  # rtfd-lint: allow[wall-clock] bench timing: real host microseconds
+        client.fetch("device->user", dev_ids, fanout)
+        batched_us = (time.perf_counter() - t0) / len(dev_ids) * 1e6  # rtfd-lint: allow[wall-clock] bench timing: real host microseconds
+        client.end_batch()
+        client.close()
+    finally:
+        server.stop()
+    return {
+        "graph_nodes": graph.stats()["nodes"],
+        "sampler_cold_us_per_txn": round(cold_us, 2),
+        "sampler_cached_us_per_txn": round(cached_us, 2),
+        "cache_speedup": round(cold_us / max(cached_us, 1e-9), 2),
+        "remote_per_node_us": round(per_node_us, 1),
+        "remote_batched_us_per_node": round(batched_us, 1),
+        "remote_batch_amortization": round(
+            per_node_us / max(batched_us, 1e-9), 2),
+        "sampler": sampler.stats(),
+    }

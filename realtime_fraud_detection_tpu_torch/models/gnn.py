@@ -143,6 +143,16 @@ def gnn_logits(params: Dict[str, torch.Tensor],
     return (z @ params["w_head2"] + params["b_head2"])[:, 0]
 
 
+
+def gnn_predict(params, txn_features, user_feat, merchant_feat,
+                user_neigh_feat, user_neigh_mask,
+                merch_neigh_feat, merch_neigh_mask) -> torch.Tensor:
+    """1-hop fraud probability (the serving path; 2-hop is a training option)."""
+    return torch.sigmoid(gnn_logits(
+        params, txn_features, user_feat, merchant_feat,
+        user_neigh_feat, user_neigh_mask, merch_neigh_feat, merch_neigh_mask,
+    ))
+
 def build_node_features(user_pool, merchant_pool,
                         node_dim: int = 16) -> tuple[np.ndarray, np.ndarray]:
     """Static node feature tables from the simulator's profile pools.

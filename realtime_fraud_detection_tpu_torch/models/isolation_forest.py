@@ -45,6 +45,10 @@ class IsolationForest:
         return IsolationForest(*(t.to(device) for t in (
             self.feature, self.threshold, self.path_length, self.c_psi)))
 
+    @property
+    def n_trees(self) -> int:
+        return self.feature.shape[0]
+
 
 def random_isolation_forest(rng: np.random.Generator, n_trees: int,
                             depth: int = 8, n_features: int = 64,

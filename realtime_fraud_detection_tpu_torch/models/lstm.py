@@ -66,3 +66,9 @@ def lstm_logits(params: Dict[str, torch.Tensor],
 
     z = torch.relu(h @ params["w_head1"] + params["b_head1"])
     return (z @ params["w_head2"] + params["b_head2"])[:, 0]
+
+
+def lstm_predict(params: Dict[str, torch.Tensor], sequences: torch.Tensor,
+                 lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """Fraud probability per sequence. f32[B]."""
+    return torch.sigmoid(lstm_logits(params, sequences, lengths))

@@ -57,6 +57,12 @@ class TokenLruCache:
         while len(data) > self.max_entries:
             data.popitem(last=False)
 
+    def __len__(self) -> int:
+        return len(self._data)
+
+    def clear(self) -> None:
+        self._data.clear()
+
     def stats(self) -> Dict[str, int]:
         return {"hits": self.hits, "misses": self.misses,
                 "entries": len(self._data), "max_entries": self.max_entries}

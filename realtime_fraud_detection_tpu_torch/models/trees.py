@@ -37,6 +37,26 @@ class TreeEnsemble:
         return TreeEnsemble(*(t.to(device) for t in (
             self.feature, self.threshold, self.leaf, self.base_score)))
 
+    @property
+    def n_trees(self) -> int:
+        return self.feature.shape[0]
+
+    @property
+    def depth(self) -> int:
+        return int(np.log2(self.leaf.shape[1]))
+
+    @classmethod
+    def zeros(cls, n_trees: int, depth: int, prior: float = 0.0) -> "TreeEnsemble":
+        """Unsplit trees (every threshold +inf) with zero leaves."""
+        n_internal = 2 ** depth - 1
+        return cls(
+            feature=torch.zeros((n_trees, n_internal), dtype=torch.int32),
+            threshold=torch.full((n_trees, n_internal), float("inf"),
+                                 dtype=torch.float32),
+            leaf=torch.zeros((n_trees, 2 ** depth), dtype=torch.float32),
+            base_score=torch.tensor(prior, dtype=torch.float32),
+        )
+
 
 def random_tree_ensemble(rng: np.random.Generator, n_trees: int, depth: int,
                          n_features: int = 64) -> TreeEnsemble:

@@ -1,9 +1,8 @@
 """Observability plane of the port: metrics, structured logs, span timing,
 drift detection and tracing.
 
-The exports are the JAX package's ``obs`` exports that the port has; the JAX
-profiler hooks ``annotate`` and ``device_trace`` have no counterpart here
-(the port times the card with CUDA events and ``torch.profiler``). The fleet
+The exports are the JAX package's ``obs`` exports; ``device_trace`` and
+``annotate`` run over ``torch.profiler`` (``obs/profiling.py``). The fleet
 plane (``obs.fleetmetrics``) and the drills (``obs.trace_drill``,
 ``obs.obs_drill``) are imported from their modules, as in the JAX package.
 """
@@ -27,7 +26,11 @@ from realtime_fraud_detection_tpu_torch.obs.metrics import (
     MetricsCollector,
     Registry,
 )
-from realtime_fraud_detection_tpu_torch.obs.profiling import SpanTimer
+from realtime_fraud_detection_tpu_torch.obs.profiling import (
+    SpanTimer,
+    annotate,
+    device_trace,
+)
 from realtime_fraud_detection_tpu_torch.obs.tracing import (
     SloTracker,
     TraceBatch,
@@ -50,6 +53,8 @@ __all__ = [
     "TraceBatch",
     "TraceContext",
     "Tracer",
+    "annotate",
+    "device_trace",
     "log_batch_scored",
     "log_model_event",
     "log_prediction_result",

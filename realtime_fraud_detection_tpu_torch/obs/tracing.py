@@ -2,7 +2,8 @@
 
 Port of the JAX package's ``obs/tracing.py`` (plain Python; the process
 fleet's coordinator stitches its workers' rings with ``obs/fleetmetrics.py
-FleetTraceStore``, whose merged export command is not ported). Every admitted
+FleetTraceStore``, and ``trace-export --merge`` merges exported rings into
+one Chrome trace). Every admitted
 transaction gets a trace context that rides the batch through the port's
 stream job —
 

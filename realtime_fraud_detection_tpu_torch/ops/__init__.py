@@ -18,13 +18,17 @@ from realtime_fraud_detection_tpu_torch.ops.dequant_matmul import (
     dequant_matmul_reference,
     dequant_rows,
     dequant_rows_reference,
+    matmul_supported,
+    rows_supported,
 )
 from realtime_fraud_detection_tpu_torch.ops.epilogue import (
+    combine_matrix,
     epilogue_matrix,
     epilogue_matrix_reference,
     epilogue_packed,
     epilogue_packed_reference,
     epilogue_reference,
+    epilogue_supported,
     fused_epilogue,
 )
 from realtime_fraud_detection_tpu_torch.ops.megakernel import (
@@ -32,6 +36,7 @@ from realtime_fraud_detection_tpu_torch.ops.megakernel import (
     fused_megakernel_packed,
     mega_launch_accounting,
     mega_plan,
+    mega_supported,
     megakernel_reference,
 )
 
@@ -54,12 +59,13 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "KERNEL_WRAPPERS", "attention_reference", "dequant_matmul",
+    "KERNEL_WRAPPERS", "attention_reference", "combine_matrix", "dequant_matmul",
     "dequant_matmul_reference", "dequant_rows", "dequant_rows_reference",
     "epilogue_matrix", "epilogue_matrix_reference", "epilogue_packed",
-    "epilogue_packed_reference", "epilogue_reference",
+    "epilogue_packed_reference", "epilogue_reference", "epilogue_supported",
     "flash_attention", "fused_epilogue", "fused_megakernel",
     "fused_megakernel_packed",
-    "launch_counts", "mega_launch_accounting", "mega_plan",
-    "megakernel_reference", "reset_launch_counts", "thread_launches",
+    "launch_counts", "matmul_supported", "mega_launch_accounting", "mega_plan",
+    "mega_supported", "megakernel_reference", "reset_launch_counts",
+    "rows_supported", "thread_launches",
 ]

@@ -165,24 +165,6 @@ class EpilogueArgs(ctypes.Structure):
     ]
 
 
-def _host_vectors(params):
-    """The blend weights and confidence multipliers as host floats, read
-    from the device once per tensor (cached on ``params`` with the tensors
-    themselves and their in-place version counters, so neither a new tensor
-    nor an in-place write can meet a stale copy)."""
-    w, cm = params.weights, params.confidence_multipliers
-    cached = getattr(params, "_epilogue_host", None)
-    if (cached is None or cached[0] is not w or cached[1] != w._version
-            or cached[2] is not cm or cached[3] != cm._version):
-        cached = (w, w._version, cm, cm._version,
-                  # rtfd-lint: allow[d2h] read from the card once per weights tensor (cached with its version counter): a pull only on the first launch after a blend change
-                  w.reshape(-1).tolist(),
-                  # rtfd-lint: allow[d2h] read from the card once per multipliers tensor (cached with its version counter): a pull only on the first launch after a blend change
-                  cm.reshape(-1).tolist())
-        params._epilogue_host = cached
-    return cached[4], cached[5]
-
-
 def epilogue_args(params, m: int) -> EpilogueArgs:
     """The by-value half of the kernel's arguments: strategy, thresholds,
     and the weights and multipliers zero-padded to ``MAX_EPILOGUE_MODELS``.
@@ -190,7 +172,7 @@ def epilogue_args(params, m: int) -> EpilogueArgs:
     if not 1 <= m <= MAX_EPILOGUE_MODELS:
         raise ValueError(f"the epilogue kernel takes 1..{MAX_EPILOGUE_MODELS} "
                          f"models, got {m}")
-    w, cm = _host_vectors(params)
+    w, cm = params.host_vectors()
     if len(w) != m or len(cm) != m:
         raise ValueError(f"{len(w)} weights / {len(cm)} multipliers for {m} models")
     st = _statics(params)

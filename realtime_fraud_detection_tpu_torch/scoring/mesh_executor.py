@@ -58,9 +58,12 @@ straddle), so the gather at use stays local: no batch or parameter bytes
 cross processes, and ``gloo`` carries only the mesh's exchange of device
 names.
 
-Left out, as the pool left them out: ``donate`` and ``donation_lowering``
-(an XLA buffer-aliasing switch) and ``complete_no_fetch`` (a hook for the
-JAX benchmark).
+Each data row's launch goes through ``mesh_score_packed`` (the regather,
+then ``TorchFraudScorer.launch_packed``); ``mesh_entry()`` returns it, as
+the JAX package's returns its jitted entry. Left out, as the pool left them
+out: ``donate``, ``mesh_entry(donate=True)`` and ``donation_lowering`` (an
+XLA buffer-aliasing switch) and ``complete_no_fetch`` (a hook for the JAX
+benchmark).
 """
 
 from __future__ import annotations
@@ -93,7 +96,8 @@ from realtime_fraud_detection_tpu_torch.parallel.layouts import (
 )
 from realtime_fraud_detection_tpu_torch.scoring.pipeline import MODEL_NAMES
 
-__all__ = ["MeshExecutor", "MeshToken", "ROW_BLOCK", "mesh_positions"]
+__all__ = ["MeshExecutor", "MeshToken", "ROW_BLOCK", "mesh_entry",
+           "mesh_positions", "mesh_score_packed"]
 
 # rows in a block of a data shard: a multiple of every CPU vector loop's step
 # (two vectors of 32 bf16 lanes at most), and on the card the row count from
@@ -152,6 +156,40 @@ def _regather_models(stored: Dict[Tuple[int, ...], Any], specs: Any,
                 [p.to(device) for p in parts], dim=list(spec).index(MODEL_AXIS)),
             getattr(specs, f), *blocks)
     return dataclasses.replace(base, **gathered)
+
+
+def mesh_score_packed(models: Dict[Tuple[int, ...], Any],
+                      blobs: Dict[str, np.ndarray], spec, params,
+                      model_valid: np.ndarray, *, scorer, static: Dict[str, Any],
+                      device: torch.device, specs: Any = None,
+                      gather_fields: Tuple[str, ...] = (), data_row: int = 0,
+                      n_model: int = 1, mega_args=None) -> tuple:
+    """Score data row ``data_row``'s share of a packed batch (``blobs``, its
+    rows only) on ``device``, on the calling thread's current stream there:
+    the fields named in ``gather_fields`` rebuilt from the ``model`` blocks
+    of ``models`` (a mesh replica's stored models, position -> models, with
+    their storage ``specs``), then ``scorer.launch_packed`` with the kernel
+    selection ``static``. ``mega_args`` (the megakernel's parameter
+    arguments) is built here from the gathered models when the plan admits
+    the shard and none is given. Returns (host result, event or None,
+    hand-written launches, gathered models, megakernel arguments); the
+    caller keeps the last two alive until the event completed."""
+    gathered = _regather_models(models, specs, gather_fields, data_row,
+                                n_model, device)
+    if static["mega_valid"] is not None and mega_args is None:
+        mega_args = scorer.mega_param_args_for(gathered, device)
+    out, event, launches = scorer.launch_packed(
+        blobs, spec, model_valid, static, device, gathered, params, mega_args)
+    return out, event, launches, gathered, mega_args
+
+
+def mesh_entry(donate: bool = False):
+    """The mesh scoring entry the executor dispatches through. Donation (an
+    XLA buffer-aliasing switch) has no counterpart in the port."""
+    if donate:
+        raise ValueError("mesh_entry(donate=True): buffer donation is an XLA "
+                         "switch with no counterpart in the PyTorch port")
+    return mesh_score_packed
 
 
 def _has_two_hop(spec) -> bool:
@@ -405,21 +443,20 @@ class MeshExecutor:
             else:
                 ctx = contextlib.nullcontext()
             with ctx:
-                models = _regather_models(stored, specs, self._gather_fields, d,
-                                          self.model_axis, dev)
                 params = self._params_on(rep, token.params, dev)
                 mega_args = None
-                if static["mega_valid"] is not None:
-                    if self._gather_fields:
-                        mega_args = self.scorer.mega_param_args_for(models, dev)
-                    else:
-                        with self._cv:
-                            mega_args = rep.mega_args.get(dev)
-                            if mega_args is None:
-                                mega_args = rep.mega_args[dev] = \
-                                    self.scorer.mega_param_args_for(models, dev)
-                out, event, launches = self.scorer.launch_packed(
-                    rows, spec, mv, static, dev, models, params, mega_args)
+                if static["mega_valid"] is not None and not self._gather_fields:
+                    # the position's own models: their arguments are cached
+                    with self._cv:
+                        mega_args = rep.mega_args.get(dev)
+                        if mega_args is None:
+                            mega_args = rep.mega_args[dev] = \
+                                self.scorer.mega_param_args_for(stored[lead], dev)
+                out, event, launches, models, mega_args = mesh_score_packed(
+                    stored, rows, spec, params, mv, scorer=self.scorer,
+                    static=static, device=dev, specs=specs,
+                    gather_fields=self._gather_fields, data_row=d,
+                    n_model=self.model_axis, mega_args=mega_args)
             token.parts.append((out, event))
             token.launches += launches
             token.mega_shards += int(static["mega_valid"] is not None)

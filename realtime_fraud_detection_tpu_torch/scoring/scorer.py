@@ -137,7 +137,6 @@ from realtime_fraud_detection_tpu_torch.ops import (
     thread_launches,
 )
 from realtime_fraud_detection_tpu_torch.ops.attention import attention_supported
-from realtime_fraud_detection_tpu_torch.ops.epilogue import _host_vectors
 from realtime_fraud_detection_tpu_torch.ops.dequant_matmul import (
     matmul_supported,
     rows_supported,
@@ -596,6 +595,17 @@ class TorchFraudScorer:
         return self.model_valid & self._qos_mask
 
     # ----------------------------------------------------------- kernel plane
+    def quant_static(self) -> Dict[str, str]:
+        """The tree-kernel selection every launch takes (the quantized
+        plane's ``QuantSettings.static``)."""
+        return self.quant.static()
+
+    def effective_use_pallas(self) -> bool:
+        """Whether the attention runs through the hand-written flash kernel
+        (the JAX package's name): the kernel plane's attention site set to
+        ``"flash"``."""
+        return bool(self.kernels.static()["use_flash"])
+
     def kernel_static(self, size: int, model_valid=None,
                       has_two_hop: bool = False) -> Dict[str, Any]:
         """The kernel selection the fused scorer takes for a ``size``-row
@@ -1137,9 +1147,9 @@ class TorchFraudScorer:
 
         results = []
         with_explanation = self.config.ensemble.enable_explanation
-        # the weights' host copy is cached: reading the card here would wait
-        # on whatever another thread has queued on its stream
-        weights = (np.asarray(_host_vectors(params)[0], np.float32)
+        # the weights' host copy rides on the params: reading the card here
+        # would wait on whatever another thread has queued on its stream
+        weights = (np.asarray(params.host_vectors()[0], np.float32)
                    if with_explanation and contrib_cols is None else None)
         for i, rec in enumerate(records):
             model_predictions = {
@@ -1190,3 +1200,7 @@ class TorchFraudScorer:
                 "explanation": explanation,
             })
         return results
+
+
+# the JAX package's name for the streaming scorer
+FraudScorer = TorchFraudScorer

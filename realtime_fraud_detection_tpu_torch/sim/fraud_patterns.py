@@ -93,6 +93,21 @@ class AdvancedFraudPatterns:
         self.velocity_windows: Dict[str, list] = {}
         self.geographic_history: Dict[str, list] = {}
 
+    # -- selection ----------------------------------------------------------
+    def generate_fraud_scenario(
+            self) -> Tuple[bool, str | None, FraudScenario | None]:
+        """Weighted scenario draw (reference fraud_patterns.py:143-159)."""
+        total = sum(s.probability for s in self.scenarios.values())
+        if self.rng.random() > total:
+            return False, None, None
+        draw = self.rng.random() * total
+        cum = 0.0
+        for name, scenario in self.scenarios.items():
+            cum += scenario.probability
+            if draw <= cum:
+                return True, name, scenario
+        return False, None, None
+
     # -- appliers -----------------------------------------------------------
     def apply_fraud_pattern(self, fraud_type: str, txn: Dict[str, Any]) -> Dict[str, Any]:
         applier = getattr(self, f"_apply_{fraud_type}", None)
@@ -203,6 +218,16 @@ class AdvancedFraudPatterns:
     def record_location(self, user_id: str, geo: Dict[str, float]) -> None:
         """Track legit locations so takeover/impossible-travel have history."""
         self.geographic_history.setdefault(user_id, []).append(dict(geo))
+
+    def get_fraud_statistics(self) -> Dict[str, Any]:
+        return {
+            "total_scenarios": len(self.scenarios),
+            "total_fraud_probability": sum(
+                s.probability for s in self.scenarios.values()),
+            "velocity_tracking_users": len(self.velocity_windows),
+            "geographic_tracking_users": len(self.geographic_history),
+        }
+
 
 def _random_public_ip(rng: np.random.Generator) -> str:
     octets = rng.integers(1, 255, size=4)

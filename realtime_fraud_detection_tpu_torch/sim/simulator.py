@@ -39,6 +39,7 @@ from realtime_fraud_detection_tpu_torch.features.schema import (
     PAYMENT_METHODS,
     TRANSACTION_TYPES,
     TransactionBatch,
+    encode_transactions,
 )
 from realtime_fraud_detection_tpu_torch.sim.fraud_patterns import (
     AdvancedFraudPatterns,
@@ -177,6 +178,8 @@ class MerchantPool:
 
     def profiles(self) -> Dict[str, Dict[str, Any]]:
         return {str(self.ids[i]): self.profile_dict(i) for i in range(self.n)}
+
+FRAUD_TYPES = ("none",) + tuple(BASIC_FRAUD_MIX)
 
 
 class TransactionGenerator:
@@ -505,3 +508,10 @@ class TransactionGenerator:
             "merchant_index": m,
         }
         return batch, labels
+
+    # ---------------------------------------------------------------- joins
+    def encode_dicts(self, records: Sequence[Dict[str, Any]]) -> TransactionBatch:
+        """Encode dict transactions with this generator's profile pools."""
+        return encode_transactions(
+            records, self.users.profiles(), self.merchants.profiles()
+        )

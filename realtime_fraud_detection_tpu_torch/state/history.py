@@ -198,3 +198,21 @@ class EntityGraphStore:
     def merchant_neighbors(self, merchant_idx: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
         """User neighbours of merchants -> (idx [B,K], mask [B,K])."""
         return self._sample(self._merchant_adj, merchant_idx)
+
+    def _two_hop(self, first_adj, second_adj, ids):
+        hop1, mask1 = self._sample(first_adj, ids)
+        b, k = hop1.shape
+        flat_idx = np.where(mask1, hop1, 0).reshape(-1)
+        hop2, mask2 = self._sample(second_adj, flat_idx)
+        hop2 = hop2.reshape(b, k, k)
+        mask2 = mask2.reshape(b, k, k) & mask1[:, :, None]
+        return hop1, mask1, hop2, mask2
+
+    def user_two_hop(self, user_idx: Sequence[int]):
+        """1-hop merchants + their 2-hop users:
+        (hop1 [B,K], mask1, hop2 [B,K,K], mask2) for the GNN's 2-hop path."""
+        return self._two_hop(self._user_adj, self._merchant_adj, user_idx)
+
+    def merchant_two_hop(self, merchant_idx: Sequence[int]):
+        """1-hop users + their 2-hop merchants."""
+        return self._two_hop(self._merchant_adj, self._user_adj, merchant_idx)

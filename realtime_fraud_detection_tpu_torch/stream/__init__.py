@@ -2,8 +2,7 @@
 windowed analytics and joins, the Kafka wire-protocol client, the TCP log
 broker and the ingress gateway.
 
-The names the JAX package's ``stream/__init__.py`` exports, less
-``DoubleBufferedScorer``, which the port does not have.
+The names the JAX package's ``stream/__init__.py`` exports.
 """
 
 from realtime_fraud_detection_tpu_torch.stream.topics import (  # noqa: F401
@@ -33,6 +32,7 @@ from realtime_fraud_detection_tpu_torch.stream.gateway import (  # noqa: F401
     IngressGateway,
 )
 from realtime_fraud_detection_tpu_torch.stream.microbatch import (  # noqa: F401
+    DoubleBufferedScorer,
     MicrobatchAssembler,
 )
 from realtime_fraud_detection_tpu_torch.stream.job import JobConfig, StreamJob  # noqa: F401

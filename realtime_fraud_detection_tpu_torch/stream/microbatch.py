@@ -16,13 +16,20 @@ whichever comes first:
 
 Without a budget and a controller it closes exactly the batches it closed
 before either trigger existed.
+
+``DoubleBufferedScorer`` is the JAX package's host-to-device pipelining
+helper: the host assembles batch N+1 while the card runs batch N.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional
 
+import torch
+
+from realtime_fraud_detection_tpu_torch.core import sync
+from realtime_fraud_detection_tpu_torch.core.mesh import tree_leaves
 from realtime_fraud_detection_tpu_torch.stream.transport import Consumer, Record
 
 # blocking mode's pause between polls of an empty consumer
@@ -142,3 +149,48 @@ class MicrobatchAssembler:
     def flush(self) -> List[Record]:
         """Close and return whatever is pending (drain-on-shutdown)."""
         return self._emit("flush") if self._pending else []
+
+
+def _ready_event(result: Any) -> Optional[torch.cuda.Event]:
+    """A CUDA event recorded behind ``result``'s work on the current stream
+    of its card, or None when no leaf of it lies on a card."""
+    for leaf in tree_leaves(result):
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(leaf.device))
+            return event
+    return None
+
+
+class DoubleBufferedScorer:
+    """Overlap host assembly of batch N+1 with device compute of batch N.
+
+    The host-to-device pipelining analog of the reference's operator
+    pipeline. ``score_fn`` returns a tree of tensors (on the card: launched,
+    not waited for); the wait on them is deferred one submit, so assembly
+    and compute overlap. The wait is the counterpart of
+    ``jax.block_until_ready``: an event recorded on the current stream after
+    ``score_fn``, waited on through ``core/sync.py device_wait`` (with None
+    for a result on the CPU).
+    """
+
+    def __init__(self, score_fn: Callable[[List[Record]], Any]):
+        self.score_fn = score_fn
+        self._in_flight: Optional[tuple] = None
+
+    def submit(self, batch: List[Record]) -> Optional[tuple]:
+        """Submit a batch; returns the PREVIOUS (batch, result), complete."""
+        done = None
+        if self._in_flight is not None:
+            prev_batch, prev_result, event = self._in_flight
+            sync.device_wait(event)
+            done = (prev_batch, prev_result)
+        if batch:
+            result = self.score_fn(batch)
+            self._in_flight = (batch, result, _ready_event(result))
+        else:
+            self._in_flight = None
+        return done
+
+    def drain(self) -> Optional[tuple]:
+        return self.submit([])

@@ -270,6 +270,13 @@ class QuantSettings:
         return {"tree_kernel": self.tree_kernel,
                 "iforest_kernel": self.iforest_kernel}
 
+    def stamp(self) -> Dict[str, str]:
+        """The quantization-mode arch stamp: only the BERT weight form, the
+        one mode that is a property of the parameters (a checkpoint derives
+        the same key from its saved trees). The tree kernels are program
+        selections, not checkpoint state, so they are absent."""
+        return {"bert_weights": self.bert_mode()}
+
 
 VALID_KERNEL_SITES = ("dequant_matmul", "epilogue", "attention",
                       "megakernel")

@@ -566,6 +566,23 @@ def test_port_runs_with_jax_blocked():
         rep = run_drill_watched("qos-drill", fast=True, device="cpu")
         assert rep["drill_passed"] and rep["lockwatch"]["ok"]
         assert rep["lockwatch"]["acquisitions"] > 0 and LockWatcher().report()["ok"]
+        # the rest of the public surface: the text analyzer with the flash
+        # wrapper, a profiler trace, the double-buffered scorer, the exports
+        from realtime_fraud_detection_tpu_torch.models.bert import TINY_CONFIG
+        from realtime_fraud_detection_tpu_torch.models.text import TextAnalyzer
+        from realtime_fraud_detection_tpu_torch.obs import annotate, device_trace
+        from realtime_fraud_detection_tpu_torch.scoring import FraudScorer
+        from realtime_fraud_detection_tpu_torch.stream import DoubleBufferedScorer
+        ta = TextAnalyzer(TINY_CONFIG, max_length=32, use_flash=True, device="cpu")
+        with tempfile.TemporaryDirectory() as d:
+            with device_trace(d, device="cpu") as prof, annotate("text"):
+                rows = ta.analyze_transaction_text([{"merchant_name": "Acme"}, {}])
+            assert '"text"' in open(prof.trace_path).read()
+        assert rows[1] == {"overall_text_risk": 0.0}
+        assert 0 <= rows[0]["overall_text_risk"] <= 1
+        dbs = DoubleBufferedScorer(lambda b: torch.tensor(b) * 2)
+        assert dbs.submit([1]) is None and dbs.submit([2])[0] == [1]
+        assert dbs.drain()[0] == [2] and FraudScorer is TorchFraudScorer
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

@@ -58,6 +58,18 @@ def branch_bounds(jax_models, batch, bert_config=jbert.TINY_CONFIG) -> np.ndarra
     return np.maximum(gaps, FLOOR)
 
 
+def text_bound(bert_params, ids, mask, bert_config=jbert.TINY_CONFIG) -> float:
+    """The text analyzer's bound for these BERT parameters (numpy leaves) on
+    these tokens: BERT's bf16-vs-f32 gap on the JAX side, floored at
+    ``FLOOR`` (the analyzer's field risks are BERT probabilities unblended)."""
+    def bert(dt):
+        return jax.jit(lambda p, i, m: jbert.bert_predict(
+            p, i, m, bert_config, compute_dtype=dt))(
+                bert_params, jnp.asarray(ids), jnp.asarray(mask))
+
+    return max(float(jnp.max(jnp.abs(bert(jnp.bfloat16) - bert(jnp.float32)))), FLOOR)
+
+
 def near_rung(values, bound) -> np.ndarray:
     """bool mask of ``values`` within ``bound`` of a rung."""
     values = np.asarray(values, np.float64)
@@ -83,3 +95,14 @@ OPTIMIZER_TOL = 1e-6
 LOOP_PROB_BOUND = {"lstm": 4e-3, "gnn": 6e-6, "bert": 1.2e-3}
 # the tree / isolation-forest scores and the host blend: f32 round-off
 BLEND_SCORE_TOL = 1e-6
+
+# ------------------------------------------------------- the kernels on the card
+# flash attention against its plain version, the kernel's own tolerance
+# (chip_smoke.py ATTENTION_TOL; tests/test_torch_ops.py)
+ATTENTION_TOL = 5e-5
+# the text analyzer at DistilBERT-base (768 texts, S = 128) with the flash
+# kernel against its plain run: chip_smoke.py phase 26 measures its bound as
+# BERT's bf16-vs-f32 gap on the same tokens, floored at FLOOR, and holds every
+# field risk to it. On an NVIDIA H100 80GB HBM3 at 700 W (seed 0 weights) the
+# bound read 5.814e-4 and the largest field-risk error 4.782e-4.
+TEXT_ANALYZER_FLASH_BOUND_H100 = 5.814e-4
