@@ -1593,34 +1593,28 @@ def time_mega_vs_chain(mega, chain, params):
 STREAM_USERS, STREAM_MERCHANTS = 10_000, 5_000
 STREAM_NOW = 1_767_600_000.0
 STREAM_WARMUP_BATCHES = 1
-STREAM_PARTS = ("_build_responses", "_write_back", "_fan_out")
+# the smoke's summary keys of the program's stages inside complete_batch
+STREAM_PARTS = {"_build_responses": "responses", "_write_back": "write_back",
+                "_fan_out": "fan_out"}
+STREAM_HOST_STAGES = ("assemble", "graph", "pack", "dispatch", "device_wait")
+STREAM_ASSEMBLE_STAGES = ("encode", "features", "history", "tokens")
 
 
 class StreamTimer:
-    """Per-batch host timing of a ``StreamJob`` run, by wrapping the job's
-    and the scorer's methods on the instances: dispatch to completion per
-    batch, the hand-written launches of each batch, the smoke's own
-    ``perf_counter`` around response building, write-back and fan-out, and
-    inside ``assemble`` around the encoder, the feature extraction, the
-    history ring, the text join and the tokenizer; plus the time the
-    interpreter's garbage collector ran. The scorer's spans and these sums
-    restart after the warm-up batches. ``close`` undoes the wrapping of the
-    scorer module's functions and the collector callback."""
-
-    ASSEMBLE_FUNCS = ("encode_transactions_columnar", "extract_features_host")
+    """Per-batch host timing of a ``StreamJob`` run: dispatch to completion
+    per batch and the hand-written launches of each batch, by wrapping the
+    job's two steps on the instance (the program records neither). Every
+    other figure is the program's own host stage table
+    (``host_stats()["stages"]``): response building, write-back, fan-out,
+    the stages inside ``assemble`` and the collector's ``gc.gen*`` pauses,
+    their totals differenced across the warm-up batches, and their sample
+    rings restarted there for the p50s."""
 
     def __init__(self, job, scorer, warmup: int = STREAM_WARMUP_BATCHES):
-        import gc
-
-        from realtime_fraud_detection_tpu_torch.scoring import scorer as scorer_module
-
         self.batches = []
         self.ctxs = []                  # the warm-up batches' contexts
-        self.parts = {name: [] for name in STREAM_PARTS}
-        self.inside = {name: [] for name in (
-            *self.ASSEMBLE_FUNCS, "append_and_gather", "_texts_for", "encode_batch")}
-        self.gc = {"ms": 0.0, "collections": [0, 0, 0]}
         self.warmup = warmup
+        self.at_warmup = {}             # the stage table when the warm-up ended
         dispatch, complete = job.dispatch_batch, job.complete_batch
 
         def dispatch_batch(records, now=None):
@@ -1632,9 +1626,7 @@ class StreamTimer:
                         if ctx.pending is not None:
                             ctx.pending.result()
                 scorer.spans.reset()
-                for xs in (*self.parts.values(), *self.inside.values()):
-                    xs.clear()
-                self.gc = {"ms": 0.0, "collections": [0, 0, 0]}
+                self.at_warmup = scorer.host_stats()["stages"]
             t0 = time.perf_counter()
             ctx = dispatch(records, now=now)
             ctx.timing = dict(rows=len(ctx.fresh), t0=t0,
@@ -1650,44 +1642,6 @@ class StreamTimer:
             return out
 
         job.dispatch_batch, job.complete_batch = dispatch_batch, complete_batch
-        for owner, name in ((scorer, "_build_responses"), (scorer, "_write_back"),
-                            (job, "_fan_out")):
-            setattr(owner, name, self._timed(getattr(owner, name), self.parts[name]))
-        for owner, name in ((scorer.history, "append_and_gather"),
-                            (scorer, "_texts_for"), (scorer.tokenizer, "encode_batch")):
-            setattr(owner, name, self._timed(getattr(owner, name), self.inside[name]))
-        self._module = scorer_module
-        self._saved = {name: getattr(scorer_module, name) for name in self.ASSEMBLE_FUNCS}
-        for name, fn in self._saved.items():
-            setattr(scorer_module, name, self._timed(fn, self.inside[name]))
-        self._gc_t0 = None
-
-        def on_gc(phase, info):
-            if phase == "start":
-                self._gc_t0 = time.perf_counter()
-            elif self._gc_t0 is not None:
-                self.gc["ms"] += (time.perf_counter() - self._gc_t0) * 1e3
-                self.gc["collections"][info["generation"]] += 1
-
-        self._on_gc = on_gc
-        gc.callbacks.append(on_gc)
-
-    def close(self) -> None:
-        import gc
-
-        for name, fn in self._saved.items():
-            setattr(self._module, name, fn)
-        gc.callbacks.remove(self._on_gc)
-
-    @staticmethod
-    def _timed(fn, sink):
-        def wrapper(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                sink.append((time.perf_counter() - t0) * 1e3)
-        return wrapper
 
     def summary(self, scorer) -> dict:
         from realtime_fraud_detection_tpu_torch.obs.profiling import (
@@ -1699,25 +1653,33 @@ class StreamTimer:
         lat = sorted(per_batch)
         span = timed[-1]["t1"] - timed[0]["t0"]
         stages = scorer.host_stats()["stages"]
+        none = {"count": 0, "total_s": 0.0}
 
-        def mean(xs):
-            return sum(xs) / len(xs)
+        def delta(name):
+            a, b = stages.get(name, none), self.at_warmup.get(name, none)
+            return a["count"] - b["count"], a["total_s"] - b["total_s"]
 
+        def mean_ms(name):
+            n, total = delta(name)
+            return 1e3 * total / n if n > 0 else 0.0
+
+        gcs = [delta(f"gc.gen{g}") for g in range(3)]
         return {
             "timed_batches": len(timed), "warmup_batches": self.warmup,
             "txn_per_s": sum(b["rows"] for b in timed) / span,
             "batch_ms_p50": interpolated_percentile(lat, 0.5),
             "batch_ms_p99": interpolated_percentile(lat, 0.99),
             "batch_ms": per_batch,
-            "host_ms_per_batch": {name: stages[name]["mean_ms"] for name in (
-                "assemble", "graph", "pack", "dispatch", "device_wait")},
-            "host_p50_ms_per_batch": {name: stages[name]["p50_ms"] for name in (
-                "assemble", "graph", "pack", "dispatch", "device_wait")},
-            "smoke_ms_per_batch": {k: mean(xs) for k, xs in self.parts.items()},
-            "smoke_p50_ms_per_batch": {
-                k: interpolated_percentile(sorted(xs), 0.5) for k, xs in self.parts.items()},
-            "inside_assemble_ms_per_batch": {k: mean(xs) for k, xs in self.inside.items()},
-            "gc_ms": self.gc["ms"], "gc_collections": self.gc["collections"],
+            "host_ms_per_batch": {name: mean_ms(name) for name in STREAM_HOST_STAGES},
+            "host_p50_ms_per_batch": {name: stages[name]["p50_ms"]
+                                      for name in STREAM_HOST_STAGES},
+            "smoke_ms_per_batch": {k: mean_ms(st) for k, st in STREAM_PARTS.items()},
+            "smoke_p50_ms_per_batch": {k: stages[st]["p50_ms"]
+                                       for k, st in STREAM_PARTS.items()},
+            "inside_assemble_ms_per_batch": {name: mean_ms(name)
+                                             for name in STREAM_ASSEMBLE_STAGES},
+            "gc_ms": 1e3 * sum(total for _, total in gcs),
+            "gc_collections": [n for n, _ in gcs],
         }
 
 
@@ -1779,8 +1741,6 @@ def drive_stream(records, profiles, bert_config, config, device, timed=False,
             job.analytics.flush()
     finally:
         job.close()
-        if timer is not None:
-            timer.close()
     return job, broker, scorer, timer
 
 
@@ -2163,7 +2123,7 @@ def run_wordpiece_stream(ops, chain, word):
         stats[label] = dict(
             txn_per_s=t["txn_per_s"], batch_ms_p50=t["batch_ms_p50"],
             batch_ms_p99=t["batch_ms_p99"],
-            tokenizer_ms_per_batch=t["inside_assemble_ms_per_batch"]["encode_batch"],
+            tokenizer_ms_per_batch=t["inside_assemble_ms_per_batch"]["tokens"],
             token_cache=run["scorer"].host_stats()["caches"]["tokens"])
     print(f"{name}: every batch's ids and masks equal a CPU WordPieceTokenizer's "
           f"({len(out['tokens'])} batches); highest id {top} < {rows} table rows and "
@@ -6347,7 +6307,6 @@ def drive_pool_stream(records, profiles, config, devices=None, depth=2, window=N
         job.run_until_drained(now=STREAM_NOW)
     finally:
         job.close()
-        timer.close()
     return job, broker, scorer, timer, pool
 
 

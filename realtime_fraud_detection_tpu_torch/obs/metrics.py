@@ -393,7 +393,18 @@ class MetricsCollector:
             "host_assembly_stage_ms",
             "Host-side per-stage timing (assemble/pack/dispatch/"
             "device_wait)", ("stage", "stat"))
+        # the stage table's cumulative totals: rate(seconds) / rate(count)
+        # is the mean a stage took over any interval
+        self.host_stage_seconds = r.counter(
+            "host_stage_seconds_total",
+            "Cumulative seconds in each host stage and in the interpreter's "
+            "collections (gc.gen0/1/2)", ("stage",))
+        self.host_stage_count = r.counter(
+            "host_stage_count_total",
+            "Cumulative samples of each host stage and collections of each "
+            "generation", ("stage",))
         self._host_cache_seen: Dict[Tuple[str, str], float] = {}
+        self._host_stage_seen: Dict[Tuple[str, str], float] = {}
         # the device pool (scoring/device_pool.py): per-replica dispatch,
         # completion and retry counters, live depth and cumulative queue
         # wait, mirrored from DevicePool.stats() by sync_device_pool
@@ -799,8 +810,10 @@ class MetricsCollector:
 
     # ------------------------------------------------------------- mirrors
     def sync_host_stats(self, host_stats: Mapping[str, Any]) -> None:
-        """Mirror ``TorchFraudScorer.host_stats()``: cache totals as counter
-        deltas, stage mean / p50 / p99 as gauges."""
+        """Mirror ``TorchFraudScorer.host_stats()``: cache totals and each
+        stage's cumulative count and seconds as counter deltas, the stage
+        mean / p50 / p99 a stage has as gauges (the collector's ``gc.gen*``
+        entries keep no percentiles)."""
         for name, st in (host_stats.get("caches") or {}).items():
             for kind, counter in (("hits", self.host_cache_hits),
                                   ("misses", self.host_cache_misses)):
@@ -808,9 +821,14 @@ class MetricsCollector:
                         st.get(kind, 0), cache=name)
         for stage, st in (host_stats.get("stages") or {}).items():
             for stat in ("mean_ms", "p50_ms", "p99_ms"):
-                self.host_stage_ms.set(float(st.get(stat, 0.0)),
-                                       stage=stage,
-                                       stat=stat.replace("_ms", ""))
+                if stat in st:
+                    self.host_stage_ms.set(float(st[stat]), stage=stage,
+                                           stat=stat.replace("_ms", ""))
+            for key, counter in (("total_s", self.host_stage_seconds),
+                                 ("count", self.host_stage_count)):
+                if key in st:
+                    _mirror(counter, self._host_stage_seen, (stage, key),
+                            st[key], stage=stage)
 
     def sync_microbatch(self, close_reasons: Mapping[str, int]) -> None:
         """Mirror an assembler's cumulative close-reason histogram

@@ -11,9 +11,13 @@ Port of the JAX package's ``scoring/scorer.py FraudScorer``:
   ``assemble_serial`` is its record-at-a-time oracle;
   ``finalize`` writes velocity, the transaction cache and, in typed graph
   mode, the batch's entity links back after scoring; ``host_stats``
-  reports the per-stage spans (assemble, graph, pack, dispatch,
-  device_wait) and the cache counters, ``graph_snapshot`` the typed
-  graph's store and sampler counters;
+  reports the process's one host stage table (``spans``: assemble and
+  inside it encode, features, history, graph, tokens; pack; dispatch and
+  inside it h2d, launch; device_wait, responses, write_back; the job's
+  fan_out; each a region ``rtfd.<stage>`` while a profiler records), the
+  collector's pauses (``gc.gen0`` .. ``gc.gen2``, ``obs/profiling.py
+  GcPauses``, installed with the first scorer) and the cache counters,
+  ``graph_snapshot`` the typed graph's store and sampler counters;
 - graph plane: ``ScorerConfig.graph_mode`` "bipartite" joins the user <->
   merchant ``EntityGraphStore``; "typed" samples the ``TypedEntityGraph``
   (user <-> device <-> merchant <-> IP) through ``NeighborSampler`` into
@@ -130,7 +134,7 @@ from realtime_fraud_detection_tpu_torch.models.quant import (
 from realtime_fraud_detection_tpu_torch.models.text import combined_text
 from realtime_fraud_detection_tpu_torch.models.tokenizer import FraudTokenizer
 from realtime_fraud_detection_tpu_torch.models.wordpiece import WordPieceTokenizer
-from realtime_fraud_detection_tpu_torch.obs.profiling import SpanTimer
+from realtime_fraud_detection_tpu_torch.obs.profiling import SpanTimer, install_gc_pauses
 from realtime_fraud_detection_tpu_torch.ops import (
     mega_launch_accounting,
     mega_plan,
@@ -454,7 +458,9 @@ class TorchFraudScorer:
         self._users = _EntityIndex(self.sc.node_dim)
         self._merchants = _EntityIndex(self.sc.node_dim)
         self._join_cache = EntityRowCache()
+        # the host stage table: the job records its fan_out here too
         self.spans = SpanTimer()
+        self._gc_pauses = install_gc_pauses()
         self.last_features = np.zeros((0, self.sc.feature_dim), np.float32)
         self.stats: Dict[str, float] = {"scored": 0, "batches": 0, "total_time_s": 0.0}
 
@@ -717,43 +723,46 @@ class TorchFraudScorer:
         before it is gathered (each row is scored against a history that
         ends with itself), and repeated texts hit the token LRU.
         """
-        # rtfd-lint: allow[wall-clock] span diagnostics (host_stats), not scoring control flow
-        t0 = time.perf_counter()
-        user_ids = [str(r.get("user_id", "")) for r in records]
-        merchant_ids = [str(r.get("merchant_id", "")) for r in records]
-        uprofs = {u: p for u in user_ids
-                  if (p := self.profiles.get_user(u)) is not None}
-        mprofs = {m: p for m in merchant_ids
-                  if (p := self.profiles.get_merchant(m)) is not None}
-        velocities = {u: self.velocity.get_all(u, now) for u in set(user_ids)}
+        span = self.spans.span
+        with span("assemble"):
+            user_ids = [str(r.get("user_id", "")) for r in records]
+            merchant_ids = [str(r.get("merchant_id", "")) for r in records]
+            uprofs = {u: p for u in user_ids
+                      if (p := self.profiles.get_user(u)) is not None}
+            mprofs = {m: p for m in merchant_ids
+                      if (p := self.profiles.get_merchant(m)) is not None}
+            velocities = {u: self.velocity.get_all(u, now) for u in set(user_ids)}
 
-        self._join_cache.sync(self.profiles)
-        txn = encode_transactions_columnar(records, uprofs, mprofs, velocities,
-                                           cache=self._join_cache)
-        feats = extract_features_host(txn)
-        self.last_features = feats  # host copy for the features topic
-        history, history_len = self.history.append_and_gather(user_ids, feats)
+            self._join_cache.sync(self.profiles)
+            with span("encode"):
+                txn = encode_transactions_columnar(records, uprofs, mprofs,
+                                                   velocities,
+                                                   cache=self._join_cache)
+            with span("features"):
+                feats = extract_features_host(txn)
+            self.last_features = feats  # host copy for the features topic
+            with span("history"):
+                history, history_len = self.history.append_and_gather(
+                    user_ids, feats)
 
-        u_idx = self._users.lookup_batch(user_ids, uprofs, False)
-        m_idx = self._merchants.lookup_batch(merchant_ids, mprofs, True)
-        graph_t = self._graph_join(user_ids, merchant_ids, u_idx, m_idx)
+            u_idx = self._users.lookup_batch(user_ids, uprofs, False)
+            m_idx = self._merchants.lookup_batch(merchant_ids, mprofs, True)
+            graph_t = self._graph_join(user_ids, merchant_ids, u_idx, m_idx)
 
-        token_ids, token_mask = self.tokenizer.encode_batch(
-            self._texts_for(records, merchant_ids, mprofs))
+            with span("tokens"):
+                token_ids, token_mask = self.tokenizer.encode_batch(
+                    self._texts_for(records, merchant_ids, mprofs))
 
-        batch = ScoreBatch(
-            txn=txn,
-            features=feats,
-            history=history,
-            history_len=history_len,
-            token_ids=token_ids.astype(np.int32),
-            token_mask=token_mask.astype(bool),
-            valid=np.ones((len(records),), bool),
-            **graph_t,
-        )
-        # rtfd-lint: allow[wall-clock] span diagnostics (host_stats), not scoring control flow
-        self.spans.record("assemble", time.perf_counter() - t0)
-        return batch
+            return ScoreBatch(
+                txn=txn,
+                features=feats,
+                history=history,
+                history_len=history_len,
+                token_ids=token_ids.astype(np.int32),
+                token_mask=token_mask.astype(bool),
+                valid=np.ones((len(records),), bool),
+                **graph_t,
+            )
 
     def _graph_join(self, user_ids: Sequence[str], merchant_ids: Sequence[str],
                     u_idx: np.ndarray, m_idx: np.ndarray
@@ -763,25 +772,22 @@ class TorchFraudScorer:
         edges, then the batch's own edges are committed for the next batch.
         Typed: the sampler's one- and two-hop tensors; the edges are
         ingested at write-back."""
-        # rtfd-lint: allow[wall-clock] span diagnostics (host_stats), not scoring control flow
-        t0 = time.perf_counter()
-        utable, mtable = self._users.table(), self._merchants.table()
-        out = {"user_feat": utable[u_idx], "merchant_feat": mtable[m_idx]}
-        if self._sampler is not None:
-            out.update(self._sampler.sample(user_ids, merchant_ids))
-        else:
-            un_idx, un_mask = self.graph.user_neighbors(u_idx)
-            mn_idx, mn_mask = self.graph.merchant_neighbors(m_idx)
-            out.update(
-                user_neigh_feat=mtable[np.where(un_mask, un_idx, 0)],
-                user_neigh_mask=un_mask,
-                merch_neigh_feat=utable[np.where(mn_mask, mn_idx, 0)],
-                merch_neigh_mask=mn_mask,
-            )
-            self.graph.add_edges(u_idx, m_idx)
-        # rtfd-lint: allow[wall-clock] span diagnostics (host_stats), not scoring control flow
-        self.spans.record("graph", time.perf_counter() - t0)
-        return out
+        with self.spans.span("graph"):
+            utable, mtable = self._users.table(), self._merchants.table()
+            out = {"user_feat": utable[u_idx], "merchant_feat": mtable[m_idx]}
+            if self._sampler is not None:
+                out.update(self._sampler.sample(user_ids, merchant_ids))
+            else:
+                un_idx, un_mask = self.graph.user_neighbors(u_idx)
+                mn_idx, mn_mask = self.graph.merchant_neighbors(m_idx)
+                out.update(
+                    user_neigh_feat=mtable[np.where(un_mask, un_idx, 0)],
+                    user_neigh_mask=un_mask,
+                    merch_neigh_feat=utable[np.where(mn_mask, mn_idx, 0)],
+                    merch_neigh_mask=mn_mask,
+                )
+                self.graph.add_edges(u_idx, m_idx)
+            return out
 
     def assemble_serial(self, records: Sequence[Mapping[str, Any]],
                         now: Optional[float] = None) -> ScoreBatch:
@@ -852,9 +858,12 @@ class TorchFraudScorer:
         return texts
 
     def host_stats(self) -> Dict[str, Any]:
-        """Per-stage span stats (assemble / graph / pack / dispatch /
-        device_wait) and the entity-row and token cache counters."""
-        return {"stages": self.spans.stats(),
+        """The host stage table (``SpanTimer.stage_stats``: count, total_s
+        and mean_ms since construction, percentiles over the sample ring),
+        the collector's ``gc.gen<N>`` pauses (count, total_s, mean_ms; a
+        generation that has not collected is absent) and the entity-row and
+        token cache counters."""
+        return {"stages": {**self.spans.stage_stats(), **self._gc_pauses.stats()},
                 "caches": {"entity_rows": self._join_cache.stats(),
                            "tokens": self.tokenizer.cache_stats()}}
 
@@ -901,23 +910,28 @@ class TorchFraudScorer:
         CUDA event, all on the calling thread's current stream of
         ``device``. Returns (host result, event or None on the CPU, the
         hand-written kernels launched). The device pool calls this under a
-        replica's stream with the replica's models."""
-        dev_blobs = {name: self._to_device(arr, device) for name, arr in blobs.items()}
-        before = thread_launches()
-        out = score_fused_packed(
-            models, dev_blobs, spec, params, torch.from_numpy(mv),
-            bert_config=self.bert_config, compute_dtype=self.compute_dtype,
-            param_args=mega_args, **self.quant.static(), **static)
-        launches = thread_launches() - before
-        if device.type != "cuda":
-            return out, None, launches
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        # on the stream that ran the batch: this thread's current one (with
-        # overlapped assembly the stage thread's, in a pool the replica's)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(device))
-        return host, event, launches
+        replica's stream with the replica's models. Stages ``h2d`` (the
+        blobs' copies) and ``launch`` (the scorer's host time, the result's
+        copy and the event)."""
+        with self.spans.span("h2d"):
+            dev_blobs = {name: self._to_device(arr, device)
+                         for name, arr in blobs.items()}
+        with self.spans.span("launch"):
+            before = thread_launches()
+            out = score_fused_packed(
+                models, dev_blobs, spec, params, torch.from_numpy(mv),
+                bert_config=self.bert_config, compute_dtype=self.compute_dtype,
+                param_args=mega_args, **self.quant.static(), **static)
+            launches = thread_launches() - before
+            if device.type != "cuda":
+                return out, None, launches
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            # on the stream that ran the batch: this thread's current one (with
+            # overlapped assembly the stage thread's, in a pool the replica's)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            return host, event, launches
 
     def dispatch(self, records: Sequence[Mapping[str, Any]],
                  now: Optional[float] = None,
@@ -949,49 +963,44 @@ class TorchFraudScorer:
         t0 = time.perf_counter() if t0 is None else t0
         if trace is not None:
             trace.mark("pack")
-        # rtfd-lint: allow[wall-clock] span diagnostics (host_stats), not scoring control flow
-        t_pack = time.perf_counter()
         n = len(records)
-        # an attached mesh executor splits the batch over its data axis in
-        # whole row blocks: pad to its multiple
-        padded, mask, size = pad_to_bucket(
-            batch, n, multiple_of=getattr(self._pool, "batch_multiple", 1))
-        padded = dataclasses.replace(padded, valid=mask)
-        if self.sc.transfer_bf16:
-            padded = _stage_bf16(padded)
-        blobs, spec = pack_tree(padded)
-        # rtfd-lint: allow[wall-clock] span diagnostics (host_stats), not scoring control flow
-        self.spans.record("pack", time.perf_counter() - t_pack)
+        with self.spans.span("pack"):
+            # an attached mesh executor splits the batch over its data axis
+            # in whole row blocks: pad to its multiple
+            padded, mask, size = pad_to_bucket(
+                batch, n, multiple_of=getattr(self._pool, "batch_multiple", 1))
+            padded = dataclasses.replace(padded, valid=mask)
+            if self.sc.transfer_bf16:
+                padded = _stage_bf16(padded)
+            blobs, spec = pack_tree(padded)
         if trace is not None:
             trace.mark("dispatch")
-        # rtfd-lint: allow[wall-clock] span diagnostics (host_stats), not scoring control flow
-        t_disp = time.perf_counter()
-        mv = self.effective_model_valid()
-        static = self.kernel_static(size, mv,
-                                    has_two_hop=batch.user_neigh2_feat is not None)
-        self._record_kernel_dispatch(size, mv,
-                                     mega_served=static["mega_valid"] is not None)
-        token = event = launched_with = None
-        if self._pool is not None:
-            # the whole microbatch runs on one replica, picked round-robin
-            # by the pool; in-flight depth and the rescue live there
-            token = self._pool.dispatch_packed(blobs, spec, self.ensemble_params,
-                                               mv, static)
-            host, launches = None, token.launches
-            if trace is not None:
-                # which replica took the batch and how deep its queue was
-                trace.annotate(replica=token.replica_idx,
-                               inflight_depth=token.inflight_at_dispatch)
-        else:
-            mega_args = (self._mega_param_args() if static["mega_valid"] is not None
-                         else None)
-            host, event, launches = self.launch_packed(
-                blobs, spec, mv, static, self.device, self.models,
-                self.ensemble_params, mega_args)
-            launched_with = (self.models, self.ensemble_params, mega_args)
-        self._last_kernel_launches = launches
-        # rtfd-lint: allow[wall-clock] span diagnostics (host_stats), not scoring control flow
-        self.spans.record("dispatch", time.perf_counter() - t_disp)
+        with self.spans.span("dispatch"):
+            mv = self.effective_model_valid()
+            static = self.kernel_static(
+                size, mv, has_two_hop=batch.user_neigh2_feat is not None)
+            self._record_kernel_dispatch(
+                size, mv, mega_served=static["mega_valid"] is not None)
+            token = event = launched_with = None
+            if self._pool is not None:
+                # the whole microbatch runs on one replica, picked
+                # round-robin by the pool; in-flight depth and the rescue
+                # live there
+                token = self._pool.dispatch_packed(
+                    blobs, spec, self.ensemble_params, mv, static)
+                host, launches = None, token.launches
+                if trace is not None:
+                    # which replica took the batch and how deep its queue was
+                    trace.annotate(replica=token.replica_idx,
+                                   inflight_depth=token.inflight_at_dispatch)
+            else:
+                mega_args = (self._mega_param_args()
+                             if static["mega_valid"] is not None else None)
+                host, event, launches = self.launch_packed(
+                    blobs, spec, mv, static, self.device, self.models,
+                    self.ensemble_params, mega_args)
+                launched_with = (self.models, self.ensemble_params, mega_args)
+            self._last_kernel_launches = launches
         if trace is not None:
             # the launches and the D2H copy are queued: from the batch's
             # point of view the card's time (and any pipeline dwell) starts
@@ -1014,36 +1023,39 @@ class TorchFraudScorer:
             return []
         # rtfd-lint: allow[wall-clock] span diagnostics (host_stats), not scoring control flow
         t_fin = time.perf_counter()
-        # the blend the batch was launched with reads its explanations and
-        # rung ladders, even when a promotion or reload swapped it since
-        if pending.pool_token is not None:
-            # pooled completion: DevicePool.wait relaunches the batch on a
-            # healthy replica when this one's fetch fails
-            token = pending.pool_token
-            pending.out = self._pool.wait(token)
-            params = token.params
-            if token.launches != pending.kernel_launches:
-                # a rescue relaunch counts toward its batch
-                pending.kernel_launches = token.launches
-                self._last_kernel_launches = token.launches
-        else:
-            sync.device_wait(pending.event)
-            params = pending.launched_with[1] if pending.launched_with else None
-        pending.launched_with = None
-        # rtfd-lint: allow[wall-clock] span diagnostics (host_stats), not scoring control flow
-        self.spans.record("device_wait", time.perf_counter() - t_fin)
+        span = self.spans.span
+        with span("device_wait"):
+            # the blend the batch was launched with reads its explanations
+            # and rung ladders, even when a promotion or reload swapped it
+            if pending.pool_token is not None:
+                # pooled completion: DevicePool.wait relaunches the batch on
+                # a healthy replica when this one's fetch fails
+                token = pending.pool_token
+                pending.out = self._pool.wait(token)
+                params = token.params
+                if token.launches != pending.kernel_launches:
+                    # a rescue relaunch counts toward its batch
+                    pending.kernel_launches = token.launches
+                    self._last_kernel_launches = token.launches
+            else:
+                sync.device_wait(pending.event)
+                params = (pending.launched_with[1] if pending.launched_with
+                          else None)
+            pending.launched_with = None
         if pending.trace is not None:
             # read after the D2H event completed, not after the launch
             # returned: device_wait ends with the result on the host
             pending.trace.mark("finalize")
         # rtfd-lint: allow[wall-clock] span diagnostics (host_stats), not scoring control flow
         elapsed_ms = pending.dispatch_ms + (time.perf_counter() - t_fin) * 1000.0
-        results = self._build_responses(
-            pending.records, pending.out.numpy(), pending.n, elapsed_ms,
-            model_valid=pending.model_valid, rules_only=pending.rules_only,
-            params=params)
+        with span("responses"):
+            results = self._build_responses(
+                pending.records, pending.out.numpy(), pending.n, elapsed_ms,
+                model_valid=pending.model_valid, rules_only=pending.rules_only,
+                params=params)
         with (lock if lock is not None else contextlib.nullcontext()):
-            self._write_back(pending.records, results, now)
+            with span("write_back"):
+                self._write_back(pending.records, results, now)
             self.stats["scored"] += pending.n
             self.stats["batches"] += 1
             self.stats["total_time_s"] += elapsed_ms / 1000.0

@@ -68,6 +68,12 @@ whole microbatch on one replica with its own CUDA stream, and the run loops'
 in-flight window is the pool's capacity (replicas x ``inflight_depth``), so
 every replica gets work; scores stay bit-identical to unpooled ones and
 completion stays FIFO.
+
+``complete_batch`` times its fan-out (the produces to the output topics
+and the commit) as the stage ``fan_out`` of the scorer's host stage table
+(``TorchFraudScorer.spans``, which its ``host_stats`` reports), inside the
+region ``rtfd.fan_out`` while a profiler records; a stand-in scorer with no
+table records nothing.
 """
 
 from __future__ import annotations
@@ -78,6 +84,7 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+from realtime_fraud_detection_tpu_torch.obs.profiling import SpanTimer
 from realtime_fraud_detection_tpu_torch.obs.tracing import CARRIER_KEY
 from realtime_fraud_detection_tpu_torch.serving.validation import sanitize_for_stream
 from realtime_fraud_detection_tpu_torch.state.stores import _event_time_ms
@@ -298,6 +305,9 @@ class StreamJob:
                 scorer, depth=max(1, self.config.pipeline_depth))
         # the graceful-stop seam (run-job's SIGTERM / SIGINT handlers set it)
         self.stop_requested = False
+        # the process's host stage table, the one the scorer reports
+        spans = getattr(scorer, "spans", None)
+        self._spans = spans if isinstance(spans, SpanTimer) else None
 
     def request_stop(self) -> None:
         """Ask the run loops to drain: stop polling, complete every batch in
@@ -506,8 +516,10 @@ class StreamJob:
             invalid_results = self._emit_invalid(ctx)
             self._emit_shed(ctx)
             self._emit_cached_dups(ctx)
-            out = invalid_results + self._fan_out(ctx, fresh, results, feats,
-                                                  scored_ok, now)
+            with (self._spans.span("fan_out") if self._spans is not None
+                  else contextlib.nullcontext()):
+                fanned = self._fan_out(ctx, fresh, results, feats, scored_ok, now)
+            out = invalid_results + fanned
             self._observe_planes(ctx, fresh, scored_ok, t_done)
             if self.feedback is not None and scored_ok:
                 # exactly what was emitted, with the batch's feature rows

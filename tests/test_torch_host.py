@@ -529,8 +529,14 @@ def test_score_batch_writes_back_and_dispatch_of_nothing(assemble_pair):
     cached = scorer.txn_cache.get_transaction(records[0]["transaction_id"], now=50.0)
     assert cached["decision"] == results[0]["decision"]
     assert scorer.stats["scored"] == 5 and scorer.stats["batches"] == 1
-    assert set(scorer.host_stats()["stages"]) == {
-        "assemble", "graph", "pack", "dispatch", "device_wait"}
+    # the stage table, and the collector's generations that have collected
+    stages = set(scorer.host_stats()["stages"])
+    assert {s for s in stages if not s.startswith("gc.")} == {
+        "assemble", "encode", "features", "history", "graph", "tokens",
+        "pack", "dispatch", "h2d", "launch", "device_wait", "responses",
+        "write_back"}
+    assert {s for s in stages if s.startswith("gc.")} <= {
+        "gc.gen0", "gc.gen1", "gc.gen2"}
     empty = scorer.dispatch([], now=51.0)
     assert empty.n == 0 and scorer.finalize(empty, now=51.0) == []
 

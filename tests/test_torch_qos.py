@@ -614,6 +614,7 @@ def test_budget_close_runs_before_the_deadline_and_nothing_changes_without_one()
 # compared, their HELP lines differ (Pallas / XLA / VMEM in the JAX package)
 DEVICE_HELP = ("kernel_site_mode", "kernel_dispatch_total", "kernel_fallback_total",
                "kernel_mega_fallback_total")
+PORT_ONLY = {"host_stage_seconds_total", "host_stage_count_total"}
 
 
 def _observe(m, kernel_mode):
@@ -633,8 +634,10 @@ def _observe(m, kernel_mode):
         m.qos_budget_remaining.observe(v)
     m.sync_microbatch({"size": 5, "deadline": 2, "budget": 3})
     m.sync_microbatch({"size": 7, "deadline": 1, "budget": 4, "flush": 1})
-    stages = {"assemble": {"mean_ms": 1.5, "p50_ms": 1.25, "p99_ms": 4.0},
-              "pack": {"mean_ms": 0.25, "p50_ms": 0.2, "p99_ms": 0.5}}
+    stages = {"assemble": {"count": 3, "total_s": 0.0045, "mean_ms": 1.5,
+                           "p50_ms": 1.25, "p99_ms": 4.0},
+              "pack": {"count": 3, "total_s": 0.00075, "mean_ms": 0.25,
+                       "p50_ms": 0.2, "p99_ms": 0.5}}
     m.sync_host_stats({"caches": {"tokens": {"hits": 10, "misses": 4},
                                   "entity_rows": {"hits": 3, "misses": 9}},
                        "stages": stages})
@@ -719,9 +722,16 @@ def test_metric_exposition_equals_jax_line_for_line():
     port, ref = MetricsCollector(clock=clock), JaxMetricsCollector(clock=clock)
     _observe(port, "cuda")
     _observe(ref, "pallas")
-    got = port.render_prometheus().splitlines()
-    names = {ln.split(" ")[2] for ln in got if ln.startswith("# TYPE ")}
+    text = port.render_prometheus()
+    # the stage table's cumulative counters are the port's own (the JAX
+    # package's stage stats are a sample ring with no running totals)
+    names = {ln.split(" ")[2] for ln in text.splitlines()
+             if ln.startswith("# TYPE ")} - PORT_ONLY
+    got = _family_lines(text, names)
     want = _family_lines(ref.render_prometheus(), names)
+    own = _family_lines(text, PORT_ONLY)
+    assert 'host_stage_count_total{stage="assemble"} 3' in own
+    assert 'host_stage_seconds_total{stage="pack"} 0.00075' in own
     # 33 families, the tracing plane's 6 trace_* and the tuning plane's 7
     # autotune_* ones, the serving queue's, the quant plane's 3 quant_*, the
     # feedback plane's 4 prequential_* and 6 feedback_* ones, the device

@@ -398,8 +398,13 @@ def test_run_job_on_the_cpu_when_asked(capsys):
     assert rc == 0
     assert summary["scored"] == 40 and summary["lag"] == 0
     assert summary["counters"]["errors"] == 0 and summary["counters"]["batches"] == 2
-    assert set(summary["host_stage_mean_ms"]) == {
-        "assemble", "graph", "pack", "dispatch", "device_wait"}
+    stages = set(summary["host_stage_mean_ms"])
+    assert {s for s in stages if not s.startswith("gc.")} == {
+        "assemble", "encode", "features", "history", "graph", "tokens",
+        "pack", "dispatch", "h2d", "launch", "device_wait", "responses",
+        "write_back", "fan_out"}
+    assert {s for s in stages if s.startswith("gc.")} <= {
+        "gc.gen0", "gc.gen1", "gc.gen2"}
 
 
 # ------------------------------------------------ overlapped assembly stage
